@@ -1,0 +1,65 @@
+"""Shared helpers for the model layer (shape inference, init, validation);
+counterpart of :mod:`pytorch_nmf_tpu.models._common`."""
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = [
+    "is_tensor_like",
+    "to_param",
+    "rand_abs_normal",
+    "assert_nonneg",
+    "validate_target",
+]
+
+
+def is_tensor_like(x) -> bool:
+    """True for array-valued inputs (tensors, numpy arrays, anything with
+    ``shape`` and ``ndim``), False for shape tuples and lists."""
+    return hasattr(x, "shape") and hasattr(x, "ndim")
+
+
+def to_param(x, device=None) -> torch.Tensor:
+    """Factor values as a tensor on ``device`` (its own device when
+    ``None``): float64 stays float64 (the generic engine then runs in
+    double precision, as the reference honors the input dtype,
+    ``torchnmf/nmf.py:215``); every other dtype becomes float32.  Always a
+    copy: fitting the model never writes into the caller's array."""
+    x = torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x))
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return x.detach().to(device=device, dtype=dtype, copy=True)
+
+
+def rand_abs_normal(shape, generator: Optional[torch.Generator] = None,
+                    device=None) -> torch.Tensor:
+    """|N(0,1)| init, the reference's ``torch.randn(*size).abs()``
+    (nmf.py:221,234), drawn from ``generator`` on ``device`` (the
+    generator's device when ``None``)."""
+    if device is None and generator is not None:
+        device = generator.device
+    return torch.randn(tuple(shape), generator=generator, device=device).abs()
+
+
+def assert_nonneg(x: torch.Tensor, name: str) -> None:
+    if not bool(torch.all(x >= 0)):
+        raise ValueError(f"Tensor {name} should be non-negative.")
+
+
+def validate_target(V: torch.Tensor, beta: float) -> None:
+    """Input guards of the β-divergence solvers (reference nmf.py:329-336):
+    non-negativity, and the divergence error for β ≤ 0 with zeros.  One
+    ``min`` reduction and one scalar read."""
+    m = float(V.min()) if V.numel() else 0.0
+    if m < 0:
+        raise ValueError("Target should be non-negative.")
+    if beta <= 0 and m == 0:
+        raise ValueError(_BETA_ZERO_MSG)
+
+
+_BETA_ZERO_MSG = (
+    "When beta <= 0 and V contains zeros, the training process may "
+    "diverge. Please add small values to V, or use a positive beta "
+    "value."
+)

@@ -1,0 +1,191 @@
+r"""NMF models: ``BaseComponent`` and ``NMF`` (counterpart of
+:mod:`pytorch_nmf_tpu.models.nmf`; the deconvolutional family comes later).
+
+The classes are ``torch.nn.Module``\ s holding ``nn.Parameter``\ s ``W`` and
+``H``, with the reference's constructor shape inference and validation
+(``torchnmf/nmf.py:173-260``); ``requires_grad`` records the
+``trainable_W``/``trainable_H`` flags.  ``fit`` runs the dense solver of
+:mod:`pytorch_nmf_tpu_torch.ops.solver` on ``V.device``.
+
+===========  =======================  ==========================
+model        V                        W / H
+===========  =======================  ==========================
+``NMF``      ``(M, K)``               ``W (K, R)``, ``H (M, R)``
+===========  =======================  ==========================
+"""
+
+from collections.abc import Iterable as Iterabc
+from typing import Iterable, Optional
+
+import torch
+from torch import nn
+
+from ..ops import recon as _recon
+from ..ops import solver as _solver
+from ..ops.fast_nmf import resolve_nmf_updater_factory
+from ._common import (
+    assert_nonneg,
+    is_tensor_like,
+    rand_abs_normal,
+    to_param,
+    validate_target,
+)
+
+__all__ = ["BaseComponent", "NMF"]
+
+
+class BaseComponent(nn.Module):
+    r"""Base class for the NMF modules (reference nmf.py:173-599).
+
+    Args:
+        rank: size of the hidden dimension.
+        W: shape tuple (random |N(0,1)| init) or initial non-negative values.
+        H: shape tuple or initial non-negative values.
+        trainable_W / trainable_H: freeze flags for given initial values.
+        device: where random inits are drawn and given values are placed
+            (given tensors keep their device when ``None``).
+        generator: the ``torch.Generator`` random inits are drawn from.
+    """
+
+    def __init__(
+        self,
+        rank: int = None,
+        W=None,
+        H=None,
+        trainable_W: bool = True,
+        trainable_H: bool = True,
+        *,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+
+        def make(x, name, trainable):
+            if is_tensor_like(x):
+                value = to_param(x, device)
+                assert_nonneg(value, name)
+                return nn.Parameter(value, requires_grad=trainable)
+            if isinstance(x, Iterabc):
+                return nn.Parameter(rand_abs_normal(x, generator, device))
+            return None
+
+        self.register_parameter("W", make(W, "W", trainable_W))
+        self.register_parameter("H", make(H, "H", trainable_H))
+
+        infer_rank = None
+        for p in (self.W, self.H):
+            if p is not None:
+                infer_rank = p.shape[1]
+        if infer_rank is None:
+            if not rank:
+                raise ValueError(
+                    "A rank should be given when W and H are not available!"
+                )
+        else:
+            if self.H is not None and self.H.shape[1] != infer_rank:
+                raise ValueError("Latent size of H does not match with others!")
+            if self.W is not None:
+                if self.W.shape[1] != infer_rank:
+                    raise ValueError("Latent size of W does not match with others!")
+                self.out_channels = self.W.shape[0]
+                if self.W.ndim > 2:
+                    self.kernel_size = tuple(self.W.shape[2:])
+            rank = infer_rank
+        self.rank = int(rank)
+
+    def extra_repr(self) -> str:
+        s = f"{self.rank}"
+        if self.W is not None:
+            s += f", out_channels={self.out_channels}"
+            if hasattr(self, "kernel_size"):
+                s += f", kernel_size={self.kernel_size}"
+        return s
+
+    def forward(self, H=None, W=None):
+        """Reconstruct with the given (or stored) factors
+        (reference nmf.py:261-284)."""
+        H = self.H if H is None else H
+        W = self.W if W is None else W
+        if H is None or W is None:
+            raise ValueError("both factors are needed to reconstruct")
+        return self.reconstruct(H, W)
+
+    @staticmethod
+    def reconstruct(H, W):
+        """The model's forward map; overridden by subclasses."""
+        raise NotImplementedError
+
+    # staticmethod (device, dtype) -> updater factory | None
+    _updater_resolver = None
+
+    def fit(
+        self,
+        V,
+        beta: float = 1,
+        tol: float = 1e-4,
+        max_iter: int = 200,
+        verbose: bool = False,
+        alpha: float = 0,
+        l1_ratio: float = 0,
+    ) -> int:
+        r"""Learn the factorization by minimizing the β-divergence with
+        multiplicative updates (reference nmf.py:297-409) on ``V.device``.
+        Returns the number of iterations run."""
+        if isinstance(V, torch.Tensor) and V.layout != torch.strided:
+            raise NotImplementedError(
+                "sparse targets come with the sparse slice of the port "
+                "(ops/sparse.py, get_sparse_fit); densify V for now"
+            )
+        V = torch.as_tensor(V)
+        if V.dtype != torch.float64:
+            V = V.to(torch.float32)
+        W, H = self.W, self.H
+        for name, p in (("W", W), ("H", H)):
+            if p.device != V.device or p.dtype != V.dtype:
+                raise ValueError(
+                    f"{name} is {p.dtype} on {p.device}, V is {V.dtype} on "
+                    f"{V.device}: the fit runs where V lies, in V's dtype"
+                )
+        validate_target(V, beta)
+        V = V.contiguous()
+
+        l1_reg = float(alpha * l1_ratio)
+        l2_reg = float(alpha * (1 - l1_ratio))
+        fit_fn = _solver.get_dense_fit(
+            type(self).reconstruct,
+            float(beta),
+            float(tol),
+            int(max_iter),
+            W.requires_grad,
+            H.requires_grad,
+            l1_reg,
+            l2_reg,
+            bool(verbose),
+            (self._updater_resolver(V.device, V.dtype)
+             if self._updater_resolver is not None else None),
+        )
+        W_new, H_new, n_iter = fit_fn(V, W.detach(), H.detach())
+        with torch.no_grad():
+            W.copy_(W_new)
+            H.copy_(H_new)
+        return int(n_iter)
+
+
+class NMF(BaseComponent):
+    r"""Non-negative Matrix Factorization :math:`V \approx H W^\top`
+    (reference nmf.py:641-697).  Shapes: ``V (M, K)``, ``W (K, R)``,
+    ``H (M, R)``."""
+
+    def __init__(self, Vshape: Iterable[int] = None, rank: int = None, **kwargs):
+        if isinstance(Vshape, Iterabc):
+            M, K = Vshape
+            rank = rank if rank else K
+            kwargs["W"] = (K, rank)
+            kwargs["H"] = (M, rank)
+        super().__init__(rank, **kwargs)
+
+    @staticmethod
+    def reconstruct(H, W):
+        return _recon.linear(H, W)
+
+    _updater_resolver = staticmethod(resolve_nmf_updater_factory)

@@ -1,0 +1,123 @@
+r"""Specialized MU updaters for the plain ``NMF`` model (counterpart of
+:mod:`pytorch_nmf_tpu.ops.fast_nmf`), handed to the solver through its
+``updater_factory`` argument.
+
+β = 2 (Frobenius): the Gram trick.  ``(H Wᵀ)ᵀ H`` re-associates to
+``W (Hᵀ H)``, an (R, R) Gram matrix and a skinny GEMM, so no update ever
+materializes the (M, K) reconstruction.  Plain ``torch.matmul``: these are
+ordinary GEMMs, as the JAX package left them to XLA.
+
+Other β keep the WH-ratio structure and run the fused contractions of
+:mod:`pytorch_nmf_tpu_torch.ops.fused_mu` — the CUDA kernels on a CUDA
+target — or their plain PyTorch versions.
+"""
+
+import torch
+
+from ..constants import eps
+from . import fused_mu
+from .mu import kl_pos_H, kl_pos_W, mu_multiplier
+
+__all__ = [
+    "nmf_updater_factory_fused",
+    "nmf_updater_factory_plain",
+    "nmf_updater_factory_generic",
+    "resolve_nmf_updater_factory",
+]
+
+
+def _beta2_updaters(gamma, l1_reg, l2_reg):
+    def upd_W(V, W, H):
+        neg = torch.relu(V.T @ H) + eps  # VᵀH : (K, R)
+        G = H.T @ H  # HᵀH : (R, R)
+        pos = torch.relu(W @ G) + eps
+        return W * mu_multiplier(neg, pos, W, gamma, l1_reg, l2_reg)
+
+    def upd_H(V, W, H):
+        neg = torch.relu(V @ W) + eps  # (M, R)
+        G = W.T @ W  # WᵀW : (R, R)
+        pos = torch.relu(H @ G) + eps
+        return H * mu_multiplier(neg, pos, H, gamma, l1_reg, l2_reg)
+
+    # no fused loss: the Gram identity for the Frobenius loss cancels
+    # catastrophically in float32 near convergence, so the solver's direct
+    # euclidean(recon, V) serves the every-10-iterations cadence
+    return upd_W, upd_H
+
+
+def _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss):
+    """``contract``/``beta_loss``: the fused wrappers or their plain versions."""
+    need_pos = beta != 1
+
+    if beta == 1 and gamma == 1 and l1_reg == 0 and l2_reg == 0:
+        # fully fused KL update: the contraction applies relu/eps and the
+        # analytic denominator after its reduction and returns the factor
+        def upd_W(V, W, H):
+            out, _ = contract(V, H, W, beta=1.0, need_pos=False, w_side=True,
+                              mu_pos=kl_pos_W(H))
+            return out
+
+        def upd_H(V, W, H):
+            out, _ = contract(V, H, W, beta=1.0, need_pos=False, w_side=False,
+                              mu_pos=kl_pos_H(W).reshape(1, -1))
+            return out
+
+        return upd_W, upd_H
+
+    def upd_W(V, W, H):
+        neg, pos = contract(V, H, W, beta=beta, need_pos=need_pos, w_side=True)
+        neg = torch.relu(neg) + eps
+        pos = kl_pos_W(H) if beta == 1 else torch.relu(pos) + eps
+        return W * mu_multiplier(neg, pos, W, gamma, l1_reg, l2_reg)
+
+    def upd_H(V, W, H):
+        neg, pos = contract(V, H, W, beta=beta, need_pos=need_pos, w_side=False)
+        neg = torch.relu(neg) + eps
+        pos = kl_pos_H(W) if beta == 1 else torch.relu(pos) + eps
+        return H * mu_multiplier(neg, pos, H, gamma, l1_reg, l2_reg)
+
+    if beta == 1:
+        # β=1 keeps the plain kl_div cadence loss, as the JAX package does
+        return upd_W, upd_H
+
+    def loss_terms(V, W, H):
+        return beta_loss(V, H, W, beta)
+
+    return upd_W, upd_H, loss_terms
+
+
+def nmf_updater_factory_fused(beta, gamma, l1_reg, l2_reg):
+    """β = 2 → Gram trick; other β → the fused contraction and loss
+    wrappers (the CUDA kernels on a CUDA target)."""
+    if beta == 2:
+        return _beta2_updaters(gamma, l1_reg, l2_reg)
+    return _fused_updaters(beta, gamma, l1_reg, l2_reg,
+                           fused_mu.fused_contractions, fused_mu.fused_beta_loss)
+
+
+def nmf_updater_factory_plain(beta, gamma, l1_reg, l2_reg):
+    """Like :func:`nmf_updater_factory_fused`, through the plain PyTorch
+    versions of the kernels on any device."""
+    if beta == 2:
+        return _beta2_updaters(gamma, l1_reg, l2_reg)
+    return _fused_updaters(beta, gamma, l1_reg, l2_reg,
+                           fused_mu.plain_contractions, fused_mu.plain_beta_loss)
+
+
+def nmf_updater_factory_generic(beta, gamma, l1_reg, l2_reg):
+    """The Gram trick at β = 2, the generic autograd MU engine otherwise
+    (``None`` lets the solver build it); accumulates in the operand dtype."""
+    if beta == 2:
+        return _beta2_updaters(gamma, l1_reg, l2_reg)
+    return None
+
+
+def resolve_nmf_updater_factory(device, dtype):
+    """The factory for a fit of a ``dtype`` target on ``device``: float64
+    takes the generic engine, a CUDA float32 target the kernels, and any
+    other float32 target their plain versions."""
+    if dtype == torch.float64:
+        return nmf_updater_factory_generic
+    if torch.device(device).type == "cuda":
+        return nmf_updater_factory_fused
+    return nmf_updater_factory_plain

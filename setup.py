@@ -19,7 +19,12 @@ setup(
     long_description=long_description,
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=("tests", "docs", "examples")),
-    package_data={"pytorch_nmf_tpu.native": ["*.cpp"]},
+    # pytorch_nmf_tpu_torch (the PyTorch/CUDA port) builds its kernels
+    # from these sources with nvcc at first use
+    package_data={
+        "pytorch_nmf_tpu.native": ["*.cpp"],
+        "pytorch_nmf_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

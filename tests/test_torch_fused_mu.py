@@ -1,0 +1,203 @@
+"""The fused MU contractions (B1) and fused loss (B2) of the port.
+
+* CPU: the wrappers' plain versions against the JAX package's Pallas
+  kernels run through the Pallas interpreter, at the ragged 300×260×24 of
+  ``tests/test_pallas.py`` and at rank 1.  Tolerance rtol 2e-5, that
+  file's own: both are float32 sums of non-negative terms in another order.
+* CUDA (marked ``cuda``, skipped without a card): the hand-written kernels
+  against the plain versions on the card, rtol 1e-4 — f32 reordering over
+  reductions of up to a few thousand terms.  JAX is imported only by the
+  CPU tests, so on a GPU host without it the card's tests run alone:
+  ``python -m pytest --noconftest -m cuda tests/test_torch_fused_mu.py``.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from pytorch_nmf_tpu_torch.ops import fused_mu
+from pytorch_nmf_tpu_torch.ops import mu as tmu
+
+M, K, R = 300, 260, 24
+RTOL_JAX = 2e-5
+RTOL_CUDA = 1e-4
+
+
+def _inputs(m, k, r, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(m, k).astype("f"), rs.rand(k, r).astype("f") + 0.1,
+            rs.rand(m, r).astype("f") + 0.1)
+
+
+@pytest.fixture(scope="module")
+def data():
+    return _inputs(M, K, R)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's kernels, run through the Pallas interpreter."""
+    jnp = pytest.importorskip("jax.numpy")
+    from pytorch_nmf_tpu.ops import mu
+    from pytorch_nmf_tpu.ops.pallas_mu import _fused_contractions, fused_beta_loss
+
+    return SimpleNamespace(jnp=jnp, mu=mu, contractions=_fused_contractions,
+                           beta_loss=fused_beta_loss)
+
+
+def _mu_pos(w_side, W, H, lib):
+    """The analytic β=1 denominator the solver hands the epilogue."""
+    return lib.kl_pos_W(H) if w_side else lib.kl_pos_H(W).reshape(1, -1)
+
+
+def _jax_contractions(jx, V, W, H, beta, need_pos, w_side, epilogue):
+    Vj, Wj, Hj = map(jx.jnp.asarray, (V, W, H))
+    mu_pos = _mu_pos(w_side, Wj, Hj, jx.mu) if epilogue else None
+    return jx.contractions(Vj, Hj, Wj, beta=beta, need_pos=need_pos,
+                           w_side=w_side, mu_pos=mu_pos, interpret=True)
+
+
+def _torch_contractions(V, W, H, beta, need_pos, w_side, epilogue, fn,
+                        device="cpu"):
+    Vt, Wt, Ht = (torch.from_numpy(x).to(device) for x in (V, W, H))
+    mu_pos = _mu_pos(w_side, Wt, Ht, tmu) if epilogue else None
+    return fn(Vt, Ht, Wt, beta=beta, need_pos=need_pos, w_side=w_side,
+              mu_pos=mu_pos)
+
+
+# (beta, need_pos, epilogue): every call the dense fit makes, and β=3
+CONTRACTION_CASES = [
+    (0.0, True, False),
+    (0.5, True, False),
+    (1.0, False, False),
+    (1.5, True, False),
+    (3.0, True, False),
+    (1.0, False, True),
+]
+
+
+@pytest.mark.parametrize("beta, need_pos, epilogue", CONTRACTION_CASES)
+@pytest.mark.parametrize("w_side", [True, False])
+def test_plain_contractions_match_jax_kernel(jx, data, beta, need_pos,
+                                             epilogue, w_side):
+    V, W, H = data
+    neg, pos = _torch_contractions(V, W, H, beta, need_pos, w_side, epilogue,
+                                   fused_mu.fused_contractions)
+    rneg, rpos = _jax_contractions(jx, V, W, H, beta, need_pos, w_side, epilogue)
+    assert tuple(neg.shape) == ((K, R) if w_side else (M, R))
+    np.testing.assert_allclose(neg.numpy(), np.asarray(rneg), rtol=RTOL_JAX)
+    if need_pos:
+        np.testing.assert_allclose(pos.numpy(), np.asarray(rpos), rtol=RTOL_JAX)
+    else:
+        assert pos is None and rpos is None
+
+
+@pytest.mark.parametrize("w_side", [True, False])
+def test_plain_rank_one_matches_jax_kernel(jx, w_side):
+    V, W, H = _inputs(70, 50, 1, seed=1)
+    neg, _ = _torch_contractions(V, W, H, 1.0, False, w_side, False,
+                                 fused_mu.fused_contractions)
+    rneg, _ = _jax_contractions(jx, V, W, H, 1.0, False, w_side, False)
+    np.testing.assert_allclose(neg.numpy(), np.asarray(rneg), rtol=RTOL_JAX)
+
+
+@pytest.mark.parametrize("beta", [2.0, 1.0, 0.0, 0.5, -1.0])
+def test_plain_loss_matches_jax_kernel(jx, data, beta):
+    V, W, H = data
+    got = fused_mu.fused_beta_loss(*(torch.from_numpy(x) for x in (V, H, W)),
+                                   beta)
+    ref = jx.beta_loss(*(jx.jnp.asarray(x) for x in (V, H, W)), beta,
+                       interpret=True)
+    np.testing.assert_allclose(float(got), float(ref), rtol=RTOL_JAX)
+
+
+def test_side_wrappers_are_the_contraction(data):
+    V, W, H = (torch.from_numpy(x) for x in data)
+    for wrapper, w_side in ((fused_mu.w_side_contractions, True),
+                            (fused_mu.h_side_contractions, False)):
+        neg, pos = wrapper(V, H, W, 0.5)
+        ref = fused_mu.plain_contractions(V, H, W, beta=0.5, need_pos=True,
+                                          w_side=w_side)
+        torch.testing.assert_close(neg, ref[0], rtol=0, atol=0)
+        torch.testing.assert_close(pos, ref[1], rtol=0, atol=0)
+
+
+def test_epilogue_excludes_need_pos(data):
+    V, W, H = (torch.from_numpy(x) for x in data)
+    with pytest.raises(ValueError):
+        fused_mu.fused_contractions(V, H, W, beta=1.0, need_pos=True,
+                                    w_side=True, mu_pos=tmu.kl_pos_W(H))
+
+
+def test_cpu_tensors_never_launch(data):
+    V, W, H = (torch.from_numpy(x) for x in data)
+    before = (fused_mu.fused_contractions.launches,
+              fused_mu.fused_beta_loss.launches)
+    fused_mu.w_side_contractions(V, H, W, 1.5)
+    fused_mu.fused_beta_loss(V, H, W, 1.5)
+    assert (fused_mu.fused_contractions.launches,
+            fused_mu.fused_beta_loss.launches) == before
+
+
+# --------------------------------------------------------------------------
+# on the card
+# --------------------------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return "cuda"
+
+
+# ragged, exact-tile, rank 1, R=88 (not a multiple of 4), wide ranks, and
+# ranks over 256 (more than one block of rank columns, the last one ragged)
+CUDA_SHAPES = [(300, 260, 24), (256, 128, 16), (70, 50, 1), (517, 1025, 88),
+               (64, 96, 160), (200, 300, 256), (90, 70, 512), (130, 90, 301)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+@pytest.mark.parametrize("beta, need_pos, epilogue", CONTRACTION_CASES)
+@pytest.mark.parametrize("w_side", [True, False])
+def test_cuda_contractions_match_plain(cuda, shape, beta, need_pos, epilogue,
+                                       w_side):
+    V, W, H = _inputs(*shape)
+    got = _torch_contractions(V, W, H, beta, need_pos, w_side, epilogue,
+                              fused_mu.fused_contractions, cuda)
+    ref = _torch_contractions(V, W, H, beta, need_pos, w_side, epilogue,
+                              fused_mu.plain_contractions, cuda)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.is_cuda and g.shape == r.shape
+            torch.testing.assert_close(g, r, rtol=RTOL_CUDA, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+@pytest.mark.parametrize("beta", [2.0, 1.0, 0.0, 0.5, 1.5, -1.0])
+def test_cuda_loss_matches_plain(cuda, shape, beta):
+    V, W, H = (torch.from_numpy(x).to(cuda) for x in _inputs(*shape))
+    got = fused_mu.fused_beta_loss(V, H, W, beta)
+    ref = fused_mu.plain_beta_loss(V, H, W, beta)
+    torch.testing.assert_close(got, ref, rtol=RTOL_CUDA, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_count_and_reject(cuda):
+    V, W, H = (torch.from_numpy(x).to(cuda) for x in _inputs(64, 48, 8))
+    n = fused_mu.fused_contractions.launches
+    fused_mu.h_side_contractions(V, H, W, 0.5)
+    assert fused_mu.fused_contractions.launches == n + 1
+    with pytest.raises(TypeError):
+        fused_mu.h_side_contractions(V.double(), H.double(), W.double(), 0.5)
+    with pytest.raises(ValueError):
+        fused_mu.h_side_contractions(V.T, H, W, 0.5)
+    with pytest.raises(ValueError):
+        fused_mu.h_side_contractions(V, H.cpu(), W, 0.5)
+    assert fused_mu.fused_contractions.launches == n + 1
