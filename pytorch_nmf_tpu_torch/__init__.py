@@ -1,9 +1,11 @@
 """pytorch_nmf_tpu_torch — the PyTorch/CUDA port of ``pytorch_nmf_tpu``.
 
-Same module layout and names as the JAX package; dense ``NMF.fit`` runs on
-any PyTorch device, and on an NVIDIA Hopper GPU its β ≠ 2 multiplicative
-updates and loss run in hand-written CUDA kernels (``csrc/fused_mu.cu``,
-built with ``nvcc`` at first use).  This package never imports JAX.
+Same module layout and names as the JAX package.  Dense ``NMF.fit`` and the
+deconvolutional ``NMFD``/``NMF2D``/``NMF3D.fit`` run on any PyTorch device;
+on an NVIDIA Hopper GPU their heavy contractions run in hand-written CUDA
+kernels (``csrc/fused_mu.cu`` for dense β ≠ 2, ``csrc/fused_deconv.cu`` for
+the deconv family), built with ``nvcc`` at first use.  This package never
+imports JAX.
 """
 
 from . import metrics, models, nmf, ops, utils  # noqa: F401

@@ -1,0 +1,636 @@
+// Fused deconvolutional MU contractions for NMFD/NMF2D/NMF3D.
+//
+// Replaces the two TPU kernels of pytorch_nmf_tpu/ops/pallas_deconv.py:
+//
+//   pnt_hgrad  <- hgrad (:392-440, body _hgrad_kernel :357-389)
+//   pnt_wgrad  <- wgrad (:504-609, body _wgrad_kernel :443-501)
+//
+// With the kernel in its flat GEMM layout W2 (K*R, C) (row j*R + r holds
+// W[:, r, tau_j]), channels-last cotangents cot (Lp, C) and the
+// length-major activation H2 (L_h, R):
+//
+//   hgrad: out[r, l'] = sum_{j, c} cot[l' + tau_j, c] * W2[j*R + r, c]
+//   wgrad: out[j*R + r, c] = sum_l H2[l + off - tau_j, r] * cot[l, c]
+//
+// (off = 0 when H2 gets T-1 leading zero rows, T-1 when it carries them).
+// Both are GEMMs whose second operand is a shifted copy of a small matrix:
+// hgrad is G = cot @ W2^T folded by overlap-add, wgrad is P^T @ cot for the
+// patch matrix P of the activation.  Neither kernel builds G or P in device
+// memory: each block gathers the tiles it needs straight from cot or H2 (the
+// flagship's cot is 20 MB and H2 1.8 MB, both inside the 50 MB L2), and at
+// small ranks hgrad shares one cotangent window among a group of offsets.
+// Reads outside an operand are zero, so padded rows need no special case: the
+// stacked N > 1 layout and the flat-offset N-D layout put their zero
+// separators and pad columns exactly where the wrap-around reads land.
+//
+// What bounds them on the H100: the flagship (C=1025, L_out=5000, R=88,
+// T=400) does about 0.36 TFLOP per cotangent in each kernel against
+// 20-144 MB of operands, so both are compute-bound: f32 FMA on CUDA cores
+// (67 TFLOP/s peak).  Each thread keeps an 8x8 (or TMx8) register tile and
+// reads shared memory as float4 vectors, about one vector per 16 FMAs;
+// tiles arrive by cp.async (4-byte copies with zero-fill: C = 1025 and the
+// shifted rows are not 16-byte aligned) into two stages, so the copy of
+// step s+1 runs during the products of step s.  Tensor cores (3xTF32 or
+// opt-in TF32/bf16) are later, measured work.
+//
+// Design, and what differs from the TPU kernels:
+//
+// * The TPU grid runs in order and carries its accumulator across grid
+//   steps (pallas_deconv.py:374-387, :478-486).  On Hopper the reduction
+//   is split over gridDim.z blocks when the output tiles alone cannot fill
+//   the card; each split writes its own partial slab and a second pass sums
+//   the slabs in a fixed order.  No atomics: results are reproducible, so
+//   the tolerance stop of a fit is too.
+// * hgrad's output (R, L_in) is tiny against its (tau, c) reduction of
+//   K*C terms (410k at the flagship): its grid is (L_in / 128) x (R / BM) x
+//   splits, the reduction flattened to k = j*C + c so a split or a 16-deep
+//   step may cross from one offset to the next, and C=1025 leaves no ragged
+//   step.  BM follows the rank (32, 64, 96 or 128 rows).
+// * At ranks up to 16 those rows would be mostly padding, and each
+//   cotangent element would feed only R products.  There the block's 64
+//   rows are J = 64/8 or 64/16 consecutive offsets x the ranks, and one
+//   shared-memory window of the cotangent per 16-channel step serves all J
+//   offsets, each warp reading it at its own shift tau_j - tau_j0: each
+//   element feeds R*J products.  The offsets' partial sums meet in a
+//   fixed-order reduction in shared memory.  N-D kernels whose offset groups
+//   span more than 32 flat rows keep the first form.
+// * wgrad's output (K*R, C) is large and its reduction runs over Lp rows:
+//   128 (j, r) rows by 128 channels per block, or 64 channels for the
+//   neg/pos cotangent pair, whose two accumulators share every patch load.
+// * The beta=1 MU epilogue w2 * (relu(acc) + eps) / pos[r] runs after the
+//   complete sum: in the main kernel with one split, else in the second pass.
+// * geom: tau_j = ((j / (k1 k2)) mod k0) s0 + ((j / k2) mod k1) s1 +
+//   (j mod k2) s2, the N-D flat-offset map (_flat_tau,
+//   pallas_deconv.py:73-90); 1-D is (k0, k1, k2) = (1, 1, K), s = (0, 0, 1).
+// * The port's W2 has exactly K*R rows (no TPU tau-tile padding), so no row
+//   of either output is padding.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
+constexpr int kThreads = 256;  // a 16 x 16 grid of (tx, ty) threads
+constexpr int BK = 16;         // reduction depth of one stage
+constexpr int BN = 128;        // hgrad: l' columns per block
+constexpr int WBM = 128;       // wgrad: (j, r) rows per block
+constexpr int kMaxSlabFloats = 1 << 26;  // partial slabs stay under 256 MB
+// the windowed hgrad of ranks up to 16: 64 block rows = J offsets x BMR ranks
+constexpr int WBK = 16;            // channels per stage
+constexpr int WBN = 256;           // l' columns per block: 32 lanes x 8
+constexpr int WSPAN = 32;          // largest tau span of one offset group
+constexpr int WROWS = WBN + WSPAN;  // window rows
+constexpr int WAS = 64 + 4;        // row stride of the [WBK][64] A tile
+constexpr int WWS = WROWS + 4;     // row stride of the [WBK][WROWS] window
+constexpr int WSTAGE = WBK * (WAS + WWS);  // floats per stage
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ float relu(float a) {
+  return a < 0.f ? 0.f : a;  // NaN passes through, as torch.relu
+}
+
+struct Geom {
+  int k1, k2, s0, s1, s2;
+  __host__ __device__ __forceinline__ int tau(int j) const {
+    return (j / (k1 * k2)) * s0 + ((j / k2) % k1) * s1 + (j % k2) * s2;
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// n consecutive floats of shared memory into registers, as float4 vectors
+// when n is a multiple of 4 (the address is then 16-byte aligned), else
+// float2 (n even, 8-byte aligned)
+template <int n>
+__device__ __forceinline__ void lds(float (&v)[n], const float* p) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < n; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      v[i] = t.x, v[i + 1] = t.y, v[i + 2] = t.z, v[i + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < n; i += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + i);
+      v[i] = t.x, v[i + 1] = t.y;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- hgrad --
+// Block (bx, by, bz): columns l' in [128 bx, +128), ranks [BM by, +BM),
+// reduction k = j*C + c in [k_per_split bz, +k_per_split).  Thread
+// (tx, ty) accumulates ranks BM by + TM ty + i and columns
+// 128 bx + 64 h + 4 tx + q.  As loader, it copies column kk = tid % 16 of
+// each stage: rank rows tid / 16 + 16 i of W2 and l' rows tid / 16 + 16 i
+// of the shifted cotangent.
+template <int TM>
+__global__ void __launch_bounds__(kThreads, 2)
+    hgrad_kernel(const float* __restrict__ cot, const float* __restrict__ w2,
+                 float* __restrict__ dst, int Lp, int C, int R, int L_in,
+                 int KC, int k_per_split, Geom g) {
+  constexpr int BM = 16 * TM;
+  __shared__ __align__(16) float As[2][BK][BM + 4];
+  __shared__ __align__(16) float Bs[2][BK][BN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int l0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = imin(k_begin + k_per_split, KC);
+  const int kk = tid % BK, row = tid / BK;
+
+  int k = k_begin + kk;  // this thread's reduction index, and its (j, c)
+  int j = k / C, c = k % C;
+  int tau = g.tau(j);
+  auto load = [&](int st) {
+    const bool kv = k < k_end;
+    const float* a = w2 + ((size_t)j * R + r0) * C + c;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = row + 16 * i;
+      const bool ok = kv && r0 + m < R;
+      cp_async4(&As[st][kk][m], ok ? a + (size_t)m * C : w2, ok);
+    }
+    const float* b = cot + ((size_t)l0 + tau) * C + c;
+#pragma unroll
+    for (int i = 0; i < BN / 16; ++i) {
+      const int n = row + 16 * i;
+      const bool ok = kv && l0 + n + tau < Lp;
+      cp_async4(&Bs[st][kk][n], ok ? b + (size_t)n * C : cot, ok);
+    }
+    k += BK;
+    c += BK;
+    if (c >= C) {
+      do {
+        c -= C;
+        ++j;
+      } while (c >= C);
+      tau = g.tau(j);
+    }
+  };
+
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+
+  const int steps = cdiv(k_end - k_begin, BK);
+  if (steps > 0) {
+    load(0);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int st = s & 1;
+    if (s + 1 < steps) {
+      load(st ^ 1);  // stage st^1 was released by the last __syncthreads
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < BK; ++q) {
+      float a[TM], b[8];
+      lds<TM>(a, &As[st][q][TM * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[st][q][4 * tx]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[st][q][64 + 4 * tx]);
+      b[0] = b0.x, b[1] = b0.y, b[2] = b0.z, b[3] = b0.w;
+      b[4] = b1.x, b[5] = b1.y, b[6] = b1.z, b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int p = 0; p < 8; ++p) acc[i][p] = fmaf(a[i], b[p], acc[i][p]);
+    }
+    __syncthreads();
+  }
+
+  float* out = dst + (size_t)blockIdx.z * R * L_in;  // slab bz, or the output
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + TM * ty + i;
+    if (r >= R) continue;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int n = l0 + 64 * (p / 4) + 4 * tx + p % 4;
+      if (n < L_in) out[(size_t)r * L_in + n] = acc[i][p];
+    }
+  }
+}
+
+// ------------------------------------------------------- windowed hgrad --
+// For ranks up to 16, where v1's block rows would be mostly rank padding.
+// Block (bx, by, bz): columns l' in [256 bx, +256), ranks [BMR by, +BMR),
+// steps [steps_per_split bz, +steps_per_split) of (offset group, 16-channel
+// chunk).  An offset group is J = 64 / BMR consecutive flat offsets
+// j0 .. j0+J-1; per step the block loads their W2 rows (64 x 16) and ONE
+// window of the cotangent, rows l0 + tau_j0 + [0, 256 + span), which every
+// offset of the group reads at its own shift tau_j - tau_j0.  Warp w holds 8
+// ranks of offset jj = 8w / BMR, each lane the columns lane + 32 p; the J
+// offsets' partial sums meet in a fixed-order reduction at the end.
+template <int BMR>
+__global__ void __launch_bounds__(kThreads, 2)
+    hgrad_window_kernel(const float* __restrict__ cot,
+                        const float* __restrict__ w2, float* __restrict__ dst,
+                        int Lp, int C, int R, int K, int L_in, int n_c,
+                        int steps, int steps_per_split, Geom g) {
+  constexpr int J = 64 / BMR;
+  __shared__ __align__(16) float smem[2 * WSTAGE];
+  static_assert(BMR * WBN <= 2 * WSTAGE, "the reduction reuses the stages");
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int l0 = blockIdx.x * WBN, r0 = blockIdx.y * BMR;
+  const int s_begin = blockIdx.z * steps_per_split;
+  const int s_end = imin(s_begin + steps_per_split, steps);
+  const int jj = 8 * warp / BMR, mb = 8 * warp % BMR;
+
+  auto load = [&](int st, int s) {
+    float* a = smem + st * WSTAGE;
+    float* w = a + WBK * WAS;
+    const int j0 = s / n_c * J, c0 = s % n_c * WBK;
+    const int t0 = g.tau(j0);
+    const int rows = WBN + g.tau(imin(j0 + J, K) - 1) - t0;
+#pragma unroll
+    for (int i = 0; i < 64 * WBK / kThreads; ++i) {
+      const int e = tid + kThreads * i, kc = e % WBK, row = e / WBK;
+      const int j = j0 + row / BMR, m = r0 + row % BMR, c = c0 + kc;
+      const bool ok = j < K && m < R && c < C;
+      cp_async4(&a[kc * WAS + row],
+                ok ? w2 + ((size_t)j * R + m) * C + c : w2, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < WROWS * WBK / kThreads; ++i) {
+      const int e = tid + kThreads * i, kc = e % WBK, row = e / WBK;
+      const int l = l0 + t0 + row, c = c0 + kc;
+      const bool ok = l < Lp && c < C;
+      if (row < rows)  // rows past the group's span are never read
+        cp_async4(&w[kc * WWS + row], ok ? cot + (size_t)l * C + c : cot, ok);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int p = 0; p < 8; ++p) acc[i][p] = 0.f;
+
+  const int n = s_end - s_begin;
+  if (n > 0) {
+    load(0, s_begin);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n; ++s) {
+    const int st = s & 1;
+    if (s + 1 < n) {
+      load(st ^ 1, s_begin + s + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = (s_begin + s) / n_c * J, j = j0 + jj;
+    const int shift = j < K ? g.tau(j) - g.tau(j0) : 0;  // rows past K are 0
+    const float* a = smem + st * WSTAGE + 8 * warp;
+    const float* w = smem + st * WSTAGE + WBK * WAS + shift + lane;
+#pragma unroll
+    for (int kc = 0; kc < WBK; ++kc) {
+      float av[8], bv[8];
+      lds<8>(av, a + kc * WAS);
+#pragma unroll
+      for (int p = 0; p < 8; ++p) bv[p] = w[kc * WWS + 32 * p];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int p = 0; p < 8; ++p) acc[i][p] = fmaf(av[i], bv[p], acc[i][p]);
+    }
+    __syncthreads();
+  }
+
+  // the J offsets' partial sums, added in the order jj = 0..J-1
+  float* red = smem;  // [BMR][WBN]
+#pragma unroll 1
+  for (int q = 0; q < J; ++q) {
+    if (jj == q)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          float& v = red[(mb + i) * WBN + lane + 32 * p];
+          v = q == 0 ? acc[i][p] : v + acc[i][p];
+        }
+    __syncthreads();
+  }
+  float* out = dst + (size_t)blockIdx.z * R * L_in;  // slab bz, or the output
+  for (int e = tid; e < BMR * WBN; e += kThreads) {
+    const int r = r0 + e / WBN, l = l0 + e % WBN;
+    if (r < R && l < L_in) out[(size_t)r * L_in + l] = red[e];
+  }
+}
+
+// ---------------------------------------------------------------- wgrad --
+// Block (bx, by, bz): channels [BNW bx, +BNW), rows m = j*R + r in
+// [128 by, +128), l in [l_per_split bz, +l_per_split).  Thread (tx, ty)
+// accumulates rows 128 by + 8 ty + i and, per cotangent, channels
+// BNW bx + 64 h + 4 tx + q.  As loader, it copies row m = tid % 128 of the
+// patch tile (one (j, r), so its H2 offset is fixed) and channel
+// tid % BNW of each cotangent tile.
+template <int NCOT>
+__global__ void __launch_bounds__(kThreads, 2)
+    wgrad_kernel(const float* __restrict__ h2, const float* __restrict__ cot0,
+                 const float* __restrict__ cot1,
+                 const float* __restrict__ mu_w2,
+                 const float* __restrict__ mu_pos, float* __restrict__ dst0,
+                 float* __restrict__ dst1, int L_h, int Lp, int C, int R,
+                 int KR, int off, int l_per_split, Geom g) {
+  constexpr int TN = 8 / NCOT;   // channels per thread per cotangent
+  constexpr int BNW = 16 * TN;   // channels per block
+  constexpr int BROWS = kThreads / BNW;  // cotangent rows one pass loads
+  __shared__ __align__(16) float As[2][BK][WBM + 4];
+  __shared__ __align__(16) float Bs[2][NCOT][BK][BNW + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int c0 = blockIdx.x * BNW, m0 = blockIdx.y * WBM;
+  const int l_begin = blockIdx.z * l_per_split;
+  const int l_end = imin(l_begin + l_per_split, Lp);
+  const float* cots[2] = {cot0, cot1};
+
+  const int am = tid % WBM, gm = m0 + am;
+  const bool m_ok = gm < KR;
+  const int ar = gm % R;
+  const int hoff = off - g.tau(gm / R);  // H2 row of patch row l: l + hoff
+  const int bn = tid % BNW;
+  const bool c_ok = c0 + bn < C;
+
+  auto load = [&](int st, int l0) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int kk = tid / WBM + 2 * i;
+      const int l = l0 + kk, hr = l + hoff;
+      const bool ok = m_ok && l < l_end && hr >= 0 && hr < L_h;
+      cp_async4(&As[st][kk][am], ok ? h2 + (size_t)hr * R + ar : h2, ok);
+    }
+#pragma unroll
+    for (int t = 0; t < NCOT; ++t)
+#pragma unroll
+      for (int i = 0; i < BK / BROWS; ++i) {
+        const int kk = tid / BNW + BROWS * i;
+        const int l = l0 + kk;
+        const bool ok = c_ok && l < l_end;
+        cp_async4(&Bs[st][t][kk][bn],
+                  ok ? cots[t] + (size_t)l * C + c0 + bn : cots[t], ok);
+      }
+  };
+
+  float acc[NCOT][8][TN];
+#pragma unroll
+  for (int t = 0; t < NCOT; ++t)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int p = 0; p < TN; ++p) acc[t][i][p] = 0.f;
+
+  const int steps = cdiv(l_end - l_begin, BK);
+  if (steps > 0) {
+    load(0, l_begin);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int st = s & 1;
+    if (s + 1 < steps) {
+      load(st ^ 1, l_begin + (s + 1) * BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < BK; ++q) {
+      float a[8];
+      lds<8>(a, &As[st][q][8 * ty]);
+#pragma unroll
+      for (int t = 0; t < NCOT; ++t) {
+        float b[TN];
+#pragma unroll
+        for (int h = 0; h < TN / 4; ++h) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&Bs[st][t][q][64 * h + 4 * tx]);
+          b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z,
+                b[4 * h + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int p = 0; p < TN; ++p)
+            acc[t][i][p] = fmaf(a[i], b[p], acc[t][i][p]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const bool epilogue = mu_w2 != nullptr && gridDim.z == 1;
+  const size_t slab = (size_t)blockIdx.z * KR * C;
+  float* dsts[2] = {dst0, dst1};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 8 * ty + i;
+    if (m >= KR) continue;
+#pragma unroll
+    for (int p = 0; p < TN; ++p) {
+      const int c = c0 + 64 * (p / 4) + 4 * tx + p % 4;
+      if (c >= C) continue;
+      const size_t o = (size_t)m * C + c;
+#pragma unroll
+      for (int t = 0; t < NCOT; ++t) {
+        float v = acc[t][i][p];
+        if (epilogue) v = mu_w2[o] * ((relu(v) + kEps) / mu_pos[m % R]);
+        dsts[t][slab + o] = v;
+      }
+    }
+  }
+}
+
+// second pass of a split reduction: out[i] = sum_s part[s n + i] in the
+// order s = 0..S-1, then the optional beta=1 epilogue (row = i / C_row)
+__global__ void finish_kernel(const float* __restrict__ part,
+                              const float* __restrict__ mu_w2,
+                              const float* __restrict__ mu_pos,
+                              float* __restrict__ out, size_t n, int splits,
+                              int C_row, int R) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float a = 0.f;
+    for (int s = 0; s < splits; ++s) a += part[s * n + i];
+    if (mu_w2 != nullptr)
+      a = mu_w2[i] * ((relu(a) + kEps) / mu_pos[(i / C_row) % R]);
+    out[i] = a;
+  }
+}
+
+cudaError_t finish(const float* part, const float* mu_w2, const float* mu_pos,
+                   float* out, size_t n, int splits, int C_row, int R,
+                   cudaStream_t stream) {
+  const size_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  finish_kernel<<<blocks, kThreads, 0, stream>>>(part, mu_w2, mu_pos, out, n,
+                                                 splits, C_row, R);
+  return cudaGetLastError();
+}
+
+// rows of the hgrad block tile for rank R
+int hgrad_bm(int R) { return R <= 32 ? 32 : R <= 64 ? 64 : R <= 96 ? 96 : 128; }
+
+// How hgrad runs at these sizes: the windowed kernel (bm = BMR) for ranks
+// up to 16 whose offset groups each span at most WSPAN flat offsets (every
+// 1-D kernel; N-D ones whose groups stay within a short row of the kernel),
+// else the first kernel with bm = hgrad_bm(R).  steps: BK-deep steps of k = j*C + c (v1), or
+// (offset group, WBK-channel chunk) pairs (windowed).
+struct HPlan {
+  bool window;
+  int bm, steps, tiles;
+};
+
+HPlan hgrad_plan(int R, int L_in, int C, int K, const Geom& g) {
+  if (R <= 16) {
+    const int bmr = R <= 8 ? 8 : 16, J = 64 / bmr;
+    int span = 0;
+    for (int j0 = 0; j0 < K; j0 += J)
+      span = imax(span, g.tau(imin(j0 + J, K) - 1) - g.tau(j0));
+    if (span <= WSPAN)
+      return {true, bmr, cdiv(K, J) * cdiv(C, WBK), cdiv(L_in, WBN)};
+  }
+  const int bm = hgrad_bm(R);
+  return {false, bm, cdiv(K * C, BK), cdiv(L_in, BN) * cdiv(R, bm)};
+}
+
+// Splits of a reduction of `steps` BK-deep steps whose output has `tiles`
+// block tiles of `slab` floats: about four waves of two blocks per SM, at
+// least 8 steps per split, slabs under kMaxSlabFloats.
+int num_splits(int tiles, int steps, long long slab, int num_sms) {
+  int s = cdiv(8 * num_sms, tiles);
+  s = imin(s, imax(1, steps / 8));
+  s = (int)(s * slab > kMaxSlabFloats ? kMaxSlabFloats / slab : s);
+  return imax(s, 1);
+}
+
+// per-split extent, a whole number of `unit`s; cdiv(total, per) splits
+int per_split(int total, int splits, int unit) {
+  return cdiv(cdiv(total, splits), unit) * unit;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Splits of the hgrad reduction (the wrapper allocates their slabs).
+int pnt_hgrad_splits(int R, int L_in, int C, int K, int k1, int k2, int s0,
+                     int s1, int s2, int num_sms) {
+  const HPlan p = hgrad_plan(R, L_in, C, K, Geom{k1, k2, s0, s1, s2});
+  const int s = num_splits(p.tiles, p.steps, (long long)R * L_in, num_sms);
+  return cdiv(p.steps, per_split(p.steps, s, 1));
+}
+
+// Returns a cudaError_t (0 on success).  part holds (splits, R, L_in)
+// floats when splits > 1 and is unused otherwise.
+int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
+              int Lp, int C, int R, int K, int L_in, int k0, int k1, int k2,
+              int s0, int s1, int s2, int splits, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (Lp < 1 || C < 1 || R < 1 || K < 1 || L_in < 1 || splits < 1 ||
+      k0 * k1 * k2 != K)
+    return (int)cudaErrorInvalidValue;
+  const Geom g{k1, k2, s0, s1, s2};
+  const HPlan p = hgrad_plan(R, L_in, C, K, g);
+  const int sper = per_split(p.steps, splits, 1);
+  if (cdiv(p.steps, sper) != splits) return (int)cudaErrorInvalidValue;
+  float* dst = splits == 1 ? out : part;
+  if (p.window) {
+    const dim3 grid(cdiv(L_in, WBN), cdiv(R, p.bm), splits);
+    const int n_c = cdiv(C, WBK);
+    if (p.bm == 8)
+      hgrad_window_kernel<8><<<grid, kThreads, 0, stream>>>(
+          cot, w2, dst, Lp, C, R, K, L_in, n_c, p.steps, sper, g);
+    else
+      hgrad_window_kernel<16><<<grid, kThreads, 0, stream>>>(
+          cot, w2, dst, Lp, C, R, K, L_in, n_c, p.steps, sper, g);
+  } else {
+    const dim3 grid(cdiv(L_in, BN), cdiv(R, p.bm), splits);
+    const int KC = K * C, kper = sper * BK;
+#define PNT_HGRAD(TM)                                                  \
+  hgrad_kernel<TM><<<grid, kThreads, 0, stream>>>(cot, w2, dst, Lp, C, R, \
+                                                   L_in, KC, kper, g)
+    if (p.bm == 32) PNT_HGRAD(2);
+    else if (p.bm == 64) PNT_HGRAD(4);
+    else if (p.bm == 96) PNT_HGRAD(6);
+    else PNT_HGRAD(8);
+#undef PNT_HGRAD
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)finish(part, nullptr, nullptr, out, (size_t)R * L_in, splits,
+                     L_in, R, stream);
+}
+
+// Splits of the wgrad reduction over Lp, for n_cots cotangents.
+int pnt_wgrad_splits(int KR, int C, int Lp, int n_cots, int num_sms) {
+  const int tiles = cdiv(C, 128 / n_cots) * cdiv(KR, WBM);
+  const int s = num_splits(tiles, cdiv(Lp, BK), (long long)n_cots * KR * C,
+                           num_sms);
+  return cdiv(Lp, per_split(Lp, s, BK));
+}
+
+// Returns a cudaError_t.  cot1/out1/part1 are null for one cotangent;
+// part0/part1 hold (splits, K*R, C) floats when splits > 1.  mu_w2 (K*R, C)
+// with mu_pos (R,) selects the beta=1 epilogue (one cotangent).
+int pnt_wgrad(const float* h2, const float* cot0, const float* cot1,
+              const float* mu_w2, const float* mu_pos, float* out0,
+              float* out1, float* part0, float* part1, int L_h, int Lp, int C,
+              int R, int K, int off, int k0, int k1, int k2, int s0, int s1,
+              int s2, int splits, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int n_cots = cot1 == nullptr ? 1 : 2;
+  if (L_h < 1 || Lp < 1 || C < 1 || R < 1 || K < 1 || splits < 1 ||
+      k0 * k1 * k2 != K || (mu_w2 != nullptr && n_cots != 1))
+    return (int)cudaErrorInvalidValue;
+  const int KR = K * R;
+  const int lper = per_split(Lp, splits, BK);
+  if (cdiv(Lp, lper) != splits) return (int)cudaErrorInvalidValue;
+  const Geom g{k1, k2, s0, s1, s2};
+  const dim3 grid(cdiv(C, 128 / n_cots), cdiv(KR, WBM), splits);
+  float* d0 = splits == 1 ? out0 : part0;
+  float* d1 = splits == 1 ? out1 : part1;
+  if (n_cots == 1)
+    wgrad_kernel<1><<<grid, kThreads, 0, stream>>>(
+        h2, cot0, nullptr, mu_w2, mu_pos, d0, nullptr, L_h, Lp, C, R, KR, off,
+        lper, g);
+  else
+    wgrad_kernel<2><<<grid, kThreads, 0, stream>>>(
+        h2, cot0, cot1, nullptr, nullptr, d0, d1, L_h, Lp, C, R, KR, off,
+        lper, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t n = (size_t)KR * C;
+  err = finish(part0, mu_w2, mu_pos, out0, n, splits, C, R, stream);
+  if (err != cudaSuccess || n_cots == 1) return (int)err;
+  return (int)finish(part1, nullptr, nullptr, out1, n, splits, C, R, stream);
+}
+
+}  // extern "C"

@@ -1,6 +1,7 @@
 """Shared helpers for the model layer (shape inference, init, validation);
 counterpart of :mod:`pytorch_nmf_tpu.models._common`."""
 
+from collections.abc import Iterable as Iterabc
 from typing import Optional
 
 import numpy as np
@@ -12,6 +13,9 @@ __all__ = [
     "rand_abs_normal",
     "assert_nonneg",
     "validate_target",
+    "single",
+    "pair",
+    "triple",
 ]
 
 
@@ -63,3 +67,22 @@ _BETA_ZERO_MSG = (
     "diverge. Please add small values to V, or use a positive beta "
     "value."
 )
+
+
+def _ntuple(n: int):
+    """``x`` as an ``n``-tuple: an iterable must have ``n`` items, a scalar
+    is repeated (the reference's kernel-size parsing)."""
+    def parse(x):
+        if isinstance(x, Iterabc):
+            t = tuple(x)
+            if len(t) != n:
+                raise ValueError(f"expected {n} values, got {t}")
+            return t
+        return (x,) * n
+
+    return parse
+
+
+single = _ntuple(1)
+pair = _ntuple(2)
+triple = _ntuple(3)

@@ -1,5 +1,5 @@
-r"""NMF models: ``BaseComponent`` and ``NMF`` (counterpart of
-:mod:`pytorch_nmf_tpu.models.nmf`; the deconvolutional family comes later).
+r"""NMF models: ``BaseComponent``, ``NMF``, ``NMFD``, ``NMF2D`` and ``NMF3D``
+(counterpart of :mod:`pytorch_nmf_tpu.models.nmf`).
 
 The classes are ``torch.nn.Module``\ s holding ``nn.Parameter``\ s ``W`` and
 ``H``, with the reference's constructor shape inference and validation
@@ -11,11 +11,15 @@ The classes are ``torch.nn.Module``\ s holding ``nn.Parameter``\ s ``W`` and
 model        V                        W / H
 ===========  =======================  ==========================
 ``NMF``      ``(M, K)``               ``W (K, R)``, ``H (M, R)``
+``NMFD``     ``(N, C, L)``            ``W (C, R, T)``, ``H (N, R, L-T+1)``
+``NMF2D``    ``(N, C, L, M)``         ``W (C, R, kh, kw)``, ``H`` full-pad
+``NMF3D``    ``(N, C, L, M, O)``      analogous with 3 spatial dims
 ===========  =======================  ==========================
 """
 
 from collections.abc import Iterable as Iterabc
-from typing import Iterable, Optional
+from functools import partial
+from typing import Iterable, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -23,15 +27,19 @@ from torch import nn
 from ..ops import recon as _recon
 from ..ops import solver as _solver
 from ..ops.fast_nmf import resolve_nmf_updater_factory
+from ..ops.fast_nmfd import resolve_nmfd_updater_factory
 from ._common import (
     assert_nonneg,
     is_tensor_like,
+    pair,
     rand_abs_normal,
+    single,
     to_param,
+    triple,
     validate_target,
 )
 
-__all__ = ["BaseComponent", "NMF"]
+__all__ = ["BaseComponent", "NMF", "NMFD", "NMF2D", "NMF3D"]
 
 
 class BaseComponent(nn.Module):
@@ -189,3 +197,73 @@ class NMF(BaseComponent):
         return _recon.linear(H, W)
 
     _updater_resolver = staticmethod(resolve_nmf_updater_factory)
+
+
+class NMFD(BaseComponent):
+    r"""Non-negative Matrix Factor Deconvolution, 1-D (Smaragdis 2004;
+    reference nmf.py:700-779): a full-padded true convolution with the
+    kernel flipped along time.  Shapes: ``V (N, C, L)``, ``W (C, R, T)``,
+    ``H (N, R, L - T + 1)``."""
+
+    def __init__(self, Vshape: Iterable[int] = None, rank: int = None,
+                 T: Union[int, Tuple[int]] = 1, **kwargs):
+        if isinstance(Vshape, Iterabc):
+            (T,) = single(T)
+            batch, K, M = Vshape
+            rank = rank if rank else K
+            kwargs["W"] = (K, rank, T)
+            kwargs["H"] = (batch, rank, M - T + 1)
+        super().__init__(rank, **kwargs)
+
+    @staticmethod
+    def reconstruct(H, W):
+        return _recon.deconv1d(H, W)
+
+    _updater_resolver = staticmethod(
+        partial(resolve_nmfd_updater_factory, spatial_ndim=1))
+
+
+class NMF2D(BaseComponent):
+    r"""Non-negative Matrix Factor 2-D Deconvolution (Schmidt 2006;
+    reference nmf.py:782-865)."""
+
+    def __init__(self, Vshape: Iterable[int] = None, rank: int = None,
+                 kernel_size: Union[int, Tuple[int, int]] = 1, **kwargs):
+        if isinstance(Vshape, Iterabc):
+            kernel_size = pair(kernel_size)
+            kh, kw = kernel_size
+            batch, channel, K, M = Vshape
+            rank = rank if rank else K
+            kwargs["W"] = (channel, rank) + kernel_size
+            kwargs["H"] = (batch, rank, K - kh + 1, M - kw + 1)
+        super().__init__(rank, **kwargs)
+
+    @staticmethod
+    def reconstruct(H, W):
+        return _recon.deconv2d(H, W)
+
+    _updater_resolver = staticmethod(
+        partial(resolve_nmfd_updater_factory, spatial_ndim=2))
+
+
+class NMF3D(BaseComponent):
+    r"""Non-negative Matrix Factor 3-D Deconvolution
+    (reference nmf.py:868-942)."""
+
+    def __init__(self, Vshape: Iterable[int] = None, rank: int = None,
+                 kernel_size: Union[int, Tuple[int, int, int]] = 1, **kwargs):
+        if isinstance(Vshape, Iterabc):
+            kernel_size = triple(kernel_size)
+            k1, k2, k3 = kernel_size
+            batch, channel, N, K, M = Vshape
+            rank = rank if rank else K
+            kwargs["W"] = (channel, rank) + kernel_size
+            kwargs["H"] = (batch, rank, N - k1 + 1, K - k2 + 1, M - k3 + 1)
+        super().__init__(rank, **kwargs)
+
+    @staticmethod
+    def reconstruct(H, W):
+        return _recon.deconv3d(H, W)
+
+    _updater_resolver = staticmethod(
+        partial(resolve_nmfd_updater_factory, spatial_ndim=3))

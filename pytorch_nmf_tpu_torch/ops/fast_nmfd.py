@@ -1,0 +1,346 @@
+r"""MU updaters for the deconvolutional family NMFD/NMF2D/NMF3D
+(counterpart of :mod:`pytorch_nmf_tpu.ops.fast_nmfd`'s fused engine,
+``_deconv_pallas_updater_factory``), handed to the solver through its
+``updater_factory`` argument.
+
+Every heavy product of an update is a contraction over the patch matrix
+``P[n, l, j·R + r] = Hpad[n, l - τ_j, r]`` of the activation:
+
+    WH    = P @ W2                      (the reconstruction, τ-chunked GEMMs)
+    neg_W = Pᵀ @ f_β(V, WH)             (:func:`~.fused_deconv.wgrad`)
+    neg_H = fold(f_β(V, WH) @ W2ᵀ)      (:func:`~.fused_deconv.hgrad`)
+
+with ``W2 = W`` in its flat GEMM layout ``(K·R, C)``.  The reconstruction
+streams τ-chunks through ``torch.matmul``, as the JAX package leaves it to
+XLA; the two contractions run the hand-written kernels on a CUDA target and
+their plain versions elsewhere.  The kernel is carried in the ``W2`` layout
+between iterations (``prepare``/``finish``), so the loop never relayouts it.
+
+2-D and 3-D run the same kernels in the flat-offset mode: the activation is
+zero-padded to the output widths on every trailing spatial axis and
+flattened row-major, after which full N-D convolution is 1-D convolution at
+flat offsets ``τ = Σ d_ax · stride_ax`` (:func:`~.fused_deconv.nd_geom`).
+``N > 1`` stacks the batch into one sequence with ``T_geo - 1`` zero
+separators per segment.
+"""
+
+import itertools
+
+import torch
+
+from ..constants import eps
+from ..metrics import beta_div
+from . import fused_deconv
+from .fused_deconv import _chunk_tc, _flat_T, nd_geom
+from .mu import kl_pos_W, mu_cotangents, mu_multiplier
+
+__all__ = [
+    "deconv_updater_factory_fused",
+    "deconv_updater_factory_plain",
+    "resolve_nmfd_updater_factory",
+]
+
+
+def _prod(xs):
+    out = 1
+    for x in xs:
+        out *= int(x)
+    return out
+
+
+def _kernel_dims(V_shape, H_shape):
+    """Kernel extents from the target/activation shapes
+    (``S_out = S_in + kernel - 1`` for every deconv model)."""
+    return tuple(int(v) - int(h) + 1 for v, h in zip(V_shape[2:], H_shape[2:]))
+
+
+def _tau_of_flat(f, kernel):
+    """Per-axis τ components of a flat row-major kernel offset ``f``: the
+    row-major digits of ``f`` over ``kernel``.  ``f`` may be an integer
+    tensor, which gives one tensor of digits per axis."""
+    taus, stride = [], _prod(kernel)
+    for k in kernel:
+        stride //= k
+        taus.append((f // stride) % k)
+    return tuple(taus)
+
+
+def _pad_s_out(S_in, kernel):
+    """Per-axis output extents of the full convolution."""
+    return tuple(s + k - 1 for s, k in zip(S_in, kernel))
+
+
+def _w2(W):
+    """``W (C, R, *k)`` → ``(K·R, C)``, τ-major and rank-minor (a contiguous
+    copy)."""
+    C, d = W.shape[0], W.ndim - 2
+    return W.permute(tuple(range(2, 2 + d)) + (1, 0)).reshape(-1, C).contiguous()
+
+
+def _w_from_w2(W2, kernel, R: int):
+    """Inverse of :func:`_w2`: ``(K·R, C)`` → ``(C, R, *kernel)``."""
+    d, C = len(kernel), W2.shape[-1]
+    full = W2.reshape(tuple(kernel) + (R, C))
+    return full.permute((1 + d, d) + tuple(range(d))).contiguous()
+
+
+def _kl_pos_w_rows(H, rows: int):
+    """Analytic β=1 denominator of the W update, tiled over the flat
+    τ-major/rank-minor rows: ``(rows, 1)``."""
+    s = kl_pos_W(H).reshape(-1)
+    return s.repeat(rows // s.shape[0])[:, None]
+
+
+def _kl_pos_h_ranks(w, R: int):
+    """Analytic β=1 denominator of the H update from the GEMM-layout
+    kernel: per-rank sums over every (τ, c) row."""
+    return torch.sum(w.reshape(-1, R, w.shape[-1]), dim=(0, 2))
+
+
+def _patch_chunk_fn(H, kernel):
+    """Closure building the τ-chunk patch matrix of flat offsets
+    ``[j0, j1)`` from the channels-last, full-padded activation:
+    ``Pc[n, l_vec, (j-j0)·R + r] = H[n, r, l_vec - τ(j)]``.
+
+    In 1-D each offset's rows are one contiguous slice, a view, so a chunk is
+    one stack.  In N-D the slices are strided, a copy each; there one gather
+    per chunk builds it (the flat index of ``l_vec - τ(j)`` in the padded
+    grid is a per-position plus a per-offset term)."""
+    N, R = H.shape[:2]
+    S_out = _pad_s_out(H.shape[2:], kernel)
+    Lp, K = _prod(S_out), _prod(kernel)
+    pads = []
+    for k in reversed(kernel):
+        pads += [k - 1, k - 1]
+    Hp2 = torch.nn.functional.pad(H.movedim(1, -1), [0, 0] + pads)
+    if len(kernel) == 1:
+        T = kernel[0]
+
+        def patch_chunk(j0: int, j1: int):
+            return torch.stack([Hp2.narrow(1, T - 1 - j, Lp)
+                                for j in range(j0, j1)], dim=2).reshape(N, Lp, -1)
+
+        return patch_chunk
+    Hp2 = Hp2.reshape(N, -1, R)  # the padded grid S_out + k - 1, flattened
+    strides, acc = [], 1
+    for so, k in zip(reversed(S_out), reversed(kernel)):
+        strides.insert(0, acc)
+        acc *= so + k - 1
+    dev = H.device
+    base = sum(d * st for d, st in zip(
+        _tau_of_flat(torch.arange(Lp, device=dev), S_out), strides))
+    shift = sum((k - 1 - t) * st for k, t, st in zip(
+        kernel, _tau_of_flat(torch.arange(K, device=dev), kernel), strides))
+
+    def patch_chunk(j0: int, j1: int):
+        idx = base[:, None] + shift[None, j0:j1]
+        return Hp2[:, idx.reshape(-1)].reshape(N, Lp, -1)
+
+    return patch_chunk
+
+
+def _stream_recon(w2, H, kernel):
+    """Streaming-τ reconstruction ``WH2 (N, prod(S_out), C)`` from the flat
+    kernel ``w2 (K·R, C)``: one GEMM per τ-chunk, accumulated in order."""
+    R = H.shape[1]
+    K = _prod(kernel)
+    Tc = _chunk_tc(R, K)
+    patch_chunk = _patch_chunk_fn(H, kernel)
+    WH2 = None
+    for j0 in range(0, K, Tc):
+        j1 = min(j0 + Tc, K)
+        part = patch_chunk(j0, j1) @ w2[j0 * R:j1 * R]
+        WH2 = part if WH2 is None else WH2 + part
+    return WH2
+
+
+def _v2_flat(V):
+    """``V (N, C, *S_out)`` → channels-last ``(N, prod(S_out), C)``."""
+    return V.movedim(1, -1).reshape(V.shape[0], -1, V.shape[1]).contiguous()
+
+
+def _flat_geom(V_shape, H_shape):
+    """``(kernel, geom, T_geo, L_flat)`` of the flat-offset mode: the
+    activation's trailing spatial axes padded to the output widths and
+    flattened row-major (``geom=None`` and ``T_geo=T`` in 1-D)."""
+    kernel = _kernel_dims(V_shape, H_shape)
+    if len(kernel) == 1:
+        return kernel, None, kernel[0], int(H_shape[2])
+    s_pad = (int(H_shape[2]),) + tuple(
+        int(s) + int(k) - 1 for s, k in zip(H_shape[3:], kernel[1:]))
+    geom = nd_geom(kernel, s_pad)
+    return kernel, geom, _flat_T(geom), _prod(s_pad)
+
+
+def _h_padded_flat(H, kernel):
+    """``(N, R, *S_in)`` → ``(N, L_flat, R)``: trailing spatial axes
+    zero-padded to the output widths, row-major flatten."""
+    pads = []
+    for k in reversed(kernel[1:]):
+        pads += [0, int(k) - 1]
+    H2 = torch.nn.functional.pad(H.movedim(1, -1), [0, 0] + pads)
+    return H2.reshape(H.shape[0], -1, H.shape[1]).contiguous()
+
+
+def _h_flat_nd(H, kernel):
+    """``(1, R, *S_in)`` → ``(L_flat, R)``, the flat-offset activation."""
+    return _h_padded_flat(H, kernel)[0]
+
+
+def _h_unflat_nd(out, H_shape, kernel):
+    """``(R, L_flat)`` → ``(1, R, *S_in)``: undo :func:`_h_flat_nd` (crop the
+    trailing-axis pads, whose columns carry no real cotangent)."""
+    return _h_unflat_batched(out[None], H_shape, kernel)
+
+
+def _h_unflat_batched(segs, H_shape, kernel):
+    """``(N, R, L_flat)`` → ``(N, R, *S_in)``: the per-batch undo."""
+    if len(kernel) == 1:
+        return segs
+    N, R = int(H_shape[0]), int(H_shape[1])
+    s_pad = tuple(int(s) + (0 if d == 0 else int(kernel[d]) - 1)
+                  for d, s in enumerate(H_shape[2:]))
+    full = segs.reshape((N, R) + s_pad)
+    for d, s in enumerate(H_shape[2:]):
+        if d > 0:
+            full = full.narrow(2 + d, 0, int(s))
+    return full
+
+
+def _h_stacked(H, kernel, T_geo: int):
+    """Segment-stacked activation of the batched (N > 1) mode: each batch's
+    flat-offset layout behind ``T_geo - 1`` zero rows, which absorb every
+    cross-batch patch read exactly."""
+    flat = torch.nn.functional.pad(_h_padded_flat(H, kernel),
+                                   (0, 0, T_geo - 1, 0))
+    return flat.reshape(-1, H.shape[1])
+
+
+def _cot_stacked(cot, seg_stride: int):
+    """``(N, Lp_flat, C)`` → ``(N·seg_stride, C)``: each segment zero-padded
+    to the stacked activation's stride, so the flat patch relation holds
+    across segments."""
+    Lp_flat, C = cot.shape[1:]
+    return torch.nn.functional.pad(
+        cot, (0, 0, 0, seg_stride - Lp_flat)).reshape(-1, C)
+
+
+def _deconv_updaters(spatial_ndim: int, kernels: str, beta, gamma, l1_reg,
+                     l2_reg):
+    """The 5-arity ``(upd_W, upd_H, loss_terms, prepare, finish)`` updaters
+    of the ``spatial_ndim`` deconv model over the hand-written kernels
+    (``kernels="fused"``: the wrappers) or their plain versions."""
+    hgrad, wgrad = ((fused_deconv.hgrad, fused_deconv.wgrad) if kernels == "fused"
+                    else (fused_deconv.plain_hgrad, fused_deconv.plain_wgrad))
+    nd = spatial_ndim
+    fused_w = beta == 1 and gamma == 1 and l1_reg == 0 and l2_reg == 0
+
+    def _dims(V, H):
+        if V.ndim != nd + 2 or H.ndim != nd + 2:
+            raise ValueError(f"a {nd}-D deconv fit takes V (N, C, *S_out) and "
+                             f"H (N, R, *S_in); got {tuple(V.shape)} and "
+                             f"{tuple(H.shape)}")
+        return _flat_geom(V.shape, H.shape)
+
+    def prepare(V, W, H):
+        _dims(V, H)
+        return _w2(W), H
+
+    def finish(V, w, h):
+        return _w_from_w2(w, _kernel_dims(V.shape, h.shape), h.shape[1]), h
+
+    def _cots(V, w, H, kernel):
+        return mu_cotangents(_v2_flat(V), _stream_recon(w, H, kernel), beta)
+
+    def upd_W(V, w, H):
+        kernel, geom, T_geo, L_flat = _dims(V, H)
+        R = H.shape[1]
+        cots = [c for c in _cots(V, w, H, kernel) if c is not None]
+        if H.shape[0] > 1:
+            H2, lead = _h_stacked(H, kernel, T_geo), False
+            cots = [_cot_stacked(c, T_geo - 1 + L_flat) for c in cots]
+        else:
+            H2, lead = _h_flat_nd(H, kernel), True
+            cots = [c[0] for c in cots]
+        if fused_w:
+            # fully fused KL update: the kernel applies the MU multiply after
+            # its reduction and returns the updated kernel operand
+            return wgrad(cots, H2, R, T_geo, mu_w2=w,
+                         mu_pos=kl_pos_W(H).reshape(-1), lead_pad=lead,
+                         geom=geom)[0]
+        # β ≠ 1: the neg/pos pair shares one pass over the patches
+        outs = wgrad(cots, H2, R, T_geo, lead_pad=lead, geom=geom)
+        neg = torch.relu(outs[0]) + eps
+        pos = (_kl_pos_w_rows(H, w.shape[0]) if beta == 1
+               else torch.relu(outs[1]) + eps)
+        return w * mu_multiplier(neg, pos, w, gamma, l1_reg, l2_reg)
+
+    def upd_H(V, w, H):
+        kernel, geom, T_geo, L_flat = _dims(V, H)
+        N, R = H.shape[:2]
+        neg_cot, pos_cot = _cots(V, w, H, kernel)
+        if N > 1:
+            # one hgrad over all N segments; each segment's trailing columns
+            # (reads past its real cotangent) are cropped
+            seg = T_geo - 1 + L_flat
+
+            def h_contract(cot):
+                out = hgrad(_cot_stacked(cot, seg), w, R, N * seg, geom=geom)
+                segs = out.reshape(R, N, seg)[:, :, :L_flat].movedim(1, 0)
+                return _h_unflat_batched(segs, H.shape, kernel)
+        else:
+            def h_contract(cot):
+                return _h_unflat_nd(hgrad(cot[0], w, R, L_flat, geom=geom),
+                                    H.shape, kernel)
+
+        neg = torch.relu(h_contract(neg_cot)) + eps
+        if beta == 1:
+            pos = _kl_pos_h_ranks(w, R).reshape((1, R) + (1,) * nd)
+        else:
+            pos = torch.relu(h_contract(pos_cot)) + eps
+        return H * mu_multiplier(neg, pos, H, gamma, l1_reg, l2_reg)
+
+    def loss_terms(V, w, H):
+        return beta_div(_stream_recon(w, H, _kernel_dims(V.shape, H.shape)),
+                        _v2_flat(V), beta)
+
+    return upd_W, upd_H, loss_terms, prepare, finish
+
+
+def _make_factory(spatial_ndim: int, kernels: str):
+    def factory(beta, gamma, l1_reg, l2_reg):
+        return _deconv_updaters(spatial_ndim, kernels, beta, gamma, l1_reg,
+                                l2_reg)
+
+    factory.__name__ = factory.__qualname__ = (
+        f"deconv{spatial_ndim}d_updater_factory_{kernels}")
+    return factory
+
+
+_FACTORIES = {
+    (nd, kernels): _make_factory(nd, kernels)
+    for nd, kernels in itertools.product((1, 2, 3), ("fused", "plain"))
+}
+
+
+def deconv_updater_factory_fused(spatial_ndim: int):
+    """The ``spatial_ndim`` deconv model's factory over the kernel wrappers
+    (the CUDA kernels on a CUDA target)."""
+    return _FACTORIES[spatial_ndim, "fused"]
+
+
+def deconv_updater_factory_plain(spatial_ndim: int):
+    """The same updaters through the kernels' plain PyTorch versions on any
+    device."""
+    return _FACTORIES[spatial_ndim, "plain"]
+
+
+def resolve_nmfd_updater_factory(device, dtype, spatial_ndim: int = 1):
+    """The factory for a fit of a ``dtype`` target on ``device``: float64
+    takes the generic autograd engine (``None``), a CUDA float32 target the
+    kernels, and any other float32 target their plain versions."""
+    if dtype == torch.float64:
+        return None
+    if torch.device(device).type == "cuda":
+        return deconv_updater_factory_fused(spatial_ndim)
+    return deconv_updater_factory_plain(spatial_ndim)

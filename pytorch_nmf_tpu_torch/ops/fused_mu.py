@@ -132,7 +132,7 @@ def fused_contractions(V, H, W, *, beta: float, need_pos: bool, w_side: bool,
     from ._build import load_library
 
     M, K, R = _check_operands(V, H, W)
-    lib = load_library()
+    lib = load_library("fused_mu")
     if mu_pos is not None:
         mu_pos = mu_pos.reshape(-1)
         if mu_pos.numel() != R or mu_pos.dtype != torch.float32 or \
@@ -177,7 +177,7 @@ def fused_beta_loss(V, H, W, beta: float):
     from ._build import load_library
 
     M, K, R = _check_operands(V, H, W)
-    lib = load_library()
+    lib = load_library("fused_mu")
     splits = lib.pnt_loss_splits(M, K, _sm_count(V.device))
     partials = torch.empty(lib.pnt_loss_partials(M, splits), device=V.device,
                            dtype=torch.float32)

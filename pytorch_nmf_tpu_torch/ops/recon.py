@@ -1,12 +1,24 @@
 r"""Reconstruction primitives (counterpart of :mod:`pytorch_nmf_tpu.ops.recon`).
 
-Only the dense ``linear`` map :math:`H W^\top` is ported so far; the
-deconvolutional reconstructions come with the NMFD family.
+* ``linear`` — :math:`H W^\top` (the reference's ``F.linear``, nmf.py:693).
+* ``deconv1d/2d/3d`` — full-padded correlation with the kernel flipped,
+  i.e. true convolution: the reference's own
+  ``F.convNd(H, W.flip(spatial), padding=k-1)`` (nmf.py:779,864,941).
+
+Shapes follow the reference:
+  1-D: ``H (N, R, L)``, ``W (C, R, T)``         → ``(N, C, L + T - 1)``
+  2-D: ``H (N, R, L, M)``, ``W (C, R, kh, kw)`` → ``(N, C, L+kh-1, M+kw-1)``
+  3-D: analogous with three spatial dims.
+
+The deconvolutions serve ``forward()`` and the float64 generic engine; the
+float32 fits reconstruct through :mod:`.fast_nmfd`.  A float32 convolution on
+CUDA follows ``torch.backends.cudnn.allow_tf32``, which PyTorch sets by default.
 """
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["acc_type", "linear"]
+__all__ = ["acc_type", "linear", "deconv1d", "deconv2d", "deconv3d"]
 
 
 def acc_type(*xs) -> torch.dtype:
@@ -24,3 +36,26 @@ def linear(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     (reference ``F.linear``, nmf.py:693)."""
     dt = acc_type(H, W)
     return H.to(dt) @ W.to(dt).T
+
+
+def _deconv(H: torch.Tensor, W: torch.Tensor, spatial_ndim: int) -> torch.Tensor:
+    dt = acc_type(H, W)
+    conv = (F.conv1d, F.conv2d, F.conv3d)[spatial_ndim - 1]
+    spatial = tuple(range(2, 2 + spatial_ndim))
+    return conv(H.to(dt), W.to(dt).flip(spatial),
+                padding=tuple(k - 1 for k in W.shape[2:]))
+
+
+def deconv1d(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """1-D full convolution ``(N, R, L) × (C, R, T) → (N, C, L + T - 1)``."""
+    return _deconv(H, W, 1)
+
+
+def deconv2d(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """2-D full convolution."""
+    return _deconv(H, W, 2)
+
+
+def deconv3d(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """3-D full convolution."""
+    return _deconv(H, W, 3)

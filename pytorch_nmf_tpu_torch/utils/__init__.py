@@ -2,7 +2,8 @@
 
 * :func:`normalize` — scale so the sum over ``axis`` is 1.
 * :func:`renorm` — scale so the L2 norm over ``axis`` is 1.
-* :func:`nmf_from_numpy` — build the port's ``NMF`` from the JAX package's
+* :func:`nmf_from_numpy` — build the port's ``NMF``, ``NMFD``, ``NMF2D`` or
+  ``NMF3D`` from the JAX package's
   ``{"W": np.asarray(m.W.data), "H": np.asarray(m.H.data)}``.
 """
 
@@ -26,13 +27,19 @@ def renorm(x: torch.Tensor, axis=None) -> torch.Tensor:
 
 def nmf_from_numpy(params: "dict[str, np.ndarray]", device,
                    trainable_W: bool = True, trainable_H: bool = True):
-    """The port's ``NMF`` holding the given factors on ``device``.  The
-    layouts are those of the JAX package: ``W (K, R)``, ``H (M, R)``."""
-    from ..models.nmf import NMF
+    """The port's model holding the given factors on ``device``, chosen by
+    the number of axes of ``W``: ``W (K, R)`` builds ``NMF`` (with ``H (M, R)``),
+    ``W (C, R, *k)`` with one to three kernel axes ``NMFD``, ``NMF2D`` or
+    ``NMF3D`` (with ``H (N, R, *S_in)``).  The layouts are the JAX package's."""
+    from ..models.nmf import NMF, NMF2D, NMF3D, NMFD
 
-    return NMF(
-        W=torch.from_numpy(np.ascontiguousarray(params["W"])),
-        H=torch.from_numpy(np.ascontiguousarray(params["H"])),
+    models = {2: NMF, 3: NMFD, 4: NMF2D, 5: NMF3D}
+    ndim = np.ndim(params["W"])
+    if ndim not in models:
+        raise ValueError(f"no model takes a {ndim}-D W")
+    return models[ndim](
+        W=torch.from_numpy(np.array(params["W"])),  # a writable copy
+        H=torch.from_numpy(np.array(params["H"])),
         trainable_W=trainable_W,
         trainable_H=trainable_H,
         device=device,
