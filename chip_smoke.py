@@ -28,13 +28,18 @@ Drives the port's two paths at full width, each in phases:
    β = 1 and 0.5, NMF2D and NMF3D at β = 1; 100 dense, 20 deconv iterations)
    and compares the final losses (1e-4 relative);
 4. times those fits per iteration and each kernel against its plain
-   version, with CUDA events.
+   version and, for B3/B4, the one PyTorch call that computes the same
+   function (``F.convNd`` and ``torch.nn.grad.convNd_weight``, cuDNN; the
+   port never calls them), with CUDA events; each kernel's bound is the
+   larger of its operations at the 3xTF32 rate and its bytes at the HBM
+   rate.
 
 Any failure raises (exit code ≠ 0).  The second-to-last line of standard
 output is a JSON summary of the kernels, the last line
-``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
-float32 (TF32 off), so the plain versions are true f32 too.  Needs one
-CUDA device; exits with an error without one.
+``{"ok": true, "device": {...}}``.  Float32 matrix products and
+convolutions run in full float32 (TF32 off), so the plain versions and the
+library calls are true f32 too.  Needs one CUDA device; exits with an error
+without one.
 """
 
 import json
@@ -58,6 +63,12 @@ DECONV = {
 }
 DECONV_BETAS = (1, 2, 0.5)
 DECONV_ITERS = 20
+# the H100 SXM's published peaks: f32-accurate products run at
+# 3xTF32 on the tensor cores, 495/3 TFLOP/s, against 67 of f32 FMA on the
+# CUDA cores; HBM moves 3.35 TB/s
+TF32X3_FLOPS = 495e12 / 3
+FP32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
 REPLACES = {
     "fused_contractions": "pytorch_nmf_tpu/ops/pallas_mu.py:212",
     "fused_beta_loss": "pytorch_nmf_tpu/ops/pallas_mu.py:347",
@@ -99,6 +110,22 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def bound(flops, nbytes):
+    """``(bound_ms, bound_by, cuda_core_ms)``: the least time the card could
+    take for ``flops`` f32-accurate operations and ``nbytes`` of traffic
+    (each input read once, each output written once), and the operations'
+    time at the CUDA cores' f32 peak."""
+    ops_ms, bytes_ms = 1e3 * flops / TF32X3_FLOPS, 1e3 * nbytes / HBM_BYTES
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms
+            else "bytes", 1e3 * flops / FP32_FLOPS)
+
+
+def new_stats():
+    return {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": None,
+            "plain_ms": None, "library_ms": None, "bound_ms": None,
+            "bound_by": None}
+
+
 def inputs(M, K, R, seed=SEED):
     rs = np.random.RandomState(seed)
     V = np.abs(rs.randn(M, K)).astype("f") + 0.01
@@ -109,9 +136,10 @@ def inputs(M, K, R, seed=SEED):
 
 def compare_kernels(fm, kl_pos_W, kl_pos_H):
     """Phase 2: each dense kernel against its plain version; returns
-    per-kernel (max_abs_err, max_rel_err, ms, plain_ms) and prints every
-    case."""
-    stats = {name: [0.0, 0.0, None, None]
+    per-kernel errors, times and bounds (:func:`new_stats`) and prints
+    every case.  Neither kernel has a library call that computes its
+    function (each is two GEMMs around an elementwise map)."""
+    stats = {name: new_stats()
              for name in ("fused_contractions", "fused_beta_loss")}
 
     def record(name, got, ref):
@@ -121,12 +149,22 @@ def compare_kernels(fm, kl_pos_W, kl_pos_H):
         rel = float((err / ref.abs().clamp_min(1e-30)).max())
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=0)
-        stats[name][0] = max(stats[name][0], float(err.max()))
-        stats[name][1] = max(stats[name][1], rel)
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], float(err.max()))
+        st["max_rel_err"] = max(st["max_rel_err"], rel)
         return rel
+
+    def set_times(name, ms, pms, flops, nbytes):
+        b_ms, b_by, fp32_ms = bound(flops, nbytes)
+        stats[name].update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+        print(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {fp32_ms:.4f} at the CUDA cores' "
+              f"f32 peak), {100 * b_ms / ms:.1f}% of it", flush=True)
 
     for M, K, R in (MAIN_SHAPE, WIDE_SHAPE):
         V, W, H = inputs(M, K, R)
+        # rows padded to 16 bytes, as the fit does once per fit (fast_nmf)
+        V = fm.aligned_rows(V)
         for w_side in (True, False):
             cases = [(b, True, None) for b in (0.0, 0.5, 1.5)] + [
                 (1.0, False, None),
@@ -144,10 +182,9 @@ def compare_kernels(fm, kl_pos_W, kl_pos_H):
                     "neg+pos" if need_pos else "neg")
                 line = (f"B1 {M}x{K} R={R} {side}-side beta={beta} {case}: "
                         f"max rel err {max(rels):.3g}")
-                if (M, K, R) == MAIN_SHAPE:
-                    ms = cuda_ms(lambda: fm.fused_contractions(V, H, W, **kw))
-                    pms = cuda_ms(lambda: fm.plain_contractions(V, H, W, **kw))
-                    line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
+                ms = cuda_ms(lambda: fm.fused_contractions(V, H, W, **kw))
+                pms = cuda_ms(lambda: fm.plain_contractions(V, H, W, **kw))
+                line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
                 print(line, flush=True)
         for beta in (0.0, 0.5, 1.5):
             rel = record("fused_beta_loss", fm.fused_beta_loss(V, H, W, beta),
@@ -157,20 +194,24 @@ def compare_kernels(fm, kl_pos_W, kl_pos_H):
                 ms = cuda_ms(lambda: fm.fused_beta_loss(V, H, W, beta))
                 pms = cuda_ms(lambda: fm.plain_beta_loss(V, H, W, beta))
                 line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
-                if beta == 0.5:
-                    stats["fused_beta_loss"][2:] = [ms, pms]
+                if beta == 0.5:  # the WH product; V, H, W read once
+                    set_times("fused_beta_loss", ms, pms, 2 * M * K * R,
+                              4 * (M * K + (M + K) * R + 1))
             print(line, flush=True)
         if (M, K, R) == MAIN_SHAPE:
             # the JSON's B1 time: one β=0.5 MU iteration's contractions
-            # (W side then H side, numerator and denominator)
+            # (W side then H side, numerator and denominator); per side the
+            # WH product and two contractions, V, H, W read and two
+            # factor-sized outputs written
             def both(fn):
                 fn(V, H, W, beta=0.5, need_pos=True, w_side=True)
                 fn(V, H, W, beta=0.5, need_pos=True, w_side=False)
 
-            stats["fused_contractions"][2:] = [
-                cuda_ms(lambda: both(fm.fused_contractions)),
-                cuda_ms(lambda: both(fm.plain_contractions)),
-            ]
+            set_times("fused_contractions",
+                      cuda_ms(lambda: both(fm.fused_contractions)),
+                      cuda_ms(lambda: both(fm.plain_contractions)),
+                      2 * 6 * M * K * R,
+                      2 * 4 * (M * K + (M + K) * R) + 2 * 4 * 2 * (M + K) * R)
         del V, W, H
     return stats
 
@@ -183,8 +224,9 @@ def deconv_operands(F, N, C, S_out, kernel, R, seed=SEED):
     S_in = tuple(s - k + 1 for s, k in zip(S_out, kernel))
     H = torch.from_numpy(rs.rand(N, R, *S_in).astype("f")).cuda()
     W = torch.from_numpy(rs.rand(C, R, *kernel).astype("f")).cuda()
-    cots = [torch.from_numpy(rs.rand(N, int(np.prod(S_out)), C).astype("f"))
-            .cuda() for _ in range(2)]
+    cots = cots_m = [
+        torch.from_numpy(rs.rand(N, int(np.prod(S_out)), C).astype("f")).cuda()
+        for _ in range(2)]
     _, geom, T_geo, L_flat = F._flat_geom((N, C) + tuple(S_out), H.shape)
     if N > 1:
         seg = T_geo - 1 + L_flat
@@ -193,15 +235,21 @@ def deconv_operands(F, N, C, S_out, kernel, R, seed=SEED):
     else:
         H2, lead, L_h = F._h_flat_nd(H, kernel), True, L_flat
         cots = [c[0] for c in cots]
-    return dict(H=H, W2=F._w2(W), H2=H2, cots=cots, R=R, geom=geom, T=T_geo,
-                L_h=L_h, lead=lead)
+    # the model layouts, for the library calls: cotangents (N, C, *S_out)
+    cot_m = cots_m[0].reshape((N,) + tuple(S_out) + (C,)).movedim(-1, 1)
+    return dict(H=H, W=W, W2=F._w2(W), H2=H2, cots=cots, R=R, geom=geom,
+                T=T_geo, L_h=L_h, lead=lead, cot_m=cot_m.contiguous())
 
 
 def compare_deconv_kernels(F, D, kl_pos_W):
     """Phase 2, B3/B4: each against its plain version at the deconv path's
-    shapes; times both at the NMFD flagship.  Returns per-kernel
-    (max_abs_err, max_rel_err, ms, plain_ms)."""
-    stats = {name: [0.0, 0.0, None, None] for name in ("hgrad", "wgrad")}
+    shapes, and timed there beside its plain version and its library call
+    (cuDNN, TF32 off; the port never calls these): B3 is the correlation
+    ``F.convNd(cot, Wᵀ)``, B4 with one cotangent the weight gradient
+    ``torch.nn.grad.convNd_weight(H, W.shape, cot, padding=k-1)`` of the
+    reconstruction (its kernel flipped).  Returns per-kernel errors, times
+    and bounds at the NMFD flagship (:func:`new_stats`)."""
+    stats = {name: new_stats() for name in ("hgrad", "wgrad")}
 
     def record(name, case, got, ref):
         torch.cuda.synchronize()
@@ -210,8 +258,9 @@ def compare_deconv_kernels(F, D, kl_pos_W):
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         check(rel <= RTOL, f"{name} {case}: max|kernel-plain| / max|plain| = {rel:.3g}")
-        stats[name][0] = max(stats[name][0], err)
-        stats[name][1] = max(stats[name][1], rel)
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["max_rel_err"] = max(st["max_rel_err"], rel)
         return rel
 
     N, C, S_out, kernel, R = DECONV["NMFD"]
@@ -234,6 +283,25 @@ def compare_deconv_kernels(F, D, kl_pos_W):
             "wgrad beta=1 epilogue": lambda fn: fn([cot], H2, R_, T, **epi)[0],
             "wgrad beta=0.5 neg+pos": lambda fn: fn(pair, H2, R_, T, **kw),
         }
+        nd = len(shape[3])
+        pad = tuple(k - 1 for k in shape[3])
+        conv = getattr(torch.nn.functional, f"conv{nd}d")
+        conv_weight = getattr(torch.nn.grad, f"conv{nd}d_weight")
+        Wt = op["W"].transpose(0, 1)
+        H_m, W_shape, cot_m = op["H"], op["W"].shape, op["cot_m"]
+        library = {
+            "hgrad": lambda: conv(cot_m, Wt),
+            "wgrad beta=1 neg": lambda: conv_weight(H_m, W_shape, cot_m,
+                                                    padding=pad),
+        }
+        Lp, C_ = cot.shape
+        K = W2.shape[0] // R_
+        work = {  # (operations, bytes) of one call
+            "hgrad": (2 * R_ * op["L_h"] * K * C_,
+                      4 * (Lp * C_ + K * R_ * C_ + R_ * op["L_h"])),
+            "wgrad beta=1 neg": (2 * K * R_ * C_ * Lp,
+                                 4 * (op["L_h"] * R_ + Lp * C_ + K * R_ * C_)),
+        }
         for case, call in calls.items():
             name = case.split()[0]
             fn, plain = getattr(D, name), getattr(D, f"plain_{name}")
@@ -243,12 +311,19 @@ def compare_deconv_kernels(F, D, kl_pos_W):
             rel = max(record(name, f"{label} {case}", g, r)
                       for g, r in zip(got, ref))
             line = f"B{3 if name == 'hgrad' else 4} {label} {case}: max rel err {rel:.3g}"
-            if label == "NMFD":
+            if label == "NMFD" or case in library:
                 ms = cuda_ms(lambda: call(fn), reps=10, warmup=1)
                 pms = cuda_ms(lambda: call(plain), reps=10, warmup=1)
                 line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
-                if case in ("hgrad", "wgrad beta=1 neg"):
-                    stats[name][2:] = [ms, pms]
+            if case in library:
+                lms = cuda_ms(library[case], reps=10, warmup=1)
+                b_ms, b_by, fp32_ms = bound(*work[case])
+                line += (f", library {lms:.4f} ms, bound {b_ms:.4f} ms "
+                         f"({b_by}; {fp32_ms:.4f} at the CUDA cores' f32 "
+                         f"peak), {100 * b_ms / ms:.1f}% of it")
+                if label == "NMFD":
+                    stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                       bound_ms=b_ms, bound_by=b_by)
             print(line, flush=True)
     return stats
 
@@ -460,17 +535,19 @@ def main():
               flush=True)
     N, C, S_out, kernel, Rd = DECONV["NMFD"]
 
-    for name, (abs_err, rel_err, ms, pms) in stats.items():
+    for name, st in stats.items():
         at = (f"{M}x{K} R={R}" if name in ("fused_contractions", "fused_beta_loss")
               else f"{C}x{S_out[0]} R={Rd} T={kernel[0]}")
-        print(f"phase 4: {name} at {at}: kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms [{card}]", flush=True)
+        lib = "none" if st["library_ms"] is None else f"{st['library_ms']:.4f} ms"
+        print(f"phase 4: {name} at {at}: kernel {st['ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{st['bound_ms']:.4f} ms ({st['bound_by']}) [{card}]",
+              flush=True)
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": stats[name][0], "max_rel_err": stats[name][1],
-         "ms": stats[name][2], "plain_ms": stats[name][3]}
+        dict({"name": name, "route": "cuda", "source": SOURCES[name],
+              "replaces": REPLACES[name], "launches": launches[name]},
+             **stats[name])
         for name in REPLACES
     ], "fit_ms_per_iter": fit_ms}
     print(card_line(), flush=True)

@@ -25,13 +25,17 @@
 //
 // What bounds them on the H100: the flagship (C=1025, L_out=5000, R=88,
 // T=400) does about 0.36 TFLOP per cotangent in each kernel against
-// 20-144 MB of operands, so both are compute-bound: f32 FMA on CUDA cores
-// (67 TFLOP/s peak).  Each thread keeps an 8x8 (or TMx8) register tile and
-// reads shared memory as float4 vectors, about one vector per 16 FMAs;
-// tiles arrive by cp.async (4-byte copies with zero-fill: C = 1025 and the
-// shifted rows are not 16-byte aligned) into two stages, so the copy of
-// step s+1 runs during the products of step s.  Tensor cores (3xTF32 or
-// opt-in TF32/bf16) are later, measured work.
+// 20-144 MB of operands, so both are bound by their operations.  Kept
+// f32-accurate, the fastest of those is 3xTF32 on the tensor cores
+// (tf32x3.cuh): 165 TFLOP/s effective, about 2 ms per kernel at the
+// flagship.  hgrad runs there (wgmma), its tiles copied 16 bytes at a time
+// (the wrapper pads C = 1025 to 1028); its split into hi/lo and those
+// copies, not the products, take most of its time (PERF.md).  wgrad still
+// runs f32 FMAs on the CUDA cores (67 TFLOP/s peak), each thread keeping an
+// 8x8 register tile and reading shared memory as float4 vectors, about one
+// vector per 16 FMAs; its tiles arrive by 4-byte cp.async with zero-fill
+// into two stages, so the copy of step s+1 runs during the products of
+// step s.
 //
 // Design, and what differs from the TPU kernels:
 //
@@ -42,18 +46,19 @@
 //   the slabs in a fixed order.  No atomics: results are reproducible, so
 //   the tolerance stop of a fit is too.
 // * hgrad's output (R, L_in) is tiny against its (tau, c) reduction of
-//   K*C terms (410k at the flagship): its grid is (L_in / 128) x (R / BM) x
-//   splits, the reduction flattened to k = j*C + c so a split or a 16-deep
-//   step may cross from one offset to the next, and C=1025 leaves no ragged
-//   step.  BM follows the rank (32, 64, 96 or 128 rows).
-// * At ranks up to 16 those rows would be mostly padding, and each
-//   cotangent element would feed only R products.  There the block's 64
-//   rows are J = 64/8 or 64/16 consecutive offsets x the ranks, and one
+//   K*C terms (410k at the flagship): its grid is (L_in / 128) x (R / 128)
+//   x splits, the reduction flattened to k = j*C + c so a split or a
+//   32-deep step may cross from one offset to the next, and C=1028 leaves
+//   no ragged step.  l' sits on the wgmma's M dimension and the rank on N,
+//   so R = 88 is N = 88 with no padding.
+// * At ranks up to 16 each cotangent element would feed only R products.
+//   There a windowed kernel (f32 FMA, CUDA cores) takes the block's 64 rows
+//   as J = 64/8 or 64/16 consecutive offsets x the ranks, and one
 //   shared-memory window of the cotangent per 16-channel step serves all J
 //   offsets, each warp reading it at its own shift tau_j - tau_j0: each
 //   element feeds R*J products.  The offsets' partial sums meet in a
 //   fixed-order reduction in shared memory.  N-D kernels whose offset groups
-//   span more than 32 flat rows keep the first form.
+//   span more than 32 flat rows take the tensor-core kernel.
 // * wgrad's output (K*R, C) is large and its reduction runs over Lp rows:
 //   128 (j, r) rows by 128 channels per block, or 64 channels for the
 //   neg/pos cotangent pair, whose two accumulators share every patch load.
@@ -67,13 +72,22 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
 constexpr int kThreads = 256;  // a 16 x 16 grid of (tx, ty) threads
-constexpr int BK = 16;         // reduction depth of one stage
-constexpr int BN = 128;        // hgrad: l' columns per block
+constexpr int BK = 16;         // wgrad: reduction depth of one stage
 constexpr int WBM = 128;       // wgrad: (j, r) rows per block
+// hgrad on the tensor cores
+constexpr int kHThreads = 256;  // 2 warpgroups, 64 l' rows each
+constexpr int HBM = 128;        // l' rows per block
+constexpr int HBK = 32;         // reduction depth of one stage
+constexpr int HRN = 128;        // most ranks of a block
+constexpr int HRS = HBK + 4;    // row stride of the raw tiles
+constexpr int kHgradSmemBytes =
+    4 * (2 * (HBM + HRN) * HRS + 2 * 2 * (HBM + HRN) * HBK);
 constexpr int kMaxSlabFloats = 1 << 26;  // partial slabs stay under 256 MB
 // the windowed hgrad of ranks up to 16: 64 block rows = J offsets x BMR ranks
 constexpr int WBK = 16;            // channels per stage
@@ -106,6 +120,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// 16 bytes; src and dst 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -136,47 +158,66 @@ __device__ __forceinline__ void lds(float (&v)[n], const float* p) {
 }
 
 // ---------------------------------------------------------------- hgrad --
-// Block (bx, by, bz): columns l' in [128 bx, +128), ranks [BM by, +BM),
-// reduction k = j*C + c in [k_per_split bz, +k_per_split).  Thread
-// (tx, ty) accumulates ranks BM by + TM ty + i and columns
-// 128 bx + 64 h + 4 tx + q.  As loader, it copies column kk = tid % 16 of
-// each stage: rank rows tid / 16 + 16 i of W2 and l' rows tid / 16 + 16 i
-// of the shifted cotangent.
-template <int TM>
-__global__ void __launch_bounds__(kThreads, 2)
+// On the tensor cores (3xTF32 wgmma, tf32x3.cuh), as the GEMM
+// out^T (L_in x R) = A (L_in x KC) . B (KC x R) with A[l', k] =
+// cot[l' + tau_j, c] and B[k, r] = W2[j*R + r, c], k = j*C + c.
+// Block (bx, by, bz): rows l' in [128 bx, +128), ranks [128 by, +8 NT),
+// reduction k in [k_per_split bz, +k_per_split), in HBK = 32-deep stages.
+// Warpgroup wg holds l' rows 64 wg + [0, 64) by all 8 NT ranks (R = 88 is
+// NT = 11, no padding) in registers.
+//
+// Per stage the block copies the shifted cotangent rows and the W2 rows
+// into raw tiles (cp.async; a thread keeps one k, so one (j, c), and a warp
+// reads 4 rows x 8 channels, whole 32-byte sectors), splits them into
+// TF32 hi/lo tiles in the wgmma layout (each value once, for every product
+// it feeds), and runs 12 wgmmas per warpgroup (4 k8 steps x 3 terms).  The
+// hi/lo tiles have two buffers: the split of stage s+1 runs while the
+// wgmmas of stage s do.  Each stage's products go to a zeroed run that is
+// added to the total with f32 adds (the tensor cores truncate as they
+// accumulate).
+template <int NT>
+__global__ void __launch_bounds__(kHThreads, 1)
     hgrad_kernel(const float* __restrict__ cot, const float* __restrict__ w2,
                  float* __restrict__ dst, int Lp, int C, int R, int L_in,
                  int KC, int k_per_split, Geom g) {
-  constexpr int BM = 16 * TM;
-  __shared__ __align__(16) float As[2][BK][BM + 4];
-  __shared__ __align__(16) float Bs[2][BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int l0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
+  extern __shared__ __align__(128) float hsmem[];
+  // [2][cotangent rows (HBM x HRS), W2 rows (HRN x HRS)] as they land, then
+  // [2][A hi, A lo, W hi, W lo] split
+  constexpr int RAW = (HBM + HRN) * HRS;
+  float* hilo = hsmem + 2 * RAW;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, gid = lane / 4, tig = lane % 4;
+  const int l0 = blockIdx.x * HBM, r0 = blockIdx.y * HRN;
+  const int rw = imin(HRN, R - r0);
   const int k_begin = blockIdx.z * k_per_split;
   const int k_end = imin(k_begin + k_per_split, KC);
-  const int kk = tid % BK, row = tid / BK;
+  const int kk = 4 * (tid % 8), row = tid / 8;
 
   int k = k_begin + kk;  // this thread's reduction index, and its (j, c)
   int j = k / C, c = k % C;
   int tau = g.tau(j);
-  auto load = [&](int st) {
+  auto load = [&](int st) {  // the next stage into raw buffer st
+    float* Araw = hsmem + st * RAW;
+    float* Wraw = Araw + HBM * HRS;
     const bool kv = k < k_end;
-    const float* a = w2 + ((size_t)j * R + r0) * C + c;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = row + 16 * i;
-      const bool ok = kv && r0 + m < R;
-      cp_async4(&As[st][kk][m], ok ? a + (size_t)m * C : w2, ok);
-    }
     const float* b = cot + ((size_t)l0 + tau) * C + c;
 #pragma unroll
-    for (int i = 0; i < BN / 16; ++i) {
-      const int n = row + 16 * i;
+    for (int i = 0; i < HBM / 32; ++i) {
+      const int n = row + 32 * i;
       const bool ok = kv && l0 + n + tau < Lp;
-      cp_async4(&Bs[st][kk][n], ok ? b + (size_t)n * C : cot, ok);
+      cp_async16(&Araw[n * HRS + kk], ok ? b + (size_t)n * C : cot, ok);
     }
-    k += BK;
-    c += BK;
+    const float* w = w2 + ((size_t)j * R + r0) * C + c;
+#pragma unroll
+    for (int i = 0; i < cdiv(8 * NT, 32); ++i) {  // the 8 NT rank rows
+      const int m = row + 32 * i;
+      const bool ok = kv && m < rw;  // zero past R
+      if (m < 8 * NT)
+        cp_async16(&Wraw[m * HRS + kk], ok ? w + (size_t)m * C : w2, ok);
+    }
+    cp_async_commit();
+    k += HBK;
+    c += HBK;
     if (c >= C) {
       do {
         c -= C;
@@ -185,56 +226,98 @@ __global__ void __launch_bounds__(kThreads, 2)
       tau = g.tau(j);
     }
   };
-
-  float acc[TM][8];
+  // raw tiles -> buf; element e of a split tile is (row, k) = (8 (e / 256)
+  // + (e / 4) % 8, 4 ((e / 32) % 8) + e % 4), the no-swizzle layout with
+  // 128-byte steps along K and 1024-byte steps between 8-row groups.  All
+  // loads come first: the compiler cannot tell the tiles apart, and would
+  // otherwise wait out each load-split-store chain before the next load.
+  auto raw_at = [](int e) {
+    return (8 * (e / 256) + (e / 4) % 8) * HRS + 4 * ((e / 32) % 8) + e % 4;
+  };
+  auto split = [&](int st, float* buf) {  // raw buffer st -> buf
+    constexpr int NA = HBM * HBK / kHThreads, NW = 8 * NT * HBK / kHThreads;
+    const float* Araw = hsmem + st * RAW;
+    const float* Wraw = Araw + HBM * HRS;
+    float va[NA], vw[NW];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < NA; ++i) va[i] = Araw[raw_at(tid + kHThreads * i)];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+    for (int i = 0; i < NW; ++i) vw[i] = Wraw[raw_at(tid + kHThreads * i)];
+    float* a = buf;
+    float* w = buf + 2 * HBM * HBK;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int e = tid + kHThreads * i;
+      tf32x3::split(va[i], a[e], a[HBM * HBK + e]);
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int e = tid + kHThreads * i;
+      tf32x3::split(vw[i], w[e], w[HRN * HBK + e]);
+    }
+    tf32x3::fence_async_smem();
+  };
 
-  const int steps = cdiv(k_end - k_begin, BK);
+  float total[4 * NT], run[4 * NT];
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) total[i] = run[i] = 0.f;
+
+  constexpr int BUF = 2 * (HBM + HRN) * HBK;  // floats of one hi/lo buffer
+  // stage t is copied into raw buffer t % 2 two stages ahead, and split
+  // into hi/lo buffer t % 2 while the wgmmas of stage t-1 run
+  const int steps = cdiv(k_end - k_begin, HBK);
+  if (steps > 0) load(0);
+  if (steps > 1) load(1);
   if (steps > 0) {
-    load(0);
-    cp_async_commit();
+    if (steps > 1) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();
+    split(0, hilo);
+    __syncthreads();
+    if (steps > 2) load(0);
   }
   for (int s = 0; s < steps; ++s) {
-    const int st = s & 1;
-    if (s + 1 < steps) {
-      load(st ^ 1);  // stage st^1 was released by the last __syncthreads
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const float* buf = hilo + (s & 1) * BUF;
+    const float* ahi = buf + wg * 64 * HBK;  // this warpgroup's 64 rows
+    const float* alo = ahi + HBM * HBK;
+    const float* whi = buf + 2 * HBM * HBK;
+    const float* wlo = whi + HRN * HBK;
+    tf32x3::fence_operand(run);
+    tf32x3::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HBK / 8; ++ks) {
+      const int o = 64 * ks;  // two core matrices along K
+      tf32x3::wgmma<NT>(run, tf32x3::desc(ahi + o, 128, 1024),
+                        tf32x3::desc(wlo + o, 128, 1024), ks > 0);
+      tf32x3::wgmma<NT>(run, tf32x3::desc(alo + o, 128, 1024),
+                        tf32x3::desc(whi + o, 128, 1024), 1);
+      tf32x3::wgmma<NT>(run, tf32x3::desc(ahi + o, 128, 1024),
+                        tf32x3::desc(whi + o, 128, 1024), 1);
     }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < BK; ++q) {
-      float a[TM], b[8];
-      lds<TM>(a, &As[st][q][TM * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[st][q][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[st][q][64 + 4 * tx]);
-      b[0] = b0.x, b[1] = b0.y, b[2] = b0.z, b[3] = b0.w;
-      b[4] = b1.x, b[5] = b1.y, b[6] = b1.z, b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int p = 0; p < 8; ++p) acc[i][p] = fmaf(a[i], b[p], acc[i][p]);
+    tf32x3::wgmma_commit();
+    if (s + 1 < steps) {  // the next stage is split while the wgmmas run
+      if (s + 2 < steps) cp_async_wait<1>();  // stage s+2 may stay in flight
+      else cp_async_wait<0>();
+      __syncthreads();  // both warpgroups are done with stage s-1's buffer
+      split((s + 1) & 1, hilo + ((s + 1) & 1) * BUF);
+      __syncthreads();
+      if (s + 3 < steps) load((s + 1) & 1);
     }
-    __syncthreads();
+    tf32x3::wgmma_wait<0>();
+    tf32x3::fence_operand(run);
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) total[i] += run[i];
   }
 
   float* out = dst + (size_t)blockIdx.z * R * L_in;  // slab bz, or the output
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + TM * ty + i;
-    if (r >= R) continue;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int n = l0 + 64 * (p / 4) + 4 * tx + p % 4;
-      if (n < L_in) out[(size_t)r * L_in + n] = acc[i][p];
+    for (int q = 0; q < 4; ++q) {
+      const int l = l0 + 64 * wg + 16 * (warp % 4) + gid + 8 * (q / 2);
+      const int r = r0 + 8 * n + 2 * tig + q % 2;
+      if (r < R && l < L_in) out[(size_t)r * L_in + l] = total[4 * n + q];
     }
-  }
 }
 
 // ------------------------------------------------------- windowed hgrad --
@@ -495,18 +578,43 @@ cudaError_t finish(const float* part, const float* mu_w2, const float* mu_pos,
   return cudaGetLastError();
 }
 
-// rows of the hgrad block tile for rank R
-int hgrad_bm(int R) { return R <= 32 ? 32 : R <= 64 ? 64 : R <= 96 ? 96 : 128; }
-
 // How hgrad runs at these sizes: the windowed kernel (bm = BMR) for ranks
 // up to 16 whose offset groups each span at most WSPAN flat offsets (every
 // 1-D kernel; N-D ones whose groups stay within a short row of the kernel),
-// else the first kernel with bm = hgrad_bm(R).  steps: BK-deep steps of k = j*C + c (v1), or
-// (offset group, WBK-channel chunk) pairs (windowed).
+// else the tensor-core kernel with bm = NT n8 tiles of ranks.  steps:
+// HBK-deep steps of k = j*C + c, or (offset group, WBK-channel chunk) pairs
+// (windowed).
 struct HPlan {
   bool window;
   int bm, steps, tiles;
 };
+
+// the NT instance of the tensor-core hgrad that covers a block of R ranks
+// (wgmma widths 8 NT: 16, 32, 64, 88, 96, 128)
+int hgrad_nt(int R) {
+  const int nt = cdiv(imin(R, HRN), 8);
+  return nt <= 2 ? 2 : nt <= 4 ? 4 : nt <= 8 ? 8 : nt <= 11 ? 11
+         : nt <= 12 ? 12 : 16;
+}
+
+template <int NT>
+cudaError_t launch_hgrad(dim3 grid, cudaStream_t stream, const float* cot,
+                         const float* w2, float* dst, int Lp, int C, int R,
+                         int L_in, int KC, int kper, const Geom& g) {
+  static const cudaError_t configured = [] {  // once per instance
+    cudaError_t e = cudaFuncSetAttribute(
+        hgrad_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kHgradSmemBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        hgrad_kernel<NT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  }();
+  if (configured != cudaSuccess) return configured;
+  hgrad_kernel<NT><<<grid, kHThreads, kHgradSmemBytes, stream>>>(
+      cot, w2, dst, Lp, C, R, L_in, KC, kper, g);
+  return cudaGetLastError();
+}
 
 HPlan hgrad_plan(int R, int L_in, int C, int K, const Geom& g) {
   if (R <= 16) {
@@ -517,8 +625,8 @@ HPlan hgrad_plan(int R, int L_in, int C, int K, const Geom& g) {
     if (span <= WSPAN)
       return {true, bmr, cdiv(K, J) * cdiv(C, WBK), cdiv(L_in, WBN)};
   }
-  const int bm = hgrad_bm(R);
-  return {false, bm, cdiv(K * C, BK), cdiv(L_in, BN) * cdiv(R, bm)};
+  return {false, hgrad_nt(R), cdiv(K * C, HBK),
+          cdiv(L_in, HBM) * cdiv(R, HRN)};
 }
 
 // Splits of a reduction of `steps` BK-deep steps whose output has `tiles`
@@ -572,16 +680,20 @@ int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
       hgrad_window_kernel<16><<<grid, kThreads, 0, stream>>>(
           cot, w2, dst, Lp, C, R, K, L_in, n_c, p.steps, sper, g);
   } else {
-    const dim3 grid(cdiv(L_in, BN), cdiv(R, p.bm), splits);
-    const int KC = K * C, kper = sper * BK;
-#define PNT_HGRAD(TM)                                                  \
-  hgrad_kernel<TM><<<grid, kThreads, 0, stream>>>(cot, w2, dst, Lp, C, R, \
-                                                   L_in, KC, kper, g)
-    if (p.bm == 32) PNT_HGRAD(2);
-    else if (p.bm == 64) PNT_HGRAD(4);
-    else if (p.bm == 96) PNT_HGRAD(6);
-    else PNT_HGRAD(8);
+    const dim3 grid(cdiv(L_in, HBM), cdiv(R, HRN), splits);
+    const int KC = K * C, kper = sper * HBK;
+    cudaError_t err;
+#define PNT_HGRAD(NT)                                                   \
+  err = launch_hgrad<NT>(grid, stream, cot, w2, dst, Lp, C, R, L_in, KC, \
+                         kper, g)
+    if (p.bm == 2) PNT_HGRAD(2);
+    else if (p.bm == 4) PNT_HGRAD(4);
+    else if (p.bm == 8) PNT_HGRAD(8);
+    else if (p.bm == 11) PNT_HGRAD(11);
+    else if (p.bm == 12) PNT_HGRAD(12);
+    else PNT_HGRAD(16);
 #undef PNT_HGRAD
+    if (err != cudaSuccess) return (int)err;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;

@@ -10,42 +10,55 @@
 // MU numerator/denominator (contractions) or into one scalar (loss).  WH
 // never reaches device memory.
 //
-// What bounds them on the H100: per (64 x 64) tile of (M, K) entries the
-// contraction does 64*64*R FMAs for the WH tile plus 64*64*R (twice that
-// with the denominator) for the contraction, against 16 KB of V read once.
-// At R = 88 that is ~260 FMA per byte of V: far from HBM-bound, so the
-// limit is on chip: shared-memory bandwidth and latency.  Each thread keeps
-// a 4x4 tile of WH and a 4 x (VEC*RJ) tile of the contraction in registers
-// and reads shared memory in vectors; still, the WH product reads one float
-// from shared memory per two FMAs, where the FMA rate of the CUDA cores
-// (67 TFLOP/s peak) needs about four.  Latency is hidden by occupancy and
-// prefetch: tiles are copied with cp.async straight into shared memory (no
-// staging registers), and up to 96 rank columns a thread fits 128
-// registers, so two blocks share an SM while the next V tile is copied
-// during the contraction.  Measured at 5168x1025 R=88 a side-call runs at
-// ~14 TFLOP/s, about even with cuBLAS SGEMMs around an elementwise pass
-// (PERF.md).  Products are true f32 FMAs on CUDA cores; tensor-core
-// variants (3xTF32 mma for f32 accuracy, or opt-in TF32 or bf16) are later,
-// measured work.
+// What bounds them on the H100: per entry of V the contraction does R FMAs
+// for WH plus R (2R with the denominator) for the contraction, against 4
+// bytes of V read once: at R = 88 about 130 FLOP per byte, so the work, not
+// HBM, is the bound.  The products have to stay f32-accurate, and the
+// fastest f32-accurate arithmetic on the card is 3xTF32 on the tensor cores
+// (tf32x3.cuh): 165 TFLOP/s effective, against 67 TFLOP/s of f32 FMA on
+// the CUDA cores.
 //
-// Design, and what differs from the TPU kernel:
+// The contraction runs on the tensor cores (wgmma, 3xTF32), in the shape of
+// FlashAttention-2: F plays Q, G plays both K and V.
+//
+// * A block is one warpgroup; it owns 64 rows of F (16 per warp) and loops
+//   over 32-row steps of G.  Per step it computes its 64 x 32 tile of WH,
+//   maps it to the cotangents in registers, and multiplies them into its
+//   (64, 8 NT) accumulators: the rank sits on the wgmma's N, so R = 88 is
+//   N = 88 with no padding.
+// * Both products take A from registers.  The WH product splits F into
+//   hi/lo as each fragment is read from the F tile, which stays whole in
+//   shared memory, loaded once per block.  The contraction's A is the
+//   cotangent: the accumulator layout gives a lane the WH columns (2 tig,
+//   2 tig + 1) of each 8-column tile, and the A layout wants (tig, tig + 4).
+//   The sum over g does not care about the order of its 8 terms, so the G
+//   operand of the contraction stores row 2 tig at K position tig and
+//   2 tig + 1 at tig + 4, and the cotangents never leave registers.
+// * G's step tile is split into TF32 hi/lo once, when it lands, into both
+//   wgmma layouts it feeds (K = rank for WH, K = g for the contraction).
+// * Every tile comes by 16-byte cp.async.  V's rows (K = 1025 floats, 4100
+//   bytes) are not 16-byte aligned, so the dense fit pads them once per fit
+//   (fast_nmf, fused_mu.aligned_rows); 4-byte copies made the tile loads
+//   half of the kernel's time (PERF.md).
+// * Up to 256 ranks the F tile stays resident and the next step's G and V
+//   tiles are copied during this step; a block accumulates 128 rank
+//   columns (gridDim.z covers the rest, each block recomputing WH).  Wider
+//   ranks stream the WH product through 256-column chunks.
+// * The cotangents take no branch (fast division, log2 and exp2 for
+//   fractional beta), so a thread's 16 of them interleave.
+
+// What stays from the first design:
 //
 // * One kernel serves both sides.  The factor being updated is F (n_f rows),
-//   the other factor G (n_g rows), and V is addressed through the strides
-//   (sf, sg): H side F=H, G=W, (sf, sg) = (K, 1); W side F=W, G=H,
-//   (sf, sg) = (1, K).  WH(f, g) = F[f] . G[g] on both sides.
+//   the other factor G (n_g rows): H side F=H, G=W, V(f, g) = V[f][g]; W
+//   side F=W, G=H, V(f, g) = V[g][f].  WH(f, g) = F[f] . G[g] on both sides.
 // * The TPU grid runs in order on one core and carries the accumulator
-//   across grid steps.  Here a block owns 64 rows of F and loops over 64-row
-//   tiles of G itself, the accumulators in registers.  When the F tiles
-//   alone cannot fill the card (W side: K=1025 gives 17 tiles for 132 SMs)
-//   the G range is split over gridDim.y blocks, each writing its own
-//   (n_f, R) partial slab, and a second pass sums the slabs in a fixed
-//   order.  No atomics: the result is reproducible, so the tolerance stop
-//   of a fit is too.
-// * Any rank: the WH product streams the rank through 64-wide chunks, so
-//   shared memory does not grow with R, and a block accumulates at most 256
-//   rank columns of the output (gridDim.z covers wider ranks, each block
-//   recomputing its WH tile).
+//   across grid steps.  Here a block loops over the G steps itself.  When
+//   the F tiles alone cannot fill the card (W side: K=1025 gives 17 tiles
+//   for 132 SMs) the G range is split over gridDim.y blocks, each writing
+//   its own (n_f, R) partial slab, and a second pass sums the slabs in a
+//   fixed order.  No atomics: the result is reproducible, so the tolerance
+//   stop of a fit is too.
 // * The beta=1 MU epilogue f * (relu(acc) + eps) / mu_pos runs after the
 //   complete reduction: in the main kernel when there is one split, else in
 //   the second pass.
@@ -54,39 +67,38 @@
 //   every entry outside the matrix is forced to zero, so padding never
 //   enters a sum (the beta=0 term 1/(0+eps) would).
 //
+// The loss kernel (B2) still runs f32 FMAs on the CUDA cores: each thread
+// keeps a 4x4 tile of WH in registers, reading one shared float per two
+// FMAs; it is twice as fast as its plain version and the next to redesign.
+//
 // The cotangents mirror _cotangent_tiles (pallas_mu.py:76-92) and the loss
-// terms _loss_kernel (:318-332): one shared powf(wh+eps, beta-2) for
+// terms _loss_kernel (:318-332): one shared (wh+eps)^(beta-2) for
 // fractional beta, 1/(wh+eps) squared at beta=0, no eps at beta=2.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
-constexpr int kThreads = 256;  // a 16 x 16 grid of (tf, tg) threads
+constexpr int kThreads = 256;  // the loss: a 16 x 16 grid of (tf, tg) threads
 constexpr int BF = 64;         // F rows per block
-constexpr int BG = 64;         // G rows per step
-constexpr int RC = 64;         // rank chunk of the WH product
-constexpr int ZR = 256;        // most rank columns one block accumulates
+constexpr int BG = 64;         // the loss: G rows per step
+constexpr int RC = 64;         // the loss: rank chunk of the WH product
 constexpr int KS = RC + 4;     // row stride of the chunk tiles
 constexpr int VS = 64 + 1;     // row stride of the (64, 64) V tile
-constexpr int CS = BF + 4;     // row stride of the cotangent tiles [BG][CS]
+// the contraction on the tensor cores
+constexpr int kTcThreads = 128;  // one warpgroup, 16 F rows per warp
+constexpr int TBG = 32;          // G rows per step
+constexpr int TZR = 128;         // rank columns a block accumulates
+constexpr int TRC = 256;         // rank chunk of the WH product
+constexpr int TVH = TBG + 4;     // V tile row stride, H side: [BF][TVH]
+constexpr int TVW = BF + 4;      // V tile row stride, W side: [TBG][TVW]
+constexpr int TV_FLOATS = BF * TVH > TBG * TVW ? BF * TVH : TBG * TVW;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-
-// row stride of the (BG, rank-columns) G tile the contraction reads, a
-// multiple of 4 for its vector loads
-__host__ __device__ inline int z_stride(int R) {
-  return 4 * cdiv(imin(ZR, R), 4);
-}
-
-// shared floats before the V tile: the two chunk tiles of the WH product,
-// reused for the G tile of the contraction once the product is done
-__host__ __device__ inline int region_a(int R) {
-  return imax(2 * 64 * KS, BG * z_stride(R));
-}
 
 __device__ __forceinline__ float relu(float a) {
   return a < 0.f ? 0.f : a;  // NaN passes through, as jax.nn.relu / torch.relu
@@ -105,16 +117,25 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// 16 bytes, of which the first src_bytes come from src and the rest are 0;
+// src and dst 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // columns [c0, c0 + stored) of rows [row0, row0 + 64) of a row-major
-// (n, R) matrix into dst (row stride ds), stored <= 64; entries outside the
-// matrix or at or past column c0 + valid are zero
+// (n, R) matrix with row stride ld into dst (row stride ds), stored <= 64;
+// entries outside the matrix or at or past column c0 + valid are zero
 __device__ __forceinline__ void load_cols(float* dst, int ds,
                                           const float* __restrict__ src,
-                                          int row0, int n, int R, int c0,
+                                          int row0, int n, int ld, int c0,
                                           int valid, int stored = 64) {
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
@@ -123,7 +144,7 @@ __device__ __forceinline__ void load_cols(float* dst, int ds,
     if (c < stored) {
       const bool ok = row0 + row < n && c < valid;
       cp_async4(&dst[row * ds + c],
-                ok ? src + (size_t)(row0 + row) * R + c0 + c : src, ok);
+                ok ? src + (size_t)(row0 + row) * ld + c0 + c : src, ok);
     }
   }
 }
@@ -152,7 +173,7 @@ __device__ __forceinline__ void load_v(float* Vs, const float* __restrict__ V,
 __device__ void wh_tile(float wh[4][4], float* Fc, float* Gc,
                         const float* __restrict__ F,
                         const float* __restrict__ G, int f0, int g0, int n_f,
-                        int n_g, int R) {
+                        int n_g, int R, int ldr) {
   const int tf = threadIdx.x / 16, tg = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -160,8 +181,8 @@ __device__ void wh_tile(float wh[4][4], float* Fc, float* Gc,
     for (int j = 0; j < 4; ++j) wh[i][j] = 0.f;
   for (int rc = 0; rc < R; rc += RC) {
     const int valid = imin(RC, R - rc);
-    load_cols(Fc, KS, F, f0, n_f, R, rc, valid);
-    load_cols(Gc, KS, G, g0, n_g, R, rc, valid);
+    load_cols(Fc, KS, F, f0, n_f, ldr, rc, valid);
+    load_cols(Gc, KS, G, g0, n_g, ldr, rc, valid);
     cp_async_wait();
     __syncthreads();
     for (int r = 0; r < valid; r += 4) {  // columns up to the next 4 are 0
@@ -188,21 +209,32 @@ __device__ void wh_tile(float wh[4][4], float* Fc, float* Gc,
   }
 }
 
+// 2^x (ex2.approx: relative error 2^-22.5)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ void cotangents(float v, float wh, float beta,
                                            float& cn, float& cp) {
   if (beta == 2.f) {
     cn = v;
     cp = wh;
   } else if (beta == 1.f) {
-    cn = v / (wh + kEps);
+    cn = __fdividef(v, wh + kEps);
     cp = 0.f;
   } else if (beta == 0.f) {
-    const float r = 1.f / (wh + kEps);
+    const float r = __fdividef(1.f, wh + kEps);
     cn = r * r * v;
     cp = r;
   } else {
+    // whe > 0, so whe^(beta-2) = 2^((beta-2) log2 whe): no branches, so the
+    // 16 cotangents of a thread interleave (powf's special cases serialize
+    // them).  The fast division, log2 and exp2 err by about 2^-22
+    // (|beta-2| |log2 whe|) relative, under 1e-5.
     const float whe = wh + kEps;
-    const float p2 = powf(whe, beta - 2.f);
+    const float p2 = ex2((beta - 2.f) * __log2f(whe));
     cn = p2 * v;
     cp = p2 * whe;
   }
@@ -225,147 +257,278 @@ __device__ __forceinline__ float loss_term(float v, float wh, float beta) {
          (beta * (beta - 1.f));
 }
 
-size_t contract_smem_bytes(int R) {
-  return sizeof(float) *
-         ((size_t)region_a(R) + BF * VS + 2 * BG * CS);
-}
-
 size_t loss_smem_bytes() { return sizeof(float) * (2 * 64 * KS + BF * VS); }
 
-template <int VEC> struct VecT;
-template <> struct VecT<2> { using T = float2; };
-template <> struct VecT<4> { using T = float4; };
+// the kernel may take `bytes` of dynamic shared memory, and prefers the
+// largest shared-memory carveout (two or three blocks per SM)
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
 
-// step g of the contraction, with c = VEC (tg + 16 jj):
-//   acc[i][VEC jj + q] += C[4 tf + i][g] * Gz[g][c + q]
-template <int RJ, int VEC>
-__device__ __forceinline__ void contract_step(float an[4][VEC * RJ],
-                                              float ap[4][VEC * RJ],
-                                              const float* Cn, const float* Cp,
-                                              const float* Gz, int g, int zs,
-                                              int zw, int tf, int tg,
-                                              int need_pos) {
-  const float4 cn4 = *reinterpret_cast<const float4*>(&Cn[g * CS + 4 * tf]);
-  const float4 cp4 =
-      need_pos ? *reinterpret_cast<const float4*>(&Cp[g * CS + 4 * tf])
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float cn[4] = {cn4.x, cn4.y, cn4.z, cn4.w};
-  const float cp[4] = {cp4.x, cp4.y, cp4.z, cp4.w};
+// ------------------------------------------- the contraction (tensor cores)
+//
+// Shared memory of a block (floats), for rank chunks of width rcw =
+// min(8 cdiv(R, 8), TRC) and a row stride fs = rcw + 4 of the raw tiles:
+//   F     [BF][fs]        the F rows (the whole rank when R <= TRC)
+//   Graw  [TBG][fs]       the step's G rows as they land
+//   GS    hi, lo          G for the WH product: N = the TBG rows, K = rank
+//   GO    hi, lo          G for the contraction: N = 8 NT rank columns,
+//                         K = the TBG rows (permuted, see contract_kernel)
+//   V     [2][TV_FLOATS]  the step's V tile, one per step parity
+// GS and GO are in the wgmma no-swizzle layout (tf32x3.cuh): core matrices
+// of 8 rows x 4 K, 128-byte steps along K; GS's 8-row groups are rcw * 32
+// bytes apart, GO's 1024.
+
+__host__ __device__ inline int tc_rcw(int R) {
+  return imin(8 * cdiv(R, 8), TRC);
+}
+
+size_t contract_smem_bytes(int R, int NT) {
+  const int rcw = tc_rcw(R);
+  return sizeof(float) * ((size_t)(BF + TBG) * (rcw + 4) + 2 * TBG * rcw +
+                          2 * 8 * NT * TBG + 2 * TV_FLOATS);
+}
+
+// rows [row0, row0 + rows) x columns [c0, c0 + width) of a row-major
+// (n, R) matrix with 16-byte aligned rows ld floats apart into dst (row
+// stride ds), in 16-byte copies; width and c0 are multiples of 8, and
+// entries outside the matrix are 0
+__device__ __forceinline__ void tc_load(float* dst, int ds,
+                                        const float* __restrict__ src,
+                                        int row0, int rows, int n, int R,
+                                        int ld, int c0, int width) {
+  const int q4 = width / 4;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < rows * q4; e += kTcThreads) {
+    const int r = e / q4, c = 4 * (e % q4);
+    const int valid = imin(4, R - c0 - c);  // floats inside the matrix
+    const bool ok = row0 + r < n && valid > 0;
+    cp_async16(&dst[r * ds + c],
+               ok ? src + (size_t)(row0 + r) * ld + c0 + c : src,
+               ok ? 4 * valid : 0);
+  }
+}
+
+// the (BF, TBG) tile of V at (f0, g0) in V's own orientation, as load_v:
+// V(f, g) at V[f ldv + g] on the H side, V[g ldv + f] on the W side, rows
+// 16-byte aligned; 16-byte copies
+__device__ __forceinline__ void tc_load_v(float* Vs,
+                                          const float* __restrict__ V,
+                                          int f0, int g0, int n_f, int n_g,
+                                          int ldv, bool h_side) {
 #pragma unroll
-  for (int jj = 0; jj < RJ; ++jj) {
-    const int c = VEC * (tg + 16 * jj);
-    typename VecT<VEC>::T bv{};
-    if (c < zw)
-      bv = *reinterpret_cast<const typename VecT<VEC>::T*>(&Gz[g * zs + c]);
-    const float* b = reinterpret_cast<const float*>(&bv);
+  for (int k = 0; k < BF * TBG / 4 / kTcThreads; ++k) {
+    const int idx = threadIdx.x + k * kTcThreads;
+    // a row of the tile runs along V's contiguous axis, in 16-byte chunks
+    const int o = h_side ? idx / (TBG / 4) : idx / (BF / 4);  // f or g
+    const int i = 4 * (h_side ? idx % (TBG / 4) : idx % (BF / 4));
+    const int o0 = h_side ? f0 : g0, i0 = h_side ? g0 : f0;
+    const int valid = imin(4, (h_side ? n_g : n_f) - i0 - i);
+    const bool ok = o0 + o < (h_side ? n_f : n_g) && valid > 0;
+    cp_async16(&Vs[o * (h_side ? TVH : TVW) + i],
+               ok ? V + (size_t)(o0 + o) * ldv + i0 + i : V,
+               ok ? 4 * valid : 0);
+  }
+}
+
+// Graw (TBG x width, row stride fs) split into GS (hi, lo) and, for the
+// rank columns [zc, zc + zw) of the chunk, into GO (hi, lo).  Lane l of a
+// warp takes G row 8 q + l / 4 and rank column 4 rq + l % 4, so the GS
+// stores of a warp hit 32 banks.  Each quad's four loads come first (the
+// compiler cannot tell the tiles apart).
+__device__ __forceinline__ void tc_split(float* gs, float* go,
+                                         const float* graw, int fs,
+                                         int width, int zc, int zw,
+                                         int go_size) {
+  const int lane = threadIdx.x % 32, gl = lane / 4, kl = lane % 4;
+  const int gs_size = TBG * width;
+#pragma unroll 2
+  for (int rq = threadIdx.x / 32; rq < width / 4; rq += kTcThreads / 32) {
+    const int k = 4 * rq + kl, r = k - zc;
+    float v[TBG / 8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < TBG / 8; ++q) v[q] = graw[(8 * q + gl) * fs + k];
 #pragma unroll
-      for (int q = 0; q < VEC; ++q)
-        an[i][VEC * jj + q] = fmaf(cn[i], b[q], an[i][VEC * jj + q]);
-    if (need_pos) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < VEC; ++q)
-          ap[i][VEC * jj + q] = fmaf(cp[i], b[q], ap[i][VEC * jj + q]);
+    for (int q = 0; q < TBG / 8; ++q) {
+      float hi, lo;
+      tf32x3::split(v[q], hi, lo);
+      const int os = q * (8 * width) + rq * 32 + gl * 4 + kl;
+      gs[os] = hi;
+      gs[gs_size + os] = lo;
+      if (r >= 0 && r < zw) {
+        // g = 8 q + gl sits at K position p = 8 q + gl / 2 + 4 (gl % 2)
+        const int p = 8 * q + gl / 2 + 4 * (gl % 2);
+        const int oo = (r / 8) * 256 + (p / 4) * 32 + (r % 8) * 4 + p % 4;
+        go[oo] = hi;
+        go[go_size + oo] = lo;
+      }
     }
   }
+  tf32x3::fence_async_smem();
 }
 
 // out_neg/out_pos: the (n_f, R) outputs when gridDim.y == 1, else the
 // (gridDim.y, n_f, R) partial slabs.  mu_pos (R,) selects the beta=1
-// epilogue; it is applied here only when there is one split.  Thread
-// (tf, tg) accumulates rows f0 + 4tf + i and rank columns
-// z0 + VEC(tg + 16jj) + q.  Up to 96 rank columns (float2 groups, VEC = 2)
-// a thread fits 128 registers, so two blocks share an SM.
-template <int RJ, int VEC>
-__global__ void __launch_bounds__(kThreads, VEC == 2 ? 2 : 1)
+// epilogue; it is applied here only when there is one split.  Warp w of the
+// warpgroup holds rows f0 + 16 w + [0, 16) of the WH tile and of the
+// accumulators (rank columns z0 + [0, 8 NT)), in the mma C layout.
+//
+// Per step: WH (64 x TBG) = F G^T, one wgmma per k8 of rank and term, A
+// from registers (F split as it is read); the cotangents in registers;
+// then acc += C G, A from registers again.  A lane holds WH columns
+// (2 tig, 2 tig + 1) of each 8-column tile, and an A fragment wants K
+// columns (tig, tig + 4): the sum over g does not care about the order of
+// its 8 terms, so GO stores G row 2 tig at K position tig and 2 tig + 1 at
+// tig + 4, and the cotangents never leave registers.
+template <int NT, bool POS>
+__global__ void __launch_bounds__(kTcThreads, 1)
     contract_kernel(const float* __restrict__ V, const float* __restrict__ F,
                     const float* __restrict__ G,
                     const float* __restrict__ mu_pos,
                     float* __restrict__ out_neg, float* __restrict__ out_pos,
-                    int n_f, int n_g, int R, long long sf, long long sg,
-                    int tiles_per_split, float beta, int need_pos) {
-  extern __shared__ __align__(16) float smem[];
-  const int zs = z_stride(R);
-  float* Fc = smem;
-  float* Gc = smem + 64 * KS;
-  float* Gz = smem;  // after the WH product: the G tile of the contraction
-  float* Vs = smem + region_a(R);
-  float* Cn = Vs + BF * VS;  // cotangents, transposed: [BG][CS]
-  float* Cp = Cn + BG * CS;
-  const int tf = threadIdx.x / 16, tg = threadIdx.x % 16;
-  const int vsf = sg == 1 ? VS : 1, vsg = sg == 1 ? 1 : VS;
+                    int n_f, int n_g, int R, int ldv, int ldr, int h_side,
+                    int tiles_per_split, float beta) {
+  extern __shared__ __align__(128) float smem[];
+  const int rcw = tc_rcw(R), fs = rcw + 4;
+  constexpr int GO_SIZE = 8 * NT * TBG;
+  float* Fs = smem;
+  float* Graw = Fs + BF * fs;
+  float* GS = Graw + TBG * fs;
+  float* GO = GS + 2 * TBG * rcw;
+  float* Vbuf = GO + 2 * GO_SIZE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int vsf = h_side ? TVH : 1, vsg = h_side ? 1 : TVW;
   const int f0 = blockIdx.x * BF;
-  const int z0 = blockIdx.z * ZR;
-  const int zw = imin(ZR, R - z0);
+  const int z0 = blockIdx.z * TZR, zw = imin(TZR, R - z0);
+  const bool resident = R <= TRC;  // one rank chunk: F loaded once
   const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = imin(t_begin + tiles_per_split, cdiv(n_g, BG));
+  const int t_end = imin(t_begin + tiles_per_split, cdiv(n_g, TBG));
+  const float* Fw = Fs + 16 * warp * fs;
 
-  float an[4][VEC * RJ], ap[4][VEC * RJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < VEC * RJ; ++j) an[i][j] = ap[i][j] = 0.f;
+  // GO rows past the block's rank columns stay zero
+  for (int e = threadIdx.x; e < 2 * GO_SIZE; e += kTcThreads) GO[e] = 0.f;
 
-  // prefetching V costs registers that only the narrow-rank instances have
-  // to spare (measured: it spills and slows R=256 by 12%)
-  constexpr bool prefetch = VEC == 2;
-  if (prefetch && t_begin < t_end)
-    load_v(Vs, V, f0, t_begin * BG, n_f, n_g, sf, sg);
+  float an[4 * NT], ap[4 * NT];
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) an[i] = ap[i] = 0.f;
+
+  if (resident && t_begin < t_end) {
+    tc_load(Fs, fs, F, f0, BF, n_f, R, ldr, 0, rcw);
+    tc_load(Graw, fs, G, t_begin * TBG, TBG, n_g, R, ldr, 0, rcw);
+    tc_load_v(Vbuf, V, f0, t_begin * TBG, n_f, n_g, ldv, h_side);
+  }
   for (int t = t_begin; t < t_end; ++t) {
-    const int g0 = t * BG;
-    if (!prefetch) load_v(Vs, V, f0, g0, n_f, n_g, sf, sg);
-    float wh[4][4];
-    wh_tile(wh, Fc, Gc, F, G, f0, g0, n_f, n_g, R);  // completes Vs too
-    // the contraction's G tile arrives while the cotangents are computed
-    for (int c = 0; c < zw; c += 64)  // zero-fills columns [zw, zs)
-      load_cols(Gz + c, zs, G, g0, n_g, R, z0 + c, imin(64, zw - c),
-                imin(64, zs - c));
+    const int g0 = t * TBG;
+    float* Vs = Vbuf + ((t - t_begin) & 1) * TV_FLOATS;
+    // WH in two partial sums over alternate k8 steps: the wgmmas into one
+    // accumulator wait on each other, two chains keep the tensor cores busier
+    float s[4 * (TBG / 8)], s1[4 * (TBG / 8)];
+    if (!resident) tc_load_v(Vs, V, f0, g0, n_f, n_g, ldv, h_side);
+    for (int rc = 0; rc < R; rc += TRC) {  // one pass when resident
+      const int w8 = imin(TRC, 8 * cdiv(R - rc, 8));
+      if (!resident) {
+        tc_load(Fs, fs, F, f0, BF, n_f, R, ldr, rc, w8);
+        tc_load(Graw, fs, G, g0, TBG, n_g, R, ldr, rc, w8);
+      }
+      cp_async_wait();
+      tf32x3::wgmma_wait<0>();  // the last products are done with GS, GO
+      __syncthreads();
+      tc_split(GS, GO, Graw, fs, w8, z0 - rc, zw, GO_SIZE);
+      __syncthreads();
+      if (resident && t + 1 < t_end) {  // the next step's tiles, meanwhile
+        tc_load(Graw, fs, G, g0 + TBG, TBG, n_g, R, ldr, 0, rcw);
+        tc_load_v(Vbuf + ((t - t_begin + 1) & 1) * TV_FLOATS, V, f0,
+                  g0 + TBG, n_f, n_g, ldv, h_side);
+      }
+      tf32x3::fence_operand(s);
+      tf32x3::fence_operand(s1);
+      tf32x3::wgmma_fence();
+      const int sbo = 32 * w8;  // GS: two core matrices per k8
+      for (int k = 0; k < w8; k += 16) {
+        const tf32x3::FragA a = tf32x3::load_a(Fw + k, fs, gid, tig);
+        const float* bh = GS + 8 * k;
+        const float* bl = bh + TBG * w8;
+        tf32x3::wgmma<TBG / 8>(s, a.hi, tf32x3::desc(bl, 128, sbo),
+                               rc > 0 || k > 0);
+        tf32x3::wgmma<TBG / 8>(s, a.lo, tf32x3::desc(bh, 128, sbo), 1);
+        tf32x3::wgmma<TBG / 8>(s, a.hi, tf32x3::desc(bh, 128, sbo), 1);
+        if (k + 8 < w8) {
+          const tf32x3::FragA a1 = tf32x3::load_a(Fw + k + 8, fs, gid, tig);
+          tf32x3::wgmma<TBG / 8>(s1, a1.hi, tf32x3::desc(bl + 64, 128, sbo),
+                                 rc > 0 || k > 0);
+          tf32x3::wgmma<TBG / 8>(s1, a1.lo, tf32x3::desc(bh + 64, 128, sbo), 1);
+          tf32x3::wgmma<TBG / 8>(s1, a1.hi, tf32x3::desc(bh + 64, 128, sbo), 1);
+        }
+      }
+      tf32x3::wgmma_commit();
+      tf32x3::wgmma_wait<0>();
+      tf32x3::fence_operand(s);
+      tf32x3::fence_operand(s1);
+      if (rc + TRC >= R && R > 8)  // the last chunk: one sum
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int f = tf + 16 * i;
+        for (int i = 0; i < 4 * (TBG / 8); ++i) s[i] += s1[i];
+      if (!resident) __syncthreads();  // the next chunk overwrites F, Graw
+    }
+
+    // the cotangents of the 64 x TBG tile, all at once (their exp2/log2
+    // chains are independent), then the contraction, one k8 per 8 columns
+    float cn[4 * (TBG / 8)], cp[4 * (TBG / 8)];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int g = tg + 16 * j;
-        const bool ok = f0 + f < n_f && g0 + g < n_g;
-        float cn, cp;
-        cotangents(Vs[f * vsf + g * vsg], wh[i][j], beta, cn, cp);
-        Cn[g * CS + f] = ok ? cn : 0.f;
-        if (need_pos) Cp[g * CS + f] = ok ? cp : 0.f;
+    for (int i = 0; i < 4 * (TBG / 8); ++i) {
+      const int f = 16 * warp + gid + 8 * ((i % 4) / 2);
+      const int g = 8 * (i / 4) + 2 * tig + i % 2;
+      float a, b;
+      cotangents(Vs[f * vsf + g * vsg], s[i], beta, a, b);
+      const bool ok = f0 + f < n_f && g0 + g < n_g;
+      cn[i] = ok ? a : 0.f;
+      cp[i] = ok ? b : 0.f;
+    }
+    tf32x3::fence_operand(an);
+    if (POS) tf32x3::fence_operand(ap);
+    tf32x3::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < TBG / 8; ++j) {
+      const float* c = cn + 4 * j;
+      const tf32x3::FragA a_neg = tf32x3::frag_a(c[0], c[2], c[1], c[3]);
+      const uint64_t bh = tf32x3::desc(GO + 64 * j, 128, 1024);
+      const uint64_t bl = tf32x3::desc(GO + GO_SIZE + 64 * j, 128, 1024);
+      tf32x3::wgmma<NT>(an, a_neg.hi, bl, 1);
+      tf32x3::wgmma<NT>(an, a_neg.lo, bh, 1);
+      tf32x3::wgmma<NT>(an, a_neg.hi, bh, 1);
+      if (POS) {
+        const float* d = cp + 4 * j;
+        const tf32x3::FragA a_pos = tf32x3::frag_a(d[0], d[2], d[1], d[3]);
+        tf32x3::wgmma<NT>(ap, a_pos.hi, bl, 1);
+        tf32x3::wgmma<NT>(ap, a_pos.lo, bh, 1);
+        tf32x3::wgmma<NT>(ap, a_pos.hi, bh, 1);
       }
     }
-    cp_async_wait();
-    __syncthreads();
-    // the next V tile arrives during the contraction
-    if (prefetch && t + 1 < t_end)
-      load_v(Vs, V, f0, g0 + BG, n_f, n_g, sf, sg);
-
-#pragma unroll 2
-    for (int g = 0; g < BG; ++g)
-      contract_step<RJ, VEC>(an, ap, Cn, Cp, Gz, g, zs, zw, tf, tg, need_pos);
-    __syncthreads();
+    tf32x3::wgmma_commit();  // waited for before the next split
   }
+  tf32x3::wgmma_wait<0>();
+  tf32x3::fence_operand(an);
+  if (POS) tf32x3::fence_operand(ap);
 
   const bool epilogue = mu_pos != nullptr && gridDim.y == 1;
   const size_t slab = (size_t)blockIdx.y * n_f * R;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = f0 + 4 * tf + i;
-    if (f >= n_f) continue;
-#pragma unroll
-    for (int jj = 0; jj < RJ; ++jj)
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) {
-        const int c = VEC * (tg + 16 * jj) + q;
-        if (c >= zw) continue;
-        const size_t o = (size_t)f * R + z0 + c;
-        float a = an[i][VEC * jj + q];
-        if (epilogue) a = F[o] * ((relu(a) + kEps) / mu_pos[z0 + c]);
-        out_neg[slab + o] = a;
-        if (need_pos) out_pos[slab + o] = ap[i][VEC * jj + q];
-      }
+  for (int i = 0; i < 4 * NT; ++i) {
+    const int f = f0 + 16 * warp + gid + 8 * ((i % 4) / 2);
+    const int c = 8 * (i / 4) + 2 * tig + i % 2;
+    if (f >= n_f || c >= zw) continue;
+    const size_t o = (size_t)f * R + z0 + c;
+    float a = an[i];
+    if (epilogue)
+      a = F[(size_t)f * ldr + z0 + c] * ((relu(a) + kEps) / mu_pos[z0 + c]);
+    out_neg[slab + o] = a;
+    if (POS) out_pos[slab + o] = ap[i];
   }
 }
 
@@ -375,13 +538,14 @@ __global__ void contract_finish_kernel(
     const float* __restrict__ part_neg, const float* __restrict__ part_pos,
     const float* __restrict__ F, const float* __restrict__ mu_pos,
     float* __restrict__ out_neg, float* __restrict__ out_pos, int n_f, int R,
-    int splits, int need_pos) {
+    int ldr, int splits, int need_pos) {
   const size_t n = (size_t)n_f * R;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
        idx += (size_t)gridDim.x * blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < splits; ++s) a += part_neg[s * n + idx];
-    if (mu_pos != nullptr) a = F[idx] * ((relu(a) + kEps) / mu_pos[idx % R]);
+    if (mu_pos != nullptr)
+      a = F[idx / R * ldr + idx % R] * ((relu(a) + kEps) / mu_pos[idx % R]);
     out_neg[idx] = a;
     if (need_pos) {
       float p = 0.f;
@@ -403,7 +567,8 @@ __device__ void block_sum(float* red) {
 __global__ void __launch_bounds__(kThreads, 2)
     loss_kernel(const float* __restrict__ V, const float* __restrict__ H,
                 const float* __restrict__ W, float* __restrict__ partials,
-                int M, int K, int R, int tiles_per_split, float beta) {
+                int M, int K, int R, int ldv, int ldr, int tiles_per_split,
+                float beta) {
   extern __shared__ __align__(16) float smem[];
   float* Fc = smem;
   float* Gc = smem + 64 * KS;
@@ -414,11 +579,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t_end = imin(t_begin + tiles_per_split, cdiv(K, BG));
 
   float sum = 0.f;
-  if (t_begin < t_end) load_v(Vs, V, f0, t_begin * BG, M, K, K, 1);
+  if (t_begin < t_end) load_v(Vs, V, f0, t_begin * BG, M, K, ldv, 1);
   for (int t = t_begin; t < t_end; ++t) {
     const int g0 = t * BG;
     float wh[4][4];
-    wh_tile(wh, Fc, Gc, H, W, f0, g0, M, K, R);  // completes Vs too
+    wh_tile(wh, Fc, Gc, H, W, f0, g0, M, K, R, ldr);  // completes Vs too
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int f = tf + 16 * i;
@@ -430,7 +595,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     __syncthreads();
-    if (t + 1 < t_end) load_v(Vs, V, f0, g0 + BG, M, K, K, 1);
+    if (t + 1 < t_end) load_v(Vs, V, f0, g0 + BG, M, K, ldv, 1);
   }
   Vs[threadIdx.x] = sum;  // 64 * VS >= kThreads
   __syncthreads();
@@ -450,27 +615,29 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[0] = red[0];
 }
 
-template <int RJ, int VEC>
-cudaError_t launch_contract(dim3 grid, size_t smem, cudaStream_t stream,
+template <int NT, bool POS>
+cudaError_t launch_contract(dim3 grid, cudaStream_t stream,
                             const float* V, const float* F, const float* G,
                             const float* mu_pos, float* out_neg,
                             float* out_pos, int n_f, int n_g, int R,
-                            long long sf, long long sg, int tiles_per_split,
-                            float beta, int need_pos) {
-  cudaError_t err = cudaFuncSetAttribute(
-      contract_kernel<RJ, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  contract_kernel<RJ, VEC><<<grid, kThreads, smem, stream>>>(
-      V, F, G, mu_pos, out_neg, out_pos, n_f, n_g, R, sf, sg,
-      tiles_per_split, beta, need_pos);
+                            int ldv, int ldr, int h_side, int tiles_per_split,
+                            float beta) {
+  const size_t smem = contract_smem_bytes(R, NT);
+  // set once per instance, to the most any rank needs (two CUDA runtime
+  // calls per launch cost host time that a small fit's kernel feels)
+  static const cudaError_t configured = set_smem(
+      contract_kernel<NT, POS>, contract_smem_bytes(TRC, NT));
+  if (configured != cudaSuccess) return configured;
+  contract_kernel<NT, POS><<<grid, kTcThreads, smem, stream>>>(
+      V, F, G, mu_pos, out_neg, out_pos, n_f, n_g, R, ldv, ldr, h_side,
+      tiles_per_split, beta);
   return cudaGetLastError();
 }
 
-// enough splits of the n_g reduction for two blocks per SM, and never a
-// split without a tile
-int num_splits(int blocks, int n_g, int num_sms) {
-  const int n_gt = cdiv(n_g, BG);
+// enough splits of the n_g reduction (steps of `rows`) for two blocks per
+// SM, and never a split without a step
+int num_splits(int blocks, int n_g, int rows, int num_sms) {
+  const int n_gt = cdiv(n_g, rows);
   int s = cdiv(2 * num_sms, blocks);
   s = s < 1 ? 1 : (s > n_gt ? n_gt : s);
   return cdiv(n_gt, cdiv(n_gt, s));
@@ -482,44 +649,51 @@ extern "C" {
 
 // Splits of the contraction over n_g (the partial slabs it needs).
 int pnt_contract_splits(int n_f, int n_g, int R, int num_sms) {
-  return num_splits(cdiv(n_f, BF) * cdiv(R, ZR), n_g, num_sms);
+  return num_splits(cdiv(n_f, BF) * cdiv(R, TZR), n_g, TBG, num_sms);
 }
 
-// Returns a cudaError_t (0 on success).  part_neg/part_pos hold
-// (splits, n_f, R) floats when splits > 1 and are unused otherwise;
+// Returns a cudaError_t (0 on success).  V, F and G are row-major with
+// 16-byte aligned rows ldv (V) and ldr (F, G) floats apart: V is (n_f, n_g)
+// on the H side (h_side = 1), (n_g, n_f) on the W side.  part_neg/part_pos
+// hold (splits, n_f, R) floats when splits > 1 and are unused otherwise;
 // out_pos/part_pos are unused when need_pos is 0.
 int pnt_fused_contractions(const float* V, const float* F, const float* G,
                            const float* mu_pos, float* out_neg,
                            float* out_pos, float* part_neg, float* part_pos,
-                           int n_f, int n_g, int R, long long sf,
-                           long long sg, int splits, float beta, int need_pos,
+                           int n_f, int n_g, int R, int ldv, int ldr,
+                           int h_side, int splits, float beta, int need_pos,
                            void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (n_f < 1 || n_g < 1 || R < 1 || splits < 1)
+  if (n_f < 1 || n_g < 1 || R < 1 || splits < 1 || ldv % 4 || ldr % 4 ||
+      ldr < R || ldv < (h_side ? n_g : n_f))
     return (int)cudaErrorInvalidValue;
-  const int tps = cdiv(cdiv(n_g, BG), splits);
-  const dim3 grid(cdiv(n_f, BF), splits, cdiv(R, ZR));
-  const size_t smem = contract_smem_bytes(R);
+  const int tps = cdiv(cdiv(n_g, TBG), splits);
+  const dim3 grid(cdiv(n_f, BF), splits, cdiv(R, TZR));
   float* dn = splits == 1 ? out_neg : part_neg;
   float* dp = splits == 1 ? out_pos : part_pos;
   cudaError_t err;
-#define PNT_CONTRACT(N, VEC)                                               \
-  err = launch_contract<N, VEC>(grid, smem, stream, V, F, G, mu_pos, dn, dp, \
-                                n_f, n_g, R, sf, sg, tps, beta, need_pos)
-  const int zr = imin(R, ZR);  // rank columns of the widest block
-  if (zr <= 32) PNT_CONTRACT(1, 2);
-  else if (zr <= 64) PNT_CONTRACT(2, 2);
-  else if (zr <= 96) PNT_CONTRACT(3, 2);
-  else if (zr <= 128) PNT_CONTRACT(2, 4);
-  else if (zr <= 192) PNT_CONTRACT(3, 4);
-  else PNT_CONTRACT(4, 4);
+#define PNT_CONTRACT(NT)                                                   \
+  err = need_pos ? launch_contract<NT, true>(grid, stream, V, F, G, mu_pos, \
+                                             dn, dp, n_f, n_g, R, ldv, ldr, \
+                                             h_side, tps, beta)             \
+                 : launch_contract<NT, false>(grid, stream, V, F, G, mu_pos, \
+                                              dn, dp, n_f, n_g, R, ldv, ldr, \
+                                              h_side, tps, beta)
+  // n8 tiles of the widest block, as a wgmma width (tf32x3.cuh)
+  const int nt = cdiv(imin(R, TZR), 8);
+  if (nt <= 2) PNT_CONTRACT(2);
+  else if (nt <= 4) PNT_CONTRACT(4);
+  else if (nt <= 8) PNT_CONTRACT(8);
+  else if (nt <= 11) PNT_CONTRACT(11);
+  else if (nt <= 12) PNT_CONTRACT(12);
+  else PNT_CONTRACT(16);
 #undef PNT_CONTRACT
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const int n = n_f * R;
     const int blocks = imin(cdiv(n, kThreads), 4096);
     contract_finish_kernel<<<blocks, kThreads, 0, stream>>>(
-        part_neg, part_pos, F, mu_pos, out_neg, out_pos, n_f, R, splits,
+        part_neg, part_pos, F, mu_pos, out_neg, out_pos, n_f, R, ldr, splits,
         need_pos);
   }
   return (int)cudaGetLastError();
@@ -527,24 +701,26 @@ int pnt_fused_contractions(const float* V, const float* F, const float* G,
 
 // Splits of the loss over K; it writes cdiv(M, 64) * splits partial sums.
 int pnt_loss_splits(int M, int K, int num_sms) {
-  return num_splits(cdiv(M, BF), K, num_sms);
+  return num_splits(cdiv(M, BF), K, BG, num_sms);
 }
 
 int pnt_loss_partials(int M, int splits) { return cdiv(M, BF) * splits; }
 
-// partials holds pnt_loss_partials(M, splits) floats; out one float.
+// partials holds pnt_loss_partials(M, splits) floats; out one float.  V
+// (M, K), H (M, R) and W (K, R) are row-major, rows ldv and ldr floats apart.
 int pnt_fused_beta_loss(const float* V, const float* H, const float* W,
                         float* partials, float* out, int M, int K, int R,
-                        int splits, float beta, void* stream_ptr) {
+                        int ldv, int ldr, int splits, float beta,
+                        void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (M < 1 || K < 1 || R < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = loss_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      loss_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t configured = set_smem(loss_kernel, smem);
+  if (configured != cudaSuccess) return (int)configured;
+  cudaError_t err;
   const dim3 grid(cdiv(M, BF), splits);
   loss_kernel<<<grid, kThreads, smem, stream>>>(
-      V, H, W, partials, M, K, R, cdiv(cdiv(K, BG), splits), beta);
+      V, H, W, partials, M, K, R, ldv, ldr, cdiv(cdiv(K, BG), splits), beta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   loss_finish_kernel<<<1, kThreads, 0, stream>>>(partials, grid.x * grid.y,

@@ -9,6 +9,7 @@ import torch
 
 __all__ = [
     "is_tensor_like",
+    "resolve_device",
     "to_param",
     "rand_abs_normal",
     "assert_nonneg",
@@ -25,24 +26,42 @@ def is_tensor_like(x) -> bool:
     return hasattr(x, "shape") and hasattr(x, "ndim")
 
 
+def resolve_device(device=None,
+                   generator: Optional[torch.Generator] = None) -> torch.device:
+    """The device a model lives on: ``device``, the card (``"cuda"``) when
+    ``None``.  Raises ``ValueError`` for a ``generator`` on another device,
+    and ``RuntimeError`` for the card where there is none: the port never
+    falls back to the CPU unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if generator is not None:
+        gen = generator.device
+        if gen.type != device.type or (
+                device.index is not None and gen.index != device.index):
+            raise ValueError(f"the generator is on {gen}, the model on {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the CPU")
+    return device
+
+
 def to_param(x, device=None) -> torch.Tensor:
-    """Factor values as a tensor on ``device`` (its own device when
-    ``None``): float64 stays float64 (the generic engine then runs in
-    double precision, as the reference honors the input dtype,
+    """Factor values as a tensor on ``device`` (:func:`resolve_device`: the
+    card when ``None``): float64 stays float64 (the generic engine then runs
+    in double precision, as the reference honors the input dtype,
     ``torchnmf/nmf.py:215``); every other dtype becomes float32.  Always a
     copy: fitting the model never writes into the caller's array."""
     x = torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x))
     dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
-    return x.detach().to(device=device, dtype=dtype, copy=True)
+    return x.detach().to(device=resolve_device(device), dtype=dtype, copy=True)
 
 
 def rand_abs_normal(shape, generator: Optional[torch.Generator] = None,
                     device=None) -> torch.Tensor:
     """|N(0,1)| init, the reference's ``torch.randn(*size).abs()``
-    (nmf.py:221,234), drawn from ``generator`` on ``device`` (the
-    generator's device when ``None``)."""
-    if device is None and generator is not None:
-        device = generator.device
+    (nmf.py:221,234), drawn from ``generator`` on ``device``
+    (:func:`resolve_device`: the card when ``None``)."""
+    device = resolve_device(device, generator)
     return torch.randn(tuple(shape), generator=generator, device=device).abs()
 
 

@@ -4,8 +4,9 @@ r"""NMF models: ``BaseComponent``, ``NMF``, ``NMFD``, ``NMF2D`` and ``NMF3D``
 The classes are ``torch.nn.Module``\ s holding ``nn.Parameter``\ s ``W`` and
 ``H``, with the reference's constructor shape inference and validation
 (``torchnmf/nmf.py:173-260``); ``requires_grad`` records the
-``trainable_W``/``trainable_H`` flags.  ``fit`` runs the dense solver of
-:mod:`pytorch_nmf_tpu_torch.ops.solver` on ``V.device``.
+``trainable_W``/``trainable_H`` flags.  The factors live on the card unless
+the constructor is given ``device="cpu"``; ``fit`` moves ``V`` there and runs
+the dense solver of :mod:`pytorch_nmf_tpu_torch.ops.solver`.
 
 ===========  =======================  ==========================
 model        V                        W / H
@@ -33,6 +34,7 @@ from ._common import (
     is_tensor_like,
     pair,
     rand_abs_normal,
+    resolve_device,
     single,
     to_param,
     triple,
@@ -50,9 +52,11 @@ class BaseComponent(nn.Module):
         W: shape tuple (random |N(0,1)| init) or initial non-negative values.
         H: shape tuple or initial non-negative values.
         trainable_W / trainable_H: freeze flags for given initial values.
-        device: where random inits are drawn and given values are placed
-            (given tensors keep their device when ``None``).
-        generator: the ``torch.Generator`` random inits are drawn from.
+        device: where random inits are drawn and given values are placed;
+            the card (``"cuda"``) when ``None``, which raises without one.
+            Pass ``device="cpu"`` to run on the CPU.
+        generator: the ``torch.Generator`` random inits are drawn from, on
+            the model's device (another device raises ``ValueError``).
     """
 
     def __init__(
@@ -67,6 +71,7 @@ class BaseComponent(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        device = resolve_device(device, generator)
 
         def make(x, name, trainable):
             if is_tensor_like(x):
@@ -137,22 +142,22 @@ class BaseComponent(nn.Module):
         l1_ratio: float = 0,
     ) -> int:
         r"""Learn the factorization by minimizing the β-divergence with
-        multiplicative updates (reference nmf.py:297-409) on ``V.device``.
+        multiplicative updates (reference nmf.py:297-409) on the factors'
+        device.  ``V`` (a tensor anywhere, or a numpy array) is moved there.
         Returns the number of iterations run."""
         if isinstance(V, torch.Tensor) and V.layout != torch.strided:
             raise NotImplementedError(
                 "sparse targets come with the sparse slice of the port "
                 "(ops/sparse.py, get_sparse_fit); densify V for now"
             )
-        V = torch.as_tensor(V)
-        if V.dtype != torch.float64:
-            V = V.to(torch.float32)
         W, H = self.W, self.H
+        V = torch.as_tensor(V)
+        V = V.to(W.device, V.dtype if V.dtype == torch.float64 else torch.float32)
         for name, p in (("W", W), ("H", H)):
             if p.device != V.device or p.dtype != V.dtype:
                 raise ValueError(
-                    f"{name} is {p.dtype} on {p.device}, V is {V.dtype} on "
-                    f"{V.device}: the fit runs where V lies, in V's dtype"
+                    f"{name} is {p.dtype} on {p.device}, V is {V.dtype}: the "
+                    f"fit runs in V's dtype, on the factors' device"
                 )
         validate_target(V, beta)
         V = V.contiguous()

@@ -3,11 +3,12 @@
 Each source ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface, loaded
 through :mod:`ctypes`.  The libraries land in ``build/pytorch_nmf_tpu_torch/``
-beside the package, keyed on a hash of their source and flags, so an edited
-source rebuilds and an unchanged one loads in milliseconds.  The compiler's
-resource report (registers, shared memory, spills per kernel) is kept beside
-each as ``.log``.  :func:`load_all` starts one ``nvcc`` per source, all at
-once.  Nothing here runs at import.
+beside the package, keyed on a hash of their source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds and an
+unchanged one loads in milliseconds.  The compiler's resource report
+(registers, shared memory, spills per kernel) is kept beside each as
+``.log``.  :func:`load_all` starts one ``nvcc`` per source, all at once.
+Nothing here runs at import.
 """
 
 import ctypes
@@ -29,7 +30,6 @@ _NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 _F = ctypes.c_float
 # every C entry point of each source: (argtypes, restype)
 _SIGNATURES = {
@@ -37,9 +37,8 @@ _SIGNATURES = {
         "pnt_contract_splits": ([_I, _I, _I, _I], _I),
         "pnt_loss_splits": ([_I, _I, _I], _I),
         "pnt_loss_partials": ([_I, _I], _I),
-        "pnt_fused_contractions": (
-            [_P] * 8 + [_I, _I, _I, _L, _L, _I, _F, _I, _P], _I),
-        "pnt_fused_beta_loss": ([_P] * 5 + [_I, _I, _I, _I, _F, _P], _I),
+        "pnt_fused_contractions": ([_P] * 8 + [_I] * 7 + [_F, _I, _P], _I),
+        "pnt_fused_beta_loss": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
     },
     "fused_deconv": {
         "pnt_hgrad_splits": ([_I] * 10, _I),
@@ -62,9 +61,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
+    """The library's path, keyed on its source, every shared header of
+    ``csrc/`` and the flags."""
+    sources = [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in sources) + " ".join(_NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -88,11 +88,25 @@ def _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss):
 
 def nmf_updater_factory_fused(beta, gamma, l1_reg, l2_reg):
     """β = 2 → Gram trick; other β → the fused contraction and loss
-    wrappers (the CUDA kernels on a CUDA target)."""
+    wrappers (the CUDA kernels on a CUDA target).  The kernels copy rows of
+    V in 16-byte pieces: a V whose rows are not 16-byte aligned is padded
+    once per fit (every update of a fit gets the same V)."""
     if beta == 2:
         return _beta2_updaters(gamma, l1_reg, l2_reg)
-    return _fused_updaters(beta, gamma, l1_reg, l2_reg,
-                           fused_mu.fused_contractions, fused_mu.fused_beta_loss)
+    last = [None, None]  # V, and V with aligned rows
+
+    def aligned(V):
+        if last[0] is not V:
+            last[:] = V, fused_mu.aligned_rows(V)
+        return last[1]
+
+    def contract(V, *args, **kwargs):
+        return fused_mu.fused_contractions(aligned(V), *args, **kwargs)
+
+    def beta_loss(V, H, W, beta):
+        return fused_mu.fused_beta_loss(aligned(V), H, W, beta)
+
+    return _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss)
 
 
 def nmf_updater_factory_plain(beta, gamma, l1_reg, l2_reg):

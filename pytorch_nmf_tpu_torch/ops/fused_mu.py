@@ -18,6 +18,7 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 ``fused_contractions.launches`` and ``fused_beta_loss.launches``.
 """
 
+import functools
 from typing import Optional
 
 import torch
@@ -25,6 +26,7 @@ import torch
 from ..constants import eps
 
 __all__ = [
+    "aligned_rows",
     "fused_contractions",
     "w_side_contractions",
     "h_side_contractions",
@@ -84,6 +86,38 @@ def plain_beta_loss(V, H, W, beta: float):
     return torch.sum(_loss_terms(V, H @ W.T, beta))
 
 
+def aligned_rows(x):
+    """``x`` (2-D) itself when its rows are contiguous and 16-byte aligned,
+    as the kernels copy them, else the same values as a view of a copy whose
+    rows are zero-padded to a multiple of 4 floats.  CPU tensors are
+    returned as they are.  The dense fit pads V once per fit with it
+    (``fast_nmf``): V = 5168×1025 has 4100-byte rows."""
+    if x.device.type == "cpu" or (
+            x.stride(1) == 1 and x.stride(0) % 4 == 0 and
+            x.stride(0) >= x.shape[1] and x.data_ptr() % 16 == 0):
+        return x
+    return _padded(x)
+
+
+def _padded(x):
+    """A copy of ``x`` whose rows are zero-padded to a multiple of 4 floats
+    (fresh storage, so 16-byte aligned), as a view of its first columns."""
+    n = x.shape[1]
+    buf = x.new_empty((x.shape[0], n + -n % 4))
+    buf[:, :n] = x
+    buf[:, n:] = 0
+    return buf[:, :n]
+
+
+def _factor_rows(F, G):
+    """``F`` and ``G`` with 16-byte aligned rows and one row stride, which
+    the kernels take for both."""
+    F, G = aligned_rows(F), aligned_rows(G)
+    if F.stride(0) != G.stride(0):
+        F, G = _padded(F), _padded(G)
+    return F, G
+
+
 def _check_operands(V, H, W):
     """Raise on any CUDA operand the kernels do not take; returns M, K, R."""
     for name, x in (("V", V), ("H", H), ("W", W)):
@@ -91,8 +125,8 @@ def _check_operands(V, H, W):
             raise ValueError(f"{name} is on {x.device}, V on {V.device}")
         if x.dtype != torch.float32:
             raise TypeError(f"the fused kernels take float32; {name} is {x.dtype}")
-        if x.ndim != 2 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+        if x.ndim != 2 or x.stride(1) != 1 or x.stride(0) < x.shape[1]:
+            raise ValueError(f"{name} must be a 2-D tensor with contiguous rows")
     M, K = V.shape
     R = H.shape[1]
     if H.shape != (M, R) or W.shape != (K, R):
@@ -109,6 +143,7 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -139,23 +174,24 @@ def fused_contractions(V, H, W, *, beta: float, need_pos: bool, w_side: bool,
                 mu_pos.device != V.device:
             raise ValueError("mu_pos must hold R float32 values on V's device")
         mu_pos = mu_pos.contiguous()
-    F, G = (W, H) if w_side else (H, W)
+    V = aligned_rows(V)
+    F, G = _factor_rows(*((W, H) if w_side else (H, W)))
     n_f, n_g = F.shape[0], G.shape[0]
-    sf, sg = (1, K) if w_side else (K, 1)
     splits = lib.pnt_contract_splits(n_f, n_g, R, _sm_count(V.device))
 
-    def empty(*shape, needed=True):
-        return (torch.empty(shape, device=V.device, dtype=torch.float32)
-                if needed else None)
-
-    out_neg, out_pos = empty(n_f, R), empty(n_f, R, needed=need_pos)
-    # the per-split partial slabs the second pass sums (none for one split)
-    part_neg = empty(splits, n_f, R, needed=splits > 1)
-    part_pos = empty(splits, n_f, R, needed=splits > 1 and need_pos)
+    # the outputs and, for more than one split, the partial slabs the second
+    # pass sums: one allocation (each costs host time a small call feels)
+    n_out = 1 + need_pos
+    buf = torch.empty((n_out * (1 + (splits > 1) * splits), n_f, R),
+                      device=V.device, dtype=torch.float32)
+    out_neg, out_pos = buf[0], (buf[1] if need_pos else None)
+    part_neg = buf[n_out:n_out + splits] if splits > 1 else None
+    part_pos = buf[n_out + splits:] if splits > 1 and need_pos else None
     err = lib.pnt_fused_contractions(
         *(_ptr(x) for x in (V, F, G, mu_pos, out_neg, out_pos, part_neg,
                             part_pos)),
-        n_f, n_g, R, sf, sg, splits, float(beta), int(need_pos),
+        n_f, n_g, R, V.stride(0), F.stride(0), int(not w_side), splits,
+        float(beta), int(need_pos),
         torch.cuda.current_stream(V.device).cuda_stream,
     )
     if err != 0:
@@ -177,6 +213,7 @@ def fused_beta_loss(V, H, W, beta: float):
     from ._build import load_library
 
     M, K, R = _check_operands(V, H, W)
+    H, W = _factor_rows(H, W)
     lib = load_library("fused_mu")
     splits = lib.pnt_loss_splits(M, K, _sm_count(V.device))
     partials = torch.empty(lib.pnt_loss_partials(M, splits), device=V.device,
@@ -184,7 +221,7 @@ def fused_beta_loss(V, H, W, beta: float):
     out = torch.empty((), device=V.device, dtype=torch.float32)
     err = lib.pnt_fused_beta_loss(
         V.data_ptr(), H.data_ptr(), W.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), M, K, R, splits, float(beta),
+        out.data_ptr(), M, K, R, V.stride(0), H.stride(0), splits, float(beta),
         torch.cuda.current_stream(V.device).cuda_stream,
     )
     if err != 0:

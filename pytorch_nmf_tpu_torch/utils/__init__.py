@@ -25,9 +25,10 @@ def renorm(x: torch.Tensor, axis=None) -> torch.Tensor:
     return x / torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
 
 
-def nmf_from_numpy(params: "dict[str, np.ndarray]", device,
+def nmf_from_numpy(params: "dict[str, np.ndarray]", device=None,
                    trainable_W: bool = True, trainable_H: bool = True):
-    """The port's model holding the given factors on ``device``, chosen by
+    """The port's model holding the given factors on ``device`` (the card
+    when ``None``; ``"cpu"`` for the CPU), chosen by
     the number of axes of ``W``: ``W (K, R)`` builds ``NMF`` (with ``H (M, R)``),
     ``W (C, R, *k)`` with one to three kernel axes ``NMFD``, ``NMF2D`` or
     ``NMF3D`` (with ``H (N, R, *S_in)``).  The layouts are the JAX package's."""

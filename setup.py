@@ -23,7 +23,7 @@ setup(
     # from these sources with nvcc at first use
     package_data={
         "pytorch_nmf_tpu.native": ["*.cpp"],
-        "pytorch_nmf_tpu_torch": ["csrc/*.cu"],
+        "pytorch_nmf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=[

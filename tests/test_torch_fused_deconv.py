@@ -291,6 +291,28 @@ def test_cuda_hgrad_matches_plain(cuda, N, C, s_in, kernel, R):
     _assert_kernel(got, D.plain_hgrad(cot, W2, R, op.L_h, geom=op.geom))
 
 
+# the tile edges of the tensor-core hgrad (128 l' rows, 32-deep steps of
+# k = j*C + c, 8-rank tiles, 128 ranks a block): ranks 1, 3 and 13 through
+# N-D kernels whose offset groups span more than the windowed kernel takes,
+# 88 and 257 in 1-D; L_in and C ragged (1025); one split (7 x 5 reduction
+# terms) and many
+TILE_EDGE_CASES = [
+    (1, 9, (5, 70), (3, 4), 1),
+    (1, 9, (5, 70), (3, 4), 3),
+    (1, 17, (6, 60), (2, 5), 13),
+    (1, 1025, (600,), (37,), 88),
+    (1, 7, (2000,), (5,), 88),
+    (1, 65, (300,), (9,), 257),
+    (2, 33, (150,), (12,), 88),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, C, s_in, kernel, R", TILE_EDGE_CASES)
+def test_cuda_hgrad_tile_edges(cuda, N, C, s_in, kernel, R):
+    test_cuda_hgrad_matches_plain(cuda, N, C, s_in, kernel, R)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_cots", [1, 2])
 @pytest.mark.parametrize("N, C, s_in, kernel, R", CUDA_CASES)

@@ -131,6 +131,22 @@ def test_epilogue_excludes_need_pos(data):
                                     w_side=True, mu_pos=tmu.kl_pos_W(H))
 
 
+@pytest.mark.parametrize("n", [1025, 88, 3])
+def test_padded_rows_keep_values(n):
+    """The kernels copy rows in 16-byte pieces: ``_padded`` keeps the values
+    and pads each row to a multiple of 4 floats with zeros; a CPU tensor
+    passes ``aligned_rows`` as it is."""
+    x = torch.from_numpy(np.random.RandomState(n).rand(5, n).astype("f"))
+    p = fused_mu._padded(x)
+    assert p.shape == x.shape and p.stride(0) % 4 == 0 and p.stride(1) == 1
+    assert torch.equal(p, x) and p.data_ptr() % 16 == 0
+    full = p.as_strided((5, p.stride(0)), (p.stride(0), 1))
+    assert not bool(full[:, n:].any())
+    assert fused_mu.aligned_rows(x) is x
+    F, G = fused_mu._factor_rows(x, x[:, :n])
+    assert F.stride(0) == G.stride(0)
+
+
 def test_cpu_tensors_never_launch(data):
     V, W, H = (torch.from_numpy(x) for x in data)
     before = (fused_mu.fused_contractions.launches,
@@ -176,6 +192,26 @@ def test_cuda_contractions_match_plain(cuda, shape, beta, need_pos, epilogue,
         if g is not None:
             assert g.is_cuda and g.shape == r.shape
             torch.testing.assert_close(g, r, rtol=RTOL_CUDA, atol=0)
+
+
+# the tile edges of the tensor-core contraction (64 F rows, 32-row G steps,
+# 8-column rank tiles, 128 rank columns a block): ranks 1, 3, 13, 88 and
+# 257 (three rank blocks, the last one column wide), dimensions of 1025;
+# a G extent of 30 runs one split on the H side and many on the W side;
+# every branch of the cotangents, β=2 included
+TILE_EDGE_SHAPES = [(1025, 30, 1), (30, 1025, 3), (1025, 1025, 13),
+                    (1025, 517, 88), (300, 1025, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TILE_EDGE_SHAPES)
+@pytest.mark.parametrize("beta, need_pos, epilogue",
+                         CONTRACTION_CASES + [(2.0, True, False)])
+@pytest.mark.parametrize("w_side", [True, False])
+def test_cuda_contraction_tile_edges(cuda, shape, beta, need_pos, epilogue,
+                                     w_side):
+    test_cuda_contractions_match_plain(cuda, shape, beta, need_pos, epilogue,
+                                       w_side)
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from pytorch_nmf_tpu.nmf import NMF as JNMF
-from pytorch_nmf_tpu_torch.nmf import NMF
+from pytorch_nmf_tpu_torch.nmf import NMF, NMFD
 from pytorch_nmf_tpu_torch.ops import fast_nmf, solver
 from pytorch_nmf_tpu_torch.utils import nmf_from_numpy
 
@@ -100,13 +100,15 @@ def test_zeros_with_nonpositive_beta_raise(problem, beta):
 
 
 def test_negative_target_raises(problem):
-    m = NMF((M, K), R, generator=torch.Generator().manual_seed(0))
+    m = NMF((M, K), R, device="cpu",
+            generator=torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="non-negative"):
         m.fit(-torch.from_numpy(problem[0]))
 
 
 def test_sparse_target_not_yet_ported(problem):
-    m = NMF((M, K), R, generator=torch.Generator().manual_seed(0))
+    m = NMF((M, K), R, device="cpu",
+            generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="sparse"):
         m.fit(torch.from_numpy(problem[0]).to_sparse())
 
@@ -147,12 +149,14 @@ def test_factory_resolution(device, dtype, factory):
 
 
 def test_constructor_shapes_and_seeded_init():
-    a = NMF((M, K), R, generator=torch.Generator().manual_seed(3))
-    b = NMF((M, K), R, generator=torch.Generator().manual_seed(3))
+    a = NMF((M, K), R, device="cpu",
+            generator=torch.Generator().manual_seed(3))
+    b = NMF((M, K), R, device="cpu",
+            generator=torch.Generator().manual_seed(3))
     assert a.W.shape == (K, R) and a.H.shape == (M, R) and a.rank == R
     assert a().shape == (M, K)
     assert bool((a.W >= 0).all()) and torch.equal(a.W, b.W)
-    assert NMF((M, K), generator=torch.Generator()).rank == K
+    assert NMF((M, K), device="cpu", generator=torch.Generator()).rank == K
 
 
 @pytest.mark.parametrize(
@@ -163,13 +167,58 @@ def test_constructor_shapes_and_seeded_init():
 )
 def test_invalid_construct(kwargs):
     with pytest.raises(ValueError):
-        NMF(**kwargs)
+        NMF(**kwargs, device="cpu")
 
 
 def test_fit_rejects_factors_elsewhere(problem):
     m = nmf_from_numpy({"W": problem[1], "H": problem[2]}, "cpu")
-    with pytest.raises(ValueError, match="where V lies"):
+    with pytest.raises(ValueError, match="V's dtype"):
         m.fit(torch.from_numpy(problem[0]).double())
+
+
+@pytest.mark.parametrize("build", [
+    lambda: NMF((M, K), R),
+    lambda: NMF((M, K), R, device=None),
+    lambda: NMFD((1, 20, 100), 5, T=7),
+    lambda: nmf_from_numpy({"W": np.ones((K, R), "f"), "H": np.ones((M, R), "f")}),
+])
+def test_default_device_is_the_card(build):
+    """``device=None`` means ``"cuda"``, for drawn and given inits alike:
+    the factors land on the card, and without one the constructor raises
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        m = build()
+        assert m.W.is_cuda and m.H.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_generator_on_another_device_raises(device):
+    with pytest.raises(ValueError, match="generator"):
+        NMF((M, K), R, device=device, generator=torch.Generator())
+
+
+def test_fit_takes_numpy(problem):
+    """``fit`` takes V as numpy (as the JAX package's does) and moves it to
+    the factors' device: the same fit as from a tensor."""
+    V, W0, H0 = problem
+    a = nmf_from_numpy({"W": W0, "H": H0}, "cpu")
+    b = nmf_from_numpy({"W": W0, "H": H0}, "cpu")
+    assert a.fit(V, beta=0.5, tol=0, max_iter=10) == 10
+    b.fit(torch.from_numpy(V), beta=0.5, tol=0, max_iter=10)
+    assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+
+
+@pytest.mark.cuda
+def test_cuda_default_model_fits_numpy(problem):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    V, W0, H0 = problem
+    m = nmf_from_numpy({"W": W0, "H": H0})
+    assert m.fit(V, beta=1, tol=0, max_iter=10) == 10
+    assert m.W.is_cuda and bool(torch.isfinite(m.W).all())
 
 
 def test_verbose_reports_each_chunk(problem, capsys):

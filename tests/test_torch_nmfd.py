@@ -97,22 +97,24 @@ def test_tol_fit_stops_at_the_same_iteration():
 
 
 def test_constructor_shape_inference():
-    m = NMFD((2, 20, 100), 5, T=7, generator=torch.Generator().manual_seed(0))
+    m = NMFD((2, 20, 100), 5, T=7, device="cpu",
+             generator=torch.Generator().manual_seed(0))
     assert m.W.shape == (20, 5, 7) and m.H.shape == (2, 5, 94)
     assert m.kernel_size == (7,) and m.out_channels == 20 and m.rank == 5
     assert m().shape == (2, 20, 100)
-    m2 = NMF2D((1, 6, 12, 14), 3, kernel_size=(3, 4),
+    m2 = NMF2D((1, 6, 12, 14), 3, kernel_size=(3, 4), device="cpu",
                generator=torch.Generator())
     assert m2.W.shape == (6, 3, 3, 4) and m2.H.shape == (1, 3, 10, 11)
-    assert NMF2D((1, 6, 12, 14), 3, kernel_size=3).W.shape == (6, 3, 3, 3)
-    m3 = NMF3D((1, 4, 9, 8, 7), 2, kernel_size=(2, 3, 4))
+    assert NMF2D((1, 6, 12, 14), 3, kernel_size=3,
+                 device="cpu").W.shape == (6, 3, 3, 3)
+    m3 = NMF3D((1, 4, 9, 8, 7), 2, kernel_size=(2, 3, 4), device="cpu")
     assert m3.W.shape == (4, 2, 2, 3, 4) and m3.H.shape == (1, 2, 8, 6, 4)
-    assert NMFD((1, 20, 100), T=7).rank == 20
+    assert NMFD((1, 20, 100), T=7, device="cpu").rank == 20
     for model in (NMFD, NMF2D, NMF3D):  # the JAX package's argument names
         names = model.__init__.__code__.co_varnames[:4]
         assert names == JAX_MODELS[model.__name__].__init__.__code__.co_varnames[:4]
     with pytest.raises(ValueError):
-        NMF2D((1, 6, 12, 14), 3, kernel_size=(3, 4, 5))
+        NMF2D((1, 6, 12, 14), 3, kernel_size=(3, 4, 5), device="cpu")
 
 
 @pytest.mark.parametrize("beta", [0, -0.5])
