@@ -32,7 +32,7 @@ Drives the port's two paths at full width, each in phases:
    function (``F.convNd`` and ``torch.nn.grad.convNd_weight``, cuDNN; the
    port never calls them), with CUDA events; each kernel's bound is the
    larger of its operations at the 3xTF32 rate and its bytes at the HBM
-   rate.
+   rate (B4 also for the neg/pos pair: twice the operations).
 
 Any failure raises (exit code ≠ 0).  The second-to-last line of standard
 output is a JSON summary of the kernels, the last line
@@ -296,11 +296,15 @@ def compare_deconv_kernels(F, D, kl_pos_W):
         }
         Lp, C_ = cot.shape
         K = W2.shape[0] // R_
+        wgrad_work = (2 * K * R_ * C_ * Lp,
+                      4 * (op["L_h"] * R_ + Lp * C_ + K * R_ * C_))
         work = {  # (operations, bytes) of one call
             "hgrad": (2 * R_ * op["L_h"] * K * C_,
                       4 * (Lp * C_ + K * R_ * C_ + R_ * op["L_h"])),
-            "wgrad beta=1 neg": (2 * K * R_ * C_ * Lp,
-                                 4 * (op["L_h"] * R_ + Lp * C_ + K * R_ * C_)),
+            "wgrad beta=1 neg": wgrad_work,
+            # the pair: twice the operations, two cotangents in, two out
+            "wgrad beta=0.5 neg+pos": (2 * wgrad_work[0], 4 * (
+                op["L_h"] * R_ + 2 * Lp * C_ + 2 * K * R_ * C_)),
         }
         for case, call in calls.items():
             name = case.split()[0]
@@ -311,19 +315,22 @@ def compare_deconv_kernels(F, D, kl_pos_W):
             rel = max(record(name, f"{label} {case}", g, r)
                       for g, r in zip(got, ref))
             line = f"B{3 if name == 'hgrad' else 4} {label} {case}: max rel err {rel:.3g}"
-            if label == "NMFD" or case in library:
+            timed = label == "NMFD" or case in library
+            if timed:
                 ms = cuda_ms(lambda: call(fn), reps=10, warmup=1)
                 pms = cuda_ms(lambda: call(plain), reps=10, warmup=1)
                 line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
             if case in library:
                 lms = cuda_ms(library[case], reps=10, warmup=1)
+                line += f", library {lms:.4f} ms"
+            if timed and case in work:
                 b_ms, b_by, fp32_ms = bound(*work[case])
-                line += (f", library {lms:.4f} ms, bound {b_ms:.4f} ms "
-                         f"({b_by}; {fp32_ms:.4f} at the CUDA cores' f32 "
-                         f"peak), {100 * b_ms / ms:.1f}% of it")
-                if label == "NMFD":
-                    stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                       bound_ms=b_ms, bound_by=b_by)
+                line += (f", bound {b_ms:.4f} ms ({b_by}; {fp32_ms:.4f} at "
+                         f"the CUDA cores' f32 peak), {100 * b_ms / ms:.1f}% "
+                         "of it")
+            if case in library and label == "NMFD":
+                stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                   bound_ms=b_ms, bound_by=b_by)
             print(line, flush=True)
     return stats
 

@@ -1,14 +1,24 @@
-"""Time B1 and B3 and the dense and NMFD fits of one tree of this repository,
-for comparing two commits on one card.
+"""Time the kernels and fits of one tree of this repository, for comparing
+two commits on one card.
 
     python chip_tools/ab_time.py LABEL      # from the root of the tree
 
 Unpack the other commit (``git archive``) into a git-ignored directory, copy
 this script into it, and run both trees in turns (old, new, new, old) in one
 call on one card.  Prints one line ``AB {json}``: per-call times in ms,
-event-timed (``*_dev``: the profiler's device time), and fit ms/iteration.
-Works on trees whose wrappers take only a contiguous V (``aligned_rows`` is
-used where it exists).  Needs one CUDA device.
+event-timed (``*_dev``: the profiler's device time), and fit ms/iteration:
+
+* B1 at 5168×1025 R=88 and 4096² R=256; B2 at both, β=0.5;
+* B3 and B4 at the NMFD flagship (1025×5000, R=88, T=400), its rank-8 row
+  and the NMF2D and NMF3D rows; B4 with one cotangent, the β=1 epilogue and,
+  at the flagship and the NMF3D row, the neg/pos pair;
+* the dense fit at β=1 and 0.5, NMFD at β=1 and 0.5, NMF2D and NMF3D at β=1.
+
+Then one line ``PROFILE {json}``: the profiler's device time per iteration
+of the NMFD β=1 fit by kernel (the ten largest), their sum and the wall time
+of the same iterations.  Works on trees whose wrappers take only a
+contiguous V (``aligned_rows`` is used where it exists).  Needs one CUDA
+device.
 """
 
 import json
@@ -82,15 +92,30 @@ def main(label):
                 fm.fused_contractions(V, H, W, beta=0.5, need_pos=True, w_side=False)
 
             out["B1_json"], out["B1_json_dev"] = ev(both), dev(both)
+        f = lambda: fm.fused_beta_loss(V, H, W, 0.5)  # noqa: E731
+        out[f"B2_{M}_{R}"], out[f"B2_{M}_{R}_dev"] = ev(f), dev(f)
         del V, W, H
     rank8 = cs.DECONV["NMFD"][:4] + (8,)
     for label_, shape in (("NMFD", cs.DECONV["NMFD"]), ("NMFD_R8", rank8),
                           ("NMF2D", cs.DECONV["NMF2D"]),
                           ("NMF3D", cs.DECONV["NMF3D"])):
         op = cs.deconv_operands(F, *shape)
+        R, T, kw = op["R"], op["T"], dict(lead_pad=op["lead"], geom=op["geom"])
         out[f"B3_{label_}"] = ev(
-            lambda: D.hgrad(op["cots"][0], op["W2"], op["R"], op["L_h"],
+            lambda: D.hgrad(op["cots"][0], op["W2"], R, op["L_h"],
                             geom=op["geom"]), reps=10, warm=1)
+        calls = {
+            "one": lambda: D.wgrad(op["cots"][:1], op["H2"], R, T, **kw),
+            "epi": lambda: D.wgrad(op["cots"][:1], op["H2"], R, T,
+                                   mu_w2=op["W2"],
+                                   mu_pos=kl_pos_W(op["H"]).reshape(-1), **kw),
+            "pair": lambda: D.wgrad(op["cots"], op["H2"], R, T, **kw),
+        }
+        for case, f in calls.items():
+            if case == "pair" and label_ not in ("NMFD", "NMF3D"):
+                continue
+            out[f"B4_{label_}_{case}"] = ev(f, reps=10, warm=1)
+        out[f"B4_{label_}_one_dev"] = dev(calls["one"], reps=5)
         del op
 
     def fit_ms(model, V, beta, iters):
@@ -109,9 +134,29 @@ def main(label):
         m = models.NMF((M, K), R, device="cuda",
                        generator=torch.Generator("cuda").manual_seed(0))
         out[f"fit_nmf_b{beta}"] = fit_ms(m, V, beta, 100)
-    out["fit_nmfd_b1"] = fit_ms(cs.deconv_model("NMFD", models),
-                                cs.deconv_target("NMFD"), 1, 10)
+    del V
+    for name, beta, iters in (("NMFD", 1, 10), ("NMFD", 0.5, 10),
+                              ("NMF2D", 1, 20), ("NMF3D", 1, 20)):
+        out[f"fit_{name.lower()}_b{beta}"] = fit_ms(
+            cs.deconv_model(name, models), cs.deconv_target(name), beta, iters)
     print("AB " + json.dumps(out), flush=True)
+
+    # where an NMFD β=1 iteration spends its device time
+    m, V, iters = cs.deconv_model("NMFD", models), cs.deconv_target("NMFD"), 5
+    m.fit(V, beta=1, tol=0, max_iter=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        t = time.perf_counter()
+        m.fit(V, beta=1, tol=0, max_iter=iters)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / iters
+    kernels = sorted(((e.device_time_total / iters / 1e3, e.key[:90])
+                      for e in p.key_averages() if e.device_time_total > 0),
+                     reverse=True)
+    print("PROFILE " + json.dumps({
+        "tree": label, "wall_ms_per_iter": wall,
+        "device_ms_per_iter": sum(k[0] for k in kernels),
+        "top": [[name, ms] for ms, name in kernels[:10]]}), flush=True)
 
 
 if __name__ == "__main__":

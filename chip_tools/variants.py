@@ -1,8 +1,11 @@
-"""Where B1 and B3 spend their time: builds of the kernel sources with one
-part cut, timed against the whole kernel, and a per-phase cycle count of
-one B1 block.
+"""Where B1, B3 and B4 spend their time: builds of the kernel sources with
+one part cut, timed against the whole kernel, and a per-phase cycle count
+of one B1 block.
 
-    python chip_tools/variants.py           # from the repository root
+    python chip_tools/variants.py [VARIANT ...]   # from the repository root
+
+With no argument every variant runs; else the named ones (``full`` and
+``wfull`` are the whole kernels).
 
 Each variant is the source with a few lines replaced (its results are wrong
 on purpose; only its time matters), built with the package's own ``nvcc``
@@ -12,6 +15,17 @@ flags into ``build/variants/`` and loaded in place of the real library:
   (no products), ``no_split`` (no hi/lo split of the tiles); and, at ranks 8
   and 16 of the same size and the NMF3D row, ``full`` (the windowed kernel)
   against ``tc_small`` (the tensor-core kernel at every rank);
+* B4 at the flagship, one cotangent: ``w_prof``, the whole kernel with
+  ``clock64()`` marks, whose block (0, 0, 0) reports the cycles of each
+  phase of its stages for one lane of each warpgroup; ``wfull``, ``w_no_wgmma`` (no
+  products, and so no patch fragments), ``w_no_split`` (no transposing
+  hi/lo pass over the cotangent tile), ``w_no_patch`` (no patch copies: half
+  the tile traffic from L2), and ``w_no_fence`` (no proxy
+  fence before the stage's barrier);
+* every kernel with the TF32 split by ``cvt.rna.tf32.f32`` in place of
+  integer rounding: ``cvt`` (B3), ``w_cvt`` (B4) and ``mu_cvt`` (B1 and B2,
+  against ``mu_full``); with ``w_cvt`` and ``mu_cvt`` both built, their
+  outputs are first compared bit for bit with the package's own build;
 * B1 at 5168×1025, R=88: ``prof``, the whole kernel with ``clock64()``
   marks, whose block (0, 0, 0) reports the cycles of each phase of its steps
   (wait for the tiles, split, prefetch issue, WH product, cotangents,
@@ -44,19 +58,61 @@ def _instrument(text, marks):
 
 
 PHASES = ("wait", "split", "prefetch", "WH", "cotangents", "contraction")
+W_PHASES = ("fragments", "wgmma issue and split", "wgmma wait and sum",
+            "fence, copy wait and barrier", "copy issue")
+
+
+def _mark(i):
+    return ("      { long long c_ = clock64(); "
+            f"dbg_acc[{i}] += c_ - dbg_cl; dbg_cl = c_; }}\n")
+
+
+def _b4_profile(deconv):
+    """B4 with clock64() marks between the phases of each stage; threads 0
+    and 128 (one lane of each warpgroup) of block (0, 0, 0) report."""
+    text = deconv
+    for i, (anchor, before) in enumerate((
+            ("      a[ks] = tf32x3::frag_a(p[0], p[8], p[4 * WGS], p[4 * WGS + 8]);\n    }\n", ""),
+            ("    tf32x3::wgmma_commit();\n    tf32x3::wgmma_wait<0>();\n",
+             "    tf32x3::wgmma_wait<0>();\n"),
+            ("      for (int i = 0; i < 4 * NT; ++i) total[t][i] += run[t][i];\n    }\n", ""),
+            ("    // every lane is done with raw stage s % 3 and has split stage s+1\n"
+             "    __syncthreads();\n", ""),
+            ("    if (s + 3 < steps) load(s % 3, l_begin + (s + 3) * WGK);\n  }\n",
+             "  }\n"))):
+        # the mark goes after the anchor, or before its part `before`
+        new = (anchor.replace(before, _mark(i) + before) if before
+               else anchor + _mark(i))
+        text = _replace_once(text, anchor, new)
+    text = _replace_once(
+        text, "  for (int s = 0; s < steps; ++s) {\n    // this lane's patch rows",
+        "  long long dbg_acc[8] = {0}, dbg_cl = clock64();\n"
+        "  for (int s = 0; s < steps; ++s) {\n    // this lane's patch rows")
+    text = _replace_once(
+        text, "  // The beta=1 epilogue reads",
+        "  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&\n"
+        "      tid % 128 == 0)\n"
+        "    for (int i = 0; i < 8; ++i) dbg_wcycles[tid / 128][i] = dbg_acc[i];\n"
+        "  // The beta=1 epilogue reads")
+    text = _replace_once(text, "namespace {\n",
+                         "__device__ long long dbg_wcycles[2][8];\nnamespace {\n")
+    return _replace_once(
+        text, 'extern "C" {\n',
+        'extern "C" {\nint pnt_dbg(long long* h) {\n'
+        "  return (int)cudaMemcpyFromSymbol(h, dbg_wcycles, sizeof(dbg_wcycles));\n}\n")
 
 
 def _b1_profile(mu):
     text = _instrument(mu, [
         "      tf32x3::wgmma_wait<0>();  // the last products are done with GS, GO\n"
         "      __syncthreads();",
-        "      tc_split(GS, GO, Graw, fs, w8, z0 - rc, zw, GO_SIZE);\n"
+        "      tc_split(GS, GO, Graw, fs, w8, z0 - rc, LOSS ? 0 : zw, GO_SIZE);\n"
         "      __syncthreads();",
         "                  g0 + TBG, n_f, n_g, ldv, h_side);\n      }",
         "      tf32x3::wgmma_commit();\n      tf32x3::wgmma_wait<0>();\n"
         "      tf32x3::fence_operand(s);\n      tf32x3::fence_operand(s1);",
-        "      cp[i] = ok ? b : 0.f;\n    }",
-        "    tf32x3::wgmma_commit();  // waited for before the next split",
+        "        cp[i] = ok ? b : 0.f;\n      }",
+        "      tf32x3::wgmma_commit();  // waited for before the next split",
     ])
     text = _replace_once(
         text, "  for (int t = t_begin; t < t_end; ++t) {\n    const int g0 = t * TBG;",
@@ -95,6 +151,13 @@ def main():
     wgmma_loop = deconv[deconv.index(
         "#pragma unroll\n    for (int ks = 0; ks < HBK / 8; ++ks) {\n"
         "      const int o = 64 * ks;"):deconv.index("    tf32x3::wgmma_commit();")]
+    w_wgmma = (
+        "        tf32x3::wgmma<NT>(run[t], a[ks].hi, tf32x3::desc(bl, 128, 1024),\n"
+        "                          ks > 0);\n"
+        "        tf32x3::wgmma<NT>(run[t], a[ks].lo, tf32x3::desc(bh, 128, 1024), 1);\n"
+        "        tf32x3::wgmma<NT>(run[t], a[ks].hi, tf32x3::desc(bh, 128, 1024), 1);\n")
+    w_late_fence = ("      for (int i = 0; i < 4 * NT; ++i) total[t][i] += run[t][i];\n"
+                    "    }\n    tf32x3::fence_async_smem();\n")
     variants = {
         ("fused_deconv", "full"): deconv,
         ("fused_deconv", "no_wgmma"): _replace_once(deconv, wgmma_loop, ""),
@@ -104,14 +167,40 @@ def main():
         ("fused_deconv", "tc_small"): _replace_once(
             deconv, "  if (R <= 16) {\n    const int bmr", "  if (false) {\n    const int bmr"),
         ("fused_mu", "prof"): _b1_profile(mu),
+        ("fused_deconv", "wfull"): deconv,
+        ("fused_deconv", "w_no_wgmma"): _replace_once(deconv, w_wgmma, ""),
+        ("fused_deconv", "w_no_split"): _replace_once(
+            deconv, "      if (PER * q + i < NE) tf32x3::split(v[i], sb[e], sb[NB * WGK + e]);\n",
+            ""),
+        ("fused_deconv", "w_no_patch"): _replace_once(
+            deconv, "        cp_async16(&P[k * WGS + am], ok ? h2 + (size_t)hr * R + ar : h2, ok);\n",
+            ""),
+        ("fused_deconv", "w_prof"): _b4_profile(deconv),
+        ("fused_deconv", "w_no_fence"): _replace_once(
+            deconv, w_late_fence, w_late_fence.replace(
+                "    tf32x3::fence_async_smem();\n", "")),
     }
+    # the TF32 split by cvt.rna.tf32.f32 in place of integer rounding (the
+    # same bits for finite values), for every kernel of a build
+    cvt_header = _replace_once(
+        header, "  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;\n",
+        '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(a));\n'
+        "  return r & 0xffffe000u;\n")
+    variants.update({
+        ("fused_deconv", "cvt"): deconv, ("fused_deconv", "w_cvt"): deconv,
+        ("fused_mu", "mu_full"): mu, ("fused_mu", "mu_cvt"): mu})
+    headers = {("fused_deconv", "cvt"): cvt_header,
+               ("fused_deconv", "w_cvt"): cvt_header,
+               ("fused_mu", "mu_cvt"): cvt_header}
+    chosen = set(sys.argv[1:])
+    variants = {k: v for k, v in variants.items() if not chosen or k[1] in chosen}
     out = Path("build/variants")
     jobs = []
     for (name, v), text in variants.items():
         d = out / f"{name}_{v}"
         d.mkdir(parents=True, exist_ok=True)
         (d / f"{name}.cu").write_text(text)
-        (d / "tf32x3.cuh").write_text(header)
+        (d / "tf32x3.cuh").write_text(headers.get((name, v), header))
         jobs.append((name, v, d, subprocess.Popen(
             [_build._nvcc(), *_build._NVCC_FLAGS, "-o", str(d / "lib.so"),
              str(d / f"{name}.cu")],
@@ -151,14 +240,56 @@ def main():
              "NMF3D": cs.DECONV["NMF3D"]}
     ops = {"R=88": cs.deconv_operands(F, *cs.DECONV["NMFD"])}
     ops.update({k: cs.deconv_operands(F, *v) for k, v in small.items()})
+    def outputs():
+        op = ops["R=88"]
+        return (*D.wgrad(op["cots"], op["H2"], op["R"], op["T"],
+                         lead_pad=op["lead"], geom=op["geom"]),
+                D.hgrad(op["cots"][0], op["W2"], op["R"], op["L_h"],
+                        geom=op["geom"]),
+                *fm.fused_contractions(V, H, W, beta=0.5, need_pos=True,
+                                       w_side=True),
+                fm.fused_beta_loss(V, H, W, 0.5))
+
+    if ("fused_deconv", "w_cvt") in libs and ("fused_mu", "mu_cvt") in libs:
+        # the integer-rounded split against cvt.rna.tf32.f32, bit for bit
+        _build._libs.clear()
+        _build.load_all()
+        ours = outputs()
+        _build._libs["fused_deconv"] = libs[("fused_deconv", "w_cvt")]
+        _build._libs["fused_mu"] = libs[("fused_mu", "mu_cvt")]
+        same = [torch.equal(a, b) for a, b in zip(ours, outputs())]
+        print("integer split and cvt.rna.tf32.f32 give the same bits "
+              f"(B4 pair, B3, B1 pair, B2): {same}", flush=True)
     for (name, v), lib in libs.items():
         _build._libs[name] = lib
+        if name == "fused_deconv" and v.startswith("w"):
+            op = ops["R=88"]
+            t = ms(lambda: D.wgrad(op["cots"][:1], op["H2"], op["R"], op["T"],
+                                   lead_pad=op["lead"], geom=op["geom"]), 5)
+            print(f"B4 {v} R=88: {t:.4f} ms", flush=True)
+            if v == "w_prof":
+                cycles = (ctypes.c_longlong * 16)()
+                lib.pnt_dbg.argtypes = [ctypes.c_void_p]
+                lib.pnt_dbg(ctypes.addressof(cycles))
+                for wg in range(2):
+                    c = cycles[8 * wg:8 * wg + len(W_PHASES)]
+                    print(f"B4 block 0 warpgroup {wg} cycles: " + ", ".join(
+                        f"{p} {x}" for p, x in zip(W_PHASES, c))
+                        + f", total {sum(c)}", flush=True)
+            continue
         if name == "fused_deconv":
             for case in ["R=88"] + (list(small) if v in ("full", "tc_small") else []):
                 op = ops[case]
                 t = ms(lambda: D.hgrad(op["cots"][0], op["W2"], op["R"],
                                        op["L_h"], geom=op["geom"]), 5)
                 print(f"B3 {v} {case}: {t:.4f} ms", flush=True)
+            continue
+        if v in ("mu_full", "mu_cvt"):
+            t1 = ms(lambda: [fm.fused_contractions(V, H, W, beta=0.5, need_pos=True,
+                                                   w_side=ws) for ws in (True, False)], 20)
+            t2 = ms(lambda: fm.fused_beta_loss(V, H, W, 0.5), 20)
+            print(f"B1 {v} W+H beta=0.5: {t1:.4f} ms; B2 {v}: {t2:.4f} ms",
+                  flush=True)
             continue
         cycles = (ctypes.c_longlong * 8)()
         lib.pnt_dbg.argtypes = [ctypes.c_void_p]

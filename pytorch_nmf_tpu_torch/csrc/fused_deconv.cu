@@ -28,14 +28,13 @@
 // 20-144 MB of operands, so both are bound by their operations.  Kept
 // f32-accurate, the fastest of those is 3xTF32 on the tensor cores
 // (tf32x3.cuh): 165 TFLOP/s effective, about 2 ms per kernel at the
-// flagship.  hgrad runs there (wgmma), its tiles copied 16 bytes at a time
-// (the wrapper pads C = 1025 to 1028); its split into hi/lo and those
-// copies, not the products, take most of its time (PERF.md).  wgrad still
-// runs f32 FMAs on the CUDA cores (67 TFLOP/s peak), each thread keeping an
-// 8x8 register tile and reading shared memory as float4 vectors, about one
-// vector per 16 FMAs; its tiles arrive by 4-byte cp.async with zero-fill
-// into two stages, so the copy of step s+1 runs during the products of
-// step s.
+// flagship, against 5.4 ms for f32 FMAs on the CUDA cores (67 TFLOP/s).
+// Both kernels run there (wgmma), their tiles copied 16 bytes at a time
+// (the wrappers pad the channels to a multiple of 4, fused_mu.aligned_rows:
+// C = 1025 is read as 1028); each stage splits the operand tiles into
+// TF32 hi/lo once.  Those splits and copies, not the products, take most
+// of either kernel's time, and in wgrad they barely overlap the products
+// (PERF.md).
 //
 // Design, and what differs from the TPU kernels:
 //
@@ -61,7 +60,12 @@
 //   span more than 32 flat rows take the tensor-core kernel.
 // * wgrad's output (K*R, C) is large and its reduction runs over Lp rows:
 //   128 (j, r) rows by 128 channels per block, or 64 channels for the
-//   neg/pos cotangent pair, whose two accumulators share every patch load.
+//   neg/pos cotangent pair, whose two accumulators share every patch
+//   fragment.  The (j, r) rows are flattened on the wgmma's M, so small
+//   ranks cost no padding; a last channel tile with at most 16 real
+//   channels takes the N = 16 wgmma.  Each patch row is gathered at its own
+//   shift tau_j (the TPU kernel slices it from the resident activation),
+//   so any offset map, 1-D or N-D, runs the same loads.
 // * The beta=1 MU epilogue w2 * (relu(acc) + eps) / pos[r] runs after the
 //   complete sum: in the main kernel with one split, else in the second pass.
 // * geom: tau_j = ((j / (k1 k2)) mod k0) s0 + ((j / k2) mod k1) s1 +
@@ -77,9 +81,16 @@
 namespace {
 
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
-constexpr int kThreads = 256;  // a 16 x 16 grid of (tx, ty) threads
-constexpr int BK = 16;         // wgrad: reduction depth of one stage
-constexpr int WBM = 128;       // wgrad: (j, r) rows per block
+constexpr int kThreads = 256;  // windowed hgrad, finish
+// wgrad on the tensor cores
+constexpr int kWThreads = 256;  // 2 warpgroups, 64 (j, r) rows each
+constexpr int WGM = 128;        // (j, r) rows per block
+constexpr int WGK = 32;         // reduction depth (rows l) of one stage
+constexpr int WGN = 128;        // most channels of a block, all cotangents
+constexpr int WGS = WGM + 8;    // row stride of the raw tiles, 8 mod 32
+constexpr int WRAW = 2 * WGK * WGS;    // floats of a raw stage: patch, cot
+constexpr int WSPLIT = 2 * WGN * WGK;  // floats of a hi/lo cot buffer
+constexpr int kWgradSmemBytes = 4 * (3 * WRAW + 2 * WSPLIT);
 // hgrad on the tensor cores
 constexpr int kHThreads = 256;  // 2 warpgroups, 64 l' rows each
 constexpr int HBM = 128;        // l' rows per block
@@ -430,125 +441,236 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------- wgrad --
-// Block (bx, by, bz): channels [BNW bx, +BNW), rows m = j*R + r in
-// [128 by, +128), l in [l_per_split bz, +l_per_split).  Thread (tx, ty)
-// accumulates rows 128 by + 8 ty + i and, per cotangent, channels
-// BNW bx + 64 h + 4 tx + q.  As loader, it copies row m = tid % 128 of the
-// patch tile (one (j, r), so its H2 offset is fixed) and channel
-// tid % BNW of each cotangent tile.
-template <int NCOT>
-__global__ void __launch_bounds__(kThreads, 2)
+// On the tensor cores (3xTF32 wgmma, tf32x3.cuh), as the GEMM
+// out (K*R x C) = P^T (K*R x Lp) . cot (Lp x C) for each cotangent, with
+// P[l, j*R + r] = H2[l + off - tau_j, r].  Block (bx, by, bz): channels
+// [BN bx, +BN) of each of the NCOT cotangents (BN = 8 NT), rows m = j*R + r
+// in [128 by, +128), l in [l_per_split bz, +l_per_split), in WGK = 32-deep
+// stages.  Warpgroup wg holds rows 64 wg + [0, 64) by the BN channels of
+// each cotangent in registers: (j, r) is flattened on M, so no rank is
+// padding.
+//
+// Per stage the block copies the patch tile P [k][m] (each row m gathered
+// at its own H2 row l + off - tau_j: any offset map, 1-D or N-D) and the
+// cotangent rows [k][c] into a raw stage, three stages deep, with 16-byte
+// cp.async (patch rows 4 bytes at a time when R % 4 != 0).  A = P^T comes
+// from registers: each lane reads its fragment from the raw patch tile and
+// splits it into hi/lo as it reads.  TF32 wgmma takes B only K-major, and
+// the cotangent rows arrive channel-major, so a transposing pass splits
+// them into the hi/lo wgmma layout, two buffers deep.  The issue of a wgmma
+// waits for room in the tensor cores' queue (a clock profile found a third
+// of each stage spent so; PERF.md), so the split of the next stage runs in
+// quarters between the wgmmas.  The raw
+// tiles' row stride WGS = 8 mod 32 keeps the split's reads and the
+// fragment reads on 32 banks.
+// Each stage's products go to a zeroed run that is added to the f32 total
+// (the tensor cores truncate as they accumulate).
+template <int NT, int NCOT>
+__device__ __forceinline__ void wgrad_tile(
+    float* smem, const float* __restrict__ h2, const float* __restrict__ cot0,
+    const float* __restrict__ cot1, const float* __restrict__ mu_w2,
+    const float* __restrict__ mu_pos, float* __restrict__ dst0,
+    float* __restrict__ dst1, int L_h, int Lp, int C, int ldc, int R, int KR,
+    int off, int l_per_split, int c0, const Geom& g) {
+  constexpr int BN = 8 * NT;     // channels of each cotangent
+  constexpr int NB = NCOT * BN;  // B rows of the block, cotangent-major
+  constexpr int Q = NB / 4;      // 16-byte pieces of a raw cotangent row
+  float* split_buf = smem + 3 * WRAW;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, gid = lane / 4, tig = lane % 4;
+  const int m0 = blockIdx.y * WGM;
+  const int l_begin = blockIdx.z * l_per_split;
+  const int l_end = imin(l_begin + l_per_split, Lp);
+  // 16-byte patch copies take 4 consecutive rows m = j*R + r .. r+3 of one
+  // offset: R % 4 == 0 and 16-byte aligned H2 rows
+  const bool vec = R % 4 == 0 && reinterpret_cast<size_t>(h2) % 16 == 0;
+
+  // a loader copies patch rows am .. am+3 (vec) or am, so its H2 shift is
+  // fixed
+  const int am = vec ? 4 * (tid % 32) : tid % WGM;
+  const bool m_ok = m0 + am < KR;
+  const int ar = m_ok ? (m0 + am) % R : 0;
+  const int hoff = m_ok ? off - g.tau((m0 + am) / R) : 0;
+  auto load = [&](int st, int l0) {  // the stage at l0 into raw stage st
+    float* P = smem + st * WRAW;
+    float* Cr = P + WGK * WGS;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < WGK / 8; ++i) {
+        const int k = tid / 32 + 8 * i, l = l0 + k, hr = l + hoff;
+        const bool ok = m_ok && l < l_end && hr >= 0 && hr < L_h;
+        cp_async16(&P[k * WGS + am], ok ? h2 + (size_t)hr * R + ar : h2, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < WGK / 2; ++i) {
+        const int k = tid / WGM + 2 * i, l = l0 + k, hr = l + hoff;
+        const bool ok = m_ok && l < l_end && hr >= 0 && hr < L_h;
+        cp_async4(&P[k * WGS + am], ok ? h2 + (size_t)hr * R + ar : h2, ok);
+      }
+    }
+    constexpr int NL = (WGK * Q + kWThreads - 1) / kWThreads;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int e = tid + kWThreads * i;
+      const int k = e / Q, q = e % Q, l = l0 + k;
+      const int c = c0 + 4 * (q % (BN / 4));
+      const float* src = q < BN / 4 ? cot0 : cot1;
+      const bool ok = l < l_end && c < C;
+      if (e < WGK * Q)
+        cp_async16(&Cr[k * WGS + 4 * q], ok ? src + (size_t)l * ldc + c : src,
+                   ok);
+    }
+    cp_async_commit();
+  };
+  // part q (of 4) of the raw cotangent tile of stage st -> hi/lo buffer sb;
+  // element e of the split tile is (n, k) = (8 (e / 256) + (e / 4) % 8,
+  // 4 ((e / 32) % 8) + e % 4), the no-swizzle layout with 128-byte steps
+  // along K and 1024-byte steps between 8-row groups.  All loads come first
+  // (the compiler cannot tell the tiles apart).
+  constexpr int NE = NB * WGK / kWThreads;  // elements a thread splits
+  constexpr int PER = (NE + 3) / 4;
+  auto split = [&](int st, float* sb, int q) {
+    const float* Cr = smem + st * WRAW + WGK * WGS;
+    float v[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + kWThreads * (PER * q + i);
+      if (PER * q + i < NE)
+        v[i] = Cr[(4 * ((e / 32) % 8) + e % 4) * WGS + 8 * (e / 256) +
+                  (e / 4) % 8];
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + kWThreads * (PER * q + i);
+      if (PER * q + i < NE) tf32x3::split(v[i], sb[e], sb[NB * WGK + e]);
+    }
+  };
+
+  float total[NCOT][4 * NT], run[NCOT][4 * NT];
+#pragma unroll
+  for (int t = 0; t < NCOT; ++t)
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) total[t][i] = run[t][i] = 0.f;
+
+  // Stage s is copied into raw stage s % 3 three stages ahead, its patch
+  // fragments are read when its wgmmas are issued, and its cotangent tile
+  // is split into hi/lo buffer s % 2 a quarter at a time between the
+  // wgmmas of stage s-1: the issue of a wgmma waits for room in the tensor
+  // cores' queue, and the split fills those waits.  (The copies stay after
+  // the stage's barrier: between the wgmmas they cost more.)  The split's
+  // writes reach the next stage's wgmmas through a proxy fence and the one
+  // barrier that ends each stage.
+  const int steps = cdiv(l_end - l_begin, WGK);
+  for (int s = 0; s < 3 && s < steps; ++s) load(s, l_begin + s * WGK);
+  if (steps > 0) {
+    if (steps > 2) cp_async_wait<1>();  // stages 0 and 1
+    else cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split(0, split_buf, q);
+    tf32x3::fence_async_smem();
+    __syncthreads();
+  }
+  for (int s = 0; s < steps; ++s) {
+    // this lane's patch rows and the stage's hi/lo cotangent buffer
+    const float* P = smem + (s % 3) * WRAW + 64 * wg + 16 * (warp % 4) + gid;
+    const float* sb = split_buf + (s & 1) * WSPLIT;
+    float* sb_next = split_buf + ((s + 1) & 1) * WSPLIT;
+    const bool next = s + 1 < steps;
+    tf32x3::FragA a[WGK / 8];
+#pragma unroll
+    for (int ks = 0; ks < WGK / 8; ++ks) {
+      const float* p = P + (8 * ks + tig) * WGS;
+      a[ks] = tf32x3::frag_a(p[0], p[8], p[4 * WGS], p[4 * WGS + 8]);
+    }
+#pragma unroll
+    for (int t = 0; t < NCOT; ++t) tf32x3::fence_operand(run[t]);
+    tf32x3::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < WGK / 8; ++ks) {
+#pragma unroll
+      for (int t = 0; t < NCOT; ++t) {
+        const float* bh = sb + t * BN * WGK + 64 * ks;  // two K core matrices
+        const float* bl = bh + NB * WGK;
+        tf32x3::wgmma<NT>(run[t], a[ks].hi, tf32x3::desc(bl, 128, 1024),
+                          ks > 0);
+        tf32x3::wgmma<NT>(run[t], a[ks].lo, tf32x3::desc(bh, 128, 1024), 1);
+        tf32x3::wgmma<NT>(run[t], a[ks].hi, tf32x3::desc(bh, 128, 1024), 1);
+      }
+      // stage s-1's wgmmas, done before the last barrier, read sb_next
+      if (next) split((s + 1) % 3, sb_next, ks);
+    }
+    tf32x3::wgmma_commit();
+    tf32x3::wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < NCOT; ++t) {
+      tf32x3::fence_operand(run[t]);
+#pragma unroll
+      for (int i = 0; i < 4 * NT; ++i) total[t][i] += run[t][i];
+    }
+    tf32x3::fence_async_smem();
+    if (s + 2 < steps) cp_async_wait<0>();  // stage s+2, for the next split
+    // every lane is done with raw stage s % 3 and has split stage s+1
+    __syncthreads();
+    if (s + 3 < steps) load(s % 3, l_begin + (s + 3) * WGK);
+  }
+
+  // The beta=1 epilogue reads the block's (128, BN) tile of mu_w2: copied
+  // into the idle shared memory with every copy in flight at once, where
+  // 64 dependent loads a thread would each wait out the memory's latency.
+  constexpr int MS = BN + 4;  // row stride of the staged tile
+  const bool epilogue = mu_w2 != nullptr && gridDim.z == 1;
+  if (epilogue) {
+    __syncthreads();  // every warp is done with the stages and buffers
+    for (int e = tid; e < WGM * BN; e += kWThreads) {
+      const int r = e / BN, c = e % BN;
+      const bool ok = m0 + r < KR && c0 + c < C;
+      cp_async4(&smem[r * MS + c],
+                ok ? mu_w2 + (size_t)(m0 + r) * C + c0 + c : mu_w2, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  const size_t slab = (size_t)blockIdx.z * KR * C;
+  float* dsts[2] = {dst0, dst1};
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) {
+    const int r = 64 * wg + 16 * (warp % 4) + gid + 8 * ((i % 4) / 2);
+    const int n = 8 * (i / 4) + 2 * tig + i % 2, m = m0 + r, c = c0 + n;
+    if (m >= KR || c >= C) continue;
+    const size_t o = (size_t)m * C + c;
+#pragma unroll
+    for (int t = 0; t < NCOT; ++t) {
+      float v = total[t][i];
+      if (epilogue) v = smem[r * MS + n] * ((relu(v) + kEps) / mu_pos[m % R]);
+      dsts[t][slab + o] = v;
+    }
+  }
+}
+
+// The block's channel tile takes the NT instance, or the m64n16 one when at
+// most 16 of its channels are real (C = 1025: the last of 9 tiles holds 1).
+template <int NT, int NCOT>
+__global__ void __launch_bounds__(kWThreads, 1)
     wgrad_kernel(const float* __restrict__ h2, const float* __restrict__ cot0,
                  const float* __restrict__ cot1,
                  const float* __restrict__ mu_w2,
                  const float* __restrict__ mu_pos, float* __restrict__ dst0,
-                 float* __restrict__ dst1, int L_h, int Lp, int C, int R,
-                 int KR, int off, int l_per_split, Geom g) {
-  constexpr int TN = 8 / NCOT;   // channels per thread per cotangent
-  constexpr int BNW = 16 * TN;   // channels per block
-  constexpr int BROWS = kThreads / BNW;  // cotangent rows one pass loads
-  __shared__ __align__(16) float As[2][BK][WBM + 4];
-  __shared__ __align__(16) float Bs[2][NCOT][BK][BNW + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int c0 = blockIdx.x * BNW, m0 = blockIdx.y * WBM;
-  const int l_begin = blockIdx.z * l_per_split;
-  const int l_end = imin(l_begin + l_per_split, Lp);
-  const float* cots[2] = {cot0, cot1};
-
-  const int am = tid % WBM, gm = m0 + am;
-  const bool m_ok = gm < KR;
-  const int ar = gm % R;
-  const int hoff = off - g.tau(gm / R);  // H2 row of patch row l: l + hoff
-  const int bn = tid % BNW;
-  const bool c_ok = c0 + bn < C;
-
-  auto load = [&](int st, int l0) {
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int kk = tid / WBM + 2 * i;
-      const int l = l0 + kk, hr = l + hoff;
-      const bool ok = m_ok && l < l_end && hr >= 0 && hr < L_h;
-      cp_async4(&As[st][kk][am], ok ? h2 + (size_t)hr * R + ar : h2, ok);
-    }
-#pragma unroll
-    for (int t = 0; t < NCOT; ++t)
-#pragma unroll
-      for (int i = 0; i < BK / BROWS; ++i) {
-        const int kk = tid / BNW + BROWS * i;
-        const int l = l0 + kk;
-        const bool ok = c_ok && l < l_end;
-        cp_async4(&Bs[st][t][kk][bn],
-                  ok ? cots[t] + (size_t)l * C + c0 + bn : cots[t], ok);
-      }
-  };
-
-  float acc[NCOT][8][TN];
-#pragma unroll
-  for (int t = 0; t < NCOT; ++t)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int p = 0; p < TN; ++p) acc[t][i][p] = 0.f;
-
-  const int steps = cdiv(l_end - l_begin, BK);
-  if (steps > 0) {
-    load(0, l_begin);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    const int st = s & 1;
-    if (s + 1 < steps) {
-      load(st ^ 1, l_begin + (s + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < BK; ++q) {
-      float a[8];
-      lds<8>(a, &As[st][q][8 * ty]);
-#pragma unroll
-      for (int t = 0; t < NCOT; ++t) {
-        float b[TN];
-#pragma unroll
-        for (int h = 0; h < TN / 4; ++h) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&Bs[st][t][q][64 * h + 4 * tx]);
-          b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z,
-                b[4 * h + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int p = 0; p < TN; ++p)
-            acc[t][i][p] = fmaf(a[i], b[p], acc[t][i][p]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const bool epilogue = mu_w2 != nullptr && gridDim.z == 1;
-  const size_t slab = (size_t)blockIdx.z * KR * C;
-  float* dsts[2] = {dst0, dst1};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + 8 * ty + i;
-    if (m >= KR) continue;
-#pragma unroll
-    for (int p = 0; p < TN; ++p) {
-      const int c = c0 + 64 * (p / 4) + 4 * tx + p % 4;
-      if (c >= C) continue;
-      const size_t o = (size_t)m * C + c;
-#pragma unroll
-      for (int t = 0; t < NCOT; ++t) {
-        float v = acc[t][i][p];
-        if (epilogue) v = mu_w2[o] * ((relu(v) + kEps) / mu_pos[m % R]);
-        dsts[t][slab + o] = v;
-      }
+                 float* __restrict__ dst1, int L_h, int Lp, int C, int ldc,
+                 int R, int KR, int off, int l_per_split, Geom g) {
+  extern __shared__ __align__(128) float wsmem[];
+  const int c0 = blockIdx.x * 8 * NT;
+  if constexpr (NT > 2) {
+    if (C - c0 <= 16) {
+      wgrad_tile<2, NCOT>(wsmem, h2, cot0, cot1, mu_w2, mu_pos, dst0, dst1,
+                          L_h, Lp, C, ldc, R, KR, off, l_per_split, c0, g);
+      return;
     }
   }
+  wgrad_tile<NT, NCOT>(wsmem, h2, cot0, cot1, mu_w2, mu_pos, dst0, dst1, L_h,
+                       Lp, C, ldc, R, KR, off, l_per_split, c0, g);
 }
 
 // second pass of a split reduction: out[i] = sum_s part[s n + i] in the
@@ -629,7 +751,7 @@ HPlan hgrad_plan(int R, int L_in, int C, int K, const Geom& g) {
           cdiv(L_in, HBM) * cdiv(R, HRN)};
 }
 
-// Splits of a reduction of `steps` BK-deep steps whose output has `tiles`
+// Splits of a reduction of `steps` steps whose output has `tiles`
 // block tiles of `slab` floats: about four waves of two blocks per SM, at
 // least 8 steps per split, slabs under kMaxSlabFloats.
 int num_splits(int tiles, int steps, long long slab, int num_sms) {
@@ -642,6 +764,35 @@ int num_splits(int tiles, int steps, long long slab, int num_sms) {
 // per-split extent, a whole number of `unit`s; cdiv(total, per) splits
 int per_split(int total, int splits, int unit) {
   return cdiv(cdiv(total, splits), unit) * unit;
+}
+
+// the NT instance of wgrad whose channel tile covers C, at most 128
+// channels a block over all cotangents (wgmma widths 8 NT: 16, 64, 128)
+int wgrad_nt(int C, int n_cots) {
+  const int w = imin(C, WGN / n_cots);
+  return w <= 16 ? 2 : w <= 64 ? 8 : 16;
+}
+
+template <int NT, int NCOT>
+cudaError_t launch_wgrad(dim3 grid, cudaStream_t stream, const float* h2,
+                         const float* cot0, const float* cot1,
+                         const float* mu_w2, const float* mu_pos, float* d0,
+                         float* d1, int L_h, int Lp, int C, int ldc, int R,
+                         int KR, int off, int lper, const Geom& g) {
+  static const cudaError_t configured = [] {  // once per instance
+    cudaError_t e = cudaFuncSetAttribute(
+        wgrad_kernel<NT, NCOT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kWgradSmemBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        wgrad_kernel<NT, NCOT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  }();
+  if (configured != cudaSuccess) return configured;
+  wgrad_kernel<NT, NCOT><<<grid, kWThreads, kWgradSmemBytes, stream>>>(
+      h2, cot0, cot1, mu_w2, mu_pos, d0, d1, L_h, Lp, C, ldc, R, KR, off,
+      lper, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -703,41 +854,49 @@ int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
 
 // Splits of the wgrad reduction over Lp, for n_cots cotangents.
 int pnt_wgrad_splits(int KR, int C, int Lp, int n_cots, int num_sms) {
-  const int tiles = cdiv(C, 128 / n_cots) * cdiv(KR, WBM);
-  const int s = num_splits(tiles, cdiv(Lp, BK), (long long)n_cots * KR * C,
+  const int tiles = cdiv(C, 8 * wgrad_nt(C, n_cots)) * cdiv(KR, WGM);
+  const int s = num_splits(tiles, cdiv(Lp, WGK), (long long)n_cots * KR * C,
                            num_sms);
-  return cdiv(Lp, per_split(Lp, s, BK));
+  return cdiv(Lp, per_split(Lp, s, WGK));
 }
 
 // Returns a cudaError_t.  cot1/out1/part1 are null for one cotangent;
 // part0/part1 hold (splits, K*R, C) floats when splits > 1.  mu_w2 (K*R, C)
-// with mu_pos (R,) selects the beta=1 epilogue (one cotangent).
+// with mu_pos (R,) selects the beta=1 epilogue (one cotangent).  The
+// cotangents' rows are ldc floats apart, ldc a multiple of 4 and the rows
+// 16-byte aligned (columns C..ldc are never read).
 int pnt_wgrad(const float* h2, const float* cot0, const float* cot1,
               const float* mu_w2, const float* mu_pos, float* out0,
               float* out1, float* part0, float* part1, int L_h, int Lp, int C,
-              int R, int K, int off, int k0, int k1, int k2, int s0, int s1,
-              int s2, int splits, void* stream_ptr) {
+              int ldc, int R, int K, int off, int k0, int k1, int k2, int s0,
+              int s1, int s2, int splits, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int n_cots = cot1 == nullptr ? 1 : 2;
   if (L_h < 1 || Lp < 1 || C < 1 || R < 1 || K < 1 || splits < 1 ||
-      k0 * k1 * k2 != K || (mu_w2 != nullptr && n_cots != 1))
+      ldc < C || ldc % 4 || k0 * k1 * k2 != K ||
+      (mu_w2 != nullptr && n_cots != 1))
     return (int)cudaErrorInvalidValue;
   const int KR = K * R;
-  const int lper = per_split(Lp, splits, BK);
+  const int lper = per_split(Lp, splits, WGK);
   if (cdiv(Lp, lper) != splits) return (int)cudaErrorInvalidValue;
   const Geom g{k1, k2, s0, s1, s2};
-  const dim3 grid(cdiv(C, 128 / n_cots), cdiv(KR, WBM), splits);
+  const int nt = wgrad_nt(C, n_cots);
+  const dim3 grid(cdiv(C, 8 * nt), cdiv(KR, WGM), splits);
   float* d0 = splits == 1 ? out0 : part0;
   float* d1 = splits == 1 ? out1 : part1;
-  if (n_cots == 1)
-    wgrad_kernel<1><<<grid, kThreads, 0, stream>>>(
-        h2, cot0, nullptr, mu_w2, mu_pos, d0, nullptr, L_h, Lp, C, R, KR, off,
-        lper, g);
-  else
-    wgrad_kernel<2><<<grid, kThreads, 0, stream>>>(
-        h2, cot0, cot1, nullptr, nullptr, d0, d1, L_h, Lp, C, R, KR, off,
-        lper, g);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+#define PNT_WGRAD(NT, NCOT)                                                   \
+  err = launch_wgrad<NT, NCOT>(grid, stream, h2, cot0, cot1, mu_w2, mu_pos,   \
+                               d0, d1, L_h, Lp, C, ldc, R, KR, off, lper, g)
+  if (n_cots == 1) {
+    if (nt == 2) PNT_WGRAD(2, 1);
+    else if (nt == 8) PNT_WGRAD(8, 1);
+    else PNT_WGRAD(16, 1);
+  } else {
+    if (nt == 2) PNT_WGRAD(2, 2);
+    else PNT_WGRAD(8, 2);
+  }
+#undef PNT_WGRAD
   if (err != cudaSuccess || splits == 1) return (int)err;
   const size_t n = (size_t)KR * C;
   err = finish(part0, mu_w2, mu_pos, out0, n, splits, C, R, stream);

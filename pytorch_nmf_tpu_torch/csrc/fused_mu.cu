@@ -67,9 +67,13 @@
 //   every entry outside the matrix is forced to zero, so padding never
 //   enters a sum (the beta=0 term 1/(0+eps) would).
 //
-// The loss kernel (B2) still runs f32 FMAs on the CUDA cores: each thread
-// keeps a 4x4 tile of WH in registers, reading one shared float per two
-// FMAs; it is twice as fast as its plain version and the next to redesign.
+// The loss (B2) is a mode of the same kernel on the H side: the same
+// resident F = H tile, G = W split once per step, 16-byte V copies and
+// rank-chunked WH product, but each WH entry maps to its loss term in
+// registers in place of the cotangents and the contraction.  Each thread
+// sums its terms, each block its threads in a fixed-order tree, and a
+// second pass the blocks: the result is deterministic, as the tolerance
+// stop needs.
 //
 // The cotangents mirror _cotangent_tiles (pallas_mu.py:76-92) and the loss
 // terms _loss_kernel (:318-332): one shared (wh+eps)^(beta-2) for
@@ -82,13 +86,9 @@
 namespace {
 
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
-constexpr int kThreads = 256;  // the loss: a 16 x 16 grid of (tf, tg) threads
+constexpr int kThreads = 256;  // the second passes
 constexpr int BF = 64;         // F rows per block
-constexpr int BG = 64;         // the loss: G rows per step
-constexpr int RC = 64;         // the loss: rank chunk of the WH product
-constexpr int KS = RC + 4;     // row stride of the chunk tiles
-constexpr int VS = 64 + 1;     // row stride of the (64, 64) V tile
-// the contraction on the tensor cores
+// the contraction and the loss on the tensor cores
 constexpr int kTcThreads = 128;  // one warpgroup, 16 F rows per warp
 constexpr int TBG = 32;          // G rows per step
 constexpr int TZR = 128;         // rank columns a block accumulates
@@ -99,6 +99,7 @@ constexpr int TV_FLOATS = BF * TVH > TBG * TVW ? BF * TVH : TBG * TVW;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __device__ __forceinline__ float relu(float a) {
   return a < 0.f ? 0.f : a;  // NaN passes through, as jax.nn.relu / torch.relu
@@ -108,14 +109,6 @@ __device__ __forceinline__ float relu(float a) {
 // (no staging registers); entries outside the matrix are zero-filled.
 // cp_async_wait() completes every copy this thread issued; a
 // __syncthreads() after it publishes them to the block.
-constexpr int kPerThread = 64 * 64 / kThreads;  // elements of a 64x64 tile
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
 
 // 16 bytes, of which the first src_bytes come from src and the rest are 0;
 // src and dst 16-byte aligned
@@ -128,85 +121,6 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// columns [c0, c0 + stored) of rows [row0, row0 + 64) of a row-major
-// (n, R) matrix with row stride ld into dst (row stride ds), stored <= 64;
-// entries outside the matrix or at or past column c0 + valid are zero
-__device__ __forceinline__ void load_cols(float* dst, int ds,
-                                          const float* __restrict__ src,
-                                          int row0, int n, int ld, int c0,
-                                          int valid, int stored = 64) {
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int idx = threadIdx.x + k * kThreads;
-    const int row = idx / 64, c = idx % 64;
-    if (c < stored) {
-      const bool ok = row0 + row < n && c < valid;
-      cp_async4(&dst[row * ds + c],
-                ok ? src + (size_t)(row0 + row) * ld + c0 + c : src, ok);
-    }
-  }
-}
-
-// the (BF, BG) tile of V at (f0, g0), kept in V's own orientation: row o of
-// the tile is a run along V's contiguous axis (g on the H side, f on the W
-// side), so V(f, g) sits at Vs[f * vsf + g * vsg]
-__device__ __forceinline__ void load_v(float* Vs, const float* __restrict__ V,
-                                       int f0, int g0, int n_f, int n_g,
-                                       long long sf, long long sg) {
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int idx = threadIdx.x + k * kThreads;
-    const int o = idx / 64, in = idx % 64;
-    const int f = sg == 1 ? o : in, g = sg == 1 ? in : o;
-    const bool ok = f0 + f < n_f && g0 + g < n_g;
-    cp_async4(&Vs[o * VS + in], ok ? V + (f0 + f) * sf + (g0 + g) * sg : V,
-              ok);
-  }
-}
-
-// wh[i][j] = F[f0 + tf + 16i] . G[g0 + tg + 16j] for this thread's (tf, tg),
-// the rank streamed through 64-wide chunks.  Starts and ends with the
-// shared chunk tiles free (a __syncthreads() after the last use); waits
-// for every copy the thread issued before it, too.
-__device__ void wh_tile(float wh[4][4], float* Fc, float* Gc,
-                        const float* __restrict__ F,
-                        const float* __restrict__ G, int f0, int g0, int n_f,
-                        int n_g, int R, int ldr) {
-  const int tf = threadIdx.x / 16, tg = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wh[i][j] = 0.f;
-  for (int rc = 0; rc < R; rc += RC) {
-    const int valid = imin(RC, R - rc);
-    load_cols(Fc, KS, F, f0, n_f, ldr, rc, valid);
-    load_cols(Gc, KS, G, g0, n_g, ldr, rc, valid);
-    cp_async_wait();
-    __syncthreads();
-    for (int r = 0; r < valid; r += 4) {  // columns up to the next 4 are 0
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&Fc[(tf + 16 * i) * KS + r]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(&Gc[(tg + 16 * j) * KS + r]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float s = wh[i][j];
-          s = fmaf(a[i].x, b[j].x, s);
-          s = fmaf(a[i].y, b[j].y, s);
-          s = fmaf(a[i].z, b[j].z, s);
-          s = fmaf(a[i].w, b[j].w, s);
-          wh[i][j] = s;
-        }
-    }
-    __syncthreads();
-  }
 }
 
 // 2^x (ex2.approx: relative error 2^-22.5)
@@ -250,14 +164,18 @@ __device__ __forceinline__ float loss_term(float v, float wh, float beta) {
     const float te = v + kEps, ie = wh + kEps;
     return te / ie - logf(te) + logf(ie) - 1.f;
   }
+  // ie^(beta-1) and t^beta as 2^(y log2 x), ie^beta = ie^(beta-1) ie: no
+  // branches, so a thread's terms interleave (powf's special cases
+  // serialize them).  t = 0 (beta > 0) gives 2^-inf = 0.  The accurate
+  // log2f and exp2f (1-2 ulp), not B1's approximations: the terms are
+  // differences of their powers, and the sum is held to 1e-4.
   const float t = beta < 0.f ? v + kEps : v;
   const float ie = wh + kEps;
-  const float ie_bm1 = powf(ie, beta - 1.f);
-  return (powf(t, beta) + (beta - 1.f) * ie_bm1 * ie - beta * t * ie_bm1) /
+  const float ie_bm1 = exp2f((beta - 1.f) * log2f(ie));
+  return (exp2f(beta * log2f(t)) + (beta - 1.f) * ie_bm1 * ie -
+          beta * t * ie_bm1) /
          (beta * (beta - 1.f));
 }
-
-size_t loss_smem_bytes() { return sizeof(float) * (2 * 64 * KS + BF * VS); }
 
 // the kernel may take `bytes` of dynamic shared memory, and prefers the
 // largest shared-memory carveout (two or three blocks per SM)
@@ -315,7 +233,8 @@ __device__ __forceinline__ void tc_load(float* dst, int ds,
   }
 }
 
-// the (BF, TBG) tile of V at (f0, g0) in V's own orientation, as load_v:
+// the (BF, TBG) tile of V at (f0, g0) in V's own orientation (a row of the
+// tile runs along V's contiguous axis, g on the H side, f on the W side):
 // V(f, g) at V[f ldv + g] on the H side, V[g ldv + f] on the W side, rows
 // 16-byte aligned; 16-byte copies
 __device__ __forceinline__ void tc_load_v(float* Vs,
@@ -373,8 +292,23 @@ __device__ __forceinline__ void tc_split(float* gs, float* go,
   tf32x3::fence_async_smem();
 }
 
+// fixed-order tree sum of the N values in red; the result is red[0]
+template <int N>
+__device__ void block_sum(float* red) {
+  for (int s = N / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+}
+
+// what contract_kernel computes: the numerator, both MU contractions, or the
+// loss
+enum Mode { kNeg, kNegPos, kLoss };
+
 // out_neg/out_pos: the (n_f, R) outputs when gridDim.y == 1, else the
-// (gridDim.y, n_f, R) partial slabs.  mu_pos (R,) selects the beta=1
+// (gridDim.y, n_f, R) partial slabs.  kLoss (H side, one rank block) writes
+// the block's sum of loss terms to out_neg[blockIdx.y gridDim.x +
+// blockIdx.x] instead.  mu_pos (R,) selects the beta=1
 // epilogue; it is applied here only when there is one split.  Warp w of the
 // warpgroup holds rows f0 + 16 w + [0, 16) of the WH tile and of the
 // accumulators (rank columns z0 + [0, 8 NT)), in the mma C layout.
@@ -386,7 +320,7 @@ __device__ __forceinline__ void tc_split(float* gs, float* go,
 // columns (tig, tig + 4): the sum over g does not care about the order of
 // its 8 terms, so GO stores G row 2 tig at K position tig and 2 tig + 1 at
 // tig + 4, and the cotangents never leave registers.
-template <int NT, bool POS>
+template <int NT, int MODE>
 __global__ void __launch_bounds__(kTcThreads, 1)
     contract_kernel(const float* __restrict__ V, const float* __restrict__ F,
                     const float* __restrict__ G,
@@ -394,6 +328,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                     float* __restrict__ out_neg, float* __restrict__ out_pos,
                     int n_f, int n_g, int R, int ldv, int ldr, int h_side,
                     int tiles_per_split, float beta) {
+  constexpr bool POS = MODE == kNegPos, LOSS = MODE == kLoss;
   extern __shared__ __align__(128) float smem[];
   const int rcw = tc_rcw(R), fs = rcw + 4;
   constexpr int GO_SIZE = 8 * NT * TBG;
@@ -413,9 +348,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const float* Fw = Fs + 16 * warp * fs;
 
   // GO rows past the block's rank columns stay zero
-  for (int e = threadIdx.x; e < 2 * GO_SIZE; e += kTcThreads) GO[e] = 0.f;
+  if (!LOSS)
+    for (int e = threadIdx.x; e < 2 * GO_SIZE; e += kTcThreads) GO[e] = 0.f;
 
-  float an[4 * NT], ap[4 * NT];
+  float an[4 * NT], ap[4 * NT], loss = 0.f;
 #pragma unroll
   for (int i = 0; i < 4 * NT; ++i) an[i] = ap[i] = 0.f;
 
@@ -440,7 +376,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       cp_async_wait();
       tf32x3::wgmma_wait<0>();  // the last products are done with GS, GO
       __syncthreads();
-      tc_split(GS, GO, Graw, fs, w8, z0 - rc, zw, GO_SIZE);
+      tc_split(GS, GO, Graw, fs, w8, z0 - rc, LOSS ? 0 : zw, GO_SIZE);
       __syncthreads();
       if (resident && t + 1 < t_end) {  // the next step's tiles, meanwhile
         tc_load(Graw, fs, G, g0 + TBG, TBG, n_g, R, ldr, 0, rcw);
@@ -477,40 +413,62 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       if (!resident) __syncthreads();  // the next chunk overwrites F, Graw
     }
 
-    // the cotangents of the 64 x TBG tile, all at once (their exp2/log2
-    // chains are independent), then the contraction, one k8 per 8 columns
-    float cn[4 * (TBG / 8)], cp[4 * (TBG / 8)];
+    if constexpr (LOSS) {
+      // the loss terms of the 64 x TBG tile, 0 outside the matrix
 #pragma unroll
-    for (int i = 0; i < 4 * (TBG / 8); ++i) {
-      const int f = 16 * warp + gid + 8 * ((i % 4) / 2);
-      const int g = 8 * (i / 4) + 2 * tig + i % 2;
-      float a, b;
-      cotangents(Vs[f * vsf + g * vsg], s[i], beta, a, b);
-      const bool ok = f0 + f < n_f && g0 + g < n_g;
-      cn[i] = ok ? a : 0.f;
-      cp[i] = ok ? b : 0.f;
-    }
-    tf32x3::fence_operand(an);
-    if (POS) tf32x3::fence_operand(ap);
-    tf32x3::wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < TBG / 8; ++j) {
-      const float* c = cn + 4 * j;
-      const tf32x3::FragA a_neg = tf32x3::frag_a(c[0], c[2], c[1], c[3]);
-      const uint64_t bh = tf32x3::desc(GO + 64 * j, 128, 1024);
-      const uint64_t bl = tf32x3::desc(GO + GO_SIZE + 64 * j, 128, 1024);
-      tf32x3::wgmma<NT>(an, a_neg.hi, bl, 1);
-      tf32x3::wgmma<NT>(an, a_neg.lo, bh, 1);
-      tf32x3::wgmma<NT>(an, a_neg.hi, bh, 1);
-      if (POS) {
-        const float* d = cp + 4 * j;
-        const tf32x3::FragA a_pos = tf32x3::frag_a(d[0], d[2], d[1], d[3]);
-        tf32x3::wgmma<NT>(ap, a_pos.hi, bl, 1);
-        tf32x3::wgmma<NT>(ap, a_pos.lo, bh, 1);
-        tf32x3::wgmma<NT>(ap, a_pos.hi, bh, 1);
+      for (int i = 0; i < 4 * (TBG / 8); ++i) {
+        const int f = 16 * warp + gid + 8 * ((i % 4) / 2);
+        const int g = 8 * (i / 4) + 2 * tig + i % 2;
+        const float term = loss_term(Vs[f * vsf + g * vsg], s[i], beta);
+        loss += f0 + f < n_f && g0 + g < n_g ? term : 0.f;
       }
+    } else {
+      // the cotangents of the 64 x TBG tile, all at once (their exp2/log2
+      // chains are independent), then the contraction, one k8 per 8 columns
+      float cn[4 * (TBG / 8)], cp[4 * (TBG / 8)];
+#pragma unroll
+      for (int i = 0; i < 4 * (TBG / 8); ++i) {
+        const int f = 16 * warp + gid + 8 * ((i % 4) / 2);
+        const int g = 8 * (i / 4) + 2 * tig + i % 2;
+        float a, b;
+        cotangents(Vs[f * vsf + g * vsg], s[i], beta, a, b);
+        const bool ok = f0 + f < n_f && g0 + g < n_g;
+        cn[i] = ok ? a : 0.f;
+        cp[i] = ok ? b : 0.f;
+      }
+      tf32x3::fence_operand(an);
+      if (POS) tf32x3::fence_operand(ap);
+      tf32x3::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < TBG / 8; ++j) {
+        const float* c = cn + 4 * j;
+        const tf32x3::FragA a_neg = tf32x3::frag_a(c[0], c[2], c[1], c[3]);
+        const uint64_t bh = tf32x3::desc(GO + 64 * j, 128, 1024);
+        const uint64_t bl = tf32x3::desc(GO + GO_SIZE + 64 * j, 128, 1024);
+        tf32x3::wgmma<NT>(an, a_neg.hi, bl, 1);
+        tf32x3::wgmma<NT>(an, a_neg.lo, bh, 1);
+        tf32x3::wgmma<NT>(an, a_neg.hi, bh, 1);
+        if (POS) {
+          const float* d = cp + 4 * j;
+          const tf32x3::FragA a_pos = tf32x3::frag_a(d[0], d[2], d[1], d[3]);
+          tf32x3::wgmma<NT>(ap, a_pos.hi, bl, 1);
+          tf32x3::wgmma<NT>(ap, a_pos.lo, bh, 1);
+          tf32x3::wgmma<NT>(ap, a_pos.hi, bh, 1);
+        }
+      }
+      tf32x3::wgmma_commit();  // waited for before the next split
     }
-    tf32x3::wgmma_commit();  // waited for before the next split
+  }
+  if constexpr (LOSS) {
+    // the block's sum; shared memory is free once every thread is past its
+    // last read of V
+    __syncthreads();
+    smem[threadIdx.x] = loss;
+    __syncthreads();
+    block_sum<kTcThreads>(smem);
+    if (threadIdx.x == 0)
+      out_neg[blockIdx.y * gridDim.x + blockIdx.x] = smem[0];
+    return;
   }
   tf32x3::wgmma_wait<0>();
   tf32x3::fence_operand(an);
@@ -555,54 +513,6 @@ __global__ void contract_finish_kernel(
   }
 }
 
-// fixed-order tree sum of kThreads values in red; the result is red[0]
-__device__ void block_sum(float* red) {
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-}
-
-// H orientation (F = H, G = W); one partial sum per block
-__global__ void __launch_bounds__(kThreads, 2)
-    loss_kernel(const float* __restrict__ V, const float* __restrict__ H,
-                const float* __restrict__ W, float* __restrict__ partials,
-                int M, int K, int R, int ldv, int ldr, int tiles_per_split,
-                float beta) {
-  extern __shared__ __align__(16) float smem[];
-  float* Fc = smem;
-  float* Gc = smem + 64 * KS;
-  float* Vs = smem + 2 * 64 * KS;
-  const int tf = threadIdx.x / 16, tg = threadIdx.x % 16;
-  const int f0 = blockIdx.x * BF;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = imin(t_begin + tiles_per_split, cdiv(K, BG));
-
-  float sum = 0.f;
-  if (t_begin < t_end) load_v(Vs, V, f0, t_begin * BG, M, K, ldv, 1);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int g0 = t * BG;
-    float wh[4][4];
-    wh_tile(wh, Fc, Gc, H, W, f0, g0, M, K, R, ldr);  // completes Vs too
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int f = tf + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int g = tg + 16 * j;
-        if (f0 + f < M && g0 + g < K)
-          sum += loss_term(Vs[f * VS + g], wh[i][j], beta);
-      }
-    }
-    __syncthreads();
-    if (t + 1 < t_end) load_v(Vs, V, f0, g0 + BG, M, K, ldv, 1);
-  }
-  Vs[threadIdx.x] = sum;  // 64 * VS >= kThreads
-  __syncthreads();
-  block_sum(Vs);
-  if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = Vs[0];
-}
-
 __global__ void __launch_bounds__(kThreads)
     loss_finish_kernel(const float* __restrict__ partials, int n,
                        float* __restrict__ out) {
@@ -611,11 +521,21 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < n; i += kThreads) s += partials[i];
   red[threadIdx.x] = s;
   __syncthreads();
-  block_sum(red);
+  block_sum<kThreads>(red);
   if (threadIdx.x == 0) out[0] = red[0];
 }
 
-template <int NT, bool POS>
+// the instance's shared-memory attributes, set once, to the most any rank
+// needs (two CUDA runtime calls per launch cost host time that a small
+// fit's kernel feels)
+template <int NT, int MODE>
+cudaError_t configure_contract() {
+  static const cudaError_t configured = set_smem(
+      contract_kernel<NT, MODE>, contract_smem_bytes(TRC, NT));
+  return configured;
+}
+
+template <int NT, int MODE>
 cudaError_t launch_contract(dim3 grid, cudaStream_t stream,
                             const float* V, const float* F, const float* G,
                             const float* mu_pos, float* out_neg,
@@ -623,12 +543,9 @@ cudaError_t launch_contract(dim3 grid, cudaStream_t stream,
                             int ldv, int ldr, int h_side, int tiles_per_split,
                             float beta) {
   const size_t smem = contract_smem_bytes(R, NT);
-  // set once per instance, to the most any rank needs (two CUDA runtime
-  // calls per launch cost host time that a small fit's kernel feels)
-  static const cudaError_t configured = set_smem(
-      contract_kernel<NT, POS>, contract_smem_bytes(TRC, NT));
+  const cudaError_t configured = configure_contract<NT, MODE>();
   if (configured != cudaSuccess) return configured;
-  contract_kernel<NT, POS><<<grid, kTcThreads, smem, stream>>>(
+  contract_kernel<NT, MODE><<<grid, kTcThreads, smem, stream>>>(
       V, F, G, mu_pos, out_neg, out_pos, n_f, n_g, R, ldv, ldr, h_side,
       tiles_per_split, beta);
   return cudaGetLastError();
@@ -673,12 +590,12 @@ int pnt_fused_contractions(const float* V, const float* F, const float* G,
   float* dp = splits == 1 ? out_pos : part_pos;
   cudaError_t err;
 #define PNT_CONTRACT(NT)                                                   \
-  err = need_pos ? launch_contract<NT, true>(grid, stream, V, F, G, mu_pos, \
-                                             dn, dp, n_f, n_g, R, ldv, ldr, \
-                                             h_side, tps, beta)             \
-                 : launch_contract<NT, false>(grid, stream, V, F, G, mu_pos, \
-                                              dn, dp, n_f, n_g, R, ldv, ldr, \
-                                              h_side, tps, beta)
+  err = need_pos ? launch_contract<NT, kNegPos>(                           \
+                       grid, stream, V, F, G, mu_pos, dn, dp, n_f, n_g, R,  \
+                       ldv, ldr, h_side, tps, beta)                         \
+                 : launch_contract<NT, kNeg>(                              \
+                       grid, stream, V, F, G, mu_pos, dn, dp, n_f, n_g, R,  \
+                       ldv, ldr, h_side, tps, beta)
   // n8 tiles of the widest block, as a wgmma width (tf32x3.cuh)
   const int nt = cdiv(imin(R, TZR), 8);
   if (nt <= 2) PNT_CONTRACT(2);
@@ -699,29 +616,39 @@ int pnt_fused_contractions(const float* V, const float* F, const float* G,
   return (int)cudaGetLastError();
 }
 
-// Splits of the loss over K; it writes cdiv(M, 64) * splits partial sums.
-int pnt_loss_splits(int M, int K, int num_sms) {
-  return num_splits(cdiv(M, BF), K, BG, num_sms);
+// Splits of the loss over K, as many as fill the card's block slots in one
+// round (a second round of a few blocks would double the time); it writes
+// cdiv(M, 64) * splits partial sums.
+int pnt_loss_splits(int M, int K, int R, int num_sms) {
+  int per_sm = 0;
+  if (configure_contract<2, kLoss>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, contract_kernel<2, kLoss>, kTcThreads,
+          contract_smem_bytes(R, 2)) != cudaSuccess)
+    per_sm = 1;
+  const int n_gt = cdiv(K, TBG);
+  int s = imax(per_sm, 1) * num_sms / cdiv(M, BF);
+  s = s < 1 ? 1 : (s > n_gt ? n_gt : s);
+  return cdiv(n_gt, cdiv(n_gt, s));
 }
 
 int pnt_loss_partials(int M, int splits) { return cdiv(M, BF) * splits; }
 
 // partials holds pnt_loss_partials(M, splits) floats; out one float.  V
-// (M, K), H (M, R) and W (K, R) are row-major, rows ldv and ldr floats apart.
+// (M, K), H (M, R) and W (K, R) are row-major with 16-byte aligned rows ldv
+// (V) and ldr (H, W) floats apart.
 int pnt_fused_beta_loss(const float* V, const float* H, const float* W,
                         float* partials, float* out, int M, int K, int R,
                         int ldv, int ldr, int splits, float beta,
                         void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (M < 1 || K < 1 || R < 1 || splits < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = loss_smem_bytes();
-  static const cudaError_t configured = set_smem(loss_kernel, smem);
-  if (configured != cudaSuccess) return (int)configured;
-  cudaError_t err;
+  if (M < 1 || K < 1 || R < 1 || splits < 1 || ldv % 4 || ldr % 4 ||
+      ldr < R || ldv < K)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(cdiv(M, BF), splits);
-  loss_kernel<<<grid, kThreads, smem, stream>>>(
-      V, H, W, partials, M, K, R, ldv, ldr, cdiv(cdiv(K, BG), splits), beta);
-  err = cudaGetLastError();
+  const cudaError_t err = launch_contract<2, kLoss>(
+      grid, stream, V, H, W, nullptr, partials, nullptr, M, K, R, ldv, ldr, 1,
+      cdiv(cdiv(K, TBG), splits), beta);
   if (err != cudaSuccess) return (int)err;
   loss_finish_kernel<<<1, kThreads, 0, stream>>>(partials, grid.x * grid.y,
                                                  out);

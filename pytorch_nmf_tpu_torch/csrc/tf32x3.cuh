@@ -36,11 +36,12 @@
 namespace tf32x3 {
 
 // a TF32 value (round to nearest, ties away), its 13 low bits zero, so that
-// a - tf32(a) is exact in f32
+// a - tf32(a) is exact in f32: half a TF32 ulp added to the magnitude, the
+// low bits cleared.  The same bits as cvt.rna.tf32.f32 for finite values,
+// in two full-rate integer operations: the conversion's lower rate held
+// every kernel's split back (9% of wgrad's time; PERF.md).
 __device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r & 0xffffe000u;
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
 }
 
 // a = hi + lo, both TF32

@@ -35,7 +35,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fused_mu": {
         "pnt_contract_splits": ([_I, _I, _I, _I], _I),
-        "pnt_loss_splits": ([_I, _I, _I], _I),
+        "pnt_loss_splits": ([_I] * 4, _I),
         "pnt_loss_partials": ([_I, _I], _I),
         "pnt_fused_contractions": ([_P] * 8 + [_I] * 7 + [_F, _I, _P], _I),
         "pnt_fused_beta_loss": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
@@ -44,7 +44,7 @@ _SIGNATURES = {
         "pnt_hgrad_splits": ([_I] * 10, _I),
         "pnt_hgrad": ([_P] * 4 + [_I] * 12 + [_P], _I),
         "pnt_wgrad_splits": ([_I, _I, _I, _I, _I], _I),
-        "pnt_wgrad": ([_P] * 9 + [_I] * 13 + [_P], _I),
+        "pnt_wgrad": ([_P] * 9 + [_I] * 14 + [_P], _I),
     },
 }
 

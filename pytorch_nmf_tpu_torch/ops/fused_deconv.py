@@ -33,7 +33,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..constants import eps
-from .fused_mu import _sm_count
+from .fused_mu import _sm_count, aligned_rows
 
 __all__ = [
     "hgrad",
@@ -211,12 +211,10 @@ def hgrad(cot2, W2, R: int, L_in: int, geom=None):
     if g[0] * g[1] * g[2] != K:
         raise ValueError(f"geom {geom} does not have {K} kernel offsets")
     # the kernel copies 16 bytes at a time: channels padded with zeros to a
-    # multiple of 4, rows 16-byte aligned (C = 1025 costs two ~20 µs copies)
-    C4 = -(-C // 4) * 4
-    if C4 != C or cot2.data_ptr() % 16 or W2.data_ptr() % 16:
-        cot2 = torch.nn.functional.pad(cot2, (0, C4 - C)).contiguous()
-        W2 = torch.nn.functional.pad(W2, (0, C4 - C)).contiguous()
-    C = C4
+    # multiple of 4 (C = 1025 costs two ~20 µs copies), which join the
+    # reduction as zeros; both operands get the same row stride
+    cot2, W2 = aligned_rows(cot2), aligned_rows(W2)
+    C = cot2.stride(0)
     _check_int32(W2=K * R * C, cot2=Lp * C)
     lib = load_library("fused_deconv")
     splits = lib.pnt_hgrad_splits(R, L_in, C, K, *g[1:],
@@ -271,7 +269,8 @@ def wgrad(cots2: Sequence[torch.Tensor], H2, R: int, T: int,
         raise ValueError("cotangents must share one (Lp, C) shape and H2 be (L, R)")
     K = _kernel_rows(T, geom)
     g = _geom_args(K, geom)
-    if max(_taus(K, geom)) > T - 1:
+    # the largest offset, without listing all K (host time a small call feels)
+    if (K if geom is None else _flat_T(geom)) > T:
         raise ValueError(f"geom {geom} reaches past the flat extent T={T}")
     if mu_w2 is not None:
         _check("mu_w2", mu_w2, dev)
@@ -282,7 +281,11 @@ def wgrad(cots2: Sequence[torch.Tensor], H2, R: int, T: int,
             raise ValueError("mu_pos must hold R float32 values on H2's device")
         mu_pos = mu_pos.reshape(-1).contiguous()
     L_h = H2.shape[0]
-    _check_int32(out=K * R * C, cots2=Lp * C, H2=L_h * R)
+    # the cotangents' rows are copied 16 bytes at a time (channels padded as
+    # hgrad's); the kernel reads only the first C of each
+    cots2 = [aligned_rows(c) for c in cots2]
+    ldc = cots2[0].stride(0)
+    _check_int32(out=K * R * C, cots2=Lp * ldc, H2=L_h * R)
     lib = load_library("fused_deconv")
     n = len(cots2)
     splits = lib.pnt_wgrad_splits(K * R, C, Lp, n, _sm_count(dev))
@@ -302,7 +305,7 @@ def wgrad(cots2: Sequence[torch.Tensor], H2, R: int, T: int,
         None if mu_w2 is None else mu_w2.data_ptr(),
         None if mu_w2 is None else mu_pos.data_ptr(),
         ptr(outs, 0), ptr(outs, 1), ptr(parts, 0), ptr(parts, 1),
-        L_h, Lp, C, R, K, 0 if lead_pad else T - 1, *g, splits,
+        L_h, Lp, C, ldc, R, K, 0 if lead_pad else T - 1, *g, splits,
         _stream(dev),
     )
     if err != 0:

@@ -213,9 +213,10 @@ def fused_beta_loss(V, H, W, beta: float):
     from ._build import load_library
 
     M, K, R = _check_operands(V, H, W)
+    V = aligned_rows(V)
     H, W = _factor_rows(H, W)
     lib = load_library("fused_mu")
-    splits = lib.pnt_loss_splits(M, K, _sm_count(V.device))
+    splits = lib.pnt_loss_splits(M, K, R, _sm_count(V.device))
     partials = torch.empty(lib.pnt_loss_partials(M, splits), device=V.device,
                            dtype=torch.float32)
     out = torch.empty((), device=V.device, dtype=torch.float32)

@@ -338,6 +338,53 @@ def test_cuda_wgrad_epilogue_matches_plain(cuda, N, C, s_in, kernel, R):
                    D.plain_wgrad([cot], H2, R, op.T, **kw)[0])
 
 
+# the tile edges of the tensor-core wgrad (128 (j, r) rows, 32-deep steps of
+# l, 128 channels a block, 64 a cotangent of the pair, the N = 16 instance
+# for a last tile of at most 16 channels): ranks 1, 3 and 13 (4-byte patch
+# copies) through 1-D and N-D kernels whose row tiles span up to 150 flat
+# offsets, 8, 16 and 88 (16-byte copies), 257; C = 1025 and C < 16; N = 2;
+# one split (10 steps) and many
+WGRAD_EDGE_CASES = [
+    (1, 1025, (2000,), (5,), 1),
+    (1, 9, (5, 70), (3, 4), 3),
+    (1, 17, (6, 60), (2, 5), 13),
+    (1, 1025, (700,), (40,), 8),
+    (1, 64, (9, 9, 9), (4, 4, 4), 16),
+    (1, 1025, (300,), (9,), 88),
+    (1, 7, (2000,), (5,), 88),
+    (1, 65, (300,), (9,), 257),
+    (2, 33, (150,), (12,), 88),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cots", [1, 2])
+@pytest.mark.parametrize("N, C, s_in, kernel, R", WGRAD_EDGE_CASES)
+def test_cuda_wgrad_tile_edges(cuda, N, C, s_in, kernel, R, n_cots):
+    test_cuda_wgrad_matches_plain(cuda, N, C, s_in, kernel, R, n_cots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, C, s_in, kernel, R", WGRAD_EDGE_CASES)
+def test_cuda_wgrad_epilogue_tile_edges(cuda, N, C, s_in, kernel, R):
+    test_cuda_wgrad_epilogue_matches_plain(cuda, N, C, s_in, kernel, R)
+
+
+@pytest.mark.cuda
+def test_cuda_wgrad_takes_unaligned_rows(cuda):
+    """Cotangent rows of 1025 floats, and H2 at an odd offset, are copied
+    as the kernel takes them; results agree with the plain version."""
+    op = _kernel_operands(1, 1025, (300,), (9,), 88)
+    cots = [c.to(cuda) for c in op.cots]
+    H2 = torch.cat([torch.zeros(1, device=cuda),
+                    op.H2.to(cuda).reshape(-1)])[1:].reshape(op.H2.shape)
+    assert H2.data_ptr() % 16 and cots[0].data_ptr() % 16 == 0
+    gots = D.wgrad(cots, H2, 88, op.T, lead_pad=op.lead, geom=op.geom)
+    refs = D.plain_wgrad(cots, H2, 88, op.T, lead_pad=op.lead, geom=op.geom)
+    for got, ref in zip(gots, refs):
+        _assert_kernel(got, ref)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_count_and_reject(cuda):
     op = _kernel_operands(1, 9, (40,), (4,), 2)

@@ -224,6 +224,29 @@ def test_cuda_loss_matches_plain(cuda, shape, beta):
     torch.testing.assert_close(got, ref, rtol=RTOL_CUDA, atol=0)
 
 
+# the tile edges of the loss on B1's kernel (64 H rows, 32-row W steps, the
+# WH product rank-chunked above 256): M and K ragged, K = 1025 (rows the
+# wrapper pads), ranks 1, 13, 88, 256 and 300
+LOSS_EDGE_SHAPES = [(1025, 30, 1), (70, 1025, 13), (517, 1025, 88),
+                    (130, 90, 256), (90, 70, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LOSS_EDGE_SHAPES)
+@pytest.mark.parametrize("beta", [0.0, 0.5, 1.5, 3.0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_loss_tile_edges(cuda, shape, beta, offset):
+    """``offset`` 1: V a view one float into its storage, so no row is
+    16-byte aligned."""
+    V, W, H = (torch.from_numpy(x).to(cuda) for x in _inputs(*shape))
+    if offset:
+        V = torch.cat([V.new_zeros(1), V.reshape(-1)])[1:].reshape(V.shape)
+        assert V.data_ptr() % 16
+    got = fused_mu.fused_beta_loss(V, H, W, beta)
+    ref = fused_mu.plain_beta_loss(V, H, W, beta)
+    torch.testing.assert_close(got, ref, rtol=RTOL_CUDA, atol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_count_and_reject(cuda):
     V, W, H = (torch.from_numpy(x).to(cuda) for x in _inputs(64, 48, 8))
