@@ -1,14 +1,16 @@
 """pytorch_nmf_tpu_torch — the PyTorch/CUDA port of ``pytorch_nmf_tpu``.
 
-Same module layout and names as the JAX package.  Dense ``NMF.fit`` and the
-deconvolutional ``NMFD``/``NMF2D``/``NMF3D.fit`` run on any PyTorch device;
-on an NVIDIA Hopper GPU their heavy contractions run in hand-written CUDA
-kernels (``csrc/fused_mu.cu`` for dense β ≠ 2, ``csrc/fused_deconv.cu`` for
-the deconv family), built with ``nvcc`` at first use.  This package never
-imports JAX.
+Same module layout and names as the JAX package.  Dense ``NMF.fit`` (dense
+or sparse COO targets), the deconvolutional ``NMFD``/``NMF2D``/``NMF3D.fit``
+and the PLCA family's EM ``PLCA``/``SIPLCA``/``SIPLCA2``/``SIPLCA3.fit`` run
+on any PyTorch device; on an NVIDIA Hopper GPU their heavy contractions run
+in hand-written CUDA kernels (``csrc/fused_mu.cu`` for dense β ≠ 2,
+``csrc/fused_deconv.cu`` for the deconv family and the SIPLCA E-step), built
+with ``nvcc`` at first use.  This package never imports JAX.
 """
 
-from . import metrics, models, nmf, ops, utils  # noqa: F401
+from . import metrics, models, nmf, ops, plca, utils  # noqa: F401
+from .ops.sparse import sparse_from_dense  # noqa: F401
 
 name = "pytorch_nmf_tpu_torch"
 __version__ = "1.0.0"

@@ -27,9 +27,11 @@ from torch import nn
 
 from ..ops import recon as _recon
 from ..ops import solver as _solver
+from ..ops import sparse as _sparse
 from ..ops.fast_nmf import resolve_nmf_updater_factory
 from ..ops.fast_nmfd import resolve_nmfd_updater_factory
 from ._common import (
+    _BETA_ZERO_MSG,
     assert_nonneg,
     is_tensor_like,
     pair,
@@ -42,6 +44,17 @@ from ._common import (
 )
 
 __all__ = ["BaseComponent", "NMF", "NMFD", "NMF2D", "NMF3D"]
+
+
+def _check_factors(V, W, H):
+    """The fit runs in ``V``'s dtype on the factors' device: both factors
+    must be there in that dtype."""
+    for name, p in (("W", W), ("H", H)):
+        if p.device != V.device or p.dtype != V.dtype:
+            raise ValueError(
+                f"{name} is {p.dtype} on {p.device}, V is {V.dtype}: the "
+                f"fit runs in V's dtype, on the factors' device"
+            )
 
 
 class BaseComponent(nn.Module):
@@ -131,6 +144,11 @@ class BaseComponent(nn.Module):
     # staticmethod (device, dtype) -> updater factory | None
     _updater_resolver = None
 
+    # staticmethod (V, H, W, beta) -> (pos, neg) for a sparse target: the
+    # split β-divergence's scalar pair; only NMF has one (reference
+    # nmf.py:617-638)
+    _sp_pos_neg = None
+
     def fit(
         self,
         V,
@@ -143,45 +161,86 @@ class BaseComponent(nn.Module):
     ) -> int:
         r"""Learn the factorization by minimizing the β-divergence with
         multiplicative updates (reference nmf.py:297-409) on the factors'
-        device.  ``V`` (a tensor anywhere, or a numpy array) is moved there.
+        device.  ``V`` (a tensor anywhere, or a numpy array) is moved there;
+        ``NMF`` also takes a sparse COO tensor (:meth:`_fit_sparse`).
         Returns the number of iterations run."""
-        if isinstance(V, torch.Tensor) and V.layout != torch.strided:
-            raise NotImplementedError(
-                "sparse targets come with the sparse slice of the port "
-                "(ops/sparse.py, get_sparse_fit); densify V for now"
-            )
         W, H = self.W, self.H
-        V = torch.as_tensor(V)
-        V = V.to(W.device, V.dtype if V.dtype == torch.float64 else torch.float32)
-        for name, p in (("W", W), ("H", H)):
-            if p.device != V.device or p.dtype != V.dtype:
-                raise ValueError(
-                    f"{name} is {p.dtype} on {p.device}, V is {V.dtype}: the "
-                    f"fit runs in V's dtype, on the factors' device"
-                )
-        validate_target(V, beta)
-        V = V.contiguous()
-
         l1_reg = float(alpha * l1_ratio)
         l2_reg = float(alpha * (1 - l1_ratio))
-        fit_fn = _solver.get_dense_fit(
-            type(self).reconstruct,
-            float(beta),
-            float(tol),
-            int(max_iter),
-            W.requires_grad,
-            H.requires_grad,
-            l1_reg,
-            l2_reg,
-            bool(verbose),
-            (self._updater_resolver(V.device, V.dtype)
-             if self._updater_resolver is not None else None),
-        )
-        W_new, H_new, n_iter = fit_fn(V, W.detach(), H.detach())
+        if isinstance(V, torch.Tensor) and V.layout != torch.strided:
+            W_new, H_new, n_iter = self._fit_sparse(
+                V, float(beta), float(tol), int(max_iter), bool(verbose),
+                l1_reg, l2_reg)
+        else:
+            W_new, H_new, n_iter = self._fit_dense(
+                V, float(beta), float(tol), int(max_iter), bool(verbose),
+                l1_reg, l2_reg)
         with torch.no_grad():
             W.copy_(W_new)
             H.copy_(H_new)
         return int(n_iter)
+
+    def _fit_dense(self, V, beta, tol, max_iter, verbose, l1_reg, l2_reg):
+        """The dense branch of :meth:`fit`: ``(W, H, n_iter)``."""
+        W, H = self.W, self.H
+        V = torch.as_tensor(V)
+        V = V.to(W.device, V.dtype if V.dtype == torch.float64 else torch.float32)
+        _check_factors(V, W, H)
+        validate_target(V, beta)
+        V = V.contiguous()
+        fit_fn = _solver.get_dense_fit(
+            type(self).reconstruct, beta, tol, max_iter, W.requires_grad,
+            H.requires_grad, l1_reg, l2_reg, verbose,
+            (self._updater_resolver(V.device, V.dtype)
+             if self._updater_resolver is not None else None),
+        )
+        return fit_fn(V, W.detach(), H.detach())
+
+    def _fit_sparse(self, V, beta, tol, max_iter, verbose, l1_reg, l2_reg):
+        """The sparse branch of :meth:`fit` (reference nmf.py:351-398),
+        ``(W, H, n_iter)``: ``V`` a sparse COO tensor, coalesced here and
+        moved to the factors' device.  The tier is chosen once: densify when the dense target
+        fits its byte budget (:func:`~..ops.sparse.should_densify`), else
+        ELL when its layout builds, else gather.  A densify fit that runs
+        out of card memory (``torch.cuda.OutOfMemoryError``) is run once
+        more on the ELL or gather tier; any other error propagates."""
+        W, H = self.W, self.H
+        if V.layout != torch.sparse_coo:
+            raise ValueError(f"a sparse target must be a sparse COO tensor, "
+                             f"not {V.layout}")
+        if beta <= 0:
+            raise ValueError(_BETA_ZERO_MSG)
+        if self._sp_pos_neg is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support sparse targets.")
+        V = V.to(W.device, V.dtype if V.dtype == torch.float64
+                 else torch.float32).coalesce()
+        _check_factors(V, W, H)
+        if V.ndim != 2:
+            raise ValueError(f"a sparse target is 2-D, got {tuple(V.shape)}")
+        if V.values().numel() and float(V.values().min()) < 0:
+            raise ValueError("Target should be non-negative.")
+
+        def run(tier, V_arg):
+            fit_fn = _solver.get_sparse_fit(
+                type(self)._sp_pos_neg, beta, tol, max_iter, W.requires_grad,
+                H.requires_grad, l1_reg, l2_reg, verbose, tier,
+                type(self).reconstruct,
+                (self._updater_resolver(V.device, V.dtype)
+                 if tier == "densify" and self._updater_resolver is not None
+                 else None))
+            return fit_fn(V_arg, W.detach(), H.detach())
+
+        out = None
+        if _sparse.should_densify(V):
+            try:
+                out = run("densify", V)
+            except torch.cuda.OutOfMemoryError:
+                out = None  # once to the tiers that never densify
+        if out is None:
+            ell = _sparse.maybe_ell(V)
+            out = run("gather", V) if ell is None else run("ell", ell)
+        return out
 
 
 class NMF(BaseComponent):
@@ -201,6 +260,7 @@ class NMF(BaseComponent):
     def reconstruct(H, W):
         return _recon.linear(H, W)
 
+    _sp_pos_neg = staticmethod(_sparse.nmf_sp_pos_neg)
     _updater_resolver = staticmethod(resolve_nmf_updater_factory)
 
 

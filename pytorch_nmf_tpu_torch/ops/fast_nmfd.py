@@ -22,6 +22,11 @@ flattened row-major, after which full N-D convolution is 1-D convolution at
 flat offsets ``τ = Σ d_ax · stride_ax`` (:func:`~.fused_deconv.nd_geom`).
 ``N > 1`` stacks the batch into one sequence with ``T_geo - 1`` zero
 separators per segment.
+
+The same contractions are the adjoints of the reconstruction itself:
+:func:`kernel_adjoint_deconv` is a ``torch.autograd.Function`` whose
+backward runs them, which is what the SIPLCA family's EM E-step
+differentiates (:func:`resolve_plca_recon3`).
 """
 
 import itertools
@@ -33,11 +38,15 @@ from ..metrics import beta_div
 from . import fused_deconv
 from .fused_deconv import _chunk_tc, _flat_T, nd_geom
 from .mu import kl_pos_W, mu_cotangents, mu_multiplier
+from .recon import scaled_kernel
 
 __all__ = [
     "deconv_updater_factory_fused",
     "deconv_updater_factory_plain",
     "resolve_nmfd_updater_factory",
+    "kernel_adjoint_deconv",
+    "plain_adjoint_deconv",
+    "resolve_plca_recon3",
 ]
 
 
@@ -225,13 +234,20 @@ def _cot_stacked(cot, seg_stride: int):
         cot, (0, 0, 0, seg_stride - Lp_flat)).reshape(-1, C)
 
 
+def _contractions(kernels: str):
+    """``(hgrad, wgrad)``: the kernel wrappers (``"fused"``) or their plain
+    versions (``"plain"``)."""
+    if kernels == "fused":
+        return fused_deconv.hgrad, fused_deconv.wgrad
+    return fused_deconv.plain_hgrad, fused_deconv.plain_wgrad
+
+
 def _deconv_updaters(spatial_ndim: int, kernels: str, beta, gamma, l1_reg,
                      l2_reg):
     """The 5-arity ``(upd_W, upd_H, loss_terms, prepare, finish)`` updaters
     of the ``spatial_ndim`` deconv model over the hand-written kernels
     (``kernels="fused"``: the wrappers) or their plain versions."""
-    hgrad, wgrad = ((fused_deconv.hgrad, fused_deconv.wgrad) if kernels == "fused"
-                    else (fused_deconv.plain_hgrad, fused_deconv.plain_wgrad))
+    hgrad, wgrad = _contractions(kernels)
     nd = spatial_ndim
     fused_w = beta == 1 and gamma == 1 and l1_reg == 0 and l2_reg == 0
 
@@ -344,3 +360,100 @@ def resolve_nmfd_updater_factory(device, dtype, spatial_ndim: int = 1):
     if torch.device(device).type == "cuda":
         return deconv_updater_factory_fused(spatial_ndim)
     return deconv_updater_factory_plain(spatial_ndim)
+
+
+def _adjoint_deconv(kernels: str):
+    """The full deconvolution ``(H, Wz) → (N, C, *S_out)`` as a
+    ``torch.autograd.Function`` (counterpart of the JAX package's
+    ``_make_pallas_unfold_deconv``): forward streams the τ-chunked GEMMs
+    (:func:`_stream_recon`), backward runs ``dH`` through ``hgrad`` and
+    ``dWz`` through ``wgrad`` (one cotangent, no epilogue), in the flat
+    layout of the MU updaters (segment-stacked for ``N > 1``)."""
+    hgrad, wgrad = _contractions(kernels)
+
+    class AdjointDeconv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, H, Wz):
+            kernel = tuple(int(k) for k in Wz.shape[2:])
+            w2 = _w2(Wz)
+            ctx.save_for_backward(H, w2)
+            ctx.kernel = kernel
+            WH2 = _stream_recon(w2, H, kernel)  # (N, prod(S_out), C)
+            S_out = _pad_s_out(H.shape[2:], kernel)
+            return WH2.movedim(-1, 1).reshape(
+                (H.shape[0], Wz.shape[0]) + S_out)
+
+        @staticmethod
+        @torch.autograd.function.once_differentiable
+        def backward(ctx, ct):
+            H, w2 = ctx.saved_tensors
+            kernel = ctx.kernel
+            N, R = H.shape[:2]
+            _, geom, T_geo, L_flat = _flat_geom(ct.shape, H.shape)
+            # one channels-last copy of the cotangent per backward; each
+            # wrapper pads its channels to a multiple of 4 once per call
+            cot = _v2_flat(ct)  # (N, Lp_flat, C)
+            if N > 1:
+                seg = T_geo - 1 + L_flat
+                cot = _cot_stacked(cot, seg)
+                out = hgrad(cot, w2, R, N * seg, geom=geom)
+                segs = out.reshape(R, N, seg)[:, :, :L_flat].movedim(1, 0)
+                dH = _h_unflat_batched(segs, H.shape, kernel)
+                H2, lead = _h_stacked(H, kernel, T_geo), False
+            else:
+                cot = cot[0]
+                dH = _h_unflat_nd(hgrad(cot, w2, R, L_flat, geom=geom),
+                                  H.shape, kernel)
+                H2, lead = _h_flat_nd(H, kernel), True
+            dW2 = wgrad([cot], H2, R, T_geo, lead_pad=lead, geom=geom)[0]
+            return dH, _w_from_w2(dW2, kernel, R)
+
+    AdjointDeconv.__name__ = AdjointDeconv.__qualname__ = (
+        f"AdjointDeconv_{kernels}")
+    return AdjointDeconv
+
+
+_ADJOINT = {kernels: _adjoint_deconv(kernels) for kernels in ("fused", "plain")}
+
+
+def kernel_adjoint_deconv(H, Wz):
+    """Full N-D deconvolution of ``H (N, R, *S_in)`` by ``Wz (C, R, *k)``
+    whose adjoints are the kernel wrappers ``hgrad``/``wgrad`` (the CUDA
+    kernels on a CUDA tensor).  float32."""
+    return _ADJOINT["fused"].apply(H, Wz)
+
+
+def plain_adjoint_deconv(H, Wz):
+    """:func:`kernel_adjoint_deconv` with the kernels' plain versions as its
+    adjoints, on any device."""
+    return _ADJOINT["plain"].apply(H, Wz)
+
+
+def _make_recon3(spatial_ndim: int, kernels: str):
+    deconv = kernel_adjoint_deconv if kernels == "fused" else plain_adjoint_deconv
+
+    def recon3(H, W, Z):
+        return deconv(H, scaled_kernel(W, Z, spatial_ndim))
+
+    recon3.__name__ = recon3.__qualname__ = (
+        f"siplca{spatial_ndim}d_recon3_{kernels}")
+    return recon3
+
+
+_RECON3 = {
+    (nd, kernels): _make_recon3(nd, kernels)
+    for nd, kernels in itertools.product((1, 2, 3), ("fused", "plain"))
+}
+
+
+def resolve_plca_recon3(cls, device, dtype):
+    """The EM reconstruction ``recon3(H, W, Z)`` of a SIPLCA-family fit of a
+    ``dtype`` target on ``device`` (the static counterpart of the JAX
+    package's autotuned ``resolve_plca_recon3``): float64 takes the model's
+    convolution ``cls.reconstruct`` under autograd, a CUDA float32 target
+    the kernel-adjoint deconvolution, any other float32 target its plain
+    twin."""
+    if dtype == torch.float64:
+        return cls.reconstruct
+    kernels = "fused" if torch.device(device).type == "cuda" else "plain"
+    return _RECON3[cls._spatial_ndim, kernels]

@@ -4,6 +4,8 @@ r"""Reconstruction primitives (counterpart of :mod:`pytorch_nmf_tpu.ops.recon`).
 * ``deconv1d/2d/3d`` — full-padded correlation with the kernel flipped,
   i.e. true convolution: the reference's own
   ``F.convNd(H, W.flip(spatial), padding=k-1)`` (nmf.py:779,864,941).
+* ``scaled_kernel`` — ``W * Z`` over the rank axis, the PLCA family's
+  kernel (reference plca.py:372,449,524,604).
 
 Shapes follow the reference:
   1-D: ``H (N, R, L)``, ``W (C, R, T)``         → ``(N, C, L + T - 1)``
@@ -18,7 +20,8 @@ CUDA follows ``torch.backends.cudnn.allow_tf32``, which PyTorch sets by default.
 import torch
 import torch.nn.functional as F
 
-__all__ = ["acc_type", "linear", "deconv1d", "deconv2d", "deconv3d"]
+__all__ = ["acc_type", "linear", "deconv1d", "deconv2d", "deconv3d",
+           "scaled_kernel"]
 
 
 def acc_type(*xs) -> torch.dtype:
@@ -59,3 +62,9 @@ def deconv2d(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
 def deconv3d(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """3-D full convolution."""
     return _deconv(H, W, 3)
+
+
+def scaled_kernel(W: torch.Tensor, Z: torch.Tensor, spatial_ndim: int) -> torch.Tensor:
+    """``W (C, R, *spatial)`` scaled by ``Z (R,)`` on its rank axis; with
+    ``spatial_ndim=0`` the dense PLCA's ``W (K, R) * Z``."""
+    return W * Z.reshape((1, -1) + (1,) * spatial_ndim)

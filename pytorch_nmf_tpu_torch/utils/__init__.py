@@ -5,12 +5,14 @@
 * :func:`nmf_from_numpy` — build the port's ``NMF``, ``NMFD``, ``NMF2D`` or
   ``NMF3D`` from the JAX package's
   ``{"W": np.asarray(m.W.data), "H": np.asarray(m.H.data)}``.
+* :func:`plca_from_numpy` — the same for ``PLCA``, ``SIPLCA``, ``SIPLCA2`` or
+  ``SIPLCA3`` from ``{"W", "H", "Z"}``.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["normalize", "renorm", "nmf_from_numpy"]
+__all__ = ["normalize", "renorm", "nmf_from_numpy", "plca_from_numpy"]
 
 
 def normalize(x: torch.Tensor, axis=None) -> torch.Tensor:
@@ -43,5 +45,30 @@ def nmf_from_numpy(params: "dict[str, np.ndarray]", device=None,
         H=torch.from_numpy(np.array(params["H"])),
         trainable_W=trainable_W,
         trainable_H=trainable_H,
+        device=device,
+    )
+
+
+def plca_from_numpy(params: "dict[str, np.ndarray]", device=None,
+                    trainable_W: bool = True, trainable_H: bool = True,
+                    trainable_Z: bool = True):
+    """The port's PLCA-family model holding the given factors on ``device``
+    (the card when ``None``), chosen by the number of axes of ``W``: 2-D
+    ``PLCA``, 3-D ``SIPLCA``, 4-D ``SIPLCA2``, 5-D ``SIPLCA3``.  The
+    constructor renormalizes them, which leaves the JAX package's fitted
+    (already normalized) factors as they are up to rounding."""
+    from ..models.plca import PLCA, SIPLCA, SIPLCA2, SIPLCA3
+
+    models = {2: PLCA, 3: SIPLCA, 4: SIPLCA2, 5: SIPLCA3}
+    ndim = np.ndim(params["W"])
+    if ndim not in models:
+        raise ValueError(f"no PLCA model takes a {ndim}-D W")
+    return models[ndim](
+        W=torch.from_numpy(np.array(params["W"])),
+        H=torch.from_numpy(np.array(params["H"])),
+        Z=torch.from_numpy(np.array(params["Z"])),
+        trainable_W=trainable_W,
+        trainable_H=trainable_H,
+        trainable_Z=trainable_Z,
         device=device,
     )

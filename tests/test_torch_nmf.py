@@ -107,10 +107,17 @@ def test_negative_target_raises(problem):
 
 
 def test_sparse_target_not_yet_ported(problem):
-    m = NMF((M, K), R, device="cpu",
-            generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="sparse"):
-        m.fit(torch.from_numpy(problem[0]).to_sparse())
+    """Sparse targets are ported: ``fit`` takes a sparse COO tensor, and on
+    a target with every entry stored it is the dense fit."""
+    V = torch.from_numpy(problem[0])
+    fits = []
+    for target in (V, V.to_sparse()):
+        m = NMF((M, K), R, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+        assert m.fit(target, beta=1, tol=0, max_iter=10) == 10
+        fits.append(m)
+    torch.testing.assert_close(fits[1].W, fits[0].W, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(fits[1].H, fits[0].H, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("beta", [0.5, 1])
