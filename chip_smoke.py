@@ -20,7 +20,19 @@ Drives the port's paths at full width, each in phases:
 * sparse targets through ``NMF.fit``: the top 2% of 5168×1025 (rank 88;
   the densify tier, on B1 at β ≠ 2), 8192² with 671k non-zeros (rank 64,
   each tier forced), and 131072×65536 at 0.1% (rank 64), past the densify
-  budget, where the ELL tier is chosen.
+  budget, where the ELL tier is chosen;
+* Hoyer ``sparse_fit`` at β=2: dense ``NMF`` at 5168×1025 rank 88 with
+  ``sW=0.5`` (the JAX bench's row; no kernel, as there), and ``NMFD`` at the
+  flagship with ``sW=0.5`` and with ``sW=sH=0.5``, whose gradients run B3
+  and B4 behind autograd (``kernel_adjoint_deconv``): exactly 2 B3 and 1 B4
+  launches an iteration, 1 and 1 with both;
+* the functional API: ``nmf_fit`` (5168×1025, β=0.5) and ``nmfd_fit`` (the
+  flagship, β=1) equal ``NMF.fit`` and ``NMFD.fit``, launch for launch;
+  ``nmf_fit_batched`` over 16 problems of 1025×400 rank 16 against their
+  single fits; the ``BetaMu`` optimizer over the bench's chain
+  (``torch.nn.Sequential`` of three ``NMF`` modules, 2048² target) and
+  ``SparsityProj`` at 5168×1025; and float64 numpy targets, which warn and
+  fit in float32.
 
 1. prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``pytorch_nmf_tpu_torch/csrc``, one ``nvcc`` per source, in parallel;
@@ -33,22 +45,27 @@ Drives the port's paths at full width, each in phases:
    every summand is non-negative, so the only error is summation order;
 3. fits V with β ∈ {2, 1, 0, 0.5, 1.5} through ``NMF.fit``, and with β ∈ {1,
    2, 0.5} through ``NMFD.fit`` plus β=1 through ``NMF2D.fit`` and
-   ``NMF3D.fit``; fits the SIPLCA family for 20 EM iterations (one B3 and
-   one B4 launch each), dense PLCA both ways, and the sparse targets;
+   ``NMF3D.fit``; fits the SIPLCA family for 10 EM iterations (one B3 and
+   one B4 launch each), dense PLCA both ways, the sparse targets and the
+   paths of the slice above;
    checks the factors and that each path's kernels carried its fits (launch
    counts set to 0 before a path, read after it); then fits through the
    kernels and through the plain versions (dense and NMFD at β = 1 and 0.5,
-   NMF2D and NMF3D at β = 1, the SIPLCA family; 100 dense, 20 deconv and EM
+   NMF2D and NMF3D at β = 1, the SIPLCA family; 100 dense, 10 deconv and EM
    iterations) and compares the final losses (1e-4 relative), as it does the
-   sparse tiers' and the two PLCA E-steps';
+   sparse tiers' and the two PLCA E-steps'; holds the NMFD Hoyer fit's first
+   gradients (``1e-4·max|plain|``) and its first 5 iterations' losses (1e-4
+   relative) to the plain twin's;
 4. times those fits per iteration and each kernel against its plain
    version and, for B3/B4, the one PyTorch call that computes the same
    function (``F.convNd`` and ``torch.nn.grad.convNd_weight``, cuDNN; the
    port never calls them), with CUDA events; each kernel's bound is the
    larger of its operations at the 3xTF32 rate and its bytes at the HBM
-   rate (B4 also for the neg/pos pair: twice the operations); and splits one
-   SIPLCA EM iteration's device time (``torch.profiler``) into the
-   reconstruction, B3, B4 and the rest.
+   rate (B4 also for the neg/pos pair: twice the operations); splits one
+   SIPLCA EM iteration's and one NMFD Hoyer iteration's device time
+   (``torch.profiler``) into the reconstruction, B3, B4 and the rest; and
+   prints the Hoyer fits' host reads per iteration (line-search comparisons
+   and projection ``done`` checks).
 
 Any failure raises (exit code ≠ 0).  The second-to-last line of standard
 output is a JSON summary of the kernels (``launches`` summed over the
@@ -80,7 +97,7 @@ DECONV = {
     "NMF3D": (1, 64, (19, 19, 19), (4, 4, 4), 16),     # bench.py:153
 }
 DECONV_BETAS = (1, 2, 0.5)
-DECONV_ITERS = 20
+DECONV_ITERS = 10
 # the PLCA family at full width, (N, C, S_out, kernel, R), from bench.py
 SIPLCA_ROWS = {
     "SIPLCA": (1, 513, (3000,), (200,), 64),           # bench.py:157
@@ -89,15 +106,32 @@ SIPLCA_ROWS = {
     "SIPLCA2": (1, 64, (64, 64), (8, 8), 16),           # bench.py:161
     "SIPLCA3": (1, 64, (19, 19, 19), (4, 4, 4), 16),    # the NMF3D row, bench.py:153
 }
-EM_ITERS = 20
+EM_ITERS = 10
 PLCA_ITERS = 50  # dense PLCA at MAIN_SHAPE (bench.py:821-853)
 # sparse targets: top 2% of MAIN_SHAPE (bench.py:535-540); (M, K, R, nnz)
 # (bench.py:112); past the densify budget, (M, K, R, density)
 SPARSE_ELL_CASE = (8192, 8192, 64, 671_000)
 SPARSE_BIG = (131072, 65536, 64, 0.001)
-SPARSE_ITERS = 20
+SPARSE_ITERS = 10
 SPARSE_BIG_ITERS = 10
 SPARSE_ENV = ("PNT_SPARSE_DENSIFY", "PNT_SPARSE_ELL")
+DENSE_ITERS = 100  # the β sweep's max_iter (tol=1e-4)
+# Hoyer: dense NMF at MAIN_SHAPE (bench.py:711-733) and the NMFD flagship,
+# β=2; per-iteration losses compared over the first HOYER_TRACE iterations
+HOYER_DENSE_ITERS = 20
+HOYER_NMFD_ITERS = 10
+HOYER_TRACE = 5
+HOYER_CASES = (("sW", dict(sW=0.5), (2, 1)),  # (B3, B4) launches/iteration
+               ("sW+sH", dict(sW=0.5, sH=0.5), (1, 1)))
+FUNC_NMF_ITERS = 50
+FUNC_NMFD_ITERS = 10
+# the batched fit: 16 short spectrogram excerpts, (B, M, K, R)
+BATCH = (16, 1025, 400, 16)
+BATCH_ITERS = 100
+# the BetaMu chain of bench.py:742-786 against a 2048² target
+CHAIN = ((2048, 256), 128, (512, 256), (2048, 512))
+BETAMU_STEPS = 30
+SPARSITY_STEPS = 10
 # the H100 SXM's published peaks: f32-accurate products run at
 # 3xTF32 on the tensor cores, 495/3 TFLOP/s, against 67 of f32 FMA on the
 # CUDA cores; HBM moves 3.35 TB/s
@@ -552,7 +586,7 @@ def simplex_error(p):
 
 def siplca_fits(F, recon, solver, plca_from_numpy, kl_div, ctr, card, fit_ms):
     """Phase 3, the SIPLCA path: SIPLCA/SIPLCA2/SIPLCA3.fit through the
-    kernels, 20 EM iterations at ``tol=0``: one B3 and one B4 launch per
+    kernels, EM_ITERS EM iterations at ``tol=0``: one B3 and one B4 launch per
     iteration (counts set to 0 before the path, read after it), the loss
     falls, the factors stay finite, on the card and on the simplex; then the
     kernel fit against the plain twin's in turns (final losses within 1e-4
@@ -866,6 +900,451 @@ def sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms):
     return launches
 
 
+def events_ms(fn):
+    """``(fn(), milliseconds)`` of one call, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def col_sparseness(x, axis=1):
+    """Hoyer sparseness of every rank column of ``x`` (the slices along
+    ``axis``), as a tensor."""
+    cols = x.detach().movedim(axis, 0).reshape(x.shape[axis], -1)
+    n = cols.shape[1]
+    return (n**0.5 - cols.abs().sum(1) / cols.norm(dim=1)) / (n**0.5 - 1)
+
+
+def check_factors(tag, *ps):
+    for p in ps:
+        check(p.is_cuda, f"{tag}: a factor left the card")
+        check(bool(torch.isfinite(p).all()), f"{tag}: non-finite factor")
+        check(bool((p >= 0).all()), f"{tag}: negative factor")
+
+
+def host_reads(solver, P):
+    """``(line-search reads, projection reads)`` so far."""
+    return solver._backtrack_project.reads, P.proj_rows.reads
+
+
+def hoyer_target(ns):
+    """The NMFD flagship's Hoyer target: the reconstruction of random
+    (``rand``) factors projected, per rank column, to unit norm at
+    sparseness 0.5, plus ``0.01·rand``.  With both factors constrained their
+    norms stay 1, so the fit only works at the scale such a model
+    produces: on the ``|randn|`` target of the MU fits (5× larger) both
+    packages' line searches fail every attempt from step 1 at these widths,
+    keep the last candidate, and diverge to non-finite factors in 3
+    iterations."""
+    P, F = ns.P, ns.F
+    N, C, S_out, kernel, R = DECONV["NMFD"]
+    rs = np.random.RandomState(SEED)
+    S_in = tuple(s - k + 1 for s, k in zip(S_out, kernel))
+    W = torch.from_numpy(rs.rand(C, R, *kernel).astype("f")).cuda()
+    H = torch.from_numpy(rs.rand(N, R, *S_in).astype("f")).cuda()
+    W = P.proj_columns_explicit(W, P.hoyer_l1_target(W.numel() // R, 0.5), 1.0)
+    H = P.proj_columns_explicit(H, P.hoyer_l1_target(H.numel() // R, 0.5), 1.0)
+    noise = torch.from_numpy(rs.rand(N, C, *S_out).astype("f")).cuda()
+    with torch.no_grad():
+        return F.plain_adjoint_deconv(H, W) + 0.01 * noise
+
+
+def hoyer_fits(ns, ctr, card, fit_ms):
+    """Phase 3, Hoyer ``sparse_fit`` at β=2.  Dense NMF at MAIN_SHAPE with
+    ``sW=0.5`` (the JAX bench's row): no kernel, W's columns at sparseness
+    0.5, the loss below its value after the initial projection.  NMFD at the
+    flagship (:func:`hoyer_target`) with ``sW`` and ``sW+sH``, through the
+    model (B3/B4 behind
+    autograd: exactly 2 B3 and 1 B4 launches an iteration for ``sW``, 1 and
+    1 for both) and through the plain twin; then, apart from the path's
+    count, the first iteration's gradients kernel against plain, the losses
+    of the first HOYER_TRACE iterations both ways, and a profile of one
+    iteration.  Returns the path's launch counts."""
+    solver, P, F, beta_div = ns.solver, ns.P, ns.F, ns.beta_div
+    zero(ctr)
+    M, K, R = MAIN_SHAPE
+    rs = np.random.RandomState(SEED)
+    V = torch.from_numpy(rs.rand(M, K).astype("f") + 1e-3).cuda()
+    inits = {"W": rs.rand(K, R).astype("f") + 0.1,
+             "H": rs.rand(M, R).astype("f") + 0.1}
+    # a first call pays one-time host costs (autograd's lazy imports)
+    ns.nmf_from_numpy(inits, "cuda").sparse_fit(V, beta=2, max_iter=1, sW=0.5)
+    m = ns.nmf_from_numpy(inits, "cuda")
+    Wp = P.proj_columns_explicit(m.W.detach(), P.hoyer_l1_target(K, 0.5), 1.0)
+    before = float(beta_div(ns.NMF.reconstruct(m.H.detach(), Wp), V, 2))
+    n0, r0 = read(ctr), host_reads(solver, P)
+    _, ms = events_ms(lambda: m.sparse_fit(V, beta=2, max_iter=HOYER_DENSE_ITERS,
+                                           sW=0.5))
+    d = {k: v - n0[k] for k, v in read(ctr).items()}
+    r1 = host_reads(solver, P)
+    after = float(beta_div(m().detach(), V, 2))
+    sp = col_sparseness(m.W)
+    tag = f"Hoyer NMF {M}x{K} R={R} sW=0.5"
+    check_factors(tag, m.W, m.H)
+    check(not any(d.values()), f"{tag}: kernel launches {d}")
+    check(after < before, f"{tag}: loss {before} -> {after} did not fall")
+    check(float((sp - 0.5).abs().max()) <= 1e-3,
+          f"{tag}: column sparseness {sp.tolist()}")
+    per = [(b - a) / HOYER_DENSE_ITERS for a, b in zip(r0, r1)]
+    fit_ms[f"hoyer_nmf_{M}x{K}_r{R}_sW0.5_beta2"] = ms / HOYER_DENSE_ITERS
+    print(f"phase 3: {tag}: loss {before:.7g} -> {after:.7g}, column "
+          f"sparseness {float(sp.min()):.6f}..{float(sp.max()):.6f}; "
+          f"{ms / HOYER_DENSE_ITERS:.4f} ms/iteration, host reads/iteration "
+          f"{per[0]:.2f} (line search) + {per[1]:.2f} (projection) [{card}]",
+          flush=True)
+    del V, m, Wp
+
+    N, C, S_out, kernel, Rd = DECONV["NMFD"]
+    V = hoyer_target(ns)
+    m0 = deconv_model("NMFD", ns.models)
+    W0, H0 = m0.W.detach().clone(), m0.H.detach().clone()
+    del m0
+    W_col, H_col = W0.numel() // Rd, H0.numel() // Rd
+    shape = f"{C}x{S_out[0]}_r{Rd}_k{kernel[0]}"
+    for recon in (F.kernel_adjoint_deconv, F.plain_adjoint_deconv):  # warm-up
+        solver.get_hoyer_fit(recon, None, 2.0, 1, True, True, 0.5, None, W_col,
+                             H_col)(V, W0, H0)
+    for label, kw, (b3, b4) in HOYER_CASES:
+        tag = f"Hoyer NMFD {shape} {label}"
+        plain = solver.get_hoyer_fit(F.plain_adjoint_deconv, None, 2.0,
+                                     HOYER_NMFD_ITERS, True, True, kw.get("sW"),
+                                     kw.get("sH"), W_col, H_col)
+        m = ns.models.NMFD(W=W0, H=H0, device="cuda")
+        n0, r0 = read(ctr), host_reads(solver, P)
+        _, ms = events_ms(lambda: m.sparse_fit(V, beta=2,
+                                               max_iter=HOYER_NMFD_ITERS, **kw))
+        d = {k: v - n0[k] for k, v in read(ctr).items()}
+        r1 = host_reads(solver, P)
+        check_factors(tag, m.W, m.H)
+        want = {"hgrad": b3 * HOYER_NMFD_ITERS, "wgrad": b4 * HOYER_NMFD_ITERS,
+                "fused_contractions": 0, "fused_beta_loss": 0}
+        check(d == want, f"{tag}: launches {d}, want {want}")
+        (Wq, Hq, _), pms = events_ms(lambda: plain(V, W0.clone(), H0.clone()))
+        check_factors(f"{tag} plain", Wq, Hq)
+        loss_k = float(beta_div(F.plain_adjoint_deconv(m.H.detach(), m.W.detach()), V, 2))
+        loss_p = float(beta_div(F.plain_adjoint_deconv(Hq, Wq), V, 2))
+        per = [(b - a) / HOYER_NMFD_ITERS for a, b in zip(r0, r1)]
+        fit_ms[f"hoyer_nmfd_{shape}_{label}_beta2"] = {
+            "kernel": ms / HOYER_NMFD_ITERS, "plain": pms / HOYER_NMFD_ITERS}
+        rel = abs(loss_k - loss_p) / loss_p
+        print(f"phase 3: {tag}: launches B3 {d['hgrad']}, B4 {d['wgrad']} in "
+              f"{HOYER_NMFD_ITERS} iterations; final loss kernel {loss_k:.7g} "
+              f"plain {loss_p:.7g} (rel {rel:.3g}"
+              f"{'; a line-search decision flipped after the compared ones' if rel > RTOL else ''}"
+              f"); ms/iteration kernel {ms / HOYER_NMFD_ITERS:.3f}, plain "
+              f"{pms / HOYER_NMFD_ITERS:.3f}; host reads/iteration "
+              f"{per[0]:.2f} (line search) + {per[1]:.2f} (projection) [{card}]",
+              flush=True)
+        del m, Wq, Hq
+    launches = read(ctr)
+
+    # the first iteration's gradients: dW of the projected step at the
+    # projected init, dH of the MU step's two cotangents
+    Wp = P.proj_columns_explicit(W0, P.hoyer_l1_target(W_col, 0.5), 1.0)
+
+    def first_grads(deconv):
+        x = Wp.clone().requires_grad_(True)
+        (dW,) = torch.autograd.grad(beta_div(deconv(H0, x), V, 2), x)
+        h = H0.clone().requires_grad_(True)
+        WH = deconv(h, Wp)
+        neg = torch.autograd.grad(WH, h, V, retain_graph=True)[0]
+        pos = torch.autograd.grad(WH, h, WH.detach())[0]
+        return dW, neg, pos
+
+    rels = []
+    for name, g, r in zip(("dW", "dH neg", "dH pos"),
+                          first_grads(F.kernel_adjoint_deconv),
+                          first_grads(F.plain_adjoint_deconv)):
+        torch.cuda.synchronize()
+        rel = float((g - r).abs().max()) / float(r.abs().max())
+        check(rel <= RTOL, f"Hoyer NMFD first-iteration {name}: "
+              f"max|kernel-plain|/max|plain| = {rel:.3g}")
+        rels.append(f"{name} {rel:.3g}")
+    print("phase 3: Hoyer NMFD first-iteration gradients, max|kernel-plain|/"
+          "max|plain|: " + ", ".join(rels) + f" [{card}]", flush=True)
+
+    # per-iteration losses: the state at the end of each iteration (after
+    # the renorm that closes it), kernel run against plain run
+    renorm = solver.renorm
+
+    def traced(run):
+        losses = []
+
+        def rec(w, h, unit):
+            w, h = renorm(w, h, unit)
+            losses.append(float(beta_div(F.plain_adjoint_deconv(h, w), V, 2)))
+            return w, h
+
+        solver.renorm = rec
+        try:
+            run()
+        finally:
+            solver.renorm = renorm
+        return losses
+
+    for label, kw, _ in HOYER_CASES:
+        args = (2.0, HOYER_TRACE, True, True, kw.get("sW"), kw.get("sH"),
+                W_col, H_col)
+        lk = traced(lambda: solver.get_hoyer_fit(F.kernel_adjoint_deconv, None,
+                                                 *args)(V, W0, H0))
+        lp = traced(lambda: solver.get_hoyer_fit(F.plain_adjoint_deconv, None,
+                                                 *args)(V, W0, H0))
+        rel = [abs(a - b) / b for a, b in zip(lk, lp)]
+        check(len(rel) == HOYER_TRACE and max(rel) <= RTOL,
+              f"Hoyer NMFD {label}: losses kernel {lk} plain {lp}")
+        print(f"phase 3: Hoyer NMFD {label} losses, iterations 1-{HOYER_TRACE}: "
+              f"kernel {[f'{x:.7g}' for x in lk]}, max rel to plain "
+              f"{max(rel):.3g} [{card}]", flush=True)
+
+    # where one sW iteration goes: the profiler's kernels by kind over fits
+    # of 1 and 3 iterations, differenced (the initial projection to unit
+    # norm, many rounds from a random init, is the 1-iteration fit's rest);
+    # the projection and the reconstruction timed alone
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(n):
+        fit = solver.get_hoyer_fit(F.kernel_adjoint_deconv, None, 2.0, n, True,
+                                   True, 0.5, None, W_col, H_col)
+        r0 = host_reads(solver, P)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = events_ms(lambda: fit(V, W0, H0))
+        r1 = host_reads(solver, P)
+        split = {"reconstruction": 0.0, "B3": 0.0, "B4": 0.0, "rest": 0.0}
+        for e in prof.key_averages():
+            ms = e.device_time_total / 1e3
+            key = e.key.lower()
+            if ms <= 0:
+                continue
+            if "hgrad" in key:
+                split["B3"] += ms
+            elif "wgrad" in key:
+                split["B4"] += ms
+            elif any(t in key for t in ("gemm", "xmma", "catarraybatchedcopy")):
+                split["reconstruction"] += ms
+            else:
+                split["rest"] += ms
+        return split, wall, [b - a for a, b in zip(r0, r1)]
+
+    s1, w1, c1 = profiled(1)
+    s3, w3, c3 = profiled(3)
+    split = {k: (s3[k] - s1[k]) / 2 for k in s1}
+    attempts, proj_reads = (c3[0] - c1[0]) / 2, (c3[1] - c1[1]) / 2
+    proj_ms = cuda_ms(lambda: P.proj_columns(Wp, P.hoyer_l1_target(W_col, 0.5)),
+                      reps=5, warmup=1)
+    rec_ms = cuda_ms(lambda: F._stream_recon(F._w2(Wp), H0, kernel), reps=5,
+                     warmup=1)
+    device = sum(split.values())
+    fit_ms["hoyer_nmfd_profile_ms"] = dict(
+        split, device=device, wall=(w3 - w1) / 2, projection=proj_ms,
+        reconstruction_alone=rec_ms, attempts=attempts,
+        projection_reads=proj_reads, initial_projection=sum(s1.values()) - device)
+    print("phase 4: Hoyer NMFD sW, one iteration's device time (ms; "
+          "torch.profiler, 3-iteration fit less 1-iteration fit, halved): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; device {device:.3f}, wall {(w3 - w1) / 2:.3f}; line-search "
+          f"attempts {attempts:.1f}, projection reads {proj_reads:.1f}; the "
+          f"initial projection and first-call costs {sum(s1.values()) - device:.3f}; "
+          f"one projection of W {proj_ms:.3f}, one reconstruction {rec_ms:.3f} "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def functional_fits(ns, ctr, card):
+    """Phase 3, the functional API against the models: ``nmf_fit`` at
+    MAIN_SHAPE (β=0.5, B1/B2) and ``nmfd_fit`` at the NMFD flagship (β=1,
+    B3/B4) return factors equal (``torch.equal``) to ``NMF.fit`` and
+    ``NMFD.fit`` from the same inits, with the same launches.  Returns the
+    functional path's launch counts (the model fits are counted apart)."""
+    fn = ns.functional
+    M, K, R = MAIN_SHAPE
+    V, W, H = inputs(M, K, R)
+    Vd = deconv_target("NMFD")
+    m0 = deconv_model("NMFD", ns.models)
+    Wd, Hd = m0.W.detach().clone(), m0.H.detach().clone()
+    del m0
+    runs = [("nmf_fit", ns.NMF, V, W, H, dict(beta=0.5, max_iter=FUNC_NMF_ITERS)),
+            ("nmfd_fit", ns.models.NMFD, Vd, Wd, Hd,
+             dict(beta=1, max_iter=FUNC_NMFD_ITERS))]
+    zero(ctr)
+    outs = []
+    for name, _, V_, W_, H_, kw in runs:
+        n0 = read(ctr)
+        out = getattr(fn, name)(V_, W_, H_, tol=0, **kw)
+        outs.append((out, {k: v - n0[k] for k, v in read(ctr).items()}))
+    launches = read(ctr)
+    for (name, model, V_, W_, H_, kw), ((Wf, Hf, nf), d) in zip(runs, outs):
+        m = model(W=W_, H=H_, device="cuda")
+        n0 = read(ctr)
+        n = m.fit(V_, tol=0, **kw)
+        dm = {k: v - n0[k] for k, v in read(ctr).items()}
+        check(n == nf == kw["max_iter"], f"{name}: n_iter {nf} vs {n}")
+        check(torch.equal(Wf, m.W.detach()) and torch.equal(Hf, m.H.detach()),
+              f"{name}: factors differ from {model.__name__}.fit")
+        check(d == dm and any(d.values()), f"{name}: launches {d}, model {dm}")
+        check_factors(name, Wf, Hf)
+        print(f"phase 3: {name} equals {model.__name__}.fit (torch.equal), "
+              f"launches {d} [{card}]", flush=True)
+    return launches
+
+
+def batched_fits(ns, ctr, card, fit_ms):
+    """Phase 3, ``nmf_fit_batched``: BATCH problems at β ∈ {2, 1}, tol 1e-4,
+    each problem's final loss within 1e-4 relative of its single fit through
+    the generic engine (the same ``n_iter``, or the cases that differ
+    printed); no kernel runs.  Both timed."""
+    fn, solver, beta_div = ns.functional, ns.solver, ns.beta_div
+    B, M, K, R = BATCH
+    rs = np.random.RandomState(SEED)
+    V = torch.from_numpy(rs.rand(B, M, K).astype("f") + 0.01).cuda()
+    W = torch.from_numpy(rs.rand(B, K, R).astype("f") + 0.1).cuda()
+    H = torch.from_numpy(rs.rand(B, M, R).astype("f") + 0.1).cuda()
+    zero(ctr)
+    for beta in (2, 1):
+        (Wb, Hb, nb), ms = events_ms(lambda: fn.nmf_fit_batched(
+            V, W, H, beta=beta, tol=1e-4, max_iter=BATCH_ITERS))
+        check_factors(f"batched beta={beta}", Wb, Hb)
+        single = solver.get_dense_fit(ns.NMF.reconstruct, float(beta), 1e-4,
+                                      BATCH_ITERS, True, True, 0.0, 0.0, False,
+                                      ns.nmf_updater_factory_generic)
+        outs, sms = events_ms(lambda: [single(V[b], W[b].clone(), H[b].clone())
+                                       for b in range(B)])
+        rels, differ = [], []
+        for b, (w, h, n) in enumerate(outs):
+            lb = float(beta_div(ns.NMF.reconstruct(Hb[b], Wb[b]), V[b], beta))
+            ls = float(beta_div(ns.NMF.reconstruct(h, w), V[b], beta))
+            rels.append(abs(lb - ls) / ls)
+            if int(nb[b]) != n:
+                differ.append(f"problem {b}: n_iter {int(nb[b])} vs {n}, "
+                              f"loss ratio {lb / ls:.7g}")
+        check(max(rels) <= RTOL, f"batched beta={beta}: loss rel {max(rels):.3g}")
+        iters = int(nb.max())
+        fit_ms[f"batched_{B}x{M}x{K}_r{R}_beta{beta}"] = {
+            "batch_ms": ms, "singles_ms": sms, "max_n_iter": iters}
+        print(f"phase 3: nmf_fit_batched {B}x{M}x{K} R={R} beta={beta}: n_iter "
+              f"{nb.tolist()}; final losses within {max(rels):.3g} of the single "
+              f"fits; " + ("; ".join(differ) or "the same n_iter") +
+              f"; batch {ms:.1f} ms ({ms / iters:.4f} ms per batched iteration), "
+              f"{B} single fits {sms:.1f} ms [{card}]", flush=True)
+    check(not any(read(ctr).values()), f"the batched fits launched {read(ctr)}")
+
+
+def trainer_steps(ns, ctr, card, fit_ms):
+    """Phase 3, the optimizers.  ``BetaMu`` over the bench's chain
+    (``torch.nn.Sequential`` of three ``NMF`` modules) at β=1, BETAMU_STEPS
+    steps: the divergence falls, every ``.grad`` is set.  ``SparsityProj``
+    with sparsity 0.5 on W of an ``NMF`` at MAIN_SHAPE, SPARSITY_STEPS
+    steps: the loss falls, W's columns at sparseness 0.5.  Neither runs a
+    kernel (the MU start of SparsityProj is β=2: Gram updates)."""
+    NMF = ns.NMF
+    g = torch.Generator("cuda").manual_seed(SEED)
+    (M0, K0), rank, W2, W3 = CHAIN
+    chain = torch.nn.Sequential(
+        NMF((M0, K0), rank=rank, device="cuda", generator=g),
+        NMF(W=W2, device="cuda", generator=g),
+        NMF(W=W3, device="cuda", generator=g))
+    rs = np.random.RandomState(SEED)
+    target = torch.from_numpy(rs.rand(M0, W3[0]).astype("f")).cuda()
+    tr = ns.BetaMu(chain.parameters(), 1)
+    before = float(ns.beta_div(chain(None).detach(), target, 1))
+    zero(ctr)
+    _, ms = events_ms(lambda: tr.run(lambda: (target, chain(None)), BETAMU_STEPS))
+    after = float(ns.beta_div(chain(None).detach(), target, 1))
+    check(after < before, f"BetaMu: divergence {before} -> {after}")
+    for p in chain.parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              "BetaMu: a .grad is not set")
+        check_factors("BetaMu", p.detach())
+    tag = "2048x2048_r128_256_512"
+    fit_ms[f"betamu_chain_{tag}_beta1_ms_per_step"] = ms / BETAMU_STEPS
+    print(f"phase 3: BetaMu chain {tag} beta=1: divergence {before:.7g} -> "
+          f"{after:.7g} in {BETAMU_STEPS} steps, {ms / BETAMU_STEPS:.4f} ms/step "
+          f"[{card}]", flush=True)
+
+    # SparsityProj from a start it can improve: 50 MU iterations (β=2, the
+    # Gram updates), W projected to sparseness 0.5 at its norms, and the
+    # step 1/L (L the W gradient's Lipschitz constant, ‖HᵀH‖₂).  From the
+    # raw inits, or at the default step 1, every attempt fails and the
+    # reference's undo onto the projected value raises the loss, in both
+    # packages.
+    M, K, R = MAIN_SHAPE
+    V = torch.from_numpy(rs.rand(M, K).astype("f")).cuda()
+    m = ns.nmf_from_numpy({"W": rs.rand(K, R).astype("f") + 0.1,
+                           "H": rs.rand(M, R).astype("f") + 0.1}, "cuda")
+    m.fit(V, beta=2, tol=0, max_iter=50)
+    with torch.no_grad():
+        m.W.copy_(ns.P.proj_columns(m.W, ns.P.hoyer_l1_target(K, 0.5)))
+        H = m.H.detach()
+        lr = 1.0 / float(torch.linalg.matrix_norm(H.T @ H, 2))
+    sp = ns.SparsityProj([{"params": [m.W], "lr": lr}], 0.5)
+
+    def closure():
+        return ns.beta_div(m(), V, 2)
+
+    before = float(closure().detach())
+    _, ms = events_ms(lambda: sp.run(closure, SPARSITY_STEPS))
+    after = float(closure().detach())
+    s = col_sparseness(m.W)
+    check(after < before, f"SparsityProj: loss {before} -> {after}")
+    check(float((s - 0.5).abs().max()) <= 1e-3,
+          f"SparsityProj: column sparseness {s.tolist()}")
+    check_factors("SparsityProj", m.W.detach())
+    check(not any(read(ctr).values()), f"the optimizers launched {read(ctr)}")
+    fit_ms[f"sparsityproj_{M}x{K}_r{R}_s0.5_ms_per_step"] = ms / SPARSITY_STEPS
+    print(f"phase 3: SparsityProj {M}x{K} R={R} sparsity 0.5 on W: loss "
+          f"{before:.7g} -> {after:.7g} in {SPARSITY_STEPS} steps, column "
+          f"sparseness {float(s.min()):.6f}..{float(s.max()):.6f}, step size "
+          f"{lr:.4g} -> {sp.param_groups[0]['lr']:.4g}; "
+          f"{ms / SPARSITY_STEPS:.4f} ms/step "
+          f"[{card}]", flush=True)
+
+
+def float64_targets(ns, card):
+    """Phase 3: a float64 numpy V (numpy's default) on float32 models warns
+    and fits in float32 on the card: ``NMF.fit``, ``PLCA.fit``,
+    ``nmf_fit``."""
+    import warnings
+
+    M, K, R = MAIN_SHAPE
+    V = np.abs(np.random.RandomState(SEED).randn(M, K)) + 0.01
+    check(V.dtype == np.float64, "the target is not float64")
+
+    def gen():
+        return torch.Generator("cuda").manual_seed(SEED)
+
+    def nmf():
+        m = ns.NMF((M, K), R, device="cuda", generator=gen())
+        m.fit(V, beta=1, tol=0, max_iter=10)
+        return m.W, m.H
+
+    def plca():
+        m = ns.PLCA((M, K), R, device="cuda", generator=gen())
+        m.fit(V, tol=0, max_iter=10)
+        return m.W, m.H, m.Z
+
+    def functional():
+        m = ns.NMF((M, K), R, device="cuda", generator=gen())
+        return ns.functional.nmf_fit(V, m.W.detach(), m.H.detach(), beta=1,
+                                     tol=0, max_iter=10)[:2]
+
+    for name, run in (("NMF.fit", nmf), ("PLCA.fit", plca),
+                      ("nmf_fit", functional)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            factors = run()
+        check(any(issubclass(w.category, UserWarning) and "float64" in
+                  str(w.message) for w in caught), f"{name}: no float64 warning")
+        for p in factors:
+            check(p.dtype == torch.float32, f"{name}: a factor is {p.dtype}")
+        check_factors(name, *(p.detach() for p in factors))
+        print(f"phase 3: {name} with a float64 numpy V: warned, fitted in "
+              f"float32 on the card [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -884,6 +1363,18 @@ def main():
     from pytorch_nmf_tpu_torch.ops.mu import kl_pos_H, kl_pos_W
     from pytorch_nmf_tpu_torch.ops.solver import get_dense_fit
     from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
+    from pytorch_nmf_tpu_torch import functional
+    from pytorch_nmf_tpu_torch.ops import projection as P
+    from pytorch_nmf_tpu_torch.ops.fast_nmf import nmf_updater_factory_generic
+    from pytorch_nmf_tpu_torch.plca import PLCA
+    from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
+    from types import SimpleNamespace
+
+    ns = SimpleNamespace(
+        models=models, NMF=NMF, PLCA=PLCA, F=F, P=P, solver=solver,
+        functional=functional, beta_div=beta_div, BetaMu=BetaMu,
+        SparsityProj=SparsityProj, nmf_from_numpy=nmf_from_numpy,
+        nmf_updater_factory_generic=nmf_updater_factory_generic)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -899,11 +1390,16 @@ def main():
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    def stamp(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what} done [{card}]",
+              flush=True)
+
     # phase 2: kernels against their plain versions
     stats = compare_kernels(fm, kl_pos_W, kl_pos_H)
     stats.update(compare_deconv_kernels(F, D, kl_pos_W))
     compare_em_adjoints(F, recon, plca_from_numpy, eps, card)
     print("phase 2: kernels agree with their plain versions", flush=True)
+    stamp("phase 2")
     ctr = counters(fm, D)
 
     # phase 3: the main path, dense NMF.fit at full width
@@ -919,7 +1415,7 @@ def main():
         m = model()
         before = float(beta_div(m().detach(), V, beta))
         n_b1, n_b2 = fm.fused_contractions.launches, fm.fused_beta_loss.launches
-        n_iter = m.fit(V, beta=beta, tol=1e-4, max_iter=200)
+        n_iter = m.fit(V, beta=beta, tol=1e-4, max_iter=DENSE_ITERS)
         torch.cuda.synchronize()
         after = float(beta_div(m().detach(), V, beta))
         d_b1 = fm.fused_contractions.launches - n_b1
@@ -934,6 +1430,7 @@ def main():
         print(f"phase 3: beta={beta} n_iter={n_iter} loss {before:.6g} -> "
               f"{after:.6g}; launches B1 {d_b1}, B2 {d_b2}", flush=True)
     by_path = {"nmf": read(ctr)}
+    stamp("dense fits")
     check(by_path["nmf"]["hgrad"] == by_path["nmf"]["wgrad"] == 0,
           "the dense fits launched B3/B4")
 
@@ -953,6 +1450,7 @@ def main():
               flush=True)
     del V, m
 
+    stamp("dense timing")
     # phase 3, the deconv path: NMFD/NMF2D/NMF3D fits on B3/B4
     by_path["deconv"] = deconv_fits(models, beta_div, fm, D, card)
     for name, beta in (("NMFD", 1), ("NMFD", 0.5), ("NMF2D", 1), ("NMF3D", 1)):
@@ -978,10 +1476,25 @@ def main():
 
     # phase 3, the PLCA family: SIPLCA/2/3 on B3/B4, dense PLCA's fused
     # E-step on B1; then sparse NMF targets, whose densify tier runs B1
+    stamp("deconv fits and timing")
     by_path["siplca"] = siplca_fits(F, recon, solver, plca_from_numpy, kl_div,
                                     ctr, card, fit_ms)
+    stamp("SIPLCA")
     by_path["plca_fused"] = plca_fits(plca_from_numpy, kl_div, ctr, card, fit_ms)
+    stamp("PLCA")
     by_path["sparse_densify"] = sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms)
+    stamp("sparse")
+
+    # phase 3, this slice: Hoyer on B3/B4 (dense NMF on none), the
+    # functional API on the models' kernels, the batched fits and the
+    # optimizers on none, and float64 targets
+    by_path["hoyer"] = hoyer_fits(ns, ctr, card, fit_ms)
+    stamp("Hoyer")
+    by_path["functional"] = functional_fits(ns, ctr, card)
+    batched_fits(ns, ctr, card, fit_ms)
+    trainer_steps(ns, ctr, card, fit_ms)
+    float64_targets(ns, card)
+    stamp("functional, batched, optimizers, float64")
     launches = {name: sum(n[name] for n in by_path.values()) for name in REPLACES}
     print(f"phase 3: launches by path {json.dumps(by_path)}", flush=True)
 

@@ -1,15 +1,18 @@
 """pytorch_nmf_tpu_torch — the PyTorch/CUDA port of ``pytorch_nmf_tpu``.
 
 Same module layout and names as the JAX package.  Dense ``NMF.fit`` (dense
-or sparse COO targets), the deconvolutional ``NMFD``/``NMF2D``/``NMF3D.fit``
-and the PLCA family's EM ``PLCA``/``SIPLCA``/``SIPLCA2``/``SIPLCA3.fit`` run
-on any PyTorch device; on an NVIDIA Hopper GPU their heavy contractions run
+or sparse COO targets), the deconvolutional ``NMFD``/``NMF2D``/``NMF3D.fit``,
+the PLCA family's EM ``PLCA``/``SIPLCA``/``SIPLCA2``/``SIPLCA3.fit``, Hoyer
+``sparse_fit``, the functional and batched API (:mod:`.functional`) and the
+``BetaMu``/``SparsityProj`` optimizers (:mod:`.trainer`) run on any PyTorch
+device; on an NVIDIA Hopper GPU their heavy contractions run
 in hand-written CUDA kernels (``csrc/fused_mu.cu`` for dense β ≠ 2,
-``csrc/fused_deconv.cu`` for the deconv family and the SIPLCA E-step), built
+``csrc/fused_deconv.cu`` for the deconv family, the SIPLCA E-step and the
+deconv models' Hoyer fit), built
 with ``nvcc`` at first use.  This package never imports JAX.
 """
 
-from . import metrics, models, nmf, ops, plca, utils  # noqa: F401
+from . import functional, metrics, models, nmf, ops, plca, trainer, utils  # noqa: F401
 from .ops.sparse import sparse_from_dense  # noqa: F401
 
 name = "pytorch_nmf_tpu_torch"

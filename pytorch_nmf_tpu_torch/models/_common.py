@@ -1,6 +1,7 @@
 """Shared helpers for the model layer (shape inference, init, validation);
 counterpart of :mod:`pytorch_nmf_tpu.models._common`."""
 
+import warnings
 from collections.abc import Iterable as Iterabc
 from typing import Optional
 
@@ -11,6 +12,7 @@ __all__ = [
     "is_tensor_like",
     "resolve_device",
     "to_param",
+    "target_like",
     "rand_abs_normal",
     "assert_nonneg",
     "validate_target",
@@ -54,6 +56,32 @@ def to_param(x, device=None) -> torch.Tensor:
     x = torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x))
     dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
     return x.detach().to(device=resolve_device(device), dtype=dtype, copy=True)
+
+
+_F64_WARNING = (
+    "float64 target cast to float32, the dtype of the model's factors. To "
+    "fit in double precision, give the model float64 factors (W= and H= "
+    "float64 arrays or tensors)."
+)
+
+
+def target_like(V, *factors) -> torch.Tensor:
+    """``V`` (a dense or sparse COO tensor anywhere, or a numpy array) as a
+    tensor on the factors' device in their dtype, the dtype the fit runs in.
+    A float64 ``V`` cast to float32 factors raises a ``UserWarning``, as the
+    JAX package's downcast does.  The factors must share one device and one
+    dtype (``ValueError`` otherwise)."""
+    p = factors[0]
+    for q in factors[1:]:
+        if q.device != p.device or q.dtype != p.dtype:
+            raise ValueError(
+                f"the factors are {p.dtype} on {p.device} and {q.dtype} on "
+                f"{q.device}: a fit runs in one dtype, on one device")
+    if not isinstance(V, torch.Tensor):
+        V = torch.as_tensor(np.asarray(V))
+    if V.dtype == torch.float64 and p.dtype == torch.float32:
+        warnings.warn(_F64_WARNING, UserWarning, stacklevel=3)
+    return V.to(p.device, p.dtype)
 
 
 def rand_abs_normal(shape, generator: Optional[torch.Generator] = None,

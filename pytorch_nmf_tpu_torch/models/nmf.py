@@ -6,7 +6,9 @@ The classes are ``torch.nn.Module``\ s holding ``nn.Parameter``\ s ``W`` and
 (``torchnmf/nmf.py:173-260``); ``requires_grad`` records the
 ``trainable_W``/``trainable_H`` flags.  The factors live on the card unless
 the constructor is given ``device="cpu"``; ``fit`` moves ``V`` there and runs
-the dense solver of :mod:`pytorch_nmf_tpu_torch.ops.solver`.
+the MU solvers of :mod:`pytorch_nmf_tpu_torch.ops.solver`, ``sparse_fit`` the
+Hoyer solver.  Both run on explicit factors in classmethods, which the
+functional API (:mod:`pytorch_nmf_tpu_torch.functional`) calls too.
 
 ===========  =======================  ==========================
 model        V                        W / H
@@ -29,7 +31,7 @@ from ..ops import recon as _recon
 from ..ops import solver as _solver
 from ..ops import sparse as _sparse
 from ..ops.fast_nmf import resolve_nmf_updater_factory
-from ..ops.fast_nmfd import resolve_nmfd_updater_factory
+from ..ops.fast_nmfd import resolve_hoyer_recon2, resolve_nmfd_updater_factory
 from ._common import (
     _BETA_ZERO_MSG,
     assert_nonneg,
@@ -38,23 +40,13 @@ from ._common import (
     rand_abs_normal,
     resolve_device,
     single,
+    target_like,
     to_param,
     triple,
     validate_target,
 )
 
 __all__ = ["BaseComponent", "NMF", "NMFD", "NMF2D", "NMF3D"]
-
-
-def _check_factors(V, W, H):
-    """The fit runs in ``V``'s dtype on the factors' device: both factors
-    must be there in that dtype."""
-    for name, p in (("W", W), ("H", H)):
-        if p.device != V.device or p.dtype != V.dtype:
-            raise ValueError(
-                f"{name} is {p.dtype} on {p.device}, V is {V.dtype}: the "
-                f"fit runs in V's dtype, on the factors' device"
-            )
 
 
 class BaseComponent(nn.Module):
@@ -161,61 +153,58 @@ class BaseComponent(nn.Module):
     ) -> int:
         r"""Learn the factorization by minimizing the β-divergence with
         multiplicative updates (reference nmf.py:297-409) on the factors'
-        device.  ``V`` (a tensor anywhere, or a numpy array) is moved there;
-        ``NMF`` also takes a sparse COO tensor (:meth:`_fit_sparse`).
-        Returns the number of iterations run."""
+        device, in their dtype.  ``V`` (a tensor anywhere, or a numpy array)
+        is moved there (:func:`~._common.target_like`: a float64 ``V`` of a
+        float32 model is cast, with a ``UserWarning``); ``NMF`` also takes a
+        sparse COO tensor.  Returns the number of iterations run."""
         W, H = self.W, self.H
-        l1_reg = float(alpha * l1_ratio)
-        l2_reg = float(alpha * (1 - l1_ratio))
-        if isinstance(V, torch.Tensor) and V.layout != torch.strided:
-            W_new, H_new, n_iter = self._fit_sparse(
-                V, float(beta), float(tol), int(max_iter), bool(verbose),
-                l1_reg, l2_reg)
-        else:
-            W_new, H_new, n_iter = self._fit_dense(
-                V, float(beta), float(tol), int(max_iter), bool(verbose),
-                l1_reg, l2_reg)
+        W_new, H_new, n_iter = self._fit_mu(
+            V, W.detach(), H.detach(), W.requires_grad, H.requires_grad,
+            float(beta), float(tol), int(max_iter), bool(verbose),
+            float(alpha * l1_ratio), float(alpha * (1 - l1_ratio)))
         with torch.no_grad():
             W.copy_(W_new)
             H.copy_(H_new)
         return int(n_iter)
 
-    def _fit_dense(self, V, beta, tol, max_iter, verbose, l1_reg, l2_reg):
-        """The dense branch of :meth:`fit`: ``(W, H, n_iter)``."""
-        W, H = self.W, self.H
-        V = torch.as_tensor(V)
-        V = V.to(W.device, V.dtype if V.dtype == torch.float64 else torch.float32)
-        _check_factors(V, W, H)
+    @classmethod
+    def _fit_mu(cls, V, W, H, update_W, update_H, beta, tol, max_iter,
+                verbose, l1_reg, l2_reg):
+        """The MU fit of :meth:`fit` on explicit factors (shared with
+        :func:`~pytorch_nmf_tpu_torch.functional.nmf_fit`):
+        ``(W, H, n_iter)``."""
+        V = target_like(V, W, H)
+        if V.layout != torch.strided:
+            return cls._fit_sparse(V, W, H, update_W, update_H, beta, tol,
+                                   max_iter, verbose, l1_reg, l2_reg)
         validate_target(V, beta)
-        V = V.contiguous()
         fit_fn = _solver.get_dense_fit(
-            type(self).reconstruct, beta, tol, max_iter, W.requires_grad,
-            H.requires_grad, l1_reg, l2_reg, verbose,
-            (self._updater_resolver(V.device, V.dtype)
-             if self._updater_resolver is not None else None),
+            cls.reconstruct, beta, tol, max_iter, update_W, update_H, l1_reg,
+            l2_reg, verbose,
+            (cls._updater_resolver(V.device, V.dtype)
+             if cls._updater_resolver is not None else None),
         )
-        return fit_fn(V, W.detach(), H.detach())
+        return fit_fn(V.contiguous(), W, H)
 
-    def _fit_sparse(self, V, beta, tol, max_iter, verbose, l1_reg, l2_reg):
-        """The sparse branch of :meth:`fit` (reference nmf.py:351-398),
-        ``(W, H, n_iter)``: ``V`` a sparse COO tensor, coalesced here and
-        moved to the factors' device.  The tier is chosen once: densify when the dense target
-        fits its byte budget (:func:`~..ops.sparse.should_densify`), else
-        ELL when its layout builds, else gather.  A densify fit that runs
-        out of card memory (``torch.cuda.OutOfMemoryError``) is run once
-        more on the ELL or gather tier; any other error propagates."""
-        W, H = self.W, self.H
+    @classmethod
+    def _fit_sparse(cls, V, W, H, update_W, update_H, beta, tol, max_iter,
+                    verbose, l1_reg, l2_reg):
+        """The sparse branch of :meth:`_fit_mu` (reference nmf.py:351-398),
+        ``(W, H, n_iter)``: ``V`` a sparse COO tensor, coalesced here.  The
+        tier is chosen once: densify when the dense target fits its byte
+        budget (:func:`~..ops.sparse.should_densify`), else ELL when its
+        layout builds, else gather.  A densify fit that runs out of card
+        memory (``torch.cuda.OutOfMemoryError``) is run once more on the ELL
+        or gather tier; any other error propagates."""
         if V.layout != torch.sparse_coo:
             raise ValueError(f"a sparse target must be a sparse COO tensor, "
                              f"not {V.layout}")
         if beta <= 0:
             raise ValueError(_BETA_ZERO_MSG)
-        if self._sp_pos_neg is None:
+        if cls._sp_pos_neg is None:
             raise NotImplementedError(
-                f"{type(self).__name__} does not support sparse targets.")
-        V = V.to(W.device, V.dtype if V.dtype == torch.float64
-                 else torch.float32).coalesce()
-        _check_factors(V, W, H)
+                f"{cls.__name__} does not support sparse targets.")
+        V = V.coalesce()
         if V.ndim != 2:
             raise ValueError(f"a sparse target is 2-D, got {tuple(V.shape)}")
         if V.values().numel() and float(V.values().min()) < 0:
@@ -223,13 +212,12 @@ class BaseComponent(nn.Module):
 
         def run(tier, V_arg):
             fit_fn = _solver.get_sparse_fit(
-                type(self)._sp_pos_neg, beta, tol, max_iter, W.requires_grad,
-                H.requires_grad, l1_reg, l2_reg, verbose, tier,
-                type(self).reconstruct,
-                (self._updater_resolver(V.device, V.dtype)
-                 if tier == "densify" and self._updater_resolver is not None
+                cls._sp_pos_neg, beta, tol, max_iter, update_W, update_H,
+                l1_reg, l2_reg, verbose, tier, cls.reconstruct,
+                (cls._updater_resolver(V.device, V.dtype)
+                 if tier == "densify" and cls._updater_resolver is not None
                  else None))
-            return fit_fn(V_arg, W.detach(), H.detach())
+            return fit_fn(V_arg, W, H)
 
         out = None
         if _sparse.should_densify(V):
@@ -241,6 +229,67 @@ class BaseComponent(nn.Module):
             ell = _sparse.maybe_ell(V)
             out = run("gather", V) if ell is None else run("ell", ell)
         return out
+
+    def sparse_fit(
+        self,
+        V,
+        beta: float = 2,
+        max_iter: int = 200,
+        verbose: bool = False,
+        sW: Optional[float] = None,
+        sH: Optional[float] = None,
+    ) -> int:
+        r"""Hoyer'04 sparseness-constrained fitting (reference
+        nmf.py:411-599) on the factors' device: W's rank columns held at
+        Hoyer sparseness ``sW``, H's at ``sH`` (``None``: unconstrained; a
+        frozen factor's is ignored).  Constrained factors take projected
+        gradient steps with a backtracking line search, unconstrained ones
+        MU steps, for exactly ``max_iter`` iterations.  ``V`` as in
+        :meth:`fit`; a sparse COO target is taken by ``NMF`` only.
+        Returns ``max_iter``."""
+        W, H = self.W, self.H
+        W_new, H_new, n_iter = self._fit_hoyer(
+            V, W.detach(), H.detach(), W.requires_grad, H.requires_grad,
+            float(beta), int(max_iter), bool(verbose), sW, sH)
+        with torch.no_grad():
+            W.copy_(W_new)
+            H.copy_(H_new)
+        return int(n_iter)
+
+    @classmethod
+    def _fit_hoyer(cls, V, W, H, update_W, update_H, beta, max_iter, verbose,
+                   sW, sH):
+        """The Hoyer fit of :meth:`sparse_fit` on explicit factors (shared
+        with :func:`~pytorch_nmf_tpu_torch.functional.nmf_hoyer_fit`):
+        ``(W, H, n_iter)``."""
+        V = target_like(V, W, H)
+        sparse = V.layout != torch.strided
+        if sparse:
+            if V.layout != torch.sparse_coo or cls._sp_pos_neg is None:
+                raise NotImplementedError(
+                    f"{cls.__name__}'s Hoyer fit takes no {V.layout} target")
+            if beta <= 0:
+                raise ValueError(_BETA_ZERO_MSG)
+            V = V.coalesce()
+        else:
+            validate_target(V, beta)
+            V = V.contiguous()
+        fit_fn = _solver.get_hoyer_fit(
+            None if sparse else cls._resolve_fit_recon2(V.device, V.dtype),
+            cls._sp_pos_neg if sparse else None,
+            beta, max_iter, update_W, update_H,
+            None if sW is None or not update_W else float(sW),
+            None if sH is None or not update_H else float(sH),
+            W.numel() // W.shape[1], H.numel() // H.shape[1], verbose)
+        return fit_fn(V, W, H)
+
+    @classmethod
+    def _resolve_fit_recon2(cls, device, dtype):
+        """The reconstruction a Hoyer fit of a ``dtype`` target on
+        ``device`` differentiates: the model's own ``reconstruct`` (the
+        deconvolutional models override this with
+        :func:`~..ops.fast_nmfd.resolve_hoyer_recon2`)."""
+        return cls.reconstruct
 
 
 class NMF(BaseComponent):
@@ -286,6 +335,7 @@ class NMFD(BaseComponent):
 
     _updater_resolver = staticmethod(
         partial(resolve_nmfd_updater_factory, spatial_ndim=1))
+    _resolve_fit_recon2 = classmethod(resolve_hoyer_recon2)
 
 
 class NMF2D(BaseComponent):
@@ -309,6 +359,7 @@ class NMF2D(BaseComponent):
 
     _updater_resolver = staticmethod(
         partial(resolve_nmfd_updater_factory, spatial_ndim=2))
+    _resolve_fit_recon2 = classmethod(resolve_hoyer_recon2)
 
 
 class NMF3D(BaseComponent):
@@ -332,3 +383,4 @@ class NMF3D(BaseComponent):
 
     _updater_resolver = staticmethod(
         partial(resolve_nmfd_updater_factory, spatial_ndim=3))
+    _resolve_fit_recon2 = classmethod(resolve_hoyer_recon2)

@@ -38,6 +38,7 @@ from ._common import (
     rand_abs_normal,
     resolve_device,
     single,
+    target_like,
     to_param,
     triple,
     validate_target,
@@ -158,7 +159,8 @@ class BaseComponent(nn.Module):
     # ``reconstruct``
     _recon3_resolver = None
 
-    def _em_engine(self, V):
+    @classmethod
+    def _em_engine(cls, V):
         """A fused E-step engine factory for this fit, or ``None`` for the
         generic backward pass (:class:`PLCA` overrides it)."""
         return None
@@ -175,41 +177,51 @@ class BaseComponent(nn.Module):
     ):
         r"""EM maximizing the posterior log-probability with optional
         Dirichlet priors (reference plca.py:193-304), on the factors'
-        device; ``V`` (a tensor anywhere, or a numpy array) is moved there.
+        device, in their dtype; ``V`` (a tensor anywhere, or a numpy array)
+        is moved there (a float64 ``V`` of a float32 model is cast, with a
+        ``UserWarning``).
 
         Returns ``(n_iter, norm)``: the reference's raw loop index, and
         ``V.sum()``, the scale to pass back to :meth:`forward` to
         reconstruct in ``V``'s units."""
         W, H, Z = self.W, self.H, self.Z
-        V = torch.as_tensor(V)
-        V = V.to(W.device, V.dtype if V.dtype == torch.float64 else torch.float32)
-        for name, p in (("W", W), ("H", H), ("Z", Z)):
-            if p.device != V.device or p.dtype != V.dtype:
-                raise ValueError(
-                    f"{name} is {p.dtype} on {p.device}, V is {V.dtype}: the "
-                    f"fit runs in V's dtype, on the factors' device")
-        validate_target(V, 1)
-        V = V.contiguous()
-        recon3 = (type(self).reconstruct if self._recon3_resolver is None
-                  else self._recon3_resolver(V.device, V.dtype))
-        fit_fn = _solver.get_plca_fit(
-            recon3, float(tol), int(max_iter), W.requires_grad,
-            H.requires_grad, Z.requires_grad,
-            _solver.alpha_is_active(W_alpha), _solver.alpha_is_active(H_alpha),
-            _solver.alpha_is_active(Z_alpha), bool(verbose),
-            em_engine=self._em_engine(V))
-
-        def alpha(a):
-            return torch.as_tensor(a, dtype=V.dtype, device=V.device)
-
-        W_new, H_new, Z_new, n_iter, norm = fit_fn(
-            V, W.detach(), H.detach(), Z.detach(), alpha(W_alpha),
-            alpha(H_alpha), alpha(Z_alpha))
+        W_new, H_new, Z_new, n_iter, norm = self._fit_em(
+            V, W.detach(), H.detach(), Z.detach(), W.requires_grad,
+            H.requires_grad, Z.requires_grad, float(tol), int(max_iter),
+            bool(verbose), W_alpha, H_alpha, Z_alpha)
         with torch.no_grad():
             W.copy_(W_new)
             H.copy_(H_new)
             Z.copy_(Z_new)
         return int(n_iter), norm
+
+    @classmethod
+    def _fit_em(cls, V, W, H, Z, update_W, update_H, update_Z, tol, max_iter,
+                verbose, W_alpha, H_alpha, Z_alpha):
+        """The EM fit of :meth:`fit` on explicit factors (shared with
+        :func:`~pytorch_nmf_tpu_torch.functional.plca_fit`):
+        ``(W, H, Z, n_iter, norm)``."""
+        V = target_like(V, W, H, Z)
+        validate_target(V, 1)
+        V = V.contiguous()
+        fit_fn = _solver.get_plca_fit(
+            cls._resolve_fit_recon3(V.device, V.dtype), tol, max_iter,
+            update_W, update_H, update_Z, _solver.alpha_is_active(W_alpha),
+            _solver.alpha_is_active(H_alpha), _solver.alpha_is_active(Z_alpha),
+            verbose, em_engine=cls._em_engine(V))
+
+        def alpha(a):
+            return torch.as_tensor(a, dtype=V.dtype, device=V.device)
+
+        return fit_fn(V, W, H, Z, alpha(W_alpha), alpha(H_alpha),
+                      alpha(Z_alpha))
+
+    @classmethod
+    def _resolve_fit_recon3(cls, device, dtype):
+        """The EM reconstruction of a ``dtype`` target on ``device``."""
+        if cls._recon3_resolver is None:
+            return cls.reconstruct
+        return cls._recon3_resolver(device, dtype)
 
 
 class PLCA(BaseComponent):
@@ -230,10 +242,11 @@ class PLCA(BaseComponent):
     def reconstruct(H, W, Z):
         return _recon.linear(H, _recon.scaled_kernel(W, Z, 0))
 
-    def _em_engine(self, V):
+    @classmethod
+    def _em_engine(cls, V):
         # the fused E-step is opt-in (PNT_PLCA_FUSED=1), and only for the
         # dense reconstruction: a subclass with its own keeps the generic
-        if type(self).reconstruct is not PLCA.reconstruct:
+        if cls.reconstruct is not PLCA.reconstruct:
             return None
         return resolve_plca_em_engine(V)
 

@@ -27,15 +27,17 @@ __all__ = [
 
 
 def _beta2_updaters(gamma, l1_reg, l2_reg):
+    # ``mT``: the same updates on a batch of problems (a leading batch axis,
+    # batched GEMMs), which the batched fit runs
     def upd_W(V, W, H):
-        neg = torch.relu(V.T @ H) + eps  # VᵀH : (K, R)
-        G = H.T @ H  # HᵀH : (R, R)
+        neg = torch.relu(V.mT @ H) + eps  # VᵀH : (K, R)
+        G = H.mT @ H  # HᵀH : (R, R)
         pos = torch.relu(W @ G) + eps
         return W * mu_multiplier(neg, pos, W, gamma, l1_reg, l2_reg)
 
     def upd_H(V, W, H):
         neg = torch.relu(V @ W) + eps  # (M, R)
-        G = W.T @ W  # WᵀW : (R, R)
+        G = W.mT @ W  # WᵀW : (R, R)
         pos = torch.relu(H @ G) + eps
         return H * mu_multiplier(neg, pos, H, gamma, l1_reg, l2_reg)
 

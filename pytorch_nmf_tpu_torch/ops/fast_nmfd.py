@@ -26,7 +26,8 @@ separators per segment.
 The same contractions are the adjoints of the reconstruction itself:
 :func:`kernel_adjoint_deconv` is a ``torch.autograd.Function`` whose
 backward runs them, which is what the SIPLCA family's EM E-step
-differentiates (:func:`resolve_plca_recon3`).
+differentiates (:func:`resolve_plca_recon3`), and the Hoyer fit of a deconv
+model (:func:`resolve_hoyer_recon2`).
 """
 
 import itertools
@@ -47,6 +48,7 @@ __all__ = [
     "kernel_adjoint_deconv",
     "plain_adjoint_deconv",
     "resolve_plca_recon3",
+    "resolve_hoyer_recon2",
 ]
 
 
@@ -368,7 +370,8 @@ def _adjoint_deconv(kernels: str):
     ``_make_pallas_unfold_deconv``): forward streams the τ-chunked GEMMs
     (:func:`_stream_recon`), backward runs ``dH`` through ``hgrad`` and
     ``dWz`` through ``wgrad`` (one cotangent, no epilogue), in the flat
-    layout of the MU updaters (segment-stacked for ``N > 1``)."""
+    layout of the MU updaters (segment-stacked for ``N > 1``), each only
+    when its input needs a gradient."""
     hgrad, wgrad = _contractions(kernels)
 
     class AdjointDeconv(torch.autograd.Function):
@@ -389,24 +392,31 @@ def _adjoint_deconv(kernels: str):
             H, w2 = ctx.saved_tensors
             kernel = ctx.kernel
             N, R = H.shape[:2]
+            need_H, need_W = ctx.needs_input_grad
             _, geom, T_geo, L_flat = _flat_geom(ct.shape, H.shape)
             # one channels-last copy of the cotangent per backward; each
             # wrapper pads its channels to a multiple of 4 once per call
             cot = _v2_flat(ct)  # (N, Lp_flat, C)
-            if N > 1:
-                seg = T_geo - 1 + L_flat
-                cot = _cot_stacked(cot, seg)
-                out = hgrad(cot, w2, R, N * seg, geom=geom)
-                segs = out.reshape(R, N, seg)[:, :, :L_flat].movedim(1, 0)
-                dH = _h_unflat_batched(segs, H.shape, kernel)
-                H2, lead = _h_stacked(H, kernel, T_geo), False
-            else:
-                cot = cot[0]
-                dH = _h_unflat_nd(hgrad(cot, w2, R, L_flat, geom=geom),
-                                  H.shape, kernel)
-                H2, lead = _h_flat_nd(H, kernel), True
-            dW2 = wgrad([cot], H2, R, T_geo, lead_pad=lead, geom=geom)[0]
-            return dH, _w_from_w2(dW2, kernel, R)
+            seg = T_geo - 1 + L_flat
+            cot = _cot_stacked(cot, seg) if N > 1 else cot[0]
+            # only the contractions asked for: a one-factor gradient (Hoyer's
+            # steps, the MU engine) runs one kernel, the E-step both
+            dH = dW = None
+            if need_H:
+                out = hgrad(cot, w2, R, N * seg if N > 1 else L_flat, geom=geom)
+                if N > 1:
+                    segs = out.reshape(R, N, seg)[:, :, :L_flat].movedim(1, 0)
+                    dH = _h_unflat_batched(segs, H.shape, kernel)
+                else:
+                    dH = _h_unflat_nd(out, H.shape, kernel)
+            if need_W:
+                if N > 1:
+                    H2, lead = _h_stacked(H, kernel, T_geo), False
+                else:
+                    H2, lead = _h_flat_nd(H, kernel), True
+                dW2 = wgrad([cot], H2, R, T_geo, lead_pad=lead, geom=geom)[0]
+                dW = _w_from_w2(dW2, kernel, R)
+            return dH, dW
 
     AdjointDeconv.__name__ = AdjointDeconv.__qualname__ = (
         f"AdjointDeconv_{kernels}")
@@ -457,3 +467,17 @@ def resolve_plca_recon3(cls, device, dtype):
         return cls.reconstruct
     kernels = "fused" if torch.device(device).type == "cuda" else "plain"
     return _RECON3[cls._spatial_ndim, kernels]
+
+
+def resolve_hoyer_recon2(cls, device, dtype):
+    """The reconstruction ``recon2(H, W)`` a deconv model's Hoyer fit
+    differentiates, for a ``dtype`` target on ``device`` (the static
+    counterpart of the JAX package's autotuned ``resolve_hoyer_recon2``):
+    float64 takes the model's convolution ``cls.reconstruct`` under
+    autograd, a CUDA float32 target :func:`kernel_adjoint_deconv` (B3/B4 as
+    its adjoints), any other float32 target its plain twin."""
+    if dtype == torch.float64:
+        return cls.reconstruct
+    if torch.device(device).type == "cuda":
+        return kernel_adjoint_deconv
+    return plain_adjoint_deconv

@@ -36,9 +36,10 @@ def acc_type(*xs) -> torch.dtype:
 
 def linear(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """``H @ W.T`` accumulated in :func:`acc_type`
-    (reference ``F.linear``, nmf.py:693)."""
+    (reference ``F.linear``, nmf.py:693); on a leading batch axis of
+    problems, one batched GEMM."""
     dt = acc_type(H, W)
-    return H.to(dt) @ W.to(dt).T
+    return H.to(dt) @ W.to(dt).mT
 
 
 def _deconv(H: torch.Tensor, W: torch.Tensor, spatial_ndim: int) -> torch.Tensor:

@@ -1,5 +1,7 @@
 r"""Training loops (counterpart of :mod:`pytorch_nmf_tpu.ops.solver`): the
-dense and sparse-target β-divergence MU fits and the PLCA EM fit.
+dense and sparse-target β-divergence MU fits, the Hoyer sparseness-
+constrained fit and the PLCA EM fit, and batched forms of the dense, Hoyer
+and EM fits (a leading batch axis of independent problems).
 
 The semantics are those of the reference ``BaseComponent.fit``
 (``torchnmf/nmf.py:355-409``) as the JAX package compiles them:
@@ -18,26 +20,34 @@ device only at the 10-iteration cadence, for the stop rule.
 import contextlib
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..constants import eps
 from ..metrics import beta_div, kl_div
 from . import sparse as _sparse
-from .mu import gamma_from_beta, kl_pos_H, kl_pos_W, mu_multiplier, mu_update
+from .mu import (gamma_from_beta, kl_pos_H, kl_pos_W, mu_multiplier, mu_update,
+                 renorm)
+from .projection import hoyer_l1_target, proj_columns, proj_columns_explicit
 
-__all__ = ["get_dense_fit", "get_sparse_fit", "get_plca_fit", "alpha_is_active"]
+__all__ = ["get_dense_fit", "get_batched_dense_fit", "get_sparse_fit",
+           "get_hoyer_fit", "get_batched_hoyer_fit", "get_plca_fit",
+           "get_batched_plca_fit", "alpha_is_active"]
 
 
-def _default_updaters(recon2, beta, gamma, l1_reg, l2_reg):
-    """Per-factor updaters on the generic autograd MU engine."""
+def _default_updaters(recon2, beta, gamma, l1_reg, l2_reg, pos_W=kl_pos_W,
+                      pos_H=kl_pos_H):
+    """Per-factor updaters on the generic autograd MU engine; ``pos_W`` and
+    ``pos_H`` are the analytic β=1 denominators (batched ones for a batched
+    ``recon2``)."""
     def upd_W(V, W, H):
-        pos_pre = kl_pos_W(H) if beta == 1 else None
+        pos_pre = pos_W(H) if beta == 1 else None
         return mu_update(
             lambda w: recon2(H, w), V, W, beta, gamma, l1_reg, l2_reg, pos_pre
         )
 
     def upd_H(V, W, H):
-        pos_pre = kl_pos_H(W) if beta == 1 else None
+        pos_pre = pos_H(W) if beta == 1 else None
         return mu_update(
             lambda h: recon2(h, W), V, H, beta, gamma, l1_reg, l2_reg, pos_pre
         )
@@ -175,6 +185,117 @@ def get_dense_fit(
             )
         W, H = state if finish is None else finish(V, *state)
         return W, H, (k * 10 if conv else max_iter)
+
+    return fit
+
+
+# --------------------------------------------------------------------------
+# Batched dense fit: many factorizations at once, each with its own early
+# stop (no reference counterpart)
+# --------------------------------------------------------------------------
+def _masked(conv, old, new):
+    """``old`` where the problem has converged, else ``new``."""
+    return torch.where(conv.reshape((-1,) + (1,) * (old.ndim - 1)), old, new)
+
+
+def _batched_loop(one_iter, loss_of, state0, tol, max_iter):
+    """:func:`_converging_loop` over a leading batch axis: ``loss_of(state)
+    -> (B,)``.  The loop runs while any problem is unconverged; a converged
+    problem's state is frozen, so each problem's trajectory and stop are
+    those it would have alone.  One host read per chunk.  Returns
+    ``(state, conv, k)``: ``conv (B,)`` whether each problem converged, and
+    ``k (B,)`` the chunk it converged at."""
+    loss_init = loss_of(state0)
+    B = loss_init.shape[0]
+    conv = torch.zeros(B, dtype=torch.bool, device=loss_init.device)
+    k_conv = torch.zeros(B, dtype=torch.long, device=loss_init.device)
+    n_chunks, rem = divmod(max_iter, 10)
+    state, prev, k = state0, loss_init, 0
+    while k < n_chunks and not bool(conv.all()):
+        new = state
+        for _ in range(10):
+            new = one_iter(new)
+        state = tuple(_masked(conv, o, n) for o, n in zip(state, new))
+        loss = torch.where(conv, prev, loss_of(state))
+        newly = ~conv & ((prev - loss) / loss_init < tol)
+        k_conv = torch.where(newly, k + 1, k_conv)
+        conv, prev, k = conv | newly, loss, k + 1
+    if rem:
+        new = state
+        for _ in range(rem):
+            new = one_iter(new)
+        state = tuple(_masked(conv, o, n) for o, n in zip(state, new))
+    return state, conv, k_conv
+
+
+def _batched_pos(pos):
+    """An analytic β=1 denominator over a leading batch axis.  Its result
+    gets unit axes after the batch axis up to its operand's rank, so each
+    problem broadcasts against its factor as alone (a model's two factors
+    have one rank)."""
+    from torch.func import vmap
+
+    def batched(x):
+        out = vmap(pos)(x)
+        return out.reshape(out.shape[:1] + (1,) * (x.ndim - out.ndim)
+                           + out.shape[1:])
+
+    return batched
+
+
+def get_batched_dense_fit(
+    recon2: Callable,
+    beta: float,
+    tol: float,
+    max_iter: int,
+    update_W: bool,
+    update_H: bool,
+    l1_reg: float,
+    l2_reg: float,
+    updater_factory: Optional[Callable] = None,
+):
+    """Returns ``fit(V, W, H) -> (W, H, n_iter)`` over a leading batch axis:
+    ``V (B, ...)``, ``W (B, ...)``, ``H (B, ...)``, ``n_iter (B,)`` (the
+    JAX package's ``get_batched_dense_fit``).  ``recon2`` is the batched
+    reconstruction ``(H (B, ...), W (B, ...)) -> (B, ...)`` (``recon.linear``
+    is one batched GEMM; ``torch.func.vmap`` of another model's).  The
+    problems share no parameters, so the gradients of the batch's summed
+    cotangent products are each problem's own MU numerator and denominator.
+    ``updater_factory`` (optional) supplies updaters that take batched
+    operands (the Gram updaters at β = 2); it has no layout transform."""
+    from torch.func import vmap
+
+    gamma = gamma_from_beta(beta)
+    updaters = (
+        updater_factory(beta, gamma, l1_reg, l2_reg) if updater_factory else None
+    )
+    if updaters is None:
+        updaters = _default_updaters(recon2, beta, gamma, l1_reg, l2_reg,
+                                     _batched_pos(kl_pos_W),
+                                     _batched_pos(kl_pos_H))
+    upd_W, upd_H, loss_terms, prepare, _ = _normalize_updaters(updaters)
+    if prepare is not None or loss_terms is not None:
+        raise ValueError("the batched fit takes updaters without a layout "
+                         "transform or a loss")
+    div_b = vmap(lambda wh, v: beta_div(wh, v, beta))
+
+    @torch.no_grad()
+    def fit(V, W, H):
+        def one_iter(state):
+            w, h = state
+            if update_W:
+                w = upd_W(V, w, h)
+            if update_H:
+                h = upd_H(V, w, h)
+            return w, h
+
+        def loss_of(state):
+            w, h = state
+            return torch.sqrt(2.0 * div_b(recon2(h, w), V))
+
+        (W, H), conv, k = _batched_loop(one_iter, loss_of, (W, H), tol,
+                                        max_iter)
+        return W, H, torch.where(conv, k * 10, max_iter)
 
     return fit
 
@@ -318,6 +439,176 @@ def get_sparse_fit(
 
 
 # --------------------------------------------------------------------------
+# Hoyer sparseness-constrained fit (reference sparse_fit; nmf.py:411-599)
+# --------------------------------------------------------------------------
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, the dtype the JAX package carries its step
+    sizes in (float64 fits too)."""
+    return float(np.float32(x))
+
+
+def _backtrack_project(loss_baseline, loss_of_new, p, grad, stepsize,
+                       L1_scale):
+    """Backtracking line search with per-column Hoyer projection (reference
+    nmf.py:515-535): try ``p - ss·grad`` projected column-wise onto
+    ``(L1_scale·norm_j, norm_j²)``; halve the step until the new loss is no
+    worse, at most 10 attempts; keep the last candidate even if it failed,
+    halve the step once more when the 10th attempt failed, then grow it by
+    1.2.  Each attempt reads one comparison on the host, counted in
+    ``_backtrack_project.reads``.  Returns ``(p_new, step)``."""
+    def attempt(ss):
+        pnew = proj_columns(p - ss * grad, L1_scale)
+        _backtrack_project.reads += 1
+        return pnew, bool(loss_of_new(pnew) > loss_baseline)
+
+    pnew, worse = attempt(stepsize)
+    tries = 1
+    while worse and tries < 10:
+        stepsize *= 0.5
+        pnew, worse = attempt(stepsize)
+        tries += 1
+    if worse:
+        stepsize *= 0.5
+    return pnew, _f32(stepsize * 1.2)
+
+
+_backtrack_project.reads = 0
+
+
+def _value_and_grad(f, x):
+    """``(f(x), ∂f/∂x)`` of a scalar ``f``, on a fresh leaf."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        val = f(x)
+        (g,) = torch.autograd.grad(val, x)
+    return val.detach(), g
+
+
+def get_hoyer_fit(
+    recon2: Optional[Callable],
+    pos_neg: Optional[Callable],
+    beta: float,
+    max_iter: int,
+    update_W: bool,
+    update_H: bool,
+    sW: Optional[float],
+    sH: Optional[float],
+    W_col_dim: int,
+    H_col_dim: int,
+    verbose: bool = False,
+):
+    """Returns ``fit(V, W, H) -> (W, H, n_iter)``: Hoyer'04 sparseness-
+    constrained fitting, exactly ``max_iter`` iterations (no tolerance
+    stop).  Exactly one of ``recon2`` (dense target) and ``pos_neg`` (sparse
+    COO target, the model's split scalar pair) is given.  ``W_col_dim`` and
+    ``H_col_dim`` are the flattened sizes of one rank column, for the L1
+    targets (reference nmf.py:460-461, 469-470).
+
+    A constrained factor is first projected to unit L2 norm per column,
+    then takes, each iteration, a gradient step of the loss with the
+    backtracking projection (:func:`_backtrack_project`); an unconstrained
+    one takes the generic MU step (``_default_updaters`` on a dense target,
+    ``_sp_factor_update`` on a sparse one).  Whenever H is trainable the
+    pair is renormed onto unit-norm H (reference nmf.py:585)."""
+    gamma = gamma_from_beta(beta)
+    sparse = pos_neg is not None
+    L1a = hoyer_l1_target(W_col_dim, sW) if sW is not None else None
+    L1s = hoyer_l1_target(H_col_dim, sH) if sH is not None else None
+    if not sparse:
+        upd_W, upd_H = _default_updaters(recon2, beta, gamma, 0.0, 0.0)
+
+    @torch.no_grad()
+    def fit(V, W, H):
+        if sparse:
+            V_norm = _sparse.get_V_norm(V, beta)
+
+            def loss(w, h):
+                pos, neg = pos_neg(V, h, w, beta)
+                return V_norm + pos - neg
+
+            def mu_W(w, h):
+                return _sp_factor_update(
+                    lambda x: pos_neg(V, h, x, beta), w, gamma, 0.0, 0.0,
+                    kl_pos_W(h) if beta == 1 else None)
+
+            def mu_H(w, h):
+                return _sp_factor_update(
+                    lambda x: pos_neg(V, x, w, beta), h, gamma, 0.0, 0.0,
+                    kl_pos_H(w) if beta == 1 else None)
+        else:
+            def loss(w, h):
+                return beta_div(recon2(h, w), V, beta)
+
+            def mu_W(w, h):
+                return upd_W(V, w, h)
+
+            def mu_H(w, h):
+                return upd_H(V, w, h)
+
+        # the constrained factors start at unit L2 per column (nmf.py:459-475)
+        if sW is not None and update_W:
+            W = proj_columns_explicit(W, L1a, 1.0)
+        if sH is not None and update_H:
+            H = proj_columns_explicit(H, L1s, 1.0)
+
+        def one_iter(w, h, ssW, ssH):
+            if update_W:
+                if sW is None:
+                    w = mu_W(w, h)
+                else:
+                    base, grad = _value_and_grad(lambda x: loss(x, h), w)
+                    w, ssW = _backtrack_project(
+                        base, lambda x: loss(x, h), w, grad, ssW, L1a)
+            if update_H:
+                if sH is None:
+                    h = mu_H(w, h)
+                else:
+                    base, grad = _value_and_grad(lambda x: loss(w, x), h)
+                    h, ssH = _backtrack_project(
+                        base, lambda x: loss(w, x), h, grad, ssH, L1s)
+                w, h = renorm(w, h, "H")
+            return w, h, ssW, ssH
+
+        state = (W, H, 1.0, 1.0)
+        with _progress(verbose, max_iter) as report:
+            for i in range(1, max_iter + 1):
+                state = one_iter(*state)
+                if report is not None and i % 10 == 0:
+                    report(i // 10, float(torch.sqrt(2.0 * loss(*state[:2]))))
+        return state[0], state[1], max_iter
+
+    return fit
+
+
+def get_batched_hoyer_fit(
+    recon2: Callable,
+    beta: float,
+    max_iter: int,
+    update_W: bool,
+    update_H: bool,
+    sW: Optional[float],
+    sH: Optional[float],
+    W_col_dim: int,
+    H_col_dim: int,
+):
+    """Batched Hoyer fit for dense targets: ``fit(V (B, ...), W (B, ...),
+    H (B, ...)) -> (W, H, n_iter (B,))``.  Each problem's line searches are
+    its own, so the single-problem fit runs once per problem: every
+    trajectory is exactly what it would be alone."""
+    inner = get_hoyer_fit(recon2, None, beta, max_iter, update_W, update_H,
+                          sW, sH, W_col_dim, H_col_dim)
+
+    def fit(V, W, H):
+        outs = [inner(v, w, h) for v, w, h in zip(V, W, H)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]),
+                torch.full((V.shape[0],), max_iter, dtype=torch.long,
+                           device=V.device))
+
+    return fit
+
+
+# --------------------------------------------------------------------------
 # PLCA EM fit (reference plca.py:193-304)
 # --------------------------------------------------------------------------
 def _plca_marginal_sum(x):
@@ -340,26 +631,39 @@ def alpha_is_active(alpha) -> bool:
     return not (isinstance(alpha, (int, float)) and alpha == 1)
 
 
+def _plca_e_step(recon3, Vn, w, h, z):
+    """The E-step: one backward pass of the reconstruction with cotangent
+    ``Vn / (WZH + eps)`` (reference plca.py:252-253), on fresh leaves so no
+    graph outlives it.  Every factor gets its gradient, a frozen one too:
+    Z's M-step reads them.  Returns ``(gH, gW, gZ)``."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (h, w, z)]
+        WZH = recon3(*leaves)
+        return torch.autograd.grad(WZH, leaves, Vn / (WZH.detach() + eps))
+
+
 def _plca_em_iter(recon3, update_W, update_H, update_Z, W_alpha_active,
                   H_alpha_active, Z_alpha_active, Vn, state, W_alpha, H_alpha,
                   Z_alpha, cotangents=None):
-    """One EM iteration: the E-step, one backward pass of the
-    reconstruction with cotangent ``Vn / (WZH + eps)`` (reference
-    plca.py:252-253), on fresh leaves so no graph outlives it; then the
-    M-step's closed-form renormalizations with optional Dirichlet MAP
-    (plca.py:255-289).  ``cotangents(Vn, w, h, z) -> (gH, gW, gZ)``
-    replaces the E-step (:mod:`.fast_plca`).  Every factor gets its
-    gradient, a frozen one too: Z's M-step reads them."""
+    """One EM iteration: the E-step (:func:`_plca_e_step`, or
+    ``cotangents(Vn, w, h, z) -> (gH, gW, gZ)`` of :mod:`.fast_plca`), then
+    :func:`_plca_m_step`."""
     w, h, z = state
     if cotangents is not None:
         gH, gW, gZ = cotangents(Vn, w, h, z)
     else:
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_(True) for x in (h, w, z)]
-            WZH = recon3(*leaves)
-            gH, gW, gZ = torch.autograd.grad(
-                WZH, leaves, Vn / (WZH.detach() + eps))
+        gH, gW, gZ = _plca_e_step(recon3, Vn, w, h, z)
+    return _plca_m_step(update_W, update_H, update_Z, W_alpha_active,
+                        H_alpha_active, Z_alpha_active, w, h, z, gH, gW, gZ,
+                        W_alpha, H_alpha, Z_alpha)
 
+
+def _plca_m_step(update_W, update_H, update_Z, W_alpha_active, H_alpha_active,
+                 Z_alpha_active, w, h, z, gH, gW, gZ, W_alpha, H_alpha,
+                 Z_alpha):
+    """The M-step: closed-form renormalizations of the unnormalized
+    posterior marginals with optional Dirichlet MAP (reference
+    plca.py:255-289).  Returns ``(w, h, z)``."""
     Z_prior = None
     if update_Z:
         z = z * torch.relu(gZ)
@@ -444,5 +748,50 @@ def get_plca_fit(
                 one_iter, loss_of, (W, H, Z), tol, max_iter, report,
                 extra_of=log_probability)
         return W, H, Z, (k * 10 - 1 if conv else max_iter - 1), norm
+
+    return fit
+
+
+def get_batched_plca_fit(
+    recon3: Callable,
+    tol: float,
+    max_iter: int,
+    update_W: bool,
+    update_H: bool,
+    update_Z: bool,
+    W_alpha_active: bool,
+    H_alpha_active: bool,
+    Z_alpha_active: bool,
+):
+    """Batched EM: ``fit(V (B, ...), W (B, ...), H (B, ...), Z (B, R),
+    W_alpha, H_alpha, Z_alpha) -> (W, H, Z, n_iter (B,), norm (B,))``, each
+    problem with its own early stop and the raw-index ``n_iter``.  ``recon3``
+    is one problem's reconstruction; the E-step differentiates
+    ``torch.func.vmap(recon3)`` over the whole batch (the problems share no
+    parameters), the M-step is ``vmap``-ed, the priors are shared."""
+    from torch.func import vmap
+
+    recon3_b = vmap(recon3)
+    m_step = vmap(
+        lambda w, h, z, gH, gW, gZ, Wa, Ha, Za: _plca_m_step(
+            update_W, update_H, update_Z, W_alpha_active, H_alpha_active,
+            Z_alpha_active, w, h, z, gH, gW, gZ, Wa, Ha, Za),
+        in_dims=(0,) * 6 + (None,) * 3)
+    loss_b = vmap(lambda vn, w, h, z, nrm: torch.sqrt(
+        2.0 * kl_div(recon3(h, w, z) * nrm, vn * nrm)))
+
+    @torch.no_grad()
+    def fit(V, W, H, Z, W_alpha, H_alpha, Z_alpha):
+        norm = V.reshape(V.shape[0], -1).sum(1)
+        Vn = V / norm.reshape((-1,) + (1,) * (V.ndim - 1))
+
+        def one_iter(state):
+            w, h, z = state
+            gH, gW, gZ = _plca_e_step(recon3_b, Vn, w, h, z)
+            return m_step(w, h, z, gH, gW, gZ, W_alpha, H_alpha, Z_alpha)
+
+        (W, H, Z), conv, k = _batched_loop(
+            one_iter, lambda s: loss_b(Vn, *s, norm), (W, H, Z), tol, max_iter)
+        return W, H, Z, torch.where(conv, k * 10 - 1, max_iter - 1), norm
 
     return fit

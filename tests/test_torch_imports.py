@@ -22,7 +22,8 @@ def _modules():
 def test_every_module_is_listed():
     mods = _modules()
     for name in ("ops.sparse", "ops.fast_plca", "ops.budget", "models.plca",
-                 "plca", "ops.fused_deconv", "utils"):
+                 "plca", "ops.fused_deconv", "utils", "functional", "trainer",
+                 "ops.projection", "ops.trainer_core"):
         assert f"pytorch_nmf_tpu_torch.{name}" in mods
 
 

@@ -106,7 +106,7 @@ def test_negative_target_raises(problem):
         m.fit(-torch.from_numpy(problem[0]))
 
 
-def test_sparse_target_not_yet_ported(problem):
+def test_sparse_target_fit_equals_dense_fit(problem):
     """Sparse targets are ported: ``fit`` takes a sparse COO tensor, and on
     a target with every entry stored it is the dense fit."""
     V = torch.from_numpy(problem[0])
@@ -178,9 +178,27 @@ def test_invalid_construct(kwargs):
 
 
 def test_fit_rejects_factors_elsewhere(problem):
-    m = nmf_from_numpy({"W": problem[1], "H": problem[2]}, "cpu")
-    with pytest.raises(ValueError, match="V's dtype"):
-        m.fit(torch.from_numpy(problem[0]).double())
+    """A fit runs in one dtype on one device: factors of two dtypes are
+    refused (a float64 V is cast to the factors' dtype instead)."""
+    m = nmf_from_numpy({"W": problem[1].astype("f8"), "H": problem[2]}, "cpu")
+    with pytest.raises(ValueError, match="one dtype, on one device"):
+        m.fit(torch.from_numpy(problem[0]))
+
+
+@pytest.mark.parametrize("beta", [1, 0.5])
+def test_float64_target_warns_and_matches_jax(problem, beta):
+    """A float64 V (numpy's default) on a float32 model is cast to float32
+    with a ``UserWarning``, as the JAX package casts it; the fits agree."""
+    V, W0, H0 = problem
+    V = V.astype("f8")
+    with pytest.warns(UserWarning, match="float64 factors"):
+        port = nmf_from_numpy({"W": W0, "H": H0}, "cpu")
+        assert port.fit(V, beta=beta, tol=0, max_iter=30) == 30
+    assert port.W.dtype == torch.float32
+    with pytest.warns(UserWarning):
+        ref = JNMF(W=W0, H=H0)
+        ref.fit(V, beta=beta, tol=0, max_iter=30)
+    _assert_factors(port, ref, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("build", [

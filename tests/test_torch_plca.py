@@ -343,12 +343,30 @@ def test_verbose_shows_the_log_probability(capsys):
 
 
 def test_fit_rejects_bad_targets():
+    """A negative target is refused; so are factors of two dtypes (a float64
+    V is cast to the factors' dtype instead)."""
     V, W0, H0, Z0 = _plca_problem()
     m = plca_from_numpy({"W": W0, "H": H0, "Z": Z0}, "cpu")
     with pytest.raises(ValueError):
         m.fit(torch.from_numpy(-V))
-    with pytest.raises(ValueError, match="factors' device"):
-        m.fit(torch.from_numpy(V.astype("f8")))
+    m = plca_from_numpy({"W": W0, "H": H0, "Z": Z0.astype("f8")}, "cpu")
+    with pytest.raises(ValueError, match="one dtype, on one device"):
+        m.fit(torch.from_numpy(V))
+
+
+@pytest.mark.parametrize("name", ["PLCA", "SIPLCA"])
+def test_float64_target_warns_and_matches_jax(jx, name):
+    """A float64 V on a float32 model is cast to float32 with a
+    ``UserWarning``, as the JAX package casts it; the fits agree."""
+    if name == "PLCA":
+        V, W0, H0, Z0 = _plca_problem(seed=14)
+    else:
+        V, W0, H0, Z0 = _si_problem(1, *PROBLEMS["SIPLCA"][1:], seed=14)
+    with pytest.warns(UserWarning, match="float64 factors"):
+        port, (pn, _), ref, (rn, _) = _fit_both(
+            jx, name, V.astype("f8"), W0, H0, Z0, tol=0, max_iter=12)
+    assert pn == rn == 11 and port.W.dtype == torch.float32
+    _assert_factors(port, ref)
 
 
 # ----------------------------------------------------------------- the card

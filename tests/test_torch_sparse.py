@@ -203,6 +203,24 @@ def test_sparse_fit_equals_dense_fit(monkeypatch, beta, tier):
     assert _rel(sp.H.detach().numpy(), dense.H.detach().numpy()) < RTOL_FIT
 
 
+@pytest.mark.parametrize("tier", ["densify", "ell"])
+def test_float64_target_warns_and_matches_jax(jx, monkeypatch, tier):
+    """A float64 sparse V on a float32 model is cast to float32 with a
+    ``UserWarning``; the JAX package casts it when it builds its target."""
+    V, W0, H0 = _problem(seed=12)
+    _set_tier(monkeypatch, tier)
+    ref = jx.NMF(W=W0, H=H0)
+    ref.fit(jx.sparse.sparse_from_dense(V), beta=1, tol=0, max_iter=12)
+    port = nmf_from_numpy({"W": W0, "H": H0}, "cpu")
+    Vs = sparse.sparse_from_dense(V.astype("f8"))
+    assert Vs.dtype == torch.float64
+    with pytest.warns(UserWarning, match="float64 factors"):
+        assert port.fit(Vs, beta=1, tol=0, max_iter=12) == 12
+    assert port.W.dtype == torch.float32
+    assert _rel(port.W.detach().numpy(), ref.W.data) < RTOL_FIT
+    assert _rel(port.H.detach().numpy(), ref.H.data) < RTOL_FIT
+
+
 @pytest.mark.parametrize("beta", [0, -1])
 def test_nonpositive_beta_raises(beta):
     V, W0, H0 = _problem()
