@@ -32,12 +32,35 @@ Drives the port's paths at full width, each in phases:
   single fits; the ``BetaMu`` optimizer over the bench's chain
   (``torch.nn.Sequential`` of three ``NMF`` modules, 2048² target) and
   ``SparsityProj`` at 5168×1025; and float64 numpy targets, which warn and
-  fit in float32.
+  fit in float32;
+* ``streaming_nmf_fit`` with V in host memory: 5168×1025 (rank 88, β ∈ {1,
+  0.5}) in 6 blocks of 1024 rows, exactly 2 B1 launches a block an
+  iteration and one B2 a block a loss evaluation at β=0.5, equal to the
+  in-memory ``NMF.fit`` within 1e-4; and a 1 GiB 65536×4096 target (rank
+  64, β=1, 8 blocks): ms/iteration, the host-to-card rate and the share of
+  the copies' time a kernel overlaps (``torch.profiler``);
+* ``checkpointed_fit``: NMF 5168×1025 β=0.5 in two sessions of 50
+  iterations, and the NMFD flagship at β=1 in segments of 10 (one B3 and
+  one B4 an iteration), each equal to the uninterrupted fit;
+* the autotuner (``PNT_NMFD_AUTOTUNE=1``; the earlier paths run at ``=0``,
+  the static engine whose launches they count): the NMFD flagship at β ∈
+  {1, 2}, its rank-8 row at β=2, the NMF2D row at β=1, the SIPLCA row's EM
+  reconstruction and the NMFD flagship's Hoyer reconstruction; on the card
+  the candidates are the kernel engines (``fused``, ``fused_w``; the EM
+  and Hoyer reconstructions ``fused`` alone); their ms/iteration, the
+  winner and the first resolution's seconds, the library engines timed
+  beside them as yardsticks, every engine's fit within 1e-4 relative loss
+  of the kernel engine's with its exact launches, the hybrid ``fused_w``
+  on B4 alone (one launch an iteration, no B3), and the autotuned fit
+  equal (``torch.equal``) to the winner's forced fit with the winner's
+  exact B3/B4 counts.
 
 1. prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``pytorch_nmf_tpu_torch/csrc``, one ``nvcc`` per source, in parallel;
 2. holds each kernel against its plain PyTorch version on the card: B1/B2
-   at 5168×1025 R=88 and 4096×4096 R=256 (rtol 1e-4), B3/B4 at the NMFD
+   at 5168×1025 R=88 and 4096×4096 R=256, and at the streaming fits'
+   blocks (1024 and 48 rows of 1025 in a 1028-float row stride, R=88, β ∈
+   {1, 0.5}; 8192×4096 R=64, β=1) (rtol 1e-4), B3/B4 at the NMFD
    flagship, its rank-8 row, N=2, and the NMF2D/NMF3D rows
    (``max|kernel - plain| ≤ 1e-4·max|plain|``); and the SIPLCA E-step's
    dH, dW and dZ through the kernels against the plain twin at the SIPLCA
@@ -119,7 +142,7 @@ DENSE_ITERS = 100  # the β sweep's max_iter (tol=1e-4)
 # Hoyer: dense NMF at MAIN_SHAPE (bench.py:711-733) and the NMFD flagship,
 # β=2; per-iteration losses compared over the first HOYER_TRACE iterations
 HOYER_DENSE_ITERS = 20
-HOYER_NMFD_ITERS = 10
+HOYER_NMFD_ITERS = 6
 HOYER_TRACE = 5
 HOYER_CASES = (("sW", dict(sW=0.5), (2, 1)),  # (B3, B4) launches/iteration
                ("sW+sH", dict(sW=0.5, sH=0.5), (1, 1)))
@@ -127,11 +150,34 @@ FUNC_NMF_ITERS = 50
 FUNC_NMFD_ITERS = 10
 # the batched fit: 16 short spectrogram excerpts, (B, M, K, R)
 BATCH = (16, 1025, 400, 16)
-BATCH_ITERS = 100
+BATCH_ITERS = 50
 # the BetaMu chain of bench.py:742-786 against a 2048² target
 CHAIN = ((2048, 256), 128, (512, 256), (2048, 512))
 BETAMU_STEPS = 30
 SPARSITY_STEPS = 10
+# streaming: MAIN_SHAPE in blocks of STREAM_ROW_BLOCK rows (6 blocks), and a
+# host-resident 1 GiB target, (M, K, R, row_block)
+STREAM_ROW_BLOCK = 1024
+STREAM_ITERS = 20
+STREAM_BETAS = (1, 0.5)
+STREAM_BIG = (65536, 4096, 64, 8192)
+STREAM_BIG_ITERS = 5
+# the B1/B2 shapes the streaming fits give the kernels: (rows, K, R, betas)
+STREAM_BLOCK_CASES = ((STREAM_ROW_BLOCK,) + MAIN_SHAPE[1:] + (STREAM_BETAS,),
+                      (MAIN_SHAPE[0] % STREAM_ROW_BLOCK,) + MAIN_SHAPE[1:]
+                      + (STREAM_BETAS,),
+                      (STREAM_BIG[3], STREAM_BIG[1], STREAM_BIG[2], (1,)))
+# checkpointed fits: two sessions of CKPT_EVERY dense iterations; the NMFD
+# flagship in segments of CKPT_NMFD_EVERY
+CKPT_EVERY = 50
+CKPT_NMFD_ITERS = 20
+CKPT_NMFD_EVERY = 10
+# the autotuner's cases at PNT_NMFD_AUTOTUNE=1: (label, model, beta, row)
+TUNE_ITERS = 10
+TUNE_CASES = (("NMFD", "NMFD", 1, (1, 1025, (5000,), (400,), 88)),
+              ("NMFD", "NMFD", 2, (1, 1025, (5000,), (400,), 88)),
+              ("NMFD R=8", "NMFD", 2, (1, 1025, (5000,), (400,), 8)),
+              ("NMF2D", "NMF2D", 1, (1, 512, (64, 64), (8, 8), 128)))
 # the H100 SXM's published peaks: f32-accurate products run at
 # 3xTF32 on the tensor cores, 495/3 TFLOP/s, against 67 of f32 FMA on the
 # CUDA cores; HBM moves 3.35 TB/s
@@ -282,6 +328,39 @@ def compare_kernels(fm, kl_pos_W, kl_pos_H):
                       2 * 6 * M * K * R,
                       2 * 4 * (M * K + (M + K) * R) + 2 * 4 * 2 * (M + K) * R)
         del V, W, H
+    # the streaming fit's blocks (ops/streaming.py): views of the device
+    # buffers, whose rows are padded to 4 floats (K=1025: a 1028-float row
+    # stride), W-side raw accumulators (no epilogue), the H update's calls
+    # and B2 per block; a short last block; the 1 GiB target's blocks
+    for M, K, R, betas in STREAM_BLOCK_CASES:
+        V, W, H = inputs(M, K, R)
+        buf = V.new_zeros((M, K + -K % 4))
+        buf[:, :K] = V
+        V = buf[:, :K]
+        for beta in betas:
+            cases = [("W", True, None, None)] if beta == 1 else [
+                ("W", True, True, None), ("H", False, True, None)]
+            if beta == 1:
+                cases.append(("H", False, False, kl_pos_H(W)))
+            for side, w_side, need_pos, mu_pos in cases:
+                kw = dict(beta=beta, need_pos=bool(need_pos), w_side=w_side,
+                          mu_pos=mu_pos)
+                got = fm.fused_contractions(V, H, W, **kw)
+                ref = fm.plain_contractions(V, H, W, **kw)
+                rels = [record("fused_contractions", g, r)
+                        for g, r in zip(got, ref) if r is not None]
+                case = "epilogue" if mu_pos is not None else (
+                    "raw neg+pos" if need_pos else "raw neg")
+                print(f"B1 streaming block {M}x{K} (row stride {buf.shape[1]}) "
+                      f"R={R} {side}-side beta={beta} {case}: max rel err "
+                      f"{max(rels):.3g}", flush=True)
+            if beta not in (1, 2):
+                rel = record("fused_beta_loss",
+                             fm.fused_beta_loss(V, H, W, beta),
+                             fm.plain_beta_loss(V, H, W, beta))
+                print(f"B2 streaming block {M}x{K} (row stride {buf.shape[1]}) "
+                      f"R={R} beta={beta}: rel err {rel:.3g}", flush=True)
+        del V, W, H, buf
     return stats
 
 
@@ -660,7 +739,8 @@ def siplca_fits(F, recon, solver, plca_from_numpy, kl_div, ctr, card, fit_ms):
     from torch.profiler import ProfilerActivity, profile
 
     m, V, init, _, _ = problems["SIPLCA"]
-    recon3 = type(m)._recon3_resolver(V.device, V.dtype)
+    recon3 = type(m)._resolve_fit_recon3(V, m.W.detach(), m.H.detach(),
+                                         m.Z.detach())
     Vn, one = V / V.sum(), V.new_ones(())
 
     def em():
@@ -1345,6 +1425,463 @@ def float64_targets(ns, card):
               f"float32 on the card [{card}]", flush=True)
 
 
+def streaming_fits(ns, ctr, card, fit_ms):
+    """Phase 3, ``streaming_nmf_fit`` with V in host memory.  MAIN_SHAPE in
+    blocks of STREAM_ROW_BLOCK rows at β ∈ STREAM_BETAS, STREAM_ITERS
+    iterations: exactly 2 B1 launches a block an iteration, one B2 a block a
+    loss evaluation at β ∉ {1, 2}, and the final loss within 1e-4 of the
+    in-memory ``NMF.fit``'s from the same init.  Then the 1 GiB STREAM_BIG
+    target: ms/iteration, the host-to-card rate, the share of the copies'
+    time that overlaps a kernel (``torch.profiler``), and the loss within
+    1e-4 of the in-memory fit's.  Returns the path's launch counts (the
+    in-memory fits are not counted)."""
+    from pytorch_nmf_tpu_torch.functional import streaming_nmf_fit
+
+    M, K, R = MAIN_SHAPE
+    rs = np.random.RandomState(SEED)
+    V = np.abs(rs.randn(M, K)).astype("f") + 0.01
+    W0 = torch.from_numpy(np.abs(rs.randn(K, R)).astype("f")).cuda()
+    H0 = torch.from_numpy(np.abs(rs.randn(M, R)).astype("f")).cuda()
+    Vd = torch.from_numpy(V).cuda()
+    n_blocks = -(-M // STREAM_ROW_BLOCK)
+    inf = float("-inf")
+    path = {k: 0 for k in ctr}
+    for beta in STREAM_BETAS:
+        streaming_nmf_fit(V, W0, H0, beta=beta, max_iter=1,
+                          row_block=STREAM_ROW_BLOCK)  # warm-up
+        zero(ctr)
+        (W, H, n), ms = events_ms(lambda: streaming_nmf_fit(
+            V, W0, H0, beta=beta, tol=inf, max_iter=STREAM_ITERS,
+            row_block=STREAM_ROW_BLOCK))
+        d = read(ctr)
+        path = {k: path[k] + d[k] for k in ctr}
+        tag = f"streaming {M}x{K} R={R} beta={beta} row_block={STREAM_ROW_BLOCK}"
+        check_factors(tag, W, H)
+        evals = 1 + STREAM_ITERS // 10
+        want = {"fused_contractions": 2 * n_blocks * STREAM_ITERS,
+                "fused_beta_loss": 0 if beta in (1, 2) else n_blocks * evals,
+                "hgrad": 0, "wgrad": 0}
+        check(d == want and n == STREAM_ITERS, f"{tag}: launches {d}, want "
+              f"{want}; n_iter {n}")
+        m = ns.NMF(W=W0, H=H0, device="cuda")
+        m.fit(Vd, beta=beta, tol=inf, max_iter=STREAM_ITERS)
+        ls = float(ns.beta_div(ns.NMF.reconstruct(H, W), Vd, beta))
+        lm = float(ns.beta_div(m().detach(), Vd, beta))
+        rel = abs(ls - lm) / lm
+        check(rel <= RTOL, f"{tag}: loss {ls} vs in-memory {lm} (rel {rel:.3g})")
+        fit_ms[f"streaming_{M}x{K}_r{R}_beta{beta}_block{STREAM_ROW_BLOCK}"] = (
+            ms / STREAM_ITERS)
+        print(f"phase 3: {tag}: launches B1 {d['fused_contractions']}, B2 "
+              f"{d['fused_beta_loss']} ({n_blocks} blocks); final loss {ls:.7g},"
+              f" in-memory {lm:.7g} (rel {rel:.3g}); {ms / STREAM_ITERS:.3f} "
+              f"ms/iteration [{card}]", flush=True)
+    del Vd, m
+
+    Mb, Kb, Rb, block = STREAM_BIG
+    Vb = np.empty((Mb, Kb), np.float32)
+    np.random.default_rng(SEED).random(out=Vb, dtype=np.float32)
+    Vb += 0.01
+    g = np.random.RandomState(SEED + 1)
+    Wb0 = torch.from_numpy(g.rand(Kb, Rb).astype("f") + 0.1).cuda()
+    Hb0 = torch.from_numpy(g.rand(Mb, Rb).astype("f") + 0.1).cuda()
+    tag = f"streaming {Mb}x{Kb} R={Rb} beta=1 row_block={block}"
+
+    def fit(iters):
+        return streaming_nmf_fit(Vb, Wb0, Hb0, beta=1, tol=inf, max_iter=iters,
+                                 row_block=block)
+
+    fit(1)  # warm-up: pinned buffers, first launches
+    zero(ctr)
+    (W, H, _), ms = events_ms(lambda: fit(STREAM_BIG_ITERS))
+    d = read(ctr)
+    path = {k: path[k] + d[k] for k in ctr}
+    check_factors(tag, W, H)
+    passes = 2 * STREAM_BIG_ITERS + 1  # two a iteration, one initial loss
+    gbs = passes * Vb.nbytes / (ms / 1e3) / 1e9
+    overlap = copy_overlap(lambda: fit(2))
+    Vd = torch.from_numpy(Vb).cuda()
+    m = ns.NMF(W=Wb0, H=Hb0, device="cuda")
+    m.fit(Vd, beta=1, tol=inf, max_iter=STREAM_BIG_ITERS)
+    ls = float(ns.beta_div(ns.NMF.reconstruct(H, W), Vd, 1))
+    lm = float(ns.beta_div(m().detach(), Vd, 1))
+    rel = abs(ls - lm) / lm
+    check(rel <= RTOL, f"{tag}: loss {ls} vs in-memory {lm} (rel {rel:.3g})")
+    fit_ms[f"streaming_{Mb}x{Kb}_r{Rb}_beta1_block{block}"] = {
+        "ms_per_iter": ms / STREAM_BIG_ITERS, "host_to_card_GBps": gbs,
+        "copy_overlap": overlap}
+    print(f"phase 3: {tag} (V {Vb.nbytes / 2**30:.2f} GiB on the host): "
+          f"{ms / STREAM_BIG_ITERS:.2f} ms/iteration, host-to-card "
+          f"{gbs:.2f} GB/s over {passes} passes of V, copy time overlapping "
+          f"a kernel {100 * overlap:.1f}%; launches B1 "
+          f"{d['fused_contractions']}; final loss {ls:.7g}, in-memory "
+          f"{lm:.7g} (rel {rel:.3g}) [{card}]", flush=True)
+    return path
+
+
+def copy_overlap(run):
+    """The share of ``run()``'s host-to-card copy time during which a
+    kernel runs on the card, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    path = os.path.join(scratch_dir(), "streaming_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+
+    def spans(pred):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("ph") == "X" and pred(e))
+
+    copies = spans(lambda e: e.get("cat") == "gpu_memcpy"
+                   and "HtoD" in e.get("name", ""))
+    busy = []
+    for a, b in spans(lambda e: e.get("cat") == "kernel"):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    total = sum(b - a for a, b in copies)
+    check(total > 0, "the streaming trace holds no host-to-card copy")
+    shared = sum(max(0.0, min(b, y) - max(a, x))
+                 for a, b in copies for x, y in busy)
+    return shared / total
+
+
+def scratch_dir():
+    """``build/chip_smoke`` beside this script (git-ignored)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def checkpoint_fits(ns, ctr, card, fit_ms):
+    """Phase 3, ``checkpointed_fit``: NMF at MAIN_SHAPE, β=0.5, in two
+    sessions of CKPT_EVERY iterations (the second a fresh model that
+    resumes from the directory), equal to one uninterrupted fit; the NMFD
+    flagship at β=1, CKPT_NMFD_ITERS iterations in segments of
+    CKPT_NMFD_EVERY, on B3/B4 (one of each an iteration), equal to the
+    uninterrupted fit.  Returns the path's launch counts (the uninterrupted
+    fits are not counted)."""
+    import shutil
+
+    from pytorch_nmf_tpu_torch.utils.checkpoint import checkpointed_fit
+
+    inf = float("-inf")
+    root = os.path.join(scratch_dir(), "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    M, K, R = MAIN_SHAPE
+    V, W0, H0 = inputs(M, K, R)
+    path = {k: 0 for k in ctr}
+
+    def counted(fn):
+        zero(ctr)
+        out = fn()
+        d = read(ctr)
+        for k in ctr:
+            path[k] += d[k]
+        return out, d
+
+    def same(a, b):
+        return max(float((x.detach() - y.detach()).abs().max()
+                         / y.detach().abs().max())
+                   for x, y in zip(a, b))
+
+    d_nmf = os.path.join(root, "nmf")
+    a = ns.NMF(W=W0, H=H0, device="cuda")
+    (n1, _), d1 = counted(lambda: (checkpointed_fit(
+        a, V, beta=0.5, tol=inf, max_iter=CKPT_EVERY, every=CKPT_EVERY,
+        directory=d_nmf), None))
+    b = ns.NMF((M, K), R, device="cuda")  # a new session: factors from disk
+    (n2, _), d2 = counted(lambda: (checkpointed_fit(
+        b, V, beta=0.5, tol=inf, max_iter=2 * CKPT_EVERY, every=CKPT_EVERY,
+        directory=d_nmf), None))
+    ref = ns.NMF(W=W0, H=H0, device="cuda")
+    ref.fit(V, beta=0.5, tol=inf, max_iter=2 * CKPT_EVERY)
+    rel = same((b.W, b.H), (ref.W, ref.H))
+    tag = f"checkpointed NMF {M}x{K} R={R} beta=0.5"
+    check_factors(tag, b.W, b.H)
+    check(n1 == CKPT_EVERY and n2 == 2 * CKPT_EVERY and rel <= 1e-6,
+          f"{tag}: n_iter {n1}, {n2}; factors {rel:.3g} from the "
+          "uninterrupted fit")
+    check(d1["fused_contractions"] == d2["fused_contractions"]
+          == 2 * CKPT_EVERY, f"{tag}: launches {d1}, {d2}")
+    print(f"phase 3: {tag}: sessions of {n1} and {n2 - n1} iterations equal "
+          f"the uninterrupted {2 * CKPT_EVERY} (max rel {rel:.3g}); launches "
+          f"B1 {d1['fused_contractions']} + {d2['fused_contractions']}, B2 "
+          f"{d1['fused_beta_loss']} + {d2['fused_beta_loss']} [{card}]",
+          flush=True)
+    del a, b, ref, V
+
+    Vd = deconv_target("NMFD")
+    m0 = deconv_model("NMFD", ns.models)
+    Wd, Hd = m0.W.detach().clone(), m0.H.detach().clone()
+    del m0
+    c = ns.models.NMFD(W=Wd, H=Hd, device="cuda")
+    (n, _), d = counted(lambda: (checkpointed_fit(
+        c, Vd, beta=1, tol=inf, max_iter=CKPT_NMFD_ITERS, every=CKPT_NMFD_EVERY,
+        directory=os.path.join(root, "nmfd")), None))
+    ref = ns.models.NMFD(W=Wd, H=Hd, device="cuda")
+    ref.fit(Vd, beta=1, tol=inf, max_iter=CKPT_NMFD_ITERS)
+    rel = same((c.W, c.H), (ref.W, ref.H))
+    tag = "checkpointed NMFD flagship beta=1"
+    check_factors(tag, c.W, c.H)
+    want = {"fused_contractions": 0, "fused_beta_loss": 0,
+            "hgrad": CKPT_NMFD_ITERS, "wgrad": CKPT_NMFD_ITERS}
+    check(n == CKPT_NMFD_ITERS and d == want and rel <= 1e-6,
+          f"{tag}: n_iter {n}, launches {d} (want {want}), factors {rel:.3g} "
+          "from the uninterrupted fit")
+    print(f"phase 3: {tag}: {n} iterations in segments of {CKPT_NMFD_EVERY} "
+          f"equal the uninterrupted fit (max rel {rel:.3g}); launches B3 "
+          f"{d['hgrad']}, B4 {d['wgrad']} [{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return path
+
+
+def tune_problem(models, name, row):
+    """A deconv target (``|randn| + 0.01``, seed SEED) and the model's seeded
+    inits at ``row``."""
+    N, C, S_out, kernel, R = row
+    rs = np.random.RandomState(SEED)
+    V = torch.from_numpy(np.abs(rs.randn(N, C, *S_out)).astype("f")
+                         + 0.01).cuda()
+    kw = {"T": kernel[0]} if name == "NMFD" else {"kernel_size": kernel}
+    m = getattr(models, name)((N, C) + S_out, R, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(SEED),
+                              **kw)
+    return V, m.W.detach().clone(), m.H.detach().clone()
+
+
+def autotune_cases(ns, ctr, card, fit_ms):
+    """Phase 3, the autotuner at ``PNT_NMFD_AUTOTUNE=1``: the MU engine at
+    TUNE_CASES, the SIPLCA EM reconstruction at the SIPLCA row, and the
+    Hoyer reconstruction at the NMFD flagship (``sW=0.5``, β=2).  On the
+    card the MU tuner times the kernel engines alone (``fused``, B3/B4;
+    ``fused_w``, B4 and the streamed fold) and the EM and Hoyer
+    reconstructions have one candidate, ``fused``, kept untimed.  For each
+    case: the first resolution's wall seconds (what tuning adds to a fit),
+    the candidates' ms/iteration as the tuner measured them and the winner,
+    which must be a kernel engine; the library engines (``unfold``,
+    ``autocorr`` at 1-D β=2, ``conv``) timed beside them by the tuner's own
+    clock as yardsticks, never chosen; every engine's TUNE_ITERS-iteration
+    fit (HOYER_TRACE for Hoyer, whose line search may branch) within 1e-4
+    relative loss of ``fused``'s, with its exact launches (the library
+    engines none); the model's autotuned fit equal (``torch.equal``) to the
+    winner's forced fit, with the winner's exact B3/B4 counts.  The timing
+    runs and the comparisons are not counted: the path's count is the
+    autotuned model fits', run after the winner is cached.  The comparisons
+    run cuDNN's deterministic algorithms, the timing does not."""
+    from pytorch_nmf_tpu_torch.ops import autotune
+
+    solver, F, beta_div = ns.solver, ns.F, ns.beta_div
+    os.environ["PNT_NMFD_AUTOTUNE"] = "1"
+    autotune.clear_cache()
+    path = {k: 0 for k in ctr}
+    inf = float("-inf")
+
+    def tuned(fn, *args):
+        torch.backends.cudnn.deterministic = False
+        try:
+            return fn(*args)
+        finally:
+            torch.backends.cudnn.deterministic = True
+
+    def first_resolution(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tuned(fn, *args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def yardstick(run, device):
+        return 1e3 * tuned(autotune._time_candidate, run, device)
+
+    def launches(want_b3, want_b4):
+        return {"fused_contractions": 0, "fused_beta_loss": 0,
+                "hgrad": want_b3, "wgrad": want_b4}
+
+    def counted(tag, want, fn):
+        n0 = read(ctr)
+        out = fn()
+        d = {k: v - n0[k] for k, v in read(ctr).items()}
+        check(d == want, f"{tag}: launches {d}, want {want}")
+        return out
+
+    def default_fit(tag, want, fit, forced, params):
+        nonlocal path
+        zero(ctr)
+        fit()
+        d = read(ctr)
+        check(d == want, f"{tag}: the autotuned fit's launches {d}, want {want}")
+        path = {k: path[k] + d[k] for k in ctr}
+        check(all(torch.equal(p.detach(), q) for p, q in zip(params, forced)),
+              f"{tag}: the autotuned fit differs from the forced winner's")
+        return d
+
+    def report(tag, key, winner, secs, yard, losses, extra, own=None):
+        """``own``: the engine's time measured here where the tuner timed
+        nothing (a lone candidate); else the tuner's measurements."""
+        ms = own if own is not None else {
+            n: 1e3 * t for n, t in autotune._MEASURED[key].items()}
+        ref = losses["fused"]
+        rels = {n: abs(l - ref) / abs(ref) for n, l in losses.items()}
+        bad = {n: r for n, r in rels.items() if r > RTOL}
+        check(not bad, f"{tag}: engines' losses off the fused one's: {bad}")
+        fit_ms[f"autotune {tag}"] = {"winner": winner, "candidate_ms": ms,
+                                     "yardstick_ms": yard, "setup_s": secs}
+        print(f"phase 3: autotune {tag}: winner {winner} (first resolution "
+              f"{secs:.3f} s); "
+              + ("one candidate, untimed by the tuner, timed here: "
+                 if own is not None else "candidates ms/iteration ")
+              + ", ".join(f"{n} {t:.3f}" for n, t in ms.items())
+              + "; library yardsticks ms/iteration "
+              + ", ".join(f"{n} {t:.3f}" for n, t in yard.items())
+              + "; loss rel to fused "
+              + ", ".join(f"{n} {r:.2g}" for n, r in rels.items())
+              + f"{extra} [{card}]", flush=True)
+
+    try:
+        for label, name, beta, row in TUNE_CASES:
+            model = getattr(ns.models, name)
+            V, W0, H0 = tune_problem(ns.models, name, row)
+            nd = len(row[3])
+            tag = f"{label} beta={beta}"
+            winner, secs = first_resolution(
+                autotune.autotune_winner, V, W0, H0, beta, nd,
+                model.reconstruct)
+            key = (autotune._platform(V.device), nd, float(beta),
+                   tuple(V.shape), tuple(H0.shape))
+            cands = dict(autotune._candidates(V, H0, float(beta), nd))
+            check(list(cands) == ["fused", "fused_w"] and winner in cands,
+                  f"{tag}: candidates {list(cands)}, winner {winner}")
+            library = {}
+            if autotune._unfold_ok(V, H0):
+                library["unfold"] = F.deconv_updater_factory_unfold(nd)
+            if nd == 1 and beta == 2 and F.autocorr_supported(
+                    V.shape, H0.shape, V.dtype, V.device):
+                library["autocorr"] = F.nmfd_autocorr_updater_factory
+            library["conv"] = None
+            yard = {n: yardstick(autotune._mu_run(V, W0, H0, float(beta), f,
+                                                  model.reconstruct), V.device)
+                    for n, f in library.items()}
+            want = {"fused": launches(TUNE_ITERS * (1 if beta == 1 else 2),
+                                      TUNE_ITERS),
+                    "fused_w": launches(0, TUNE_ITERS)}
+            losses, forced = {}, None
+            for cname, factory in dict(cands, **library).items():
+                fit = solver.get_dense_fit(model.reconstruct, float(beta), inf,
+                                           TUNE_ITERS, True, True, 0.0, 0.0,
+                                           False, factory)
+                W, H, _ = counted(f"{tag} {cname}",
+                                  want.get(cname, launches(0, 0)),
+                                  lambda: fit(V, W0, H0))
+                check_factors(f"{tag} {cname}", W, H)
+                losses[cname] = float(beta_div(model.reconstruct(H, W), V, beta))
+                if cname == winner:
+                    forced = (W, H)
+            m = model(W=W0, H=H0, device="cuda")
+            d = default_fit(
+                tag, want[winner],
+                lambda: m.fit(V, beta=beta, tol=inf, max_iter=TUNE_ITERS),
+                forced, (m.W, m.H))
+            report(tag, key, winner, secs, yard, losses,
+                   f"; fused_w launches B4 {TUNE_ITERS}, B3 0 in {TUNE_ITERS} "
+                   f"iterations, the library engines none; the autotuned fit "
+                   f"equals the forced winner's, launches {d}")
+            del V, W0, H0, m, forced
+
+        # the SIPLCA EM reconstruction at the SIPLCA row
+        N, C, S_out, kernel, R = SIPLCA_ROWS["SIPLCA"]
+        pr = plca_problem(N, C, S_out, kernel, R)
+        V = torch.from_numpy(pr["V"]).cuda()
+        m = ns.plca_from_numpy({k: pr[k] for k in "WHZ"}, "cuda")
+        # the constructor normalizes: every fit starts from its factors
+        W0, H0, Z0 = (p.detach().clone() for p in (m.W, m.H, m.Z))
+        SIPLCA = ns.SIPLCA
+        tag = f"SIPLCA EM {C}x{S_out[0]} R={R} T={kernel[0]}"
+        recon3, secs = first_resolution(autotune.resolve_plca_recon3, SIPLCA,
+                                        V, W0, H0, Z0)
+        key = (autotune._platform(V.device), "plca-em", 0.0, tuple(V.shape),
+               tuple(H0.shape))
+        winner = autotune._WINNERS[key]
+        check(winner == "fused" and recon3 is F._RECON3[1, "fused"],
+              f"{tag}: resolved {winner}, not the kernel adjoints")
+        engines = {"fused": F._RECON3[1, "fused"],
+                   "unfold": F._RECON3[1, "unfold"],
+                   "conv": SIPLCA.reconstruct}
+        yard = {n: yardstick(autotune._em_run(V, W0, H0, Z0, r), V.device)
+                for n, r in engines.items() if n != "fused"}
+        own = {"fused": yardstick(
+            autotune._em_run(V, W0, H0, Z0, engines["fused"]), V.device)}
+        losses, forced = {}, None
+        for cname, rec in engines.items():
+            fit = solver.get_plca_fit(rec, inf, TUNE_ITERS, True, True, True,
+                                      False, False, False)
+            k = TUNE_ITERS if cname == "fused" else 0
+            W, H, Z, _, norm = counted(
+                f"{tag} {cname}", launches(k, k),
+                lambda: fit(V, W0, H0, Z0,
+                            *(torch.ones((), device="cuda") for _ in range(3))))
+            losses[cname] = float(ns.kl_div(SIPLCA.reconstruct(H, W, Z) * norm, V))
+            if cname == winner:
+                forced = (W, H, Z)
+        d = default_fit(tag, launches(TUNE_ITERS, TUNE_ITERS),
+                        lambda: m.fit(V, tol=inf, max_iter=TUNE_ITERS), forced,
+                        (m.W, m.H, m.Z))
+        report(tag, key, winner, secs, yard, losses,
+               f"; the autotuned fit equals the forced winner's, launches {d}",
+               own)
+        del V, W0, H0, Z0, m, forced
+
+        # the Hoyer reconstruction at the NMFD flagship, sW=0.5, β=2
+        V = hoyer_target(ns)
+        _, W0, H0 = tune_problem(ns.models, "NMFD", DECONV["NMFD"])
+        NMFD = ns.models.NMFD
+        tag = "Hoyer NMFD flagship sW=0.5 beta=2"
+        recon2, secs = first_resolution(autotune.resolve_hoyer_recon2, NMFD,
+                                        V, W0, H0, 2.0)
+        key = (autotune._platform(V.device), "hoyer-recon2", 2.0,
+               tuple(V.shape), tuple(H0.shape))
+        winner = autotune._WINNERS[key]
+        check(winner == "fused" and recon2 is F.kernel_adjoint_deconv,
+              f"{tag}: resolved {winner}, not the kernel adjoints")
+        engines = {"fused": F.kernel_adjoint_deconv,
+                   "unfold": F.unfold_deconv, "conv": NMFD.reconstruct}
+        yard = {n: yardstick(autotune._hoyer_run(V, W0, H0, 2.0, r), V.device)
+                for n, r in engines.items() if n != "fused"}
+        own = {"fused": yardstick(
+            autotune._hoyer_run(V, W0, H0, 2.0, engines["fused"]), V.device)}
+        W_col, H_col = W0.numel() // W0.shape[1], H0.numel() // H0.shape[1]
+        b3, b4 = dict((lbl, n) for lbl, _, n in HOYER_CASES)["sW"]
+        losses, forced = {}, None
+        for cname, rec in engines.items():
+            fit = solver.get_hoyer_fit(rec, None, 2.0, HOYER_TRACE, True, True,
+                                       0.5, None, W_col, H_col)
+            k = HOYER_TRACE if cname == "fused" else 0
+            W, H, _ = counted(f"{tag} {cname}", launches(b3 * k, b4 * k),
+                              lambda: fit(V, W0, H0))
+            losses[cname] = float(beta_div(NMFD.reconstruct(H, W), V, 2))
+            if cname == winner:
+                forced = (W, H)
+        m = NMFD(W=W0, H=H0, device="cuda")
+        d = default_fit(tag, launches(b3 * HOYER_TRACE, b4 * HOYER_TRACE),
+                        lambda: m.sparse_fit(V, beta=2, max_iter=HOYER_TRACE,
+                                             sW=0.5),
+                        forced, (m.W, m.H))
+        report(tag, key, winner, secs, yard, losses,
+               f"; the autotuned {HOYER_TRACE}-iteration fit equals the forced "
+               f"winner's, launches {d}", own)
+    finally:
+        os.environ["PNT_NMFD_AUTOTUNE"] = "0"
+        torch.backends.cudnn.deterministic = False
+    return path
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1366,16 +1903,20 @@ def main():
     from pytorch_nmf_tpu_torch import functional
     from pytorch_nmf_tpu_torch.ops import projection as P
     from pytorch_nmf_tpu_torch.ops.fast_nmf import nmf_updater_factory_generic
-    from pytorch_nmf_tpu_torch.plca import PLCA
+    from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA
     from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
     from types import SimpleNamespace
 
     ns = SimpleNamespace(
-        models=models, NMF=NMF, PLCA=PLCA, F=F, P=P, solver=solver,
-        functional=functional, beta_div=beta_div, BetaMu=BetaMu,
+        models=models, NMF=NMF, PLCA=PLCA, SIPLCA=SIPLCA, F=F, P=P,
+        solver=solver, functional=functional, beta_div=beta_div,
+        kl_div=kl_div, plca_from_numpy=plca_from_numpy, BetaMu=BetaMu,
         SparsityProj=SparsityProj, nmf_from_numpy=nmf_from_numpy,
         nmf_updater_factory_generic=nmf_updater_factory_generic)
 
+    # the earlier paths run the static engine choice, whose launches per
+    # iteration they count; the autotuner's phase sets it to 1 for itself
+    os.environ["PNT_NMFD_AUTOTUNE"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check(not torch.backends.cuda.matmul.allow_tf32
@@ -1495,6 +2036,15 @@ def main():
     trainer_steps(ns, ctr, card, fit_ms)
     float64_targets(ns, card)
     stamp("functional, batched, optimizers, float64")
+
+    # phase 3, this slice: streaming on B1/B2, checkpointed fits, and the
+    # autotuner's choices between the deconv engines
+    by_path["streaming"] = streaming_fits(ns, ctr, card, fit_ms)
+    stamp("streaming")
+    by_path["checkpoint"] = checkpoint_fits(ns, ctr, card, fit_ms)
+    stamp("checkpoint")
+    by_path["autotune"] = autotune_cases(ns, ctr, card, fit_ms)
+    stamp("autotune")
     launches = {name: sum(n[name] for n in by_path.values()) for name in REPLACES}
     print(f"phase 3: launches by path {json.dumps(by_path)}", flush=True)
 

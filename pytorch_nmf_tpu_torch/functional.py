@@ -9,6 +9,8 @@ explicit tensors in, new tensors out; the models' state is not involved.
 * :func:`nmf_fit_batched`, :func:`plca_fit_batched`,
   :func:`nmf_hoyer_fit_batched` — many problems with a leading batch axis,
   each with its own stop;
+* :func:`streaming_nmf_fit` — ``NMF`` on a host-resident target read in
+  row blocks (:mod:`.ops.streaming`);
 * :func:`mu_update`, :func:`betamu_step`, :func:`sparsity_proj_step`,
   :func:`proj_func`, :func:`gamma_from_beta`, :func:`renorm`.
 
@@ -32,6 +34,7 @@ from .ops.solver import (
     get_batched_hoyer_fit,
     get_batched_plca_fit,
 )
+from .ops.streaming import streaming_nmf_fit  # noqa: F401
 from .ops.trainer_core import betamu_step, sparsity_proj_step  # noqa: F401
 
 __all__ = [
@@ -44,6 +47,7 @@ __all__ = [
     "nmf_hoyer_fit_batched",
     "plca_fit",
     "plca_fit_batched",
+    "streaming_nmf_fit",
     "mu_update",
     "betamu_step",
     "sparsity_proj_step",

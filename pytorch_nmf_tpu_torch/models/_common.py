@@ -1,6 +1,7 @@
 """Shared helpers for the model layer (shape inference, init, validation);
 counterpart of :mod:`pytorch_nmf_tpu.models._common`."""
 
+import os
 import warnings
 from collections.abc import Iterable as Iterabc
 from typing import Optional
@@ -101,7 +102,10 @@ def assert_nonneg(x: torch.Tensor, name: str) -> None:
 def validate_target(V: torch.Tensor, beta: float) -> None:
     """Input guards of the β-divergence solvers (reference nmf.py:329-336):
     non-negativity, and the divergence error for β ≤ 0 with zeros.  One
-    ``min`` reduction and one scalar read."""
+    ``min`` reduction and one scalar read; ``PNT_SKIP_VALIDATE=1`` skips
+    them (pre-validated pipelines)."""
+    if os.environ.get("PNT_SKIP_VALIDATE", "") == "1":
+        return
     m = float(V.min()) if V.numel() else 0.0
     if m < 0:
         raise ValueError("Target should be non-negative.")

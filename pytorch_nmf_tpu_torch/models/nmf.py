@@ -21,17 +21,16 @@ model        V                        W / H
 """
 
 from collections.abc import Iterable as Iterabc
-from functools import partial
 from typing import Iterable, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from ..ops import autotune as _autotune
 from ..ops import recon as _recon
 from ..ops import solver as _solver
 from ..ops import sparse as _sparse
 from ..ops.fast_nmf import resolve_nmf_updater_factory
-from ..ops.fast_nmfd import resolve_hoyer_recon2, resolve_nmfd_updater_factory
 from ._common import (
     _BETA_ZERO_MSG,
     assert_nonneg,
@@ -133,9 +132,6 @@ class BaseComponent(nn.Module):
         """The model's forward map; overridden by subclasses."""
         raise NotImplementedError
 
-    # staticmethod (device, dtype) -> updater factory | None
-    _updater_resolver = None
-
     # staticmethod (V, H, W, beta) -> (pos, neg) for a sparse target: the
     # split β-divergence's scalar pair; only NMF has one (reference
     # nmf.py:617-638)
@@ -178,13 +174,19 @@ class BaseComponent(nn.Module):
             return cls._fit_sparse(V, W, H, update_W, update_H, beta, tol,
                                    max_iter, verbose, l1_reg, l2_reg)
         validate_target(V, beta)
+        V = V.contiguous()
         fit_fn = _solver.get_dense_fit(
             cls.reconstruct, beta, tol, max_iter, update_W, update_H, l1_reg,
-            l2_reg, verbose,
-            (cls._updater_resolver(V.device, V.dtype)
-             if cls._updater_resolver is not None else None),
+            l2_reg, verbose, cls._resolve_updater_factory(V, W, H, beta),
         )
-        return fit_fn(V.contiguous(), W, H)
+        return fit_fn(V, W, H)
+
+    @classmethod
+    def _resolve_updater_factory(cls, V, W, H, beta):
+        """The updater factory of this fit (``None``: the generic engine);
+        :class:`NMF` takes its kernels' factory, the deconvolutional models
+        resolve theirs per fit (:func:`~..ops.autotune.resolve_deconv_factory`)."""
+        return None
 
     @classmethod
     def _fit_sparse(cls, V, W, H, update_W, update_H, beta, tol, max_iter,
@@ -214,9 +216,8 @@ class BaseComponent(nn.Module):
             fit_fn = _solver.get_sparse_fit(
                 cls._sp_pos_neg, beta, tol, max_iter, update_W, update_H,
                 l1_reg, l2_reg, verbose, tier, cls.reconstruct,
-                (cls._updater_resolver(V.device, V.dtype)
-                 if tier == "densify" and cls._updater_resolver is not None
-                 else None))
+                (cls._resolve_updater_factory(V, W, H, beta)
+                 if tier == "densify" else None))
             return fit_fn(V_arg, W, H)
 
         out = None
@@ -275,7 +276,7 @@ class BaseComponent(nn.Module):
             validate_target(V, beta)
             V = V.contiguous()
         fit_fn = _solver.get_hoyer_fit(
-            None if sparse else cls._resolve_fit_recon2(V.device, V.dtype),
+            None if sparse else cls._resolve_fit_recon2(V, W, H, beta),
             cls._sp_pos_neg if sparse else None,
             beta, max_iter, update_W, update_H,
             None if sW is None or not update_W else float(sW),
@@ -284,11 +285,10 @@ class BaseComponent(nn.Module):
         return fit_fn(V, W, H)
 
     @classmethod
-    def _resolve_fit_recon2(cls, device, dtype):
-        """The reconstruction a Hoyer fit of a ``dtype`` target on
-        ``device`` differentiates: the model's own ``reconstruct`` (the
-        deconvolutional models override this with
-        :func:`~..ops.fast_nmfd.resolve_hoyer_recon2`)."""
+    def _resolve_fit_recon2(cls, V, W, H, beta):
+        """The reconstruction this Hoyer fit differentiates: the model's own
+        ``reconstruct`` (the deconvolutional models resolve theirs per fit,
+        :func:`~..ops.autotune.resolve_hoyer_recon2`)."""
         return cls.reconstruct
 
 
@@ -310,10 +310,29 @@ class NMF(BaseComponent):
         return _recon.linear(H, W)
 
     _sp_pos_neg = staticmethod(_sparse.nmf_sp_pos_neg)
-    _updater_resolver = staticmethod(resolve_nmf_updater_factory)
+    @classmethod
+    def _resolve_updater_factory(cls, V, W, H, beta):
+        return resolve_nmf_updater_factory(V.device, V.dtype)
 
 
-class NMFD(BaseComponent):
+class _DeconvBase(BaseComponent):
+    """The deconvolutional models' engine choice per fit, by timing above a
+    size threshold (:mod:`~..ops.autotune`), whose static choice below it
+    is :func:`~..ops.fast_nmfd.resolve_nmfd_updater_factory`;
+    ``_spatial_ndim`` is each model's number of spatial axes."""
+
+    @classmethod
+    def _resolve_updater_factory(cls, V, W, H, beta):
+        return _autotune.resolve_deconv_factory(V, W, H, beta,
+                                                cls._spatial_ndim,
+                                                cls.reconstruct)
+
+    @classmethod
+    def _resolve_fit_recon2(cls, V, W, H, beta):
+        return _autotune.resolve_hoyer_recon2(cls, V, W, H, beta)
+
+
+class NMFD(_DeconvBase):
     r"""Non-negative Matrix Factor Deconvolution, 1-D (Smaragdis 2004;
     reference nmf.py:700-779): a full-padded true convolution with the
     kernel flipped along time.  Shapes: ``V (N, C, L)``, ``W (C, R, T)``,
@@ -333,12 +352,10 @@ class NMFD(BaseComponent):
     def reconstruct(H, W):
         return _recon.deconv1d(H, W)
 
-    _updater_resolver = staticmethod(
-        partial(resolve_nmfd_updater_factory, spatial_ndim=1))
-    _resolve_fit_recon2 = classmethod(resolve_hoyer_recon2)
+    _spatial_ndim = 1
 
 
-class NMF2D(BaseComponent):
+class NMF2D(_DeconvBase):
     r"""Non-negative Matrix Factor 2-D Deconvolution (Schmidt 2006;
     reference nmf.py:782-865)."""
 
@@ -357,12 +374,10 @@ class NMF2D(BaseComponent):
     def reconstruct(H, W):
         return _recon.deconv2d(H, W)
 
-    _updater_resolver = staticmethod(
-        partial(resolve_nmfd_updater_factory, spatial_ndim=2))
-    _resolve_fit_recon2 = classmethod(resolve_hoyer_recon2)
+    _spatial_ndim = 2
 
 
-class NMF3D(BaseComponent):
+class NMF3D(_DeconvBase):
     r"""Non-negative Matrix Factor 3-D Deconvolution
     (reference nmf.py:868-942)."""
 
@@ -381,6 +396,4 @@ class NMF3D(BaseComponent):
     def reconstruct(H, W):
         return _recon.deconv3d(H, W)
 
-    _updater_resolver = staticmethod(
-        partial(resolve_nmfd_updater_factory, spatial_ndim=3))
-    _resolve_fit_recon2 = classmethod(resolve_hoyer_recon2)
+    _spatial_ndim = 3

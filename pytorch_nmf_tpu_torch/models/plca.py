@@ -16,7 +16,7 @@ is uniform when only ``rank`` is given.  ``requires_grad`` records the
 constructor is given ``device="cpu"``.
 
 On a float32 target the SIPLCA family's E-step differentiates the
-kernel-adjoint deconvolution (:func:`~..ops.fast_nmfd.resolve_plca_recon3`):
+kernel-adjoint deconvolution (:func:`~..ops.autotune.resolve_plca_recon3`):
 ``dH`` runs B3 (``hgrad``) and ``dW`` B4 (``wgrad``) on the card.
 """
 
@@ -26,9 +26,9 @@ from typing import Iterable, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..ops import autotune as _autotune
 from ..ops import recon as _recon
 from ..ops import solver as _solver
-from ..ops.fast_nmfd import resolve_plca_recon3
 from ..ops.fast_plca import resolve_plca_em_engine
 from ..ops.solver import _plca_marginal_sum
 from ._common import (
@@ -155,10 +155,6 @@ class BaseComponent(nn.Module):
         """The model's forward map; overridden by subclasses."""
         raise NotImplementedError
 
-    # staticmethod (cls, device, dtype) -> the EM reconstruction; None keeps
-    # ``reconstruct``
-    _recon3_resolver = None
-
     @classmethod
     def _em_engine(cls, V):
         """A fused E-step engine factory for this fit, or ``None`` for the
@@ -205,7 +201,7 @@ class BaseComponent(nn.Module):
         validate_target(V, 1)
         V = V.contiguous()
         fit_fn = _solver.get_plca_fit(
-            cls._resolve_fit_recon3(V.device, V.dtype), tol, max_iter,
+            cls._resolve_fit_recon3(V, W, H, Z), tol, max_iter,
             update_W, update_H, update_Z, _solver.alpha_is_active(W_alpha),
             _solver.alpha_is_active(H_alpha), _solver.alpha_is_active(Z_alpha),
             verbose, em_engine=cls._em_engine(V))
@@ -217,11 +213,11 @@ class BaseComponent(nn.Module):
                       alpha(Z_alpha))
 
     @classmethod
-    def _resolve_fit_recon3(cls, device, dtype):
-        """The EM reconstruction of a ``dtype`` target on ``device``."""
-        if cls._recon3_resolver is None:
-            return cls.reconstruct
-        return cls._recon3_resolver(device, dtype)
+    def _resolve_fit_recon3(cls, V, W, H, Z):
+        """The EM reconstruction of this fit: ``reconstruct`` (the
+        shift-invariant models resolve theirs per fit,
+        :func:`~..ops.autotune.resolve_plca_recon3`)."""
+        return cls.reconstruct
 
 
 class PLCA(BaseComponent):
@@ -272,7 +268,7 @@ class SIPLCA(BaseComponent):
     def reconstruct(H, W, Z):
         return _recon.deconv1d(H, _recon.scaled_kernel(W, Z, 1))
 
-    _recon3_resolver = classmethod(resolve_plca_recon3)
+    _resolve_fit_recon3 = classmethod(_autotune.resolve_plca_recon3)
 
 
 class SIPLCA2(BaseComponent):
@@ -296,7 +292,7 @@ class SIPLCA2(BaseComponent):
     def reconstruct(H, W, Z):
         return _recon.deconv2d(H, _recon.scaled_kernel(W, Z, 2))
 
-    _recon3_resolver = classmethod(resolve_plca_recon3)
+    _resolve_fit_recon3 = classmethod(_autotune.resolve_plca_recon3)
 
 
 class SIPLCA3(BaseComponent):
@@ -320,4 +316,4 @@ class SIPLCA3(BaseComponent):
     def reconstruct(H, W, Z):
         return _recon.deconv3d(H, _recon.scaled_kernel(W, Z, 3))
 
-    _recon3_resolver = classmethod(resolve_plca_recon3)
+    _resolve_fit_recon3 = classmethod(_autotune.resolve_plca_recon3)

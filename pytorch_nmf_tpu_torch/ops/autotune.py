@@ -1,0 +1,456 @@
+r"""Per-fit engine selection for the deconvolutional family by timing
+(counterpart of :mod:`pytorch_nmf_tpu.ops.autotune`).
+
+Which MU engine is fastest is not a simple function of the shape: the
+kernel engine (B3/B4) and the hybrid (B4 with the streamed fold) trade
+places with the rank, the kernel extent and the length.  So a fit above a
+size threshold times each engine that takes its shape, for its actual
+(shape, β), on its own device, and keeps the winner; smaller fits keep the
+static choice (:func:`~.fast_nmfd.resolve_nmfd_updater_factory`), where a
+wrong choice costs microseconds and tuning would cost seconds.  The SIPLCA
+family's EM reconstruction and the deconv models' Hoyer reconstruction are
+resolved the same way (:func:`resolve_plca_recon3`,
+:func:`resolve_hoyer_recon2`).
+
+Candidates.  On a CUDA float32 target the candidates are the engines of
+the hand-written kernels alone: ``fused`` (B3/B4) and ``fused_w`` (B4 and
+the streamed fold); the EM and Hoyer reconstructions have one, ``fused``,
+which is kept untimed.  The engines over library calls (``unfold``,
+``torch.matmul`` GEMMs; ``autocorr``; ``conv``, the generic engine over
+PyTorch's convolutions) are reached on the card only by a pin: an env
+switch below, or a factory passed to the solver.  ``fft`` is a candidate
+wherever ``PNT_NMFD_FFT=auto`` asks for it.  Elsewhere (a CPU target, where
+the kernels' plain versions run, or under ``PNT_NMFD_PALLAS=0``) every
+engine that takes the shape is a candidate, as in the JAX package.
+
+Timing: each candidate runs the real ``upd_W``/``upd_H`` pair (its
+``prepare`` layout done once, outside the timing) once to warm up, then a
+pilot of 4 iterations; a candidate whose pilot is more than 3× the best so
+far stops there.  The others are timed at two loop lengths (the least of
+three runs each), and their per-iteration cost is the difference quotient,
+so fixed costs cancel.  On the card the clock is CUDA events after
+``torch.cuda.synchronize()``.  The first candidate is the static choice,
+and another replaces it only when it is faster by more than
+``_MARGIN`` (10%): engines that near tie must not trade places on a noisy
+reading.
+
+Only explicit predicates drop a candidate (the unfold budget, the
+autocorrelation engine's regime, the FFT engine's β and rank); anything a
+candidate raises while it is timed propagates, so a kernel that fails to
+build or launch is never skipped unseen.
+
+Environment (the JAX package's names and meanings):
+
+* ``PNT_NMFD_AUTOTUNE=0`` — the static choice only; ``=1`` — tune whatever
+  the size.
+* ``PNT_AUTOTUNE_MIN_FLOPS`` — the threshold, in MACs of one iteration of
+  the convolution form (default 1e9).
+* ``PNT_AUTOTUNE_CACHE=/path.json`` — a persistent winner table, opt-in
+  (else the table lives in the process).  Its keys carry the card's name
+  (``torch.cuda.get_device_name``, or ``cpu``), and a winner that is no
+  candidate of the port is ignored, so no other platform's winner is used.
+* ``PNT_NMFD_UNFOLD=0`` — the generic engine; ``PNT_NMFD_FFT=1`` — the FFT
+  engine at β=2 (``=auto``: a candidate); ``PNT_NMFD_AUTOCORR=1`` — the
+  autocorrelation engine at β=2 (``=0``: not a candidate);
+  ``PNT_NMFD_PALLAS=1`` — the hand-written kernel engine (B3/B4), ``=0`` —
+  neither it nor the hybrid is a candidate, the library engines are, and
+  the static choice becomes the unfold engine.
+"""
+
+import json
+import os
+import time
+
+import torch
+
+from . import fast_nmfd
+from . import solver as _solver
+from .mu import gamma_from_beta
+
+__all__ = [
+    "clear_cache",
+    "autotune_winner",
+    "resolve_deconv_factory",
+    "autotune_plca_recon3",
+    "resolve_plca_recon3",
+    "autotune_hoyer_recon2",
+    "resolve_hoyer_recon2",
+]
+
+# (platform, spatial_ndim | tag, beta, V_shape, H_shape) -> winner name
+_WINNERS = {}
+# the same keys -> {candidate: seconds per iteration}, as last measured
+_MEASURED = {}
+_MIN_FLOPS_DEFAULT = 1e9
+# the long timing run's target length, seconds
+_TARGET_S = 0.3
+# how much faster than the static choice (the first candidate) another
+# candidate must be to replace it
+_MARGIN = 0.1
+
+
+def clear_cache() -> None:
+    _WINNERS.clear()
+    _MEASURED.clear()
+
+
+def _env(name: str) -> str:
+    return os.environ.get(name, "")
+
+
+def _persist_path():
+    return _env("PNT_AUTOTUNE_CACHE")
+
+
+def _key_str(key) -> str:
+    platform, nd, beta, vs, hs = key
+    return (f"{platform}|{nd}|{beta:g}|{','.join(map(str, vs))}|"
+            f"{','.join(map(str, hs))}")
+
+
+def _cached(key, names):
+    """The winner of ``key``, in the process's table or the persistent
+    file, if it is one of ``names`` (else ``None``: tune)."""
+    if _WINNERS.get(key) in names:
+        return _WINNERS[key]
+    path = _persist_path()
+    if not path or not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            hit = json.load(f).get(_key_str(key))
+    except (OSError, ValueError):
+        return None
+    if hit not in names:
+        return None
+    _WINNERS[key] = hit
+    return hit
+
+
+def _save(key, winner: str, results) -> None:
+    _WINNERS[key] = winner
+    _MEASURED[key] = dict(results)
+    path = _persist_path()
+    if not path:
+        return
+    try:
+        data = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                data = json.load(f)
+        data[_key_str(key)] = winner
+        with open(path, "w") as f:
+            json.dump(data, f, indent=0, sort_keys=True)
+            f.write("\n")
+    except (OSError, ValueError):  # the file is a cache: best effort
+        pass
+
+
+def _platform(device) -> str:
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else device.type
+
+
+def _conv_macs_per_iter(V_shape, H_shape) -> float:
+    """The convolution form's MACs for one MU iteration (its four heavy
+    contractions)."""
+    N, C, R = int(V_shape[0]), int(V_shape[1]), int(H_shape[1])
+    Lp = fast_nmfd._prod(V_shape[2:])
+    K = fast_nmfd._prod(fast_nmfd._kernel_dims(V_shape, H_shape))
+    return 4.0 * N * Lp * K * R * C
+
+
+def _tuned(V_shape, H_shape) -> bool:
+    """Whether this fit is timed: ``PNT_NMFD_AUTOTUNE`` forces either way,
+    else the size threshold decides."""
+    mode = _env("PNT_NMFD_AUTOTUNE")
+    if mode in ("0", "1"):
+        return mode == "1"
+    min_flops = float(_env("PNT_AUTOTUNE_MIN_FLOPS") or _MIN_FLOPS_DEFAULT)
+    return _conv_macs_per_iter(V_shape, H_shape) >= min_flops
+
+
+def _kernels_allowed(dtype) -> bool:
+    """The hand-written engines are candidates for float32 unless
+    ``PNT_NMFD_PALLAS=0``."""
+    return dtype == torch.float32 and _env("PNT_NMFD_PALLAS") != "0"
+
+
+def _kernel_path(V) -> bool:
+    """Whether this fit runs the hand-written kernels: a CUDA float32
+    target, unless ``PNT_NMFD_PALLAS=0``.  There only the kernel engines
+    are candidates."""
+    return torch.device(V.device).type == "cuda" and _kernels_allowed(V.dtype)
+
+
+def _unfold_ok(V, H) -> bool:
+    kernel = fast_nmfd._kernel_dims(V.shape, H.shape)
+    return fast_nmfd.nmfd_unfold_supported(
+        tuple(V.shape), (V.shape[1], H.shape[1]) + kernel, V.device)
+
+
+def _candidates(V, H, beta: float, spatial_ndim: int):
+    """``[(name, factory or None)]`` of the engines that take this fit, the
+    static choice first, then in timing order (the likely fastest first,
+    for the 3× rejection); ``None`` is the generic engine.  On the kernel
+    path (:func:`_kernel_path`) the library engines are left out."""
+    nd = spatial_ndim
+    library = not _kernel_path(V)
+    cands = []
+    if _kernels_allowed(V.dtype):
+        cands += [("fused", fast_nmfd.deconv_updater_factory_fused(nd)),
+                  ("fused_w", fast_nmfd.deconv_updater_factory_fused_w(nd))]
+    if library and _unfold_ok(V, H):
+        cands.append(("unfold", fast_nmfd.deconv_updater_factory_unfold(nd)))
+    if nd == 1 and beta == 2:
+        if library and _env("PNT_NMFD_AUTOCORR") != "0" and \
+                fast_nmfd.autocorr_supported(V.shape, H.shape, V.dtype,
+                                             V.device):
+            cands.append(("autocorr", fast_nmfd.nmfd_autocorr_updater_factory))
+        if _env("PNT_NMFD_FFT") == "auto":
+            cands.append(("fft", fast_nmfd.nmfd_fft_updater_factory))
+    if library:
+        cands.append(("conv", None))
+    return cands
+
+
+def _seconds(run, n: int, device, reps: int) -> float:
+    """The least of ``reps`` timings of ``run(n)``: CUDA events on the card,
+    the host clock elsewhere."""
+    best = float("inf")
+    cuda = torch.device(device).type == "cuda"
+    for _ in range(reps):
+        if cuda:
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(n)
+            end.record()
+            end.synchronize()
+            t = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            run(n)
+            t = time.perf_counter() - t0
+        best = min(best, t)
+    return best
+
+
+def _time_candidate(run, device, reps: int = 3, reject_above=None) -> float:
+    """Seconds per iteration of ``run(n)`` (``n`` iterations) by the
+    two-length difference quotient (each length the least of ``reps``
+    runs).  A pilot above ``reject_above`` is returned as it is: no noise
+    turns a candidate 3× slower than the best into the winner."""
+    _seconds(run, 1, device, 1)  # warm-up: first launches, allocations
+    pilot = 4
+    per = max(_seconds(run, pilot, device, 1) / pilot, 1e-7)
+    if reject_above is not None and per > reject_above:
+        return per
+    n_long = int(min(max(_TARGET_S / per, 8), 20000))
+    n_short = max(n_long // 4, 2)
+    d = _seconds(run, n_long, device, reps) - _seconds(run, n_short, device,
+                                                       reps)
+    if d <= 0:  # noise larger than the difference: the biased-high reading
+        return _seconds(run, n_long, device, 1) / n_long
+    return d / (n_long - n_short)
+
+
+def _tune(key, cands, make_run, device) -> str:
+    """Time ``cands`` (``[(name, x)]``, ``make_run(x) -> run(n)``; the first
+    is the static choice) and keep the winner under ``key``: the fastest if
+    it beats the first by more than ``_MARGIN``, else the first.  A lone
+    candidate is kept untimed."""
+    if not cands:
+        raise RuntimeError(f"no engine takes this fit ({key})")
+    if len(cands) == 1:
+        _save(key, cands[0][0], {})
+        return cands[0][0]
+    results = {}
+    for name, x in cands:
+        best = min(results.values()) if results else None
+        results[name] = _time_candidate(
+            make_run(x), device,
+            reject_above=None if best is None else 3.0 * best)
+    static = cands[0][0]
+    winner = min(results, key=results.get)
+    if results[winner] > (1.0 - _MARGIN) * results[static]:
+        winner = static
+    _save(key, winner, results)
+    return winner
+
+
+def _mu_run(V, W, H, beta, factory, recon2):
+    """``run(n)``: ``n`` MU iterations (W, then H against the new W) of the
+    engine ``factory`` (``None``: the generic engine over ``recon2``), from
+    its ``prepare`` layout."""
+    gamma = gamma_from_beta(beta)
+    updaters = factory(beta, gamma, 0.0, 0.0) if factory is not None else None
+    if updaters is None:
+        updaters = _solver._default_updaters(recon2, beta, gamma, 0.0, 0.0)
+    upd_W, upd_H, _, prepare, _ = _solver._normalize_updaters(updaters)
+    with torch.no_grad():
+        state0 = (W, H) if prepare is None else prepare(V, W, H)
+
+    @torch.no_grad()
+    def run(n):
+        w, h = state0
+        for _ in range(n):
+            w = upd_W(V, w, h)
+            h = upd_H(V, w, h)
+        return h
+
+    return run
+
+
+def autotune_winner(V, W, H, beta: float, spatial_ndim: int, recon2) -> str:
+    """The fastest MU engine for this fit's (shape, β) on ``V``'s device,
+    timed once and cached (in the process, and in ``PNT_AUTOTUNE_CACHE``
+    when set)."""
+    cands = _candidates(V, H, float(beta), spatial_ndim)
+    key = (_platform(V.device), spatial_ndim, float(beta), tuple(V.shape),
+           tuple(H.shape))
+    hit = _cached(key, {n for n, _ in cands})
+    if hit is not None:
+        return hit
+    return _tune(key, cands,
+                 lambda f: _mu_run(V, W, H, float(beta), f, recon2), V.device)
+
+
+def resolve_deconv_factory(V, W, H, beta: float, spatial_ndim: int, recon2):
+    """The updater factory of a deconv fit (``None``: the generic engine):
+    the env forces first, then float64 and the threshold (the static
+    choice), then the measured winner."""
+    if _env("PNT_NMFD_UNFOLD") == "0":
+        return None
+    if spatial_ndim == 1 and _env("PNT_NMFD_FFT") == "1":
+        return fast_nmfd.nmfd_fft_updater_factory
+    if spatial_ndim == 1 and beta == 2 and _env("PNT_NMFD_AUTOCORR") == "1":
+        return fast_nmfd.nmfd_autocorr_updater_factory
+    if _env("PNT_NMFD_PALLAS") == "1":
+        return fast_nmfd.deconv_updater_factory_fused(spatial_ndim)
+    if V.dtype == torch.float64 or not _tuned(V.shape, H.shape):
+        return fast_nmfd.resolve_nmfd_updater_factory(V.device, V.dtype,
+                                                      spatial_ndim)
+    winner = autotune_winner(V, W, H, beta, spatial_ndim, recon2)
+    return dict(_candidates(V, H, float(beta), spatial_ndim))[winner]
+
+
+# --------------------------------------------------------------------------
+# The reconstructions that autograd differentiates: the SIPLCA EM E-step
+# and the deconv models' Hoyer steps
+# --------------------------------------------------------------------------
+def _recon_candidates(V, H, fused, unfold, conv):
+    """The reconstructions that take this fit, the static choice first; on
+    the kernel path (:func:`_kernel_path`) ``fused`` alone."""
+    cands = []
+    if _kernels_allowed(V.dtype):
+        cands.append(("fused", fused))
+    if _kernel_path(V):
+        return cands
+    if _unfold_ok(V, H):
+        cands.append(("unfold", unfold))
+    cands.append(("conv", conv))
+    return cands
+
+
+def _plca_candidates(cls, V, H):
+    nd = cls._spatial_ndim
+    return _recon_candidates(V, H, fast_nmfd._RECON3[nd, "fused"],
+                             fast_nmfd._RECON3[nd, "unfold"], cls.reconstruct)
+
+
+def _em_run(V, W, H, Z, recon3):
+    """``run(n)``: ``n`` EM iterations (every factor updated, no priors) of
+    the reconstruction ``recon3`` from ``(W, H, Z)`` on ``V / V.sum()``."""
+    Vn = V / V.sum()
+
+    @torch.no_grad()
+    def run(n):
+        state = (W, H, Z)
+        for _ in range(n):
+            state = _solver._plca_em_iter(
+                recon3, True, True, True, False, False, False, Vn, state,
+                1.0, 1.0, 1.0)
+        return state
+
+    return run
+
+
+def autotune_plca_recon3(V, W, H, Z, cands) -> str:
+    """The fastest EM reconstruction among ``cands`` (``[(name, recon3)]``)
+    for this fit's shape, timed over whole EM iterations and cached."""
+    key = (_platform(V.device), "plca-em", 0.0, tuple(V.shape), tuple(H.shape))
+    hit = _cached(key, {n for n, _ in cands})
+    if hit is not None:
+        return hit
+    return _tune(key, cands, lambda r: _em_run(V, W, H, Z, r), V.device)
+
+
+def resolve_plca_recon3(cls, V, W, H, Z):
+    """The EM reconstruction of a SIPLCA-family fit: the env forces first,
+    then float64 and the threshold (the static choice,
+    :func:`~.fast_nmfd.resolve_plca_recon3`), then the measured winner."""
+    nd = cls._spatial_ndim
+    if _env("PNT_NMFD_UNFOLD") == "0" or V.dtype == torch.float64:
+        return cls.reconstruct
+    if _env("PNT_NMFD_PALLAS") == "1":
+        return fast_nmfd._RECON3[nd, "fused"]
+    if not _tuned(V.shape, H.shape):
+        return fast_nmfd.resolve_plca_recon3(cls, V.device, V.dtype)
+    cands = _plca_candidates(cls, V, H)
+    return dict(cands)[autotune_plca_recon3(V, W, H, Z, cands)]
+
+
+def _hoyer_run(V, W, H, beta: float, recon2):
+    """``run(n)``: ``n`` projected gradient steps of both factors through
+    ``recon2`` (the Hoyer solver's dominant cost; its line search
+    re-evaluates the loss, not the gradient)."""
+    from ..constants import eps
+    from ..metrics import beta_div
+
+    def grad(f, x):
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(f(x), x)
+        return g
+
+    @torch.no_grad()
+    def run(n):
+        w, h = W, H
+        for _ in range(n):
+            gW = grad(lambda x: beta_div(recon2(h, x), V, beta), w)
+            w = torch.clamp(w - 1e-3 * gW, min=eps)
+            gH = grad(lambda x: beta_div(recon2(x, w), V, beta), h)
+            h = torch.clamp(h - 1e-3 * gH, min=eps)
+        return h
+
+    return run
+
+
+def autotune_hoyer_recon2(V, W, H, beta: float, cands) -> str:
+    """The fastest reconstruction among ``cands`` (``[(name, recon2)]``) for
+    the Hoyer steps, timed over :func:`_hoyer_run` and cached."""
+    key = (_platform(V.device), "hoyer-recon2", float(beta), tuple(V.shape),
+           tuple(H.shape))
+    hit = _cached(key, {n for n, _ in cands})
+    if hit is not None:
+        return hit
+    return _tune(key, cands, lambda r: _hoyer_run(V, W, H, float(beta), r),
+                 V.device)
+
+
+def resolve_hoyer_recon2(cls, V, W, H, beta: float):
+    """The reconstruction a deconv model's Hoyer fit differentiates: the env
+    forces first, then float64 and the threshold (the static choice,
+    :func:`~.fast_nmfd.resolve_hoyer_recon2`), then the measured winner."""
+    if _env("PNT_NMFD_UNFOLD") == "0" or V.dtype == torch.float64:
+        return cls.reconstruct
+    if _env("PNT_NMFD_PALLAS") == "1":
+        return fast_nmfd.kernel_adjoint_deconv
+    if not _tuned(V.shape, H.shape):
+        return fast_nmfd.resolve_hoyer_recon2(cls, V.device, V.dtype)
+    cands = _recon_candidates(V, H, fast_nmfd.kernel_adjoint_deconv,
+                              fast_nmfd.unfold_deconv, cls.reconstruct)
+    return dict(cands)[autotune_hoyer_recon2(V, W, H, beta, cands)]

@@ -28,22 +28,55 @@ The same contractions are the adjoints of the reconstruction itself:
 backward runs them, which is what the SIPLCA family's EM E-step
 differentiates (:func:`resolve_plca_recon3`), and the Hoyer fit of a deconv
 model (:func:`resolve_hoyer_recon2`).
+
+Beside the kernel engine (``"fused"``), the module holds the JAX package's
+other MU engines; :mod:`.autotune` picks per fit by timing, on the card
+between the kernel engines ``"fused"`` and ``"fused_w"`` (the others are
+pinned there), on the CPU among all:
+
+* the unfold engine (``"unfold"``, :func:`deconv_updater_factory_unfold`):
+  the same contractions as ``torch.matmul`` GEMMs over the patch matrix,
+  fully unrolled for ``K·R ≤ 4096`` and τ-chunked above; shapes past its
+  memory budget (:func:`nmfd_unfold_supported`) take the generic engine;
+* the hybrid (``"fused_w"``): B4 for the whole W side, the unfold engine's
+  streamed fold for the H side, no B3;
+* the β=2 autocorrelation engine (``"autocorr"``, 1-D, unrolled regime):
+  the W denominator as ``(PᵀP) W2``, ``PᵀP`` built from the activation's
+  lag autocorrelation (:func:`_h_autocorr_gram`);
+* the FFT β=2 engine (``"fft"``, :mod:`.fft_nmfd`), opt-in.
+
+:func:`unfold_deconv` is the unfold reconstruction as a differentiable
+function, the EM and Hoyer tuners' ``"unfold"`` candidate.
 """
 
 import itertools
+import os
 
 import torch
 
 from ..constants import eps
 from ..metrics import beta_div
 from . import fused_deconv
-from .fused_deconv import _chunk_tc, _flat_T, nd_geom
-from .mu import kl_pos_W, mu_cotangents, mu_multiplier
+from . import recon as _recon
+from .budget import budget_bytes
+from .fused_deconv import _CHUNK_COLS, _chunk_tc, _flat_T, nd_geom
+from .mu import kl_pos_H, kl_pos_W, mu_cotangents, mu_multiplier, mu_update
 from .recon import scaled_kernel
 
 __all__ = [
     "deconv_updater_factory_fused",
+    "deconv_updater_factory_fused_w",
     "deconv_updater_factory_plain",
+    "deconv_updater_factory_unfold",
+    "nmfd_unfold_updater_factory",
+    "nmf2d_unfold_updater_factory",
+    "nmf3d_unfold_updater_factory",
+    "nmfd_autocorr_updater_factory",
+    "nmfd_fft_updater_factory",
+    "nmfd_unfold_supported",
+    "autocorr_supported",
+    "unfold_patches_nd",
+    "unfold_deconv",
     "resolve_nmfd_updater_factory",
     "kernel_adjoint_deconv",
     "plain_adjoint_deconv",
@@ -235,6 +268,295 @@ def _cot_stacked(cot, seg_stride: int):
     return torch.nn.functional.pad(
         cot, (0, 0, 0, seg_stride - Lp_flat)).reshape(-1, C)
 
+# --------------------------------------------------------------------------
+# The unfold engine (the JAX package's _deconv_unfold_updater_factory): the
+# patch contractions as torch.matmul GEMMs, outside any kernel
+# --------------------------------------------------------------------------
+_DEFAULT_UNFOLD_MAX_BYTES = 2 * 1024**3
+_UNFOLD_HBM_FRACTION = 0.125
+
+
+def nmfd_unfold_supported(V_shape, W_shape, device=None) -> bool:
+    """Whether the patch tensor of ``V (N, C, *S_out)`` and ``W (C, R,
+    *kernel)`` (``4·N·prod(S_out)·K·R`` bytes) fits the unfold budget:
+    ``PNT_NMFD_UNFOLD_MAX_BYTES``, else an eighth of a CUDA ``device``'s
+    memory, else 2 GiB (:func:`~.budget.budget_bytes`).  A one-offset
+    kernel is plain NMF and is not taken."""
+    if len(V_shape) != len(W_shape) or len(V_shape) < 3:
+        return False
+    K = _prod(W_shape[2:])
+    if K < 2:
+        return False
+    max_bytes = budget_bytes("PNT_NMFD_UNFOLD_MAX_BYTES",
+                             _DEFAULT_UNFOLD_MAX_BYTES, _UNFOLD_HBM_FRACTION,
+                             device)
+    return 4 * int(V_shape[0]) * _prod(V_shape[2:]) * K * int(W_shape[1]) \
+        <= max_bytes
+
+
+def _unfold_mode(V_shape, H_shape, dtype, device) -> str:
+    """``"unrolled"`` (``K·R ≤ 4096``: one patch matrix), ``"stream"``
+    (τ-chunked GEMMs) or ``"none"`` (float64, or past the budget: the
+    generic engine)."""
+    if dtype == torch.float64:
+        return "none"
+    kernel = _kernel_dims(V_shape, H_shape)
+    R = int(H_shape[1])
+    if not nmfd_unfold_supported(tuple(V_shape), (int(V_shape[1]), R) + kernel,
+                                 device):
+        return "none"
+    return "unrolled" if _prod(kernel) * R <= _CHUNK_COLS else "stream"
+
+
+def unfold_patches_nd(H, kernel):
+    """The patch matrix ``P[n, l_vec, τ_flat·R + r] = Hpad[n, l_vec - τ, r]``
+    of ``H (N, R, *S_in)``: ``(N, prod(S_out), K·R)``."""
+    return _patch_chunk_fn(H, tuple(kernel))(0, _prod(kernel))
+
+
+def _fold_into(acc, G, j0: int, j1: int, kernel, R: int):
+    """Overlap-add the chunk ``G (N, prod(S_out), (j1-j0)·R)`` of flat
+    offsets ``[j0, j1)`` into ``acc (N, *S_in, R)``: ``acc[n, m_vec, r] +=
+    Σ_j G[n, m_vec + τ(j), (j-j0)·R + r]``.  In 1-D the whole chunk is one
+    strided view (consecutive offsets step by ``(j1-j0)·R + R``), summed
+    over its offsets; in N-D one slice per offset."""
+    N, S_in = acc.shape[0], acc.shape[1:-1]
+    n = (j1 - j0) * R
+    Lp = G.shape[1]
+    if len(kernel) == 1:
+        view = G.as_strided((N, S_in[0], j1 - j0, R), (Lp * n, n, n + R, 1),
+                            G.storage_offset() + j0 * n)
+        acc += view.sum(2)
+        return
+    S_out = _pad_s_out(S_in, kernel)
+    G5 = G.reshape((N,) + S_out + (j1 - j0, R))
+    for j in range(j0, j1):
+        sl = G5[(slice(None),) * (1 + len(kernel)) + (j - j0,)]
+        for ax, (t, s) in enumerate(zip(_tau_of_flat(j, kernel), S_in)):
+            sl = sl.narrow(1 + ax, int(t), int(s))
+        acc += sl
+
+
+def _unfold_h_contract(w2, cots, H, kernel, Tc: int):
+    """The H-side contractions of the cotangents ``cots`` (each ``(N,
+    prod(S_out), C)``): per τ-chunk one GEMM ``G = cot @ W2cᵀ``, folded
+    (:func:`_fold_into`); ``Tc = K`` is the unrolled form.  Returns one
+    ``(N, R, *S_in)`` tensor per cotangent."""
+    N, R = H.shape[:2]
+    K = _prod(kernel)
+    accs = [H.new_zeros((N,) + tuple(H.shape[2:]) + (R,)) for _ in cots]
+    for j0 in range(0, K, Tc):
+        j1 = min(j0 + Tc, K)
+        w2c = w2[j0 * R:j1 * R]
+        for acc, cot in zip(accs, cots):
+            _fold_into(acc, cot @ w2c.T, j0, j1, kernel, R)
+    return [a.movedim(-1, 1) for a in accs]
+
+
+def _unfold_upd_h(H, w2, cots, kernel, Tc: int, beta, gamma, l1_reg, l2_reg):
+    """The H update from the cotangents ``cots`` (``(neg, pos)``, ``pos``
+    ``None`` at β=1) through the streamed fold (:func:`_unfold_h_contract`)."""
+    R = H.shape[1]
+    outs = _unfold_h_contract(w2, [c for c in cots if c is not None], H,
+                              kernel, Tc)
+    neg = torch.relu(outs[0]) + eps
+    pos = (_kl_pos_h_ranks(w2, R).reshape((1, R) + (1,) * len(kernel))
+           if beta == 1 else torch.relu(outs[1]) + eps)
+    return H * mu_multiplier(neg, pos, H, gamma, l1_reg, l2_reg)
+
+
+def _unfold_upd_w(V, w2, H, kernel, Tc: int, beta, gamma, l1_reg, l2_reg):
+    """The unfold W update in the ``W2`` layout: the reconstruction, the
+    cotangents, then per τ-chunk ``Pcᵀ @ cot`` and the MU multiply of that
+    chunk's rows (the numerator never exists whole, as in the JAX package's
+    ``_stream_upd_w``).  ``Tc = K``: the unrolled form, one patch matrix
+    serving the reconstruction too."""
+    R, C = H.shape[1], V.shape[1]
+    K = _prod(kernel)
+    patch_chunk = _patch_chunk_fn(H, kernel)
+    if Tc >= K:
+        P = patch_chunk(0, K)
+        WH2 = P @ w2
+    else:
+        WH2 = _stream_recon(w2, H, kernel)
+    neg_cot, pos_cot = mu_cotangents(_v2_flat(V), WH2, beta)
+    neg_cot = neg_cot.reshape(-1, C)
+    pos_cot = None if pos_cot is None else pos_cot.reshape(-1, C)
+    outs = []
+    for j0 in range(0, K, Tc):
+        j1 = min(j0 + Tc, K)
+        Pc = (P if Tc >= K else patch_chunk(j0, j1)).reshape(-1, (j1 - j0) * R)
+        neg = torch.relu(Pc.T @ neg_cot) + eps
+        pos = (_kl_pos_w_rows(H, (j1 - j0) * R) if beta == 1
+               else torch.relu(Pc.T @ pos_cot) + eps)
+        wc = w2[j0 * R:j1 * R]
+        outs.append(wc * mu_multiplier(neg, pos, wc, gamma, l1_reg, l2_reg))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _unfold_recon(w2, H, kernel, Tc: int):
+    """``WH2 (N, prod(S_out), C)``, unrolled (``Tc ≥ K``) or τ-chunked."""
+    if Tc >= _prod(kernel):
+        return unfold_patches_nd(H, kernel) @ w2
+    return _stream_recon(w2, H, kernel)
+
+
+def _unfold_updaters(spatial_ndim: int, beta, gamma, l1_reg, l2_reg):
+    """The unfold engine's 5-arity updaters.  The kernel is carried in the
+    ``W2 (K·R, C)`` layout in both modes; a ``"none"`` shape keeps the model
+    layout and the generic autograd engine over ``recon.deconvNd``.  The
+    mode is a function of the shapes, dtype and device, found once per
+    fit."""
+    nd = spatial_ndim
+    deconv = getattr(_recon, f"deconv{nd}d")
+    modes = {}
+
+    def mode(V, H):
+        if V.ndim != nd + 2 or H.ndim != nd + 2:
+            raise ValueError(f"a {nd}-D deconv fit takes V (N, C, *S_out) and "
+                             f"H (N, R, *S_in); got {tuple(V.shape)} and "
+                             f"{tuple(H.shape)}")
+        key = (tuple(V.shape), tuple(H.shape), V.dtype, V.device)
+        if key not in modes:
+            modes[key] = _unfold_mode(V.shape, H.shape, V.dtype, V.device)
+        return modes[key]
+
+    def tc(V, H):
+        kernel = _kernel_dims(V.shape, H.shape)
+        K = _prod(kernel)
+        return kernel, (K if mode(V, H) == "unrolled"
+                        else _chunk_tc(H.shape[1], K))
+
+    def prepare(V, W, H):
+        return (W, H) if mode(V, H) == "none" else (_w2(W), H)
+
+    def finish(V, w, h):
+        if mode(V, h) == "none":
+            return w, h
+        return _w_from_w2(w, _kernel_dims(V.shape, h.shape), h.shape[1]), h
+
+    def upd_W(V, w, H):
+        if mode(V, H) == "none":
+            return mu_update(lambda x: deconv(H, x), V, w, beta, gamma, l1_reg,
+                             l2_reg, kl_pos_W(H) if beta == 1 else None)
+        kernel, Tc = tc(V, H)
+        return _unfold_upd_w(V, w, H, kernel, Tc, beta, gamma, l1_reg, l2_reg)
+
+    def upd_H(V, w, H):
+        if mode(V, H) == "none":
+            return mu_update(lambda x: deconv(x, w), V, H, beta, gamma, l1_reg,
+                             l2_reg, kl_pos_H(w) if beta == 1 else None)
+        kernel, Tc = tc(V, H)
+        cots = mu_cotangents(_v2_flat(V), _unfold_recon(w, H, kernel, Tc), beta)
+        return _unfold_upd_h(H, w, cots, kernel, Tc, beta, gamma, l1_reg,
+                             l2_reg)
+
+    def loss_terms(V, w, H):
+        if mode(V, H) == "none":
+            return beta_div(deconv(H, w), V, beta)
+        kernel, Tc = tc(V, H)
+        return beta_div(_unfold_recon(w, H, kernel, Tc), _v2_flat(V), beta)
+
+    return upd_W, upd_H, loss_terms, prepare, finish
+
+
+def unfold_deconv(H, W):
+    """The full-padded deconvolution ``(N, C, *S_out)`` of ``recon.deconvNd``
+    through the patch GEMMs (unrolled for ``K·R ≤ 4096``, τ-chunked above),
+    as differentiable PyTorch operations: its adjoints are the patch
+    contractions, which is what the EM E-step and the Hoyer steps
+    differentiate.  float64 and shapes past the unfold budget take
+    ``recon.deconvNd`` itself."""
+    kernel = tuple(int(k) for k in W.shape[2:])
+    N = H.shape[0]
+    S_out = _pad_s_out(H.shape[2:], kernel)
+    V_like = (N, W.shape[0]) + S_out
+    if H.dtype == torch.float64 or W.dtype == torch.float64 or \
+            not nmfd_unfold_supported(V_like, tuple(W.shape), H.device):
+        return getattr(_recon, f"deconv{len(kernel)}d")(H, W)
+    K, R = _prod(kernel), H.shape[1]
+    WH2 = _unfold_recon(_w2(W), H, kernel, K if K * R <= _CHUNK_COLS
+                        else _chunk_tc(R, K))
+    return WH2.reshape((N,) + S_out + (W.shape[0],)).movedim(-1, 1)
+
+
+# --------------------------------------------------------------------------
+# The β=2 autocorrelation engine (the JAX package's
+# nmfd_autocorr_updater_factory): 1-D, unrolled regime only
+# --------------------------------------------------------------------------
+def autocorr_supported(V_shape, H_shape, dtype, device=None) -> bool:
+    """Whether the autocorrelation engine takes this fit: a 1-D float32
+    problem in the unfold engine's unrolled regime."""
+    return (len(V_shape) == 3 and len(H_shape) == 3
+            and dtype == torch.float32
+            and _unfold_mode(V_shape, H_shape, dtype, device) == "unrolled")
+
+
+def _h_autocorr_gram(H, T: int):
+    """The patch Gram ``G = PᵀP`` of the 1-D patch matrix from the
+    activation's lag autocorrelation, ``O(R²·T·L)`` operations instead of
+    ``O((T·R)²·L)``: ``G[τ·R+r, τ'·R+r'] = A[r, r', τ-τ']`` with ``A[r, r',
+    δ] = Σ_{n,u} H[n,r,u]·H[n,r',u+δ]`` (``A[·,·,-δ] = A[·,·,δ]ᵀ``); the
+    patch's zero borders make every lag sum run over the whole support, so
+    the Gram is block-Toeplitz in the lag.  The lag table is built in blocks
+    of shifted windows of at most 64 MB."""
+    N, R, L = H.shape
+    blk = max(1, min(T, 64 * 1024**2 // max(1, N * R * L * 4)))
+    nb = -(-T // blk)
+    Hp = torch.nn.functional.pad(H, (0, nb * blk))
+    parts = []
+    for b in range(nb):
+        d0 = b * blk
+        S = torch.stack([Hp[:, :, d0 + d:d0 + d + L] for d in range(blk)],
+                        dim=2)  # S[n, r', d, u] = Hp[n, r', u + d0 + d]
+        parts.append(torch.einsum("nru,nsdu->rsd", H, S))
+    A_half = torch.cat(parts, dim=-1)[..., :T]  # (R, R', T), δ ≥ 0
+    # the whole lag table at index δ + T - 1; negative lags by symmetry
+    A_full = torch.cat([A_half.transpose(0, 1)[..., 1:].flip(-1), A_half],
+                       dim=-1)
+    lag = torch.arange(T, device=H.device)
+    G4 = A_full[:, :, lag[:, None] - lag[None, :] + T - 1]  # (R, R', T, T')
+    return G4.permute(2, 0, 3, 1).reshape(T * R, T * R)
+
+
+def nmfd_autocorr_updater_factory(beta, gamma, l1_reg, l2_reg):
+    """β=2 NMFD updaters whose W denominator is ``(PᵀP) W2``
+    (:func:`_h_autocorr_gram`) instead of the reconstruction's correlation
+    with the patches: ``O(R²·T·L + C·R²·T²)`` against ``O(2·C·R·T·L)``,
+    cheaper where ``R·T < L``.  The W numerator, the whole H update, the
+    loss and the layout hooks are the unfold engine's, so the trajectories
+    differ from it by float32 summation order only.  β=2 only (else
+    ``ValueError``); ``upd_W`` raises outside the 1-D float32 unrolled
+    regime (:func:`autocorr_supported`)."""
+    if beta != 2:
+        raise ValueError("the autocorrelation engine is β=2-only")
+    _, upd_H, loss_terms, prepare, finish = _unfold_updaters(
+        1, beta, gamma, l1_reg, l2_reg)
+
+    def upd_W(V, w, H):
+        if not autocorr_supported(V.shape, H.shape, V.dtype, V.device):
+            raise ValueError(
+                "the autocorrelation engine takes 1-D float32 fits in the "
+                "unfold engine's unrolled regime (K·R <= 4096, within the "
+                "unfold budget)")
+        T = w.shape[0] // H.shape[1]
+        P = unfold_patches_nd(H, (T,)).reshape(-1, w.shape[0])
+        neg = torch.relu(P.T @ _v2_flat(V).reshape(-1, V.shape[1])) + eps
+        pos = torch.relu(_h_autocorr_gram(H, T) @ w) + eps
+        return w * mu_multiplier(neg, pos, w, gamma, l1_reg, l2_reg)
+
+    return upd_W, upd_H, loss_terms, prepare, finish
+
+
+def nmfd_fft_updater_factory(beta, gamma, l1_reg, l2_reg):
+    """NMFD updaters with the opt-in FFT engine at β=2
+    (:mod:`.fft_nmfd`); every other β takes the unfold engine."""
+    if beta == 2:
+        from .fft_nmfd import fft_beta2_updater_factory
+
+        return fft_beta2_updater_factory(gamma, l1_reg, l2_reg)
+    return _unfold_updaters(1, beta, gamma, l1_reg, l2_reg)
+
 
 def _contractions(kernels: str):
     """``(hgrad, wgrad)``: the kernel wrappers (``"fused"``) or their plain
@@ -245,10 +567,12 @@ def _contractions(kernels: str):
 
 
 def _deconv_updaters(spatial_ndim: int, kernels: str, beta, gamma, l1_reg,
-                     l2_reg):
+                     l2_reg, h_side: str = "kernel"):
     """The 5-arity ``(upd_W, upd_H, loss_terms, prepare, finish)`` updaters
     of the ``spatial_ndim`` deconv model over the hand-written kernels
-    (``kernels="fused"``: the wrappers) or their plain versions."""
+    (``kernels="fused"``: the wrappers) or their plain versions.
+    ``h_side="stream"`` is the hybrid: the H side runs the unfold engine's
+    streamed fold (:func:`_unfold_h_contract`) instead of ``hgrad``."""
     hgrad, wgrad = _contractions(kernels)
     nd = spatial_ndim
     fused_w = beta == 1 and gamma == 1 and l1_reg == 0 and l2_reg == 0
@@ -297,6 +621,10 @@ def _deconv_updaters(spatial_ndim: int, kernels: str, beta, gamma, l1_reg,
         kernel, geom, T_geo, L_flat = _dims(V, H)
         N, R = H.shape[:2]
         neg_cot, pos_cot = _cots(V, w, H, kernel)
+        if h_side == "stream":
+            return _unfold_upd_h(H, w, (neg_cot, pos_cot), kernel,
+                                 _chunk_tc(R, _prod(kernel)), beta, gamma,
+                                 l1_reg, l2_reg)
         if N > 1:
             # one hgrad over all N segments; each segment's trailing columns
             # (reads past its real cotangent) are cropped
@@ -325,19 +653,25 @@ def _deconv_updaters(spatial_ndim: int, kernels: str, beta, gamma, l1_reg,
     return upd_W, upd_H, loss_terms, prepare, finish
 
 
-def _make_factory(spatial_ndim: int, kernels: str):
+def _make_factory(spatial_ndim: int, engine: str):
     def factory(beta, gamma, l1_reg, l2_reg):
-        return _deconv_updaters(spatial_ndim, kernels, beta, gamma, l1_reg,
+        if engine == "unfold":
+            return _unfold_updaters(spatial_ndim, beta, gamma, l1_reg, l2_reg)
+        if engine == "fused_w":
+            return _deconv_updaters(spatial_ndim, "fused", beta, gamma,
+                                    l1_reg, l2_reg, h_side="stream")
+        return _deconv_updaters(spatial_ndim, engine, beta, gamma, l1_reg,
                                 l2_reg)
 
     factory.__name__ = factory.__qualname__ = (
-        f"deconv{spatial_ndim}d_updater_factory_{kernels}")
+        f"deconv{spatial_ndim}d_updater_factory_{engine}")
     return factory
 
 
 _FACTORIES = {
-    (nd, kernels): _make_factory(nd, kernels)
-    for nd, kernels in itertools.product((1, 2, 3), ("fused", "plain"))
+    (nd, engine): _make_factory(nd, engine)
+    for nd, engine in itertools.product(
+        (1, 2, 3), ("fused", "plain", "fused_w", "unfold"))
 }
 
 
@@ -353,12 +687,37 @@ def deconv_updater_factory_plain(spatial_ndim: int):
     return _FACTORIES[spatial_ndim, "plain"]
 
 
+def deconv_updater_factory_fused_w(spatial_ndim: int):
+    """The hybrid: B4 (``wgrad``) for the W side, the streamed fold for the
+    H side (no ``hgrad``)."""
+    return _FACTORIES[spatial_ndim, "fused_w"]
+
+
+def deconv_updater_factory_unfold(spatial_ndim: int):
+    """The unfold engine (``torch.matmul`` patch GEMMs, no kernel)."""
+    return _FACTORIES[spatial_ndim, "unfold"]
+
+
+nmfd_unfold_updater_factory = _FACTORIES[1, "unfold"]
+nmf2d_unfold_updater_factory = _FACTORIES[2, "unfold"]
+nmf3d_unfold_updater_factory = _FACTORIES[3, "unfold"]
+
+
+def _kernels_off() -> bool:
+    """``PNT_NMFD_PALLAS=0``: the static choice is the unfold engine."""
+    return os.environ.get("PNT_NMFD_PALLAS", "") == "0"
+
+
 def resolve_nmfd_updater_factory(device, dtype, spatial_ndim: int = 1):
-    """The factory for a fit of a ``dtype`` target on ``device``: float64
-    takes the generic autograd engine (``None``), a CUDA float32 target the
-    kernels, and any other float32 target their plain versions."""
+    """The factory for a fit of a ``dtype`` target on ``device``, without
+    timing: float64 takes the generic autograd engine (``None``), a CUDA
+    float32 target the kernels, and any other float32 target their plain
+    versions; under ``PNT_NMFD_PALLAS=0`` float32 takes the unfold
+    engine."""
     if dtype == torch.float64:
         return None
+    if _kernels_off():
+        return deconv_updater_factory_unfold(spatial_ndim)
     if torch.device(device).type == "cuda":
         return deconv_updater_factory_fused(spatial_ndim)
     return deconv_updater_factory_plain(spatial_ndim)
@@ -440,7 +799,8 @@ def plain_adjoint_deconv(H, Wz):
 
 
 def _make_recon3(spatial_ndim: int, kernels: str):
-    deconv = kernel_adjoint_deconv if kernels == "fused" else plain_adjoint_deconv
+    deconv = {"fused": kernel_adjoint_deconv, "plain": plain_adjoint_deconv,
+              "unfold": unfold_deconv}[kernels]
 
     def recon3(H, W, Z):
         return deconv(H, scaled_kernel(W, Z, spatial_ndim))
@@ -452,7 +812,8 @@ def _make_recon3(spatial_ndim: int, kernels: str):
 
 _RECON3 = {
     (nd, kernels): _make_recon3(nd, kernels)
-    for nd, kernels in itertools.product((1, 2, 3), ("fused", "plain"))
+    for nd, kernels in itertools.product((1, 2, 3),
+                                         ("fused", "plain", "unfold"))
 }
 
 
@@ -462,9 +823,12 @@ def resolve_plca_recon3(cls, device, dtype):
     package's autotuned ``resolve_plca_recon3``): float64 takes the model's
     convolution ``cls.reconstruct`` under autograd, a CUDA float32 target
     the kernel-adjoint deconvolution, any other float32 target its plain
-    twin."""
+    twin; under ``PNT_NMFD_PALLAS=0`` float32 takes the unfold
+    deconvolution."""
     if dtype == torch.float64:
         return cls.reconstruct
+    if _kernels_off():
+        return _RECON3[cls._spatial_ndim, "unfold"]
     kernels = "fused" if torch.device(device).type == "cuda" else "plain"
     return _RECON3[cls._spatial_ndim, kernels]
 
@@ -475,9 +839,12 @@ def resolve_hoyer_recon2(cls, device, dtype):
     counterpart of the JAX package's autotuned ``resolve_hoyer_recon2``):
     float64 takes the model's convolution ``cls.reconstruct`` under
     autograd, a CUDA float32 target :func:`kernel_adjoint_deconv` (B3/B4 as
-    its adjoints), any other float32 target its plain twin."""
+    its adjoints), any other float32 target its plain twin; under
+    ``PNT_NMFD_PALLAS=0`` float32 takes :func:`unfold_deconv`."""
     if dtype == torch.float64:
         return cls.reconstruct
+    if _kernels_off():
+        return unfold_deconv
     if torch.device(device).type == "cuda":
         return kernel_adjoint_deconv
     return plain_adjoint_deconv

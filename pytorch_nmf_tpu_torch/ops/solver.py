@@ -18,6 +18,7 @@ device only at the 10-iteration cadence, for the stop rule.
 """
 
 import contextlib
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -32,7 +33,8 @@ from .projection import hoyer_l1_target, proj_columns, proj_columns_explicit
 
 __all__ = ["get_dense_fit", "get_batched_dense_fit", "get_sparse_fit",
            "get_hoyer_fit", "get_batched_hoyer_fit", "get_plca_fit",
-           "get_batched_plca_fit", "alpha_is_active"]
+           "get_batched_plca_fit", "alpha_is_active", "push_progress_handler",
+           "pop_progress_handler"]
 
 
 def _default_updaters(recon2, beta, gamma, l1_reg, l2_reg, pos_W=kl_pos_W,
@@ -76,11 +78,46 @@ def _normalize_updaters(updaters):
     return (tuple(updaters) + (None,) * 5)[:5]
 
 
+# --------------------------------------------------------------------------
+# Progress reporting: a verbose fit reports ``(chunk_index, loss, extra)``
+# once per 10-iteration chunk to its own tqdm bar (or a printed line) and to
+# every handler on a process-global stack, so a user's recorder
+# (``utils.LossHistory``) coexists with the fit's bar.  The stack is guarded
+# by a lock: a handler may be pushed or popped from another thread while a
+# fit reports.
+# --------------------------------------------------------------------------
+_PROGRESS_HANDLERS = []
+_PROGRESS_LOCK = threading.Lock()
+
+
+def push_progress_handler(fn) -> None:
+    """Register ``fn(chunk_idx, loss, extra)`` for every verbose fit's
+    reports until :func:`pop_progress_handler`."""
+    with _PROGRESS_LOCK:
+        _PROGRESS_HANDLERS.append(fn)
+
+
+def pop_progress_handler() -> None:
+    """Remove the handler pushed last (no-op on an empty stack)."""
+    with _PROGRESS_LOCK:
+        if _PROGRESS_HANDLERS:
+            _PROGRESS_HANDLERS.pop()
+
+
+def _emit_progress(chunk_idx, loss, extra=None):
+    with _PROGRESS_LOCK:  # a snapshot: a handler may pop itself
+        handlers = list(_PROGRESS_HANDLERS)
+    for handler in handlers:
+        handler(int(chunk_idx), float(loss),
+                None if extra is None else float(extra))
+
+
 @contextlib.contextmanager
 def _progress(verbose: bool, max_iter: int):
     """Yields ``report(chunk_idx, loss, extra=None)`` (or ``None``): a tqdm
     bar when tqdm is installed, else one printed line per 10-iteration
-    chunk.  ``extra`` is PLCA's log-probability."""
+    chunk, and every registered progress handler.  ``extra`` is PLCA's
+    log-probability."""
     if not verbose:
         yield None
         return
@@ -90,6 +127,7 @@ def _progress(verbose: bool, max_iter: int):
         def report(k, loss, extra=None):
             tail = "" if extra is None else f", log_prob={extra:.6g}"
             print(f"iter {k * 10}: loss={loss:.6g}{tail}")
+            _emit_progress(k, loss, extra)
 
         yield report
         return
@@ -101,6 +139,7 @@ def _progress(verbose: bool, max_iter: int):
                 bar.set_postfix(loss=loss, log_prob=extra)
             bar.n = min(k * 10, max_iter)
             bar.refresh()
+            _emit_progress(k, loss, extra)
 
         yield report
 

@@ -7,12 +7,60 @@
   ``{"W": np.asarray(m.W.data), "H": np.asarray(m.H.data)}``.
 * :func:`plca_from_numpy` — the same for ``PLCA``, ``SIPLCA``, ``SIPLCA2`` or
   ``SIPLCA3`` from ``{"W", "H", "Z"}``.
+* :class:`LossHistory` — record a verbose fit's 10-iteration losses.
+* :mod:`.checkpoint` — ``.npz`` checkpoints and segmented fits that resume
+  (each package resumes the other's directories).
+* :mod:`.profiling` — ``torch.profiler`` traces, named regions and the
+  card's memory statistics.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["normalize", "renorm", "nmf_from_numpy", "plca_from_numpy"]
+from . import checkpoint, profiling  # noqa: F401
+
+__all__ = ["normalize", "renorm", "nmf_from_numpy", "plca_from_numpy",
+           "checkpoint", "profiling", "LossHistory"]
+
+
+class LossHistory:
+    """Record the solver's cadence losses during a fit.
+
+    The fits evaluate the loss every 10 iterations and, when verbose,
+    report it to their progress bar and to every registered handler; this
+    context manager registers a recorder beside the bar.  Pass
+    ``verbose=True`` to the fit being recorded (the condition under which
+    the reference computes its losses for tqdm, nmf.py:393-404).
+
+    >>> with LossHistory() as hist:
+    ...     model.fit(V, beta=1, max_iter=200, verbose=True)
+    >>> hist.chunks, hist.losses   # 10-iteration checkpoints
+    >>> hist.extras                # PLCA: the log-posterior trace
+
+    ``hist.losses`` are on the reference's ``sqrt(2 * divergence)`` scale.
+    """
+
+    def __init__(self):
+        self.chunks = []
+        self.losses = []
+        self.extras = []
+
+    def _record(self, chunk_idx, loss, extra=None):
+        self.chunks.append(int(chunk_idx))
+        self.losses.append(float(loss))
+        self.extras.append(None if extra is None else float(extra))
+
+    def __enter__(self):
+        from ..ops import solver
+
+        solver.push_progress_handler(self._record)
+        return self
+
+    def __exit__(self, *exc):
+        from ..ops import solver
+
+        solver.pop_progress_handler()
+        return False
 
 
 def normalize(x: torch.Tensor, axis=None) -> torch.Tensor:

@@ -289,7 +289,7 @@ def test_sparsity_proj_step_matches_jax(jx, case):
 
 
 def test_exports_match_jax(jx):
-    assert set(F.__all__) == set(jx.F.__all__) - {"streaming_nmf_fit"}
+    assert set(F.__all__) == set(jx.F.__all__)
     for name in ("mu_update", "proj_func", "gamma_from_beta", "renorm"):
         assert callable(getattr(F, name))
     V, W0, H0 = _problem("NMF")

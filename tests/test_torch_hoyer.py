@@ -192,8 +192,18 @@ def test_float64_target_warns_and_matches_jax(jx):
 @pytest.mark.parametrize("device, dtype, want", [
     ("cpu", torch.float32, "plain"), ("cuda", torch.float32, "fused"),
     ("cpu", torch.float64, None), ("cuda", torch.float64, None)])
-def test_fit_recon2_resolution(model, device, dtype, want):
-    got = model._resolve_fit_recon2(device, dtype)
+def test_fit_recon2_resolution(model, device, dtype, want, monkeypatch):
+    """The resolver the fit calls, at a shape below the tuning threshold (a
+    stand-in target: the resolver reads only its shape, dtype and
+    device)."""
+    for name in ("PNT_NMFD_AUTOTUNE", "PNT_NMFD_PALLAS", "PNT_NMFD_UNFOLD"):
+        monkeypatch.delenv(name, raising=False)
+    nd = getattr(model, "_spatial_ndim", 0)
+    V, H = (SimpleNamespace(shape=torch.Size(shape), dtype=dtype,
+                            device=torch.device(device))
+            for shape in (((1, 4) + (8,) * nd, (1, 2) + (6,) * nd) if nd
+                          else ((6, 5), (6, 2))))
+    got = model._resolve_fit_recon2(V, None, H, 2.0)
     if model is NMF or want is None:
         assert got is model.reconstruct
     else:

@@ -23,8 +23,30 @@ def test_every_module_is_listed():
     mods = _modules()
     for name in ("ops.sparse", "ops.fast_plca", "ops.budget", "models.plca",
                  "plca", "ops.fused_deconv", "utils", "functional", "trainer",
-                 "ops.projection", "ops.trainer_core"):
+                 "ops.projection", "ops.trainer_core", "ops.autotune",
+                 "ops.streaming", "ops.fft_nmfd", "utils.checkpoint",
+                 "utils.profiling"):
         assert f"pytorch_nmf_tpu_torch.{name}" in mods
+
+
+def test_public_names_match_the_jax_package():
+    """The slice's public names: ``utils`` (less orbax), ``ops.autotune``'s
+    entry points and the solver's progress-handler stack."""
+    from pytorch_nmf_tpu_torch import utils
+    from pytorch_nmf_tpu_torch.ops import autotune, solver
+    from pytorch_nmf_tpu_torch.utils import checkpoint, profiling
+
+    assert {"normalize", "renorm", "checkpoint", "profiling",
+            "LossHistory"} <= set(utils.__all__)
+    assert set(checkpoint.__all__) == {"save", "load", "checkpointed_fit",
+                                       "checkpointed_plca_fit"}
+    assert set(profiling.__all__) == {"trace", "annotate",
+                                      "device_memory_stats"}
+    for name in ("clear_cache", "autotune_winner", "resolve_deconv_factory",
+                 "resolve_plca_recon3", "resolve_hoyer_recon2"):
+        assert callable(getattr(autotune, name))
+    assert callable(solver.push_progress_handler)
+    assert callable(solver.pop_progress_handler)
 
 
 def test_importing_every_module_leaves_jax_out():

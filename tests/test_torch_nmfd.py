@@ -11,6 +11,8 @@ The JAX models get explicit ``W=``/``H=``, so they draw nothing from the
 JAX package's global key chain.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -180,14 +182,21 @@ def test_stream_recon_matches_forward():
      ("cpu", torch.float64, None), ("cuda", torch.float64, None)],
 )
 @pytest.mark.parametrize("nd", [1, 2, 3])
-def test_factory_resolution(device, dtype, want, nd):
+def test_factory_resolution(device, dtype, want, nd, monkeypatch):
+    for name in ("PNT_NMFD_AUTOTUNE", "PNT_NMFD_PALLAS", "PNT_NMFD_UNFOLD"):
+        monkeypatch.delenv(name, raising=False)
     got = fast_nmfd.resolve_nmfd_updater_factory(device, dtype, nd)
     if want is None:
         assert got is None
     else:
         assert got is getattr(fast_nmfd, f"deconv_updater_factory_{want}")(nd)
+    # the resolver the fit calls, at a shape below the tuning threshold (a
+    # stand-in target: it reads only the shape, dtype and device)
     model = {1: NMFD, 2: NMF2D, 3: NMF3D}[nd]
-    assert model._updater_resolver(device, dtype) is got
+    V, H = (SimpleNamespace(shape=torch.Size(shape), dtype=dtype,
+                            device=torch.device(device))
+            for shape in ((1, 4) + (8,) * nd, (1, 2) + (6,) * nd))
+    assert model._resolve_updater_factory(V, None, H, 1.0) is got
 
 
 def test_cpu_fit_never_launches():
@@ -217,3 +226,227 @@ def test_wrong_rank_target_raises():
     m = nmf_from_numpy({"W": W0, "H": H0}, "cpu")
     with pytest.raises(ValueError):
         m.fit(torch.from_numpy(V[0]))
+
+
+# --------------------------------------------------------------------------
+# The engines beside the kernel engine, each against the JAX package's
+# counterpart from the same inputs and inits (run eagerly in both packages:
+# prepare, ENGINE_ITERS W-then-H updates, finish), within RTOL_FIT
+# --------------------------------------------------------------------------
+from pytorch_nmf_tpu.ops import fast_nmfd as jfast  # noqa: E402
+from pytorch_nmf_tpu.ops import fft_nmfd as jfft  # noqa: E402
+from pytorch_nmf_tpu.ops.mu import gamma_from_beta  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import fft_nmfd  # noqa: E402
+
+ENGINE_ITERS = 6
+
+
+def _run(updaters, V, W, H, iters=ENGINE_ITERS):
+    upd_W, upd_H, _, prepare, finish = (tuple(updaters) + (None,) * 5)[:5]
+    w, h = (W, H) if prepare is None else prepare(V, W, H)
+    for _ in range(iters):
+        w = upd_W(V, w, h)
+        h = upd_H(V, w, h)
+    return (w, h) if finish is None else finish(V, w, h)
+
+
+def _port_run(factory, V, W0, H0, beta, iters=ENGINE_ITERS):
+    with torch.no_grad():
+        return _run(factory(beta, gamma_from_beta(beta), 0.0, 0.0),
+                    *(torch.from_numpy(x) for x in (V, W0, H0)), iters)
+
+
+def _jax_run(updaters, V, W0, H0, iters=ENGINE_ITERS):
+    """The JAX updaters' fit, compiled afresh (a new function each call, so
+    no compiled program outlives a test's chunk-size setting)."""
+    import jax
+    import jax.numpy as jnp
+
+    upd_W, upd_H, _, prepare, finish = (tuple(updaters) + (None,) * 5)[:5]
+
+    def fit(V, W, H):
+        state = (W, H) if prepare is None else prepare(V, W, H)
+
+        def body(_, s):
+            w = upd_W(V, *s)
+            return w, upd_H(V, w, s[1])
+
+        w, h = jax.lax.fori_loop(0, iters, body, state)
+        return (w, h) if finish is None else finish(V, w, h)
+
+    return jax.jit(fit)(*(jnp.asarray(x) for x in (V, W0, H0)))
+
+
+def _assert_close(port, ref):
+    for p, r in zip(port, ref):
+        assert _rel(p.numpy(), r) < RTOL_FIT
+
+
+@pytest.fixture
+def small_chunks(monkeypatch):
+    """The τ-chunked ("stream") regime at test sizes: at most 16 patch
+    columns unrolled, in both packages."""
+    monkeypatch.setattr(jfast, "_CHUNK_COLS", 16)
+    monkeypatch.setattr(fast_nmfd, "_CHUNK_COLS", 16)
+    monkeypatch.setattr(fused_deconv, "_CHUNK_COLS", 16)
+
+
+def _engine_problem(nd, N, seed=11):
+    _, C, s_in, kernel, R = PROBLEMS[{1: "NMFD", 2: "NMF2D", 3: "NMF3D"}[nd]]
+    return _problem(N, C, s_in, kernel, R, seed=seed)
+
+
+@pytest.mark.parametrize("mode", ["unrolled", "stream"])
+@pytest.mark.parametrize("N", [1, 2])
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_unfold_engine_matches_jax(request, nd, N, mode):
+    if mode == "stream":
+        request.getfixturevalue("small_chunks")
+    V, W0, H0 = _engine_problem(nd, N)
+    kernel = W0.shape[2:]
+    assert fast_nmfd._unfold_mode(V.shape, H0.shape, torch.float32, "cpu") == mode
+    port = _port_run(fast_nmfd.deconv_updater_factory_unfold(nd), V, W0, H0, 0.5)
+    ref = _jax_run(jfast._deconv_unfold_updater_factory(
+        nd, 0.5, gamma_from_beta(0.5), 0.0, 0.0), V, W0, H0)
+    assert tuple(port[0].shape) == W0.shape and len(kernel) == nd
+    _assert_close(port, ref)
+
+
+@pytest.mark.parametrize("beta", [1, 2, 0])
+def test_unfold_engine_betas_match_jax(small_chunks, beta):
+    V, W0, H0 = _engine_problem(1, 1, seed=12)
+    port = _port_run(fast_nmfd.nmfd_unfold_updater_factory, V, W0, H0, beta)
+    ref = _jax_run(jfast.nmfd_unfold_updater_factory(
+        beta, gamma_from_beta(beta), 0.0, 0.0), V, W0, H0)
+    _assert_close(port, ref)
+
+
+def test_unfold_engine_over_budget_takes_the_generic_engine(monkeypatch):
+    V, W0, H0 = _engine_problem(1, 1, seed=13)
+    assert fast_nmfd.nmfd_unfold_supported(V.shape, W0.shape)
+    assert not fast_nmfd.nmfd_unfold_supported(V.shape, W0.shape[:2] + (1,))
+    monkeypatch.setenv("PNT_NMFD_UNFOLD_MAX_BYTES", "16")
+    assert not fast_nmfd.nmfd_unfold_supported(V.shape, W0.shape)
+    port = _port_run(fast_nmfd.nmfd_unfold_updater_factory, V, W0, H0, 1)
+    ref = solver.get_dense_fit(NMFD.reconstruct, 1.0, float("-inf"),
+                               ENGINE_ITERS, True, True, 0.0, 0.0)(
+        *(torch.from_numpy(x) for x in (V, W0, H0)))
+    for p, r in zip(port, ref):
+        assert _rel(p.numpy(), r.numpy()) < RTOL_FIT
+
+
+@pytest.mark.parametrize("mode", ["unrolled", "stream"])
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_unfold_deconv_matches_jax(request, nd, mode):
+    """Values and both adjoints of ``unfold_deconv`` (autograd against
+    ``jax.vjp``)."""
+    import jax
+    import jax.numpy as jnp
+
+    if mode == "stream":
+        request.getfixturevalue("small_chunks")
+    V, W0, H0 = _engine_problem(nd, 2, seed=14)
+    ct = np.random.RandomState(15).rand(*V.shape).astype("f")
+    H = torch.from_numpy(H0).requires_grad_(True)
+    W = torch.from_numpy(W0).requires_grad_(True)
+    out = fast_nmfd.unfold_deconv(H, W)
+    gH, gW = torch.autograd.grad(out, (H, W), torch.from_numpy(ct))
+    jout, vjp = jax.vjp(jfast.unfold_deconv, jnp.asarray(H0), jnp.asarray(W0))
+    jgH, jgW = vjp(jnp.asarray(ct))
+    assert _rel(out.detach().numpy(), jout) < 1e-5
+    assert _rel(gH.numpy(), jgH) < 1e-5 and _rel(gW.numpy(), jgW) < 1e-5
+    want = getattr(jrecon, f"deconv{nd}d")(jnp.asarray(H0), jnp.asarray(W0))
+    assert _rel(out.detach().numpy(), want) < 1e-5
+
+
+def test_unfold_deconv_falls_back_to_the_convolution(monkeypatch):
+    _, W0, H0 = _engine_problem(1, 1, seed=16)
+    H, W = torch.from_numpy(H0).double(), torch.from_numpy(W0).double()
+    assert torch.equal(fast_nmfd.unfold_deconv(H, W), NMFD.reconstruct(H, W))
+    monkeypatch.setenv("PNT_NMFD_UNFOLD_MAX_BYTES", "16")
+    H, W = H.float(), W.float()
+    assert torch.equal(fast_nmfd.unfold_deconv(H, W), NMFD.reconstruct(H, W))
+
+
+def test_autocorr_gram_matches_the_patch_gram():
+    _, W0, H0 = _engine_problem(1, 2, seed=17)
+    H = torch.from_numpy(H0)
+    T = W0.shape[2]
+    P = fast_nmfd.unfold_patches_nd(H, (T,)).reshape(-1, T * H.shape[1])
+    torch.testing.assert_close(fast_nmfd._h_autocorr_gram(H, T), P.T @ P,
+                               rtol=3e-5, atol=1e-5)
+    import jax.numpy as jnp
+
+    assert _rel(fast_nmfd._h_autocorr_gram(H, T).numpy(),
+                jfast._h_autocorr_gram(jnp.asarray(H0), T)) < 1e-5
+
+
+@pytest.mark.parametrize("N", [1, 2])
+def test_autocorr_engine_matches_jax(N):
+    V, W0, H0 = _engine_problem(1, N, seed=18)
+    port = _port_run(fast_nmfd.nmfd_autocorr_updater_factory, V, W0, H0, 2)
+    ref = _jax_run(jfast.nmfd_autocorr_updater_factory(2, 1.0, 0.0, 0.0),
+                   V, W0, H0)
+    _assert_close(port, ref)
+
+
+def test_autocorr_refuses_other_configurations(small_chunks):
+    with pytest.raises(ValueError, match="β=2"):
+        fast_nmfd.nmfd_autocorr_updater_factory(1, 1.0, 0.0, 0.0)
+    upd_W = fast_nmfd.nmfd_autocorr_updater_factory(2, 1.0, 0.0, 0.0)[0]
+    V, W0, H0 = _engine_problem(1, 1, seed=19)  # K·R = 72 > 16: stream
+    V, W0, H0 = (torch.from_numpy(x) for x in (V, W0, H0))
+    with pytest.raises(ValueError, match="unrolled"):
+        upd_W(V, fast_nmfd._w2(W0), H0)
+    with pytest.raises(ValueError, match="unrolled"):
+        upd_W(V.double(), fast_nmfd._w2(W0).double(), H0.double())
+    V2, W2, H2 = (torch.from_numpy(x) for x in _engine_problem(2, 1, seed=19))
+    with pytest.raises(ValueError, match="1-D"):
+        upd_W(V2, fast_nmfd._w2(W2), H2)
+    assert not fast_nmfd.autocorr_supported(V2.shape, H2.shape, torch.float32)
+
+
+@pytest.mark.parametrize("N", [1, 2])
+def test_fft_engine_matches_jax(N):
+    V, W0, H0 = _engine_problem(1, N, seed=20)
+    port = _port_run(fast_nmfd.nmfd_fft_updater_factory, V, W0, H0, 2)
+    ref = _jax_run(jfft.fft_beta2_updater_factory(1.0, 0.0, 0.0), V, W0, H0)
+    _assert_close(port, ref)
+
+
+def test_fft_engine_chunks_channels(monkeypatch):
+    """A chunk of one channel gives the same update as the whole spectrum,
+    and the other β take the unfold engine."""
+    V, W0, H0 = _engine_problem(1, 2, seed=21)
+    whole = _port_run(fast_nmfd.nmfd_fft_updater_factory, V, W0, H0, 2)
+    monkeypatch.setenv("PNT_FFT_CHUNK_MB", "0")
+    assert fft_nmfd._c_chunk(20, 6, 257) == 1
+    chunked = _port_run(fast_nmfd.nmfd_fft_updater_factory, V, W0, H0, 2)
+    for a, b in zip(whole, chunked):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    assert len(fast_nmfd.nmfd_fft_updater_factory(1, 1.0, 0.0, 0.0)) == 5
+
+
+@pytest.mark.parametrize("beta", [1, 0.5])
+@pytest.mark.parametrize("N", [1, 2])
+@pytest.mark.parametrize("nd", [1, 2])
+def test_fused_w_engine_matches_jax_unfold(nd, N, beta):
+    """The hybrid (B4's plain version on the CPU, and the streamed fold)
+    computes the unfold engine's update."""
+    V, W0, H0 = _engine_problem(nd, N, seed=22)
+    port = _port_run(fast_nmfd.deconv_updater_factory_fused_w(nd), V, W0, H0,
+                     beta)
+    ref = _jax_run(jfast._deconv_unfold_updater_factory(
+        nd, beta, gamma_from_beta(beta), 0.0, 0.0), V, W0, H0)
+    _assert_close(port, ref)
+
+
+def test_fused_w_engine_never_calls_hgrad(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("hgrad called")
+
+    monkeypatch.setattr(fused_deconv, "hgrad", refuse)
+    V, W0, H0 = _engine_problem(1, 1, seed=23)
+    _port_run(fast_nmfd.deconv_updater_factory_fused_w(1), V, W0, H0, 0.5)
+    with pytest.raises(AssertionError, match="hgrad called"):
+        _port_run(fast_nmfd.deconv_updater_factory_fused(1), V, W0, H0, 0.5)

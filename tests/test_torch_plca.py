@@ -263,13 +263,22 @@ def test_adjoint_deconv_runs_one_contraction_each():
      ("cpu", torch.float64, None), ("cuda", torch.float64, None)],
 )
 @pytest.mark.parametrize("model", [SIPLCA, SIPLCA2, SIPLCA3])
-def test_recon3_resolution(device, dtype, want, model):
-    got = model._recon3_resolver(device, dtype)
+def test_recon3_resolution(device, dtype, want, model, monkeypatch):
+    """The resolver the fit calls, at a shape below the tuning threshold (a
+    stand-in target: the resolver reads only its shape, dtype and
+    device)."""
+    for name in ("PNT_NMFD_AUTOTUNE", "PNT_NMFD_PALLAS", "PNT_NMFD_UNFOLD"):
+        monkeypatch.delenv(name, raising=False)
+    nd = model._spatial_ndim
+    V, H = (SimpleNamespace(shape=torch.Size(shape), dtype=dtype,
+                            device=torch.device(device))
+            for shape in ((1, 4) + (8,) * nd, (1, 2) + (6,) * nd))
+    got = model._resolve_fit_recon3(V, None, H, None)
     if want is None:
         assert got is model.reconstruct
     else:
-        assert got is fast_nmfd._RECON3[model._spatial_ndim, want]
-    assert PLCA._recon3_resolver is None
+        assert got is fast_nmfd._RECON3[nd, want]
+    assert PLCA._resolve_fit_recon3(V, None, H, None) is PLCA.reconstruct
 
 
 def test_float64_siplca_fit_matches_float32():
