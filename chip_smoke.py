@@ -53,7 +53,23 @@ Drives the port's paths at full width, each in phases:
   of the kernel engine's with its exact launches, the hybrid ``fused_w``
   on B4 alone (one launch an iteration, no B3), and the autotuned fit
   equal (``torch.equal``) to the winner's forced fit with the winner's
-  exact B3/B4 counts.
+  exact B3/B4 counts;
+* the sharded fits of ``pytorch_nmf_tpu_torch.parallel``, first after the
+  kernel checks: 2 gloo ranks sharing the card (``spawn``; card tensors
+  staged through pinned host memory where gloo cannot take them) run dense
+  ``sharded_nmf_fit`` (5168×1025 rank 88 a rank, β ∈ {1, 0.5, 2}, a 2×1
+  ``data``×``model`` mesh, an early stop), ``sharded_plca_fit``,
+  ``sharded_sparse_nmf_fit`` (8192² rank 64, 671k non-zeros a rank), the
+  halo ``sharded_nmfd_fit`` (1×1025×1250 a rank, rank 88, T=400, β ∈ {1, 2};
+  rank 8; N=2), ``sharded_nmf2d_fit``, ``sharded_nmf3d_fit`` and
+  ``sharded_siplca_fit``/``2`` (the SIPLCA rank-8 row a rank, the flagship
+  split); one NCCL rank runs the dense and NMFD β=1 cases; NCCL across cards
+  runs every case where there are several.  Each case agrees with the
+  single-card fit of the whole problem (W, the assembled H and the final
+  loss within 1e-4 relative, the same ``n_iter`` on every rank), each rank
+  launches exactly the kernels its code implies, and the ranks' ms/iteration
+  and their collectives' calls, bytes and ms an iteration are printed beside
+  the single-card fits of the whole problem and of one rank's block.
 
 1. prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``pytorch_nmf_tpu_torch/csrc``, one ``nvcc`` per source, in parallel;
@@ -395,8 +411,9 @@ def compare_deconv_kernels(F, D, kl_pos_W):
     (cuDNN, TF32 off; the port never calls these): B3 is the correlation
     ``F.convNd(cot, Wᵀ)``, B4 with one cotangent the weight gradient
     ``torch.nn.grad.convNd_weight(H, W.shape, cot, padding=k-1)`` of the
-    reconstruction (its kernel flipped).  Returns per-kernel errors, times
-    and bounds at the NMFD flagship (:func:`new_stats`)."""
+    reconstruction (its kernel flipped); then at the halo fits' layouts
+    (:func:`compare_halo_kernels`).  Returns per-kernel errors (over every
+    case), times and bounds at the NMFD flagship (:func:`new_stats`)."""
     stats = {name: new_stats() for name in ("hgrad", "wgrad")}
 
     def record(name, case, got, ref):
@@ -480,7 +497,69 @@ def compare_deconv_kernels(F, D, kl_pos_W):
                 stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                    bound_ms=b_ms, bound_by=b_by)
             print(line, flush=True)
+    compare_halo_kernels(F, D, record)
     return stats
+
+
+def halo_layouts():
+    """One rank's B3/B4 layout of each halo fit of PAR_CASES over PAR_WORLD
+    ranks (``parallel.halo._Layout``, as the fit builds it), one per
+    distinct shape: ``[(case, layout, C)]``."""
+    from pytorch_nmf_tpu_torch.parallel import halo
+
+    out, seen = [], set()
+    for name, (kind, shape, _) in PAR_CASES.items():
+        if kind not in ("deconv", "siplca"):
+            continue
+        N, C, R, lead_in, kernel, L_loc = shape
+        L_out = L_loc * (2 if name == "siplca_flagship" else PAR_WORLD)
+        chunk = max(-(-L_out // PAR_WORLD), kernel[-1] - 1)
+        key = (N, C, R, lead_in, kernel, chunk)
+        if key not in seen:
+            seen.add(key)
+            out.append((name, halo._Layout(N, R, lead_in, chunk, kernel), C))
+    return out
+
+
+def compare_halo_kernels(F, D, record):
+    """Phase 2, B3/B4 at the halo fits' layouts: B4 in VALID mode
+    (``lead_pad=False``) on the halo'd activation with its cotangents'
+    trailing zeros, one cotangent and the neg/pos pair; B3 on the cotangent
+    with ``kx - 1`` leading zeros a row over ``N·La`` rows; N-D in the
+    flat-offset mode with the first lead axis unpadded at N=1.  Each against
+    its plain version (``record``: at RTOL)."""
+    for name, lay, C in halo_layouts():
+        rs = np.random.RandomState(SEED)
+        hh = torch.from_numpy(rs.rand(lay.N, lay.R, *lay.lead_in,
+                                      lay.Xa).astype("f")).cuda()
+        W2 = F._w2(torch.from_numpy(
+            rs.rand(C, lay.R, *lay.kernel).astype("f")).cuda())
+        rows = int(np.prod(lay.lead_out)) * lay.chunk
+        cots = [torch.from_numpy(rs.rand(lay.N, rows, C).astype("f")).cuda()
+                for _ in range(2)]
+        H2, ch = lay.act_w(hh), lay.cot_h(cots[0])
+        cw = [lay.cot_w(c) for c in cots]
+        kw = dict(lead_pad=False, geom=lay.geom)
+        calls = {
+            "hgrad": lambda fn: fn(ch, W2, lay.R, lay.N * lay.La,
+                                   geom=lay.geom),
+            "wgrad one cotangent": lambda fn: fn(cw[:1], H2, lay.R, lay.T,
+                                                 **kw)[0],
+            "wgrad neg+pos": lambda fn: fn(cw, H2, lay.R, lay.T, **kw),
+        }
+        label = (f"halo layout of {name} (N={lay.N}, R={lay.R}, chunk "
+                 f"{lay.chunk}, Xa {lay.Xa}, activation {tuple(H2.shape)}, "
+                 f"B3 rows {tuple(ch.shape)})")
+        for case, call in calls.items():
+            kernel = case.split()[0]
+            got, ref = call(getattr(D, kernel)), call(getattr(D, f"plain_{kernel}"))
+            if not isinstance(got, list):
+                got, ref = [got], [ref]
+            rel = max(record(kernel, f"{label} {case}", g, r)
+                      for g, r in zip(got, ref))
+            print(f"B{3 if kernel == 'hgrad' else 4} {label} {case}: max rel "
+                  f"err {rel:.3g} (limit {RTOL})", flush=True)
+        del hh, W2, cots, H2, cw, ch
 
 
 def deconv_model(name, models):
@@ -1882,6 +1961,409 @@ def autotune_cases(ns, ctr, card, fit_ms):
     return path
 
 
+# ---------------------------------------------------------------------------
+# The parallel phase: the sharded fits of ``pytorch_nmf_tpu_torch.parallel``
+# in rank processes that share the card
+# ---------------------------------------------------------------------------
+# each rank at bench_multichip.py:42-51's full-width per-device case (weak
+# scaling: the global problem is the world's ranks' blocks side by side;
+# the SIPLCA flagship is split instead).  (kind, shape, fit keywords):
+# nmf/plca (M per rank, K, R); sparse (M per rank, K, R, nnz per rank);
+# deconv/siplca (N, C, R, leading S_in, kernel, trailing L_out per rank)
+PAR_WORLD = 2
+PAR_TIMEOUT_S = 600
+PAR_CASES = {
+    "nmf_b1": ("nmf", (5168, 1025, 88), dict(beta=1, tol=0, max_iter=20)),
+    "nmf_b0.5": ("nmf", (5168, 1025, 88), dict(beta=0.5, tol=0, max_iter=20)),
+    "nmf_b2": ("nmf", (5168, 1025, 88), dict(beta=2, tol=0, max_iter=20)),
+    "nmf_model_b1": ("nmf", (5168, 1025, 88),
+                     dict(beta=1, tol=0, max_iter=20, model_axis="model")),
+    "nmf_early_b1": ("nmf", (5168, 1025, 88),
+                     dict(beta=1, tol=1e-3, max_iter=200)),
+    "plca": ("plca", (5168, 1025, 88), dict(tol=0, max_iter=20)),
+    "sparse_b1": ("sparse", (8192, 8192, 64, 671_000),
+                  dict(beta=1, tol=0, max_iter=10)),
+    "nmfd_b1": ("deconv", (1, 1025, 88, (), (400,), 1250),
+                dict(beta=1, tol=0, max_iter=4)),
+    "nmfd_b2": ("deconv", (1, 1025, 88, (), (400,), 1250),
+                dict(beta=2, tol=0, max_iter=4)),
+    "nmfd_r8_b1": ("deconv", (1, 1025, 8, (), (400,), 1250),
+                   dict(beta=1, tol=0, max_iter=4)),
+    "nmfd_n2_b1": ("deconv", (2, 1025, 88, (), (400,), 1250),
+                   dict(beta=1, tol=0, max_iter=3)),
+    "nmf2d_b1": ("deconv", (1, 256, 64, (121,), (8, 8), 128),
+                 dict(beta=1, tol=0, max_iter=4)),
+    "nmf3d_b1": ("deconv", (1, 64, 16, (16, 16), (4, 4, 4), 64),
+                 dict(beta=1, tol=0, max_iter=4)),
+    "siplca_r8": ("siplca", (1, 513, 8, (), (200,), 3000),
+                  dict(tol=0, max_iter=10)),
+    "siplca_flagship": ("siplca", (1, 513, 64, (), (200,), 1500),
+                        dict(tol=0, max_iter=10)),
+    "siplca2": ("siplca", (1, 256, 64, (121,), (8, 8), 128),
+                dict(tol=0, max_iter=4)),
+}
+# the one-rank NCCL group's cases
+PAR_NCCL_ONE = ("nmf_b1", "nmfd_b1")
+PAR_PATHS = {"nmf": "sharded", "plca": "sharded", "sparse": "sharded_sparse",
+             "deconv": "halo", "siplca": "halo"}
+
+
+def par_inputs(name, world):
+    """The full inputs of case ``name`` over ``world`` ranks, from SEED:
+    the same arrays in every rank and in the parent."""
+    kind, shape, _ = PAR_CASES[name]
+    rs = np.random.RandomState(SEED)
+
+    def pos(*s):
+        return np.abs(rs.randn(*s)).astype("f")
+
+    if kind in ("nmf", "plca"):
+        M, K, R = shape
+        M *= world
+        if kind == "nmf":
+            return {"V": pos(M, K) + 0.01, "W": pos(K, R), "H": pos(M, R)}
+        W, H = rs.rand(K, R).astype("f"), rs.rand(M, R).astype("f")
+        return {"V": rs.rand(M, K).astype("f"), "W": W / W.sum(0),
+                "H": H / H.sum(0), "Z": np.full(R, 1.0 / R, "f")}
+    if kind == "sparse":
+        M_loc, K, R, nnz = shape
+        flats = []
+        for r in range(world):  # each rank's row block holds nnz entries
+            flat = np.unique(rs.randint(0, M_loc * K, int(nnz * 1.1)))
+            rs.shuffle(flat)
+            flats.append(np.sort(flat[:nnz]).astype(np.int64) + r * M_loc * K)
+        flat = np.concatenate(flats)
+        return {"idx": np.stack([flat // K, flat % K]),
+                "vals": rs.rand(len(flat)).astype("f") + 0.01,
+                "shape": np.array([M_loc * world, K]),
+                "W": rs.rand(K, R).astype("f") + 0.1,
+                "H": rs.rand(M_loc * world, R).astype("f") + 0.1}
+    N, C, R, lead_in, kernel, L_loc = shape
+    L_out = L_loc * world if name != "siplca_flagship" else L_loc * 2
+    S_out = tuple(s + k - 1 for s, k in zip(lead_in, kernel[:-1])) + (L_out,)
+    S_in = tuple(lead_in) + (L_out - kernel[-1] + 1,)
+    if kind == "deconv":
+        return {"V": pos(N, C, *S_out) + 0.01, "W": pos(C, R, *kernel),
+                "H": pos(N, R, *S_in)}
+    W = rs.rand(C, R, *kernel).astype("f")
+    H = rs.rand(N, R, *S_in).astype("f")
+    axes = (0,) + tuple(range(2, W.ndim))
+    return {"V": rs.rand(N, C, *S_out).astype("f"),
+            "W": W / W.sum(axes, keepdims=True),
+            "H": H / H.sum(axes, keepdims=True),
+            "Z": np.full(R, 1.0 / R, "f")}
+
+
+def par_sparse(inp, device="cpu"):
+    return torch.sparse_coo_tensor(
+        torch.from_numpy(inp["idx"]), torch.from_numpy(inp["vals"]),
+        tuple(int(s) for s in inp["shape"]), is_coalesced=True,
+        check_invariants=False).to(device)
+
+
+def par_fit(par, name, inp, mesh, **override):
+    """One sharded fit of case ``name`` through the port's entry point
+    (``override``: fit keywords in place of the case's)."""
+    kind, shape, kw = PAR_CASES[name]
+    kw = dict(kw, **override)
+    if kind == "nmf":
+        W, H, n = par.sharded_nmf_fit(inp["V"], inp["W"], inp["H"], mesh, **kw)
+        return {"W": W, "H": H, "n_iter": n}
+    if kind == "plca":
+        W, H, Z, n, norm = par.sharded_plca_fit(
+            inp["V"], inp["W"], inp["H"], inp["Z"], mesh, **kw)
+        return {"W": W, "H": H, "Z": Z, "n_iter": n, "norm": norm}
+    if kind == "sparse":
+        W, H, n = par.sharded_sparse_nmf_fit(par_sparse(inp), inp["W"],
+                                             inp["H"], mesh, **kw)
+        return {"W": W, "H": H, "n_iter": n}
+    nd = len(shape[4])
+    if kind == "deconv":
+        fit = (par.sharded_nmfd_fit, par.sharded_nmf2d_fit,
+               par.sharded_nmf3d_fit)[nd - 1]
+        W, H, n = fit(inp["V"], inp["W"], inp["H"], mesh, **kw)
+        return {"W": W, "H": H, "n_iter": n}
+    fit = (par.sharded_siplca_fit, par.sharded_siplca2_fit,
+           par.sharded_siplca3_fit)[nd - 1]
+    W, H, Z, n, norm = fit(inp["V"], inp["W"], inp["H"], inp["Z"], mesh, **kw)
+    return {"W": W, "H": H, "Z": Z, "n_iter": n, "norm": norm}
+
+
+def par_iters(name, n_iter):
+    """Iterations a fit ran: the PLCA family returns the raw loop index."""
+    return n_iter + 1 if PAR_CASES[name][0] in ("plca", "siplca") else n_iter
+
+
+def par_expected(name, n_iter):
+    """Each rank's exact launches of case ``name`` (B1, B2, B3, B4), as the
+    code implies: B1 twice an iteration at β ≠ 2 (the W side's raw sums and
+    the H side), B2 once a loss evaluation (one at entry, one a chunk of
+    10) at β ∉ {1, 2}; B4 once an iteration (the neg/pos pair in one call),
+    B3 once an iteration at β=1 and twice otherwise (one a cotangent); the
+    SIPLCA E-step one B3 and one B4; PLCA's E-step and the sparse ELL path
+    none."""
+    kind, _, kw = PAR_CASES[name]
+    beta, runs = kw.get("beta"), par_iters(name, n_iter)
+    if kind == "nmf":
+        return (0 if beta == 2 else 2 * runs,
+                1 + runs // 10 if beta not in (1, 2) else 0, 0, 0)
+    if kind == "deconv":
+        return 0, 0, runs * (1 if beta == 1 else 2), runs
+    if kind == "siplca":
+        return 0, 0, runs, runs
+    return 0, 0, 0, 0
+
+
+def par_rank(rank, world, backend, workdir, names):
+    """One rank: every case of ``names`` through the sharded fits; writes
+    its factors' local blocks and a report (``n_iter``, the kernels'
+    launches, ms/iteration by CUDA events, the collectives' calls, bytes
+    and ms) under ``workdir``."""
+    import torch.distributed as dist
+
+    os.environ["PNT_NMFD_AUTOTUNE"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from pytorch_nmf_tpu_torch import parallel as par
+    from pytorch_nmf_tpu_torch.ops import fused_deconv as D
+    from pytorch_nmf_tpu_torch.ops import fused_mu as fm
+    from pytorch_nmf_tpu_torch.ops._build import load_all
+    from pytorch_nmf_tpu_torch.parallel import comm
+
+    tag = f"{backend}{world}"
+    check(torch.cuda.is_available(), f"rank {rank} finds no card")
+    par.distributed.initialize(
+        "file://" + os.path.join(workdir, f"store-{tag}"), world, rank,
+        backend=backend, timeout_s=PAR_TIMEOUT_S)
+    load_all()  # the parent's build: loads, compiles nothing
+    ctr = counters(fm, D)
+    comm.stats.timed = True
+    meshes, report = {}, {}
+    for i, name in enumerate(names):
+        kind, _, kw = PAR_CASES[name]
+        axis = "seq" if kind in ("deconv", "siplca") else "data"
+        axes = ((axis, world),) + ((("model", 1),) if "model_axis" in kw
+                                   else ())
+        if axes not in meshes:
+            meshes[axes] = par.make_mesh(dict(axes), "cuda")
+        mesh = meshes[axes]
+        inp = par_inputs(name, world)
+        if i == 0:  # warm-up: the card's libraries, the group's first calls
+            par_fit(par, name, inp, mesh, max_iter=2)
+        dist.barrier()
+        zero(ctr)
+        comm.stats.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = par_fit(par, name, inp, mesh)
+        end.record()
+        torch.cuda.synchronize()
+        n = int(out["n_iter"])
+        report[name] = {
+            "n_iter": n, "launches": read(ctr),
+            "ms_per_iter": start.elapsed_time(end) / par_iters(name, n),
+            "comm": comm.stats.summary(),
+            "transport": comm.comm_for(mesh, axis).transport,
+            "device": torch.cuda.current_device()}
+        blocks = {k: v.to_local().cpu() for k, v in out.items()
+                  if hasattr(v, "to_local") and (k == "H" or rank == 0)}
+        torch.save(blocks, os.path.join(workdir, f"{name}-{tag}-r{rank}.pt"))
+        del out, blocks
+    with open(os.path.join(workdir, f"report-{tag}-r{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_ranks(backend, world, names, workdir):
+    """Start ``world`` rank processes (``spawn``), wait for every one;
+    a rank that raises or dies raises here, one that hangs past
+    PAR_TIMEOUT_S is killed and raises."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(par_rank, (world, backend, workdir, names),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"the {backend} ranks hung past {PAR_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def par_single(ns, name, inp, part=False):
+    """The port's single-card fit of case ``name``'s whole problem (or, with
+    ``part``, of rank 0's block alone), same engine, same start:
+    ``(factors, n_iter, ms/iteration)`` by CUDA events."""
+    kind, shape, kw = PAR_CASES[name]
+    kw = {k: v for k, v in kw.items() if k != "model_axis"}
+    if part:
+        inp = dict(inp)
+        if kind == "sparse":
+            M_loc = shape[0]
+            keep = inp["idx"][0] < M_loc
+            inp.update(idx=inp["idx"][:, keep], vals=inp["vals"][keep],
+                       shape=np.array([M_loc, shape[1]]), H=inp["H"][:M_loc])
+        elif kind in ("nmf", "plca"):
+            inp.update(V=inp["V"][:shape[0]], H=inp["H"][:shape[0]])
+        else:
+            L, T = shape[5], shape[4][-1]
+            inp.update(V=inp["V"][..., :L], H=inp["H"][..., :L - T + 1])
+    cuda = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in inp.items() if k in ("V",)}
+    if kind in ("plca", "siplca"):
+        m = ns.plca_from_numpy({k: inp[k] for k in ("W", "H", "Z")}, "cuda")
+    else:
+        m = ns.nmf_from_numpy({k: inp[k] for k in ("W", "H")}, "cuda")
+    V = par_sparse(inp, "cuda") if kind == "sparse" else cuda["V"]
+    if kind == "sparse":
+        set_tier("ell")  # the sharded path's engine
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = m.fit(V, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    if kind == "sparse":
+        set_tier(None)
+    n = int(out[0] if isinstance(out, tuple) else out)
+    factors = {k: getattr(m, k).detach() for k in ("W", "H", "Z")
+               if hasattr(m, k)}
+    return factors, n, start.elapsed_time(end) / par_iters(name, n)
+
+
+def par_loss(ns, name, inp, f):
+    """The final loss of factors ``f`` on case ``name``'s whole target."""
+    from pytorch_nmf_tpu_torch.ops import recon
+
+    kind, shape, kw = PAR_CASES[name]
+    if kind == "sparse":
+        from pytorch_nmf_tpu_torch.ops import sparse as S
+
+        return split_loss(S, par_sparse(inp, "cuda"), f["W"], f["H"],
+                          kw["beta"])
+    V = torch.from_numpy(inp["V"]).cuda()
+    with torch.no_grad():
+        if kind in ("nmf", "plca"):
+            W = f["W"] * f["Z"] if kind == "plca" else f["W"]
+            WH = f["H"] @ W.T
+        else:
+            nd = len(shape[4])
+            W = recon.scaled_kernel(f["W"], f["Z"], nd) if "Z" in f else f["W"]
+            WH = getattr(recon, f"deconv{nd}d")(f["H"], W)
+        if kind in ("plca", "siplca"):
+            return float(ns.kl_div(WH * V.sum(), V))
+        return float(ns.beta_div(WH, V, kw["beta"]))
+
+
+def par_check(ns, name, backend, world, workdir, single, card):
+    """Hold one case's ranks to the single-card fit (factors and final
+    loss within 1e-4 relative, the same ``n_iter`` on every rank and in the
+    single fit) and to their exact launches; print its times and traffic.
+    Returns the launches summed over the ranks."""
+    kind, shape, kw = PAR_CASES[name]
+    tag = f"{backend}{world}"
+    reps = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"report-{tag}-r{r}.json")) as fh:
+            reps.append(json.load(fh)[name])
+    blocks = [torch.load(os.path.join(workdir, f"{name}-{tag}-r{r}.pt"))
+              for r in range(world)]
+    inp = par_inputs(name, world)
+    key = (name, world)
+    if key not in single:
+        par_single(ns, name, inp)  # warm-up: the timed run is the second
+        ref, n_ref, ms_ref = par_single(ns, name, inp)
+        _, _, ms_part = par_single(ns, name, inp, part=True)
+        single[key] = (ref, n_ref, ms_ref, ms_part, par_loss(ns, name, inp,
+                                                             ref))
+    ref, n_ref, ms_ref, ms_part, loss_ref = single[key]
+    n_iters = [rep["n_iter"] for rep in reps]
+    check(len(set(n_iters)) == 1, f"{name} [{tag}]: n_iter differs across "
+          f"ranks: {n_iters}")
+    check(n_iters[0] == n_ref, f"{name} [{tag}]: n_iter {n_iters[0]}, the "
+          f"single-card fit {n_ref}")
+    dim = -1 if kind in ("deconv", "siplca") else 0
+    got = {"W": blocks[0]["W"].cuda(),
+           "H": torch.cat([b["H"] for b in blocks], dim=dim).cuda()}
+    if "Z" in ref:
+        got["Z"] = blocks[0]["Z"].cuda()
+    errs = {k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+            for k in ref}
+    loss = par_loss(ns, name, inp, got)
+    errs["loss"] = abs(loss - loss_ref) / abs(loss_ref)
+    bad = {k: e for k, e in errs.items() if not e <= RTOL}
+    check(not bad, f"{name} [{tag}]: off the single-card fit by {bad}")
+    want = dict(zip(("fused_contractions", "fused_beta_loss", "hgrad",
+                     "wgrad"), par_expected(name, n_iters[0])))
+    for r, rep in enumerate(reps):
+        check(rep["launches"] == want, f"{name} [{tag}] rank {r}: launches "
+              f"{rep['launches']}, expected {want}")
+    iters = par_iters(name, n_iters[0])
+    traffic = "; ".join(
+        f"{kindc} {c['calls'] / iters:g} calls, {c['bytes'] / iters:.0f} B, "
+        f"{c['ms'] / iters:.3f} ms per iteration"
+        for kindc, c in reps[0]["comm"].items() if c["calls"])
+    print(f"phase 3, parallel [{reps[0]['transport']}, world {world}, ranks "
+          f"on cuda:{sorted({rep['device'] for rep in reps})}]: {name} "
+          f"n_iter {n_iters[0]} on every rank and alone; off the single-card "
+          f"fit by " + ", ".join(f"{k} {e:.2g}" for k, e in errs.items())
+          + f"; launches per rank B1 {want['fused_contractions']}, B2 "
+          f"{want['fused_beta_loss']}, B3 {want['hgrad']}, B4 "
+          f"{want['wgrad']} (as predicted); ms/iteration per rank "
+          + ", ".join(f"{rep['ms_per_iter']:.3f}" for rep in reps)
+          + f" (whole calls), single card: whole problem {ms_ref:.3f}, one "
+          f"rank's block {ms_part:.3f}; rank 0's traffic: {traffic} [{card}]",
+          flush=True)
+    return {k: world * v for k, v in want.items()}
+
+
+def parallel_phase(ns, card):
+    """Phase 3, the sharded fits: every case over PAR_WORLD gloo ranks on
+    this one card (card tensors staged through pinned host memory, as
+    :mod:`pytorch_nmf_tpu_torch.parallel.comm` says), PAR_NCCL_ONE over
+    one NCCL rank, and over NCCL across cards where there are several.
+    Returns the kernels' launches per path, summed over ranks and groups."""
+    workdir = os.path.join(scratch_dir(), "parallel")
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs = [("gloo", PAR_WORLD, tuple(PAR_CASES)), ("nccl", 1, PAR_NCCL_ONE)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("nccl", min(n_cards, 4), tuple(PAR_CASES)))
+    else:
+        print(f"phase 3, parallel: NCCL across cards not run: "
+              f"torch.cuda.device_count() is {n_cards} (NCCL takes one rank "
+              f"per card) [{card}]", flush=True)
+    by_path = {p: dict.fromkeys(REPLACES, 0) for p in
+               ("sharded", "sharded_sparse", "halo")}
+    single = {}
+    for backend, world, names in runs:
+        store = os.path.join(workdir, f"store-{backend}{world}")
+        if os.path.exists(store):  # a killed run's rendezvous: stale keys
+            os.remove(store)
+        t0 = time.perf_counter()
+        spawn_ranks(backend, world, names, workdir)
+        print(f"phase 3, parallel: {world} {backend} rank(s) ran "
+              f"{len(names)} cases in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
+        for name in names:
+            got = par_check(ns, name, backend, world, workdir, single, card)
+            path = by_path[PAR_PATHS[PAR_CASES[name][0]]]
+            for k, v in got.items():
+                path[k] += v
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1943,6 +2425,12 @@ def main():
     stamp("phase 2")
     ctr = counters(fm, D)
 
+    # phase 3, this slice: the sharded fits in rank processes sharing the
+    # card (their launches are the ranks' own; the parent's single-card
+    # references count nowhere: the dense phase zeroes the counts first)
+    by_path_parallel = parallel_phase(ns, card)
+    stamp("parallel")
+
     # phase 3: the main path, dense NMF.fit at full width
     M, K, R = MAIN_SHAPE
     V, _, _ = inputs(M, K, R)
@@ -1971,6 +2459,7 @@ def main():
         print(f"phase 3: beta={beta} n_iter={n_iter} loss {before:.6g} -> "
               f"{after:.6g}; launches B1 {d_b1}, B2 {d_b2}", flush=True)
     by_path = {"nmf": read(ctr)}
+    by_path.update(by_path_parallel)
     stamp("dense fits")
     check(by_path["nmf"]["hgrad"] == by_path["nmf"]["wgrad"] == 0,
           "the dense fits launched B3/B4")

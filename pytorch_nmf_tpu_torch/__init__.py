@@ -16,11 +16,13 @@ kernels and the hybrid of ``wgrad`` and the streamed fold; the unfold
 GEMMs, the β=2 autocorrelation and FFT engines and the generic engine are
 pinned there, and candidates on the CPU.  :mod:`.utils` holds
 checkpointed fits that resume (either package's directories),
-``torch.profiler`` helpers and ``LossHistory``.  This package never imports
-JAX.
+``torch.profiler`` helpers and ``LossHistory``; :mod:`.parallel` the
+sharded fits on ``torch.distributed`` (NCCL across cards, gloo on the CPU).
+This package never imports JAX.
 """
 
-from . import functional, metrics, models, nmf, ops, plca, trainer, utils  # noqa: F401
+from . import (functional, metrics, models, nmf, ops, parallel, plca,  # noqa: F401
+               trainer, utils)
 from .ops.sparse import sparse_from_dense  # noqa: F401
 
 name = "pytorch_nmf_tpu_torch"

@@ -141,21 +141,27 @@ def _kl_pos_h_ranks(w, R: int):
     return torch.sum(w.reshape(-1, R, w.shape[-1]), dim=(0, 2))
 
 
-def _patch_chunk_fn(H, kernel):
+def _patch_chunk_fn(H, kernel, valid_last: bool = False):
     """Closure building the τ-chunk patch matrix of flat offsets
     ``[j0, j1)`` from the channels-last, full-padded activation:
     ``Pc[n, l_vec, (j-j0)·R + r] = H[n, r, l_vec - τ(j)]``.
+    ``valid_last``: the trailing axis is not padded (VALID, the halo fits'
+    activation, which carries its ``k - 1`` leading frames itself): its
+    output extent is ``S_in - k + 1``.
 
     In 1-D each offset's rows are one contiguous slice, a view, so a chunk is
     one stack.  In N-D the slices are strided, a copy each; there one gather
     per chunk builds it (the flat index of ``l_vec - τ(j)`` in the padded
     grid is a per-position plus a per-offset term)."""
     N, R = H.shape[:2]
-    S_out = _pad_s_out(H.shape[2:], kernel)
+    nd = len(kernel)
+    valid = [valid_last and ax == nd - 1 for ax in range(nd)]
+    S_out = tuple(s - k + 1 if v else s + k - 1
+                  for s, k, v in zip(H.shape[2:], kernel, valid))
     Lp, K = _prod(S_out), _prod(kernel)
     pads = []
-    for k in reversed(kernel):
-        pads += [k - 1, k - 1]
+    for k, v in zip(reversed(kernel), reversed(valid)):
+        pads += [0, 0] if v else [k - 1, k - 1]
     Hp2 = torch.nn.functional.pad(H.movedim(1, -1), [0, 0] + pads)
     if len(kernel) == 1:
         T = kernel[0]
@@ -183,13 +189,14 @@ def _patch_chunk_fn(H, kernel):
     return patch_chunk
 
 
-def _stream_recon(w2, H, kernel):
+def _stream_recon(w2, H, kernel, valid_last: bool = False):
     """Streaming-τ reconstruction ``WH2 (N, prod(S_out), C)`` from the flat
-    kernel ``w2 (K·R, C)``: one GEMM per τ-chunk, accumulated in order."""
+    kernel ``w2 (K·R, C)``: one GEMM per τ-chunk, accumulated in order
+    (``valid_last``: :func:`_patch_chunk_fn`'s)."""
     R = H.shape[1]
     K = _prod(kernel)
     Tc = _chunk_tc(R, K)
-    patch_chunk = _patch_chunk_fn(H, kernel)
+    patch_chunk = _patch_chunk_fn(H, kernel, valid_last)
     WH2 = None
     for j0 in range(0, K, Tc):
         j1 = min(j0 + Tc, K)

@@ -699,10 +699,16 @@ def _plca_em_iter(recon3, update_W, update_H, update_Z, W_alpha_active,
 
 def _plca_m_step(update_W, update_H, update_Z, W_alpha_active, H_alpha_active,
                  Z_alpha_active, w, h, z, gH, gW, gZ, W_alpha, H_alpha,
-                 Z_alpha):
+                 Z_alpha, h_marginal=None, h_mask=None):
     """The M-step: closed-form renormalizations of the unnormalized
     posterior marginals with optional Dirichlet MAP (reference
-    plca.py:255-289).  Returns ``(w, h, z)``."""
+    plca.py:255-289).  Returns ``(w, h, z)``.
+
+    The sharded fits pass ``h_marginal`` (the H marginal summed over the
+    ranks) and ``h_mask`` (zero at H's padded positions, which the prior's
+    ``h + (alpha - 1)`` would otherwise fill)."""
+    if h_marginal is None:
+        h_marginal = _plca_marginal_sum
     Z_prior = None
     if update_Z:
         z = z * torch.relu(gZ)
@@ -726,13 +732,15 @@ def _plca_m_step(update_W, update_H, update_Z, W_alpha_active, H_alpha_active,
     if update_H:
         h = h * torch.relu(gH)
         if Z_prior is None:
-            H_divider = _plca_marginal_sum(h)
+            H_divider = h_marginal(h)
         else:
             H_divider = Z_prior.reshape((-1,) + (1,) * (h.ndim - 2))
         h = h / H_divider
         if H_alpha_active:
             h = _threshold_eps(h + (H_alpha - 1.0))
-            h = h / _plca_marginal_sum(h)
+            if h_mask is not None:
+                h = h * h_mask
+            h = h / h_marginal(h)
 
     return w, h, z
 

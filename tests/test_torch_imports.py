@@ -25,7 +25,9 @@ def test_every_module_is_listed():
                  "plca", "ops.fused_deconv", "utils", "functional", "trainer",
                  "ops.projection", "ops.trainer_core", "ops.autotune",
                  "ops.streaming", "ops.fft_nmfd", "utils.checkpoint",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel", "parallel.comm",
+                 "parallel.distributed", "parallel.halo", "parallel.mesh",
+                 "parallel.sharded", "parallel.sharded_sparse"):
         assert f"pytorch_nmf_tpu_torch.{name}" in mods
 
 
@@ -60,3 +62,51 @@ def test_importing_every_module_leaves_jax_out():
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=ROOT)
+
+
+# the JAX package's ``parallel`` names (``pytorch_nmf_tpu/parallel``), and
+# those the port leaves out: ``sharded.nmf_updater_factory_sharded``
+# exists for the GSPMD auto-routing of ``NMF.fit`` on a sharded target,
+# which has no torch counterpart (ROADMAP A15 "Removal"); ``halo.halo_recv``
+# and ``halo.halo_adjoint_strip`` serve only the streamed and unrolled
+# per-shard modes, which come with them (ROADMAP A15.5)
+JAX_PARALLEL = {
+    "": {"distributed", "left_halo", "make_hybrid_mesh", "make_mesh",
+         "shard_target", "sharded_nmf2d_fit", "sharded_nmf3d_fit",
+         "sharded_nmf_fit", "sharded_nmfd_fit", "sharded_plca_fit",
+         "sharded_siplca2_fit", "sharded_siplca3_fit", "sharded_siplca_fit",
+         "sharded_sparse_nmf_fit"},
+    "mesh": {"make_mesh", "make_hybrid_mesh"},
+    "distributed": {"initialize", "global_mesh"},
+    "sharded": {"shard_target", "sharded_nmf_fit", "sharded_plca_fit",
+                "nmf_updater_factory_sharded"},
+    "sharded_sparse": {"sharded_sparse_nmf_fit"},
+    "halo": {"left_halo", "halo_adjoint", "halo_recv", "halo_adjoint_strip",
+             "sharded_nmfd_fit", "sharded_nmf2d_fit", "sharded_nmf3d_fit",
+             "sharded_siplca_fit", "sharded_siplca2_fit",
+             "sharded_siplca3_fit"},
+}
+NOT_PORTED = {"sharded": {"nmf_updater_factory_sharded"},
+              "halo": {"halo_recv", "halo_adjoint_strip"}}
+
+
+def test_parallel_names_match_the_jax_package():
+    import importlib
+
+    for mod, names in JAX_PARALLEL.items():
+        m = importlib.import_module(
+            "pytorch_nmf_tpu_torch.parallel" + (f".{mod}" if mod else ""))
+        assert set(m.__all__) == names - NOT_PORTED.get(mod, set()), mod
+        for name in m.__all__:
+            assert hasattr(m, name), (mod, name)
+
+
+def test_parallel_sources_import_no_jax():
+    """No module of ``parallel/`` names JAX or the JAX package in an
+    import."""
+    import re
+
+    pattern = re.compile(r"^\s*(from|import)\s+(jax\b|pytorch_nmf_tpu\b(?!_))",
+                         re.M)
+    for path in (ROOT / "pytorch_nmf_tpu_torch" / "parallel").glob("*.py"):
+        assert not pattern.search(path.read_text()), path.name
