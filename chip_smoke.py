@@ -63,13 +63,23 @@ Drives the port's paths at full width, each in phases:
   halo ``sharded_nmfd_fit`` (1×1025×1250 a rank, rank 88, T=400, β ∈ {1, 2};
   rank 8; N=2), ``sharded_nmf2d_fit``, ``sharded_nmf3d_fit`` and
   ``sharded_siplca_fit``/``2`` (the SIPLCA rank-8 row a rank, the flagship
-  split); one NCCL rank runs the dense and NMFD β=1 cases; NCCL across cards
-  runs every case where there are several.  Each case agrees with the
-  single-card fit of the whole problem (W, the assembled H and the final
-  loss within 1e-4 relative, the same ``n_iter`` on every rank), each rank
-  launches exactly the kernels its code implies, and the ranks' ms/iteration
-  and their collectives' calls, bytes and ms an iteration are printed beside
-  the single-card fits of the whole problem and of one rank's block.
+  split), and the halo fits' other per-shard modes, forced: ``fused_w``
+  (B4 alone: NMFD β ∈ {1, 0.5}, NMF3D), ``stream`` and ``conv`` (NMFD),
+  ``unrolled`` (NMF2D, SIPLCA2), the SIPLCA flagship in ``conv``, and the
+  NMFD flagship in the mode its tuner resolves (rank 0 times, both ranks
+  run its choice); one NCCL rank runs the dense and NMFD β=1 cases; NCCL
+  across cards runs every case where there are several.  Each case agrees
+  with the single-card fit of the whole problem (W, the assembled H and the
+  final loss within 1e-4 relative, the same ``n_iter`` and per-shard mode
+  on every rank), each rank launches exactly the kernels its code and mode
+  imply, and the ranks' ms/iteration and their collectives' calls, bytes
+  and ms an iteration are printed beside the single-card fits of the whole
+  problem and of one rank's block;
+* the halo fits' mode tuner (``autotune.autotune_halo_mode``) at the NMFD
+  flagship's, NMF2D's and NMF3D's per-rank problems: ``fused`` against
+  ``fused_w`` over one rank's per-shard step without collectives, the
+  winner and the first resolution's seconds, the library modes (``stream``,
+  ``unrolled``, ``conv``) timed the same way as yardsticks.
 
 1. prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``pytorch_nmf_tpu_torch/csrc``, one ``nvcc`` per source, in parallel;
@@ -512,7 +522,8 @@ def halo_layouts():
         if kind not in ("deconv", "siplca"):
             continue
         N, C, R, lead_in, kernel, L_loc = shape
-        L_out = L_loc * (2 if name == "siplca_flagship" else PAR_WORLD)
+        L_out = L_loc * (2 if name.startswith("siplca_flagship")
+                         else PAR_WORLD)
         chunk = max(-(-L_out // PAR_WORLD), kernel[-1] - 1)
         key = (N, C, R, lead_in, kernel, chunk)
         if key not in seen:
@@ -1736,6 +1747,64 @@ def tune_problem(models, name, row):
     return V, m.W.detach().clone(), m.H.detach().clone()
 
 
+# the halo tuner's rows: one rank's local problem of these PAR_CASES
+HALO_TUNE_CASES = ("nmfd_b1", "nmf2d_b1", "nmf3d_b1")
+HALO_YARDSTICKS = ("stream", "unrolled", "conv")
+
+
+def halo_tuner(card, fit_ms):
+    """The halo fits' mode tuner (``autotune.autotune_halo_mode``, at
+    ``PNT_NMFD_AUTOTUNE=1``) on the card at HALO_TUNE_CASES' per-rank
+    problems: ``fused`` against ``fused_w`` (its candidates on the card),
+    each timed over one rank's real per-shard step without collectives; the
+    winner and the first resolution's seconds; the library modes timed the
+    same way (one reading each) as yardsticks, never candidates.  cuDNN
+    picks its own algorithms here, as in the fits (not the deterministic
+    ones of the comparisons)."""
+    from pytorch_nmf_tpu_torch.ops import autotune
+    from pytorch_nmf_tpu_torch.parallel import halo
+
+    torch.backends.cudnn.deterministic = False
+    for name in HALO_TUNE_CASES:
+        _, shape, kw = PAR_CASES[name]
+        N, C, R, lead_in, kernel, L_loc = shape
+        chunk = max(L_loc, kernel[-1] - 1)
+        beta = float(kw["beta"])
+        args = (N, C, lead_in, chunk, kernel, R, beta)
+        heuristic = halo._halo_unfold_mode(N, lead_in, chunk, kernel, R,
+                                           "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        winner = autotune.autotune_halo_mode(*args, heuristic, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        key = autotune._halo_key("cuda", *args, True)
+        ms = {m: 1e3 * t for m, t in autotune._MEASURED[key].items()}
+        check(set(ms) == {"fused", "fused_w"} and winner in ms,
+              f"halo tuner {name}: candidates {ms}, winner {winner}")
+        _, h_chunk, v_local, _ = autotune._halo_shapes(*args[:-1])
+        rs = np.random.RandomState(0)
+        Vl, Wl, Hp = (torch.from_numpy(rs.rand(*s).astype("f") + lo).cuda()
+                      for s, lo in ((v_local, 0.01), ((C, R) + kernel, 0.1),
+                                    (h_chunk, 0.1)))
+        yard = {m: 1e3 * autotune._time_candidate(
+            halo._local_run(m, Vl, Wl, Hp, beta), "cuda", reps=1)
+            for m in HALO_YARDSTICKS}
+        fit_ms[f"halo autotune {name}"] = {"winner": winner,
+                                           "candidate_ms": ms,
+                                           "yardstick_ms": yard,
+                                           "setup_s": secs}
+        print(f"phase 3: halo autotune {name} (one rank's problem: V "
+              f"{v_local}, H {h_chunk}, beta={beta:g}; heuristic "
+              f"{heuristic}): winner {winner} (first resolution {secs:.3f} "
+              f"s); candidates ms/iteration "
+              + ", ".join(f"{m} {t:.3f}" for m, t in ms.items())
+              + "; library yardsticks ms/iteration "
+              + ", ".join(f"{m} {t:.3f}" for m, t in yard.items())
+              + f" [{card}]", flush=True)
+        del Vl, Wl, Hp
+
+
 def autotune_cases(ns, ctr, card, fit_ms):
     """Phase 3, the autotuner at ``PNT_NMFD_AUTOTUNE=1``: the MU engine at
     TUNE_CASES, the SIPLCA EM reconstruction at the SIPLCA row, and the
@@ -1955,6 +2024,8 @@ def autotune_cases(ns, ctr, card, fit_ms):
         report(tag, key, winner, secs, yard, losses,
                f"; the autotuned {HOYER_TRACE}-iteration fit equals the forced "
                f"winner's, launches {d}", own)
+        del V, W0, H0, m, forced
+        halo_tuner(card, fit_ms)
     finally:
         os.environ["PNT_NMFD_AUTOTUNE"] = "0"
         torch.backends.cudnn.deterministic = False
@@ -2001,7 +2072,31 @@ PAR_CASES = {
                         dict(tol=0, max_iter=10)),
     "siplca2": ("siplca", (1, 256, 64, (121,), (8, 8), 128),
                 dict(tol=0, max_iter=4)),
+    # the halo fits' other per-shard modes, forced through the private
+    # fits' ``mode`` (B4 alone in fused_w, no kernel in the library modes),
+    # and the NMFD flagship in the mode its tuner picks (PAR_TUNED)
+    "nmfd_b1_fused_w": ("deconv", (1, 1025, 88, (), (400,), 1250),
+                        dict(beta=1, tol=0, max_iter=3, mode="fused_w")),
+    "nmfd_b0.5_fused_w": ("deconv", (1, 1025, 88, (), (400,), 1250),
+                          dict(beta=0.5, tol=0, max_iter=3, mode="fused_w")),
+    "nmfd_b1_stream": ("deconv", (1, 1025, 88, (), (400,), 1250),
+                       dict(beta=1, tol=0, max_iter=3, mode="stream")),
+    "nmfd_b1_conv": ("deconv", (1, 1025, 88, (), (400,), 1250),
+                     dict(beta=1, tol=0, max_iter=3, mode="conv")),
+    "nmf2d_b1_unrolled": ("deconv", (1, 256, 64, (121,), (8, 8), 128),
+                          dict(beta=1, tol=0, max_iter=3, mode="unrolled")),
+    "nmf3d_b1_fused_w": ("deconv", (1, 64, 16, (16, 16), (4, 4, 4), 64),
+                         dict(beta=1, tol=0, max_iter=3, mode="fused_w")),
+    "siplca_flagship_conv": ("siplca", (1, 513, 64, (), (200,), 1500),
+                             dict(tol=0, max_iter=3, mode="conv")),
+    "siplca2_unrolled": ("siplca", (1, 256, 64, (121,), (8, 8), 128),
+                         dict(tol=0, max_iter=3, mode="unrolled")),
+    "nmfd_b1_tuned": ("deconv", (1, 1025, 88, (), (400,), 1250),
+                      dict(beta=1, tol=0, max_iter=3)),
 }
+# the cases whose ranks resolve their mode with the tuner on (the others
+# run at PNT_NMFD_AUTOTUNE=0: the static "fused" unless a mode is forced)
+PAR_TUNED = ("nmfd_b1_tuned",)
 # the one-rank NCCL group's cases
 PAR_NCCL_ONE = ("nmf_b1", "nmfd_b1")
 PAR_PATHS = {"nmf": "sharded", "plca": "sharded", "sparse": "sharded_sparse",
@@ -2039,7 +2134,7 @@ def par_inputs(name, world):
                 "W": rs.rand(K, R).astype("f") + 0.1,
                 "H": rs.rand(M_loc * world, R).astype("f") + 0.1}
     N, C, R, lead_in, kernel, L_loc = shape
-    L_out = L_loc * world if name != "siplca_flagship" else L_loc * 2
+    L_out = L_loc * (2 if name.startswith("siplca_flagship") else world)
     S_out = tuple(s + k - 1 for s, k in zip(lead_in, kernel[:-1])) + (L_out,)
     S_in = tuple(lead_in) + (L_out - kernel[-1] + 1,)
     if kind == "deconv":
@@ -2066,6 +2161,7 @@ def par_fit(par, name, inp, mesh, **override):
     (``override``: fit keywords in place of the case's)."""
     kind, shape, kw = PAR_CASES[name]
     kw = dict(kw, **override)
+    mode = kw.pop("mode", None)
     if kind == "nmf":
         W, H, n = par.sharded_nmf_fit(inp["V"], inp["W"], inp["H"], mesh, **kw)
         return {"W": W, "H": H, "n_iter": n}
@@ -2079,13 +2175,22 @@ def par_fit(par, name, inp, mesh, **override):
         return {"W": W, "H": H, "n_iter": n}
     nd = len(shape[4])
     if kind == "deconv":
-        fit = (par.sharded_nmfd_fit, par.sharded_nmf2d_fit,
-               par.sharded_nmf3d_fit)[nd - 1]
-        W, H, n = fit(inp["V"], inp["W"], inp["H"], mesh, **kw)
+        if mode is not None:
+            W, H, n = par.halo._sharded_deconv_fit(
+                inp["V"], inp["W"], inp["H"], mesh, nd, mode=mode, **kw)
+        else:
+            fit = (par.sharded_nmfd_fit, par.sharded_nmf2d_fit,
+                   par.sharded_nmf3d_fit)[nd - 1]
+            W, H, n = fit(inp["V"], inp["W"], inp["H"], mesh, **kw)
         return {"W": W, "H": H, "n_iter": n}
-    fit = (par.sharded_siplca_fit, par.sharded_siplca2_fit,
-           par.sharded_siplca3_fit)[nd - 1]
-    W, H, Z, n, norm = fit(inp["V"], inp["W"], inp["H"], inp["Z"], mesh, **kw)
+    if mode is not None:
+        W, H, Z, n, norm = par.halo._sharded_siplca_fit(
+            inp["V"], inp["W"], inp["H"], inp["Z"], mesh, nd, mode=mode, **kw)
+    else:
+        fit = (par.sharded_siplca_fit, par.sharded_siplca2_fit,
+               par.sharded_siplca3_fit)[nd - 1]
+        W, H, Z, n, norm = fit(inp["V"], inp["W"], inp["H"], inp["Z"], mesh,
+                               **kw)
     return {"W": W, "H": H, "Z": Z, "n_iter": n, "norm": norm}
 
 
@@ -2094,24 +2199,48 @@ def par_iters(name, n_iter):
     return n_iter + 1 if PAR_CASES[name][0] in ("plca", "siplca") else n_iter
 
 
-def par_expected(name, n_iter):
+def par_expected(name, n_iter, mode=None):
     """Each rank's exact launches of case ``name`` (B1, B2, B3, B4), as the
-    code implies: B1 twice an iteration at β ≠ 2 (the W side's raw sums and
-    the H side), B2 once a loss evaluation (one at entry, one a chunk of
-    10) at β ∉ {1, 2}; B4 once an iteration (the neg/pos pair in one call),
-    B3 once an iteration at β=1 and twice otherwise (one a cotangent); the
-    SIPLCA E-step one B3 and one B4; PLCA's E-step and the sparse ELL path
-    none."""
+    code implies, the halo fits' in their per-shard ``mode``: B1 twice an
+    iteration at β ≠ 2 (the W side's raw sums and the H side), B2 once a
+    loss evaluation (one at entry, one a chunk of 10) at β ∉ {1, 2}; in
+    ``fused`` B4 once an iteration (the neg/pos pair in one call), B3 once
+    an iteration at β=1 and twice otherwise (one a cotangent), in
+    ``fused_w`` B4 alone; the SIPLCA E-step in ``fused`` one B3 and one B4;
+    the library modes, PLCA's E-step and the sparse ELL path none."""
     kind, _, kw = PAR_CASES[name]
     beta, runs = kw.get("beta"), par_iters(name, n_iter)
     if kind == "nmf":
         return (0 if beta == 2 else 2 * runs,
                 1 + runs // 10 if beta not in (1, 2) else 0, 0, 0)
     if kind == "deconv":
-        return 0, 0, runs * (1 if beta == 1 else 2), runs
+        b3 = runs * (1 if beta == 1 else 2) if mode == "fused" else 0
+        return 0, 0, b3, runs if mode in ("fused", "fused_w") else 0
     if kind == "siplca":
-        return 0, 0, runs, runs
+        k = runs if mode == "fused" else 0
+        return 0, 0, k, k
     return 0, 0, 0, 0
+
+
+def par_mode_spy(halo, ctr):
+    """Wrap ``halo._resolve_halo_mode`` to record each resolution's mode,
+    its wall seconds and the kernel launches of the tuner's timing runs
+    (not the fit's) in the returned dict."""
+    seen = {}
+    resolve = halo._resolve_halo_mode
+
+    def spy(*args, **kw):
+        n0 = read(ctr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen["mode"] = resolve(*args, **kw)
+        torch.cuda.synchronize()
+        seen["resolve_s"] = time.perf_counter() - t0
+        seen["launches"] = {k: v - n0[k] for k, v in read(ctr).items()}
+        return seen["mode"]
+
+    halo._resolve_halo_mode = spy
+    return seen
 
 
 def par_rank(rank, world, backend, workdir, names):
@@ -2138,9 +2267,18 @@ def par_rank(rank, world, backend, workdir, names):
     load_all()  # the parent's build: loads, compiles nothing
     ctr = counters(fm, D)
     comm.stats.timed = True
+    from pytorch_nmf_tpu_torch.ops import autotune
+
+    seen = par_mode_spy(par.halo, ctr)
     meshes, report = {}, {}
     for i, name in enumerate(names):
         kind, _, kw = PAR_CASES[name]
+        if name in PAR_TUNED:  # the default tuning rule: above 1e9 MACs
+            os.environ.pop("PNT_NMFD_AUTOTUNE", None)
+            autotune.clear_cache()
+        else:
+            os.environ["PNT_NMFD_AUTOTUNE"] = "0"
+        seen.clear()
         axis = "seq" if kind in ("deconv", "siplca") else "data"
         axes = ((axis, world),) + ((("model", 1),) if "model_axis" in kw
                                    else ())
@@ -2161,12 +2299,23 @@ def par_rank(rank, world, backend, workdir, names):
         end.record()
         torch.cuda.synchronize()
         n = int(out["n_iter"])
+        tuning = seen.get("launches", {})
         report[name] = {
-            "n_iter": n, "launches": read(ctr),
-            "ms_per_iter": start.elapsed_time(end) / par_iters(name, n),
+            "n_iter": n, "launches": {k: v - tuning.get(k, 0)
+                                      for k, v in read(ctr).items()},
+            # the mode's resolution (rank 0's timing, rank 1's wait) aside
+            "ms_per_iter": (start.elapsed_time(end)
+                            - 1e3 * seen.get("resolve_s", 0.0))
+            / par_iters(name, n),
             "comm": comm.stats.summary(),
             "transport": comm.comm_for(mesh, axis).transport,
-            "device": torch.cuda.current_device()}
+            "device": torch.cuda.current_device(),
+            "mode": seen.get("mode"), "resolve_s": seen.get("resolve_s"),
+            # the halo tuner's table (rank 0 alone times)
+            "tuner_ms": {"|".join(map(str, key)): {
+                m: 1e3 * t for m, t in ms.items()}
+                for key, ms in autotune._MEASURED.items()
+                if str(key[1]).startswith("halo")}}
         blocks = {k: v.to_local().cpu() for k, v in out.items()
                   if hasattr(v, "to_local") and (k == "H" or rank == 0)}
         torch.save(blocks, os.path.join(workdir, f"{name}-{tag}-r{rank}.pt"))
@@ -2202,7 +2351,7 @@ def par_single(ns, name, inp, part=False):
     ``part``, of rank 0's block alone), same engine, same start:
     ``(factors, n_iter, ms/iteration)`` by CUDA events."""
     kind, shape, kw = PAR_CASES[name]
-    kw = {k: v for k, v in kw.items() if k != "model_axis"}
+    kw = {k: v for k, v in kw.items() if k not in ("model_axis", "mode")}
     if part:
         inp = dict(inp)
         if kind == "sparse":
@@ -2301,19 +2450,39 @@ def par_check(ns, name, backend, world, workdir, single, card):
     errs["loss"] = abs(loss - loss_ref) / abs(loss_ref)
     bad = {k: e for k, e in errs.items() if not e <= RTOL}
     check(not bad, f"{name} [{tag}]: off the single-card fit by {bad}")
+    modes = [rep["mode"] for rep in reps]
+    mode = modes[0]
+    if kind in ("deconv", "siplca"):
+        # forced, tuned (a kernel mode on the card), or the static "fused"
+        want_mode = kw.get("mode", "fused")
+        check(len(set(modes)) == 1 and (
+            mode in ("fused", "fused_w") if name in PAR_TUNED
+            else mode == want_mode), f"{name} [{tag}]: the ranks ran the "
+            f"per-shard modes {modes}")
     want = dict(zip(("fused_contractions", "fused_beta_loss", "hgrad",
-                     "wgrad"), par_expected(name, n_iters[0])))
+                     "wgrad"), par_expected(name, n_iters[0], mode)))
     for r, rep in enumerate(reps):
         check(rep["launches"] == want, f"{name} [{tag}] rank {r}: launches "
               f"{rep['launches']}, expected {want}")
+    if name in PAR_TUNED:
+        tables = [rep["tuner_ms"] for rep in reps]
+        check(tables[0] and not any(tables[1:]), f"{name} [{tag}]: the "
+              f"tuner's tables by rank {tables} (rank 0 alone times)")
+        print(f"phase 3, parallel [{tag}]: {name} resolved per-shard mode "
+              f"by rank {modes} (rank 0 timed, then broadcast; first "
+              f"resolution {reps[0]['resolve_s']:.3f} s on rank 0, "
+              f"{reps[1]['resolve_s']:.3f} s on rank 1, waiting); rank 0's "
+              f"tuner ms/iteration of the local problem "
+              f"{json.dumps(tables[0])} [{card}]", flush=True)
     iters = par_iters(name, n_iters[0])
     traffic = "; ".join(
         f"{kindc} {c['calls'] / iters:g} calls, {c['bytes'] / iters:.0f} B, "
         f"{c['ms'] / iters:.3f} ms per iteration"
         for kindc, c in reps[0]["comm"].items() if c["calls"])
     print(f"phase 3, parallel [{reps[0]['transport']}, world {world}, ranks "
-          f"on cuda:{sorted({rep['device'] for rep in reps})}]: {name} "
-          f"n_iter {n_iters[0]} on every rank and alone; off the single-card "
+          f"on cuda:{sorted({rep['device'] for rep in reps})}]: {name}"
+          + (f" (per-shard mode {mode})" if mode else "") +
+          f" n_iter {n_iters[0]} on every rank and alone; off the single-card "
           f"fit by " + ", ".join(f"{k} {e:.2g}" for k, e in errs.items())
           + f"; launches per rank B1 {want['fused_contractions']}, B2 "
           f"{want['fused_beta_loss']}, B3 {want['hgrad']}, B4 "

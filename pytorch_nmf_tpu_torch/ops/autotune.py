@@ -61,6 +61,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from . import fast_nmfd
@@ -75,6 +76,7 @@ __all__ = [
     "resolve_plca_recon3",
     "autotune_hoyer_recon2",
     "resolve_hoyer_recon2",
+    "autotune_halo_mode",
 ]
 
 # (platform, spatial_ndim | tag, beta, V_shape, H_shape) -> winner name
@@ -181,7 +183,12 @@ def _kernel_path(V) -> bool:
     """Whether this fit runs the hand-written kernels: a CUDA float32
     target, unless ``PNT_NMFD_PALLAS=0``.  There only the kernel engines
     are candidates."""
-    return torch.device(V.device).type == "cuda" and _kernels_allowed(V.dtype)
+    return _kernel_device(V.device, V.dtype)
+
+
+def _kernel_device(device, dtype) -> bool:
+    """:func:`_kernel_path` of a fit on ``device`` in ``dtype``."""
+    return torch.device(device).type == "cuda" and _kernels_allowed(dtype)
 
 
 def _unfold_ok(V, H) -> bool:
@@ -454,3 +461,120 @@ def resolve_hoyer_recon2(cls, V, W, H, beta: float):
     cands = _recon_candidates(V, H, fast_nmfd.kernel_adjoint_deconv,
                               fast_nmfd.unfold_deconv, cls.reconstruct)
     return dict(cands)[autotune_hoyer_recon2(V, W, H, beta, cands)]
+
+
+# --------------------------------------------------------------------------
+# The halo fits' per-shard mode (the sharded deconv and SIPLCA fits of
+# :mod:`..parallel.halo`)
+# --------------------------------------------------------------------------
+def _halo_shapes(n_batch, C, lead_shapes, chunk, kernel, R):
+    """``(v_proxy, h_proxy, v_local, h_local)``: the single-card problem
+    whose activation is one rank's chunk (the kernel path's threshold and
+    key), and the rank's VALID problem (the library path's threshold), as
+    the JAX package counts them."""
+    lead_out = tuple(s + k - 1 for s, k in zip(lead_shapes, kernel[:-1]))
+    T = kernel[-1]
+    return ((n_batch, C) + lead_out + (chunk + T - 1,),
+            (n_batch, R) + lead_shapes + (chunk,),
+            (n_batch, C) + lead_out + (chunk,),
+            (n_batch, R) + lead_shapes + (chunk - T + 1,))
+
+
+def _halo_key(device, n_batch, C, lead_shapes, chunk, kernel, R, beta,
+              kernel_path: bool):
+    """The cache key of a halo mode decision: the card's name,
+    ``halo{nd}``, β and the local shapes (the proxy's on the kernel path,
+    ``V`` and ``(R, *kernel)`` on the library path, as the JAX package)."""
+    v_proxy, h_proxy, v_local, _ = _halo_shapes(n_batch, C, lead_shapes,
+                                                chunk, kernel, R)
+    if kernel_path:
+        return (_platform(device), f"halo{len(kernel)}", float(beta), v_proxy,
+                h_proxy)
+    return (_platform(device), f"halo{len(kernel)}", float(beta), v_local,
+            (R,) + kernel)
+
+
+def _halo_tune(key, names, n_batch, C, lead_shapes, chunk, kernel, R, beta,
+               device) -> str:
+    """Time the per-shard ``names`` (the static choice first) on one
+    rank's local problem, with the real per-shard step and no collectives
+    (:func:`..parallel.halo._local_run`), and keep the winner (:func:`_tune`)."""
+    from ..parallel.halo import _local_run
+
+    hit = _cached(key, set(names))
+    if hit is not None:
+        return hit
+    _, h_chunk, v_local, _ = _halo_shapes(n_batch, C, lead_shapes, chunk,
+                                          kernel, R)
+    rs = np.random.RandomState(0)
+
+    def arr(shape, lo):
+        return torch.from_numpy(rs.rand(*shape).astype("f") + lo).to(device)
+
+    Vl, Wl, Hp = (arr(v_local, 0.01), arr((C, R) + kernel, 0.1),
+                  arr(h_chunk, 0.1))
+    return _tune(key, [(n, n) for n in names],
+                 lambda m: _local_run(m, Vl, Wl, Hp, beta), device)
+
+
+def _halo_mode(n_batch, C, lead_shapes, chunk, kernel, R, beta,
+               heuristic_mode, allow_pallas, device, dtype) -> str:
+    """Rank 0's resolution (:func:`autotune_halo_mode`)."""
+    if dtype == torch.float64:
+        return "conv"
+    if _env("PNT_NMFD_PALLAS") == "1":
+        return "fused"
+    v_proxy, h_proxy, v_local, h_local = _halo_shapes(
+        n_batch, C, lead_shapes, chunk, kernel, R)
+    args = (n_batch, C, lead_shapes, chunk, kernel, R, beta)
+    if _kernel_device(device, dtype):
+        if not allow_pallas or not _tuned(v_proxy, h_proxy):
+            return "fused"
+        return _halo_tune(_halo_key(device, *args, True), ("fused", "fused_w"),
+                          *args, device)
+    if heuristic_mode != "unrolled" or not _tuned(v_local, h_local):
+        return heuristic_mode
+    return _halo_tune(_halo_key(device, *args, False), ("unrolled", "conv"),
+                      *args, device)
+
+
+def autotune_halo_mode(n_batch: int, C: int, lead_shapes, chunk: int, kernel,
+                       R: int, beta: float, heuristic_mode: str,
+                       allow_pallas: bool = True, *, device="cpu",
+                       dtype=torch.float32, comm=None) -> str:
+    """The per-shard mode of a halo fit (:mod:`..parallel.halo`) whose rank
+    holds ``n_batch`` batches of ``chunk`` trailing frames, leading extents
+    ``lead_shapes``, ``C`` channels, the kernel extents ``kernel`` and rank
+    ``R``, on ``device``; ``heuristic_mode`` is
+    :func:`..parallel.halo._halo_unfold_mode`'s.  The rules:
+
+    * float64 → ``"conv"`` (the generic path); ``PNT_NMFD_PALLAS=1`` →
+      ``"fused"``;
+    * a CUDA float32 fit (the kernel path, unless ``PNT_NMFD_PALLAS=0``):
+      ``"fused"``, timed against ``"fused_w"`` above the threshold (the
+      proxy's MACs, :func:`_tuned`; ``PNT_NMFD_AUTOTUNE`` forces either
+      way).  The library modes are never chosen there.
+      ``allow_pallas=False`` (the EM fits, the JAX package's name: its EM
+      has no fused mode) keeps ``"fused"`` untimed, the port's EM having no
+      ``"fused_w"``;
+    * elsewhere (the CPU, or ``PNT_NMFD_PALLAS=0``) the heuristic, and
+      where it says ``"unrolled"``, above the threshold, ``"unrolled"``
+      timed against ``"conv"``.
+
+    A challenger must beat the static choice (the first) by ``_MARGIN``.
+    The candidates are timed on rank 0's local problem (random data from
+    seed 0), through the real per-shard step without collectives: those
+    are the same in every mode (the JAX package's argument), and two ranks
+    sharing a card would disturb each other's CUDA events.  So only rank 0
+    of ``comm`` (a :class:`~..parallel.comm.Comm`) resolves and times; the
+    others wait for its choice, which ``comm`` broadcasts: a rank running
+    another mode would deadlock the group on mismatched collectives.  The
+    winner is cached under :func:`_halo_key`.  A candidate that raises
+    propagates."""
+    mode = None
+    if comm is None or comm.rank == 0:
+        mode = _halo_mode(n_batch, C, tuple(int(s) for s in lead_shapes),
+                          int(chunk), tuple(int(k) for k in kernel), int(R),
+                          float(beta), heuristic_mode, allow_pallas, device,
+                          dtype)
+    return mode if comm is None else comm.broadcast_object(mode)

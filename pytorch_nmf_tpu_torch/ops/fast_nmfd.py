@@ -128,10 +128,11 @@ def _w_from_w2(W2, kernel, R: int):
     return full.permute((1 + d, d) + tuple(range(d))).contiguous()
 
 
-def _kl_pos_w_rows(H, rows: int):
+def _kl_pos_w_rows(H, rows: int, sums=None):
     """Analytic β=1 denominator of the W update, tiled over the flat
-    τ-major/rank-minor rows: ``(rows, 1)``."""
-    s = kl_pos_W(H).reshape(-1)
+    τ-major/rank-minor rows: ``(rows, 1)``.  ``sums``: the per-rank sums
+    ``(R,)`` in place of ``H``'s own (the halo fits' all-reduced ones)."""
+    s = kl_pos_W(H).reshape(-1) if sums is None else sums
     return s.repeat(rows // s.shape[0])[:, None]
 
 
@@ -344,13 +345,29 @@ def _fold_into(acc, G, j0: int, j1: int, kernel, R: int):
         acc += sl
 
 
-def _unfold_h_contract(w2, cots, H, kernel, Tc: int):
+def _full_last(cot, S_in, kernel):
+    """A cotangent of the VALID-trailing reconstruction of ``S_in`` (``(N,
+    prod(S_valid), C)``) zero-padded by ``k - 1`` at both ends of its
+    trailing axis: the full reconstruction's grid, on which the fold
+    relation holds unchanged."""
+    N, C = cot.shape[0], cot.shape[-1]
+    kx = int(kernel[-1])
+    grid = _pad_s_out(S_in[:-1], kernel[:-1]) + (int(S_in[-1]) - kx + 1,)
+    c = cot.reshape((N,) + grid + (C,))
+    return torch.nn.functional.pad(c, (0, 0, kx - 1, kx - 1)).reshape(N, -1, C)
+
+
+def _unfold_h_contract(w2, cots, H, kernel, Tc: int, valid_last: bool = False):
     """The H-side contractions of the cotangents ``cots`` (each ``(N,
     prod(S_out), C)``): per τ-chunk one GEMM ``G = cot @ W2cᵀ``, folded
     (:func:`_fold_into`); ``Tc = K`` is the unrolled form.  Returns one
-    ``(N, R, *S_in)`` tensor per cotangent."""
+    ``(N, R, *S_in)`` tensor per cotangent.  ``valid_last``: the cotangents
+    are of the VALID-trailing reconstruction (:func:`_patch_chunk_fn`'s), the
+    result the contraction with respect to the whole (halo'd) ``H``."""
     N, R = H.shape[:2]
     K = _prod(kernel)
+    if valid_last:
+        cots = [_full_last(c, H.shape[2:], kernel) for c in cots]
     accs = [H.new_zeros((N,) + tuple(H.shape[2:]) + (R,)) for _ in cots]
     for j0 in range(0, K, Tc):
         j1 = min(j0 + Tc, K)
@@ -372,20 +389,27 @@ def _unfold_upd_h(H, w2, cots, kernel, Tc: int, beta, gamma, l1_reg, l2_reg):
     return H * mu_multiplier(neg, pos, H, gamma, l1_reg, l2_reg)
 
 
-def _unfold_upd_w(V, w2, H, kernel, Tc: int, beta, gamma, l1_reg, l2_reg):
+def _unfold_upd_w(V, w2, H, kernel, Tc: int, beta, gamma, l1_reg, l2_reg,
+                  valid_last: bool = False, reduce=None, kl_sums=None):
     """The unfold W update in the ``W2`` layout: the reconstruction, the
     cotangents, then per τ-chunk ``Pcᵀ @ cot`` and the MU multiply of that
     chunk's rows (the numerator never exists whole, as in the JAX package's
     ``_stream_upd_w``).  ``Tc = K``: the unrolled form, one patch matrix
-    serving the reconstruction too."""
+    serving the reconstruction too.
+
+    The halo fits' hooks: ``valid_last`` (:func:`_patch_chunk_fn`'s);
+    ``reduce(neg, pos)`` sums each chunk's raw contractions (``pos`` is
+    ``None`` at β=1) over the ranks in place, before the clamps (the JAX
+    package's ``psum_axis``); ``kl_sums`` the β=1 denominator's per-rank
+    sums ``(R,)`` (:func:`_kl_pos_w_rows`)."""
     R, C = H.shape[1], V.shape[1]
     K = _prod(kernel)
-    patch_chunk = _patch_chunk_fn(H, kernel)
+    patch_chunk = _patch_chunk_fn(H, kernel, valid_last)
     if Tc >= K:
         P = patch_chunk(0, K)
         WH2 = P @ w2
     else:
-        WH2 = _stream_recon(w2, H, kernel)
+        WH2 = _stream_recon(w2, H, kernel, valid_last)
     neg_cot, pos_cot = mu_cotangents(_v2_flat(V), WH2, beta)
     neg_cot = neg_cot.reshape(-1, C)
     pos_cot = None if pos_cot is None else pos_cot.reshape(-1, C)
@@ -393,9 +417,13 @@ def _unfold_upd_w(V, w2, H, kernel, Tc: int, beta, gamma, l1_reg, l2_reg):
     for j0 in range(0, K, Tc):
         j1 = min(j0 + Tc, K)
         Pc = (P if Tc >= K else patch_chunk(j0, j1)).reshape(-1, (j1 - j0) * R)
-        neg = torch.relu(Pc.T @ neg_cot) + eps
-        pos = (_kl_pos_w_rows(H, (j1 - j0) * R) if beta == 1
-               else torch.relu(Pc.T @ pos_cot) + eps)
+        neg = Pc.T @ neg_cot
+        pos = None if beta == 1 else Pc.T @ pos_cot
+        if reduce is not None:
+            reduce(neg, pos)
+        neg = torch.relu(neg) + eps
+        pos = (_kl_pos_w_rows(H, (j1 - j0) * R, kl_sums) if beta == 1
+               else torch.relu(pos) + eps)
         wc = w2[j0 * R:j1 * R]
         outs.append(wc * mu_multiplier(neg, pos, wc, gamma, l1_reg, l2_reg))
     return outs[0] if len(outs) == 1 else torch.cat(outs)

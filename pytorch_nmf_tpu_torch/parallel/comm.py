@@ -9,6 +9,8 @@
   zeros.
 * :meth:`Comm.all_gather` collects every rank's block, once at a fit's
   end, where the halo fits re-split H as DTensor splits it.
+* :meth:`Comm.broadcast_object` gives every rank rank 0's Python object
+  (the halo fits' per-shard mode, which rank 0 alone resolves).
 
 The transport is the process group's backend, named by
 :attr:`Comm.transport`:
@@ -143,6 +145,16 @@ class Comm:
                      for t in tensors]
             for w in works:
                 w.wait()
+
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` (picklable) on every rank of the dimension."""
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=self.peers[0], group=self.group,
+            device=self.device if self.transport == "nccl" else None)
+        return box[0]
 
     def all_gather(self, x) -> list:
         """Every rank's ``x`` (one shape on all ranks), in rank order."""

@@ -1,6 +1,5 @@
 r"""Sequence-parallel deconvolutional NMF and SIPLCA by halo exchange
-(counterpart of :mod:`pytorch_nmf_tpu.parallel.halo`, its fused per-shard
-mode, the JAX package's ``"pallas"``).
+(counterpart of :mod:`pytorch_nmf_tpu.parallel.halo`).
 
 The trailing spatial axis (time, for NMFD) is sharded over a ``seq`` mesh
 dimension.  ``H`` is zero-padded from ``L_in`` to ``L_pad = n · chunk``
@@ -10,38 +9,77 @@ neighbour's last ``T - 1`` frames suffice (padded H entries are MU and EM
 fixed points; at fractional β the padded cells' constant loss is
 subtracted from the cadence loss).
 
-Per rank and iteration: :func:`left_halo` prepends the left neighbour's
-last ``T - 1`` activation frames (one exchange to the right); the
-reconstruction is VALID along the halo'd axis (full along the leading
-spatial axes, which stay local); the two contractions are the kernels:
+Per rank and iteration one halo exchange to the right, shared by both
+updates (the W update reads the old H): :func:`left_halo` prepends the
+left neighbour's last ``T - 1`` activation frames, or :func:`halo_recv`
+returns them alone (the split conv form).  The reconstruction is VALID
+along the halo'd axis and full along the leading spatial axes, which stay
+local.  Every W-side contraction is a partial sum over the rank's chunk:
+it is all-reduced raw, before the ``relu``/``eps`` clamps (the relu of a
+partial sum is not the relu of the sum).  The H-side contraction's first
+``T - 1`` frames belong to the left neighbour: :func:`halo_adjoint` (or
+:func:`halo_adjoint_strip`) sends them back, one exchange to the left per
+contraction.  The per-shard modes (the JAX package's names in brackets):
 
-* the W side is B4 (``wgrad``) with ``lead_pad=False`` on the halo'd
-  activation, its raw sums all-reduced before the clamps (so no β=1
-  epilogue here: it would clamp a partial sum), the neg/pos pair in one
-  call at β ≠ 1;
-* the H side is B3 (``hgrad``) on the cotangent, whose first ``T - 1``
-  frames belong to the left neighbour: :func:`halo_adjoint` sends them
-  back (one exchange to the left per contraction).
+* ``"fused"`` (``"pallas"``): the W side is B4 (``wgrad``) with
+  ``lead_pad=False`` on the halo'd activation, no β=1 epilogue (it would
+  clamp a partial sum), the neg/pos pair in one call at β ≠ 1; the H side
+  B3 (``hgrad``).  2-D/3-D run both kernels in their flat-offset mode
+  (:class:`_Layout`), ``N > 1`` stacks the batches along the flat axis;
+* ``"fused_w"`` (``"pallas_w"``): B4 for the W side as in ``"fused"``, the
+  unfold engine's τ-chunked fold (``torch.matmul`` GEMMs) for the H side:
+  no B3;
+* ``"stream"``: both sides τ-chunked ``torch.matmul`` GEMMs, each chunk's
+  W contractions all-reduced before its clamps (long kernels, ``K·R >
+  4096``);
+* ``"unrolled"``: the reconstruction as one patch GEMM
+  (:func:`_unfold_halo_nd`), both sides by ``torch.autograd.grad``;
+* ``"conv"``: the reconstruction as ``F.convNd`` in the split form
+  (:func:`_conv_halo_split_nd`: the activation at its shard width, the
+  received frames through a strip GEMM; the concat form
+  :func:`_conv_halo_nd` where ``T = 1``), both sides by
+  ``torch.autograd.grad``.
 
-2-D/3-D run both kernels in their flat-offset mode (:class:`_Layout`).
-``N > 1`` stacks the batches along the flat axis.  On CPU tensors the
-kernels' plain versions run instead.
+The library modes (``stream``, ``unrolled``, ``conv``) launch no kernel.
+How a fit picks its mode (:func:`_resolve_halo_mode`, the JAX package's
+rules): ``PNT_NMFD_PALLAS=1`` takes ``"fused"``; on a CUDA float32 mesh
+(the kernel path) ``"fused"``, timed against ``"fused_w"`` above
+``PNT_AUTOTUNE_MIN_FLOPS``; on the CPU or under ``PNT_NMFD_PALLAS=0`` the
+memory heuristic :func:`_halo_unfold_mode` (``PNT_HALO_UNFOLD``,
+``PNT_NMFD_UNFOLD_MAX_BYTES``), with ``"unrolled"`` timed against
+``"conv"`` above the threshold; ``PNT_NMFD_AUTOTUNE=0`` times nothing.
+Rank 0 of the ``seq`` dimension alone resolves (and times, on its own
+local problem without collectives:
+:func:`~..ops.autotune.autotune_halo_mode`) and broadcasts the name, so
+every rank runs the same collectives.
 
-The SIPLCA family differentiates the same reconstruction: a
-``torch.autograd.Function`` whose backward is B3 and B4 in this layout,
-behind :func:`left_halo`, whose backward is :func:`halo_adjoint`.  The W
-and Z gradients are partial sums, all-reduced after ``autograd.grad``.
+The SIPLCA family's EM differentiates the reconstruction behind
+:func:`left_halo`, whose backward is :func:`halo_adjoint`: ``"fused"`` is
+a ``torch.autograd.Function`` whose backward is B3 and B4 in the
+:class:`_Layout` layout (the only mode on the card), ``"unrolled"`` and
+``"conv"`` (concat form) differentiate :func:`_unfold_halo_nd` and
+:func:`_conv_halo_nd`; the EM has no streamed form, so where the
+heuristic says ``"stream"`` it runs ``"conv"``, as the JAX package's
+does.  The W and Z gradients are partial sums,
+all-reduced after ``autograd.grad``.  On CPU tensors the kernels' plain
+versions run in place of B3/B4.
 """
+
+import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..constants import eps
 from ..metrics import beta_div, kl_div
-from ..ops import fused_deconv
-from ..ops.fast_nmfd import (_kl_pos_h_ranks, _prod, _stream_recon, _v2_flat,
-                             _w2, _w_from_w2)
-from ..ops.fused_deconv import _flat_T, nd_geom
+from ..ops import autotune, fused_deconv
+from ..ops.budget import budget_bytes
+from ..ops.fast_nmfd import (_DEFAULT_UNFOLD_MAX_BYTES, _UNFOLD_HBM_FRACTION,
+                             _kl_pos_h_ranks, _patch_chunk_fn, _prod,
+                             _stream_recon, _unfold_h_contract, _unfold_upd_w,
+                             _v2_flat, _w2, _w_from_w2)
+from ..ops.fused_deconv import _CHUNK_COLS, _chunk_tc, _flat_T, nd_geom
 from ..ops.mu import gamma_from_beta, mu_cotangents
 from ..ops.recon import scaled_kernel
 from ..ops.solver import (_converging_loop, _plca_e_step, _plca_m_step,
@@ -53,6 +91,8 @@ from .sharded import (_alpha, _mu_step, _reporter, as_dtensor, mesh_device,
 __all__ = [
     "left_halo",
     "halo_adjoint",
+    "halo_recv",
+    "halo_adjoint_strip",
     "sharded_nmfd_fit",
     "sharded_nmf2d_fit",
     "sharded_nmf3d_fit",
@@ -61,12 +101,23 @@ __all__ = [
     "sharded_siplca3_fit",
 ]
 
+# the per-shard modes of the MU fits and of the SIPLCA family's EM
+MU_MODES = ("fused", "fused_w", "stream", "unrolled", "conv")
+EM_MODES = ("fused", "unrolled", "conv")
+
+
+def _strip_adjoint(gh, gr, halo: int, comm):
+    """``gh`` plus, on its last ``halo`` frames, the ``gr`` that the next
+    rank sends back (the last rank receives zeros); this rank's ``gr`` goes
+    to the previous one."""
+    out = gh.clone()
+    L = out.shape[-1]
+    out[..., L - halo:] += comm.shift_left(gr)
+    return out
+
 
 def _adjoint(g, halo: int, comm):
-    gx = g[..., halo:].clone()
-    L = gx.shape[-1]
-    gx[..., L - halo:] += comm.shift_left(g[..., :halo])
-    return gx
+    return _strip_adjoint(g[..., halo:], g[..., :halo], halo, comm)
 
 
 class _LeftHalo(torch.autograd.Function):
@@ -85,6 +136,22 @@ class _LeftHalo(torch.autograd.Function):
         return _adjoint(g, ctx.halo, ctx.comm), None, None
 
 
+class _HaloRecv(torch.autograd.Function):
+    """The left neighbour's last ``halo`` frames of ``x`` (zeros on rank
+    0); backward :func:`halo_adjoint_strip` with a zero ``gh``."""
+
+    @staticmethod
+    def forward(ctx, x, halo, comm):
+        ctx.halo, ctx.comm, ctx.shape = halo, comm, x.shape
+        return comm.shift_right(x[..., x.shape[-1] - halo:])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return (_strip_adjoint(g.new_zeros(ctx.shape), g, ctx.halo, ctx.comm),
+                None, None)
+
+
 def left_halo(x, halo: int, mesh, axis_name: str):
     """Prepend the last ``halo`` frames of the left neighbour along
     ``axis_name`` to ``x``'s trailing axis (rank 0 receives zeros).
@@ -101,6 +168,28 @@ def halo_adjoint(g, halo: int, mesh, axis_name: str):
     if halo == 0:
         return g
     return _adjoint(g, int(halo), comm_for(mesh, axis_name))
+
+
+def halo_recv(x, halo: int, mesh, axis_name: str):
+    """The frames :func:`left_halo` prepends, without the concatenation:
+    the left neighbour's last ``halo`` frames along ``axis_name`` (zeros on
+    rank 0), for the split conv form, which keeps ``x`` at its shard width.
+    Differentiable: the backward sends the cotangent back as
+    :func:`halo_adjoint_strip` does."""
+    if halo == 0:
+        return x[..., :0]
+    return _HaloRecv.apply(x, int(halo), comm_for(mesh, axis_name))
+
+
+def halo_adjoint_strip(gh, gr, halo: int, mesh, axis_name: str):
+    """Adjoint of the split form's halo path: ``gh`` is the cotangent at the
+    local activation's shard width, ``gr`` that of the received frames
+    (:func:`halo_recv`), which belong to the left neighbour's last ``halo``
+    frames: sent there and added (the last rank receives zeros).  Equal to
+    :func:`halo_adjoint` of ``cat([gr, gh])``."""
+    if halo == 0:
+        return gh
+    return _strip_adjoint(gh, gr, int(halo), comm_for(mesh, axis_name))
 
 
 class _Layout:
@@ -223,6 +312,265 @@ class _HaloDeconv(torch.autograd.Function):
         return dH, dW
 
 
+_CONV = (F.conv1d, F.conv2d, F.conv3d)
+
+
+def _unfold_halo_nd(hh, W, spatial_ndim: int):
+    """The VALID-trailing reconstruction ``(N, C, *lead_out, chunk)`` of
+    the halo'd ``hh (N, R, *lead_in, chunk + T - 1)`` as one patch GEMM
+    (full on the leading axes, VALID on the trailing one:
+    :func:`~..ops.fast_nmfd._patch_chunk_fn`), differentiable."""
+    kernel = tuple(int(k) for k in W.shape[2:])
+    N, C = hh.shape[0], W.shape[0]
+    S_out = tuple(s + k - 1 for s, k in zip(hh.shape[2:-1], kernel[:-1])) + (
+        hh.shape[-1] - kernel[-1] + 1,)
+    P = _patch_chunk_fn(hh, kernel, valid_last=True)(0, _prod(kernel))
+    return (P @ _w2(W)).reshape((N,) + S_out + (C,)).movedim(-1, 1)
+
+
+def _conv_halo_nd(hh, W, spatial_ndim: int):
+    """The same reconstruction as a true convolution: ``F.convNd`` on the
+    flipped kernel, padded ``k - 1`` on each leading axis and not at all on
+    the trailing one."""
+    nd = spatial_ndim
+    pads = tuple(int(k) - 1 for k in W.shape[2:-1]) + (0,)
+    return _CONV[nd - 1](hh, W.flip(tuple(range(2, 2 + nd))), padding=pads)
+
+
+def _conv_halo_split_nd(hp, recv, W, spatial_ndim: int):
+    """Split form of ``_conv_halo_nd(cat([recv, hp]), W)``: the main
+    convolution runs on ``hp`` at its shard width, and the received frames
+    ``recv (N, R, *lead_in, T - 1)`` add their share to the first ``T -
+    1`` output frames through a strip patch GEMM (:func:`_unfold_halo_nd`
+    of ``recv`` right-padded by ``T - 1``).  PyTorch's convolution pads
+    symmetrically, so the trailing axis is padded ``T - 1`` on both sides
+    and the first ``chunk`` outputs are kept (the right pad's ``T - 1``
+    extra outputs are computed and dropped; the activation is not copied).
+    Equal to the concat form within float32 summation order."""
+    nd = spatial_ndim
+    T = int(W.shape[-1])
+    pads = tuple(int(k) - 1 for k in W.shape[2:])
+    out = _CONV[nd - 1](hp, W.flip(tuple(range(2, 2 + nd))), padding=pads)
+    out = out[..., :hp.shape[-1]]
+    if T == 1:
+        return out
+    strip = _unfold_halo_nd(F.pad(recv, (0, T - 1)), W, nd)
+    return torch.cat([out[..., :T - 1] + strip, out[..., T - 1:]], dim=-1)
+
+
+def _halo_unfold_mode(n_batch, lead_shapes, chunk, kernel, R,
+                      device=None) -> str:
+    """The library per-shard mode by the memory heuristic (the JAX
+    package's ``_halo_unfold_mode``): ``"conv"`` under
+    ``PNT_HALO_UNFOLD=0`` or for a one-offset kernel; ``"unrolled"`` for
+    ``K·R ≤ 4096`` whose patch matrix, counted twice (``8·N·Lp·K·R``
+    bytes), fits the unfold budget (``PNT_NMFD_UNFOLD_MAX_BYTES``, else an
+    eighth of a CUDA ``device``'s memory, else 2 GiB); ``"stream"`` above
+    that when one τ-chunk does; ``"conv"`` otherwise."""
+    if os.environ.get("PNT_HALO_UNFOLD", "") == "0":
+        return "conv"
+    K = _prod(kernel)
+    if K < 2:
+        return "conv"
+    Lp = int(chunk)
+    for s, k in zip(lead_shapes, kernel[:-1]):
+        Lp *= int(s) + int(k) - 1
+    max_bytes = budget_bytes("PNT_NMFD_UNFOLD_MAX_BYTES",
+                             _DEFAULT_UNFOLD_MAX_BYTES, _UNFOLD_HBM_FRACTION,
+                             device)
+    if K * R <= _CHUNK_COLS:
+        return "unrolled" if 8 * n_batch * Lp * K * R <= max_bytes else "conv"
+    Tc = _chunk_tc(R, K)
+    return "stream" if 8 * n_batch * Lp * Tc * R <= max_bytes else "conv"
+
+
+class _NoComm:
+    """A ``seq`` dimension of one rank with no process group: nothing is
+    reduced and the halo is zeros.  One rank's work without collectives,
+    which the mode tuner times."""
+
+    size, rank = 1, 0
+
+    def all_reduce(self, *tensors) -> None:
+        pass
+
+    def shift_right(self, x):
+        return torch.zeros_like(x)
+
+    shift_left = shift_right
+
+
+class _MuShard:
+    """One rank's MU iteration of a halo fit in the per-shard ``mode``
+    (see the module docstring) over ``comm``: its target chunk ``Vl (N, C,
+    *lead_out, chunk)``, the kernel extents and the rank ``R``.  The kernel
+    is carried in the model layout ``(C, R, *k)`` by the autograd modes
+    (``unrolled``, ``conv``) and as ``W2 (K·R, C)`` by the others."""
+
+    def __init__(self, mode, Vl, kernel, R, beta, gamma, l1_reg, l2_reg,
+                 comm):
+        self.mode, self.comm = mode, comm
+        self.kernel, self.R, self.nd = tuple(kernel), int(R), len(kernel)
+        self.beta, self.gamma, self.l1, self.l2 = beta, gamma, l1_reg, l2_reg
+        self.halo = self.kernel[-1] - 1
+        self.K = _prod(self.kernel)
+        self.Tc = _chunk_tc(self.R, self.K)
+        self.autograd = mode in ("unrolled", "conv")
+        self.split = mode == "conv" and self.halo > 0
+        lead_in = tuple(s - k + 1 for s, k in zip(Vl.shape[2:-1],
+                                                 self.kernel[:-1]))
+        self.lay = _Layout(Vl.shape[0], self.R, lead_in, Vl.shape[-1],
+                           self.kernel)
+        self.Vl = Vl
+        # the target in the reconstruction's layout
+        self.target = Vl if self.autograd else _v2_flat(Vl)
+        self.sum_axes = (0,) + tuple(range(2, 2 + self.nd))
+
+    def start(self, W):
+        return W if self.autograd else _w2(W)
+
+    def finish(self, w):
+        return w if self.autograd else _w_from_w2(w, self.kernel, self.R)
+
+    def exchange(self, hp):
+        """This iteration's halo: ``recv`` in the split form, else the
+        halo'd activation."""
+        if self.halo == 0:
+            return hp
+        cls = _HaloRecv if self.split else _LeftHalo
+        return cls.apply(hp, self.halo, self.comm)
+
+    def recon(self, w, hp, x):
+        if self.split:
+            return _conv_halo_split_nd(hp, x, w, self.nd)
+        if self.mode == "conv":
+            return _conv_halo_nd(x, w, self.nd)
+        if self.mode == "unrolled":
+            return _unfold_halo_nd(x, w, self.nd)
+        return self.lay.recon(w, x)
+
+    def loss_part(self, w, hp):
+        """This rank's share of the divergence."""
+        return beta_div(self.recon(w, hp, self.exchange(hp)), self.target,
+                        self.beta)
+
+    def step(self, w, hp, update_W=True, update_H=True):
+        x = self.exchange(hp)  # one exchange, shared by both updates
+        if update_W:
+            w = self._upd_w(w, hp, x)
+        if update_H:
+            hp = self._upd_h(w, hp, x)
+        return w, hp
+
+    def _cots(self, WH):
+        return [c for c in mu_cotangents(self.target, WH, self.beta)
+                if c is not None]
+
+    def _grads(self, f, xs):
+        """``torch.autograd.grad`` of ``f(*xs)`` with respect to ``xs``, once
+        per cotangent (neg, then pos at β ≠ 1), on fresh leaves: no graph
+        outlives the call."""
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in xs]
+            out = f(*leaves)
+            cots = self._cots(out.detach())
+            return [torch.autograd.grad(out, leaves, c,
+                                        retain_graph=i + 1 < len(cots))
+                    for i, c in enumerate(cots)]
+
+    def _adjoint(self, g):
+        return g if self.halo == 0 else _adjoint(g, self.halo, self.comm)
+
+    def _upd_w(self, w, hp, x):
+        beta = self.beta
+        # β=1: the analytic denominator, H's per-rank sums over every rank
+        kl = torch.sum(hp, dim=self.sum_axes) if beta == 1 else None
+        if self.mode == "stream":
+            # each τ-chunk's raw contractions all-reduced before its clamps
+            self.comm.all_reduce(kl)
+            return _unfold_upd_w(self.Vl, w, x, self.kernel, self.Tc, beta,
+                                 self.gamma, self.l1, self.l2,
+                                 valid_last=True,
+                                 reduce=self.comm.all_reduce, kl_sums=kl)
+        if self.autograd:
+            outs = [g[0] for g in self._grads(
+                lambda ww: self.recon(ww, hp, x), [w])]
+        else:  # B4, the neg/pos pair in one call
+            outs = self.lay.wgrad(self._cots(self.lay.recon(w, x)), x)
+        neg, pos = outs[0], (kl if beta == 1 else outs[1])
+        self.comm.all_reduce(neg, pos)  # the raw sums, before the clamps
+        if beta != 1:
+            pos = torch.relu(pos) + eps
+        elif self.autograd:
+            pos = pos.reshape((1, -1) + (1,) * self.nd)
+        else:
+            pos = pos.repeat(self.K)[:, None]
+        return _mu_step(w, neg, pos, self.gamma, self.l1, self.l2)
+
+    def _upd_h(self, w, hp, x):
+        if self.split:
+            grads = [_strip_adjoint(gh, gr, self.halo, self.comm)
+                     for gh, gr in self._grads(
+                         lambda h, r: self.recon(w, h, r), [hp, x])]
+        elif self.autograd:
+            grads = [self._adjoint(g[0]) for g in self._grads(
+                lambda hh: self.recon(w, None, hh), [x])]
+        else:
+            cots = self._cots(self.lay.recon(w, x))
+            if self.mode == "fused":
+                raw = [self.lay.hgrad(c, w) for c in cots]
+            else:  # the τ-chunked fold onto the halo'd width
+                raw = _unfold_h_contract(w, cots, x, self.kernel, self.Tc,
+                                         valid_last=True)
+            grads = [self._adjoint(g) for g in raw]
+        if self.beta == 1:
+            s = (torch.sum(w, dim=self.sum_axes) if self.autograd
+                 else _kl_pos_h_ranks(w, self.R))
+            pos = s.reshape((1, self.R) + (1,) * self.nd)
+        else:
+            pos = torch.relu(grads[1]) + eps
+        return _mu_step(hp, grads[0], pos, self.gamma, self.l1, self.l2)
+
+
+def _local_run(mode, Vl, W, hp, beta: float):
+    """``run(n)``: ``n`` iterations of one rank's MU step in ``mode`` on its
+    local problem, without collectives (:class:`_NoComm`): what the mode
+    tuner times."""
+    shard = _MuShard(mode, Vl, tuple(int(k) for k in W.shape[2:]),
+                     W.shape[1], float(beta), gamma_from_beta(beta), 0.0, 0.0,
+                     _NoComm())
+    w0 = shard.start(W)
+
+    @torch.no_grad()
+    def run(n):
+        w, h = w0, hp
+        for _ in range(n):
+            w, h = shard.step(w, h)
+        return h
+
+    return run
+
+
+def _resolve_halo_mode(mode, em, N, C, lead_in, chunk, kernel, R, beta,
+                       comm, device):
+    """The per-shard mode of a halo fit: ``mode`` when it is given (one of
+    :data:`MU_MODES`, or :data:`EM_MODES` for the EM fits, ``em``), else
+    rank 0's resolution (:func:`~..ops.autotune.autotune_halo_mode` on the
+    heuristic :func:`_halo_unfold_mode`), broadcast over ``comm``.  The EM
+    has no streamed form: as in the JAX package, every resolved mode but
+    ``"fused"`` and ``"unrolled"`` runs as ``"conv"`` there."""
+    modes = EM_MODES if em else MU_MODES
+    if mode is not None:
+        if mode not in modes:
+            raise ValueError(f"per-shard mode {mode!r}: one of {modes}")
+        return mode
+    heuristic = _halo_unfold_mode(N, lead_in, chunk, kernel, R, device)
+    mode = autotune.autotune_halo_mode(
+        N, C, lead_in, chunk, kernel, R, beta, heuristic, not em,
+        device=device, comm=comm)
+    return mode if not em or mode in EM_MODES else "conv"
+
+
 def _halo_split(V, W, H, mesh, spatial_ndim, seq_axis):
     """Checks the shapes, pads and splits the trailing axis: ``(comm, dev,
     Vl, W, Hl, chunk, L_in, pad_v)`` with this rank's chunks of the padded
@@ -274,18 +622,20 @@ def _h_out(hp, comm, mesh, seq_axis, L_in, shape):
     return as_dtensor(local, mesh, pls, shape)
 
 
-def _sharded_deconv_fit(V, W, H, mesh, spatial_ndim, beta, tol, max_iter,
-                        l1_reg, l2_reg, seq_axis, update_W=True, update_H=True,
-                        verbose=False):
+def _sharded_deconv_fit(V, W, H, mesh, spatial_ndim, beta=1, tol=1e-4,
+                        max_iter=200, l1_reg=0.0, l2_reg=0.0, seq_axis="seq",
+                        update_W=True, update_H=True, verbose=False,
+                        mode=None):
+    """The MU halo fits; ``mode`` forces a per-shard mode (:data:`MU_MODES`),
+    ``None`` resolves it (:func:`_resolve_halo_mode`)."""
     beta, tol, max_iter = float(beta), float(tol), int(max_iter)
     l1_reg, l2_reg = float(l1_reg), float(l2_reg)
     gamma = gamma_from_beta(beta)
     h_shape = tuple(H.shape)
-    comm, _, Vl, W, hp, chunk, L_in, pad_v = _halo_split(
+    comm, dev, Vl, W, hp, chunk, L_in, pad_v = _halo_split(
         V, W, H, mesh, spatial_ndim, seq_axis)
     kernel = tuple(int(k) for k in W.shape[2:])
     N, R = Vl.shape[0], W.shape[1]
-    halo = kernel[-1] - 1
     # the padded cells' constant divergence (zero for β ∈ {1, 2}), taken
     # off the cadence loss so it is the unpadded problem's
     loss_offset = 0.0
@@ -294,49 +644,24 @@ def _sharded_deconv_fit(V, W, H, mesh, spatial_ndim, beta, tol, max_iter,
         loss_offset = per_cell * pad_v * int(np.prod(V.shape[:-1]))
         if not np.isfinite(loss_offset):
             loss_offset = 0.0
-    lay = _Layout(N, R, tuple(hp.shape[2:-1]), chunk, kernel)
-    V2 = _v2_flat(Vl)
-    K = _prod(kernel)
-    sum_axes = tuple(d for d in range(hp.ndim) if d != 1)
-
-    def hh_of(hp):
-        return left_halo(hp, halo, mesh, seq_axis)
+    mode = _resolve_halo_mode(mode, False, N, Vl.shape[1],
+                              tuple(hp.shape[2:-1]), chunk, kernel, R, beta,
+                              comm, dev)
+    shard = _MuShard(mode, Vl, kernel, R, beta, gamma, l1_reg, l2_reg, comm)
 
     def loss_of(state):
-        w2, hp = state
-        part = beta_div(lay.recon(w2, hh_of(hp)), V2, beta).reshape(1)
+        part = shard.loss_part(*state).reshape(1)
         comm.all_reduce(part)
         return torch.sqrt(2.0 * torch.clamp(part[0] - loss_offset, min=0.0))
 
     def one_iter(state):
-        w2, hp = state
-        hh = hh_of(hp)  # one exchange, shared by both updates
-        if update_W:
-            neg_cot, pos_cot = mu_cotangents(V2, lay.recon(w2, hh), beta)
-            if beta == 1:
-                neg = lay.wgrad([neg_cot], hh)[0]
-                pos = torch.sum(hp, dim=sum_axes)
-            else:
-                neg, pos = lay.wgrad([neg_cot, pos_cot], hh)
-            comm.all_reduce(neg, pos)  # the raw sums, before the clamps
-            pos = (pos.repeat(K)[:, None] if beta == 1
-                   else torch.relu(pos) + eps)
-            w2 = _mu_step(w2, neg, pos, gamma, l1_reg, l2_reg)
-        if update_H:
-            neg_cot, pos_cot = mu_cotangents(V2, lay.recon(w2, hh), beta)
-            neg = halo_adjoint(lay.hgrad(neg_cot, w2), halo, mesh, seq_axis)
-            if beta == 1:
-                pos = _kl_pos_h_ranks(w2, R).reshape((1, R) + (1,) * len(kernel))
-            else:
-                pos = torch.relu(halo_adjoint(lay.hgrad(pos_cot, w2), halo,
-                                              mesh, seq_axis)) + eps
-            hp = _mu_step(hp, neg, pos, gamma, l1_reg, l2_reg)
-        return w2, hp
+        return shard.step(*state, update_W, update_H)
 
     with torch.no_grad(), _reporter(mesh, verbose, max_iter) as report:
-        (w2, hp), k, conv = _converging_loop(one_iter, loss_of, (_w2(W), hp),
-                                             tol, max_iter, report)
-        W_out = _w_from_w2(w2, kernel, R)
+        (w, hp), k, conv = _converging_loop(one_iter, loss_of,
+                                            (shard.start(W), hp), tol,
+                                            max_iter, report)
+        W_out = shard.finish(w)
         H_out = _h_out(hp, comm, mesh, seq_axis, L_in, h_shape)
     return (as_dtensor(W_out, mesh, placements(mesh, {}), tuple(W_out.shape)),
             H_out, k * 10 if conv else max_iter)
@@ -383,9 +708,12 @@ def sharded_nmf3d_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
                                l2_reg, seq_axis, update_W, update_H, verbose)
 
 
-def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol, max_iter,
-                        W_alpha, H_alpha, Z_alpha, update_W, update_H,
-                        update_Z, seq_axis, verbose=False):
+def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol=1e-4,
+                        max_iter=200, W_alpha=1.0, H_alpha=1.0, Z_alpha=1.0,
+                        update_W=True, update_H=True, update_Z=True,
+                        seq_axis="seq", verbose=False, mode=None):
+    """The EM halo fits; ``mode`` forces a per-shard mode (:data:`EM_MODES`),
+    ``None`` resolves it (:func:`_resolve_halo_mode`)."""
     tol, max_iter = float(tol), int(max_iter)
     Wa, Ha, Za = (alpha_is_active(a) for a in (W_alpha, H_alpha, Z_alpha))
     h_shape = tuple(H.shape)
@@ -395,8 +723,16 @@ def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol, max_iter,
     W_alpha, H_alpha, Z_alpha = (_alpha(a, dev)
                                  for a in (W_alpha, H_alpha, Z_alpha))
     nd = spatial_ndim
-    halo = W.shape[-1] - 1
+    kernel = tuple(int(k) for k in W.shape[2:])
+    halo = kernel[-1] - 1
     n_pad_h = chunk * comm.size - L_in
+    # the EM E-step's cotangents are KL-shaped: the modes are timed at β=1
+    mode = _resolve_halo_mode(mode, True, Vl.shape[0], Vl.shape[1],
+                              tuple(hp.shape[2:-1]), chunk, kernel,
+                              W.shape[1], 1.0, comm, dev)
+    recon_hh = {"fused": _HaloDeconv.apply,
+                "unrolled": lambda hh, Wz: _unfold_halo_nd(hh, Wz, nd),
+                "conv": lambda hh, Wz: _conv_halo_nd(hh, Wz, nd)}[mode]
     # the padded H positions must stay exactly zero through the prior's
     # h + (alpha - 1)
     h_mask = None
@@ -411,8 +747,8 @@ def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol, max_iter,
         return x
 
     def recon3(hp, w, z):
-        return _HaloDeconv.apply(left_halo(hp, halo, mesh, seq_axis),
-                                 scaled_kernel(w, z, nd))
+        return recon_hh(left_halo(hp, halo, mesh, seq_axis),
+                        scaled_kernel(w, z, nd))
 
     def h_marginal(h):
         return summed(_plca_marginal_sum(h))
@@ -443,8 +779,8 @@ def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol, max_iter,
 
         def one_iter(state):
             w, hp, z = state
-            # B3/B4 behind autograd; the halo cotangent goes back through
-            # left_halo's backward, the W and Z gradients are partial sums
+            # the halo cotangent goes back through left_halo's backward,
+            # the W and Z gradients are partial sums
             gH, gW, gZ = _plca_e_step(recon3, Vn, w, hp, z)
             comm.all_reduce(gW if update_W else None,
                             gZ if update_Z else None)

@@ -12,7 +12,12 @@ mesh of fewer ranks than the world leaves the others idle for that case;
 ``device``, ``"cpu"`` unless ``"cuda"``: the ranks then share card 0),
 the fit (``kind``) and its keyword arguments; the factors come back whole
 (``DTensor.full_tensor``), with ``n_iter``, the kernels' launches and
-any counts, on every rank of the mesh.  The port only: nothing here imports JAX.
+any counts, on every rank of the mesh.  A halo fit's case may force its
+per-shard ``mode`` (through the private fits' ``mode`` argument), set
+environment variables (``env``, and ``rank_env`` per rank) and fix what
+the mode tuner's timing returns on each rank (``prefer``); the mode each
+rank ran comes back as ``mode``, with the tuner's calls on that rank.
+The port only: nothing here imports JAX.
 """
 
 import json
@@ -69,10 +74,12 @@ def run_group(workdir, world: int, cases, arrays, timeout: float = 240.0):
 # --------------------------------------------------------------------------
 def _spies(fused_mu, fused_deconv):
     """Wrap B1 and B4's wrappers to record whether a call ran the β=1
-    epilogue, and on which side; returns the record."""
+    epilogue, and on which side, and B3's to count its calls; returns the
+    record."""
     seen = {"b1_w": 0, "b1_h": 0, "b1_w_epilogue": 0, "b1_h_epilogue": 0,
-            "b4": 0, "b4_epilogue": 0}
-    b1, b4 = fused_mu.fused_contractions, fused_deconv.wgrad
+            "b3": 0, "b4": 0, "b4_epilogue": 0}
+    b1, b3, b4 = (fused_mu.fused_contractions, fused_deconv.hgrad,
+                  fused_deconv.wgrad)
 
     def spy_b1(V, H, W, *, w_side, mu_pos=None, **kw):
         side = "b1_w" if w_side else "b1_h"
@@ -85,22 +92,54 @@ def _spies(fused_mu, fused_deconv):
         seen["b4_epilogue"] += mu_w2 is not None
         return b4(cots, H2, R, T, mu_w2, mu_pos, **kw)
 
+    def spy_b3(*args, **kw):
+        seen["b3"] += 1
+        return b3(*args, **kw)
+
     fused_mu.fused_contractions = spy_b1
+    fused_deconv.hgrad = spy_b3
     fused_deconv.wgrad = spy_b4
     return seen, lambda: (setattr(fused_mu, "fused_contractions", b1),
+                          setattr(fused_deconv, "hgrad", b3),
                           setattr(fused_deconv, "wgrad", b4))
+
+
+def _watch_modes(case, rank, halo, autotune):
+    """Record the per-shard mode each fit of the case resolved and the
+    tuner's calls on this rank; under ``prefer`` the tuner returns this
+    rank's preferred mode untimed.  Returns ``(record, undo)``."""
+    seen = {"modes": [], "tune_calls": 0}
+    resolve, tune = halo._resolve_halo_mode, autotune._tune
+    prefer = case.get("prefer", {}).get(str(rank))
+
+    def spy_resolve(*args, **kw):
+        mode = resolve(*args, **kw)
+        seen["modes"].append(mode)
+        return mode
+
+    def fake_tune(key, cands, make_run, device):
+        seen["tune_calls"] += 1
+        assert prefer in dict(cands), (prefer, cands)
+        return prefer
+
+    halo._resolve_halo_mode = spy_resolve
+    if prefer is not None:
+        autotune._tune = fake_tune
+    return seen, lambda: (setattr(halo, "_resolve_halo_mode", resolve),
+                          setattr(autotune, "_tune", tune))
 
 
 def _run_case(case, arrays, mesh, cpu_mesh):
     import torch
     import torch.distributed as dist
 
-    from pytorch_nmf_tpu_torch.ops import fused_deconv, fused_mu
+    from pytorch_nmf_tpu_torch.ops import autotune, fused_deconv, fused_mu
     from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense
     from pytorch_nmf_tpu_torch import parallel as par
     from pytorch_nmf_tpu_torch.parallel import halo
 
     kind, kw = case["kind"], dict(case.get("kw", {}))
+    mode = case.get("mode")
 
     def a(key):
         return arrays[f"{case['name']}:{key}"]
@@ -119,6 +158,13 @@ def _run_case(case, arrays, mesh, cpu_mesh):
     spy = None
     if case.get("spy"):
         spy, undo = _spies(fused_mu, fused_deconv)
+    rank = dist.get_rank()
+    env = dict(case.get("env", {}), **case.get("rank_env", {}).get(str(rank),
+                                                                   {}))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    autotune.clear_cache()
+    watch, unwatch = _watch_modes(case, rank, halo, autotune)
     wrappers = (fused_mu.fused_contractions, fused_mu.fused_beta_loss,
                 fused_deconv.hgrad, fused_deconv.wgrad)
     before = [getattr(w, "launches", 0) for w in wrappers]
@@ -134,20 +180,32 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             V = sparse_from_dense(a("V"))
             W, H, n = par.sharded_sparse_nmf_fit(V, a("W"), a("H"), mesh, **kw)
             out.update(W=full(W), H=full(H), n_iter=n)
+        elif kind == "deconv" and mode is not None:
+            W, H, n = halo._sharded_deconv_fit(
+                a("V"), a("W"), a("H"), mesh, case["nd"], mode=mode, **kw)
+            out.update(W=full(W), H=full(H), n_iter=n)
         elif kind == "deconv":
             fit = {1: par.sharded_nmfd_fit, 2: par.sharded_nmf2d_fit,
                    3: par.sharded_nmf3d_fit}[case["nd"]]
             W, H, n = fit(a("V"), a("W"), a("H"), mesh, **kw)
             out.update(W=full(W), H=full(H), n_iter=n)
         elif kind == "siplca":
-            fit = {1: par.sharded_siplca_fit, 2: par.sharded_siplca2_fit,
-                   3: par.sharded_siplca3_fit}[case["nd"]]
-            W, H, Z, n, norm = fit(a("V"), a("W"), a("H"), a("Z"), mesh, **kw)
+            if mode is not None:
+                W, H, Z, n, norm = halo._sharded_siplca_fit(
+                    a("V"), a("W"), a("H"), a("Z"), mesh, case["nd"],
+                    mode=mode, **kw)
+            else:
+                fit = {1: par.sharded_siplca_fit, 2: par.sharded_siplca2_fit,
+                       3: par.sharded_siplca3_fit}[case["nd"]]
+                W, H, Z, n, norm = fit(a("V"), a("W"), a("H"), a("Z"), mesh,
+                                       **kw)
             out.update(W=full(W), H=full(H), Z=full(Z), n_iter=n, norm=norm)
         elif kind == "single":
             out.update(_single(case, a, kw, case.get("device", "cpu")))
         elif kind == "halo_ops":
             out.update(_halo_ops(a, mesh, halo, par, torch, dist))
+        elif kind == "halo_strip_ops":
+            out.update(_halo_strip_ops(a, mesh, halo, par, torch))
         elif kind == "mesh_error":
             try:
                 par.make_mesh({"data": dist.get_world_size() + 1}, "cpu")
@@ -156,10 +214,18 @@ def _run_case(case, arrays, mesh, cpu_mesh):
         else:
             raise ValueError(f"unknown case kind {kind!r}")
     finally:
+        unwatch()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         if spy is not None:
             undo()
     if spy is not None:
         out.update({k: v for k, v in spy.items()})
+    if watch["modes"]:
+        out.update(mode=watch["modes"][-1], tune_calls=watch["tune_calls"])
     # the kernels' launches (none on CPU tensors: the plain versions run)
     out["launches"] = [getattr(w, "launches", 0) - b
                        for w, b in zip(wrappers, before)]
@@ -208,6 +274,34 @@ def _halo_ops(a, mesh, halo, par, torch, dist):
     return {"left": torch.cat(comm.all_gather(y.detach()), -1).numpy(),
             "adjoint": torch.cat(comm.all_gather(adj), -1).numpy(),
             "autograd": torch.cat(comm.all_gather(ag), -1).numpy(),
+            "inner": ip.numpy()}
+
+
+def _halo_strip_ops(a, mesh, halo, par, torch):
+    """``halo_recv`` of the rank's chunk of ``x`` and ``halo_adjoint_strip``
+    of its chunks of ``gh`` and ``gr``; the autograd adjoint of
+    ``halo_recv`` (with a zero ``gh``); the inner products ⟨recv, gr⟩ and
+    ⟨x, strip(0, gr)⟩ summed over the ranks."""
+    comm = par.comm.comm_for(mesh, "seq")
+    hw = int(a("halo"))
+
+    def chunk(key, width):
+        v = torch.from_numpy(a(key))
+        return v[..., comm.rank * width:(comm.rank + 1) * width].contiguous()
+
+    L = a("x").shape[-1] // comm.size
+    xl, gh, gr = chunk("x", L), chunk("gh", L), chunk("gr", hw)
+    xr = xl.clone().requires_grad_(True)
+    recv = halo.halo_recv(xr, hw, mesh, "seq")
+    (ag,) = torch.autograd.grad(recv, xr, gr)
+    strip = halo.halo_adjoint_strip(gh, gr, hw, mesh, "seq")
+    adj0 = halo.halo_adjoint_strip(torch.zeros_like(gh), gr, hw, mesh, "seq")
+    ip = torch.stack([torch.sum(recv.detach() * gr), torch.sum(xl * adj0)])
+    comm.all_reduce(ip)
+    return {"recv": torch.cat(comm.all_gather(recv.detach()), -1).numpy(),
+            "strip": torch.cat(comm.all_gather(strip), -1).numpy(),
+            "autograd": torch.cat(comm.all_gather(ag), -1).numpy(),
+            "adjoint0": torch.cat(comm.all_gather(adj0), -1).numpy(),
             "inner": ip.numpy()}
 
 

@@ -3,8 +3,12 @@
 the JAX package's, on identical numpy inputs and starts.
 
 The port runs in 2 gloo rank processes on the CPU (``_torch_parallel_child``,
-one group for the whole file, from a module-scoped fixture), where B3/B4's
-plain versions stand in for the kernels.  The JAX side runs here on a
+one group for the whole file, from a module-scoped fixture), every halo
+fit in a kernel mode forced through the private fits' ``mode`` (``fused``,
+the card's default, unless a case names ``fused_w``), where B3/B4's plain
+versions stand in for the kernels; the library modes, which the fits
+choose on the CPU, are held to JAX's in ``test_torch_halo_modes.py``.
+The JAX side runs here on a
 2-device sub-mesh of the 8 virtual CPU devices, in its kernel mode (the
 Pallas kernels in interpret mode, ``PNT_PALLAS_INTERPRET=1
 PNT_NMFD_PALLAS=1``) and in its default per-shard mode.  Tolerance: 1e-5
@@ -47,6 +51,8 @@ def _cases():
 
     def add(name, kind, inputs, axes=None, **extra):
         kw = extra.pop("kw")
+        if kind in ("deconv", "siplca"):
+            extra.setdefault("mode", "fused")
         cases[name] = (dict({"name": name, "kind": kind,
                              "axes": axes or {"seq": 2}, "kw": kw}, **extra),
                        inputs)
@@ -91,12 +97,16 @@ def _cases():
     add("siplca3", "siplca", _siplca_problem(35, 1, 4, 2, (4, 5, 18),
                                              (2, 2, 3)),
         nd=3, kw=dict(tol=0, max_iter=ITERS, Z_alpha=1.05))
-    # the all-reduced W side never runs B4's β=1 epilogue
-    add("spy_nmfd", "deconv", _deconv_problem(13, 1, 6, 3, (64,), (5,)),
-        nd=1, spy=True, kw=dict(beta=1, tol=0, max_iter=3))
-    add("spy_nmf2d_n2", "deconv", _deconv_problem(14, 2, 4, 3, (5, 24),
-                                                  (2, 3)),
-        nd=2, spy=True, kw=dict(beta=1, tol=0, max_iter=3))
+    # the all-reduced W side never runs B4's β=1 epilogue, in either mode
+    # that runs B4
+    for mode in ("fused", "fused_w"):
+        sfx = "" if mode == "fused" else "_fused_w"
+        add("spy_nmfd" + sfx, "deconv",
+            _deconv_problem(13, 1, 6, 3, (64,), (5,)), nd=1, spy=True,
+            mode=mode, kw=dict(beta=1, tol=0, max_iter=3))
+        add("spy_nmf2d_n2" + sfx, "deconv",
+            _deconv_problem(14, 2, 4, 3, (5, 24), (2, 3)), nd=2, spy=True,
+            mode=mode, kw=dict(beta=1, tol=0, max_iter=3))
     rs = np.random.RandomState(40)
     add("halo_ops", "halo_ops", {
         "x": rs.rand(2, 3, 2 * 9).astype("f"),
@@ -136,6 +146,9 @@ def port(tmp_path_factory):
 
 def _got(port, name):
     out = port[0][name]
+    mode = CASES[name][0].get("mode") if name in CASES else None
+    if mode is not None:
+        assert str(out["mode"]) == mode
     for k, v in out.items():
         np.testing.assert_array_equal(port[1][name][k], v, err_msg=k)
     return out
@@ -242,8 +255,9 @@ def test_halo_nd_matches_jax_kernels(jx, port, monkeypatch, name):
                                   "siplca_n2", "siplca2", "siplca3"])
 def test_halo_siplca_matches_jax(jx, port, monkeypatch, name):
     """The SIPLCA family's EM (JAX runs its library per-shard engine; the
-    port differentiates B3/B4's plain versions behind ``left_halo``), with
-    the priors over padded H and the raw-loop-index ``n_iter``."""
+    port its ``fused`` mode, B3/B4's plain versions differentiated behind
+    ``left_halo``), with the priors over padded H and the raw-loop-index
+    ``n_iter``."""
     got = _got(port, name)
     W, H, Z, n, norm = _jax_fit(name, False, monkeypatch)
     assert int(got["n_iter"]) == int(n)
@@ -254,14 +268,19 @@ def test_halo_siplca_matches_jax(jx, port, monkeypatch, name):
         _close(got[key], ref, what=key)
 
 
-@pytest.mark.parametrize("name", ["spy_nmfd", "spy_nmf2d_n2"])
+@pytest.mark.parametrize("name", ["spy_nmfd", "spy_nmf2d_n2",
+                                  "spy_nmfd_fused_w", "spy_nmf2d_n2_fused_w"])
 def test_all_reduced_w_side_runs_no_epilogue(port, name):
     """B4's β=1 epilogue clamps and multiplies inside the kernel: on a
     rank's partial sum it would clamp before the all-reduce.  The halo fit
-    calls B4 once an iteration for the raw sums, never with ``mu_w2``."""
+    calls B4 once an iteration for the raw sums, never with ``mu_w2``, in
+    the kernel mode (with B3 once an iteration) and in ``fused_w`` (no
+    B3)."""
     got = _got(port, name)
+    assert str(got["mode"]) == CASES[name][0]["mode"]
     assert int(got["b4"]) == 3
     assert int(got["b4_epilogue"]) == 0
+    assert int(got["b3"]) == (0 if name.endswith("fused_w") else 3)
     assert int(got["b1_w"]) == int(got["b1_h"]) == 0
 
 

@@ -45,7 +45,8 @@ def test_public_names_match_the_jax_package():
     assert set(profiling.__all__) == {"trace", "annotate",
                                       "device_memory_stats"}
     for name in ("clear_cache", "autotune_winner", "resolve_deconv_factory",
-                 "resolve_plca_recon3", "resolve_hoyer_recon2"):
+                 "resolve_plca_recon3", "resolve_hoyer_recon2",
+                 "autotune_halo_mode"):
         assert callable(getattr(autotune, name))
     assert callable(solver.push_progress_handler)
     assert callable(solver.pop_progress_handler)
@@ -67,9 +68,7 @@ def test_importing_every_module_leaves_jax_out():
 # the JAX package's ``parallel`` names (``pytorch_nmf_tpu/parallel``), and
 # those the port leaves out: ``sharded.nmf_updater_factory_sharded``
 # exists for the GSPMD auto-routing of ``NMF.fit`` on a sharded target,
-# which has no torch counterpart (ROADMAP A15 "Removal"); ``halo.halo_recv``
-# and ``halo.halo_adjoint_strip`` serve only the streamed and unrolled
-# per-shard modes, which come with them (ROADMAP A15.5)
+# which has no torch counterpart (ROADMAP A15 "Removal")
 JAX_PARALLEL = {
     "": {"distributed", "left_halo", "make_hybrid_mesh", "make_mesh",
          "shard_target", "sharded_nmf2d_fit", "sharded_nmf3d_fit",
@@ -86,8 +85,7 @@ JAX_PARALLEL = {
              "sharded_siplca_fit", "sharded_siplca2_fit",
              "sharded_siplca3_fit"},
 }
-NOT_PORTED = {"sharded": {"nmf_updater_factory_sharded"},
-              "halo": {"halo_recv", "halo_adjoint_strip"}}
+NOT_PORTED = {"sharded": {"nmf_updater_factory_sharded"}}
 
 
 def test_parallel_names_match_the_jax_package():

@@ -292,9 +292,7 @@ def test_initialize_without_arguments_stays_single_process(monkeypatch):
 def test_exports_match_jax(jx):
     """The port's ``parallel`` exports the JAX package's names; its
     ``sharded`` module lacks ``nmf_updater_factory_sharded``, which exists
-    for the GSPMD auto-routing the port has no counterpart of, and its
-    ``halo`` module ``halo_recv``/``halo_adjoint_strip``, which serve only
-    the per-shard modes still to be ported."""
+    for the GSPMD auto-routing the port has no counterpart of."""
     import pytorch_nmf_tpu.parallel as jp
 
     import pytorch_nmf_tpu_torch.parallel as tp
@@ -304,8 +302,8 @@ def test_exports_match_jax(jx):
     assert set(tp.__all__) == jax_names
     for mod in ("halo", "mesh", "distributed", "sharded_sparse", "sharded"):
         j, t = getattr(jp, mod), getattr(tp, mod)
-        deferred = {"sharded": {"nmf_updater_factory_sharded"},
-                    "halo": {"halo_recv", "halo_adjoint_strip"}}.get(mod, set())
+        deferred = {"sharded": {"nmf_updater_factory_sharded"}}.get(mod,
+                                                                     set())
         assert set(t.__all__) == set(j.__all__) - deferred, mod
 
 
