@@ -42,6 +42,18 @@ Drives the port's paths at full width, each in phases:
 * ``checkpointed_fit``: NMF 5168×1025 β=0.5 in two sessions of 50
   iterations, and the NMFD flagship at β=1 in segments of 10 (one B3 and
   one B4 an iteration), each equal to the uninterrupted fit;
+* bfloat16 targets (a capacity knob: V held at half width on the card,
+  factors and arithmetic float32): B1 (both sides, β=1 with and without
+  the epilogue, β=0.5) and B2 (β=0.5) reading a bfloat16 V at 5168×1025
+  R=88 against their plain versions, and timed beside the float32 kernels;
+  ``NMF.fit`` with a bfloat16 host V at β ∈ {1, 0.5, 2} within 1e-4 of the
+  float32 fit on the rounded V, with its ``n_iter`` and exactly its B1/B2
+  launches, every one the bfloat16 instance's; ``nmf_fit``; the peak device
+  memory of a β=1 fit at 65536×4097 R=64 from a host V, bfloat16 at most
+  0.6 of float32's; ``streaming_nmf_fit`` with a bfloat16 host V (5168×1025
+  against the in-memory fit, and 65536×4096 in 0.5 GiB beside the float32
+  run's rate); the NMFD flagship at β=1 and dense PLCA against their
+  float32 fits on the rounded (PLCA: normalized) V;
 * the autotuner (``PNT_NMFD_AUTOTUNE=1``; the earlier paths run at ``=0``,
   the static engine whose launches they count): the NMFD flagship at β ∈
   {1, 2}, its rank-8 row at β=2, the NMF2D row at β=1, the SIPLCA row's EM
@@ -118,7 +130,9 @@ Drives the port's paths at full width, each in phases:
 
 Any failure raises (exit code ≠ 0).  The second-to-last line of standard
 output is a JSON summary of the kernels (``launches`` summed over the
-paths, ``launches_by_path`` per path) and the fit times, the last line
+paths, ``launches_by_path`` per path; B1/B2's bfloat16-V instances as
+``fused_contractions_bf16`` and ``fused_beta_loss_bf16``, with their
+launches in the bfloat16 fits) and the fit times, the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products and
 convolutions run in full float32 (TF32 off), so the plain versions and the
 library calls are true f32 too.  Needs one CUDA device; exits with an error
@@ -222,6 +236,16 @@ SOURCES = {
     "hgrad": "pytorch_nmf_tpu_torch/csrc/fused_deconv.cu",
     "wgrad": "pytorch_nmf_tpu_torch/csrc/fused_deconv.cu",
 }
+# B1/B2's bfloat16-V instances (one template of csrc/fused_mu.cu), the
+# JAX kernels they stand for taking V in any float dtype
+BF16_KERNELS = {"fused_contractions_bf16": "fused_contractions",
+                "fused_beta_loss_bf16": "fused_beta_loss"}
+BF16_BETAS = (1, 0.5, 2)
+# 4097 columns: rows padded to 4100 floats or 4104 bfloat16 values; V is
+# 1.07 GB in float32, 0.54 GB in bfloat16
+BF16_CAPACITY = (65536, 4097, 64)
+BF16_CAPACITY_ITERS = 10
+BF16_PEAK_RATIO = 0.6
 
 
 def check(cond, msg):
@@ -1642,6 +1666,372 @@ def copy_overlap(run):
     return shared / total
 
 
+# --------------------------------------------------------------------------
+# bfloat16 target storage: B1/B2 reading a half-width V, and the fits that
+# keep V at half width on the card
+# --------------------------------------------------------------------------
+def bf16_kernels(fm, kl_pos_W, kl_pos_H, card):
+    """B1 (both sides; β=1 with and without the epilogue, β=0.5 with its
+    denominator) and B2 (β=0.5) reading a bfloat16 V at MAIN_SHAPE, each
+    against its plain version (V upcast, exactly) within RTOL per element;
+    then the β=0.5 iteration's B1 pair and B2 timed on the bfloat16 V beside
+    the float32 kernels on its float32 upcast, in turns (f32, bf16, bf16,
+    f32).  Returns the two bfloat16 entries' stats (:func:`new_stats`)."""
+    M, K, R = MAIN_SHAPE
+    V, W, H = inputs(M, K, R)
+    # rows padded to 16 bytes, as target_like copies a target to the card
+    Vb = fm.aligned_copy(V, V.device, torch.bfloat16)
+    Vf = fm.aligned_copy(Vb, V.device, torch.float32)
+    check(Vb.dtype == torch.bfloat16 and Vb.stride(0) == K + -K % 8,
+          f"bf16 V: dtype {Vb.dtype}, row stride {Vb.stride(0)}")
+    stats = {name: new_stats() for name in BF16_KERNELS}
+
+    def record(name, got, ref):
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and got.is_cuda
+              and got.dtype == torch.float32, f"{name}: bad output")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=0)
+        err = (got - ref).abs()
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], float(err.max()))
+        rel = float((err / ref.abs().clamp_min(1e-30)).max())
+        st["max_rel_err"] = max(st["max_rel_err"], rel)
+        return rel
+
+    for w_side in (True, False):
+        mu_pos = kl_pos_W(H) if w_side else kl_pos_H(W)
+        for beta, need_pos, mp in ((1.0, False, None), (1.0, False, mu_pos),
+                                   (0.5, True, None)):
+            kw = dict(beta=beta, need_pos=need_pos, w_side=w_side, mu_pos=mp)
+            n = fm.fused_contractions.launches_bf16
+            got = fm.fused_contractions(Vb, H, W, **kw)
+            check(fm.fused_contractions.launches_bf16 == n + 1,
+                  "a bf16 V did not launch B1's bf16 instance")
+            ref = fm.plain_contractions(Vb, H, W, **kw)
+            rels = [record("fused_contractions_bf16", g, r)
+                    for g, r in zip(got, ref) if r is not None]
+            case = "epilogue" if mp is not None else (
+                "neg+pos" if need_pos else "neg")
+            print(f"B1 bf16 V {M}x{K} R={R} {'W' if w_side else 'H'}-side "
+                  f"beta={beta} {case}: max rel err {max(rels):.3g}",
+                  flush=True)
+    rel = record("fused_beta_loss_bf16", fm.fused_beta_loss(Vb, H, W, 0.5),
+                 fm.plain_beta_loss(Vb, H, W, 0.5))
+    print(f"B2 bf16 V {M}x{K} R={R} beta=0.5: rel err {rel:.3g}", flush=True)
+
+    def b1(X, fn):
+        def run():
+            fn(X, H, W, beta=0.5, need_pos=True, w_side=True)
+            fn(X, H, W, beta=0.5, need_pos=True, w_side=False)
+        return run
+
+    times = {"b1": {"f32": [], "bf16": []}, "b2": {"f32": [], "bf16": []}}
+    for tag, X in (("f32", Vf), ("bf16", Vb), ("bf16", Vb), ("f32", Vf)):
+        times["b1"][tag].append(cuda_ms(b1(X, fm.fused_contractions)))
+        times["b2"][tag].append(
+            cuda_ms(lambda: fm.fused_beta_loss(X, H, W, 0.5)))
+    plain = {"b1": cuda_ms(b1(Vb, fm.plain_contractions)),
+             "b2": cuda_ms(lambda: fm.plain_beta_loss(Vb, H, W, 0.5))}
+    # as phase 2's float32 entries, with V read at 2 bytes a value
+    work = {"b1": (2 * 6 * M * K * R,
+                   2 * (2 * M * K + 4 * (M + K) * R) + 2 * 4 * 2 * (M + K) * R),
+            "b2": (2 * M * K * R, 2 * M * K + 4 * ((M + K) * R + 1))}
+    for key, name in (("b1", "fused_contractions_bf16"),
+                      ("b2", "fused_beta_loss_bf16")):
+        ms = min(times[key]["bf16"])
+        b_ms, b_by, _ = bound(*work[key])
+        stats[name].update(ms=ms, plain_ms=plain[key], bound_ms=b_ms,
+                           bound_by=b_by)
+        print(f"{name}: kernel {ms:.4f} ms on the bf16 V, float32 kernel "
+              f"{min(times[key]['f32']):.4f} ms on its upcast (in turns: "
+              f"f32 {times[key]['f32']}, bf16 {times[key]['bf16']}), plain "
+              f"{plain[key]:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]",
+              flush=True)
+    return stats
+
+
+def bf16_dense(ns, fm, card, fit_ms):
+    """``NMF.fit`` at MAIN_SHAPE with a bfloat16 host V (which reaches the
+    card at half width, rows padded to 8 values) at β ∈ BF16_BETAS, tol
+    1e-4, DENSE_ITERS: the final loss (in float32 against the rounded V)
+    within RTOL of the float32 fit on the rounded V, the same ``n_iter``,
+    and exactly 2 B1 launches an iteration (β ≠ 2) and one B2 a loss
+    evaluation (β ∉ {1, 2}), every one of them the bfloat16 instance's in
+    the bfloat16 fit and none in the float32 one.  Then ``nmf_fit`` with
+    the bfloat16 V equals ``NMF.fit`` (``torch.equal``) launch for launch.
+    Returns the bfloat16 launches of these fits."""
+    NMF = ns.NMF
+    M, K, R = MAIN_SHAPE
+    V, _, _ = inputs(M, K, R)
+    Vb = V.bfloat16().cpu()
+    Vr = Vb.float()
+    Vr_card = Vr.cuda()
+    del V
+    wrappers = (fm.fused_contractions, fm.fused_beta_loss)
+    path = {"fused_contractions_bf16": 0, "fused_beta_loss_bf16": 0}
+
+    def counts():
+        return [w.launches for w in wrappers] + [w.launches_bf16
+                                                 for w in wrappers]
+
+    def model():
+        return NMF((M, K), R, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(SEED))
+
+    for beta in BF16_BETAS:
+        runs = {}
+        for tag, X in (("f32", Vr), ("bf16", Vb)):
+            m = model()
+            c0 = counts()
+            (n_iter, ms) = events_ms(lambda: m.fit(X, beta=beta, tol=1e-4,
+                                                   max_iter=DENSE_ITERS))
+            d = [b - a for a, b in zip(c0, counts())]
+            check_factors(f"bf16 dense {tag} beta={beta}", m.W, m.H)
+            check(m.W.dtype == m.H.dtype == torch.float32,
+                  f"beta={beta}: {tag} factors {m.W.dtype}")
+            loss = float(ns.beta_div(NMF.reconstruct(m.H.detach(),
+                                                     m.W.detach()), Vr_card,
+                                     beta))
+            runs[tag] = (n_iter, d, loss, ms / n_iter)
+            del m
+        (n32, d32, l32, ms32), (n16, d16, l16, ms16) = runs["f32"], runs["bf16"]
+        b1 = 0 if beta == 2 else 2 * n16
+        b2 = 0 if beta in (1, 2) else 1 + n16 // 10
+        rel = abs(l16 - l32) / l32
+        tag = f"NMF.fit bf16 V {M}x{K} R={R} beta={beta}"
+        check(n16 == n32, f"{tag}: n_iter {n16}, float32 fit {n32}")
+        check(d16 == [b1, b2, b1, b2], f"{tag}: launches (B1, B2, B1 bf16, "
+              f"B2 bf16) {d16}, want {[b1, b2, b1, b2]}")
+        check(d32 == [b1, b2, 0, 0], f"{tag}: the float32 fit's launches {d32}")
+        check(rel <= RTOL, f"{tag}: loss {l16} vs float32 {l32} (rel {rel:.3g})")
+        path["fused_contractions_bf16"] += d16[2]
+        path["fused_beta_loss_bf16"] += d16[3]
+        fit_ms[f"nmf_bf16_{M}x{K}_r{R}_beta{beta}"] = {"bf16": ms16,
+                                                       "f32": ms32}
+        print(f"phase 3: {tag}: n_iter {n16} (float32 {n32}), final loss "
+              f"{l16:.7g} vs {l32:.7g} (rel {rel:.3g}); launches B1 {d16[2]}, "
+              f"B2 {d16[3]}, all bf16; {ms16:.3f} ms/iteration, float32 "
+              f"{ms32:.3f} [{card}]", flush=True)
+
+    m = model()
+    W0, H0 = m.W.detach().clone(), m.H.detach().clone()
+    c0 = counts()
+    Wf, Hf, nf = ns.functional.nmf_fit(Vb, W0, H0, beta=0.5, tol=0,
+                                       max_iter=FUNC_NMF_ITERS)
+    d = [b - a for a, b in zip(c0, counts())]
+    c0 = counts()
+    n = m.fit(Vb, beta=0.5, tol=0, max_iter=FUNC_NMF_ITERS)
+    dm = [b - a for a, b in zip(c0, counts())]
+    check(nf == n == FUNC_NMF_ITERS and torch.equal(Wf, m.W.detach())
+          and torch.equal(Hf, m.H.detach()) and d == dm and d[2] == d[0] > 0,
+          f"nmf_fit bf16: n_iter {nf}/{n}, launches {d} vs {dm}")
+    path["fused_contractions_bf16"] += d[2]
+    path["fused_beta_loss_bf16"] += d[3]
+    print(f"phase 3: nmf_fit with the bf16 V equals NMF.fit (torch.equal), "
+          f"launches B1 {d[2]}, B2 {d[3]}, all bf16 [{card}]", flush=True)
+    return path
+
+
+def bf16_capacity(ns, fm, card, fit_ms):
+    """The capacity the knob buys: the peak device memory of ``NMF.fit`` at
+    β=1 on BF16_CAPACITY (4097 columns: rows padded to 4100 floats or 4104
+    bfloat16 values), BF16_CAPACITY_ITERS iterations from a host V, in
+    float32 (on the rounded values) and in bfloat16.  The peak above what
+    was allocated before V reached the card (the model's factors) must be
+    at most BF16_PEAK_RATIO of the float32 fit's, and the two final losses
+    agree within RTOL."""
+    NMF = ns.NMF
+    M, K, R = BF16_CAPACITY
+    g = torch.Generator().manual_seed(SEED)
+    Vb = (torch.rand((M, K), generator=g) + 0.01).bfloat16()
+    out = {}
+    for tag, X in (("f32", Vb.float()), ("bf16", Vb)):
+        m = NMF((M, K), R, device="cuda",
+                generator=torch.Generator("cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        n, ms = events_ms(lambda: m.fit(X, beta=1, tol=0,
+                                        max_iter=BF16_CAPACITY_ITERS))
+        peak = torch.cuda.max_memory_allocated() - base
+        check_factors(f"capacity {tag}", m.W, m.H)
+        out[tag] = (peak, X.numel() * X.element_size(), m.W.detach(),
+                    m.H.detach(), ms / n)
+        del m, X
+    Vr = Vb.float().cuda()
+    losses = {tag: float(fm.fused_beta_loss(Vr, o[3], o[2], 1.0))
+              for tag, o in out.items()}
+    del Vr
+    rel = abs(losses["bf16"] - losses["f32"]) / losses["f32"]
+    ratio = out["bf16"][0] / out["f32"][0]
+    tag = f"capacity NMF.fit {M}x{K} R={R} beta=1"
+    for t in ("f32", "bf16"):
+        print(f"phase 3: {tag} {t}: V {out[t][1] / 1e9:.3f} GB on the host, "
+              f"peak device memory above the factors {out[t][0] / 1e9:.3f} GB,"
+              f" {out[t][4]:.2f} ms/iteration (the fit's time, its copy of V "
+              f"to the card included) [{card}]", flush=True)
+    check(ratio <= BF16_PEAK_RATIO, f"{tag}: bf16 peak {out['bf16'][0]} is "
+          f"{ratio:.3f} of the float32 fit's {out['f32'][0]}")
+    check(rel <= RTOL, f"{tag}: final loss {losses['bf16']} vs float32 "
+          f"{losses['f32']} (rel {rel:.3g})")
+    fit_ms[f"capacity_{M}x{K}_r{R}_beta1"] = {
+        t: {"peak_bytes": out[t][0], "V_bytes": out[t][1],
+            "ms_per_iter_with_copy": out[t][4]} for t in out}
+    print(f"phase 3: {tag}: bf16 peak / float32 peak = {ratio:.3f} (at most "
+          f"{BF16_PEAK_RATIO}); final loss {losses['bf16']:.7g} vs "
+          f"{losses['f32']:.7g} (rel {rel:.3g}) [{card}]", flush=True)
+
+
+def bf16_streaming(ns, fm, card, fit_ms):
+    """``streaming_nmf_fit`` with a bfloat16 host V: MAIN_SHAPE at β=1 in
+    blocks of STREAM_ROW_BLOCK rows, exactly 2 B1 launches (the bfloat16
+    instance's) a block an iteration, and the final loss within RTOL of the
+    in-memory bfloat16 fit's; then STREAM_BIG held in bfloat16 (half the
+    1 GiB of float32): ms/iteration and the host-to-card rate, beside the
+    float32 run's.  Returns the path's bfloat16 launches."""
+    from pytorch_nmf_tpu_torch.functional import streaming_nmf_fit
+
+    inf = float("-inf")
+    M, K, R = MAIN_SHAPE
+    rs = np.random.RandomState(SEED)
+    Vb = torch.from_numpy(np.abs(rs.randn(M, K)).astype("f") + 0.01).bfloat16()
+    W0 = torch.from_numpy(np.abs(rs.randn(K, R)).astype("f")).cuda()
+    H0 = torch.from_numpy(np.abs(rs.randn(M, R)).astype("f")).cuda()
+    n_blocks = -(-M // STREAM_ROW_BLOCK)
+    b1 = fm.fused_contractions
+    n0 = b1.launches_bf16
+    W, H, n = streaming_nmf_fit(Vb, W0, H0, beta=1, tol=inf,
+                                max_iter=STREAM_ITERS,
+                                row_block=STREAM_ROW_BLOCK)
+    d = b1.launches_bf16 - n0
+    tag = f"streaming bf16 V {M}x{K} R={R} beta=1 row_block={STREAM_ROW_BLOCK}"
+    check_factors(tag, W, H)
+    check(n == STREAM_ITERS and d == 2 * n_blocks * STREAM_ITERS,
+          f"{tag}: n_iter {n}, bf16 B1 launches {d}")
+    m = ns.NMF(W=W0, H=H0, device="cuda")
+    m.fit(Vb, beta=1, tol=inf, max_iter=STREAM_ITERS)
+    Vr = Vb.float().cuda()
+    ls = float(fm.fused_beta_loss(Vr, H, W, 1.0))
+    lm = float(fm.fused_beta_loss(Vr, m.H.detach(), m.W.detach(), 1.0))
+    rel = abs(ls - lm) / lm
+    check(rel <= RTOL, f"{tag}: loss {ls} vs in-memory {lm} (rel {rel:.3g})")
+    print(f"phase 3: {tag}: bf16 B1 launches {d} ({n_blocks} blocks); final "
+          f"loss {ls:.7g}, in-memory bf16 fit {lm:.7g} (rel {rel:.3g}) "
+          f"[{card}]", flush=True)
+    path = d
+    del m, Vr
+
+    Mb, Kb, Rb, block = STREAM_BIG
+    Vh = np.empty((Mb, Kb), np.float32)
+    np.random.default_rng(SEED).random(out=Vh, dtype=np.float32)
+    Vh += 0.01
+    Vbig = torch.from_numpy(Vh).bfloat16()
+    del Vh
+    g = np.random.RandomState(SEED + 1)
+    Wb0 = torch.from_numpy(g.rand(Kb, Rb).astype("f") + 0.1).cuda()
+    Hb0 = torch.from_numpy(g.rand(Mb, Rb).astype("f") + 0.1).cuda()
+
+    def fit(iters):
+        return streaming_nmf_fit(Vbig, Wb0, Hb0, beta=1, tol=inf,
+                                 max_iter=iters, row_block=block)
+
+    fit(1)  # warm-up
+    n0 = b1.launches_bf16
+    (W, H, _), ms = events_ms(lambda: fit(STREAM_BIG_ITERS))
+    d = b1.launches_bf16 - n0
+    path += d
+    n_blocks = -(-Mb // block)
+    tag = f"streaming bf16 V {Mb}x{Kb} R={Rb} beta=1 row_block={block}"
+    check_factors(tag, W, H)
+    check(d == 2 * n_blocks * STREAM_BIG_ITERS, f"{tag}: bf16 B1 launches {d}")
+    nbytes = Vbig.numel() * Vbig.element_size()
+    passes = 2 * STREAM_BIG_ITERS + 1
+    gbs = passes * nbytes / (ms / 1e3) / 1e9
+    f32 = fit_ms.get(f"streaming_{Mb}x{Kb}_r{Rb}_beta1_block{block}", {})
+    fit_ms[f"streaming_bf16_{Mb}x{Kb}_r{Rb}_beta1_block{block}"] = {
+        "ms_per_iter": ms / STREAM_BIG_ITERS, "host_to_card_GBps": gbs}
+    print(f"phase 3: {tag} (V {nbytes / 2**30:.2f} GiB on the host): "
+          f"{ms / STREAM_BIG_ITERS:.2f} ms/iteration, host-to-card "
+          f"{gbs:.2f} GB/s over {passes} passes of V; the float32 run "
+          f"{f32.get('ms_per_iter', float('nan')):.2f} ms/iteration, "
+          f"{f32.get('host_to_card_GBps', float('nan')):.2f} GB/s; bf16 B1 "
+          f"launches {d} [{card}]", flush=True)
+    return {"fused_contractions_bf16": path, "fused_beta_loss_bf16": 0}
+
+
+def bf16_other_paths(ns, ctr, card):
+    """The NMFD flagship at β=1 (B3/B4, whose cotangents are float32) with
+    a bfloat16 V against the float32 fit on the rounded V: final losses
+    within RTOL, the same B3/B4 launches and none of B1/B2; and dense PLCA
+    at MAIN_SHAPE (the generic E-step, which the bfloat16 V takes as the
+    JAX package's does) against the float32 fit on its normalized target
+    ``Vb / ΣVb``, rounded to bfloat16 as the fit rounds it: factors within
+    RTOL of their largest entry."""
+    V = deconv_target("NMFD")
+    Vb = V.bfloat16()
+    Vr = Vb.float()
+    del V
+    runs = {}
+    for tag, X in (("f32", Vr), ("bf16", Vb)):
+        m = deconv_model("NMFD", ns.models)
+        zero(ctr)
+        n = m.fit(X, beta=1, tol=0, max_iter=DECONV_ITERS)
+        d = read(ctr)
+        check_factors(f"NMFD bf16 {tag}", m.W, m.H)
+        runs[tag] = (n, d, float(ns.beta_div(m().detach(), Vr, 1)))
+        del m
+    (n32, d32, l32), (n16, d16, l16) = runs["f32"], runs["bf16"]
+    rel = abs(l16 - l32) / l32
+    tag = "NMFD flagship bf16 V beta=1"
+    check(n16 == n32 == DECONV_ITERS and d16 == d32 and d16["hgrad"] > 0
+          and d16["wgrad"] > 0 and d16["fused_contractions"] == 0,
+          f"{tag}: n_iter {n16}/{n32}, launches {d16} vs float32 {d32}")
+    check(rel <= RTOL, f"{tag}: loss {l16} vs float32 {l32} (rel {rel:.3g})")
+    print(f"phase 3: {tag}: final loss {l16:.7g} vs float32 on the rounded V "
+          f"{l32:.7g} (rel {rel:.3g}); launches B3 {d16['hgrad']}, B4 "
+          f"{d16['wgrad']}, as the float32 fit's [{card}]", flush=True)
+    del Vb, Vr
+
+    M, K, R = MAIN_SHAPE
+    rs = np.random.RandomState(SEED)
+    pr = {"V": rs.rand(M, K).astype("f"), "W": rs.rand(K, R).astype("f"),
+          "H": rs.rand(M, R).astype("f"), "Z": np.full(R, 1.0 / R, "f")}
+    Vb = torch.from_numpy(pr["V"]).bfloat16().cuda()
+    Vn = (Vb / Vb.sum()).float()  # the bf16 fit's own normalized target
+    fits = {}
+    for tag, X in (("f32", Vn), ("bf16", Vb)):
+        m = ns.plca_from_numpy(pr, "cuda")
+        n, norm = m.fit(X, tol=0, max_iter=PLCA_ITERS)
+        check_factors(f"PLCA bf16 {tag}", m.W, m.H, m.Z)
+        fits[tag] = (n, [p.detach() for p in (m.W, m.H, m.Z)])
+        del m
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(fits["bf16"][1], fits["f32"][1]))
+    tag = f"PLCA {M}x{K} R={R} bf16 V"
+    check(fits["bf16"][0] == fits["f32"][0] and rel <= RTOL,
+          f"{tag}: n_iter {fits['bf16'][0]}/{fits['f32'][0]}, factors "
+          f"{rel:.3g} from the float32 fit on the normalized target")
+    print(f"phase 3: {tag}: factors within {rel:.3g} of the float32 fit on "
+          f"its normalized target, {PLCA_ITERS} iterations [{card}]",
+          flush=True)
+
+
+def bf16_phase(ns, fm, ctr, kl_pos_W, kl_pos_H, card, fit_ms):
+    """The bfloat16 target storage phase; returns its kernels' stats and
+    their launches (``launches_bf16``) over the phase's bfloat16 fits."""
+    stats = bf16_kernels(fm, kl_pos_W, kl_pos_H, card)
+    path = bf16_dense(ns, fm, card, fit_ms)
+    bf16_capacity(ns, fm, card, fit_ms)
+    for k, v in bf16_streaming(ns, fm, card, fit_ms).items():
+        path[k] += v
+    bf16_other_paths(ns, ctr, card)
+    for name in BF16_KERNELS:
+        check(path[name] > 0, f"{name}: no launch on the bf16 path")
+    return stats, path
+
+
 def scratch_dir():
     """``build/chip_smoke`` beside this script (git-ignored)."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -2701,6 +3091,12 @@ def main():
     stamp("streaming")
     by_path["checkpoint"] = checkpoint_fits(ns, ctr, card, fit_ms)
     stamp("checkpoint")
+
+    # phase 3, this slice: bfloat16 targets (B1/B2's bf16 instances; their
+    # launches are counted apart, the float32 reference fits nowhere)
+    bf16_stats, bf16_launches = bf16_phase(ns, fm, ctr, kl_pos_W, kl_pos_H,
+                                           card, fit_ms)
+    stamp("bf16 targets")
     by_path["autotune"] = autotune_cases(ns, ctr, card, fit_ms)
     stamp("autotune")
     launches = {name: sum(n[name] for n in by_path.values()) for name in REPLACES}
@@ -2722,6 +3118,12 @@ def main():
               "launches_by_path": {p: n[name] for p, n in by_path.items()}},
              **stats[name])
         for name in REPLACES
+    ] + [
+        dict({"name": name, "route": "cuda", "source": SOURCES[base],
+              "replaces": REPLACES[base], "launches": bf16_launches[name],
+              "launches_by_path": {"bf16": bf16_launches[name]}},
+             **bf16_stats[name])
+        for name, base in BF16_KERNELS.items()
     ], "fit_ms_per_iter": fit_ms}
     print(card_line(), flush=True)
     print(json.dumps(summary), flush=True)

@@ -37,9 +37,14 @@
 // * G's step tile is split into TF32 hi/lo once, when it lands, into both
 //   wgmma layouts it feeds (K = rank for WH, K = g for the contraction).
 // * Every tile comes by 16-byte cp.async.  V's rows (K = 1025 floats, 4100
-//   bytes) are not 16-byte aligned, so the dense fit pads them once per fit
-//   (fast_nmf, fused_mu.aligned_rows); 4-byte copies made the tile loads
-//   half of the kernel's time (PERF.md).
+//   bytes) are not 16-byte aligned, so V reaches the card with padded rows
+//   (models/_common.target_like, fused_mu.aligned_copy); 4-byte copies made
+//   the tile loads half of the kernel's time (PERF.md).
+// * V is float32 or bfloat16 (a template parameter on its element type):
+//   a bfloat16 target is held at half width on the card, its tile comes in
+//   at its own width (8 values per 16-byte copy) and each value is upcast
+//   to float32, exactly, where the cotangent or the loss term reads it.
+//   Everything after that read is the float32 kernel.
 // * Up to 256 ranks the F tile stays resident and the next step's G and V
 //   tiles are copied during this step; a block accumulates 128 rank
 //   columns (gridDim.z covers the rest, each block recomputing WH).  Wider
@@ -79,6 +84,7 @@
 // terms _loss_kernel (:318-332): one shared (wh+eps)^(beta-2) for
 // fractional beta, 1/(wh+eps) squared at beta=0, no eps at beta=2.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
@@ -93,13 +99,27 @@ constexpr int kTcThreads = 128;  // one warpgroup, 16 F rows per warp
 constexpr int TBG = 32;          // G rows per step
 constexpr int TZR = 128;         // rank columns a block accumulates
 constexpr int TRC = 256;         // rank chunk of the WH product
-constexpr int TVH = TBG + 4;     // V tile row stride, H side: [BF][TVH]
-constexpr int TVW = BF + 4;      // V tile row stride, W side: [TBG][TVW]
-constexpr int TV_FLOATS = BF * TVH > TBG * TVW ? BF * TVH : TBG * TVW;
+
+// the V tile of an element type TV: VEC values per 16-byte copy, row strides
+// padded by one copy, H side [BF][H], W side [TBG][W]; ELEMS per step
+// parity.  The float tile is the larger, and shared memory is sized for it.
+template <typename TV>
+struct VTile {
+  static constexpr int VEC = 16 / (int)sizeof(TV);
+  static constexpr int H = TBG + VEC;
+  static constexpr int W = BF + VEC;
+  static constexpr int ELEMS = BF * H > TBG * W ? BF * H : TBG * W;
+};
+constexpr int TV_FLOATS = VTile<float>::ELEMS;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);  // exact
+}
 
 __device__ __forceinline__ float relu(float a) {
   return a < 0.f ? 0.f : a;  // NaN passes through, as jax.nn.relu / torch.relu
@@ -112,7 +132,7 @@ __device__ __forceinline__ float relu(float a) {
 
 // 16 bytes, of which the first src_bytes come from src and the rest are 0;
 // src and dst 16-byte aligned
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -236,23 +256,25 @@ __device__ __forceinline__ void tc_load(float* dst, int ds,
 // the (BF, TBG) tile of V at (f0, g0) in V's own orientation (a row of the
 // tile runs along V's contiguous axis, g on the H side, f on the W side):
 // V(f, g) at V[f ldv + g] on the H side, V[g ldv + f] on the W side, rows
-// 16-byte aligned; 16-byte copies
-__device__ __forceinline__ void tc_load_v(float* Vs,
-                                          const float* __restrict__ V,
+// 16-byte aligned (ldv a multiple of VEC elements); 16-byte copies of VEC
+// elements, the ragged edge's copy cut to the elements inside the matrix
+template <typename TV>
+__device__ __forceinline__ void tc_load_v(TV* Vs, const TV* __restrict__ V,
                                           int f0, int g0, int n_f, int n_g,
                                           int ldv, bool h_side) {
+  constexpr int VEC = VTile<TV>::VEC;
 #pragma unroll
-  for (int k = 0; k < BF * TBG / 4 / kTcThreads; ++k) {
+  for (int k = 0; k < BF * TBG / VEC / kTcThreads; ++k) {
     const int idx = threadIdx.x + k * kTcThreads;
     // a row of the tile runs along V's contiguous axis, in 16-byte chunks
-    const int o = h_side ? idx / (TBG / 4) : idx / (BF / 4);  // f or g
-    const int i = 4 * (h_side ? idx % (TBG / 4) : idx % (BF / 4));
+    const int o = h_side ? idx / (TBG / VEC) : idx / (BF / VEC);  // f or g
+    const int i = VEC * (h_side ? idx % (TBG / VEC) : idx % (BF / VEC));
     const int o0 = h_side ? f0 : g0, i0 = h_side ? g0 : f0;
-    const int valid = imin(4, (h_side ? n_g : n_f) - i0 - i);
+    const int valid = imin(VEC, (h_side ? n_g : n_f) - i0 - i);
     const bool ok = o0 + o < (h_side ? n_f : n_g) && valid > 0;
-    cp_async16(&Vs[o * (h_side ? TVH : TVW) + i],
+    cp_async16(&Vs[o * (h_side ? VTile<TV>::H : VTile<TV>::W) + i],
                ok ? V + (size_t)(o0 + o) * ldv + i0 + i : V,
-               ok ? 4 * valid : 0);
+               ok ? (int)sizeof(TV) * valid : 0);
   }
 }
 
@@ -320,9 +342,9 @@ enum Mode { kNeg, kNegPos, kLoss };
 // columns (tig, tig + 4): the sum over g does not care about the order of
 // its 8 terms, so GO stores G row 2 tig at K position tig and 2 tig + 1 at
 // tig + 4, and the cotangents never leave registers.
-template <int NT, int MODE>
+template <typename TV, int NT, int MODE>
 __global__ void __launch_bounds__(kTcThreads, 1)
-    contract_kernel(const float* __restrict__ V, const float* __restrict__ F,
+    contract_kernel(const TV* __restrict__ V, const float* __restrict__ F,
                     const float* __restrict__ G,
                     const float* __restrict__ mu_pos,
                     float* __restrict__ out_neg, float* __restrict__ out_pos,
@@ -336,10 +358,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   float* Graw = Fs + BF * fs;
   float* GS = Graw + TBG * fs;
   float* GO = GS + 2 * TBG * rcw;
-  float* Vbuf = GO + 2 * GO_SIZE;
+  constexpr int V_ELEMS = VTile<TV>::ELEMS;
+  TV* Vbuf = reinterpret_cast<TV*>(GO + 2 * GO_SIZE);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;
-  const int vsf = h_side ? TVH : 1, vsg = h_side ? 1 : TVW;
+  const int vsf = h_side ? VTile<TV>::H : 1, vsg = h_side ? 1 : VTile<TV>::W;
   const int f0 = blockIdx.x * BF;
   const int z0 = blockIdx.z * TZR, zw = imin(TZR, R - z0);
   const bool resident = R <= TRC;  // one rank chunk: F loaded once
@@ -362,7 +385,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   for (int t = t_begin; t < t_end; ++t) {
     const int g0 = t * TBG;
-    float* Vs = Vbuf + ((t - t_begin) & 1) * TV_FLOATS;
+    TV* Vs = Vbuf + ((t - t_begin) & 1) * V_ELEMS;
     // WH in two partial sums over alternate k8 steps: the wgmmas into one
     // accumulator wait on each other, two chains keep the tensor cores busier
     float s[4 * (TBG / 8)], s1[4 * (TBG / 8)];
@@ -380,7 +403,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       __syncthreads();
       if (resident && t + 1 < t_end) {  // the next step's tiles, meanwhile
         tc_load(Graw, fs, G, g0 + TBG, TBG, n_g, R, ldr, 0, rcw);
-        tc_load_v(Vbuf + ((t - t_begin + 1) & 1) * TV_FLOATS, V, f0,
+        tc_load_v(Vbuf + ((t - t_begin + 1) & 1) * V_ELEMS, V, f0,
                   g0 + TBG, n_f, n_g, ldv, h_side);
       }
       tf32x3::fence_operand(s);
@@ -419,7 +442,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int i = 0; i < 4 * (TBG / 8); ++i) {
         const int f = 16 * warp + gid + 8 * ((i % 4) / 2);
         const int g = 8 * (i / 4) + 2 * tig + i % 2;
-        const float term = loss_term(Vs[f * vsf + g * vsg], s[i], beta);
+        const float term =
+            loss_term(to_f32(Vs[f * vsf + g * vsg]), s[i], beta);
         loss += f0 + f < n_f && g0 + g < n_g ? term : 0.f;
       }
     } else {
@@ -431,7 +455,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int f = 16 * warp + gid + 8 * ((i % 4) / 2);
         const int g = 8 * (i / 4) + 2 * tig + i % 2;
         float a, b;
-        cotangents(Vs[f * vsf + g * vsg], s[i], beta, a, b);
+        cotangents(to_f32(Vs[f * vsf + g * vsg]), s[i], beta, a, b);
         const bool ok = f0 + f < n_f && g0 + g < n_g;
         cn[i] = ok ? a : 0.f;
         cp[i] = ok ? b : 0.f;
@@ -528,27 +552,53 @@ __global__ void __launch_bounds__(kThreads)
 // the instance's shared-memory attributes, set once, to the most any rank
 // needs (two CUDA runtime calls per launch cost host time that a small
 // fit's kernel feels)
-template <int NT, int MODE>
+template <typename TV, int NT, int MODE>
 cudaError_t configure_contract() {
   static const cudaError_t configured = set_smem(
-      contract_kernel<NT, MODE>, contract_smem_bytes(TRC, NT));
+      contract_kernel<TV, NT, MODE>, contract_smem_bytes(TRC, NT));
   return configured;
 }
 
-template <int NT, int MODE>
+template <typename TV, int NT, int MODE>
 cudaError_t launch_contract(dim3 grid, cudaStream_t stream,
-                            const float* V, const float* F, const float* G,
+                            const TV* V, const float* F, const float* G,
                             const float* mu_pos, float* out_neg,
                             float* out_pos, int n_f, int n_g, int R,
                             int ldv, int ldr, int h_side, int tiles_per_split,
                             float beta) {
   const size_t smem = contract_smem_bytes(R, NT);
-  const cudaError_t configured = configure_contract<NT, MODE>();
+  const cudaError_t configured = configure_contract<TV, NT, MODE>();
   if (configured != cudaSuccess) return configured;
-  contract_kernel<NT, MODE><<<grid, kTcThreads, smem, stream>>>(
+  contract_kernel<TV, NT, MODE><<<grid, kTcThreads, smem, stream>>>(
       V, F, G, mu_pos, out_neg, out_pos, n_f, n_g, R, ldv, ldr, h_side,
       tiles_per_split, beta);
   return cudaGetLastError();
+}
+
+// the contraction's instance for V's element type, the mode and the n8
+// tiles of the widest block (as a wgmma width, tf32x3.cuh)
+template <typename TV>
+cudaError_t launch_contractions(dim3 grid, cudaStream_t stream, const TV* V,
+                                const float* F, const float* G,
+                                const float* mu_pos, float* dn, float* dp,
+                                int n_f, int n_g, int R, int ldv, int ldr,
+                                int h_side, int tps, float beta,
+                                int need_pos) {
+#define PNT_CONTRACT(NT)                                                   \
+  return need_pos ? launch_contract<TV, NT, kNegPos>(                      \
+                        grid, stream, V, F, G, mu_pos, dn, dp, n_f, n_g, R, \
+                        ldv, ldr, h_side, tps, beta)                        \
+                  : launch_contract<TV, NT, kNeg>(                         \
+                        grid, stream, V, F, G, mu_pos, dn, dp, n_f, n_g, R, \
+                        ldv, ldr, h_side, tps, beta)
+  const int nt = cdiv(imin(R, TZR), 8);
+  if (nt <= 2) PNT_CONTRACT(2);
+  if (nt <= 4) PNT_CONTRACT(4);
+  if (nt <= 8) PNT_CONTRACT(8);
+  if (nt <= 11) PNT_CONTRACT(11);
+  if (nt <= 12) PNT_CONTRACT(12);
+  PNT_CONTRACT(16);
+#undef PNT_CONTRACT
 }
 
 // enough splits of the n_g reduction (steps of `rows`) for two blocks per
@@ -569,42 +619,34 @@ int pnt_contract_splits(int n_f, int n_g, int R, int num_sms) {
   return num_splits(cdiv(n_f, BF) * cdiv(R, TZR), n_g, TBG, num_sms);
 }
 
-// Returns a cudaError_t (0 on success).  V, F and G are row-major with
-// 16-byte aligned rows ldv (V) and ldr (F, G) floats apart: V is (n_f, n_g)
-// on the H side (h_side = 1), (n_g, n_f) on the W side.  part_neg/part_pos
+// Returns a cudaError_t (0 on success).  V is float32, or bfloat16 when
+// v_bf16 is 1; F and G are float32.  All are row-major with 16-byte aligned
+// rows, ldv elements (V) and ldr floats (F, G) apart: V is (n_f, n_g) on
+// the H side (h_side = 1), (n_g, n_f) on the W side.  part_neg/part_pos
 // hold (splits, n_f, R) floats when splits > 1 and are unused otherwise;
 // out_pos/part_pos are unused when need_pos is 0.
-int pnt_fused_contractions(const float* V, const float* F, const float* G,
+int pnt_fused_contractions(const void* V, const float* F, const float* G,
                            const float* mu_pos, float* out_neg,
                            float* out_pos, float* part_neg, float* part_pos,
                            int n_f, int n_g, int R, int ldv, int ldr,
                            int h_side, int splits, float beta, int need_pos,
-                           void* stream_ptr) {
+                           int v_bf16, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (n_f < 1 || n_g < 1 || R < 1 || splits < 1 || ldv % 4 || ldr % 4 ||
-      ldr < R || ldv < (h_side ? n_g : n_f))
+  if (n_f < 1 || n_g < 1 || R < 1 || splits < 1 || ldv % (v_bf16 ? 8 : 4) ||
+      ldr % 4 || ldr < R || ldv < (h_side ? n_g : n_f))
     return (int)cudaErrorInvalidValue;
   const int tps = cdiv(cdiv(n_g, TBG), splits);
   const dim3 grid(cdiv(n_f, BF), splits, cdiv(R, TZR));
   float* dn = splits == 1 ? out_neg : part_neg;
   float* dp = splits == 1 ? out_pos : part_pos;
-  cudaError_t err;
-#define PNT_CONTRACT(NT)                                                   \
-  err = need_pos ? launch_contract<NT, kNegPos>(                           \
-                       grid, stream, V, F, G, mu_pos, dn, dp, n_f, n_g, R,  \
-                       ldv, ldr, h_side, tps, beta)                         \
-                 : launch_contract<NT, kNeg>(                              \
-                       grid, stream, V, F, G, mu_pos, dn, dp, n_f, n_g, R,  \
-                       ldv, ldr, h_side, tps, beta)
-  // n8 tiles of the widest block, as a wgmma width (tf32x3.cuh)
-  const int nt = cdiv(imin(R, TZR), 8);
-  if (nt <= 2) PNT_CONTRACT(2);
-  else if (nt <= 4) PNT_CONTRACT(4);
-  else if (nt <= 8) PNT_CONTRACT(8);
-  else if (nt <= 11) PNT_CONTRACT(11);
-  else if (nt <= 12) PNT_CONTRACT(12);
-  else PNT_CONTRACT(16);
-#undef PNT_CONTRACT
+  const cudaError_t err =
+      v_bf16 ? launch_contractions(grid, stream,
+                                   static_cast<const __nv_bfloat16*>(V), F,
+                                   G, mu_pos, dn, dp, n_f, n_g, R, ldv, ldr,
+                                   h_side, tps, beta, need_pos)
+             : launch_contractions(grid, stream, static_cast<const float*>(V),
+                                   F, G, mu_pos, dn, dp, n_f, n_g, R, ldv,
+                                   ldr, h_side, tps, beta, need_pos);
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const int n = n_f * R;
@@ -621,9 +663,9 @@ int pnt_fused_contractions(const float* V, const float* F, const float* G,
 // cdiv(M, 64) * splits partial sums.
 int pnt_loss_splits(int M, int K, int R, int num_sms) {
   int per_sm = 0;
-  if (configure_contract<2, kLoss>() != cudaSuccess ||
+  if (configure_contract<float, 2, kLoss>() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, contract_kernel<2, kLoss>, kTcThreads,
+          &per_sm, contract_kernel<float, 2, kLoss>, kTcThreads,
           contract_smem_bytes(R, 2)) != cudaSuccess)
     per_sm = 1;
   const int n_gt = cdiv(K, TBG);
@@ -635,20 +677,26 @@ int pnt_loss_splits(int M, int K, int R, int num_sms) {
 int pnt_loss_partials(int M, int splits) { return cdiv(M, BF) * splits; }
 
 // partials holds pnt_loss_partials(M, splits) floats; out one float.  V
-// (M, K), H (M, R) and W (K, R) are row-major with 16-byte aligned rows ldv
-// (V) and ldr (H, W) floats apart.
-int pnt_fused_beta_loss(const float* V, const float* H, const float* W,
+// (M, K; float32, or bfloat16 when v_bf16 is 1), H (M, R) and W (K, R) are
+// row-major with 16-byte aligned rows ldv elements (V) and ldr floats (H,
+// W) apart.
+int pnt_fused_beta_loss(const void* V, const float* H, const float* W,
                         float* partials, float* out, int M, int K, int R,
-                        int ldv, int ldr, int splits, float beta,
+                        int ldv, int ldr, int splits, float beta, int v_bf16,
                         void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (M < 1 || K < 1 || R < 1 || splits < 1 || ldv % 4 || ldr % 4 ||
-      ldr < R || ldv < K)
+  if (M < 1 || K < 1 || R < 1 || splits < 1 || ldv % (v_bf16 ? 8 : 4) ||
+      ldr % 4 || ldr < R || ldv < K)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(cdiv(M, BF), splits);
-  const cudaError_t err = launch_contract<2, kLoss>(
-      grid, stream, V, H, W, nullptr, partials, nullptr, M, K, R, ldv, ldr, 1,
-      cdiv(cdiv(K, TBG), splits), beta);
+  const int tps = cdiv(cdiv(K, TBG), splits);
+  const cudaError_t err =
+      v_bf16 ? launch_contract<__nv_bfloat16, 2, kLoss>(
+                   grid, stream, static_cast<const __nv_bfloat16*>(V), H, W,
+                   nullptr, partials, nullptr, M, K, R, ldv, ldr, 1, tps, beta)
+             : launch_contract<float, 2, kLoss>(
+                   grid, stream, static_cast<const float*>(V), H, W, nullptr,
+                   partials, nullptr, M, K, R, ldv, ldr, 1, tps, beta);
   if (err != cudaSuccess) return (int)err;
   loss_finish_kernel<<<1, kThreads, 0, stream>>>(partials, grid.x * grid.y,
                                                  out);

@@ -143,7 +143,7 @@ def nmf_fit_batched(V, W, H, beta=1, tol=1e-4, max_iter=200, update_W=True,
         float(beta), float(tol), int(max_iter), bool(update_W),
         bool(update_H), float(l1_reg), float(l2_reg),
         nmf_updater_factory_generic if nmf else None)
-    return fit(V.contiguous(), W, H)
+    return fit(V, W, H)
 
 
 def plca_fit_batched(V, W, H, Z, model_cls=None, tol=1e-4, max_iter=200,
@@ -161,10 +161,10 @@ def plca_fit_batched(V, W, H, Z, model_cls=None, tol=1e-4, max_iter=200,
         bool(update_H), bool(update_Z), alpha_is_active(W_alpha),
         alpha_is_active(H_alpha), alpha_is_active(Z_alpha))
 
-    def alpha(a):
-        return torch.as_tensor(a, dtype=V.dtype, device=V.device)
+    def alpha(a):  # the factors' dtype: float32 for a bfloat16 V
+        return torch.as_tensor(a, dtype=W.dtype, device=V.device)
 
-    return fit(V.contiguous(), W, H, Z, alpha(W_alpha), alpha(H_alpha),
+    return fit(V, W, H, Z, alpha(W_alpha), alpha(H_alpha),
                alpha(Z_alpha))
 
 
@@ -186,4 +186,4 @@ def nmf_hoyer_fit_batched(V, W, H, beta=2, max_iter=200, sW=None, sH=None,
         None if sW is None or not update_W else float(sW),
         None if sH is None or not update_H else float(sH),
         W[0].numel() // W.shape[2], H[0].numel() // H.shape[2])
-    return fit(V.contiguous(), W, H)
+    return fit(V, W, H)

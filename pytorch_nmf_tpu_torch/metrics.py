@@ -10,12 +10,16 @@ so loss trajectories agree to float32 precision:
 * ``beta_div``   — generic β; eps on the input, and on the target when β < 0.
 * ``sparseness`` — Hoyer'04 sparseness.
 
-The first argument is the reconstruction, the second the target.
+The first argument is the reconstruction, the second the target.  A
+bfloat16 target against a float32 reconstruction follows the JAX package's
+promotion: elementwise terms of the target alone stay bfloat16 (as
+``jnp`` computes them), products with the reconstruction are float32.
 """
 
 import torch
 
 from .constants import eps
+from .ops.recon import matmul
 
 __all__ = ["kl_div", "euclidean", "is_div", "beta_div", "sparseness"]
 
@@ -24,7 +28,8 @@ def kl_div(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     r"""Generalized Kullback-Leibler divergence (β-divergence at β = 1)."""
     t = target.reshape(-1)
     i = input.reshape(-1)
-    return t @ (torch.log(t + eps) - torch.log(i + eps)) - t.sum() + i.sum()
+    return (matmul(t, torch.log(t + eps) - torch.log(i + eps)) - t.sum()
+            + i.sum())
 
 
 def euclidean(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -63,7 +68,7 @@ def beta_div(input: torch.Tensor, target: torch.Tensor, beta: float = 2):
 
     target_pow = torch.sum(target**beta)
     input_pow = torch.sum(input**beta)
-    cross = target @ input**bm1
+    cross = matmul(target, input**bm1)
 
     loss = target_pow + bm1 * input_pow - beta * cross
     return loss / (beta * bm1)

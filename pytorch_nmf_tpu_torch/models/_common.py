@@ -13,6 +13,8 @@ __all__ = [
     "is_tensor_like",
     "resolve_device",
     "to_param",
+    "host_tensor",
+    "target_dtype",
     "target_like",
     "rand_abs_normal",
     "assert_nonneg",
@@ -66,23 +68,69 @@ _F64_WARNING = (
 )
 
 
+def host_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor: a tensor as it is, an array through numpy.  A
+    numpy array of ``ml_dtypes.bfloat16`` (what ``np.asarray`` gives for a
+    JAX bfloat16 array) is read through its 16-bit pattern, which torch
+    shares with its own bfloat16."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
+def target_dtype(dtype: torch.dtype, factor_dtype: torch.dtype) -> torch.dtype:
+    """The dtype a dense target of ``dtype`` is held in by a fit whose
+    factors are ``factor_dtype`` (the JAX package's ``to_f32``): bfloat16
+    against float32 factors stays bfloat16, a capacity knob that halves the
+    target's memory (the factors, the accumulators and every result stay
+    float32); every other dtype becomes the factors'."""
+    if dtype == torch.bfloat16 and factor_dtype == torch.float32:
+        return torch.bfloat16
+    return factor_dtype
+
+
 def target_like(V, *factors) -> torch.Tensor:
-    """``V`` (a dense or sparse COO tensor anywhere, or a numpy array) as a
-    tensor on the factors' device in their dtype, the dtype the fit runs in.
-    A float64 ``V`` cast to float32 factors raises a ``UserWarning``, as the
-    JAX package's downcast does.  The factors must share one device and one
-    dtype (``ValueError`` otherwise)."""
+    """``V`` (a dense or sparse COO tensor anywhere, or a numpy array) on
+    the factors' device in the dtype the fit holds it in
+    (:func:`target_dtype`; a sparse ``V`` in the factors' dtype, float32
+    for a float32 model, as the JAX package's sparse targets).  A float64
+    ``V`` cast to float32 factors raises a ``UserWarning``, as the JAX
+    package's downcast does.  The factors must share one device and one
+    dtype (``ValueError`` otherwise).
+
+    A dense ``V`` comes back contiguous, or, when it had to be copied to
+    the card as a 2-D float32 or bfloat16 matrix, as a view of storage whose
+    rows are padded to 16 bytes (:func:`~..ops.fused_mu.aligned_copy`):
+    the kernels read it as it is, and the fit holds one copy of ``V``."""
     p = factors[0]
     for q in factors[1:]:
         if q.device != p.device or q.dtype != p.dtype:
             raise ValueError(
                 f"the factors are {p.dtype} on {p.device} and {q.dtype} on "
                 f"{q.device}: a fit runs in one dtype, on one device")
-    if not isinstance(V, torch.Tensor):
-        V = torch.as_tensor(np.asarray(V))
+    V = host_tensor(V)
     if V.dtype == torch.float64 and p.dtype == torch.float32:
         warnings.warn(_F64_WARNING, UserWarning, stacklevel=3)
-    return V.to(p.device, p.dtype)
+    if V.layout != torch.strided:
+        return V.to(p.device, p.dtype)
+    dtype = target_dtype(V.dtype, p.dtype)
+    if V.device == p.device and V.dtype == dtype:
+        # the caller's own tensor; a 2-D one with unit column stride keeps
+        # its rows, which the kernels pad once per fit if they must
+        # (fused_mu.aligned_rows)
+        if V.ndim == 2 and V.stride(1) == 1 and V.stride(0) >= V.shape[1]:
+            return V
+        return V.contiguous()
+    if V.ndim == 2 and p.device.type == "cuda" and \
+            dtype in (torch.float32, torch.bfloat16):
+        from ..ops.fused_mu import aligned_copy
+
+        return aligned_copy(V, p.device, dtype)
+    return V.to(p.device, dtype).contiguous()
 
 
 def rand_abs_normal(shape, generator: Optional[torch.Generator] = None,
@@ -106,11 +154,23 @@ def validate_target(V: torch.Tensor, beta: float) -> None:
     them (pre-validated pipelines)."""
     if os.environ.get("PNT_SKIP_VALIDATE", "") == "1":
         return
-    m = float(V.min()) if V.numel() else 0.0
+    m = float(_target_min(V)) if V.numel() else 0.0
     if m < 0:
         raise ValueError("Target should be non-negative.")
     if beta <= 0 and m == 0:
         raise ValueError(_BETA_ZERO_MSG)
+
+
+def _target_min(V: torch.Tensor) -> torch.Tensor:
+    """``V.min()`` with no copy of a strided ``V``: on the card ``min()``
+    makes a contiguous copy of a view (a target whose rows are padded,
+    :func:`target_like`), so such a ``V`` is reduced a row block at a time
+    (:func:`~..ops.recon.row_blocks`)."""
+    if V.is_contiguous() or V.ndim < 2:
+        return V.min()
+    from ..ops.recon import row_blocks
+
+    return torch.stack([V[..., rows, :].min() for rows in row_blocks(V)]).min()
 
 
 _BETA_ZERO_MSG = (

@@ -151,8 +151,9 @@ class BaseComponent(nn.Module):
         multiplicative updates (reference nmf.py:297-409) on the factors'
         device, in their dtype.  ``V`` (a tensor anywhere, or a numpy array)
         is moved there (:func:`~._common.target_like`: a float64 ``V`` of a
-        float32 model is cast, with a ``UserWarning``); ``NMF`` also takes a
-        sparse COO tensor.  Returns the number of iterations run."""
+        float32 model is cast, with a ``UserWarning``; a bfloat16 ``V`` stays
+        bfloat16, half the memory, with float32 factors and arithmetic);
+        ``NMF`` also takes a sparse COO tensor.  Returns the number of iterations run."""
         W, H = self.W, self.H
         W_new, H_new, n_iter = self._fit_mu(
             V, W.detach(), H.detach(), W.requires_grad, H.requires_grad,
@@ -174,7 +175,6 @@ class BaseComponent(nn.Module):
             return cls._fit_sparse(V, W, H, update_W, update_H, beta, tol,
                                    max_iter, verbose, l1_reg, l2_reg)
         validate_target(V, beta)
-        V = V.contiguous()
         fit_fn = _solver.get_dense_fit(
             cls.reconstruct, beta, tol, max_iter, update_W, update_H, l1_reg,
             l2_reg, verbose, cls._resolve_updater_factory(V, W, H, beta),
@@ -274,7 +274,6 @@ class BaseComponent(nn.Module):
             V = V.coalesce()
         else:
             validate_target(V, beta)
-            V = V.contiguous()
         fit_fn = _solver.get_hoyer_fit(
             None if sparse else cls._resolve_fit_recon2(V, W, H, beta),
             cls._sp_pos_neg if sparse else None,

@@ -199,15 +199,14 @@ class BaseComponent(nn.Module):
         ``(W, H, Z, n_iter, norm)``."""
         V = target_like(V, W, H, Z)
         validate_target(V, 1)
-        V = V.contiguous()
         fit_fn = _solver.get_plca_fit(
             cls._resolve_fit_recon3(V, W, H, Z), tol, max_iter,
             update_W, update_H, update_Z, _solver.alpha_is_active(W_alpha),
             _solver.alpha_is_active(H_alpha), _solver.alpha_is_active(Z_alpha),
             verbose, em_engine=cls._em_engine(V))
 
-        def alpha(a):
-            return torch.as_tensor(a, dtype=V.dtype, device=V.device)
+        def alpha(a):  # the factors' dtype: float32 for a bfloat16 V
+            return torch.as_tensor(a, dtype=W.dtype, device=V.device)
 
         return fit_fn(V, W, H, Z, alpha(W_alpha), alpha(H_alpha),
                       alpha(Z_alpha))

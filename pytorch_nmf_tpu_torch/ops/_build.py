@@ -37,8 +37,8 @@ _SIGNATURES = {
         "pnt_contract_splits": ([_I, _I, _I, _I], _I),
         "pnt_loss_splits": ([_I] * 4, _I),
         "pnt_loss_partials": ([_I, _I], _I),
-        "pnt_fused_contractions": ([_P] * 8 + [_I] * 7 + [_F, _I, _P], _I),
-        "pnt_fused_beta_loss": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
+        "pnt_fused_contractions": ([_P] * 8 + [_I] * 7 + [_F, _I, _I, _P], _I),
+        "pnt_fused_beta_loss": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
     },
     "fused_deconv": {
         "pnt_hgrad_splits": ([_I] * 10, _I),

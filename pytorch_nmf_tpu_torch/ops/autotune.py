@@ -12,7 +12,8 @@ family's EM reconstruction and the deconv models' Hoyer reconstruction are
 resolved the same way (:func:`resolve_plca_recon3`,
 :func:`resolve_hoyer_recon2`).
 
-Candidates.  On a CUDA float32 target the candidates are the engines of
+Candidates.  On a CUDA float32 or bfloat16 target (the tuner's key
+carries a bfloat16 target's dtype) the candidates are the engines of
 the hand-written kernels alone: ``fused`` (B3/B4) and ``fused_w`` (B4 and
 the streamed fold); the EM and Hoyer reconstructions have one, ``fused``,
 which is kept untimed.  The engines over library calls (``unfold``,
@@ -105,9 +106,16 @@ def _persist_path():
 
 
 def _key_str(key) -> str:
-    platform, nd, beta, vs, hs = key
+    platform, nd, beta, vs, hs = key[:5]
     return (f"{platform}|{nd}|{beta:g}|{','.join(map(str, vs))}|"
-            f"{','.join(map(str, hs))}")
+            f"{','.join(map(str, hs))}" + "".join(f"|{t}" for t in key[5:]))
+
+
+def _target_tag(V) -> tuple:
+    """The key's tail for the target's dtype: empty for float32 (every key
+    before bfloat16 targets), ``("bfloat16",)`` for a bfloat16 target, whose
+    engines read a half-width V and are timed on it."""
+    return () if V.dtype == torch.float32 else (str(V.dtype)[6:],)
 
 
 def _cached(key, names):
@@ -174,15 +182,17 @@ def _tuned(V_shape, H_shape) -> bool:
 
 
 def _kernels_allowed(dtype) -> bool:
-    """The hand-written engines are candidates for float32 unless
+    """The hand-written engines are candidates for a float32 or bfloat16
+    target (their cotangents are float32 either way) unless
     ``PNT_NMFD_PALLAS=0``."""
-    return dtype == torch.float32 and _env("PNT_NMFD_PALLAS") != "0"
+    return dtype in (torch.float32, torch.bfloat16) and \
+        _env("PNT_NMFD_PALLAS") != "0"
 
 
 def _kernel_path(V) -> bool:
-    """Whether this fit runs the hand-written kernels: a CUDA float32
-    target, unless ``PNT_NMFD_PALLAS=0``.  There only the kernel engines
-    are candidates."""
+    """Whether this fit runs the hand-written kernels: a CUDA float32 or
+    bfloat16 target, unless ``PNT_NMFD_PALLAS=0``.  There only the kernel
+    engines are candidates."""
     return _kernel_device(V.device, V.dtype)
 
 
@@ -317,7 +327,7 @@ def autotune_winner(V, W, H, beta: float, spatial_ndim: int, recon2) -> str:
     when set)."""
     cands = _candidates(V, H, float(beta), spatial_ndim)
     key = (_platform(V.device), spatial_ndim, float(beta), tuple(V.shape),
-           tuple(H.shape))
+           tuple(H.shape)) + _target_tag(V)
     hit = _cached(key, {n for n, _ in cands})
     if hit is not None:
         return hit
@@ -388,7 +398,8 @@ def _em_run(V, W, H, Z, recon3):
 def autotune_plca_recon3(V, W, H, Z, cands) -> str:
     """The fastest EM reconstruction among ``cands`` (``[(name, recon3)]``)
     for this fit's shape, timed over whole EM iterations and cached."""
-    key = (_platform(V.device), "plca-em", 0.0, tuple(V.shape), tuple(H.shape))
+    key = (_platform(V.device), "plca-em", 0.0, tuple(V.shape),
+           tuple(H.shape)) + _target_tag(V)
     hit = _cached(key, {n for n, _ in cands})
     if hit is not None:
         return hit
@@ -440,7 +451,7 @@ def autotune_hoyer_recon2(V, W, H, beta: float, cands) -> str:
     """The fastest reconstruction among ``cands`` (``[(name, recon2)]``) for
     the Hoyer steps, timed over :func:`_hoyer_run` and cached."""
     key = (_platform(V.device), "hoyer-recon2", float(beta), tuple(V.shape),
-           tuple(H.shape))
+           tuple(H.shape)) + _target_tag(V)
     hit = _cached(key, {n for n, _ in cands})
     if hit is not None:
         return hit

@@ -15,8 +15,10 @@ target — or their plain PyTorch versions.
 import torch
 
 from ..constants import eps
+from ..metrics import beta_div
 from . import fused_mu
 from .mu import kl_pos_H, kl_pos_W, mu_multiplier
+from .recon import row_blocks, target_mm, target_tmm
 
 __all__ = [
     "nmf_updater_factory_fused",
@@ -28,23 +30,41 @@ __all__ = [
 
 def _beta2_updaters(gamma, l1_reg, l2_reg):
     # ``mT``: the same updates on a batch of problems (a leading batch axis,
-    # batched GEMMs), which the batched fit runs
+    # batched GEMMs), which the batched fit runs.  A bfloat16 V is upcast a
+    # row block at a time (recon.target_tmm / target_mm)
     def upd_W(V, W, H):
-        neg = torch.relu(V.mT @ H) + eps  # VᵀH : (K, R)
+        neg = torch.relu(target_tmm(V, H)) + eps  # VᵀH : (K, R)
         G = H.mT @ H  # HᵀH : (R, R)
         pos = torch.relu(W @ G) + eps
         return W * mu_multiplier(neg, pos, W, gamma, l1_reg, l2_reg)
 
     def upd_H(V, W, H):
-        neg = torch.relu(V @ W) + eps  # (M, R)
+        neg = torch.relu(target_mm(V, W)) + eps  # (M, R)
         G = W.mT @ W  # WᵀW : (R, R)
         pos = torch.relu(H @ G) + eps
         return H * mu_multiplier(neg, pos, H, gamma, l1_reg, l2_reg)
 
     # no fused loss: the Gram identity for the Frobenius loss cancels
-    # catastrophically in float32 near convergence, so the solver's direct
+    # catastrophically in float32 near convergence, so the direct
     # euclidean(recon, V) serves the every-10-iterations cadence
+    # (:func:`_blocked_loss` in the dense fit)
     return upd_W, upd_H
+
+
+def _blocked_loss(beta):
+    """The β ∈ {1, 2} cadence loss ``beta_div(H Wᵀ, V)`` summed over row
+    blocks of V (:func:`~.recon.row_blocks`): the reconstruction and the
+    divergence's temporaries never exist whole, so the fit's peak memory
+    is V's and not that of several (M, K) float32 arrays.  One block is
+    exactly ``beta_div(H Wᵀ, V)``."""
+    def loss_terms(V, W, H):
+        total = None
+        for rows in row_blocks(V):
+            part = beta_div(H[rows] @ W.T, V[rows], beta)
+            total = part if total is None else total + part
+        return total
+
+    return loss_terms
 
 
 def _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss):
@@ -64,7 +84,7 @@ def _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss):
                               mu_pos=kl_pos_H(W).reshape(1, -1))
             return out
 
-        return upd_W, upd_H
+        return upd_W, upd_H, _blocked_loss(1)
 
     def upd_W(V, W, H):
         neg, pos = contract(V, H, W, beta=beta, need_pos=need_pos, w_side=True)
@@ -80,7 +100,7 @@ def _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss):
 
     if beta == 1:
         # β=1 keeps the plain kl_div cadence loss, as the JAX package does
-        return upd_W, upd_H
+        return upd_W, upd_H, _blocked_loss(1)
 
     def loss_terms(V, W, H):
         return beta_loss(V, H, W, beta)
@@ -88,13 +108,20 @@ def _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss):
     return upd_W, upd_H, loss_terms
 
 
+def _dense_beta2_updaters(gamma, l1_reg, l2_reg):
+    """The Gram updaters with the blocked Frobenius cadence loss."""
+    return _beta2_updaters(gamma, l1_reg, l2_reg) + (_blocked_loss(2),)
+
+
 def nmf_updater_factory_fused(beta, gamma, l1_reg, l2_reg):
     """β = 2 → Gram trick; other β → the fused contraction and loss
-    wrappers (the CUDA kernels on a CUDA target).  The kernels copy rows of
-    V in 16-byte pieces: a V whose rows are not 16-byte aligned is padded
-    once per fit (every update of a fit gets the same V)."""
+    wrappers (the CUDA kernels on a CUDA target, for a float32 or a
+    bfloat16 V).  The kernels copy rows of V in 16-byte pieces: a V whose
+    rows are not 16-byte aligned (a card tensor the caller passed as it
+    is; ``target_like`` aligns the copies it makes) is padded once per fit
+    (every update of a fit gets the same V)."""
     if beta == 2:
-        return _beta2_updaters(gamma, l1_reg, l2_reg)
+        return _dense_beta2_updaters(gamma, l1_reg, l2_reg)
     last = [None, None]  # V, and V with aligned rows
 
     def aligned(V):
@@ -115,7 +142,7 @@ def nmf_updater_factory_plain(beta, gamma, l1_reg, l2_reg):
     """Like :func:`nmf_updater_factory_fused`, through the plain PyTorch
     versions of the kernels on any device."""
     if beta == 2:
-        return _beta2_updaters(gamma, l1_reg, l2_reg)
+        return _dense_beta2_updaters(gamma, l1_reg, l2_reg)
     return _fused_updaters(beta, gamma, l1_reg, l2_reg,
                            fused_mu.plain_contractions, fused_mu.plain_beta_loss)
 
@@ -130,8 +157,8 @@ def nmf_updater_factory_generic(beta, gamma, l1_reg, l2_reg):
 
 def resolve_nmf_updater_factory(device, dtype):
     """The factory for a fit of a ``dtype`` target on ``device``: float64
-    takes the generic engine, a CUDA float32 target the kernels, and any
-    other float32 target their plain versions."""
+    takes the generic engine, a CUDA float32 or bfloat16 target the kernels,
+    and any other target their plain versions."""
     if dtype == torch.float64:
         return nmf_updater_factory_generic
     if torch.device(device).type == "cuda":

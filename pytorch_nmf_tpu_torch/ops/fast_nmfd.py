@@ -75,6 +75,7 @@ __all__ = [
     "nmfd_fft_updater_factory",
     "nmfd_unfold_supported",
     "autocorr_supported",
+    "unfold_patches",
     "unfold_patches_nd",
     "unfold_deconv",
     "resolve_nmfd_updater_factory",
@@ -207,7 +208,9 @@ def _stream_recon(w2, H, kernel, valid_last: bool = False):
 
 
 def _v2_flat(V):
-    """``V (N, C, *S_out)`` → channels-last ``(N, prod(S_out), C)``."""
+    """``V (N, C, *S_out)`` → channels-last ``(N, prod(S_out), C)``, a copy
+    in V's dtype (a bfloat16 target's stays bfloat16: the cotangents
+    promote it, and a product that reads it upcasts it by row blocks)."""
     return V.movedim(1, -1).reshape(V.shape[0], -1, V.shape[1]).contiguous()
 
 
@@ -320,6 +323,12 @@ def unfold_patches_nd(H, kernel):
     """The patch matrix ``P[n, l_vec, τ_flat·R + r] = Hpad[n, l_vec - τ, r]``
     of ``H (N, R, *S_in)``: ``(N, prod(S_out), K·R)``."""
     return _patch_chunk_fn(H, tuple(kernel))(0, _prod(kernel))
+
+
+def unfold_patches(H, T: int):
+    """The 1-D patch matrix of ``H (N, R, L)``: ``P (N, L + T - 1, T·R)``
+    (:func:`unfold_patches_nd` with ``kernel = (T,)``)."""
+    return unfold_patches_nd(H, (T,))
 
 
 def _fold_into(acc, G, j0: int, j1: int, kernel, R: int):
@@ -521,9 +530,10 @@ def unfold_deconv(H, W):
 # --------------------------------------------------------------------------
 def autocorr_supported(V_shape, H_shape, dtype, device=None) -> bool:
     """Whether the autocorrelation engine takes this fit: a 1-D float32
-    problem in the unfold engine's unrolled regime."""
+    problem (its target float32 or bfloat16) in the unfold engine's
+    unrolled regime."""
     return (len(V_shape) == 3 and len(H_shape) == 3
-            and dtype == torch.float32
+            and dtype in (torch.float32, torch.bfloat16)
             and _unfold_mode(V_shape, H_shape, dtype, device) == "unrolled")
 
 
@@ -576,7 +586,8 @@ def nmfd_autocorr_updater_factory(beta, gamma, l1_reg, l2_reg):
                 "unfold budget)")
         T = w.shape[0] // H.shape[1]
         P = unfold_patches_nd(H, (T,)).reshape(-1, w.shape[0])
-        neg = torch.relu(P.T @ _v2_flat(V).reshape(-1, V.shape[1])) + eps
+        neg = torch.relu(_recon.matmul(
+            P.T, _v2_flat(V).reshape(-1, V.shape[1]))) + eps
         pos = torch.relu(_h_autocorr_gram(H, T) @ w) + eps
         return w * mu_multiplier(neg, pos, w, gamma, l1_reg, l2_reg)
 
@@ -746,9 +757,9 @@ def _kernels_off() -> bool:
 def resolve_nmfd_updater_factory(device, dtype, spatial_ndim: int = 1):
     """The factory for a fit of a ``dtype`` target on ``device``, without
     timing: float64 takes the generic autograd engine (``None``), a CUDA
-    float32 target the kernels, and any other float32 target their plain
-    versions; under ``PNT_NMFD_PALLAS=0`` float32 takes the unfold
-    engine."""
+    float32 or bfloat16 target the kernels (B3/B4 read the float32
+    cotangents), and any other target their plain versions; under
+    ``PNT_NMFD_PALLAS=0`` the unfold engine."""
     if dtype == torch.float64:
         return None
     if _kernels_off():

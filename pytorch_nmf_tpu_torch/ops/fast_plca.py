@@ -69,7 +69,10 @@ def resolve_plca_em_engine(V):
     """The dense PLCA E-step engine factory for this fit: ``None`` (the
     generic E-step) unless ``PNT_PLCA_FUSED=1``; then, for a float32 2-D
     target, the kernel engine on a CUDA target and its plain twin
-    elsewhere."""
+    elsewhere.  Any other target (a bfloat16 one included) takes the
+    generic E-step, as the JAX package's fused E-step declines a non-float32
+    target: that is its path, not a fallback after a failure (its ``Vn =
+    V / V.sum()`` is bfloat16, and the E-step's cotangent promotes it)."""
     if os.environ.get("PNT_PLCA_FUSED", "") != "1":
         return None
     if V.ndim != 2 or V.dtype != torch.float32:

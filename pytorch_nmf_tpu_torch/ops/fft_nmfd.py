@@ -75,10 +75,12 @@ def fft_beta2_updater_factory(gamma, l1_reg, l2_reg):
     transformed back once)."""
 
     def _chunks(V, W):
+        # a bfloat16 V is upcast a channel chunk at a time (the transforms
+        # take float32)
         n = _nfft(V.shape[-1])
         cb = _c_chunk(W.shape[0], W.shape[1], n // 2 + 1)
         for c0 in range(0, W.shape[0], cb):
-            yield n, W[c0:c0 + cb], V[:, c0:c0 + cb]
+            yield n, W[c0:c0 + cb], V[:, c0:c0 + cb].to(W.dtype)
 
     def upd_W(V, W, H):
         T = W.shape[-1]

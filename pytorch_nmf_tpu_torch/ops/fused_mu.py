@@ -14,8 +14,12 @@ it runs the plain PyTorch version beside it (``plain_*``), which
 materializes them.  There is no other dispatch: a CUDA tensor the kernel
 does not take raises.
 
+V may be float32 or bfloat16 (a target held at half width, which the
+kernels upcast exactly as they read it); H, W and every output are float32.
+
 Each wrapper counts its kernel launches in a plain integer attribute,
-``fused_contractions.launches`` and ``fused_beta_loss.launches``.
+``fused_contractions.launches`` and ``fused_beta_loss.launches``, and the
+launches of its bfloat16-V instance also in ``launches_bf16``.
 """
 
 import functools
@@ -27,6 +31,7 @@ from ..constants import eps
 
 __all__ = [
     "aligned_rows",
+    "aligned_copy",
     "fused_contractions",
     "w_side_contractions",
     "h_side_contractions",
@@ -68,10 +73,16 @@ def _loss_terms(v, wh, beta: float):
     )
 
 
+def _f32(V, like):
+    """``V`` in the factors' dtype: a bfloat16 target upcast (exactly) as
+    the kernels read it; any other as it is."""
+    return V.to(like.dtype) if V.dtype == torch.bfloat16 else V
+
+
 def plain_contractions(V, H, W, *, beta: float, need_pos: bool, w_side: bool,
                        mu_pos: Optional[torch.Tensor] = None):
     """Plain PyTorch version of :func:`fused_contractions`."""
-    c_neg, c_pos = _cotangents(V, H @ W.T, beta, need_pos)
+    c_neg, c_pos = _cotangents(_f32(V, H), H @ W.T, beta, need_pos)
     other = H if w_side else W
     contract = (lambda c: c.T @ other) if w_side else (lambda c: c @ other)
     neg = contract(c_neg)
@@ -83,30 +94,54 @@ def plain_contractions(V, H, W, *, beta: float, need_pos: bool, w_side: bool,
 
 def plain_beta_loss(V, H, W, beta: float):
     """Plain PyTorch version of :func:`fused_beta_loss`."""
-    return torch.sum(_loss_terms(V, H @ W.T, beta))
+    return torch.sum(_loss_terms(_f32(V, H), H @ W.T, beta))
+
+
+def _row_quantum(dtype) -> int:
+    """Values of the float ``dtype`` in the 16 bytes the kernels copy at
+    once."""
+    return 128 // torch.finfo(dtype).bits
 
 
 def aligned_rows(x):
     """``x`` (2-D) itself when its rows are contiguous and 16-byte aligned,
     as the kernels copy them, else the same values as a view of a copy whose
-    rows are zero-padded to a multiple of 4 floats.  CPU tensors are
-    returned as they are.  The dense fit pads V once per fit with it
-    (``fast_nmf``): V = 5168×1025 has 4100-byte rows."""
+    rows are zero-padded to 16 bytes (:func:`aligned_copy`).  CPU tensors
+    are returned as they are.  A target that reached the card through
+    ``models._common.target_like`` is aligned already; a card tensor the
+    caller passed in the fit's dtype with unaligned rows (V = 5168×1025
+    float32: 4100-byte rows) is padded here, once per fit
+    (``fast_nmf``)."""
+    q = _row_quantum(x.dtype)
     if x.device.type == "cpu" or (
-            x.stride(1) == 1 and x.stride(0) % 4 == 0 and
+            x.stride(1) == 1 and x.stride(0) % q == 0 and
             x.stride(0) >= x.shape[1] and x.data_ptr() % 16 == 0):
         return x
     return _padded(x)
 
 
-def _padded(x):
-    """A copy of ``x`` whose rows are zero-padded to a multiple of 4 floats
-    (fresh storage, so 16-byte aligned), as a view of its first columns."""
+def aligned_copy(x, device, dtype):
+    """``x`` (2-D, anywhere) on ``device`` in ``dtype`` as a view of the
+    first columns of fresh storage whose rows are zero-padded to 16 bytes.
+    A host ``x`` is padded on the host and copied to the card whole: a copy
+    into a strided view on the card would stage a second, contiguous copy
+    there."""
     n = x.shape[1]
-    buf = x.new_empty((x.shape[0], n + -n % 4))
+    width = n + -n % _row_quantum(dtype)
+    staging = torch.device(device) != x.device and x.device.type == "cpu"
+    buf = torch.empty((x.shape[0], width), dtype=dtype,
+                      device="cpu" if staging else device)
     buf[:, :n] = x
     buf[:, n:] = 0
+    if staging:
+        buf = buf.to(device)
     return buf[:, :n]
+
+
+def _padded(x):
+    """A copy of ``x`` whose rows are zero-padded to 16 bytes (fresh
+    storage, so 16-byte aligned), as a view of its first columns."""
+    return aligned_copy(x, x.device, x.dtype)
 
 
 def _factor_rows(F, G):
@@ -119,12 +154,15 @@ def _factor_rows(F, G):
 
 
 def _check_operands(V, H, W):
-    """Raise on any CUDA operand the kernels do not take; returns M, K, R."""
+    """Raise on any CUDA operand the kernels do not take (V float32 or
+    bfloat16, H and W float32); returns M, K, R."""
     for name, x in (("V", V), ("H", H), ("W", W)):
         if x.device != V.device:
             raise ValueError(f"{name} is on {x.device}, V on {V.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"the fused kernels take float32; {name} is {x.dtype}")
+        ok = (torch.float32, torch.bfloat16) if name == "V" else (torch.float32,)
+        if x.dtype not in ok:
+            raise TypeError(f"the fused kernels take a float32 or bfloat16 V "
+                            f"and float32 H and W; {name} is {x.dtype}")
         if x.ndim != 2 or x.stride(1) != 1 or x.stride(0) < x.shape[1]:
             raise ValueError(f"{name} must be a 2-D tensor with contiguous rows")
     M, K = V.shape
@@ -191,16 +229,18 @@ def fused_contractions(V, H, W, *, beta: float, need_pos: bool, w_side: bool,
         *(_ptr(x) for x in (V, F, G, mu_pos, out_neg, out_pos, part_neg,
                             part_pos)),
         n_f, n_g, R, V.stride(0), F.stride(0), int(not w_side), splits,
-        float(beta), int(need_pos),
+        float(beta), int(need_pos), int(V.dtype == torch.bfloat16),
         torch.cuda.current_stream(V.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_contractions kernel launch failed: CUDA error {err}")
     fused_contractions.launches += 1
+    fused_contractions.launches_bf16 += V.dtype == torch.bfloat16
     return out_neg, out_pos
 
 
 fused_contractions.launches = 0
+fused_contractions.launches_bf16 = 0
 
 
 def fused_beta_loss(V, H, W, beta: float):
@@ -223,15 +263,18 @@ def fused_beta_loss(V, H, W, beta: float):
     err = lib.pnt_fused_beta_loss(
         V.data_ptr(), H.data_ptr(), W.data_ptr(), partials.data_ptr(),
         out.data_ptr(), M, K, R, V.stride(0), H.stride(0), splits, float(beta),
+        int(V.dtype == torch.bfloat16),
         torch.cuda.current_stream(V.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_beta_loss kernel launch failed: CUDA error {err}")
     fused_beta_loss.launches += 1
+    fused_beta_loss.launches_bf16 += V.dtype == torch.bfloat16
     return out
 
 
 fused_beta_loss.launches = 0
+fused_beta_loss.launches_bf16 = 0
 
 
 def w_side_contractions(V, H, W, beta: float, need_pos: bool = True):

@@ -53,7 +53,9 @@ def mu_cotangents(V, WH, beta: float, kl_pos_ones: bool = False):
     term; with ``kl_pos_ones=True`` it is ``ones_like(WH)`` instead.
     """
     if beta == 2:
-        return V, WH
+        # a bfloat16 V is the one cotangent not promoted by arithmetic: the
+        # backward passes and the kernels take the reconstruction's dtype
+        return V.to(torch.promote_types(V.dtype, WH.dtype)), WH
     elif beta == 1:
         neg = V / (WH + eps)
         pos = torch.ones_like(WH) if kl_pos_ones else None

@@ -20,8 +20,11 @@ CUDA follows ``torch.backends.cudnn.allow_tf32``, which PyTorch sets by default.
 import torch
 import torch.nn.functional as F
 
-__all__ = ["acc_type", "linear", "deconv1d", "deconv2d", "deconv3d",
-           "scaled_kernel"]
+__all__ = ["acc_type", "matmul", "row_blocks", "target_mm", "target_tmm",
+           "linear", "deconv1d", "deconv2d", "deconv3d", "scaled_kernel"]
+
+# the float32 transient of one row block of a bfloat16 target
+_BLOCK_BYTES = 16 * 1024**2
 
 
 def acc_type(*xs) -> torch.dtype:
@@ -32,6 +35,61 @@ def acc_type(*xs) -> torch.dtype:
         if x.dtype == torch.float64:
             return torch.float64
     return torch.float32
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' promoted dtype, as ``jnp.matmul``
+    promotes (a bfloat16 target against float32: float32, exactly)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
+def row_blocks(V: torch.Tensor):
+    """Slices of ``V``'s rows (its axis -2) whose float32 copy takes at
+    most 16 MiB (at least one row each), in order."""
+    M = V.shape[-2]
+    per_row = 4 * (V.numel() // max(M, 1))
+    step = max(1, _BLOCK_BYTES // max(per_row, 1))
+    return [slice(r, min(r + step, M)) for r in range(0, M, step)]
+
+
+def target_mm(V: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``V @ X`` for a target ``V (..., M, K)``: one product when the dtypes
+    agree; a bfloat16 ``V`` against float32 ``X`` in row blocks
+    (:func:`row_blocks`), each upcast to float32, so that no float32 copy
+    of the whole target is made."""
+    if V.dtype == X.dtype:
+        return V @ X
+    blocks = row_blocks(V)
+    if len(blocks) == 1:
+        return matmul(V, X)
+    dt = torch.promote_types(V.dtype, X.dtype)
+    X = X.to(dt)
+    out = torch.empty(torch.broadcast_shapes(V.shape[:-2], X.shape[:-2])
+                      + (V.shape[-2], X.shape[-1]), dtype=dt, device=V.device)
+    for rows in blocks:
+        out[..., rows, :] = V[..., rows, :].to(dt) @ X
+    return out
+
+
+def target_tmm(V: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``V.mT @ X`` for a target ``V (..., M, K)`` and ``X (..., M, R)``,
+    as :func:`target_mm`: a bfloat16 ``V`` is upcast a row block at a
+    time and the blocks' products summed in order."""
+    if V.dtype == X.dtype:
+        return V.mT @ X
+    blocks = row_blocks(V)
+    if len(blocks) == 1:
+        return matmul(V.mT, X)
+    dt = torch.promote_types(V.dtype, X.dtype)
+    X = X.to(dt)
+    out = None
+    for rows in blocks:
+        part = V[..., rows, :].to(dt).mT @ X[..., rows, :]
+        out = part if out is None else out.add_(part)
+    return out
 
 
 def linear(H: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from . import sparse as _sparse
 from .mu import (gamma_from_beta, kl_pos_H, kl_pos_W, mu_multiplier, mu_update,
                  renorm)
 from .projection import hoyer_l1_target, proj_columns, proj_columns_explicit
+from .recon import matmul
 
 __all__ = ["get_dense_fit", "get_batched_dense_fit", "get_sparse_fit",
            "get_hoyer_fit", "get_batched_hoyer_fit", "get_plca_fit",
@@ -775,7 +776,7 @@ def get_plca_fit(
             # shown beside the loss when verbose (reference plca.py:18-20)
             w, h, z = state
             WZH = recon3(h, w, z)
-            lp = Vn.reshape(-1) @ torch.log(WZH + eps).reshape(-1)
+            lp = matmul(Vn.reshape(-1), torch.log(WZH + eps).reshape(-1))
             lp = lp + torch.sum(torch.log(w + eps) * (W_alpha - 1.0))
             lp = lp + torch.sum(torch.log(h + eps) * (H_alpha - 1.0))
             return lp + torch.sum(torch.log(z + eps) * (Z_alpha - 1.0))

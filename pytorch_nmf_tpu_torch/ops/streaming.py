@@ -32,8 +32,14 @@ card works on the current one; each block
 is copied to one of two device buffers on a copy stream of its own, the
 compute stream waits on the copy's event, a staging buffer is refilled
 only after its copy has finished and a device buffer only after the
-compute that read it.  The device buffers' rows are padded to a multiple of
-4 floats, so the kernels take them as they are (16-byte aligned rows).
+compute that read it.  The device buffers' rows are padded to 16 bytes,
+so the kernels take them as they are (16-byte aligned rows).
+
+A bfloat16 host target (a torch bfloat16 tensor, or a numpy array of
+``ml_dtypes.bfloat16``, which JAX's arrays give) with float32 factors is
+staged, copied and read at half width, as the in-memory fit holds it
+(``models._common.target_dtype``); numpy moves its blocks as their 16-bit
+patterns.  Any other target is read in the factors' dtype.
 
 Cost model: every iteration moves ``V`` host→card twice (once per factor),
 so the fit is bound by the host's copies; use it where ``V`` does not fit
@@ -51,6 +57,7 @@ from ..metrics import beta_div
 from . import fused_mu
 from .fast_nmf import _beta2_updaters, _fused_updaters
 from .mu import gamma_from_beta, kl_pos_W, mu_multiplier
+from .recon import target_tmm
 
 __all__ = ["streaming_nmf_fit"]
 
@@ -72,6 +79,8 @@ class _Blocks:
     FILL_SPLIT_BYTES = 16 * 1024**2  # smaller blocks: one thread
 
     def __init__(self, V, row_block: int, device, dtype):
+        """``V``: the host target as numpy reads it (:func:`_host_rows`);
+        ``dtype``: the blocks' dtype on the device."""
         self.V, self.row_block, self.device, self.dtype = V, row_block, device, dtype
         M, K = V.shape
         self.n = -(-M // row_block)
@@ -80,7 +89,7 @@ class _Blocks:
         self.cuda = torch.device(device).type == "cuda"
         if self.cuda:
             rows = min(row_block, M)
-            Kp = K + -K % 4
+            Kp = _padded_width(K, dtype)
             self.stage = [torch.zeros((rows, Kp), dtype=dtype, pin_memory=True)
                           for _ in range(2)]
             self.dev = [torch.zeros((rows, Kp), dtype=dtype, device=device)
@@ -100,10 +109,11 @@ class _Blocks:
         card) or into a new host tensor."""
         lo, hi = self._rows(b)
         if not self.cuda:
-            return torch.from_numpy(
-                np.ascontiguousarray(self.V[lo:hi], dtype=_np_dtype(self.dtype)))
+            return _as_dtype(torch.from_numpy(
+                np.ascontiguousarray(self.V[lo:hi], dtype=_np_dtype(self.dtype))),
+                self.dtype)
         self.copied[slot].synchronize()  # the buffer's last copy is done
-        dst = self.stage[slot].numpy()[:hi - lo, :self.V.shape[1]]
+        dst = _numpy_bits(self.stage[slot])[:hi - lo, :self.V.shape[1]]
         parts = 1 if dst.nbytes < self.FILL_SPLIT_BYTES else self.FILL_THREADS
         step = -(-(hi - lo) // parts)
         done = [self.fill.submit(np.copyto, dst[i:i + step],
@@ -146,7 +156,49 @@ class _Blocks:
 
 
 def _np_dtype(dtype):
-    return np.float64 if dtype == torch.float64 else np.float32
+    """The numpy dtype a block of ``dtype`` is moved in: bfloat16 as its
+    16-bit pattern (``Tensor.numpy()`` refuses bfloat16)."""
+    return {torch.float64: np.float64, torch.bfloat16: np.int16}.get(
+        dtype, np.float32)
+
+
+def _numpy_bits(t):
+    """A numpy view of the host tensor ``t`` (a bfloat16 one as int16)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _as_dtype(t, dtype):
+    """The inverse of :func:`_numpy_bits` on a tensor from numpy."""
+    return t.view(torch.bfloat16) if dtype == torch.bfloat16 else t
+
+
+def _padded_width(K: int, dtype) -> int:
+    """``K`` rounded up to the 16 bytes the kernels copy at once."""
+    return K + -K % fused_mu._row_quantum(dtype)
+
+
+def _host_rows(V, factor_dtype):
+    """``(rows, dtype)``: the host target as numpy slices it, and the dtype
+    of its blocks on the device (``models._common.target_dtype``).  A
+    bfloat16 target (a torch tensor, or a numpy array of
+    ``ml_dtypes.bfloat16``) comes as its int16 bit pattern; a torch tensor
+    of another dtype as its numpy view; anything else as it is (an
+    ``np.memmap`` stays one)."""
+    from ..models._common import target_dtype
+
+    if isinstance(V, torch.Tensor):
+        V = V.detach().cpu()
+        if V.dtype != torch.bfloat16:
+            return V.numpy(), factor_dtype
+        dtype = target_dtype(torch.bfloat16, factor_dtype)
+        return (V.view(torch.int16).numpy() if dtype == torch.bfloat16
+                else V.to(factor_dtype).numpy()), dtype
+    dt = getattr(V, "dtype", None)
+    if dt is not None and np.dtype(dt).name == "bfloat16":
+        dtype = target_dtype(torch.bfloat16, factor_dtype)
+        return (V.view(np.int16) if dtype == torch.bfloat16
+                else V.astype(np.float32)), dtype
+    return V, factor_dtype
 
 
 def streaming_nmf_fit(
@@ -165,7 +217,9 @@ def streaming_nmf_fit(
     """Fit ``V ≈ H Wᵀ`` with a host-resident target read in row blocks.
 
     ``V``: anything whose row slices numpy can read, an ``np.memmap`` in
-    particular.  ``W`` and ``H`` are copied to the first factor's device
+    particular, or a CPU tensor; a bfloat16 one (a torch tensor or a numpy
+    array of ``ml_dtypes.bfloat16``) is moved and read at half width with
+    float32 factors.  ``W`` and ``H`` are copied to the first factor's device
     (the card for a numpy array; a CPU tensor keeps the fit on the CPU),
     float64 kept and every other dtype made float32.  A block must have
     fewer than 2^31 elements (B1 indexes in int32).  Returns ``(W, H,
@@ -176,15 +230,16 @@ def streaming_nmf_fit(
     device = W.device if isinstance(W, torch.Tensor) else None
     W = to_param(W, device)
     H = to_param(H, W.device)
-    device, dtype = W.device, W.dtype
+    device = W.device
+    V, dtype = _host_rows(V, W.dtype)  # dtype: the blocks'
     M, K = V.shape
     if H.shape[0] != M or W.shape[0] != K or H.shape[1] != W.shape[1]:
         raise ValueError(f"V {tuple(V.shape)}, W {tuple(W.shape)} and H "
                          f"{tuple(H.shape)} do not form V ~ H Wᵀ")
-    if min(row_block, M) * (K + -K % 4) >= 2**31:
+    if min(row_block, M) * _padded_width(K, dtype) >= 2**31:
         raise ValueError("a row block must hold fewer than 2^31 elements")
     beta, gamma = float(beta), gamma_from_beta(beta)
-    kernels = device.type == "cuda" and dtype == torch.float32
+    kernels = device.type == "cuda" and W.dtype == torch.float32
     contract = (fused_mu.fused_contractions if kernels
                 else fused_mu.plain_contractions)
     if beta == 2:
@@ -196,7 +251,7 @@ def streaming_nmf_fit(
     def w_contract(Vb, Hb):
         """This block's raw W numerator and denominator."""
         if beta == 2:
-            return Vb.T @ Hb, Hb.T @ Hb
+            return target_tmm(Vb, Hb), Hb.T @ Hb
         neg, pos = contract(Vb, Hb, W, beta=beta, need_pos=beta != 1,
                             w_side=True)
         return neg, (kl_pos_W(Hb) if beta == 1 else pos)
@@ -212,7 +267,7 @@ def streaming_nmf_fit(
         return W * mu_multiplier(neg, pos, W, gamma, l1_reg, l2_reg)
 
     def block_loss(Vb, Hb):
-        if beta not in (1, 2) and dtype == torch.float32:
+        if beta not in (1, 2) and W.dtype == torch.float32:
             return fused_mu.fused_beta_loss(Vb, Hb, W, beta)
         return beta_div(Hb @ W.T, Vb, beta)
 

@@ -73,6 +73,7 @@ import torch.nn.functional as F
 
 from ..constants import eps
 from ..metrics import beta_div, kl_div
+from ..models._common import host_tensor, target_dtype
 from ..ops import autotune, fused_deconv
 from ..ops.budget import budget_bytes
 from ..ops.fast_nmfd import (_DEFAULT_UNFOLD_MAX_BYTES, _UNFOLD_HBM_FRACTION,
@@ -81,7 +82,7 @@ from ..ops.fast_nmfd import (_DEFAULT_UNFOLD_MAX_BYTES, _UNFOLD_HBM_FRACTION,
                              _v2_flat, _w2, _w_from_w2)
 from ..ops.fused_deconv import _CHUNK_COLS, _chunk_tc, _flat_T, nd_geom
 from ..ops.mu import gamma_from_beta, mu_cotangents
-from ..ops.recon import scaled_kernel
+from ..ops.recon import matmul, scaled_kernel
 from ..ops.solver import (_converging_loop, _plca_e_step, _plca_m_step,
                           _plca_marginal_sum, alpha_is_active)
 from .comm import comm_for
@@ -595,19 +596,19 @@ def _halo_split(V, W, H, mesh, spatial_ndim, seq_axis):
     chunk = max(-(-L_out // n), T - 1)
     dev = mesh_device(mesh)
 
-    def piece(x, L):
+    def piece(x, L, dtype=torch.float32):
         x = x[..., min(r * chunk, L):min((r + 1) * chunk, L)]
         x = torch.nn.functional.pad(x, (0, chunk - x.shape[-1]))
-        return x.to(device=dev, dtype=torch.float32).contiguous()
+        return x.to(device=dev, dtype=dtype).contiguous()
 
-    return (comm, dev, piece(V, L_out), W.to(device=dev, dtype=torch.float32),
-            piece(H, L_in), chunk, L_in, chunk * n - L_out)
+    # a bfloat16 V stays bfloat16 on its rank (models._common.target_dtype)
+    return (comm, dev, piece(V, L_out, target_dtype(V.dtype, torch.float32)),
+            W.to(device=dev, dtype=torch.float32), piece(H, L_in), chunk,
+            L_in, chunk * n - L_out)
 
 
 def _full(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach()
-    return torch.from_numpy(np.ascontiguousarray(x))
+    return host_tensor(x).detach()
 
 
 def _h_out(hp, comm, mesh, seq_axis, L_in, shape):
@@ -754,7 +755,9 @@ def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol=1e-4,
         return summed(_plca_marginal_sum(h))
 
     with torch.no_grad():
-        norm = summed(Vl.sum())[0]
+        # the sum in float32 over the ranks, then in V's dtype (as
+        # sharded.sharded_plca_fit)
+        norm = summed(Vl.sum(dtype=torch.float32))[0].to(Vl.dtype)
         Vn = Vl / norm
 
         def loss_of(state):
@@ -767,7 +770,8 @@ def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol=1e-4,
             # log(eps)·(Hα-1) against the unpadded problem: taken off
             w, hp, z = state
             WZH = recon3(hp, w, z)
-            lp = summed(Vn.reshape(-1) @ torch.log(WZH + eps).reshape(-1))[0]
+            lp = summed(matmul(Vn.reshape(-1),
+                               torch.log(WZH + eps).reshape(-1)))[0]
             lp = lp + torch.sum(torch.log(w + eps) * (W_alpha - 1.0))
             lp = lp + summed(torch.sum(torch.log(hp + eps)
                                        * (H_alpha - 1.0)))[0]

@@ -35,9 +35,12 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..constants import eps
-from ..metrics import beta_div, kl_div
+from ..metrics import kl_div
+from ..models._common import host_tensor, target_dtype
 from ..ops import fused_mu
+from ..ops.fast_nmf import _blocked_loss
 from ..ops.mu import gamma_from_beta, mu_multiplier
+from ..ops.recon import matmul, target_mm, target_tmm
 from ..ops.solver import (_converging_loop, _plca_e_step, _plca_m_step,
                           _plca_marginal_sum, _progress, alpha_is_active)
 from .comm import comm_for
@@ -76,23 +79,28 @@ def _block(x, mesh, pls):
     return x
 
 
-def local_block(x, mesh, pls, device=None):
-    """This rank's float32 block of ``x`` on ``device`` (the mesh's by
-    default): ``x`` is a full array (numpy or tensor, the same on every
-    rank), or a ``DTensor`` with placements ``pls``, whose local tensor is
-    taken."""
+def local_block(x, mesh, pls, device=None, target=False):
+    """This rank's block of ``x`` on ``device`` (the mesh's by default), in
+    float32 or, for a ``target``, in the dtype a fit holds it in (a
+    bfloat16 target stays bfloat16; ``models._common.target_dtype``): ``x``
+    is a full array (numpy or tensor, the same on every rank), or a
+    ``DTensor`` with placements ``pls``, whose local tensor is taken.  A
+    2-D target block copied to the card gets 16-byte aligned rows
+    (``fused_mu.aligned_copy``), as B1/B2 read them."""
     device = mesh_device(mesh) if device is None else device
     if isinstance(x, DTensor):
         if x.device_mesh != mesh or list(x.placements) != list(pls):
             raise ValueError(f"DTensor placed {x.placements} on "
                              f"{x.device_mesh}; the fit takes {pls} on {mesh}")
         x = x.to_local()
-    elif not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
     else:
-        x = x.detach()
-    return _block(x, mesh, pls).to(device=device,
-                                   dtype=torch.float32).contiguous()
+        x = host_tensor(x).detach()
+    x = _block(x, mesh, pls)
+    dtype = target_dtype(x.dtype, torch.float32) if target else torch.float32
+    if target and x.ndim == 2 and torch.device(device).type == "cuda" and \
+            x.device != torch.device(device):
+        return fused_mu.aligned_copy(x, device, dtype)
+    return x.to(device=device, dtype=dtype).contiguous()
 
 
 def as_dtensor(local, mesh, pls, shape) -> DTensor:
@@ -106,9 +114,10 @@ def as_dtensor(local, mesh, pls, shape) -> DTensor:
 def shard_target(x, mesh, pls) -> DTensor:
     """Place the full ``x`` (the same on every rank) on ``mesh`` under the
     DTensor placements ``pls`` (one per mesh dimension): each rank keeps its
-    own block, no communication."""
+    own block, no communication; a bfloat16 ``x`` stays bfloat16."""
     shape = x.shape
-    return as_dtensor(local_block(x, mesh, pls), mesh, pls, shape)
+    return as_dtensor(local_block(x, mesh, pls, target=True), mesh, pls,
+                      shape)
 
 
 def _reporter(mesh, verbose: bool, max_iter: int):
@@ -168,7 +177,7 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
     w_pl = placements(mesh, {0: model_axis})
     h_pl = placements(mesh, {0: data_axis})
     shapes = {"W": tuple(W.shape), "H": tuple(H.shape)}
-    Vl = local_block(V, mesh, v_pl)
+    Vl = local_block(V, mesh, v_pl, target=True)
     Wl = local_block(W, mesh, w_pl)
     Hl = local_block(H, mesh, h_pl)
     if Vl.shape != (Hl.shape[0], Wl.shape[0]):
@@ -189,7 +198,7 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
 
     def upd_W(w, h):
         if beta == 2:  # Gram: (Vᵀ h, w (hᵀh)), both summed over the rows
-            neg, G = Vl.T @ h, h.T @ h
+            neg, G = target_tmm(Vl, h), h.T @ h
             data.all_reduce(neg, G)
             return _mu_step(w, neg, torch.relu(w @ G) + eps, gamma, l1_reg,
                             l2_reg)
@@ -202,7 +211,7 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
 
     def upd_H(w, h):
         if beta == 2:  # Gram: (V w, h (wᵀw)), summed over the columns
-            neg, G = Vl @ w, w.T @ w
+            neg, G = target_mm(Vl, w), w.T @ w
             reduce_model(neg, G)
             return _mu_step(h, neg, torch.relu(h @ G) + eps, gamma, l1_reg,
                             l2_reg)
@@ -222,8 +231,8 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
         w, h = state
         if need_pos:
             part = fused_mu.fused_beta_loss(Vl, h, w, beta)
-        else:
-            part = beta_div(h @ w.T, Vl, beta)
+        else:  # the dense fit's, over row blocks of the local V
+            part = _blocked_loss(beta)(Vl, w, h)
         part = part.reshape(1).clone()
         data.all_reduce(part)
         reduce_model(part)
@@ -269,7 +278,7 @@ def sharded_plca_fit(V, W, H, Z, mesh, tol: float = 1e-4, max_iter: int = 200,
     Wa, Ha, Za = (alpha_is_active(a) for a in (W_alpha, H_alpha, Z_alpha))
     rows, rep = placements(mesh, {0: data_axis}), placements(mesh, {})
     shapes = (tuple(W.shape), tuple(H.shape), tuple(Z.shape))
-    Vl = local_block(V, mesh, rows)
+    Vl = local_block(V, mesh, rows, target=True)
     Hl = local_block(H, mesh, rows)
     Wl, Zl = local_block(W, mesh, rep), local_block(Z, mesh, rep)
     dev = Vl.device
@@ -289,7 +298,9 @@ def sharded_plca_fit(V, W, H, Z, mesh, tol: float = 1e-4, max_iter: int = 200,
         return summed(_plca_marginal_sum(h))
 
     with torch.no_grad():
-        norm = summed(Vl.sum())[0]
+        # the sum in float32 over the ranks (every collective carries
+        # float32), then in V's dtype, as the single-card fit's V.sum()
+        norm = summed(Vl.sum(dtype=torch.float32))[0].to(Vl.dtype)
         Vn = Vl / norm
 
         def loss_of(state):
@@ -300,7 +311,8 @@ def sharded_plca_fit(V, W, H, Z, mesh, tol: float = 1e-4, max_iter: int = 200,
         def log_probability(state):
             w, h, z = state
             WZH = recon3(h, w, z)
-            lp = summed(Vn.reshape(-1) @ torch.log(WZH + eps).reshape(-1))[0]
+            lp = summed(matmul(Vn.reshape(-1),
+                               torch.log(WZH + eps).reshape(-1)))[0]
             lp = lp + torch.sum(torch.log(w + eps) * (W_alpha - 1.0))
             lp = lp + summed(torch.sum(torch.log(h + eps)
                                        * (H_alpha - 1.0)))[0]

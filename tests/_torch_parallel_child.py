@@ -10,7 +10,8 @@ rank's results.  A rank that fails or hangs fails the group.
 Each rank runs every case in order: a case names its mesh (``axes``; a
 mesh of fewer ranks than the world leaves the others idle for that case;
 ``device``, ``"cpu"`` unless ``"cuda"``: the ranks then share card 0),
-the fit (``kind``) and its keyword arguments; the factors come back whole
+the fit (``kind``) and its keyword arguments (the inputs named in ``bf16``
+go in as bfloat16 tensors); the factors come back whole
 (``DTensor.full_tensor``), with ``n_iter``, the kernels' launches and
 any counts, on every rank of the mesh.  A halo fit's case may force its
 per-shard ``mode`` (through the private fits' ``mode`` argument), set
@@ -142,7 +143,10 @@ def _run_case(case, arrays, mesh, cpu_mesh):
     mode = case.get("mode")
 
     def a(key):
-        return arrays[f"{case['name']}:{key}"]
+        x = arrays[f"{case['name']}:{key}"]
+        # the inputs the case names under ``bf16`` go in as bfloat16 tensors
+        return torch.from_numpy(x).bfloat16() if key in case.get("bf16", ()) \
+            else x
 
     def full(x):
         # a card DTensor is gathered on the CPU: gloo's all_gather into one
@@ -172,6 +176,10 @@ def _run_case(case, arrays, mesh, cpu_mesh):
         if kind == "nmf":
             W, H, n = par.sharded_nmf_fit(a("V"), a("W"), a("H"), mesh, **kw)
             out.update(W=full(W), H=full(H), n_iter=n)
+            if case.get("bf16"):  # the dtype each rank keeps its block in
+                pls = par.sharded.placements(mesh, {0: "data"})
+                out["v_local_bf16"] = par.shard_target(
+                    a("V"), mesh, pls).to_local().dtype == torch.bfloat16
         elif kind == "plca":
             W, H, Z, n, norm = par.sharded_plca_fit(
                 a("V"), a("W"), a("H"), a("Z"), mesh, **kw)

@@ -113,6 +113,85 @@ def test_plain_loss_matches_jax_kernel(jx, data, beta):
     np.testing.assert_allclose(float(got), float(ref), rtol=RTOL_JAX)
 
 
+@pytest.mark.parametrize("beta, need_pos, epilogue", CONTRACTION_CASES)
+@pytest.mark.parametrize("w_side", [True, False])
+def test_plain_bf16_contractions_match_jax_kernel(jx, data, beta, need_pos,
+                                                  epilogue, w_side):
+    """A bfloat16 V: the plain version (which upcasts V) against the JAX
+    package's kernel on the same bfloat16 V, which promotes it."""
+    V, W, H = data
+    Vt = torch.from_numpy(V).bfloat16()
+    mu_pos = _mu_pos(w_side, torch.from_numpy(W), torch.from_numpy(H),
+                     tmu) if epilogue else None
+    neg, pos = fused_mu.fused_contractions(
+        Vt, torch.from_numpy(H), torch.from_numpy(W), beta=beta,
+        need_pos=need_pos, w_side=w_side, mu_pos=mu_pos)
+    Vj = jx.jnp.asarray(V, jx.jnp.bfloat16)
+    Wj, Hj = jx.jnp.asarray(W), jx.jnp.asarray(H)
+    rneg, rpos = jx.contractions(
+        Vj, Hj, Wj, beta=beta, need_pos=need_pos, w_side=w_side,
+        mu_pos=_mu_pos(w_side, Wj, Hj, jx.mu) if epilogue else None,
+        interpret=True)
+    assert neg.dtype == torch.float32
+    np.testing.assert_allclose(neg.numpy(), np.asarray(rneg), rtol=RTOL_JAX)
+    if need_pos:
+        np.testing.assert_allclose(pos.numpy(), np.asarray(rpos), rtol=RTOL_JAX)
+
+
+@pytest.mark.parametrize("beta", [2.0, 1.0, 0.0, 0.5])
+def test_plain_bf16_loss_matches_jax_kernel(jx, data, beta):
+    """B2's plain version with a bfloat16 V against the JAX package's kernel
+    on it.  (At β < 0 the JAX kernel raises V+eps to β in bfloat16, which
+    rounds; the port's kernel and its plain version upcast V first, so they
+    equal the float32 loss on the rounded V: the next test.)"""
+    V, W, H = data
+    got = fused_mu.fused_beta_loss(torch.from_numpy(V).bfloat16(),
+                                   torch.from_numpy(H), torch.from_numpy(W),
+                                   beta)
+    ref = jx.beta_loss(jx.jnp.asarray(V, jx.jnp.bfloat16), jx.jnp.asarray(H),
+                       jx.jnp.asarray(W), beta, interpret=True)
+    np.testing.assert_allclose(float(got), float(ref), rtol=RTOL_JAX)
+
+
+@pytest.mark.parametrize("beta", [2.0, 1.0, 0.0, 0.5, -1.0])
+def test_plain_bf16_is_the_f32_version_on_the_rounded_v(data, beta):
+    """The plain versions read a bfloat16 V as its exact float32 upcast."""
+    V, W, H = (torch.from_numpy(x) for x in data)
+    Vb = V.bfloat16()
+    torch.testing.assert_close(fused_mu.plain_beta_loss(Vb, H, W, beta),
+                               fused_mu.plain_beta_loss(Vb.float(), H, W,
+                                                        beta), rtol=0, atol=0)
+    for w_side in (True, False):
+        kw = dict(beta=beta, need_pos=beta != 1, w_side=w_side)
+        got = fused_mu.plain_contractions(Vb, H, W, **kw)
+        ref = fused_mu.plain_contractions(Vb.float(), H, W, **kw)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+def test_operand_check_takes_a_bf16_v_only(data):
+    """The kernels take V in float32 or bfloat16, H and W in float32."""
+    V, W, H = (torch.from_numpy(x) for x in data)
+    assert fused_mu._check_operands(V.bfloat16(), H, W) == (M, K, R)
+    for args in ((V.half(), H, W), (V.bfloat16(), H.bfloat16(), W),
+                 (V.double(), H, W)):
+        with pytest.raises(TypeError):
+            fused_mu._check_operands(*args)
+
+
+@pytest.mark.parametrize("n", [1025, 4097, 88, 3])
+def test_padded_bf16_rows_keep_values(n):
+    """A bfloat16 V's rows pad to a multiple of 8 values (16 bytes), on a
+    copy whose dtype may change on the way (``aligned_copy``)."""
+    x = torch.from_numpy(np.random.RandomState(n).rand(5, n).astype("f"))
+    p = fused_mu.aligned_copy(x, "cpu", torch.bfloat16)
+    assert p.dtype == torch.bfloat16 and p.shape == x.shape
+    assert p.stride(0) % 8 == 0 and p.stride(0) - n < 8 and p.stride(1) == 1
+    assert torch.equal(p, x.bfloat16()) and p.data_ptr() % 16 == 0
+    q = fused_mu._padded(x.bfloat16())
+    assert q.stride(0) == p.stride(0) and torch.equal(q, p)
+
+
 def test_side_wrappers_are_the_contraction(data):
     V, W, H = (torch.from_numpy(x) for x in data)
     for wrapper, w_side in ((fused_mu.w_side_contractions, True),
@@ -245,6 +324,69 @@ def test_cuda_loss_tile_edges(cuda, shape, beta, offset):
     got = fused_mu.fused_beta_loss(V, H, W, beta)
     ref = fused_mu.plain_beta_loss(V, H, W, beta)
     torch.testing.assert_close(got, ref, rtol=RTOL_CUDA, atol=0)
+
+
+# a bfloat16 V: ragged K (1025 and 4097 pad to 1032 and 4104 values), the
+# main path's 5168×1025 at R=88, both sides, and rank 1
+BF16_SHAPES = [(517, 1025, 88), (5168, 1025, 88), (300, 4097, 64),
+               (1025, 30, 1), (70, 50, 13)]
+
+
+def _bf16_inputs(shape, device):
+    V, W, H = _inputs(*shape)
+    return (torch.from_numpy(V).to(device).bfloat16(),
+            torch.from_numpy(W).to(device), torch.from_numpy(H).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("beta, need_pos, epilogue",
+                         CONTRACTION_CASES + [(2.0, True, False)])
+@pytest.mark.parametrize("w_side", [True, False])
+def test_cuda_bf16_contractions_match_plain(cuda, shape, beta, need_pos,
+                                            epilogue, w_side):
+    """B1 reading a bfloat16 V against its plain version (V upcast), which
+    equals the float32 kernel's input on the rounded V."""
+    Vb, W, H = _bf16_inputs(shape, cuda)
+    mu_pos = _mu_pos(w_side, W, H, tmu) if epilogue else None
+    kw = dict(beta=beta, need_pos=need_pos, w_side=w_side, mu_pos=mu_pos)
+    n = fused_mu.fused_contractions.launches
+    got = fused_mu.fused_contractions(Vb, H, W, **kw)
+    assert fused_mu.fused_contractions.launches == n + 1
+    ref = fused_mu.plain_contractions(Vb, H, W, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.dtype == torch.float32 and g.shape == r.shape
+            torch.testing.assert_close(g, r, rtol=RTOL_CUDA, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("beta", [2.0, 1.0, 0.0, 0.5, 1.5, -1.0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_bf16_loss_matches_plain(cuda, shape, beta, offset):
+    """B2 reading a bfloat16 V; ``offset`` 1: V a view one value into its
+    storage, so no row is 16-byte aligned and the wrapper pads it."""
+    Vb, W, H = _bf16_inputs(shape, cuda)
+    if offset:
+        Vb = torch.cat([Vb.new_zeros(1), Vb.reshape(-1)])[1:].reshape(Vb.shape)
+        assert Vb.data_ptr() % 16
+    got = fused_mu.fused_beta_loss(Vb, H, W, beta)
+    ref = fused_mu.plain_beta_loss(Vb, H, W, beta)
+    torch.testing.assert_close(got, ref, rtol=RTOL_CUDA, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_rejects_bf16_factors(cuda):
+    Vb, W, H = _bf16_inputs((64, 48, 8), cuda)
+    n = fused_mu.fused_contractions.launches
+    with pytest.raises(TypeError):
+        fused_mu.h_side_contractions(Vb, H.bfloat16(), W, 0.5)
+    with pytest.raises(TypeError):
+        fused_mu.fused_beta_loss(Vb.half(), H, W, 0.5)
+    assert fused_mu.fused_contractions.launches == n
 
 
 @pytest.mark.cuda
