@@ -91,7 +91,22 @@ Drives the port's paths at full width, each in phases:
   flagship's, NMF2D's and NMF3D's per-rank problems: ``fused`` against
   ``fused_w`` over one rank's per-shard step without collectives, the
   winner and the first resolution's seconds, the library modes (``stream``,
-  ``unrolled``, ``conv``) timed the same way as yardsticks.
+  ``unrolled``, ``conv``) timed the same way as yardsticks;
+* the example scripts of ``examples/torch_port/``, last: the audio
+  separation (synthesized mixture, STFT, NMFD, Wiener masks, ISTFT) at the
+  reference demo's width, the NMFD flagship's spectrogram (1×1025×≈5000,
+  rank 3, T=400: about 116 s at 22050 Hz, hop 512), 100 iterations at β=1
+  through the script's ``separate`` with exactly one B3 and one B4 launch
+  an iteration, finite stems, its SI-SNR gain and ms/iteration printed,
+  its first 10 iterations on the kernels within 1e-4 relative loss of the
+  plain versions'; every script's ``main`` on the card against the same
+  script on the CPU from the same numpy inits (within 1e-3 relative; the
+  audio separation at the CPU test's size above 8 dB; ``multi_device_fit``
+  with 2 gloo ranks sharing the card); and the Hoyer projection's overflow
+  case: NMFD 2×12×40 ``sparse_fit(beta=0.5, sW=0.4)`` finite on B3/B4 (2
+  and 1 launches an iteration) and within 1e-4 of the plain twin over its
+  first 5 iterations, dense NMF at 5168×1025 rank 88 (``sW=0.5``, β=0.5)
+  finite.
 
 1. prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``pytorch_nmf_tpu_torch/csrc``, one ``nvcc`` per source, in parallel;
@@ -246,6 +261,28 @@ BF16_BETAS = (1, 0.5, 2)
 BF16_CAPACITY = (65536, 4097, 64)
 BF16_CAPACITY_ITERS = 10
 BF16_PEAK_RATIO = 0.6
+# the examples phase (examples/torch_port/): the audio separation at the
+# reference demo's shapes, the NMFD flagship's spectrogram (bench.py:116-122:
+# 1025 bins × about 5000 frames, R=3, T=400): about 116 s at 22050 Hz, STFT
+# of 2048 samples, hop 512
+EXAMPLES = "examples/torch_port"
+AUDIO_FULL = dict(sr=22050, duration=116.0, rank=3, T=400, nperseg=2048,
+                  noverlap=1536)
+AUDIO_ITERS = 100
+AUDIO_TRACE = 10
+# the CPU test's setting (tests/test_torch_examples.py), gain above 8 dB
+AUDIO_SMALL = dict(sr=8000, duration=2.0, rank=3, T=8, nperseg=256,
+                   max_iter=200, verbose=False)
+AUDIO_MIN_GAIN = 8.0
+EXAMPLE_RTOL = 1e-3  # a script's numbers, card against CPU
+# the Hoyer projection's overflow case: NMFD V 2×12×40, R=3, T=5, every
+# array rand + 0.01 (numpy seeds 0 and 1), sparse_fit(beta=0.5, sW=0.4);
+# and dense NMF at MAIN_SHAPE, sparse_fit(beta=0.5, sW=0.5), on a target at
+# a scale where the fit stays finite (0.01·(rand + 1e-3); from rand + 1e-3
+# both packages reach NaN in 2 iterations)
+C3_PROBE = ((2, 12, 40), (12, 3, 5), (2, 3, 36))
+C3_PROBE_ITERS = 8
+C3_DENSE_SCALE = 0.01
 
 
 def check(cond, msg):
@@ -1148,6 +1185,45 @@ def hoyer_target(ns):
         return F.plain_adjoint_deconv(H, W) + 0.01 * noise
 
 
+def device_split(prof):
+    """A deconv fit's device milliseconds in a ``torch.profiler`` trace, by
+    kind: the reconstruction (cuBLAS GEMMs and their stacking copies), B3,
+    B4 and the rest."""
+    split = {"reconstruction": 0.0, "B3": 0.0, "B4": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        ms = e.device_time_total / 1e3
+        key = e.key.lower()
+        if ms <= 0:
+            continue
+        if "hgrad" in key:
+            split["B3"] += ms
+        elif "wgrad" in key:
+            split["B4"] += ms
+        elif any(t in key for t in ("gemm", "xmma", "catarraybatchedcopy")):
+            split["reconstruction"] += ms
+        else:
+            split["rest"] += ms
+    return split
+
+
+def hoyer_losses(solver, run, loss_of):
+    """``run()`` (a Hoyer fit) with ``loss_of(W, H)`` recorded at the end of
+    each iteration, after the renorm that closes it."""
+    renorm, losses = solver.renorm, []
+
+    def rec(w, h, unit):
+        w, h = renorm(w, h, unit)
+        losses.append(loss_of(w, h))
+        return w, h
+
+    solver.renorm = rec
+    try:
+        run()
+    finally:
+        solver.renorm = renorm
+    return losses
+
+
 def hoyer_fits(ns, ctr, card, fit_ms):
     """Phase 3, Hoyer ``sparse_fit`` at β=2.  Dense NMF at MAIN_SHAPE with
     ``sW=0.5`` (the JAX bench's row): no kernel, W's columns at sparseness
@@ -1264,22 +1340,9 @@ def hoyer_fits(ns, ctr, card, fit_ms):
 
     # per-iteration losses: the state at the end of each iteration (after
     # the renorm that closes it), kernel run against plain run
-    renorm = solver.renorm
-
     def traced(run):
-        losses = []
-
-        def rec(w, h, unit):
-            w, h = renorm(w, h, unit)
-            losses.append(float(beta_div(F.plain_adjoint_deconv(h, w), V, 2)))
-            return w, h
-
-        solver.renorm = rec
-        try:
-            run()
-        finally:
-            solver.renorm = renorm
-        return losses
+        return hoyer_losses(solver, run, lambda w, h: float(
+            beta_div(F.plain_adjoint_deconv(h, w), V, 2)))
 
     for label, kw, _ in HOYER_CASES:
         args = (2.0, HOYER_TRACE, True, True, kw.get("sW"), kw.get("sH"),
@@ -1308,21 +1371,7 @@ def hoyer_fits(ns, ctr, card, fit_ms):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall = events_ms(lambda: fit(V, W0, H0))
         r1 = host_reads(solver, P)
-        split = {"reconstruction": 0.0, "B3": 0.0, "B4": 0.0, "rest": 0.0}
-        for e in prof.key_averages():
-            ms = e.device_time_total / 1e3
-            key = e.key.lower()
-            if ms <= 0:
-                continue
-            if "hgrad" in key:
-                split["B3"] += ms
-            elif "wgrad" in key:
-                split["B4"] += ms
-            elif any(t in key for t in ("gemm", "xmma", "catarraybatchedcopy")):
-                split["reconstruction"] += ms
-            else:
-                split["rest"] += ms
-        return split, wall, [b - a for a, b in zip(r0, r1)]
+        return device_split(prof), wall, [b - a for a, b in zip(r0, r1)]
 
     s1, w1, c1 = profiled(1)
     s3, w3, c3 = profiled(3)
@@ -2423,6 +2472,223 @@ def autotune_cases(ns, ctr, card, fit_ms):
 
 
 # ---------------------------------------------------------------------------
+# The examples phase: the port's example scripts
+# ---------------------------------------------------------------------------
+def load_example(name):
+    """``examples/torch_port/<name>.py`` as a module (by file path: its
+    basename is also a JAX example's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_port_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def audio_full_width(ns, ctr, card, fit_ms):
+    """The audio separation at full width (AUDIO_FULL) through the
+    example's ``separate``: AUDIO_ITERS iterations at β=1 on B3/B4, exactly
+    one of each an iteration (the static engine), finite stems, the SI-SNR
+    gain reported.  Returns the path's launch counts; then, apart from
+    them, the fit's ms/iteration (CUDA events) and its first AUDIO_TRACE
+    iterations on the kernels against the plain versions (final losses
+    within 1e-4 relative)."""
+    from pytorch_nmf_tpu_torch.ops.solver import get_dense_fit
+
+    ex = load_example("audio_separation")
+    NMFD, F, beta_div = ns.models.NMFD, ns.F, ns.beta_div
+    cfg = dict(AUDIO_FULL)
+    sources, sr = ex.synth_sources(sr=cfg.pop("sr"),
+                                   duration=cfg.pop("duration"))
+    mix = sources.sum(0)
+    Z, S = ex.spectrogram(mix, sr, cfg["nperseg"], cfg["noverlap"])
+    W0, H0 = ex.init_factors(S.shape, cfg["rank"], cfg["T"])
+    shape = "x".join(map(str, S.shape[1:])) + f"_r{cfg['rank']}_k{cfg['T']}"
+    tag = f"audio separation {shape}"
+    zero(ctr)
+    t0 = time.perf_counter()
+    stems, comps, n_iter = ex.separate(mix, sr, max_iter=AUDIO_ITERS,
+                                       device="cuda", W0=W0, H0=H0,
+                                       tol=float("-inf"), **cfg)
+    secs = time.perf_counter() - t0
+    d = read(ctr)
+    want = {"fused_contractions": 0, "fused_beta_loss": 0,
+            "hgrad": AUDIO_ITERS, "wgrad": AUDIO_ITERS}
+    check(n_iter == AUDIO_ITERS and d == want,
+          f"{tag}: n_iter {n_iter}, launches {d} (want {want})")
+    check(bool(np.isfinite(stems).all() and np.isfinite(comps).all()),
+          f"{tag}: non-finite stems")
+    gain = ex.score(stems, sources, mix, verbose=False)
+
+    V = torch.from_numpy(S).cuda()
+    m = NMFD(W=torch.from_numpy(W0), H=torch.from_numpy(H0), device="cuda")
+    _, ms = events_ms(lambda: m.fit(V, beta=1, tol=float("-inf"),
+                                    max_iter=AUDIO_ITERS))
+    check_factors(tag, m.W, m.H)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m.fit(V, beta=1, tol=float("-inf"), max_iter=AUDIO_TRACE)
+        torch.cuda.synchronize()
+    split = {k: v / AUDIO_TRACE for k, v in device_split(prof).items()}
+    fit_ms[f"audio_nmfd_{shape}_beta1"] = ms / AUDIO_ITERS
+    fit_ms[f"audio_nmfd_{shape}_beta1_profile_ms"] = split
+    plain_fit = get_dense_fit(
+        NMFD.reconstruct, 1.0, float("-inf"), AUDIO_TRACE, True, True, 0.0,
+        0.0, False, F.deconv_updater_factory_plain(1))
+    m = NMFD(W=torch.from_numpy(W0), H=torch.from_numpy(H0), device="cuda")
+    m.fit(V, beta=1, tol=float("-inf"), max_iter=AUDIO_TRACE)
+    Wp, Hp, _ = plain_fit(V, torch.from_numpy(W0).cuda(),
+                          torch.from_numpy(H0).cuda())
+    lk = float(beta_div(NMFD.reconstruct(m.H.detach(), m.W.detach()), V, 1))
+    lp = float(beta_div(NMFD.reconstruct(Hp, Wp), V, 1))
+    rel = abs(lk - lp) / abs(lp)
+    check(rel <= RTOL, f"{tag}: {AUDIO_TRACE} iterations, loss kernel {lk} "
+          f"plain {lp} (rel {rel:.3g})")
+    print(f"phase 3: {tag}: {n_iter} iterations at beta=1 in {secs:.2f} s "
+          f"(STFT, fit, masks, ISTFT); launches B3 {d['hgrad']}, B4 "
+          f"{d['wgrad']}; mean SI-SNR gain {gain:.4f} dB (reported, not "
+          f"gated); fit {ms / AUDIO_ITERS:.4f} ms/iteration; "
+          f"{AUDIO_TRACE} iterations kernel loss {lk:.7g} plain {lp:.7g} "
+          f"(rel {rel:.3g}) [{card}]", flush=True)
+    print(f"phase 4: {tag}: one iteration's device time (ms; torch.profiler "
+          f"over {AUDIO_TRACE} iterations): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" [{card}]", flush=True)
+    return d
+
+
+def example_mains(card):
+    """Every script's ``main`` on the card against the same script on the
+    CPU, from the same numpy inits: numbers within EXAMPLE_RTOL relative
+    (``max_rel_delta``, a sharded fit's distance from its single-device
+    fit, at most 1e-5 on both); the audio separation at the CPU test's
+    setting above AUDIO_MIN_GAIN dB.  ``multi_device_fit`` starts 2 gloo
+    ranks (sharing the card with ``device="cuda"``); its two runs go in
+    threads beside the others.  The card runs' launches count on the
+    caller's counters (the rank processes' are their own)."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    def quiet(fn, **kw):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(**kw)
+
+    par = load_example("multi_device_fit")
+    with ThreadPoolExecutor(2) as pool:
+        futures = {dev: pool.submit(par.main, device=dev, world=2,
+                                    verbose=False) for dev in ("cuda", "cpu")}
+        runs = {}
+        for name, kw in (("audio_separation", AUDIO_SMALL),
+                         ("spectrogram_nmfd", dict(verbose=False)),
+                         ("basic_tutorial", {}),
+                         ("source_filter_model", {})):
+            main = load_example(name).main
+            runs[name] = {dev: quiet(main, device=dev, **kw)
+                          for dev in ("cuda", "cpu")}
+        runs["multi_device_fit"] = {dev: f.result()
+                                    for dev, f in futures.items()}
+    for name, got in runs.items():
+        card_out, cpu_out = ({"gain": x} if isinstance(x, float) else x
+                             for x in (got["cuda"], got["cpu"]))
+        check(card_out.keys() == cpu_out.keys(), f"{name}: {got}")
+        gaps = {}
+        for key, b in cpu_out.items():
+            a = card_out[key]
+            check(np.isfinite(a) and np.isfinite(b), f"{name} {key}: {a}, {b}")
+            if key == "max_rel_delta":
+                check(a <= 1e-5 and b <= 1e-5, f"{name}: the sharded fit "
+                      f"{a} (card), {b} (CPU) from the single-device fit")
+                continue
+            gaps[key] = abs(a - b) / max(abs(b), 1e-30)
+        worst = max(gaps, key=gaps.get)
+        check(gaps[worst] <= EXAMPLE_RTOL, f"{name}: {worst} card "
+              f"{card_out[worst]} CPU {cpu_out[worst]} (rel {gaps[worst]:.3g})")
+        if name == "audio_separation":
+            check(card_out["gain"] > AUDIO_MIN_GAIN,
+                  f"{name}: gain {card_out['gain']} dB on the card")
+        print(f"phase 3: example {name}: card {json.dumps(card_out)}; largest "
+              f"gap to the CPU run {worst} rel {gaps[worst]:.3g} [{card}]",
+              flush=True)
+
+
+def c3_on_card(ns, ctr, card):
+    """The Hoyer projection's overflow case on the card (C3_PROBE): the
+    NMFD fit finite after C3_PROBE_ITERS iterations on B3/B4 (2 and 1 an
+    iteration), its first HOYER_TRACE iterations' losses within 1e-4 of
+    the plain twin's; the dense NMF fit (no kernel) finite after
+    HOYER_TRACE iterations with its loss fallen."""
+    solver, F, beta_div = ns.solver, ns.F, ns.beta_div
+    NMFD = ns.models.NMFD
+    for seed in (0, 1):
+        rs = np.random.RandomState(seed)
+        V, W0, H0 = (torch.from_numpy(rs.rand(*s).astype("f") + 0.01).cuda()
+                     for s in C3_PROBE)
+        tag = f"Hoyer NMFD {'x'.join(map(str, C3_PROBE[0]))} seed {seed}"
+        n0 = read(ctr)
+        m = NMFD(W=W0, H=H0, device="cuda")
+        m.sparse_fit(V, beta=0.5, max_iter=C3_PROBE_ITERS, sW=0.4)
+        d = {k: v - n0[k] for k, v in read(ctr).items()}
+        check_factors(tag, m.W, m.H)
+        want = {"fused_contractions": 0, "fused_beta_loss": 0,
+                "hgrad": 2 * C3_PROBE_ITERS, "wgrad": C3_PROBE_ITERS}
+        check(d == want, f"{tag}: launches {d}, want {want}")
+        W_col, H_col = W0.numel() // W0.shape[1], H0.numel() // H0.shape[1]
+        args = (0.5, HOYER_TRACE, True, True, 0.4, None, W_col, H_col)
+
+        def loss_of(w, h):
+            return float(beta_div(F.plain_adjoint_deconv(h, w), V, 0.5))
+
+        n1 = read(ctr)
+        lk, lp = (hoyer_losses(solver, lambda: solver.get_hoyer_fit(
+            recon, None, *args)(V, W0, H0), loss_of)
+            for recon in (F.kernel_adjoint_deconv, F.plain_adjoint_deconv))
+        for k, v in n1.items():  # the comparison is not the path's
+            ctr[k].launches = v
+        rel = [abs(a - b) / b for a, b in zip(lk, lp)]
+        check(len(rel) == HOYER_TRACE and max(rel) <= RTOL,
+              f"{tag}: losses kernel {lk} plain {lp}")
+        print(f"phase 3: {tag} beta=0.5 sW=0.4: finite after "
+              f"{C3_PROBE_ITERS} iterations, launches B3 {d['hgrad']}, B4 "
+              f"{d['wgrad']}; losses 1-{HOYER_TRACE} kernel "
+              f"{[f'{x:.7g}' for x in lk]}, max rel to plain {max(rel):.3g} "
+              f"[{card}]", flush=True)
+    M, K, R = MAIN_SHAPE
+    rs = np.random.RandomState(SEED)
+    V = torch.from_numpy((C3_DENSE_SCALE * (rs.rand(M, K) + 1e-3))
+                         .astype("f")).cuda()
+    inits = {"W": rs.rand(K, R).astype("f") + 0.1,
+             "H": (C3_DENSE_SCALE * (rs.rand(M, R) + 0.1)).astype("f")}
+    m = ns.nmf_from_numpy(inits, "cuda")
+    before = float(beta_div(m().detach(), V, 0.5))
+    n0 = read(ctr)
+    m.sparse_fit(V, beta=0.5, max_iter=HOYER_TRACE, sW=0.5)
+    d = {k: v - n0[k] for k, v in read(ctr).items()}
+    after = float(beta_div(m().detach(), V, 0.5))
+    tag = f"Hoyer NMF {M}x{K} R={R} beta=0.5 sW=0.5"
+    check_factors(tag, m.W, m.H)
+    check(not any(d.values()), f"{tag}: kernel launches {d}")
+    check(after < before, f"{tag}: loss {before} -> {after} did not fall")
+    print(f"phase 3: {tag}: finite after {HOYER_TRACE} iterations, loss "
+          f"{before:.7g} -> {after:.7g}, no kernel [{card}]", flush=True)
+
+
+def examples_phase(ns, ctr, card, fit_ms):
+    """Phase 3, the port's examples (``examples/torch_port/``) at the
+    static engine choice: the audio separation at full width, every
+    script's ``main`` on the card against the CPU, and the Hoyer
+    projection's overflow case.  Returns the path's launch counts."""
+    os.environ["PNT_NMFD_AUTOTUNE"] = "0"
+    path = audio_full_width(ns, ctr, card, fit_ms)
+    zero(ctr)
+    example_mains(card)
+    c3_on_card(ns, ctr, card)
+    return {k: path[k] + v for k, v in read(ctr).items()}
+
+
+# ---------------------------------------------------------------------------
 # The parallel phase: the sharded fits of ``pytorch_nmf_tpu_torch.parallel``
 # in rank processes that share the card
 # ---------------------------------------------------------------------------
@@ -3099,6 +3365,10 @@ def main():
     stamp("bf16 targets")
     by_path["autotune"] = autotune_cases(ns, ctr, card, fit_ms)
     stamp("autotune")
+    # phase 3, this slice: the example scripts, the audio separation at the
+    # reference demo's width on B3/B4
+    by_path["examples"] = examples_phase(ns, ctr, card, fit_ms)
+    stamp("examples")
     launches = {name: sum(n[name] for n in by_path.values()) for name in REPLACES}
     print(f"phase 3: launches by path {json.dumps(by_path)}", flush=True)
 

@@ -551,13 +551,17 @@ def _halo_mode(n_batch, C, lead_shapes, chunk, kernel, R, beta,
 
 def autotune_halo_mode(n_batch: int, C: int, lead_shapes, chunk: int, kernel,
                        R: int, beta: float, heuristic_mode: str,
-                       allow_pallas: bool = True, *, device="cpu",
+                       allow_pallas: bool = True, *, device=None,
                        dtype=torch.float32, comm=None) -> str:
     """The per-shard mode of a halo fit (:mod:`..parallel.halo`) whose rank
     holds ``n_batch`` batches of ``chunk`` trailing frames, leading extents
     ``lead_shapes``, ``C`` channels, the kernel extents ``kernel`` and rank
     ``R``, on ``device``; ``heuristic_mode`` is
-    :func:`..parallel.halo._halo_unfold_mode`'s.  The rules:
+    :func:`..parallel.halo._halo_unfold_mode`'s.  ``device=None`` means the
+    card (``"cuda"``), as for the models
+    (:func:`..models._common.resolve_device`), and raises ``RuntimeError``
+    where there is none; the CPU's rules apply only to ``device="cpu"``.
+    The rules:
 
     * float64 → ``"conv"`` (the generic path); ``PNT_NMFD_PALLAS=1`` →
       ``"fused"``;
@@ -582,6 +586,9 @@ def autotune_halo_mode(n_batch: int, C: int, lead_shapes, chunk: int, kernel,
     another mode would deadlock the group on mismatched collectives.  The
     winner is cached under :func:`_halo_key`.  A candidate that raises
     propagates."""
+    from ..models._common import resolve_device
+
+    device = resolve_device(device)
     mode = None
     if comm is None or comm.rank == 0:
         mode = _halo_mode(n_batch, C, tuple(int(s) for s in lead_shapes),

@@ -16,7 +16,11 @@ every :data:`CHECK_EVERY` rounds and the result is still exact.  Each read
 adds one to ``proj_rows.reads``.
 
 The projection runs in the input's dtype (the JAX package's always in
-float32).
+float32).  Its discriminant follows the arithmetic of the JAX package's
+jitted loop rather than the reference's: ``b*b`` exact before the one
+rounding, and a NaN discriminant (``inf - inf`` once a column's scale
+overflows ``b*b``) taken as 0, so columns at scales near float32's limit
+stay finite where the JAX package's do, and give NaN where it does.
 """
 
 import torch
@@ -49,7 +53,11 @@ def proj_rows(s: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor):
         a = (w * w).sum(1)
         b = 2.0 * (w * v).sum(1)
         c = (v * v).sum(1) - k2
-        alphap = (-b + torch.sqrt(torch.relu(b * b - 4.0 * a * c))) * 0.5 / a
+        # the discriminant as the JAX package's jitted projection forms it:
+        # ``b*b`` exact (XLA's fused multiply-add: the double product,
+        # rounded once), NaN taken as 0 (its fused relu)
+        d = (b.double() * b.double() - (4.0 * a * c).double()).to(s.dtype)
+        alphap = (-b + torch.sqrt(torch.where(d > 0, d, 0.0))) * 0.5 / a
         v_new = v + alphap[:, None] * w
         mask = v_new < 0
         fin = ~mask.any(1)

@@ -16,11 +16,12 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch.nmf import NMFD, NMF2D
-from pytorch_nmf_tpu_torch.ops import autotune, fast_nmfd
-from pytorch_nmf_tpu_torch.plca import SIPLCA
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch.nmf import NMFD, NMF2D  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import autotune, fast_nmfd  # noqa: E402
+from pytorch_nmf_tpu_torch.plca import SIPLCA  # noqa: E402
 
 ENV = ("PNT_NMFD_AUTOTUNE", "PNT_AUTOTUNE_MIN_FLOPS", "PNT_AUTOTUNE_CACHE",
        "PNT_NMFD_UNFOLD", "PNT_NMFD_FFT", "PNT_NMFD_AUTOCORR",

@@ -16,15 +16,16 @@ import warnings
 
 import numpy as np
 import pytest
-import torch
 
-from _torch_parallel_child import run_group
-from pytorch_nmf_tpu_torch import functional as F
-from pytorch_nmf_tpu_torch.models._common import target_like, to_param
-from pytorch_nmf_tpu_torch.nmf import NMF, NMF2D, NMFD
-from pytorch_nmf_tpu_torch.ops import fast_nmf, fused_mu
-from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA
-from pytorch_nmf_tpu_torch.utils import checkpoint as ckpt
+torch = pytest.importorskip("torch")
+
+from _torch_parallel_child import run_group  # noqa: E402
+from pytorch_nmf_tpu_torch import functional as F  # noqa: E402
+from pytorch_nmf_tpu_torch.models._common import target_like, to_param  # noqa: E402
+from pytorch_nmf_tpu_torch.nmf import NMF, NMF2D, NMFD  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import fast_nmf, fused_mu  # noqa: E402
+from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
 RTOL, FLOOR = 1e-5, 1e-6
 ITERS = 20
@@ -380,6 +381,9 @@ def sharded(tmp_path_factory):
     add("bf16_nmfd", {"kind": "deconv", "nd": 1, "axes": {"seq": 2},
                       "kw": {"beta": 1, "tol": 0, "max_iter": 10}},
         {"V": V, "W": W, "H": H})
+    add("bf16_nmfd_b2", {"kind": "deconv", "nd": 1, "axes": {"seq": 2},
+                         "kw": {"beta": 2, "tol": 0, "max_iter": 10}},
+        {"V": V, "W": W, "H": H})
     V, W, H, Z = _plca_problem(0, 26)
     add("bf16_plca", {"kind": "plca", "axes": {"data": 2},
                       "kw": {"tol": 0, "max_iter": 10}},
@@ -429,6 +433,18 @@ def test_sharded_nmfd_fit_matches_jax(jx, sharded):
     assert int(got["n_iter"]) == int(n)
     _close(got["W"], np.asarray(W), "W")
     _close(got["H"], np.asarray(H), "H")
+
+
+def test_sharded_nmfd_beta2_matches_the_single_device_fit(sharded):
+    """The halo NMFD fit at β=2 (the per-shard Gram products read each
+    rank's bfloat16 chunk) against the port's single-device float32 fit on
+    the rounded V: within 1e-5 relative, the same ``n_iter``."""
+    got, inp = _sharded_got(sharded, "bf16_nmfd_b2")
+    ref = NMFD(W=inp["W"], H=inp["H"], device="cpu")
+    n = ref.fit(_bf16(inp["V"]).float(), beta=2, tol=0, max_iter=10)
+    assert int(got["n_iter"]) == n
+    _close(got["W"], ref.W.detach(), "W")
+    _close(got["H"], ref.H.detach(), "H")
 
 
 def test_sharded_plca_fit_matches_the_single_device_fit(jx, sharded):

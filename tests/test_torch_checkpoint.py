@@ -14,14 +14,15 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch.nmf import NMF, NMFD
-from pytorch_nmf_tpu_torch.ops import solver
-from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense
-from pytorch_nmf_tpu_torch.plca import PLCA
-from pytorch_nmf_tpu_torch.utils import LossHistory, checkpoint, profiling
-from pytorch_nmf_tpu_torch.utils.checkpoint import (checkpointed_fit,
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch.nmf import NMF, NMFD  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import solver  # noqa: E402
+from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense  # noqa: E402
+from pytorch_nmf_tpu_torch.plca import PLCA  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import LossHistory, checkpoint, profiling  # noqa: E402
+from pytorch_nmf_tpu_torch.utils.checkpoint import (checkpointed_fit,  # noqa: E402
                                                     checkpointed_plca_fit)
 
 NEG_INF = float("-inf")

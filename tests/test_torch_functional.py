@@ -14,13 +14,14 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch import functional as F
-from pytorch_nmf_tpu_torch.nmf import NMFD
-from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense
-from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA
-from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch import functional as F  # noqa: E402
+from pytorch_nmf_tpu_torch.nmf import NMFD  # noqa: E402
+from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense  # noqa: E402
+from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy  # noqa: E402
 
 ITERS = 6
 

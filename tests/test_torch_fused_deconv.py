@@ -21,11 +21,12 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch.ops import fast_nmfd as F
-from pytorch_nmf_tpu_torch.ops import fused_deconv as D
-from pytorch_nmf_tpu_torch.ops.mu import kl_pos_W
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch.ops import fast_nmfd as F  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import fused_deconv as D  # noqa: E402
+from pytorch_nmf_tpu_torch.ops.mu import kl_pos_W  # noqa: E402
 
 ATOL_JAX = 2e-6
 RTOL_CUDA = 1e-4

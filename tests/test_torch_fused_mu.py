@@ -15,10 +15,11 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch.ops import fused_mu
-from pytorch_nmf_tpu_torch.ops import mu as tmu
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch.ops import fused_mu  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import mu as tmu  # noqa: E402
 
 M, K, R = 300, 260, 24
 RTOL_JAX = 2e-5

@@ -22,9 +22,10 @@ allows) after ≤ 10 iterations, with the same ``n_iter``.
 
 import numpy as np
 import pytest
-import torch
 
-from _torch_parallel_child import run_group
+torch = pytest.importorskip("torch")
+
+from _torch_parallel_child import run_group  # noqa: E402
 
 RTOL = 1e-5
 RTOL_R512 = 5e-5

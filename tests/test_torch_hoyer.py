@@ -1,9 +1,10 @@
 """Hoyer sparseness-constrained fitting: the port's ``sparse_fit`` and
 projection against the JAX package's, from the same numpy data and inits.
 
-Tolerances: the projection within 1e-5 relative; after 8 iterations, W and H
-within 1e-4 relative (``max|Δ|/max|ref|``), float32 reordering of the same
-sums.  The line search branches on ``new_loss > baseline``, so the seeds
+Tolerances: the projection within 1e-5 relative (at scales that overflow
+float32's ``b*b``, on its finite entries, with NaN in the same places as
+the JAX package's jitted projection); after 8 iterations, W and H within
+1e-4 relative (``max|Δ|/max|ref|``), float32 reordering of the same sums.  The line search branches on ``new_loss > baseline``, so the seeds
 here are ones where no decision sits at the edge (the port's decisions
 were checked to match at 1e-6).  The JAX models run their own CPU path.
 
@@ -19,13 +20,14 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch import metrics
-from pytorch_nmf_tpu_torch.nmf import NMF, NMF2D, NMF3D, NMFD
-from pytorch_nmf_tpu_torch.ops import fast_nmfd, fused_deconv, projection, solver
-from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense
-from pytorch_nmf_tpu_torch.utils import nmf_from_numpy
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch import metrics  # noqa: E402
+from pytorch_nmf_tpu_torch.nmf import NMF, NMF2D, NMF3D, NMFD  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import fast_nmfd, fused_deconv, projection, solver  # noqa: E402
+from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import nmf_from_numpy  # noqa: E402
 
 RTOL_FIT = 1e-4
 ITERS = 8
@@ -48,7 +50,16 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
+# the NMFD problem whose W the old projection turned to NaN in one iteration
+# (V 2×12×40, R=3, T=5, every array ``rand + 0.01``), from numpy seed 0 or
+# 1: the cases "NMFD probe 0" and "NMFD probe 1"
+PROBE = ((2, 12, 40), (12, 3, 5), (2, 3, 36))
+
+
 def _problem(name, seed=1):
+    if name.startswith("NMFD probe"):
+        rs = np.random.RandomState(int(name[-1]))
+        return tuple(rs.rand(*s).astype("f") + 0.01 for s in PROBE)
     rs = np.random.RandomState(seed)
     if name == "NMF":
         shapes = (40, 30), (30, 5), (40, 5)
@@ -104,6 +115,23 @@ def test_proj_columns_matches_jax(jx, s, N, R):
     assert projection.hoyer_l1_target(N, s) == jx.proj.hoyer_l1_target(N, s)
 
 
+@pytest.mark.parametrize("scale", [1e9, 1e12, 1e15, 1e18])
+def test_proj_columns_at_large_scales_matches_jax_jit(jx, scale):
+    """Columns whose ``b*b`` overflows float32: the port's projection has
+    NaN exactly where the JAX package's jitted one has it (XLA fuses the
+    discriminant: ``b*b`` exact, NaN taken as 0), and its finite entries
+    agree within 1e-5 relative (``max|Δ|/max|ref|``)."""
+    x = (np.random.RandomState(0).randn(20, 4) * scale).astype("f")
+    got = projection.proj_columns(torch.from_numpy(x), 0.5).numpy()
+    want = np.asarray(jx.jax.jit(jx.proj.proj_columns,
+                                 static_argnums=(1, 2))(x, 0.5, 1))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    assert np.isfinite(got[fin]).all()
+    if fin.any():
+        assert _rel(got[fin], want[fin]) < 1e-5
+
+
 @pytest.mark.parametrize("name, beta, kw", [
     ("NMF", 2, dict(sW=0.5)),
     ("NMF", 2, dict(sH=0.5)),
@@ -112,12 +140,29 @@ def test_proj_columns_matches_jax(jx, s, N, R):
     ("NMFD", 1, dict(sH=0.5)),
     ("NMFD", 2, dict(sW=0.5, sH=0.4)),
     ("NMF2D", 2, dict(sW=0.5, sH=0.4)),
+    # β ∈ {0, 0.5}, where the projection's ``b*b`` can overflow float32;
+    # "NMF seed 2" is ``_problem("NMF", 2)``.  From these inits most
+    # draws diverge to NaN in both packages within 8 iterations; the seeds
+    # are draws where the JAX fit stays finite.  "NMF seed 2" at β=0.5
+    # with ``sH`` and the last three were NaN before the projection formed
+    # its discriminant as XLA does.
+    ("NMF seed 2", 0, dict(sW=0.5)),
+    ("NMF seed 5", 0, dict(sH=0.5)),
+    ("NMF seed 2", 0.5, dict(sW=0.5)),
+    ("NMF seed 2", 0.5, dict(sH=0.5)),
+    ("NMFD seed 0", 0, dict(sW=0.4)),
+    ("NMFD seed 2", 0.5, dict(sW=0.5)),
+    ("NMFD probe 0", 0.5, dict(sW=0.4)),
+    ("NMFD probe 1", 0.5, dict(sW=0.4)),
 ])
 def test_sparse_fit_matches_jax(jx, name, beta, kw):
-    V, W0, H0 = _problem(name)
-    port, port_n, ref, ref_n = _fit_both(jx, name, V, W0, H0, beta=beta,
-                                         max_iter=ITERS, **kw)
+    model, _, seed = name.partition(" seed ")
+    V, W0, H0 = _problem(model, int(seed or 1))
+    port, port_n, ref, ref_n = _fit_both(jx, model.split()[0], V, W0, H0,
+                                         beta=beta, max_iter=ITERS, **kw)
     assert port_n == ref_n == ITERS
+    for p in (port.W, port.H):
+        assert bool(torch.isfinite(p).all())
     _assert_factors(port, ref)
     if "sW" in kw:
         torch.testing.assert_close(_col_sparseness(port.W),

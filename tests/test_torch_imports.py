@@ -7,7 +7,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-import pytorch_nmf_tpu_torch
+import pytest
+
+pytest.importorskip("torch")
+
+import pytorch_nmf_tpu_torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -108,3 +112,29 @@ def test_parallel_sources_import_no_jax():
                          re.M)
     for path in (ROOT / "pytorch_nmf_tpu_torch" / "parallel").glob("*.py"):
         assert not pattern.search(path.read_text()), path.name
+
+
+def test_importing_the_examples_leaves_jax_out():
+    """Each script of ``examples/torch_port/`` (loaded by file path, as its
+    basename is also a JAX example's) imports neither JAX nor the JAX
+    package."""
+    paths = sorted(str(p) for p in (ROOT / "examples" / "torch_port").glob("*.py"))
+    assert len(paths) == 5, paths
+    code = (
+        "import importlib.util, sys\n"
+        f"for i, path in enumerate({paths!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'pytorch_nmf_tpu' or m.startswith('pytorch_nmf_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=ROOT)
+    # and no import inside a function names them either
+    import re
+
+    pattern = re.compile(r"^\s*(from|import)\s+(jax\b|pytorch_nmf_tpu\b(?!_))",
+                         re.M)
+    for path in paths:
+        assert not pattern.search(Path(path).read_text()), path

@@ -6,10 +6,11 @@ Tolerance: rtol 1e-5 — both sum the same float32 terms, in another order.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu import metrics as jm
-from pytorch_nmf_tpu_torch import metrics as tm
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu import metrics as jm  # noqa: E402
+from pytorch_nmf_tpu_torch import metrics as tm  # noqa: E402
 
 RTOL = 1e-5
 

@@ -9,14 +9,15 @@ the summation order differs.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu import utils as jutils
-from pytorch_nmf_tpu.ops import mu as jmu
-from pytorch_nmf_tpu.ops import recon as jrecon
-from pytorch_nmf_tpu_torch import utils as tutils
-from pytorch_nmf_tpu_torch.ops import mu as tmu
-from pytorch_nmf_tpu_torch.ops import recon as trecon
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu import utils as jutils  # noqa: E402
+from pytorch_nmf_tpu.ops import mu as jmu  # noqa: E402
+from pytorch_nmf_tpu.ops import recon as jrecon  # noqa: E402
+from pytorch_nmf_tpu_torch import utils as tutils  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import mu as tmu  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import recon as trecon  # noqa: E402
 
 RTOL = 1e-5
 M, K, R = 37, 29, 5

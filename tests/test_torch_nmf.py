@@ -19,12 +19,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu.nmf import NMF as JNMF
-from pytorch_nmf_tpu_torch.nmf import NMF, NMFD
-from pytorch_nmf_tpu_torch.ops import fast_nmf, solver
-from pytorch_nmf_tpu_torch.utils import nmf_from_numpy
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu.nmf import NMF as JNMF  # noqa: E402
+from pytorch_nmf_tpu_torch.nmf import NMF, NMFD  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import fast_nmf, solver  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import nmf_from_numpy  # noqa: E402
 
 M, K, R = 96, 48, 8
 BETAS = [0, 0.5, 1, 1.5, 2]

@@ -15,13 +15,14 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu.models import nmf as jnmf
-from pytorch_nmf_tpu.ops import recon as jrecon
-from pytorch_nmf_tpu_torch.nmf import NMF2D, NMF3D, NMFD
-from pytorch_nmf_tpu_torch.ops import fast_nmfd, fused_deconv, solver
-from pytorch_nmf_tpu_torch.utils import nmf_from_numpy
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu.models import nmf as jnmf  # noqa: E402
+from pytorch_nmf_tpu.ops import recon as jrecon  # noqa: E402
+from pytorch_nmf_tpu_torch.nmf import NMF2D, NMF3D, NMFD  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import fast_nmfd, fused_deconv, solver  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import nmf_from_numpy  # noqa: E402
 
 RTOL_FIT = 5e-5
 

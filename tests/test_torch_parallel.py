@@ -16,7 +16,9 @@ import warnings
 import numpy as np
 import pytest
 
-from _torch_parallel_child import run_group
+pytest.importorskip("torch")
+
+from _torch_parallel_child import run_group  # noqa: E402
 
 RTOL = 1e-5
 ITERS = 10

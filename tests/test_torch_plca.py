@@ -18,12 +18,13 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch.ops import fast_nmfd, fast_plca, fused_deconv, fused_mu
-from pytorch_nmf_tpu_torch.ops import recon, solver
-from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA, SIPLCA2, SIPLCA3, BaseComponent
-from pytorch_nmf_tpu_torch.utils import plca_from_numpy
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch.ops import fast_nmfd, fast_plca, fused_deconv, fused_mu  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import recon, solver  # noqa: E402
+from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA, SIPLCA2, SIPLCA3, BaseComponent  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import plca_from_numpy  # noqa: E402
 
 RTOL_FIT = 5e-5
 # model → (N, C, S_in, kernel, R); PLCA: (M, K, R)

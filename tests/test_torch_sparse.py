@@ -15,11 +15,12 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch.nmf import NMFD
-from pytorch_nmf_tpu_torch.ops import budget, fused_mu, solver, sparse
-from pytorch_nmf_tpu_torch.utils import nmf_from_numpy
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch.nmf import NMFD  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import budget, fused_mu, solver, sparse  # noqa: E402
+from pytorch_nmf_tpu_torch.utils import nmf_from_numpy  # noqa: E402
 
 RTOL_FIT = 5e-5
 TIERS = {  # tier → the environment that forces it in both packages

@@ -13,12 +13,13 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch import functional as F
-from pytorch_nmf_tpu_torch.nmf import NMF
-from pytorch_nmf_tpu_torch.ops import fused_mu
-from pytorch_nmf_tpu_torch.ops.streaming import streaming_nmf_fit
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch import functional as F  # noqa: E402
+from pytorch_nmf_tpu_torch.nmf import NMF  # noqa: E402
+from pytorch_nmf_tpu_torch.ops import fused_mu  # noqa: E402
+from pytorch_nmf_tpu_torch.ops.streaming import streaming_nmf_fit  # noqa: E402
 
 ITERS = 12
 RTOL = 1e-5

@@ -14,6 +14,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
+pytest.importorskip("torch")
+
 import pytorch_nmf_tpu  # noqa: E402
 
 # JAX module -> the port's module, where the names differ

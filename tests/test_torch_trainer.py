@@ -16,12 +16,13 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
-from pytorch_nmf_tpu_torch.metrics import beta_div
-from pytorch_nmf_tpu_torch.nmf import NMF
-from pytorch_nmf_tpu_torch.ops.trainer_core import sparsity_proj_step
-from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
+torch = pytest.importorskip("torch")
+
+from pytorch_nmf_tpu_torch.metrics import beta_div  # noqa: E402
+from pytorch_nmf_tpu_torch.nmf import NMF  # noqa: E402
+from pytorch_nmf_tpu_torch.ops.trainer_core import sparsity_proj_step  # noqa: E402
+from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj  # noqa: E402
 
 RTOL = 1e-4
 
