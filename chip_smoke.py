@@ -22,17 +22,26 @@ Drives the port's paths at full width, each in phases:
   each tier forced), and 131072×65536 at 0.1% (rank 64), past the densify
   budget, where the ELL tier is chosen;
 * Hoyer ``sparse_fit`` at β=2: dense ``NMF`` at 5168×1025 rank 88 with
-  ``sW=0.5`` (the JAX bench's row; no kernel, as there), and ``NMFD`` at the
-  flagship with ``sW=0.5`` and with ``sW=sH=0.5``, whose gradients run B3
-  and B4 behind autograd (``kernel_adjoint_deconv``): exactly 2 B3 and 1 B4
-  launches an iteration, 1 and 1 with both;
+  ``sW=0.5`` (the JAX bench's row; no MU kernel, as there), and ``NMFD`` at
+  the flagship with ``sW=0.5`` and with ``sW=sH=0.5``, whose gradients run
+  B3 and B4 behind autograd (``kernel_adjoint_deconv``): exactly 2 B3 and 1
+  B4 launches an iteration, 1 and 1 with both; every projection is one
+  launch of the projection kernel P1 (``csrc/hoyer_proj.cu``), exactly one
+  per constrained factor and line-search attempt, with no host read; the
+  dense fit's launches, device time and idle share an iteration
+  (``torch.profiler``);
 * the functional API: ``nmf_fit`` (5168×1025, β=0.5) and ``nmfd_fit`` (the
   flagship, β=1) equal ``NMF.fit`` and ``NMFD.fit``, launch for launch;
   ``nmf_fit_batched`` over 16 problems of 1025×400 rank 16 against their
   single fits; the ``BetaMu`` optimizer over the bench's chain
-  (``torch.nn.Sequential`` of three ``NMF`` modules, 2048² target) and
-  ``SparsityProj`` at 5168×1025; and float64 numpy targets, which warn and
-  fit in float32;
+  (``torch.nn.Sequential`` of three ``NMF`` modules, 2048² target, 31
+  steps) and ``SparsityProj`` at 5168×1025 (11 steps), compiled into CUDA
+  graphs (the default ``jit_compile=True``) against eager from the same
+  start: within 1e-5, one replay a ``BetaMu`` step and no host read in its
+  ``run``, one replay and one host read a line-search attempt, a closure
+  that reads the host refused, ms/step both ways and the graph pools'
+  reserved memory; and float64 numpy targets, which warn and fit in
+  float32;
 * ``streaming_nmf_fit`` with V in host memory: 5168×1025 (rank 88, β ∈ {1,
   0.5}) in 6 blocks of 1024 rows, exactly 2 B1 launches a block an
   iteration and one B2 a block a loss evaluation at β=0.5, equal to the
@@ -119,6 +128,9 @@ Drives the port's paths at full width, each in phases:
    dH, dW and dZ through the kernels against the plain twin at the SIPLCA
    row, its rank-8 row, N=2, and the SIPLCA2/SIPLCA3 rows (same bound);
    every summand is non-negative, so the only error is summation order;
+   and the projection kernel P1 against its plain version at W 1025×88 and
+   the NMFD flagship's W 1025×88×400 (NaN in the same places, finite
+   entries within 1e-5·max|plain|);
 3. fits V with β ∈ {2, 1, 0, 0.5, 1.5} through ``NMF.fit``, and with β ∈ {1,
    2, 0.5} through ``NMFD.fit`` plus β=1 through ``NMF2D.fit`` and
    ``NMF3D.fit``; fits the SIPLCA family for 10 EM iterations (one B3 and
@@ -137,7 +149,9 @@ Drives the port's paths at full width, each in phases:
    function (``F.convNd`` and ``torch.nn.grad.convNd_weight``, cuDNN; the
    port never calls them), with CUDA events; each kernel's bound is the
    larger of its operations at the 3xTF32 rate and its bytes at the HBM
-   rate (B4 also for the neg/pos pair: twice the operations); splits one
+   rate (B4 also for the neg/pos pair: twice the operations; P1's the
+   larger of its bytes once at the HBM rate and the operations of the
+   rounds its columns needed at the f32 rate); splits one
    SIPLCA EM iteration's and one NMFD Hoyer iteration's device time
    (``torch.profiler``) into the reconstruction, B3, B4 and the rest; and
    prints the Hoyer fits' host reads per iteration (line-search comparisons
@@ -147,7 +161,9 @@ Any failure raises (exit code ≠ 0).  The second-to-last line of standard
 output is a JSON summary of the kernels (``launches`` summed over the
 paths, ``launches_by_path`` per path; B1/B2's bfloat16-V instances as
 ``fused_contractions_bf16`` and ``fused_beta_loss_bf16``, with their
-launches in the bfloat16 fits) and the fit times, the last line
+launches in the bfloat16 fits; P1 as ``hoyer_proj``, its launches
+counted where launched, which in a graphed optimizer step is at capture)
+and the fit times, the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products and
 convolutions run in full float32 (TF32 off), so the plain versions and the
 library calls are true f32 too.  Needs one CUDA device; exits with an error
@@ -239,6 +255,23 @@ TUNE_CASES = (("NMFD", "NMFD", 1, (1, 1025, (5000,), (400,), 88)),
 TF32X3_FLOPS = 495e12 / 3
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+# the Hoyer projection kernel (P1): the JAX package's projection is a
+# lax.while_loop under vmap (no Pallas kernel); checked at the rank columns
+# of W in the dense Hoyer fit and SparsityProj (1025×88) and of the NMFD
+# flagship's W (1025×88×400), from rand + 0.1 to sparseness 0.5.  Per value
+# and round it does about PROJ_OPS operations: w, its three products and
+# sums (7), the step and its tests (5), the fix-up (3)
+PROJ_NAME = "hoyer_proj"
+PROJ_REPLACES = "pytorch_nmf_tpu/ops/projection.py:26"
+PROJ_SOURCE = "pytorch_nmf_tpu_torch/csrc/hoyer_proj.cu"
+PROJ_CASES = (("W 1025x88", (1025, 88)), ("NMFD W 1025x88x400", (1025, 88, 400)))
+PROJ_OPS = 15
+PROJ_RTOL = 1e-5
+# the dense Hoyer fit's profile: fits of 1 and 1 + HOYER_PROFILE iterations
+HOYER_PROFILE = 3
+# compiled against eager optimizer steps: parameters within this of the
+# eager twin's (max|Δ|/max|eager|)
+COMPILED_RTOL = 1e-5
 REPLACES = {
     "fused_contractions": "pytorch_nmf_tpu/ops/pallas_mu.py:212",
     "fused_beta_loss": "pytorch_nmf_tpu/ops/pallas_mu.py:347",
@@ -1188,14 +1221,17 @@ def hoyer_target(ns):
 def device_split(prof):
     """A deconv fit's device milliseconds in a ``torch.profiler`` trace, by
     kind: the reconstruction (cuBLAS GEMMs and their stacking copies), B3,
-    B4 and the rest."""
-    split = {"reconstruction": 0.0, "B3": 0.0, "B4": 0.0, "rest": 0.0}
+    B4, the projection kernel and the rest."""
+    split = {"reconstruction": 0.0, "B3": 0.0, "B4": 0.0, "projection": 0.0,
+             "rest": 0.0}
     for e in prof.key_averages():
         ms = e.device_time_total / 1e3
         key = e.key.lower()
         if ms <= 0:
             continue
-        if "hgrad" in key:
+        if "hoyer_proj" in key:
+            split["projection"] += ms
+        elif "hgrad" in key:
             split["B3"] += ms
         elif "wgrad" in key:
             split["B4"] += ms
@@ -1224,7 +1260,7 @@ def hoyer_losses(solver, run, loss_of):
     return losses
 
 
-def hoyer_fits(ns, ctr, card, fit_ms):
+def hoyer_fits(ns, ctr, card, fit_ms, p1):
     """Phase 3, Hoyer ``sparse_fit`` at β=2.  Dense NMF at MAIN_SHAPE with
     ``sW=0.5`` (the JAX bench's row): no kernel, W's columns at sparseness
     0.5, the loss below its value after the initial projection.  NMFD at the
@@ -1234,9 +1270,24 @@ def hoyer_fits(ns, ctr, card, fit_ms):
     1 for both) and through the plain twin; then, apart from the path's
     count, the first iteration's gradients kernel against plain, the losses
     of the first HOYER_TRACE iterations both ways, and a profile of one
-    iteration.  Returns the path's launch counts."""
+    iteration.  Every projection is one launch of the projection kernel
+    (P1) with no host read: a fit launches it exactly once per constrained
+    factor (the initial projection) and once per line-search attempt; the
+    dense fit's launches and device time an iteration are profiled.
+    Returns the path's launch counts; P1's go into ``p1["hoyer"]``."""
     solver, P, F, beta_div = ns.solver, ns.P, ns.F, ns.beta_div
     zero(ctr)
+    p1_start = P.proj_rows.launches
+
+    def check_projections(tag, q0, r0, r1, factors):
+        """P1 launched once per constrained factor and line-search attempt,
+        the projection read nothing on the host."""
+        q = P.proj_rows.launches - q0
+        check(q == factors + r1[0] - r0[0] and r1[1] == r0[1],
+              f"{tag}: {q} projection launches, {r1[0] - r0[0]} line-search "
+              f"attempts, {r1[1] - r0[1]} projection host reads")
+        return q
+
     M, K, R = MAIN_SHAPE
     rs = np.random.RandomState(SEED)
     V = torch.from_numpy(rs.rand(M, K).astype("f") + 1e-3).cuda()
@@ -1247,7 +1298,7 @@ def hoyer_fits(ns, ctr, card, fit_ms):
     m = ns.nmf_from_numpy(inits, "cuda")
     Wp = P.proj_columns_explicit(m.W.detach(), P.hoyer_l1_target(K, 0.5), 1.0)
     before = float(beta_div(ns.NMF.reconstruct(m.H.detach(), Wp), V, 2))
-    n0, r0 = read(ctr), host_reads(solver, P)
+    n0, r0, q0 = read(ctr), host_reads(solver, P), P.proj_rows.launches
     _, ms = events_ms(lambda: m.sparse_fit(V, beta=2, max_iter=HOYER_DENSE_ITERS,
                                            sW=0.5))
     d = {k: v - n0[k] for k, v in read(ctr).items()}
@@ -1257,6 +1308,7 @@ def hoyer_fits(ns, ctr, card, fit_ms):
     tag = f"Hoyer NMF {M}x{K} R={R} sW=0.5"
     check_factors(tag, m.W, m.H)
     check(not any(d.values()), f"{tag}: kernel launches {d}")
+    q = check_projections(tag, q0, r0, r1, 1)
     check(after < before, f"{tag}: loss {before} -> {after} did not fall")
     check(float((sp - 0.5).abs().max()) <= 1e-3,
           f"{tag}: column sparseness {sp.tolist()}")
@@ -1265,8 +1317,49 @@ def hoyer_fits(ns, ctr, card, fit_ms):
     print(f"phase 3: {tag}: loss {before:.7g} -> {after:.7g}, column "
           f"sparseness {float(sp.min()):.6f}..{float(sp.max()):.6f}; "
           f"{ms / HOYER_DENSE_ITERS:.4f} ms/iteration, host reads/iteration "
-          f"{per[0]:.2f} (line search) + {per[1]:.2f} (projection) [{card}]",
-          flush=True)
+          f"{per[0]:.2f} (line search) + {per[1]:.2f} (projection), P1 "
+          f"launches {q} [{card}]", flush=True)
+
+    # its launches and device time an iteration: torch.profiler over fits of
+    # 1 and 1 + HOYER_PROFILE iterations, differenced (the initial
+    # projection and the first loss are the 1-iteration fit's)
+    from torch.profiler import ProfilerActivity, profile
+
+    def dense_profile(n):
+        fit = ns.nmf_from_numpy(inits, "cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fit.sparse_fit(V, beta=2, max_iter=n, sW=0.5)
+            torch.cuda.synchronize()
+        out = {"launches": 0, "device": 0.0, "projection": 0.0, "gemm": 0.0}
+        for e in prof.key_averages():
+            if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernel", "cuLaunchKernelEx"):
+                out["launches"] += e.count
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms_k = e.self_device_time_total / 1e3
+            out["device"] += ms_k
+            key = e.key.lower()
+            if "hoyer_proj" in key:
+                out["projection"] += ms_k
+            elif any(t in key for t in ("gemm", "xmma", "sm90")):
+                out["gemm"] += ms_k
+        return out
+
+    a, b = dense_profile(1), dense_profile(1 + HOYER_PROFILE)
+    prof_it = {k: (b[k] - a[k]) / HOYER_PROFILE for k in a}
+    prof_it["rest"] = prof_it["device"] - prof_it["projection"] - prof_it["gemm"]
+    prof_it["idle_share"] = 1 - prof_it["device"] / (ms / HOYER_DENSE_ITERS)
+    check(prof_it["projection"] > 0, f"{tag}: no projection kernel in the profile")
+    fit_ms[f"hoyer_nmf_{M}x{K}_r{R}_sW0.5_profile"] = prof_it
+    print(f"phase 4: {tag}, one iteration (torch.profiler, {1 + HOYER_PROFILE}-"
+          f"iteration fit less 1-iteration fit): launches "
+          f"{prof_it['launches']:.1f}, device ms {prof_it['device']:.4f} "
+          f"(projection {prof_it['projection']:.4f}, GEMMs "
+          f"{prof_it['gemm']:.4f}, rest {prof_it['rest']:.4f}); the card idle "
+          f"{100 * prof_it['idle_share']:.1f}% of the "
+          f"{ms / HOYER_DENSE_ITERS:.4f} ms/iteration [{card}]", flush=True)
     del V, m, Wp
 
     N, C, S_out, kernel, Rd = DECONV["NMFD"]
@@ -1285,12 +1378,13 @@ def hoyer_fits(ns, ctr, card, fit_ms):
                                      HOYER_NMFD_ITERS, True, True, kw.get("sW"),
                                      kw.get("sH"), W_col, H_col)
         m = ns.models.NMFD(W=W0, H=H0, device="cuda")
-        n0, r0 = read(ctr), host_reads(solver, P)
+        n0, r0, q0 = read(ctr), host_reads(solver, P), P.proj_rows.launches
         _, ms = events_ms(lambda: m.sparse_fit(V, beta=2,
                                                max_iter=HOYER_NMFD_ITERS, **kw))
         d = {k: v - n0[k] for k, v in read(ctr).items()}
         r1 = host_reads(solver, P)
         check_factors(tag, m.W, m.H)
+        q = check_projections(tag, q0, r0, r1, len(kw))
         want = {"hgrad": b3 * HOYER_NMFD_ITERS, "wgrad": b4 * HOYER_NMFD_ITERS,
                 "fused_contractions": 0, "fused_beta_loss": 0}
         check(d == want, f"{tag}: launches {d}, want {want}")
@@ -1308,10 +1402,11 @@ def hoyer_fits(ns, ctr, card, fit_ms):
               f"{'; a line-search decision flipped after the compared ones' if rel > RTOL else ''}"
               f"); ms/iteration kernel {ms / HOYER_NMFD_ITERS:.3f}, plain "
               f"{pms / HOYER_NMFD_ITERS:.3f}; host reads/iteration "
-              f"{per[0]:.2f} (line search) + {per[1]:.2f} (projection) [{card}]",
-              flush=True)
+              f"{per[0]:.2f} (line search) + {per[1]:.2f} (projection), P1 "
+              f"launches {q} [{card}]", flush=True)
         del m, Wq, Hq
     launches = read(ctr)
+    p1["hoyer"] = P.proj_rows.launches - p1_start
 
     # the first iteration's gradients: dW of the projected step at the
     # projected init, dH of the MU step's two cotangents
@@ -1371,27 +1466,33 @@ def hoyer_fits(ns, ctr, card, fit_ms):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall = events_ms(lambda: fit(V, W0, H0))
         r1 = host_reads(solver, P)
-        return device_split(prof), wall, [b - a for a, b in zip(r0, r1)]
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.device_time_total > 0)
+        return (device_split(prof), wall,
+                [b - a for a, b in zip(r0, r1)] + [ops])
 
     s1, w1, c1 = profiled(1)
     s3, w3, c3 = profiled(3)
     split = {k: (s3[k] - s1[k]) / 2 for k in s1}
     attempts, proj_reads = (c3[0] - c1[0]) / 2, (c3[1] - c1[1]) / 2
+    device_ops = (c3[2] - c1[2]) / 2
     proj_ms = cuda_ms(lambda: P.proj_columns(Wp, P.hoyer_l1_target(W_col, 0.5)),
                       reps=5, warmup=1)
     rec_ms = cuda_ms(lambda: F._stream_recon(F._w2(Wp), H0, kernel), reps=5,
                      warmup=1)
     device = sum(split.values())
     fit_ms["hoyer_nmfd_profile_ms"] = dict(
-        split, device=device, wall=(w3 - w1) / 2, projection=proj_ms,
+        split, device=device, wall=(w3 - w1) / 2, projection_alone=proj_ms,
         reconstruction_alone=rec_ms, attempts=attempts,
-        projection_reads=proj_reads, initial_projection=sum(s1.values()) - device)
+        projection_reads=proj_reads, device_ops=device_ops,
+        initial_projection=sum(s1.values()) - device)
     print("phase 4: Hoyer NMFD sW, one iteration's device time (ms; "
           "torch.profiler, 3-iteration fit less 1-iteration fit, halved): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + f"; device {device:.3f}, wall {(w3 - w1) / 2:.3f}; line-search "
-          f"attempts {attempts:.1f}, projection reads {proj_reads:.1f}; the "
-          f"initial projection and first-call costs {sum(s1.values()) - device:.3f}; "
+          f"attempts {attempts:.1f}, projection reads {proj_reads:.1f}, device "
+          f"operations {device_ops:.1f}; the initial projection and first-call "
+          f"costs {sum(s1.values()) - device:.3f}; "
           f"one projection of W {proj_ms:.3f}, one reconstruction {rec_ms:.3f} "
           f"[{card}]", flush=True)
     return launches
@@ -1476,74 +1577,275 @@ def batched_fits(ns, ctr, card, fit_ms):
     check(not any(read(ctr).values()), f"the batched fits launched {read(ctr)}")
 
 
-def trainer_steps(ns, ctr, card, fit_ms):
-    """Phase 3, the optimizers.  ``BetaMu`` over the bench's chain
-    (``torch.nn.Sequential`` of three ``NMF`` modules) at β=1, BETAMU_STEPS
-    steps: the divergence falls, every ``.grad`` is set.  ``SparsityProj``
-    with sparsity 0.5 on W of an ``NMF`` at MAIN_SHAPE, SPARSITY_STEPS
-    steps: the loss falls, W's columns at sparseness 0.5.  Neither runs a
-    kernel (the MU start of SparsityProj is β=2: Gram updates)."""
-    NMF = ns.NMF
-    g = torch.Generator("cuda").manual_seed(SEED)
+def compare_projection(P, card, fit_ms):
+    """Phases 2 and 4, the projection kernel (P1) against its plain version
+    on the card (``plain_proj_rows`` on the columns copied out) at
+    PROJ_CASES, from ``rand + 0.1`` to sparseness 0.5 at the columns' own
+    norms: NaN in the same places, ``max|kernel - plain| ≤
+    PROJ_RTOL·max|plain|`` on the finite entries, one launch and no host
+    read; the kernel's and the plain version's times, and the bound: the
+    larger of the values read and written once at the HBM rate and the
+    operations of the rounds these columns needed (PROJ_OPS per value and
+    round, from the plain version's count) at the f32 peak; beside it the
+    bytes of a read and a write of every column each round.  Returns the
+    NMFD case's stats."""
+    rs = np.random.RandomState(SEED)
+    stats = None
+    for label, shape in PROJ_CASES:
+        x = torch.from_numpy(rs.rand(*shape).astype("f") + 0.1).cuda()
+        R = shape[1]
+        N = x.numel() // R
+        L1 = P.hoyer_l1_target(N, 0.5)
+        cols = x.movedim(1, 0).reshape(R, N)
+        norms = torch.sqrt(torch.sum(cols * cols, dim=1))
+        n0, r0 = P.proj_rows.launches, P.proj_rows.reads
+        got = P.proj_columns(x, L1, norms=norms)
+        torch.cuda.synchronize()
+        check(P.proj_rows.launches - n0 == 1 and P.proj_rows.reads == r0,
+              f"P1 at {label}: {P.proj_rows.launches - n0} launches, "
+              f"{P.proj_rows.reads - r0} host reads")
+        want, rounds = P.plain_proj_rows(cols, L1 * norms, norms * norms,
+                                         return_rounds=True)
+        got = got.movedim(1, 0).reshape(R, N)
+        check(torch.equal(torch.isnan(got), torch.isnan(want)),
+              f"P1 at {label}: NaN where the plain version has none, or not "
+              f"where it has")
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        scale = float(want[fin].abs().max())
+        check(err <= PROJ_RTOL * scale,
+              f"P1 at {label}: max|kernel-plain| {err} against max|plain| {scale}")
+        ms = cuda_ms(lambda: P.proj_columns(x, L1, norms=norms), reps=10,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: P.plain_proj_rows(cols, L1 * norms,
+                                                     norms * norms),
+                           reps=3, warmup=1)
+        value_rounds = int(rounds.sum()) * N
+        bound_ms, bound_by, _ = bound(0, 2 * x.numel() * 4 + 2 * R * 4)
+        ops_ms = 1e3 * PROJ_OPS * value_rounds / FP32_FLOPS
+        if ops_ms > bound_ms:
+            bound_ms, bound_by = ops_ms, "operations"
+        st = dict(new_stats(), max_abs_err=err, max_rel_err=err / scale, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  rounds_mean=float(rounds.double().mean()),
+                  rounds_max=int(rounds.max()),
+                  bound_round_bytes_ms=1e3 * 8 * value_rounds / HBM_BYTES)
+        fit_ms[f"hoyer_proj_{label.replace(' ', '_')}"] = st
+        print(f"phase 2/4: P1 at {label}: max|kernel-plain| {err:.3g} "
+              f"(max|plain| {scale:.4g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"rounds mean {st['rounds_mean']:.2f}, max {st['rounds_max']}; "
+              f"a read and a write of every column each round "
+              f"{st['bound_round_bytes_ms']:.4f} ms [{card}]", flush=True)
+        stats = st
+        del x, cols, got, want
+    return stats
+
+
+def trainer_steps(ns, ctr, card, fit_ms, p1):
+    """Phase 3, the optimizers, compiled (the default: CUDA graphs) against
+    eager (``jit_compile=False``) from the same start.  ``BetaMu`` over the
+    bench's chain (``torch.nn.Sequential`` of three ``NMF`` modules) at
+    β=1: a first step (the probe, warm-up, capture and one replay), then
+    BETAMU_STEPS steps by ``run``, which makes exactly one replay a step
+    and no synchronizing call (``torch.cuda`` sync debug mode set to raise
+    around it); every parameter within COMPILED_RTOL of the eager twin's,
+    the divergence falls, every ``.grad`` set.  A closure that reads the
+    host raises, naming ``jit_compile=False``, and leaves the parameters as
+    they were.  ``SparsityProj`` with sparsity 0.5 on W of an ``NMF`` at
+    MAIN_SHAPE, a first step then SPARSITY_STEPS steps, both ways from the
+    same start and float32 step size: W and the loss within COMPILED_RTOL,
+    the same step size, one host read per line-search attempt (the eager
+    twin's attempts, from its closure calls), the loss falls, W's columns
+    at sparseness 0.5.  Prints ms/step both ways (CUDA events), replays and
+    host reads per step, and the card's reserved memory before, with the
+    compiled entries cached, and after the optimizers and the phase's
+    tensors are dropped, when their graphs must be gone too.  Neither runs
+    B1-B4 (checked; the MU start of SparsityProj is β=2: Gram updates);
+    SparsityProj
+    projects with P1, whose launches go into ``p1["optimizers"]`` (counted
+    where launched: in warm-up and capture; a replay repeats the captured
+    ones uncounted)."""
+    T, P, NMF = ns.trainer, ns.P, ns.NMF
+    import gc
+    import weakref
+
+    def reserved_now():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_reserved()
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    reserved = [reserved_now()]
+    zero(ctr)
+    p1_start = P.proj_rows.launches
     (M0, K0), rank, W2, W3 = CHAIN
-    chain = torch.nn.Sequential(
-        NMF((M0, K0), rank=rank, device="cuda", generator=g),
-        NMF(W=W2, device="cuda", generator=g),
-        NMF(W=W3, device="cuda", generator=g))
+
+    def chain():
+        g = torch.Generator("cuda").manual_seed(SEED)
+        return torch.nn.Sequential(
+            NMF((M0, K0), rank=rank, device="cuda", generator=g),
+            NMF(W=W2, device="cuda", generator=g),
+            NMF(W=W3, device="cuda", generator=g))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
     rs = np.random.RandomState(SEED)
     target = torch.from_numpy(rs.rand(M0, W3[0]).astype("f")).cuda()
-    tr = ns.BetaMu(chain.parameters(), 1)
-    before = float(ns.beta_div(chain(None).detach(), target, 1))
-    zero(ctr)
-    _, ms = events_ms(lambda: tr.run(lambda: (target, chain(None)), BETAMU_STEPS))
-    after = float(ns.beta_div(chain(None).detach(), target, 1))
+    chains = {"compiled": chain(), "eager": chain()}
+    before = float(ns.beta_div(chains["eager"](None).detach(), target, 1))
+    res, trainers = {}, []
+    for how, c in chains.items():
+        tr = ns.BetaMu(c.parameters(), 1, jit_compile=how == "compiled")
+        trainers.append(tr)
+
+        def closure(c=c):
+            return target, c(None)
+
+        def steps(tr=tr, closure=closure, strict=how == "compiled"):
+            mode = torch.cuda.get_sync_debug_mode()
+            if strict:  # a host read in the compiled run raises
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                tr.run(closure, BETAMU_STEPS)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        _, first = events_ms(lambda: tr.step(closure))
+        rp0 = T._Graphs.replays
+        _, ms = events_ms(steps)
+        res[how] = dict(first_ms=first, ms_per_step=ms / BETAMU_STEPS,
+                        replays_per_step=(T._Graphs.replays - rp0) / BETAMU_STEPS)
+    check(res["compiled"]["replays_per_step"] == 1.0
+          and res["eager"]["replays_per_step"] == 0.0
+          and len(trainers[0]._step_cache) == 1 and not trainers[1]._step_cache,
+          f"BetaMu: graph replays per step {res}")
+    gap = max(rel(a.detach(), b.detach()) for a, b in
+              zip(chains["compiled"].parameters(), chains["eager"].parameters()))
+    check(gap <= COMPILED_RTOL, f"BetaMu: compiled against eager {gap}")
+    after = float(ns.beta_div(chains["compiled"](None).detach(), target, 1))
     check(after < before, f"BetaMu: divergence {before} -> {after}")
-    for p in chain.parameters():
+    for p in chains["compiled"].parameters():
         check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
               "BetaMu: a .grad is not set")
         check_factors("BetaMu", p.detach())
+    reserved.append(reserved_now())
+
+    # a closure that reads the host is refused, and the warm-up undone
+    c = chains["compiled"]
+    snap = [p.detach().clone() for p in c.parameters()]
+
+    def host_reading():
+        WH = c(None)
+        check(float(WH.detach().sum()) > 0, "BetaMu: an empty reconstruction")
+        return target, WH
+
+    try:
+        ns.BetaMu(c.parameters(), 1).step(host_reading)
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    check("jit_compile=False" in refused,
+          f"BetaMu: a closure that reads the host was not refused ({refused!r})")
+    check(all(torch.equal(a, p.detach()) for a, p in zip(snap, c.parameters())),
+          "BetaMu: the refused closure's warm-up changed the parameters")
     tag = "2048x2048_r128_256_512"
-    fit_ms[f"betamu_chain_{tag}_beta1_ms_per_step"] = ms / BETAMU_STEPS
+    fit_ms[f"betamu_chain_{tag}_beta1"] = dict(res, rel_gap=gap)
     print(f"phase 3: BetaMu chain {tag} beta=1: divergence {before:.7g} -> "
-          f"{after:.7g} in {BETAMU_STEPS} steps, {ms / BETAMU_STEPS:.4f} ms/step "
+          f"{after:.7g} in {1 + BETAMU_STEPS} steps; ms/step compiled "
+          f"{res['compiled']['ms_per_step']:.4f} (first step "
+          f"{res['compiled']['first_ms']:.1f} ms), eager "
+          f"{res['eager']['ms_per_step']:.4f}; graph replays/step "
+          f"{res['compiled']['replays_per_step']:.0f}, host reads/step 0; "
+          f"compiled against eager {gap:.3g}; a host-reading closure refused "
           f"[{card}]", flush=True)
+    # the compiled entries' graphs, whose pools go with them
+    pools = [weakref.ref(e["graphs"]) for e in trainers[0]._step_cache.values()]
+    del chains, c, snap, trainers, target
 
     # SparsityProj from a start it can improve: 50 MU iterations (β=2, the
     # Gram updates), W projected to sparseness 0.5 at its norms, and the
-    # step 1/L (L the W gradient's Lipschitz constant, ‖HᵀH‖₂).  From the
-    # raw inits, or at the default step 1, every attempt fails and the
-    # reference's undo onto the projected value raises the loss, in both
-    # packages.
+    # step 1/L (L the W gradient's Lipschitz constant, ‖HᵀH‖₂), rounded to
+    # float32.  From the raw inits, or at the default step 1, every attempt
+    # fails and the reference's undo onto the projected value raises the
+    # loss, in both packages.
     M, K, R = MAIN_SHAPE
     V = torch.from_numpy(rs.rand(M, K).astype("f")).cuda()
     m = ns.nmf_from_numpy({"W": rs.rand(K, R).astype("f") + 0.1,
                            "H": rs.rand(M, R).astype("f") + 0.1}, "cuda")
     m.fit(V, beta=2, tol=0, max_iter=50)
     with torch.no_grad():
-        m.W.copy_(ns.P.proj_columns(m.W, ns.P.hoyer_l1_target(K, 0.5)))
+        start = {"W": P.proj_columns(m.W, P.hoyer_l1_target(K, 0.5)).cpu().numpy(),
+                 "H": m.H.detach().cpu().numpy()}
         H = m.H.detach()
-        lr = 1.0 / float(torch.linalg.matrix_norm(H.T @ H, 2))
-    sp = ns.SparsityProj([{"params": [m.W], "lr": lr}], 0.5)
+        lr = float(np.float32(1.0 / float(torch.linalg.matrix_norm(H.T @ H, 2))))
+    models = {how: ns.nmf_from_numpy(start, "cuda") for how in ("compiled", "eager")}
+    res, losses, lrs = {}, {}, {}
+    for how, m in models.items():
+        sp = ns.SparsityProj([{"params": [m.W], "lr": lr}], 0.5,
+                             jit_compile=how == "compiled")
+        calls = [0]
 
-    def closure():
-        return ns.beta_div(m(), V, 2)
+        def closure(m=m, calls=calls):
+            calls[0] += 1
+            return ns.beta_div(m(), V, 2)
 
-    before = float(closure().detach())
-    _, ms = events_ms(lambda: sp.run(closure, SPARSITY_STEPS))
-    after = float(closure().detach())
-    s = col_sparseness(m.W)
+        losses[how] = [float(closure().detach())]
+        _, first = events_ms(lambda: sp.step(closure))
+        c0, r0, rp0 = calls[0], T._read_worse.reads, T._Graphs.replays
+        _, ms = events_ms(lambda: sp.run(closure, SPARSITY_STEPS))
+        attempts = (calls[0] - c0 - SPARSITY_STEPS if how == "eager"
+                    else T._read_worse.reads - r0)
+        res[how] = dict(first_ms=first, ms_per_step=ms / SPARSITY_STEPS,
+                        attempts_per_step=attempts / SPARSITY_STEPS,
+                        host_reads_per_step=attempts / SPARSITY_STEPS,
+                        replays_per_step=(T._Graphs.replays - rp0) / SPARSITY_STEPS)
+        losses[how].append(float(closure().detach()))
+        lrs[how] = sp.param_groups[0]["lr"]
+        pools += [weakref.ref(e["graphs"]) for e in sp._step_cache.values()]
+    check(res["compiled"]["replays_per_step"] == res["compiled"]["attempts_per_step"]
+          == res["eager"]["attempts_per_step"] and res["eager"]["replays_per_step"] == 0,
+          f"SparsityProj: replays and attempts per step {res}")
+    Wc, We = models["compiled"].W.detach(), models["eager"].W.detach()
+    gap = rel(Wc, We)
+    lgap = abs(losses["compiled"][1] - losses["eager"][1]) / losses["eager"][1]
+    check(gap <= COMPILED_RTOL and lgap <= COMPILED_RTOL
+          and abs(lrs["compiled"] - lrs["eager"]) <= 1e-6 * lrs["eager"],
+          f"SparsityProj: compiled against eager W {gap}, loss {lgap}, step "
+          f"{lrs}")
+    before, after = losses["compiled"]
+    s = col_sparseness(models["compiled"].W)
     check(after < before, f"SparsityProj: loss {before} -> {after}")
     check(float((s - 0.5).abs().max()) <= 1e-3,
           f"SparsityProj: column sparseness {s.tolist()}")
-    check_factors("SparsityProj", m.W.detach())
+    check_factors("SparsityProj", Wc)
+    reserved.append(reserved_now())
+    del sp, models, m, Wc, We, V
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved.append(reserved_now())
+    check(len(pools) == 2 and not any(w() for w in pools),
+          "the compiled optimizers' graphs outlived them")
+    p1["optimizers"] = P.proj_rows.launches - p1_start
+    check(p1["optimizers"] > 0, "SparsityProj launched no projection kernel")
     check(not any(read(ctr).values()), f"the optimizers launched {read(ctr)}")
-    fit_ms[f"sparsityproj_{M}x{K}_r{R}_s0.5_ms_per_step"] = ms / SPARSITY_STEPS
+    fit_ms[f"sparsityproj_{M}x{K}_r{R}_s0.5"] = dict(res, rel_gap=gap,
+                                                      loss_gap=lgap)
+    fit_ms["optimizers_memory_reserved_gb"] = [r / 1e9 for r in reserved]
     print(f"phase 3: SparsityProj {M}x{K} R={R} sparsity 0.5 on W: loss "
-          f"{before:.7g} -> {after:.7g} in {SPARSITY_STEPS} steps, column "
+          f"{before:.7g} -> {after:.7g} in {1 + SPARSITY_STEPS} steps, column "
           f"sparseness {float(s.min()):.6f}..{float(s.max()):.6f}, step size "
-          f"{lr:.4g} -> {sp.param_groups[0]['lr']:.4g}; "
-          f"{ms / SPARSITY_STEPS:.4f} ms/step "
-          f"[{card}]", flush=True)
+          f"{lr:.4g} -> {lrs['compiled']:.4g}; ms/step compiled "
+          f"{res['compiled']['ms_per_step']:.4f} (first step "
+          f"{res['compiled']['first_ms']:.1f} ms), eager "
+          f"{res['eager']['ms_per_step']:.4f}; line-search attempts (host "
+          f"reads)/step {res['compiled']['attempts_per_step']:.2f}, graph "
+          f"replays/step {res['compiled']['replays_per_step']:.2f}; compiled "
+          f"against eager W {gap:.3g}, loss {lgap:.3g}; P1 launches "
+          f"{p1['optimizers']}; memory reserved (GB) before, after BetaMu, "
+          f"after SparsityProj, released: "
+          f"{', '.join(f'{r / 1e9:.3f}' for r in reserved)} [{card}]", flush=True)
 
 
 def float64_targets(ns, card):
@@ -3211,6 +3513,7 @@ def main():
     from pytorch_nmf_tpu_torch.ops import projection as P
     from pytorch_nmf_tpu_torch.ops.fast_nmf import nmf_updater_factory_generic
     from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA
+    from pytorch_nmf_tpu_torch import trainer
     from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
     from types import SimpleNamespace
 
@@ -3218,7 +3521,8 @@ def main():
         models=models, NMF=NMF, PLCA=PLCA, SIPLCA=SIPLCA, F=F, P=P,
         solver=solver, functional=functional, beta_div=beta_div,
         kl_div=kl_div, plca_from_numpy=plca_from_numpy, BetaMu=BetaMu,
-        SparsityProj=SparsityProj, nmf_from_numpy=nmf_from_numpy,
+        SparsityProj=SparsityProj, trainer=trainer,
+        nmf_from_numpy=nmf_from_numpy,
         nmf_updater_factory_generic=nmf_updater_factory_generic)
 
     # the earlier paths run the static engine choice, whose launches per
@@ -3246,6 +3550,8 @@ def main():
     stats = compare_kernels(fm, kl_pos_W, kl_pos_H)
     stats.update(compare_deconv_kernels(F, D, kl_pos_W))
     compare_em_adjoints(F, recon, plca_from_numpy, eps, card)
+    fit_ms = {}
+    proj_stats = compare_projection(P, card, fit_ms)
     print("phase 2: kernels agree with their plain versions", flush=True)
     stamp("phase 2")
     ctr = counters(fm, D)
@@ -3291,7 +3597,6 @@ def main():
 
     # phases 3 and 4: kernel path against plain path, 100 iterations each,
     # timed in turns (plain, kernel, kernel, plain)
-    fit_ms = {}
     for beta in (1, 0.5):
         plain_fit = get_dense_fit(NMF.reconstruct, float(beta), 0.0, 100, True,
                                   True, 0.0, 0.0, False, nmf_updater_factory_plain)
@@ -3340,14 +3645,16 @@ def main():
     by_path["sparse_densify"] = sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms)
     stamp("sparse")
 
-    # phase 3, this slice: Hoyer on B3/B4 (dense NMF on none), the
-    # functional API on the models' kernels, the batched fits and the
-    # optimizers on none, and float64 targets
-    by_path["hoyer"] = hoyer_fits(ns, ctr, card, fit_ms)
+    # phase 3: Hoyer on B3/B4 (dense NMF on none), the functional API on
+    # the models' kernels, the batched fits and the optimizers on none, and
+    # float64 targets; this slice: every projection on P1, the optimizers
+    # compiled into CUDA graphs (P1's launches counted by path apart)
+    p1_by_path = {}
+    by_path["hoyer"] = hoyer_fits(ns, ctr, card, fit_ms, p1_by_path)
     stamp("Hoyer")
     by_path["functional"] = functional_fits(ns, ctr, card)
     batched_fits(ns, ctr, card, fit_ms)
-    trainer_steps(ns, ctr, card, fit_ms)
+    trainer_steps(ns, ctr, card, fit_ms, p1_by_path)
     float64_targets(ns, card)
     stamp("functional, batched, optimizers, float64")
 
@@ -3394,6 +3701,10 @@ def main():
               "launches_by_path": {"bf16": bf16_launches[name]}},
              **bf16_stats[name])
         for name, base in BF16_KERNELS.items()
+    ] + [
+        dict({"name": PROJ_NAME, "route": "cuda", "source": PROJ_SOURCE,
+              "replaces": PROJ_REPLACES, "launches": sum(p1_by_path.values()),
+              "launches_by_path": p1_by_path}, **proj_stats)
     ], "fit_ms_per_iter": fit_ms}
     print(card_line(), flush=True)
     print(json.dumps(summary), flush=True)

@@ -46,6 +46,9 @@ _SIGNATURES = {
         "pnt_wgrad_splits": ([_I, _I, _I, _I, _I], _I),
         "pnt_wgrad": ([_P] * 9 + [_I] * 14 + [_P], _I),
     },
+    "hoyer_proj": {
+        "pnt_hoyer_proj": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -7,28 +7,39 @@ Projects a vector onto ``{v >= 0 : ||v||_1 = k1, ||v||_2^2 = k2}`` (Hoyer'04,
 active coordinates to the L2 sphere and, if a coordinate went negative,
 zeroes it and re-centres the rest, so ``N + 2`` rounds always suffice.
 
-The JAX package vmaps a ``lax.while_loop`` over the rank columns; here the
-columns are the rows of one ``(R, N)`` tensor, each with its own ``done``
-flag.  A finished row is frozen by the mask, as batched ``while_loop`` does,
-and never recomputed: the round is not idempotent in float32.  With frozen
-rows an extra round changes nothing, so the host reads ``done.all()`` only
-every :data:`CHECK_EVERY` rounds and the result is still exact.  Each read
-adds one to ``proj_rows.reads``.
+The JAX package vmaps a ``lax.while_loop`` over the rank columns.  On a CUDA
+tensor every projection here is one launch of the hand-written kernel of
+``csrc/hoyer_proj.cu``: a block per column runs its rounds on the device,
+reads the columns where they lie (any contiguous tensor, so NMFD's strided
+rank columns are not copied) and reads nothing back to the host, so a
+projection can be captured in a CUDA graph.  Launches are counted in
+``proj_rows.launches``.  A float32 or float64 tensor is taken; another
+dtype on the card raises.
 
-The projection runs in the input's dtype (the JAX package's always in
-float32).  Its discriminant follows the arithmetic of the JAX package's
-jitted loop rather than the reference's: ``b*b`` exact before the one
-rounding, and a NaN discriminant (``inf - inf`` once a column's scale
-overflows ``b*b``) taken as 0, so columns at scales near float32's limit
-stay finite where the JAX package's do, and give NaN where it does.
+On a CPU tensor the plain PyTorch version runs (:func:`plain_proj_rows`):
+the columns are the rows of one ``(R, N)`` tensor, each with its own
+``done`` flag.  A finished row is frozen by the mask, as batched
+``while_loop`` does, and never recomputed: the round is not idempotent in
+float32.  With frozen rows an extra round changes nothing, so the host reads
+``done.all()`` only every :data:`CHECK_EVERY` rounds and the result is still
+exact.  Each read adds one to ``proj_rows.reads``.
+
+Both run in the input's dtype (the JAX package's always in float32) with the
+same arithmetic.  The discriminant follows the JAX package's jitted loop
+rather than the reference's: ``b*b`` exact before the one rounding, and a
+NaN discriminant (``inf - inf`` once a column's scale overflows ``b*b``)
+taken as 0, so columns at scales near float32's limit stay finite where the
+JAX package's do, and give NaN where it does.
 """
+
+import math
 
 import torch
 
-__all__ = ["hoyer_l1_target", "proj_func", "proj_rows", "proj_columns",
-           "proj_columns_explicit"]
+__all__ = ["hoyer_l1_target", "proj_func", "proj_rows", "plain_proj_rows",
+           "proj_columns", "proj_columns_explicit"]
 
-# rounds between two host reads of ``done.all()``
+# rounds between two host reads of ``done.all()`` (the plain version)
 CHECK_EVERY = 2
 
 
@@ -38,16 +49,21 @@ def hoyer_l1_target(dim: int, s: float) -> float:
     return dim**0.5 * (1 - s) + s
 
 
-def proj_rows(s: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor):
-    """Project every row of ``s (R, N)`` to L1 norm ``k1[r]`` and squared L2
-    norm ``k2[r]`` (``k1``, ``k2``: ``(R,)``)."""
+def plain_proj_rows(s: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                    return_rounds: bool = False):
+    """Plain PyTorch version of the projection: every row of ``s (R, N)`` to
+    L1 norm ``k1[r]`` and squared L2 norm ``k2[r]`` (``k1``, ``k2``:
+    ``(R,)``).  With ``return_rounds`` also the rounds each row ran, an
+    ``(R,)`` integer tensor."""
     R, N = s.shape
     k1 = k1.to(s.dtype)
     k2 = k2.to(s.dtype)
     v = s + ((k1 - s.sum(1)) / N)[:, None]
     zero = torch.zeros_like(s, dtype=torch.bool)
     done = torch.zeros(R, dtype=torch.bool, device=s.device)
+    rounds = torch.zeros(R, dtype=torch.int64, device=s.device)
     for it in range(N + 2):
+        rounds += ~done
         m = k1 / (N - zero.sum(1))
         w = torch.where(zero, v, v - m[:, None])
         a = (w * w).sum(1)
@@ -74,23 +90,73 @@ def proj_rows(s: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor):
             proj_rows.reads += 1
             if bool(done.all()):
                 break
+    return (v, rounds) if return_rounds else v
+
+
+def _targets(k, x: torch.Tensor, R: int) -> torch.Tensor:
+    """``k`` (a scalar, or ``(R,)``) as ``R`` contiguous values of ``x``'s
+    dtype on its device; a scalar is filled on the device, not copied."""
+    if isinstance(k, torch.Tensor):
+        return k.to(device=x.device, dtype=x.dtype).expand(R).contiguous()
+    return torch.full((R,), float(k), dtype=x.dtype, device=x.device)
+
+
+def _kernel(x: torch.Tensor, axis: int, k1: torch.Tensor, k2: torch.Tensor):
+    """One launch of ``csrc/hoyer_proj.cu`` on the columns of ``x`` along
+    ``axis``, read where they lie in the contiguous ``x``."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the projection kernel takes float32 or float64, "
+                        f"not {x.dtype}")
+    from ._build import load_library
+
+    x = x.contiguous()
+    R = x.shape[axis]
+    outer, inner = math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
+    if x.numel() == 0:
+        return x.clone()
+    if x.numel() >= 2**31:
+        raise ValueError("the projection kernel takes fewer than 2**31 values")
+    v = torch.empty_like(x)
+    zero = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    err = load_library("hoyer_proj").pnt_hoyer_proj(
+        x.data_ptr(), v.data_ptr(), zero.data_ptr(), k1.data_ptr(),
+        k2.data_ptr(), R, outer, inner, int(x.dtype == torch.float64),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hoyer_proj kernel launch failed: CUDA error {err}")
+    proj_rows.launches += 1
     return v
 
 
+def _project(x: torch.Tensor, axis: int, k1, k2) -> torch.Tensor:
+    """Project every column of ``x`` along ``axis`` (the slice ``x[:, j]``,
+    flattened) onto ``(k1[j], k2[j])``: the kernel on a CUDA tensor, the
+    plain version on a CPU one."""
+    R = x.shape[axis]
+    k1, k2 = _targets(k1, x, R), _targets(k2, x, R)
+    if x.device.type == "cuda":
+        return _kernel(x, axis, k1, k2)
+    if x.device.type != "cpu":
+        raise ValueError(f"no projection kernel for device {x.device}")
+    xm = x.movedim(axis, 0)
+    proj = plain_proj_rows(xm.reshape(R, -1), k1, k2)
+    return proj.reshape(xm.shape).movedim(0, axis)
+
+
+def proj_rows(s: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor):
+    """Project every row of ``s (R, N)`` to L1 norm ``k1[r]`` and squared L2
+    norm ``k2[r]`` (``k1``, ``k2``: ``(R,)``)."""
+    return _project(s, 0, k1, k2)
+
+
 proj_rows.reads = 0
+proj_rows.launches = 0
 
 
 def proj_func(s: torch.Tensor, k1, k2) -> torch.Tensor:
     """Project ``s`` (any shape, flattened) to L1 norm ``k1`` and squared L2
     norm ``k2``.  Shape-preserving."""
-    k = torch.as_tensor(k1, dtype=s.dtype, device=s.device).reshape(1)
-    q = torch.as_tensor(k2, dtype=s.dtype, device=s.device).reshape(1)
-    return proj_rows(s.reshape(1, -1), k, q).reshape(s.shape)
-
-
-def _columns(x: torch.Tensor, axis: int):
-    xm = x.movedim(axis, 0)
-    return xm, xm.reshape(xm.shape[0], -1)
+    return _project(s.reshape(1, -1), 0, k1, k2).reshape(s.shape)
 
 
 def proj_columns(x: torch.Tensor, L1_scale: float, axis: int = 1,
@@ -100,22 +166,14 @@ def proj_columns(x: torch.Tensor, L1_scale: float, axis: int = 1,
     norm ``norm_j²`` (reference nmf.py:516-521, 564-569; trainer.py:170-177).
     ``norms`` defaults to the slices' own L2 norms; the SparsityProj trainer
     passes the norms of the parameter before its step."""
-    xm, cols = _columns(x, axis)
     if norms is None:
-        norms = torch.sqrt(torch.sum(cols * cols, dim=1))
-    proj = proj_rows(cols, L1_scale * norms, norms * norms)
-    return proj.reshape(xm.shape).movedim(0, axis)
+        dims = tuple(d for d in range(x.ndim) if d != axis)
+        norms = torch.sqrt(torch.sum(x * x, dim=dims))
+    return _project(x, axis, L1_scale * norms, norms * norms)
 
 
 def proj_columns_explicit(x: torch.Tensor, k1s, k2s, axis: int = 1):
     """Project every column of ``x`` along ``axis`` onto explicit targets
     ``(k1s[j], k2s[j])``, scalars or ``(R,)`` (the initial projection to
     unit L2, reference nmf.py:463-464,472-473)."""
-    xm, cols = _columns(x, axis)
-    R = cols.shape[0]
-
-    def per_col(k):
-        return torch.as_tensor(k, dtype=x.dtype, device=x.device).expand(R)
-
-    proj = proj_rows(cols, per_col(k1s), per_col(k2s))
-    return proj.reshape(xm.shape).movedim(0, axis)
+    return _project(x, axis, k1s, k2s)

@@ -115,6 +115,32 @@ def test_proj_columns_matches_jax(jx, s, N, R):
     assert projection.hoyer_l1_target(N, s) == jx.proj.hoyer_l1_target(N, s)
 
 
+def test_plain_projection_counts_rounds_and_dispatches_by_device():
+    """The plain version's rounds per row; the wrapper takes it for a CPU
+    tensor and refuses a device with no kernel."""
+    x = torch.from_numpy(np.random.RandomState(3).rand(4, 300).astype("f"))
+    k1 = torch.full((4,), projection.hoyer_l1_target(300, 0.9))
+    k2 = torch.ones(4)
+    v, rounds = projection.plain_proj_rows(x, k1, k2, return_rounds=True)
+    assert torch.equal(v, projection.proj_rows(x, k1, k2))
+    assert bool((rounds >= 3).all() and (rounds <= 302).all())
+    with pytest.raises(ValueError, match="no projection kernel"):
+        projection.proj_rows(x.to("meta"), k1.to("meta"), k2.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", ["f", "d"])
+def test_proj_columns_of_deconv_factors_matches_jax(jx, dtype):
+    """Rank columns that are not contiguous (NMFD's W, C×R×T, along axis
+    1), in float32 and float64, against the JAX package's projection
+    (float32) within 1e-5 relative."""
+    x = np.random.RandomState(4).rand(12, 3, 7).astype(dtype)
+    L1 = projection.hoyer_l1_target(12 * 7, 0.6)
+    got = projection.proj_columns(torch.from_numpy(x), L1)
+    assert got.dtype == torch.from_numpy(x).dtype and got.shape == x.shape
+    assert _rel(got.numpy(), jx.proj.proj_columns(x.astype("f"), L1)) < 1e-5
+    np.testing.assert_allclose(_col_sparseness(got).numpy(), 0.6, atol=1e-4)
+
+
 @pytest.mark.parametrize("scale", [1e9, 1e12, 1e15, 1e18])
 def test_proj_columns_at_large_scales_matches_jax_jit(jx, scale):
     """Columns whose ``b*b`` overflows float32: the port's projection has
@@ -348,9 +374,13 @@ def test_cuda_hoyer_runs_the_kernels(cuda, name, kw, per_iter):
     V, W0, H0 = _problem(name, seed=12)
     m = nmf_from_numpy({"W": W0, "H": H0}, cuda)
     b3, b4 = fused_deconv.hgrad.launches, fused_deconv.wgrad.launches
+    p1, reads = projection.proj_rows.launches, projection.proj_rows.reads
     assert m.sparse_fit(V, beta=2, max_iter=ITERS, **kw) == ITERS
     assert (fused_deconv.hgrad.launches - b3,
             fused_deconv.wgrad.launches - b4) == tuple(ITERS * n for n in per_iter)
+    # every projection is one kernel launch, with no host read
+    assert projection.proj_rows.launches - p1 >= ITERS
+    assert projection.proj_rows.reads == reads
     fit = solver.get_hoyer_fit(
         fast_nmfd.plain_adjoint_deconv, None, 2.0, ITERS, True, True,
         kw.get("sW"), kw.get("sH"), W0.size // W0.shape[1],
@@ -359,3 +389,66 @@ def test_cuda_hoyer_runs_the_kernels(cuda, name, kw, per_iter):
     assert m.W.is_cuda and bool((m.W >= 0).all() and (m.H >= 0).all())
     assert _rel(m.W.detach().cpu(), W.cpu()) < RTOL_FIT
     assert _rel(m.H.detach().cpu(), H.cpu()) < RTOL_FIT
+
+
+def _assert_same_projection(got, want, rtol=1e-5):
+    """NaN in the same places, finite entries within ``rtol`` relative."""
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(want)
+    assert bool(torch.isfinite(got[fin]).all())
+    if bool(fin.any()):
+        scale = float(want[fin].abs().max())
+        assert float((got[fin] - want[fin]).abs().max()) <= rtol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 1025, 5168, 410000])
+def test_cuda_projection_kernel_matches_plain(cuda, N):
+    """The kernel of ``csrc/hoyer_proj.cu`` against the plain version on
+    the card, columns of ``randn·scale`` at scales from 1e-3 to 1e18 (b*b
+    overflows float32 from 1e9 on) with one all-zero column; one launch a
+    projection and no host read."""
+    R = 6
+    rs = np.random.RandomState(N % 1000)
+    for scale in (1e-3, 1.0, 1e9, 1e12, 1e15, 1e18):
+        x = torch.from_numpy((rs.randn(N, R) * scale).astype("f")).to(cuda)
+        x[:, 2] = 0
+        L1 = projection.hoyer_l1_target(N, 0.5)
+        n0, r0 = projection.proj_rows.launches, projection.proj_rows.reads
+        got = projection.proj_columns(x, L1)
+        assert projection.proj_rows.launches - n0 == 1
+        assert projection.proj_rows.reads == r0
+        norms = torch.sqrt(torch.sum(x * x, dim=0))
+        want = projection.plain_proj_rows(x.T.contiguous(), L1 * norms,
+                                          norms * norms).T
+        _assert_same_projection(got, want)
+        assert bool(torch.isnan(got[:, 2]).all()) == (N >= 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_projection_kernel_on_strided_columns(cuda, dtype):
+    """NMFD's W (C, R, T) projected along axis 1 where it lies, against the
+    plain version on the columns copied out; float32 and float64; explicit
+    targets and ``proj_func`` too."""
+    rs = np.random.RandomState(5)
+    W = torch.from_numpy(rs.rand(257, 8, 40)).to(cuda, dtype)
+    L1 = projection.hoyer_l1_target(257 * 40, 0.5)
+    got = projection.proj_columns(W, L1)
+    cols = W.movedim(1, 0).reshape(8, -1)
+    norms = torch.sqrt(torch.sum(cols * cols, dim=1))
+    want = projection.plain_proj_rows(cols, L1 * norms, norms * norms)
+    _assert_same_projection(got.movedim(1, 0).reshape(8, -1), want)
+    assert got.dtype == dtype
+    got = projection.proj_columns_explicit(W, L1, 1.0)
+    want = projection.plain_proj_rows(cols, torch.full_like(norms, L1),
+                                      torch.ones_like(norms))
+    _assert_same_projection(got.movedim(1, 0).reshape(8, -1), want)
+    v = W[0]
+    _assert_same_projection(projection.proj_func(v, 3.0, 2.0),
+                            projection.plain_proj_rows(
+                                v.reshape(1, -1), torch.full((1,), 3.0, device=cuda),
+                                torch.full((1,), 2.0, device=cuda)).reshape(v.shape))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        projection.proj_columns(W.half(), L1)
