@@ -128,8 +128,11 @@ Drives the port's paths at full width, each in phases:
    dH, dW and dZ through the kernels against the plain twin at the SIPLCA
    row, its rank-8 row, N=2, and the SIPLCA2/SIPLCA3 rows (same bound);
    every summand is non-negative, so the only error is summation order;
-   and the projection kernel P1 against its plain version at W 1025×88 and
-   the NMFD flagship's W 1025×88×400 (NaN in the same places, finite
+   and the projection kernel P1 against its plain version at W 1025×88,
+   the NMFD flagship's W 1025×88×400, NMF2D's W 512×128×64 and columns of
+   2^20 values, one case in each of its regimes (one CTA a column, a
+   cluster a column, streamed), each printing its regime, cluster, rounds
+   and ``cudaOccupancyMaxActiveClusters`` (NaN in the same places, finite
    entries within 1e-5·max|plain|);
 3. fits V with β ∈ {2, 1, 0, 0.5, 1.5} through ``NMF.fit``, and with β ∈ {1,
    2, 0.5} through ``NMFD.fit`` plus β=1 through ``NMF2D.fit`` and
@@ -151,7 +154,9 @@ Drives the port's paths at full width, each in phases:
    larger of its operations at the 3xTF32 rate and its bytes at the HBM
    rate (B4 also for the neg/pos pair: twice the operations; P1's the
    larger of its bytes once at the HBM rate and the operations of the
-   rounds its columns needed at the f32 rate); splits one
+   rounds its columns needed at the f32 rate; P1's own time from CUDA
+   graph replays, beside the streaming regime's on the same columns);
+   splits one
    SIPLCA EM iteration's and one NMFD Hoyer iteration's device time
    (``torch.profiler``) into the reconstruction, B3, B4 and the rest; and
    prints the Hoyer fits' host reads per iteration (line-search comparisons
@@ -257,14 +262,20 @@ FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 # the Hoyer projection kernel (P1): the JAX package's projection is a
 # lax.while_loop under vmap (no Pallas kernel); checked at the rank columns
-# of W in the dense Hoyer fit and SparsityProj (1025×88) and of the NMFD
-# flagship's W (1025×88×400), from rand + 0.1 to sparseness 0.5.  Per value
-# and round it does about PROJ_OPS operations: w, its three products and
-# sums (7), the step and its tests (5), the fix-up (3)
+# of W in the dense Hoyer fit and SparsityProj (1025×88: one CTA a column),
+# of the NMFD flagship's W (1025×88×400: a cluster a column), of NMF2D's W
+# (512×128×8×8, near the top of one CTA) and at columns of 2^20 values
+# (2048×4×512: streamed, as no path of the repo needs), from rand + 0.1 to
+# sparseness 0.5; the kernels' line keeps the NMFD case.  Per value and
+# round it does about PROJ_OPS operations: w, its three products and sums
+# (7), the step and its tests (5), the fix-up (3)
 PROJ_NAME = "hoyer_proj"
 PROJ_REPLACES = "pytorch_nmf_tpu/ops/projection.py:26"
 PROJ_SOURCE = "pytorch_nmf_tpu_torch/csrc/hoyer_proj.cu"
-PROJ_CASES = (("W 1025x88", (1025, 88)), ("NMFD W 1025x88x400", (1025, 88, 400)))
+PROJ_CASES = (("W 1025x88", (1025, 88)), ("NMFD W 1025x88x400", (1025, 88, 400)),
+              ("NMF2D W 512x128x64", (512, 128, 64)),
+              ("streamed 2048x4x512", (2048, 4, 512)))
+PROJ_MAIN = "NMFD W 1025x88x400"
 PROJ_OPS = 15
 PROJ_RTOL = 1e-5
 # the dense Hoyer fit's profile: fits of 1 and 1 + HOYER_PROFILE iterations
@@ -343,6 +354,29 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Mean device milliseconds of ``fn()`` from replays of a CUDA graph of
+    ``reps`` calls (no host time between the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del g
+    return ms
 
 
 def bound(flops, nbytes):
@@ -1583,14 +1617,20 @@ def compare_projection(P, card, fit_ms):
     PROJ_CASES, from ``rand + 0.1`` to sparseness 0.5 at the columns' own
     norms: NaN in the same places, ``max|kernel - plain| ≤
     PROJ_RTOL·max|plain|`` on the finite entries, one launch and no host
-    read; the kernel's and the plain version's times, and the bound: the
-    larger of the values read and written once at the HBM rate and the
-    operations of the rounds these columns needed (PROJ_OPS per value and
-    round, from the plain version's count) at the f32 peak; beside it the
-    bytes of a read and a write of every column each round.  Returns the
-    NMFD case's stats."""
+    read; the regime the plan chose, its cluster and occupancy
+    (``cudaOccupancyMaxActiveClusters``); the kernel's device time (CUDA
+    graph replays of its launch), beside it the streaming regime's (one
+    block a column, every round through HBM) on the same columns and the
+    whole call's time by events; the plain version's time, and the bound:
+    the larger of
+    the values read and written once at the HBM rate and the operations of
+    the rounds these columns needed (PROJ_OPS per value and round, from the
+    plain version's count) at the f32 peak; beside it the bytes of a read
+    and a write of every column each round.  Returns the PROJ_MAIN case's
+    stats."""
     rs = np.random.RandomState(SEED)
     stats = None
+    stream = P.Plan("stream", 1024, 1, 0, 0)
     for label, shape in PROJ_CASES:
         x = torch.from_numpy(rs.rand(*shape).astype("f") + 0.1).cuda()
         R = shape[1]
@@ -1598,14 +1638,16 @@ def compare_projection(P, card, fit_ms):
         L1 = P.hoyer_l1_target(N, 0.5)
         cols = x.movedim(1, 0).reshape(R, N)
         norms = torch.sqrt(torch.sum(cols * cols, dim=1))
+        k1, k2 = (L1 * norms).contiguous(), (norms * norms).contiguous()
+        plan = P.kernel_plan(x, 1)
+        clusters = P.max_active_clusters(x, 1)
         n0, r0 = P.proj_rows.launches, P.proj_rows.reads
         got = P.proj_columns(x, L1, norms=norms)
         torch.cuda.synchronize()
         check(P.proj_rows.launches - n0 == 1 and P.proj_rows.reads == r0,
               f"P1 at {label}: {P.proj_rows.launches - n0} launches, "
               f"{P.proj_rows.reads - r0} host reads")
-        want, rounds = P.plain_proj_rows(cols, L1 * norms, norms * norms,
-                                         return_rounds=True)
+        want, rounds = P.plain_proj_rows(cols, k1, k2, return_rounds=True)
         got = got.movedim(1, 0).reshape(R, N)
         check(torch.equal(torch.isnan(got), torch.isnan(want)),
               f"P1 at {label}: NaN where the plain version has none, or not "
@@ -1615,11 +1657,12 @@ def compare_projection(P, card, fit_ms):
         scale = float(want[fin].abs().max())
         check(err <= PROJ_RTOL * scale,
               f"P1 at {label}: max|kernel-plain| {err} against max|plain| {scale}")
-        ms = cuda_ms(lambda: P.proj_columns(x, L1, norms=norms), reps=10,
-                     warmup=2)
-        plain_ms = cuda_ms(lambda: P.plain_proj_rows(cols, L1 * norms,
-                                                     norms * norms),
-                           reps=3, warmup=1)
+        ms = graph_ms(lambda: P._kernel(x, 1, k1, k2))
+        stream_ms = graph_ms(lambda: P._kernel(x, 1, k1, k2, plan=stream))
+        call_ms = cuda_ms(lambda: P.proj_columns(x, L1, norms=norms), reps=10,
+                          warmup=2)
+        plain_ms = cuda_ms(lambda: P.plain_proj_rows(cols, k1, k2), reps=3,
+                           warmup=1)
         value_rounds = int(rounds.sum()) * N
         bound_ms, bound_by, _ = bound(0, 2 * x.numel() * 4 + 2 * R * 4)
         ops_ms = 1e3 * PROJ_OPS * value_rounds / FP32_FLOPS
@@ -1627,17 +1670,24 @@ def compare_projection(P, card, fit_ms):
             bound_ms, bound_by = ops_ms, "operations"
         st = dict(new_stats(), max_abs_err=err, max_rel_err=err / scale, ms=ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  regime=plan.regime, cluster=plan.cluster,
+                  threads=plan.threads, max_active_clusters=clusters,
+                  stream_ms=stream_ms, call_ms=call_ms,
                   rounds_mean=float(rounds.double().mean()),
                   rounds_max=int(rounds.max()),
                   bound_round_bytes_ms=1e3 * 8 * value_rounds / HBM_BYTES)
         fit_ms[f"hoyer_proj_{label.replace(' ', '_')}"] = st
-        print(f"phase 2/4: P1 at {label}: max|kernel-plain| {err:.3g} "
-              f"(max|plain| {scale:.4g}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-              f"rounds mean {st['rounds_mean']:.2f}, max {st['rounds_max']}; "
-              f"a read and a write of every column each round "
+        print(f"phase 2/4: P1 at {label}: regime {plan.regime}, cluster "
+              f"{plan.cluster} of {plan.threads} threads, at most {clusters} "
+              f"clusters at once; rounds mean {st['rounds_mean']:.2f}, max "
+              f"{st['rounds_max']}; max|kernel-plain| {err:.3g} (max|plain| "
+              f"{scale:.4g}); kernel {ms:.4f} ms (the streaming regime "
+              f"{stream_ms:.4f}; the whole call {call_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); a "
+              f"read and a write of every column each round "
               f"{st['bound_round_bytes_ms']:.4f} ms [{card}]", flush=True)
-        stats = st
+        if label == PROJ_MAIN:
+            stats = st
         del x, cols, got, want
     return stats
 

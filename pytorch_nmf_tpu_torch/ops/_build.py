@@ -47,7 +47,9 @@ _SIGNATURES = {
         "pnt_wgrad": ([_P] * 9 + [_I] * 14 + [_P], _I),
     },
     "hoyer_proj": {
-        "pnt_hoyer_proj": ([_P] * 5 + [_I] * 4 + [_P], _I),
+        "pnt_hoyer_proj_setup": ([ctypes.POINTER(_I)], _I),
+        "pnt_hoyer_proj": ([_P] * 5 + [_I] * 8 + [_P], _I),
+        "pnt_hoyer_proj_occupancy": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
     },
 }
 

@@ -9,12 +9,14 @@ zeroes it and re-centres the rest, so ``N + 2`` rounds always suffice.
 
 The JAX package vmaps a ``lax.while_loop`` over the rank columns.  On a CUDA
 tensor every projection here is one launch of the hand-written kernel of
-``csrc/hoyer_proj.cu``: a block per column runs its rounds on the device,
-reads the columns where they lie (any contiguous tensor, so NMFD's strided
-rank columns are not copied) and reads nothing back to the host, so a
-projection can be captured in a CUDA graph.  Launches are counted in
-``proj_rows.launches``.  A float32 or float64 tensor is taken; another
-dtype on the card raises.
+``csrc/hoyer_proj.cu``: it runs every column's rounds on the device, reads
+the columns where they lie (any contiguous tensor, so NMFD's strided rank
+columns are not copied) and reads nothing back to the host, so a projection
+can be captured in a CUDA graph.  :func:`_plan` picks its regime from the
+column's length: the column held in one CTA's shared memory, or in a
+thread-block cluster's, or (longer still) streamed from HBM every round.
+Launches are counted in ``proj_rows.launches``.  A float32 or float64 tensor
+is taken; another dtype on the card raises, and so does a failed launch.
 
 On a CPU tensor the plain PyTorch version runs (:func:`plain_proj_rows`):
 the columns are the rows of one ``(R, N)`` tensor, each with its own
@@ -32,7 +34,10 @@ taken as 0, so columns at scales near float32's limit stay finite where the
 JAX package's do, and give NaN where it does.
 """
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -101,14 +106,121 @@ def _targets(k, x: torch.Tensor, R: int) -> torch.Tensor:
     return torch.full((R,), float(k), dtype=x.dtype, device=x.device)
 
 
-def _kernel(x: torch.Tensor, axis: int, k1: torch.Tensor, k2: torch.Tensor):
+# the kernel's regimes, in the order of their codes in csrc/hoyer_proj.cu:
+# (a) the column in one CTA's shared memory, (b) in a thread-block
+# cluster's, (c) streamed from HBM every round
+REGIMES = ("cta", "cluster", "stream")
+# csrc/hoyer_proj.cu: bytes of sums ahead of a CTA's values, the largest
+# cluster (16 needs the non-portable size the kernel allows), and the
+# streaming kernel's threads
+_HEADER = 1024
+_MAX_CLUSTER = 16
+_STREAM_THREADS = 1024
+# a resident CTA's threads: about this many values a thread, 32 to 1024
+# (chip_tools/p1_variants.py's ``threads`` sweep)
+_VALUES_PER_THREAD = 4
+
+
+class Plan(NamedTuple):
+    """A launch of the projection kernel: its regime (one of
+    :data:`REGIMES`), threads a CTA, CTAs a column (``cluster``), values a
+    CTA holds (``slice``; 0 when streaming) and the dynamic shared memory a
+    CTA asks for, in bytes."""
+    regime: str
+    threads: int
+    cluster: int
+    slice: int
+    smem: int
+
+
+def _smem_bytes(slice_: int, itemsize: int) -> int:
+    """Shared memory of a resident CTA holding ``slice_`` values: the sums'
+    header, then the values, an even count of them, each carrying its
+    zeroed flag in its sign bit (``csrc/hoyer_proj.cu::resident_smem``)."""
+    return _HEADER + (slice_ + slice_ % 2) * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(N: int, itemsize: int, smem_optin: int) -> Plan:
+    """The kernel's launch for columns of ``N`` values of ``itemsize`` bytes
+    on a card whose blocks may opt in to ``smem_optin`` bytes of shared
+    memory: (a) ``cta`` when one CTA holds the column; else (b) ``cluster``,
+    the smallest cluster of at most 16 CTAs that holds it, each CTA a
+    ``slice`` (a multiple of 32 values, so that every slice starts on a
+    16-byte boundary of a run) and the last the rest; else (c) ``stream``.
+    A pure function of its arguments: the launch never changes regime on a
+    failure."""
+    cap = (smem_optin - _HEADER) // (32 * itemsize) * 32  # a CTA's slice
+    if _smem_bytes(N, itemsize) <= smem_optin:
+        regime, cluster, slice_ = "cta", 1, N
+    elif N <= _MAX_CLUSTER * cap:
+        cluster = -(-N // cap)
+        per_cta = -(-N // cluster)
+        regime, slice_ = "cluster", -(-per_cta // 32) * 32
+    else:
+        return Plan("stream", _STREAM_THREADS, 1, 0, 0)
+    threads = min(1024, max(32, -(-slice_ // (32 * _VALUES_PER_THREAD)) * 32))
+    return Plan(regime, threads, cluster, slice_, _smem_bytes(slice_, itemsize))
+
+
+# the card's opt-in shared memory per block, by device index, read when the
+# kernels' attributes were set on that device
+_SMEM_OPTIN = {}
+
+
+def _library(device: torch.device):
+    """The projection kernel's library, its attributes set on ``device``
+    (once per device, outside any graph capture), and the device's opt-in
+    shared memory per block."""
+    from ._build import load_library
+
+    lib = load_library("hoyer_proj")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMEM_OPTIN:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the projection kernel's first launch on a device cannot be "
+                "inside a CUDA graph capture: project once before capturing")
+        optin = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = lib.pnt_hoyer_proj_setup(ctypes.byref(optin))
+        if err != 0:
+            raise RuntimeError(f"hoyer_proj kernel setup failed: CUDA error {err}")
+        _SMEM_OPTIN[index] = optin.value
+    return lib, _SMEM_OPTIN[index]
+
+
+def kernel_plan(x: torch.Tensor, axis: int) -> Plan:
+    """The plan of the kernel's launch on the columns of the CUDA tensor
+    ``x`` along ``axis``."""
+    _, optin = _library(x.device)
+    return _plan(x.numel() // x.shape[axis], x.element_size(), optin)
+
+
+def max_active_clusters(x: torch.Tensor, axis: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of that launch: how many of its
+    clusters (of its CTAs, for one CTA a column) the card runs at once."""
+    lib, _ = _library(x.device)
+    plan = kernel_plan(x, axis)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        err = lib.pnt_hoyer_proj_occupancy(
+            REGIMES.index(plan.regime), plan.threads, plan.cluster, plan.slice,
+            int(x.dtype == torch.float64), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"hoyer_proj occupancy query failed: CUDA error {err}")
+    return out.value
+
+
+def _kernel(x: torch.Tensor, axis: int, k1: torch.Tensor, k2: torch.Tensor,
+            plan: Plan = None):
     """One launch of ``csrc/hoyer_proj.cu`` on the columns of ``x`` along
-    ``axis``, read where they lie in the contiguous ``x``."""
+    ``axis``, read where they lie in the contiguous ``x``, as :func:`_plan`
+    lays it out (or as ``plan`` does: a measurement may time one regime
+    against another)."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the projection kernel takes float32 or float64, "
                         f"not {x.dtype}")
-    from ._build import load_library
-
     x = x.contiguous()
     R = x.shape[axis]
     outer, inner = math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
@@ -116,14 +228,23 @@ def _kernel(x: torch.Tensor, axis: int, k1: torch.Tensor, k2: torch.Tensor):
         return x.clone()
     if x.numel() >= 2**31:
         raise ValueError("the projection kernel takes fewer than 2**31 values")
+    lib, optin = _library(x.device)
+    if plan is None:
+        plan = _plan(outer * inner, x.element_size(), optin)
     v = torch.empty_like(x)
-    zero = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-    err = load_library("hoyer_proj").pnt_hoyer_proj(
-        x.data_ptr(), v.data_ptr(), zero.data_ptr(), k1.data_ptr(),
-        k2.data_ptr(), R, outer, inner, int(x.dtype == torch.float64),
+    # the streaming regime's zero mask (a byte a value, in HBM); the
+    # resident regimes keep each flag in its value's sign bit
+    zero = (torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+            if plan.regime == "stream" else None)
+    err = lib.pnt_hoyer_proj(
+        x.data_ptr(), v.data_ptr(), None if zero is None else zero.data_ptr(),
+        k1.data_ptr(), k2.data_ptr(), R, outer, inner,
+        int(x.dtype == torch.float64), REGIMES.index(plan.regime),
+        plan.threads, plan.cluster, plan.slice,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"hoyer_proj kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"hoyer_proj kernel launch failed ({plan}): CUDA "
+                           f"error {err}")
     proj_rows.launches += 1
     return v
 

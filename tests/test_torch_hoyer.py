@@ -128,6 +128,51 @@ def test_plain_projection_counts_rounds_and_dispatches_by_device():
         projection.proj_rows(x.to("meta"), k1.to("meta"), k2.to("meta"))
 
 
+# the H100's opt-in shared memory per block
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin), bytes
+OPTIN_H100 = 232448
+
+
+def _edges(itemsize, optin):
+    """Column lengths at the edges of the kernel's regimes, from its layout:
+    a CTA holds a 1024-byte header of sums, then its values (an even count),
+    and a cluster has at most 16 CTAs, each a multiple of 32 values."""
+    room = optin - 1024
+    last_cta = room // itemsize // 2 * 2
+    cap = room // (32 * itemsize) * 32
+    return {"last cta": last_cta, "first cluster": last_cta + 1,
+            "last cluster": 16 * cap, "first stream": 16 * cap + 1}
+
+
+REGIME_EDGES = [("last cta", "cta"), ("first cluster", "cluster"),
+                ("last cluster", "cluster"), ("first stream", "stream")]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("edge, regime", REGIME_EDGES)
+def test_projection_plan_at_regime_edges(edge, regime, itemsize):
+    """The kernel's plan on the H100 at each regime's first or last column
+    length, float32 and float64: the regime; a resident CTA's slice fits
+    the shared memory it asks for, within the card's; the smallest cluster
+    that holds the column, at most 16 CTAs."""
+    N = _edges(itemsize, OPTIN_H100)[edge]
+    plan = projection._plan(N, itemsize, OPTIN_H100)
+    assert plan.regime == regime
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert 1 <= plan.cluster <= 16
+    if regime == "stream":
+        assert plan == ("stream", 1024, 1, 0, 0)
+        return
+    values = plan.slice + plan.slice % 2
+    assert 1024 + values * itemsize <= plan.smem <= OPTIN_H100
+    assert (plan.cluster - 1) * plan.slice < N <= plan.cluster * plan.slice
+    cap = (OPTIN_H100 - 1024) // (32 * itemsize) * 32
+    if regime == "cta":
+        assert plan.cluster == 1 and plan.slice == N
+    else:
+        assert plan.slice % 32 == 0 and (plan.cluster - 1) * cap < N
+
+
 @pytest.mark.parametrize("dtype", ["f", "d"])
 def test_proj_columns_of_deconv_factors_matches_jax(jx, dtype):
     """Rank columns that are not contiguous (NMFD's W, C×R×T, along axis
@@ -402,17 +447,16 @@ def _assert_same_projection(got, want, rtol=1e-5):
         assert float((got[fin] - want[fin]).abs().max()) <= rtol * scale
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 2, 1025, 5168, 410000])
-def test_cuda_projection_kernel_matches_plain(cuda, N):
-    """The kernel of ``csrc/hoyer_proj.cu`` against the plain version on
-    the card, columns of ``randn·scale`` at scales from 1e-3 to 1e18 (b*b
-    overflows float32 from 1e9 on) with one all-zero column; one launch a
+def _check_kernel_columns(cuda, N, dtype, rs):
+    """Columns of ``randn·scale`` at scales from 1e-3 to 1e18 (b*b
+    overflows float32 from 1e9 on) with one all-zero column, and a column
+    set to one value projected onto its own L1 norm (every coordinate at
+    the maximum: v = m exactly, so w = v - m is zero and the step 0/0), by
+    the kernel against the plain version on the card; one launch a
     projection and no host read."""
     R = 6
-    rs = np.random.RandomState(N % 1000)
     for scale in (1e-3, 1.0, 1e9, 1e12, 1e15, 1e18):
-        x = torch.from_numpy((rs.randn(N, R) * scale).astype("f")).to(cuda)
+        x = torch.from_numpy(rs.randn(N, R) * scale).to(cuda, dtype)
         x[:, 2] = 0
         L1 = projection.hoyer_l1_target(N, 0.5)
         n0, r0 = projection.proj_rows.launches, projection.proj_rows.reads
@@ -424,6 +468,57 @@ def test_cuda_projection_kernel_matches_plain(cuda, N):
                                           norms * norms).T
         _assert_same_projection(got, want)
         assert bool(torch.isnan(got[:, 2]).all()) == (N >= 1)
+    # 0.5, a power of two: N·0.5 and every sum of the column are exact
+    x = torch.full((N, 1), 0.5, dtype=dtype, device=cuda)
+    k1, k2 = torch.full((1,), N * 0.5), torch.ones(1)
+    got = projection.proj_columns_explicit(x, k1, k2)
+    want = projection.plain_proj_rows(x.T.contiguous(), k1.to(cuda),
+                                      k2.to(cuda)).T
+    _assert_same_projection(got, want)
+    assert bool(torch.isnan(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 1025, 5168, 410000])
+def test_cuda_projection_kernel_matches_plain(cuda, N):
+    """The kernel of ``csrc/hoyer_proj.cu`` against the plain version on
+    the card (``_check_kernel_columns``), float32."""
+    _check_kernel_columns(cuda, N, torch.float32, np.random.RandomState(N % 1000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("edge, regime", REGIME_EDGES)
+def test_cuda_projection_kernel_at_regime_edges(cuda, edge, regime, dtype):
+    """The kernel at each regime's first or last column length on this
+    card (its opt-in shared memory read from the card) against the plain
+    version, as ``_check_kernel_columns`` checks it."""
+    _, optin = projection._library(torch.device(cuda))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    N = _edges(itemsize, optin)[edge]
+    assert projection._plan(N, itemsize, optin).regime == regime
+    _check_kernel_columns(cuda, N, dtype, np.random.RandomState(N % 1000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape, regime", [((257, 3, 40), "cta"),
+                                           ((1025, 3, 100), "cluster"),
+                                           ((2400, 2, 400), "stream")])
+def test_cuda_projection_kernel_regimes_on_strided_columns(cuda, shape, regime,
+                                                           dtype):
+    """An NMFD-shaped W (C, R, T) projected along axis 1 where it lies, in
+    each regime, against the plain version on the columns copied out."""
+    W = torch.from_numpy(np.random.RandomState(6).rand(*shape)).to(cuda, dtype)
+    assert projection.kernel_plan(W, 1).regime == regime
+    R, N = shape[1], shape[0] * shape[2]
+    L1 = projection.hoyer_l1_target(N, 0.5)
+    got = projection.proj_columns(W, L1)
+    cols = W.movedim(1, 0).reshape(R, N)
+    norms = torch.sqrt(torch.sum(cols * cols, dim=1))
+    want = projection.plain_proj_rows(cols, L1 * norms, norms * norms)
+    _assert_same_projection(got.movedim(1, 0).reshape(R, N), want)
+    assert got.dtype == dtype
 
 
 @pytest.mark.cuda
