@@ -123,7 +123,9 @@ Drives the port's paths at full width, each in phases:
    at 5168×1025 R=88 and 4096×4096 R=256, and at the streaming fits'
    blocks (1024 and 48 rows of 1025 in a 1028-float row stride, R=88, β ∈
    {1, 0.5}; 8192×4096 R=64, β=1) (rtol 1e-4), B3/B4 at the NMFD
-   flagship, its rank-8 row, N=2, and the NMF2D/NMF3D rows
+   flagship, its rank-8 and rank-16 rows, N=2, the NMF2D/NMF3D rows and
+   the reference demo's shapes (1×1025×4997, R=3, T=400), each B3 line
+   naming its regime (ranks ≤ 16: the small-rank gemm kernel)
    (``max|kernel - plain| ≤ 1e-4·max|plain|``); and the SIPLCA E-step's
    dH, dW and dZ through the kernels against the plain twin at the SIPLCA
    row, its rank-8 row, N=2, and the SIPLCA2/SIPLCA3 rows (same bound);
@@ -164,7 +166,9 @@ Drives the port's paths at full width, each in phases:
 
 Any failure raises (exit code ≠ 0).  The second-to-last line of standard
 output is a JSON summary of the kernels (``launches`` summed over the
-paths, ``launches_by_path`` per path; B1/B2's bfloat16-V instances as
+paths, ``launches_by_path`` per path; B3's small-rank regime apart as
+``hgrad_r_le_16``, its launches those of B3's that ran it, its times at
+the reference demo's shape; B1/B2's bfloat16-V instances as
 ``fused_contractions_bf16`` and ``fused_beta_loss_bf16``, with their
 launches in the bfloat16 fits; P1 as ``hoyer_proj``, its launches
 counted where launched, which in a graphed optimizer step is at capture)
@@ -196,6 +200,13 @@ DECONV = {
     "NMF3D": (1, 64, (19, 19, 19), (4, 4, 4), 16),     # bench.py:153
 }
 DECONV_BETAS = (1, 2, 0.5)
+# B3's small-rank regime (ranks ≤ 16, csrc/fused_deconv.cu's gemm kernel):
+# its kernel line, and the case its times are read at, the reference demo's
+# B3 (examples/torch_port/audio_separation.py at AUDIO_FULL: 1025 bins ×
+# 4997 frames, R=3, T=400)
+SMALL_B3 = "hgrad_r_le_16"
+DEMO_B3 = "NMFD R=3 (demo)"
+DECONV_DEMO = (1, 1025, (4997,), (400,), 3)
 DECONV_ITERS = 10
 # the PLCA family at full width, (N, C, S_out, kernel, R), from bench.py
 SIPLCA_ROWS = {
@@ -551,19 +562,21 @@ def compare_deconv_kernels(F, D, kl_pos_W):
     ``torch.nn.grad.convNd_weight(H, W.shape, cot, padding=k-1)`` of the
     reconstruction (its kernel flipped); then at the halo fits' layouts
     (:func:`compare_halo_kernels`).  Returns per-kernel errors (over every
-    case), times and bounds at the NMFD flagship (:func:`new_stats`)."""
-    stats = {name: new_stats() for name in ("hgrad", "wgrad")}
+    case), times and bounds at the NMFD flagship (:func:`new_stats`), and
+    B3's small-rank regime apart (``SMALL_B3``: its errors over every case
+    of rank ≤ 16, its times at the reference demo's shape)."""
+    stats = {name: new_stats() for name in ("hgrad", "wgrad", SMALL_B3)}
 
-    def record(name, case, got, ref):
+    def record(name, case, got, ref, small=False):
         torch.cuda.synchronize()
         check(got.shape == ref.shape and got.is_cuda, f"{name} {case}: bad output")
         check(bool(torch.isfinite(got).all()), f"{name} {case}: non-finite output")
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         check(rel <= RTOL, f"{name} {case}: max|kernel-plain| / max|plain| = {rel:.3g}")
-        st = stats[name]
-        st["max_abs_err"] = max(st["max_abs_err"], err)
-        st["max_rel_err"] = max(st["max_rel_err"], rel)
+        for st in [stats[name]] + ([stats[SMALL_B3]] if small else []):
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            st["max_rel_err"] = max(st["max_rel_err"], rel)
         return rel
 
     N, C, S_out, kernel, R = DECONV["NMFD"]
@@ -573,6 +586,8 @@ def compare_deconv_kernels(F, D, kl_pos_W):
         ("NMFD N=2", (2, C, S_out, kernel, R)),
         ("NMF2D", DECONV["NMF2D"]),
         ("NMF3D", DECONV["NMF3D"]),
+        (DEMO_B3, DECONV_DEMO),
+        ("NMFD R=16", (N, C, S_out, kernel, 16)),
     ]
     for label, shape in cases:
         op = deconv_operands(F, *shape)
@@ -615,9 +630,12 @@ def compare_deconv_kernels(F, D, kl_pos_W):
             got, ref = call(fn), call(plain)
             if not isinstance(got, list):
                 got, ref = [got], [ref]
-            rel = max(record(name, f"{label} {case}", g, r)
+            small = name == "hgrad" and R_ <= 16
+            rel = max(record(name, f"{label} {case}", g, r, small)
                       for g, r in zip(got, ref))
             line = f"B{3 if name == 'hgrad' else 4} {label} {case}: max rel err {rel:.3g}"
+            if name == "hgrad":
+                line += f", regime {b3_plan(D, op).regime}"
             timed = label == "NMFD" or case in library
             if timed:
                 ms = cuda_ms(lambda: call(fn), reps=10, warmup=1)
@@ -634,9 +652,22 @@ def compare_deconv_kernels(F, D, kl_pos_W):
             if case in library and label == "NMFD":
                 stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                    bound_ms=b_ms, bound_by=b_by)
+            if name == "hgrad" and label == DEMO_B3:
+                stats[SMALL_B3].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                       bound_ms=b_ms, bound_by=b_by)
             print(line, flush=True)
     compare_halo_kernels(F, D, record)
     return stats
+
+
+def b3_plan(D, op):
+    """B3's launch plan (``fused_deconv._hgrad_plan``) for the operands of
+    :func:`deconv_operands`."""
+    R, cot = op["R"], op["cots"][0]
+    K = op["W2"].shape[0] // R
+    return D._hgrad_plan(R, op["L_h"], -(-cot.shape[1] // 4) * 4, K,
+                         D._geom_args(K, op["geom"]),
+                         torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def halo_layouts():
@@ -694,7 +725,8 @@ def compare_halo_kernels(F, D, record):
             got, ref = call(getattr(D, kernel)), call(getattr(D, f"plain_{kernel}"))
             if not isinstance(got, list):
                 got, ref = [got], [ref]
-            rel = max(record(kernel, f"{label} {case}", g, r)
+            rel = max(record(kernel, f"{label} {case}", g, r,
+                             kernel == "hgrad" and lay.R <= 16)
                       for g, r in zip(got, ref))
             print(f"B{3 if kernel == 'hgrad' else 4} {label} {case}: max rel "
                   f"err {rel:.3g} (limit {RTOL})", flush=True)
@@ -719,8 +751,8 @@ def deconv_target(name):
 def deconv_fits(models, beta_div, fm, D, card):
     """Phase 3, the deconv path: every fit on the kernels B3/B4 and none
     on B1/B2.  Returns the launch counts of the path's run."""
-    for fn in (fm.fused_contractions, fm.fused_beta_loss, D.hgrad, D.wgrad):
-        fn.launches = 0
+    ctr = counters(fm, D)
+    zero(ctr)
     runs = [("NMFD", b) for b in DECONV_BETAS] + [("NMF2D", 1), ("NMF3D", 1)]
     for name, beta in runs:
         V = deconv_target(name)
@@ -744,9 +776,7 @@ def deconv_fits(models, beta_div, fm, D, card):
               f"{after:.6g} in {secs:.2f} s; launches B3 {d_b3}, B4 {d_b4} "
               f"[{card}]", flush=True)
         del V, m
-    launches = {"fused_contractions": fm.fused_contractions.launches,
-                "fused_beta_loss": fm.fused_beta_loss.launches,
-                "hgrad": D.hgrad.launches, "wgrad": D.wgrad.launches}
+    launches = read(ctr)
     check(launches["fused_contractions"] == launches["fused_beta_loss"] == 0,
           f"the deconv fits launched B1/B2: {launches}")
     return launches
@@ -806,13 +836,47 @@ def counters(fm, D):
             "hgrad": D.hgrad, "wgrad": D.wgrad}
 
 
+class Count(int):
+    """B3's launch count, carrying ``small``: how many of them ran its
+    small-rank regime (``hgrad.launches_gemm``, the kernel line
+    ``hgrad_r_le_16``).  It compares as the plain count, and sums and
+    differences of counts carry it along."""
+
+    def __new__(cls, n, small=0):
+        c = super().__new__(cls, n)
+        c.small = small
+        return c
+
+    def __add__(self, other):
+        return Count(int(self) + int(other),
+                     self.small + getattr(other, "small", 0))
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return Count(int(self) - int(other),
+                     self.small - getattr(other, "small", 0))
+
+
 def zero(ctr):
     for fn in ctr.values():
         fn.launches = 0
+        if hasattr(fn, "launches_gemm"):
+            fn.launches_gemm = 0
 
 
 def read(ctr):
-    return {name: fn.launches for name, fn in ctr.items()}
+    return {name: Count(fn.launches, fn.launches_gemm)
+            if hasattr(fn, "launches_gemm") else fn.launches
+            for name, fn in ctr.items()}
+
+
+def restore(ctr, counts):
+    """Sets the wrappers' counts back to ``counts`` (a :func:`read`)."""
+    for k, v in counts.items():
+        ctr[k].launches = int(v)
+        if isinstance(v, Count):
+            ctr[k].launches_gemm = v.small
 
 
 def plca_problem(N, C, S_out, kernel, R, seed=SEED):
@@ -2732,6 +2796,13 @@ def autotune_cases(ns, ctr, card, fit_ms):
                    f"; fused_w launches B4 {TUNE_ITERS}, B3 0 in {TUNE_ITERS} "
                    f"iterations, the library engines none; the autotuned fit "
                    f"equals the forced winner's, launches {d}")
+            if "unfold" in yard and row[4] <= 16:
+                fused = 1e3 * autotune._MEASURED[key]["fused"]
+                print(f"phase 3: autotune {tag}: fused (B3 in its small-rank "
+                      f"regime, B4) {fused:.3f} ms/iteration against the "
+                      f"unfold yardstick's {yard['unfold']:.3f}: "
+                      f"{'faster' if fused < yard['unfold'] else 'slower'} "
+                      f"[{card}]", flush=True)
             del V, W0, H0, m, forced
 
         # the SIPLCA EM reconstruction at the SIPLCA row
@@ -2908,6 +2979,11 @@ def audio_full_width(ns, ctr, card, fit_ms):
           f"over {AUDIO_TRACE} iterations): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + f" [{card}]", flush=True)
+    print(f"phase 4: {tag}: B3 {split['B3']:.4f} ms of device time an "
+          f"iteration (its W2 split and small-rank gemm kernels, one launch "
+          f"of the wrapper an iteration, {d['hgrad'].small} of "
+          f"{d['hgrad']} in its small-rank regime; its slab sum counts in "
+          f"the rest) [{card}]", flush=True)
     return d
 
 
@@ -2997,8 +3073,7 @@ def c3_on_card(ns, ctr, card):
         lk, lp = (hoyer_losses(solver, lambda: solver.get_hoyer_fit(
             recon, None, *args)(V, W0, H0), loss_of)
             for recon in (F.kernel_adjoint_deconv, F.plain_adjoint_deconv))
-        for k, v in n1.items():  # the comparison is not the path's
-            ctr[k].launches = v
+        restore(ctr, n1)  # the comparison is not the path's
         rel = [abs(a - b) / b for a, b in zip(lk, lp)]
         check(len(rel) == HOYER_TRACE and max(rel) <= RTOL,
               f"{tag}: losses kernel {lk} plain {lp}")
@@ -3308,9 +3383,10 @@ def par_rank(rank, world, backend, workdir, names):
         torch.cuda.synchronize()
         n = int(out["n_iter"])
         tuning = seen.get("launches", {})
+        launches = {k: v - tuning.get(k, 0) for k, v in read(ctr).items()}
         report[name] = {
-            "n_iter": n, "launches": {k: v - tuning.get(k, 0)
-                                      for k, v in read(ctr).items()},
+            "n_iter": n, "launches": launches,
+            "hgrad_small": launches["hgrad"].small,
             # the mode's resolution (rank 0's timing, rank 1's wait) aside
             "ms_per_iter": (start.elapsed_time(end)
                             - 1e3 * seen.get("resolve_s", 0.0))
@@ -3499,7 +3575,9 @@ def par_check(ns, name, backend, world, workdir, single, card):
           + f" (whole calls), single card: whole problem {ms_ref:.3f}, one "
           f"rank's block {ms_part:.3f}; rank 0's traffic: {traffic} [{card}]",
           flush=True)
-    return {k: world * v for k, v in want.items()}
+    out = {k: world * v for k, v in want.items()}
+    out["hgrad"] = Count(out["hgrad"], sum(rep["hgrad_small"] for rep in reps))
+    return out
 
 
 def parallel_phase(ns, card):
@@ -3727,11 +3805,18 @@ def main():
     by_path["examples"] = examples_phase(ns, ctr, card, fit_ms)
     stamp("examples")
     launches = {name: sum(n[name] for n in by_path.values()) for name in REPLACES}
-    print(f"phase 3: launches by path {json.dumps(by_path)}", flush=True)
+    check(all(isinstance(n["hgrad"], Count) for n in by_path.values()),
+          "a path's B3 count lost its small-rank share")
+    small_by_path = {p: n["hgrad"].small for p, n in by_path.items()}
+    check(launches["hgrad"].small > 0,
+          "no path launched B3's small-rank regime")
+    print(f"phase 3: launches by path {json.dumps(by_path)}; of B3's, the "
+          f"small-rank regime's {json.dumps(small_by_path)}", flush=True)
 
     N, C, S_out, kernel, Rd = DECONV["NMFD"]
     for name, st in stats.items():
         at = (f"{M}x{K} R={R}" if name in ("fused_contractions", "fused_beta_loss")
+              else DEMO_B3 if name == SMALL_B3
               else f"{C}x{S_out[0]} R={Rd} T={kernel[0]}")
         lib = "none" if st["library_ms"] is None else f"{st['library_ms']:.4f} ms"
         print(f"phase 4: {name} at {at}: kernel {st['ms']:.4f} ms, plain "
@@ -3745,6 +3830,11 @@ def main():
               "launches_by_path": {p: n[name] for p, n in by_path.items()}},
              **stats[name])
         for name in REPLACES
+    ] + [
+        dict({"name": SMALL_B3, "route": "cuda", "source": SOURCES["hgrad"],
+              "replaces": REPLACES["hgrad"], "regime": "gemm (ranks <= 16)",
+              "launches": launches["hgrad"].small,
+              "launches_by_path": small_by_path}, **stats[SMALL_B3])
     ] + [
         dict({"name": name, "route": "cuda", "source": SOURCES[base],
               "replaces": REPLACES[base], "launches": bf16_launches[name],

@@ -2,7 +2,7 @@
 one part cut, timed against the whole kernel, and a per-phase cycle count
 of one B1 block.
 
-    python chip_tools/variants.py [VARIANT ...]   # from the repository root
+    python chip_tools/variants.py [--parent DIR] [VARIANT ...]   # from the repository root
 
 With no argument every variant runs; else the named ones (``full`` and
 ``wfull`` are the whole kernels).
@@ -12,9 +12,19 @@ on purpose; only its time matters), built with the package's own ``nvcc``
 flags into ``build/variants/`` and loaded in place of the real library:
 
 * B3 at the NMFD flagship (1025×5000, R=88, T=400): ``full``, ``no_wgmma``
-  (no products), ``no_split`` (no hi/lo split of the tiles); and, at ranks 8
-  and 16 of the same size and the NMF3D row, ``full`` (the windowed kernel)
-  against ``tc_small`` (the tensor-core kernel at every rank);
+  (no products), ``no_split`` (no hi/lo split of the tiles);
+* B3 at ranks ≤ 16 (the gemm regime, at the reference demo 1×1025×4997 R=3
+  T=400, the NMFD rows at ranks 8 and 16, NMF3D, SIPLCA2 and the SIPLCA
+  rank-8 row; device time from CUDA-graph replays): ``g_full`` with its
+  plan and with the tensor-core kernel forced, and, with ``--parent DIR``
+  (a ``git archive`` of an earlier commit), that commit's B3 built from
+  its own source and called through its own C interface (``earlier``: at
+  the parent of the gemm regime, the f32-FMA windowed kernel); and builds
+  with one part cut: ``g_no_wgmma`` (no
+  products, and so no A fragments), ``g_no_frag`` (fragments of zeros: no
+  shared-memory reads or splits of the cotangent), ``g_no_copy`` (no
+  cotangent copies), ``g_no_fold`` (one read an output in place of the
+  diagonal sum), ``g_no_wsplit`` (no W2 split pass);
 * B4 at the flagship, one cotangent: ``w_prof``, the whole kernel with
   ``clock64()`` marks, whose block (0, 0, 0) reports the cycles of each
   phase of its stages for one lane of each warpgroup; ``wfull``, ``w_no_wgmma`` (no
@@ -164,8 +174,22 @@ def main():
         ("fused_deconv", "no_split"): _replace_once(_replace_once(
             deconv, "      tf32x3::split(va[i], a[e], a[HBM * HBK + e]);\n", ""),
             "      tf32x3::split(vw[i], w[e], w[HRN * HBK + e]);\n", ""),
-        ("fused_deconv", "tc_small"): _replace_once(
-            deconv, "  if (R <= 16) {\n    const int bmr", "  if (false) {\n    const int bmr"),
+        ("fused_deconv", "g_full"): deconv,
+        ("fused_deconv", "g_no_wgmma"): _replace_once(deconv, (
+            "        tf32x3::wgmma<NT>(acc[t], f[t][ks].hi, tf32x3::desc(bl, 128, 1024),\n"
+            "                          (s | ks) != 0);\n"
+            "        tf32x3::wgmma<NT>(acc[t], f[t][ks].lo, tf32x3::desc(bh, 128, 1024), 1);\n"
+            "        tf32x3::wgmma<NT>(acc[t], f[t][ks].hi, tf32x3::desc(bh, 128, 1024), 1);\n"), ""),
+        ("fused_deconv", "g_no_frag"): _replace_once(
+            deconv, "f[t][ks] = tf32x3::frag_a(p[0], p[8 * GAS], p[4], p[8 * GAS + 4]);",
+            "f[t][ks] = tf32x3::frag_a(0.f, 0.f, 0.f, 0.f);"),
+        ("fused_deconv", "g_no_copy"): _replace_once(
+            deconv, "      cp_async16(&A[m * GAS + 4 * q], ok ? cot + l * C + c : cot, ok);\n", ""),
+        ("fused_deconv", "g_no_fold"): _replace_once(
+            deconv, "for (int jj = 0; jj < len; ++jj) v += G[(i + jj * g.s2) * GS + jj * R + r];",
+            "v = G[i * GS + r];"),
+        ("fused_deconv", "g_no_wsplit"): _replace_once(
+            deconv, "    hgrad_split_w_kernel<<<", "    if (false) hgrad_split_w_kernel<<<"),
         ("fused_mu", "prof"): _b1_profile(mu),
         ("fused_deconv", "wfull"): deconv,
         ("fused_deconv", "w_no_wgmma"): _replace_once(deconv, w_wgmma, ""),
@@ -192,10 +216,26 @@ def main():
     headers = {("fused_deconv", "cvt"): cvt_header,
                ("fused_deconv", "w_cvt"): cvt_header,
                ("fused_mu", "mu_cvt"): cvt_header}
-    chosen = set(sys.argv[1:])
+    args = sys.argv[1:]
+    parent = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = Path(args[i + 1])
+        del args[i:i + 2]
+    chosen = set(args)
     variants = {k: v for k, v in variants.items() if not chosen or k[1] in chosen}
     out = Path("build/variants")
     jobs = []
+    if parent is not None:  # the earlier commit's B3, from its own sources
+        d = out / "fused_deconv_earlier"
+        d.mkdir(parents=True, exist_ok=True)
+        for f in ("fused_deconv.cu", "tf32x3.cuh"):
+            (d / f).write_text(
+                (parent / "pytorch_nmf_tpu_torch/csrc" / f).read_text())
+        jobs.append(("fused_deconv", "earlier", d, subprocess.Popen(
+            [_build._nvcc(), *_build._NVCC_FLAGS, "-o", str(d / "lib.so"),
+             str(d / "fused_deconv.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     for (name, v), text in variants.items():
         d = out / f"{name}_{v}"
         d.mkdir(parents=True, exist_ok=True)
@@ -208,9 +248,13 @@ def main():
     libs = {}
     for name, v, d, proc in jobs:
         _, err = proc.communicate()
+        (d / "lib.log").write_text(err)  # ptxas' report, as the package keeps
         if proc.returncode:
             raise RuntimeError(f"{name} {v} failed to build:\n{err[-3000:]}")
         lib = ctypes.CDLL(str(d / "lib.so"))
+        if v == "earlier":
+            earlier_lib = lib
+            continue
         for fn, (argtypes, restype) in _build._SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
@@ -236,10 +280,61 @@ def main():
     W = torch.from_numpy(np.abs(rs.randn(K, R)).astype("f")).cuda()
     H = torch.from_numpy(np.abs(rs.randn(M, R)).astype("f")).cuda()
     N, C, S_out, kernel, _ = cs.DECONV["NMFD"]
-    small = {"R=8": (N, C, S_out, kernel, 8), "R=16": (N, C, S_out, kernel, 16),
-             "NMF3D": cs.DECONV["NMF3D"]}
+    small = {"demo R=3": (1, C, (4997,), kernel, 3),
+             "NMFD R=8": (N, C, S_out, kernel, 8),
+             "NMFD R=16": (N, C, S_out, kernel, 16),
+             "NMF3D": cs.DECONV["NMF3D"], "SIPLCA2": cs.SIPLCA_ROWS["SIPLCA2"],
+             "SIPLCA R=8": cs.SIPLCA_ROWS["SIPLCA R=8"]}
     ops = {"R=88": cs.deconv_operands(F, *cs.DECONV["NMFD"])}
-    ops.update({k: cs.deconv_operands(F, *v) for k, v in small.items()})
+    small_ops = {k: cs.deconv_operands(F, *v) for k, v in small.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def b3(op, plan=None):
+        return D.hgrad(op["cots"][0], op["W2"], op["R"], op["L_h"],
+                       geom=op["geom"], plan=plan)
+
+    def rel_err(got, op):
+        ref = D.plain_hgrad(op["cots"][0], op["W2"], op["R"], op["L_h"],
+                            geom=op["geom"])
+        torch.cuda.synchronize()
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    def b3_earlier(op):
+        """B3 of the earlier commit, through its own C interface
+        (pnt_hgrad_splits, then pnt_hgrad without a plan)."""
+        cot, W2 = fm.aligned_rows(op["cots"][0]), fm.aligned_rows(op["W2"])
+        R, L = op["R"], op["L_h"]
+        Lp, ldc = cot.shape[0], cot.stride(0)
+        K = W2.shape[0] // R
+        g = D._geom_args(K, op["geom"])
+        splits = earlier_lib.pnt_hgrad_splits(R, L, ldc, K, *g[1:], sms)
+        out = torch.empty(R, L, device="cuda")
+        part = torch.empty(splits, R, L, device="cuda") if splits > 1 else None
+        err = earlier_lib.pnt_hgrad(
+            cot.data_ptr(), W2.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), Lp, ldc, R, K, L, *g,
+            splits, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the earlier B3 failed: CUDA error {err}")
+        return out
+
+    if parent is not None:
+        _I, _P = ctypes.c_int, ctypes.c_void_p
+        earlier_lib.pnt_hgrad_splits.argtypes = [_I] * 10
+        earlier_lib.pnt_hgrad_splits.restype = _I
+        earlier_lib.pnt_hgrad.argtypes = [_P] * 4 + [_I] * 12 + [_P]
+        earlier_lib.pnt_hgrad.restype = _I
+        _build._libs.clear()
+        _build.load_all()
+        for case, op in small_ops.items():
+            rel = rel_err(b3_earlier(op), op)
+            t_old = cs.graph_ms(lambda: b3_earlier(op))
+            t_new = cs.graph_ms(lambda: b3(op))
+            t_old2 = cs.graph_ms(lambda: b3_earlier(op))
+            t_new2 = cs.graph_ms(lambda: b3(op))
+            print(f"B3 {case}: earlier {t_old:.4f}, {t_old2:.4f} ms (rel err "
+                  f"{rel:.3g}); this tree {t_new:.4f}, {t_new2:.4f} ms "
+                  "(device, graph replays, in turns)", flush=True)
     def outputs():
         op = ops["R=88"]
         return (*D.wgrad(op["cots"], op["H2"], op["R"], op["T"],
@@ -277,12 +372,25 @@ def main():
                         f"{p} {x}" for p, x in zip(W_PHASES, c))
                         + f", total {sum(c)}", flush=True)
             continue
+        if name == "fused_deconv" and v.startswith("g_"):
+            for case, op in small_ops.items():
+                t = cs.graph_ms(lambda: b3(op))
+                line = f"B3 {v} {case}: {t:.4f} ms"
+                if v == "g_full":
+                    Lp, Cp = op["cots"][0].shape
+                    Cp = -(-Cp // 4) * 4
+                    K = op["W2"].shape[0] // op["R"]
+                    p = D._hgrad_plan(op["R"], op["L_h"], Cp, K,
+                                      D._geom_args(K, op["geom"]), sms)
+                    tc = D._tc_plan(op["R"], op["L_h"], Cp, K, sms)
+                    line += (f" (rel err {rel_err(b3(op), op):.3g}; {p}); the "
+                             f"tc kernel {cs.graph_ms(lambda: b3(op, tc)):.4f} ms")
+                print(line + " (device, graph replays)", flush=True)
+            continue
         if name == "fused_deconv":
-            for case in ["R=88"] + (list(small) if v in ("full", "tc_small") else []):
-                op = ops[case]
-                t = ms(lambda: D.hgrad(op["cots"][0], op["W2"], op["R"],
-                                       op["L_h"], geom=op["geom"]), 5)
-                print(f"B3 {v} {case}: {t:.4f} ms", flush=True)
+            op = ops["R=88"]
+            t = ms(lambda: b3(op), 5)
+            print(f"B3 {v} R=88: {t:.4f} ms", flush=True)
             continue
         if v in ("mu_full", "mu_cvt"):
             t1 = ms(lambda: [fm.fused_contractions(V, H, W, beta=0.5, need_pos=True,

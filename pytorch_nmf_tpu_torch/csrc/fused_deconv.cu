@@ -18,7 +18,8 @@
 // patch matrix P of the activation.  Neither kernel builds G or P in device
 // memory: each block gathers the tiles it needs straight from cot or H2 (the
 // flagship's cot is 20 MB and H2 1.8 MB, both inside the 50 MB L2), and at
-// small ranks hgrad shares one cotangent window among a group of offsets.
+// small ranks hgrad shares one cotangent window among a group of offsets
+// (only its W2 operand is rewritten, once per call, split into TF32 tiles).
 // Reads outside an operand are zero, so padded rows need no special case: the
 // stacked N > 1 layout and the flat-offset N-D layout put their zero
 // separators and pad columns exactly where the wrap-around reads land.
@@ -50,14 +51,14 @@
 //   32-deep step may cross from one offset to the next, and C=1028 leaves
 //   no ragged step.  l' sits on the wgmma's M dimension and the rank on N,
 //   so R = 88 is N = 88 with no padding.
-// * At ranks up to 16 each cotangent element would feed only R products.
-//   There a windowed kernel (f32 FMA, CUDA cores) takes the block's 64 rows
-//   as J = 64/8 or 64/16 consecutive offsets x the ranks, and one
-//   shared-memory window of the cotangent per 16-channel step serves all J
-//   offsets, each warp reading it at its own shift tau_j - tau_j0: each
-//   element feeds R*J products.  The offsets' partial sums meet in a
-//   fixed-order reduction in shared memory.  N-D kernels whose offset groups
-//   span more than 32 flat rows take the tensor-core kernel.
+// * At ranks up to 16 a wgmma of R columns would be mostly padding.  There
+//   a group of J offsets consecutive along the kernel's innermost axis
+//   shares one window of the cotangent: the GEMM G = window . W2_group^T
+//   puts the group's J*R (offset, rank) columns on N (up to 128), and the
+//   epilogue folds G along its diagonals (hgrad_gemm_kernel).  Offsets in
+//   N-D group along the innermost axis, so their windows stay short.  Which
+//   regime runs, and its groups, tile and splits, is the wrapper's plan
+//   (fused_deconv._hgrad_plan), passed to pnt_hgrad and checked there.
 // * wgrad's output (K*R, C) is large and its reduction runs over Lp rows:
 //   128 (j, r) rows by 128 channels per block, or 64 channels for the
 //   neg/pos cotangent pair, whose two accumulators share every patch
@@ -81,7 +82,7 @@
 namespace {
 
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
-constexpr int kThreads = 256;  // windowed hgrad, finish
+constexpr int kThreads = 256;  // finish, hgrad's W2 split
 // wgrad on the tensor cores
 constexpr int kWThreads = 256;  // 2 warpgroups, 64 (j, r) rows each
 constexpr int WGM = 128;        // (j, r) rows per block
@@ -100,14 +101,17 @@ constexpr int HRS = HBK + 4;    // row stride of the raw tiles
 constexpr int kHgradSmemBytes =
     4 * (2 * (HBM + HRN) * HRS + 2 * 2 * (HBM + HRN) * HBK);
 constexpr int kMaxSlabFloats = 1 << 26;  // partial slabs stay under 256 MB
-// the windowed hgrad of ranks up to 16: 64 block rows = J offsets x BMR ranks
-constexpr int WBK = 16;            // channels per stage
-constexpr int WBN = 256;           // l' columns per block: 32 lanes x 8
-constexpr int WSPAN = 32;          // largest tau span of one offset group
-constexpr int WROWS = WBN + WSPAN;  // window rows
-constexpr int WAS = 64 + 4;        // row stride of the [WBK][64] A tile
-constexpr int WWS = WROWS + 4;     // row stride of the [WBK][WROWS] window
-constexpr int WSTAGE = WBK * (WAS + WWS);  // floats per stage
+// hgrad at ranks up to 16: a windowed GEMM on the tensor cores
+constexpr int kGThreads = 256;  // 2 warpgroups, two m64 tiles of G rows each
+constexpr int GM = 256;         // G rows (cotangent rows) of a block
+constexpr int GK = 32;          // channels of one stage
+constexpr int GAS = GK + 4;     // row stride of the raw cotangent tile
+constexpr int GSTAGES = 3;      // the copy ring
+constexpr int GMAXN = 128;      // most (offset, rank) columns of G
+constexpr int GA = GM * GAS;           // floats of a stage's cotangent tile
+constexpr int GB = 2 * GMAXN * GK;     // floats of a stage's hi, lo W2 tiles
+constexpr int kGemmSmemBytes = 4 * GSTAGES * (GA + GB);
+static_assert(GM * (GMAXN + 1) <= GSTAGES * (GA + GB), "G fits the ring");
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
@@ -146,26 +150,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// n consecutive floats of shared memory into registers, as float4 vectors
-// when n is a multiple of 4 (the address is then 16-byte aligned), else
-// float2 (n even, 8-byte aligned)
-template <int n>
-__device__ __forceinline__ void lds(float (&v)[n], const float* p) {
-  if constexpr (n % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < n; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + i);
-      v[i] = t.x, v[i + 1] = t.y, v[i + 2] = t.z, v[i + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < n; i += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(p + i);
-      v[i] = t.x, v[i + 1] = t.y;
-    }
-  }
 }
 
 // ---------------------------------------------------------------- hgrad --
@@ -331,112 +315,187 @@ __global__ void __launch_bounds__(kHThreads, 1)
     }
 }
 
-// ------------------------------------------------------- windowed hgrad --
-// For ranks up to 16, where v1's block rows would be mostly rank padding.
-// Block (bx, by, bz): columns l' in [256 bx, +256), ranks [BMR by, +BMR),
-// steps [steps_per_split bz, +steps_per_split) of (offset group, 16-channel
-// chunk).  An offset group is J = 64 / BMR consecutive flat offsets
-// j0 .. j0+J-1; per step the block loads their W2 rows (64 x 16) and ONE
-// window of the cotangent, rows l0 + tau_j0 + [0, 256 + span), which every
-// offset of the group reads at its own shift tau_j - tau_j0.  Warp w holds 8
-// ranks of offset jj = 8w / BMR, each lane the columns lane + 32 p; the J
-// offsets' partial sums meet in a fixed-order reduction at the end.
-template <int BMR>
-__global__ void __launch_bounds__(kThreads, 2)
-    hgrad_window_kernel(const float* __restrict__ cot,
-                        const float* __restrict__ w2, float* __restrict__ dst,
-                        int Lp, int C, int R, int K, int L_in, int n_c,
-                        int steps, int steps_per_split, Geom g) {
-  constexpr int J = 64 / BMR;
-  __shared__ __align__(16) float smem[2 * WSTAGE];
-  static_assert(BMR * WBN <= 2 * WSTAGE, "the reduction reuses the stages");
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int l0 = blockIdx.x * WBN, r0 = blockIdx.y * BMR;
-  const int s_begin = blockIdx.z * steps_per_split;
-  const int s_end = imin(s_begin + steps_per_split, steps);
-  const int jj = 8 * warp / BMR, mb = 8 * warp % BMR;
+// ---------------------------------------------------- small-rank hgrad --
+// Ranks up to 16 (the plan is fused_deconv._hgrad_plan), on the tensor
+// cores (3xTF32 wgmma) as a windowed GEMM with a diagonal fold.  A group of
+// J offsets j0 .. j0+J-1, consecutive along the kernel's innermost axis
+// (tau_j = tau_j0 + (j - j0) s2), shares one window of the cotangent:
+//
+//   G[m, (jj, r)] = sum_c cot[l0 + tau_j0 + m, c] * W2[(j0 + jj) R + r, c]
+//   out[r, l0 + l'] = sum_jj G[l' + jj s2, (jj, r)],   l' in [0, bm)
+//
+// with m in [0, GM) on the wgmma's M, the group's J R columns (jj, r) on N
+// (N = 8 NT in {32, 64, 96, 128}: at most 7 columns of rank padding), and
+// bm = GM - (J - 1) s2.
+// Block (bx, by, bz): output columns [bm bx, +bm), group by, channel stages
+// [sper bz, +sper) of GK = 32 channels; it writes slab (by, bz) of its
+// columns, and finish() sums the slabs in a fixed order (no atomics).
+// Warpgroup wg holds G rows 128 wg + [0, 128) as two m64 tiles of f32
+// accumulators.  A block's whole run of at most sper stages (17 at most:
+// 204 wgmmas) stays in one accumulator, so the tensor cores' truncation
+// costs under 2.5e-5 of the value; the slabs are f32 sums.
+//
+// What bounds it: 2 R L_in K C operations against (Lp + K R + R L_in) C
+// floats, operations at every rank (11.3 GFLOP and 25.5 MB at the reference
+// demo, R = 3).  Both operands are K-major (c contiguous), as TF32 wgmma
+// takes them, so neither needs a transposing pass: a first kernel splits
+// W2 once per call into hi/lo tiles in the wgmma layout, one pair a (group,
+// stage), zero past the group and past C; each stage then copies its
+// cotangent rows (16-byte cp.async, zero past Lp) and its W2 tiles into a
+// ring three stages deep, and each lane reads its A fragments from the raw
+// cotangent rows and splits them in registers as it reads (row stride GAS =
+// 4 mod 32: conflict-free).  The wgmmas of each 8-channel step are one
+// commit group, and up to four stay in flight across the stages.  The
+// epilogue stores G in shared memory (row stride N + 1: the fold's lanes
+// read consecutive rows) and sums each output along its diagonal in the
+// order jj = 0..J-1.
+template <int NT>
+__global__ void __launch_bounds__(kGThreads, 1)
+    hgrad_gemm_kernel(const float* __restrict__ cot,
+                      const float* __restrict__ wsplit, float* __restrict__ dst,
+                      int Lp, int C, int R, int L_in, int J, int bm,
+                      int n_stages, int sper, Geom g) {
+  constexpr int N = 8 * NT, GS = N + 1;
+  extern __shared__ __align__(128) float gsmem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, gid = lane / 4, tig = lane % 4;
+  const int l0 = blockIdx.x * bm, grp = blockIdx.y;
+  const int per_row = cdiv(g.k2, J);  // groups along the innermost axis
+  const int a = grp % per_row * J;
+  const int len = imin(J, g.k2 - a);  // offsets of this group
+  const int t0 = g.tau(grp / per_row * g.k2 + a);
+  const int s_begin = blockIdx.z * sper;
+  const int steps = imin(sper, n_stages - s_begin);
+  const float* wsrc = wsplit + (size_t)grp * n_stages * 2 * N * GK;
+  const size_t row0 = (size_t)l0 + t0;  // the cotangent row of G row 0
 
-  auto load = [&](int st, int s) {
-    float* a = smem + st * WSTAGE;
-    float* w = a + WBK * WAS;
-    const int j0 = s / n_c * J, c0 = s % n_c * WBK;
-    const int t0 = g.tau(j0);
-    const int rows = WBN + g.tau(imin(j0 + J, K) - 1) - t0;
+  auto load = [&](int slot, int s) {  // stage s into ring slot `slot`
+    float* A = gsmem + slot * (GA + GB);
+    float* B = A + GA;
+    const int c0 = s * GK;
 #pragma unroll
-    for (int i = 0; i < 64 * WBK / kThreads; ++i) {
-      const int e = tid + kThreads * i, kc = e % WBK, row = e / WBK;
-      const int j = j0 + row / BMR, m = r0 + row % BMR, c = c0 + kc;
-      const bool ok = j < K && m < R && c < C;
-      cp_async4(&a[kc * WAS + row],
-                ok ? w2 + ((size_t)j * R + m) * C + c : w2, ok);
+    for (int i = 0; i < GM * GK / 4 / kGThreads; ++i) {
+      const int e = tid + kGThreads * i, m = e / (GK / 4), q = e % (GK / 4);
+      const size_t l = row0 + m;
+      const int c = c0 + 4 * q;
+      const bool ok = l < (size_t)Lp && c < C;
+      cp_async16(&A[m * GAS + 4 * q], ok ? cot + l * C + c : cot, ok);
     }
+    const float* w = wsrc + (size_t)s * 2 * N * GK;
 #pragma unroll
-    for (int i = 0; i < WROWS * WBK / kThreads; ++i) {
-      const int e = tid + kThreads * i, kc = e % WBK, row = e / WBK;
-      const int l = l0 + t0 + row, c = c0 + kc;
-      const bool ok = l < Lp && c < C;
-      if (row < rows)  // rows past the group's span are never read
-        cp_async4(&w[kc * WWS + row], ok ? cot + (size_t)l * C + c : cot, ok);
+    for (int i = 0; i < 2 * N * GK / 4 / kGThreads; ++i) {
+      const int e = 4 * (tid + kGThreads * i);
+      cp_async16(&B[e], w + e, true);
     }
+    cp_async_commit();
   };
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int p = 0; p < 8; ++p) acc[i][p] = 0.f;
+  // the first wgmma of the block writes acc (scale_d = 0): no instruction
+  // but a wgmma defines it, so ptxas need not serialize them
+  float acc[2][4 * NT];
+  tf32x3::FragA f[2][GK / 8];
 
-  const int n = s_end - s_begin;
-  if (n > 0) {
-    load(0, s_begin);
-    cp_async_commit();
+  // stage s lands in slot s % GSTAGES, copied GSTAGES - 1 stages ahead
+#pragma unroll
+  for (int p = 0; p < GSTAGES - 1; ++p) {
+    if (p < steps) load(p, s_begin + p);
+    else cp_async_commit();  // an empty group keeps the count
   }
-  for (int s = 0; s < n; ++s) {
-    const int st = s & 1;
-    if (s + 1 < n) {
-      load(st ^ 1, s_begin + s + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<GSTAGES - 2>();  // this thread's copies of stage s
+    tf32x3::fence_async_smem();    // ... visible to the wgmmas
+    __syncthreads();               // ... and every thread's
+    const float* A = gsmem + (s % GSTAGES) * (GA + GB);
+    const float* B = A + GA;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) tf32x3::fence_operand(acc[t]);
+    // One commit group a k8 step: a step's fragments are read and split
+    // while the tensor cores run the steps before, into registers that the
+    // group four back read, once it is done; a fence orders them before
+    // the step's wgmmas.  So the tensor cores run on across the stages,
+    // and stage s-1's slot is free once every warp has waited out its last
+    // group, at the last step.
+#pragma unroll
+    for (int ks = 0; ks < GK / 8; ++ks) {
+      tf32x3::wgmma_wait<GK / 8 - 1>();
+      if (ks == GK / 8 - 1) {
+        __syncthreads();
+        if (s + GSTAGES - 1 < steps)
+          load((s + GSTAGES - 1) % GSTAGES, s_begin + s + GSTAGES - 1);
+        else
+          cp_async_commit();  // an empty group keeps the count
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float* p =
+            A + (128 * wg + 64 * t + 16 * (warp % 4) + gid) * GAS + 8 * ks + tig;
+        f[t][ks] = tf32x3::frag_a(p[0], p[8 * GAS], p[4], p[8 * GAS + 4]);
+      }
+      tf32x3::wgmma_fence();
+      const float* bh = B + 64 * ks;  // two core matrices along K
+      const float* bl = bh + N * GK;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        tf32x3::wgmma<NT>(acc[t], f[t][ks].hi, tf32x3::desc(bl, 128, 1024),
+                          (s | ks) != 0);
+        tf32x3::wgmma<NT>(acc[t], f[t][ks].lo, tf32x3::desc(bh, 128, 1024), 1);
+        tf32x3::wgmma<NT>(acc[t], f[t][ks].hi, tf32x3::desc(bh, 128, 1024), 1);
+      }
+      tf32x3::wgmma_commit();
     }
-    __syncthreads();
-    const int j0 = (s_begin + s) / n_c * J, j = j0 + jj;
-    const int shift = j < K ? g.tau(j) - g.tau(j0) : 0;  // rows past K are 0
-    const float* a = smem + st * WSTAGE + 8 * warp;
-    const float* w = smem + st * WSTAGE + WBK * WAS + shift + lane;
 #pragma unroll
-    for (int kc = 0; kc < WBK; ++kc) {
-      float av[8], bv[8];
-      lds<8>(av, a + kc * WAS);
-#pragma unroll
-      for (int p = 0; p < 8; ++p) bv[p] = w[kc * WWS + 32 * p];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int p = 0; p < 8; ++p) acc[i][p] = fmaf(av[i], bv[p], acc[i][p]);
-    }
-    __syncthreads();
+    for (int t = 0; t < 2; ++t) tf32x3::fence_operand(acc[t]);
   }
+  tf32x3::wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < 2; ++t) tf32x3::fence_operand(acc[t]);
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
 
-  // the J offsets' partial sums, added in the order jj = 0..J-1
-  float* red = smem;  // [BMR][WBN]
-#pragma unroll 1
-  for (int q = 0; q < J; ++q) {
-    if (jj == q)
+  float* G = gsmem;  // [GM][GS]
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+  for (int t = 0; t < 2; ++t)
 #pragma unroll
-        for (int p = 0; p < 8; ++p) {
-          float& v = red[(mb + i) * WBN + lane + 32 * p];
-          v = q == 0 ? acc[i][p] : v + acc[i][p];
-        }
-    __syncthreads();
+    for (int i = 0; i < 4 * NT; ++i) {
+      const int m = 128 * wg + 64 * t + 16 * (warp % 4) + gid + 8 * ((i % 4) / 2);
+      G[m * GS + 8 * (i / 4) + 2 * tig + i % 2] = acc[t][i];
+    }
+  __syncthreads();
+  float* out = dst + (size_t)(blockIdx.y * gridDim.z + blockIdx.z) * R * L_in;
+  for (int e = tid; e < R * bm; e += kGThreads) {
+    const int r = e / bm, i = e % bm, l = l0 + i;
+    if (l >= L_in) continue;
+    float v = 0.f;
+    for (int jj = 0; jj < len; ++jj) v += G[(i + jj * g.s2) * GS + jj * R + r];
+    out[(size_t)r * L_in + l] = v;
   }
-  float* out = dst + (size_t)blockIdx.z * R * L_in;  // slab bz, or the output
-  for (int e = tid; e < BMR * WBN; e += kThreads) {
-    const int r = r0 + e / WBN, l = l0 + e % WBN;
-    if (r < R && l < L_in) out[(size_t)r * L_in + l] = red[e];
+}
+
+// W2 (K R, C) -> the small-rank hgrad's B tiles: for each (group, stage)
+// the hi tile then the lo tile of N x GK floats, element (n, k) at
+// (n / 8) 256 + (k / 4) 32 + (n % 8) 4 + k % 4 (the no-swizzle K-major
+// layout of tf32x3.cuh: 8-row groups 1024 bytes apart, core matrices 128
+// bytes apart along K).  Column n = jj R + r of a group is offset
+// j0 + jj; zero past the group and past C.
+__global__ void hgrad_split_w_kernel(const float* __restrict__ w2,
+                                     float* __restrict__ wsplit, int C, int R,
+                                     int J, int N, int n_stages, int groups,
+                                     Geom g) {
+  const size_t tile = (size_t)N * GK;
+  const size_t total = (size_t)groups * n_stages * tile;
+  const int per_row = cdiv(g.k2, J);
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int k = (int)(e % GK), n = (int)(e / GK % N);
+    const size_t gs = e / tile;  // group * n_stages + stage
+    const int s = (int)(gs % n_stages), grp = (int)(gs / n_stages);
+    const int a = grp % per_row * J, jj = n / R, c = s * GK + k;
+    float v = 0.f;
+    if (jj < imin(J, g.k2 - a) && c < C)
+      v = w2[((size_t)(grp / per_row * g.k2 + a + jj) * R + n % R) * C + c];
+    float* t = wsplit + gs * 2 * tile;
+    const int o = (n / 8) * 256 + (k / 4) * 32 + (n % 8) * 4 + k % 4;
+    tf32x3::split(v, t[o], t[tile + o]);
   }
 }
 
@@ -700,24 +759,8 @@ cudaError_t finish(const float* part, const float* mu_w2, const float* mu_pos,
   return cudaGetLastError();
 }
 
-// How hgrad runs at these sizes: the windowed kernel (bm = BMR) for ranks
-// up to 16 whose offset groups each span at most WSPAN flat offsets (every
-// 1-D kernel; N-D ones whose groups stay within a short row of the kernel),
-// else the tensor-core kernel with bm = NT n8 tiles of ranks.  steps:
-// HBK-deep steps of k = j*C + c, or (offset group, WBK-channel chunk) pairs
-// (windowed).
-struct HPlan {
-  bool window;
-  int bm, steps, tiles;
-};
-
-// the NT instance of the tensor-core hgrad that covers a block of R ranks
-// (wgmma widths 8 NT: 16, 32, 64, 88, 96, 128)
-int hgrad_nt(int R) {
-  const int nt = cdiv(imin(R, HRN), 8);
-  return nt <= 2 ? 2 : nt <= 4 ? 4 : nt <= 8 ? 8 : nt <= 11 ? 11
-         : nt <= 12 ? 12 : 16;
-}
+// hgrad's regimes, as fused_deconv._hgrad_plan names them
+enum HRegime { kTensorCore = 0, kGemm = 1 };
 
 template <int NT>
 cudaError_t launch_hgrad(dim3 grid, cudaStream_t stream, const float* cot,
@@ -738,17 +781,24 @@ cudaError_t launch_hgrad(dim3 grid, cudaStream_t stream, const float* cot,
   return cudaGetLastError();
 }
 
-HPlan hgrad_plan(int R, int L_in, int C, int K, const Geom& g) {
-  if (R <= 16) {
-    const int bmr = R <= 8 ? 8 : 16, J = 64 / bmr;
-    int span = 0;
-    for (int j0 = 0; j0 < K; j0 += J)
-      span = imax(span, g.tau(imin(j0 + J, K) - 1) - g.tau(j0));
-    if (span <= WSPAN)
-      return {true, bmr, cdiv(K, J) * cdiv(C, WBK), cdiv(L_in, WBN)};
-  }
-  return {false, hgrad_nt(R), cdiv(K * C, HBK),
-          cdiv(L_in, HBM) * cdiv(R, HRN)};
+template <int NT>
+cudaError_t launch_hgrad_gemm(dim3 grid, cudaStream_t stream, const float* cot,
+                              const float* wsplit, float* dst, int Lp, int C,
+                              int R, int L_in, int J, int bm, int n_stages,
+                              int sper, const Geom& g) {
+  static const cudaError_t configured = [] {  // once per instance
+    cudaError_t e = cudaFuncSetAttribute(
+        hgrad_gemm_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kGemmSmemBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        hgrad_gemm_kernel<NT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  }();
+  if (configured != cudaSuccess) return configured;
+  hgrad_gemm_kernel<NT><<<grid, kGThreads, kGemmSmemBytes, stream>>>(
+      cot, wsplit, dst, Lp, C, R, L_in, J, bm, n_stages, sper, g);
+  return cudaGetLastError();
 }
 
 // Splits of a reduction of `steps` steps whose output has `tiles`
@@ -799,56 +849,72 @@ cudaError_t launch_wgrad(dim3 grid, cudaStream_t stream, const float* h2,
 
 extern "C" {
 
-// Splits of the hgrad reduction (the wrapper allocates their slabs).
-int pnt_hgrad_splits(int R, int L_in, int C, int K, int k1, int k2, int s0,
-                     int s1, int s2, int num_sms) {
-  const HPlan p = hgrad_plan(R, L_in, C, K, Geom{k1, k2, s0, s1, s2});
-  const int s = num_splits(p.tiles, p.steps, (long long)R * L_in, num_sms);
-  return cdiv(p.steps, per_split(p.steps, s, 1));
-}
-
-// Returns a cudaError_t (0 on success).  part holds (splits, R, L_in)
-// floats when splits > 1 and is unused otherwise.
+// Returns a cudaError_t (0 on success).  The plan (regime, nt, group, bm,
+// groups, splits, sper) is fused_deconv._hgrad_plan's, checked here:
+//  * kTensorCore: hgrad_kernel<nt>, sper HBK-deep steps of k = j C + c a
+//    split; groups = 1;
+//  * kGemm: hgrad_split_w_kernel into wsplit (groups x cdiv(C, GK) x 2 x
+//    8 nt x GK floats), then hgrad_gemm_kernel<nt> over groups of `group`
+//    offsets, bm output columns a block, sper GK-channel stages a split; C
+//    a multiple of 4 (16-byte rows).
+// part holds (groups x splits, R, L_in) floats when that is above 1 and is
+// unused otherwise; finish() then sums the slabs in order.
 int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
-              int Lp, int C, int R, int K, int L_in, int k0, int k1, int k2,
-              int s0, int s1, int s2, int splits, void* stream_ptr) {
+              float* wsplit, int Lp, int C, int R, int K, int L_in, int k0,
+              int k1, int k2, int s0, int s1, int s2, int regime, int nt,
+              int group, int bm, int groups, int splits, int sper,
+              void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (Lp < 1 || C < 1 || R < 1 || K < 1 || L_in < 1 || splits < 1 ||
-      k0 * k1 * k2 != K)
+      sper < 1 || groups < 1 || k0 * k1 * k2 != K)
     return (int)cudaErrorInvalidValue;
   const Geom g{k1, k2, s0, s1, s2};
-  const HPlan p = hgrad_plan(R, L_in, C, K, g);
-  const int sper = per_split(p.steps, splits, 1);
-  if (cdiv(p.steps, sper) != splits) return (int)cudaErrorInvalidValue;
-  float* dst = splits == 1 ? out : part;
-  if (p.window) {
-    const dim3 grid(cdiv(L_in, WBN), cdiv(R, p.bm), splits);
-    const int n_c = cdiv(C, WBK);
-    if (p.bm == 8)
-      hgrad_window_kernel<8><<<grid, kThreads, 0, stream>>>(
-          cot, w2, dst, Lp, C, R, K, L_in, n_c, p.steps, sper, g);
-    else
-      hgrad_window_kernel<16><<<grid, kThreads, 0, stream>>>(
-          cot, w2, dst, Lp, C, R, K, L_in, n_c, p.steps, sper, g);
-  } else {
+  const int slabs = groups * splits;
+  float* dst = slabs == 1 ? out : part;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (regime == kTensorCore) {
+    const int steps = cdiv(K * C, HBK);
+    if (groups != 1 || cdiv(steps, sper) != splits)
+      return (int)cudaErrorInvalidValue;
     const dim3 grid(cdiv(L_in, HBM), cdiv(R, HRN), splits);
     const int KC = K * C, kper = sper * HBK;
-    cudaError_t err;
 #define PNT_HGRAD(NT)                                                   \
   err = launch_hgrad<NT>(grid, stream, cot, w2, dst, Lp, C, R, L_in, KC, \
                          kper, g)
-    if (p.bm == 2) PNT_HGRAD(2);
-    else if (p.bm == 4) PNT_HGRAD(4);
-    else if (p.bm == 8) PNT_HGRAD(8);
-    else if (p.bm == 11) PNT_HGRAD(11);
-    else if (p.bm == 12) PNT_HGRAD(12);
-    else PNT_HGRAD(16);
+    if (nt == 2) PNT_HGRAD(2);
+    else if (nt == 4) PNT_HGRAD(4);
+    else if (nt == 8) PNT_HGRAD(8);
+    else if (nt == 11) PNT_HGRAD(11);
+    else if (nt == 12) PNT_HGRAD(12);
+    else if (nt == 16) PNT_HGRAD(16);
 #undef PNT_HGRAD
+  } else if (regime == kGemm) {
+    const int n_stages = cdiv(C, GK);
+    if (C % 4 || group < 1 || group * R > 8 * nt || wsplit == nullptr ||
+        bm != GM - (group - 1) * s2 || bm < 1 ||
+        groups != k0 * k1 * cdiv(k2, group) ||
+        cdiv(n_stages, sper) != splits || sper > n_stages)
+      return (int)cudaErrorInvalidValue;
+    const size_t total = (size_t)groups * n_stages * 8 * nt * GK;
+    const size_t want = (total + kThreads - 1) / kThreads;
+    hgrad_split_w_kernel<<<(int)(want < 8192 ? want : 8192), kThreads, 0,
+                           stream>>>(w2, wsplit, C, R, group, 8 * nt,
+                                     n_stages, groups, g);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    err = cudaErrorInvalidValue;
+    const dim3 grid(cdiv(L_in, bm), groups, splits);
+#define PNT_GEMM(NT)                                                    \
+  err = launch_hgrad_gemm<NT>(grid, stream, cot, wsplit, dst, Lp, C, R, \
+                              L_in, group, bm, n_stages, sper, g)
+    if (nt == 4) PNT_GEMM(4);
+    else if (nt == 8) PNT_GEMM(8);
+    else if (nt == 12) PNT_GEMM(12);
+    else if (nt == 16) PNT_GEMM(16);
+#undef PNT_GEMM
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)finish(part, nullptr, nullptr, out, (size_t)R * L_in, splits,
+  if (err != cudaSuccess || slabs == 1) return (int)err;
+  return (int)finish(part, nullptr, nullptr, out, (size_t)R * L_in, slabs,
                      L_in, R, stream);
 }
 

@@ -41,8 +41,7 @@ _SIGNATURES = {
         "pnt_fused_beta_loss": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
     },
     "fused_deconv": {
-        "pnt_hgrad_splits": ([_I] * 10, _I),
-        "pnt_hgrad": ([_P] * 4 + [_I] * 12 + [_P], _I),
+        "pnt_hgrad": ([_P] * 5 + [_I] * 18 + [_P], _I),
         "pnt_wgrad_splits": ([_I, _I, _I, _I, _I], _I),
         "pnt_wgrad": ([_P] * 9 + [_I] * 14 + [_P], _I),
     },

@@ -22,13 +22,15 @@ memory.  On a CPU tensor it runs the plain PyTorch version beside it
 (``plain_*``), which builds them chunk by chunk of τ, as the JAX stream
 engine does.  There is no other dispatch: a CUDA tensor the kernel does
 not take raises.  Each wrapper counts its kernel launches in a plain
-integer attribute, ``hgrad.launches`` and ``wgrad.launches``.
+integer attribute, ``hgrad.launches`` and ``wgrad.launches``;
+``hgrad.launches_gemm`` counts those of hgrad's small-rank regime.
 
 Unlike the Pallas kernels, the port's kernel operand carries no τ-tile
 padding: ``W2`` has exactly ``K·R`` rows, and so do :func:`wgrad`'s outputs.
 """
 
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -191,18 +193,144 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def hgrad(cot2, W2, R: int, L_in: int, geom=None):
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# hgrad's launch geometry (csrc/fused_deconv.cu):
+# * "gemm", ranks ≤ 16: G rows a block (two warpgroups of two m64 tiles),
+#   the wgmma widths N it instantiates, channels a stage, and the most
+#   stages one block sums in one accumulator (a run of 17·12 wgmmas: the
+#   tensor cores' truncation stays under 2.5e-5 of the value; C = 1028 is
+#   two runs);
+# * "tc", the tensor-core kernel of larger ranks: l' rows, reduction depth
+#   and ranks of a block.
+_GEMM_ROWS = 256
+_GEMM_WIDTHS = (32, 64, 96, 128)
+_GEMM_DEPTH = 32
+_GEMM_CHAIN = 17
+_GEMM_MIN_RUN = 4  # fewest stages a split, where more splits fill the card
+_TC_ROWS, _TC_DEPTH, _TC_RANKS = 128, 32, 128
+_MAX_SLAB_FLOATS = 1 << 26  # the partial slabs stay under 256 MB
+_REGIMES = {"tc": 0, "gemm": 1}
+# the gemm regime's cost model of one block's channel: its tensor-core
+# cycles (GM·N·6 TF32 operations at 2048 an SM a cycle, the H100's 495
+# TFLOP/s) or its L2 bytes (the cotangent rows, the hi/lo W2 tiles) at
+# about 24 an SM a cycle, whichever is longer
+_SM_TF32_PER_CYCLE = 2048
+_SM_L2_BYTES_PER_CYCLE = 24
+
+
+class HgradPlan(NamedTuple):
+    """One :func:`hgrad` launch: ``regime`` "gemm" (ranks ≤ 16: groups of
+    ``group`` offsets consecutive along the kernel's innermost axis, ``bm``
+    output columns a block, N = 8·``nt`` (offset, rank) columns) or "tc"
+    (the tensor-core kernel of larger ranks, ``nt`` rank tiles of 8);
+    ``splits`` of ``sper`` steps each (gemm: 32-channel stages; tc: 32-deep
+    steps of k = j·C + c); ``groups·splits`` partial slabs of ``(R, L_in)``
+    when above 1, summed by a second pass in a fixed order; ``wsplit``: the
+    floats of the gemm regime's hi/lo W2 tiles."""
+    regime: str
+    nt: int
+    group: int
+    bm: int
+    groups: int
+    splits: int
+    sper: int
+    wsplit: int
+
+    @property
+    def slabs(self) -> int:
+        return self.groups * self.splits
+
+
+def _tc_nt(R: int) -> int:
+    """The tensor-core kernel's instance covering a block of ``R`` ranks
+    (wgmma widths 8·NT: 16, 32, 64, 88, 96, 128)."""
+    nt = _cdiv(min(R, _TC_RANKS), 8)
+    return next(n for n in (2, 4, 8, 11, 12, 16) if nt <= n)
+
+
+def _tc_plan(R, L_in, C, K, num_sms):
+    """Splits of the tensor-core kernel's reduction: about four waves of two
+    blocks an SM, at least 8 steps a split, slabs under the cap."""
+    steps = _cdiv(K * C, _TC_DEPTH)
+    tiles = _cdiv(L_in, _TC_ROWS) * _cdiv(R, _TC_RANKS)
+    s = min(_cdiv(8 * num_sms, tiles), max(1, steps // 8))
+    if s * R * L_in > _MAX_SLAB_FLOATS:
+        s = _MAX_SLAB_FLOATS // (R * L_in)
+    sper = _cdiv(steps, max(s, 1))
+    return HgradPlan("tc", _tc_nt(R), 1, _TC_ROWS, 1, _cdiv(steps, sper),
+                     sper, 0)
+
+
+def _gemm_plans(R, L_in, C, K, g, num_sms):
+    """Every launch of the gemm regime this shape takes, with its modelled
+    cost: for each wgmma width, the most offsets whose (offset, rank)
+    columns fit it, within one run of the innermost kernel axis and with a
+    span that leaves a block at least half its rows of output.  The channel
+    stages split into runs of at most _GEMM_CHAIN, and into more (of at
+    least _GEMM_MIN_RUN) while the blocks would fill the card's SMs less
+    than twice."""
+    k0, k1, k2, s0, s1, s2 = g
+    stages = _cdiv(C, _GEMM_DEPTH)
+    plans = {}
+    for width in _GEMM_WIDTHS:
+        J = min(width // R, k2)
+        if s2 > 0:
+            J = min(J, (_GEMM_ROWS // 2) // s2 + 1)
+        if J < 1:
+            continue
+        N = next(w for w in _GEMM_WIDTHS if w >= J * R)
+        bm = _GEMM_ROWS - (J - 1) * s2
+        groups = k0 * k1 * _cdiv(k2, J)
+        blocks = _cdiv(L_in, bm) * groups
+        splits = max(_cdiv(stages, _GEMM_CHAIN),
+                     min(_cdiv(2 * num_sms, blocks),
+                         _cdiv(stages, _GEMM_MIN_RUN)))
+        sper = _cdiv(stages, splits)
+        splits = _cdiv(stages, sper)
+        if groups * splits * R * L_in > _MAX_SLAB_FLOATS:
+            continue
+        cycles = max(6 * _GEMM_ROWS * N / _SM_TF32_PER_CYCLE,
+                     (4 * _GEMM_ROWS + 8 * N) / _SM_L2_BYTES_PER_CYCLE)
+        cost = blocks * cycles
+        plans[J] = (cost, HgradPlan("gemm", N // 8, J, bm, groups, splits,
+                                    sper, groups * stages * 2 * N *
+                                    _GEMM_DEPTH))
+    return [plans[J] for J in sorted(plans, reverse=True)]
+
+
+@functools.lru_cache(maxsize=256)
+def _hgrad_plan(R: int, L_in: int, C: int, K: int, g, num_sms: int) -> HgradPlan:
+    """The launch of :func:`hgrad` for ``R`` ranks, ``L_in`` output columns,
+    ``C`` channels (the padded row stride), ``K`` offsets and the offset map
+    ``g = (k0, k1, k2, s0, s1, s2)`` (:func:`_geom_args`) on a card of
+    ``num_sms`` SMs.  Ranks ≤ 16 take the "gemm" regime at its cheapest
+    modelled group (the largest on ties); larger ranks, and shapes whose
+    slabs would pass the cap, the "tc" kernel."""
+    if R <= 16:
+        plans = _gemm_plans(R, L_in, C, K, g, num_sms)
+        if plans:
+            return min(plans, key=lambda cp: cp[0])[1]
+    return _tc_plan(R, L_in, C, K, num_sms)
+
+
+def hgrad(cot2, W2, R: int, L_in: int, geom=None, plan=None):
     """``out (R, L_in)``: ``out[r, l'] = Σ_{j, c} cot2[l'+τ_j, c] ·
     W2[j·R+r, c]``, with ``cot2 (Lp, C)`` read as zero past row ``Lp`` and
-    ``W2 (K·R, C)``.  ``geom``: the N-D flat-offset map (:func:`nd_geom`)."""
+    ``W2 (K·R, C)``.  ``geom``: the N-D flat-offset map (:func:`nd_geom`).
+    ``plan`` forces a launch (:class:`HgradPlan`; a measurement's knob),
+    else :func:`_hgrad_plan` chooses."""
     if cot2.device.type == "cpu":
         return plain_hgrad(cot2, W2, R, L_in, geom)
     if cot2.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {cot2.device}")
     from ._build import load_library
 
-    _check("cot2", cot2, cot2.device)
-    _check("W2", W2, cot2.device)
+    dev = cot2.device
+    _check("cot2", cot2, dev)
+    _check("W2", W2, dev)
     Lp, C = cot2.shape
     if W2.shape[1] != C or W2.shape[0] % R or W2.shape[0] == 0 or L_in < 1:
         raise ValueError(f"W2 {tuple(W2.shape)} is not (K·{R}, {C})")
@@ -210,29 +338,37 @@ def hgrad(cot2, W2, R: int, L_in: int, geom=None):
     g = _geom_args(K, geom)
     if g[0] * g[1] * g[2] != K:
         raise ValueError(f"geom {geom} does not have {K} kernel offsets")
-    # the kernel copies 16 bytes at a time: channels padded with zeros to a
+    # the kernels copy 16 bytes at a time: channels padded with zeros to a
     # multiple of 4 (C = 1025 costs two ~20 µs copies), which join the
     # reduction as zeros; both operands get the same row stride
     cot2, W2 = aligned_rows(cot2), aligned_rows(W2)
     C = cot2.stride(0)
     _check_int32(W2=K * R * C, cot2=Lp * C)
     lib = load_library("fused_deconv")
-    splits = lib.pnt_hgrad_splits(R, L_in, C, K, *g[1:],
-                                  _sm_count(cot2.device))
-    _check_int32(slabs=splits * R * L_in)
-    out = torch.empty(R, L_in, device=cot2.device, dtype=torch.float32)
-    part = (torch.empty(splits, R, L_in, device=cot2.device,
-                        dtype=torch.float32) if splits > 1 else None)
+    p = plan or _hgrad_plan(R, L_in, C, K, g, _sm_count(dev))
+    _check_int32(slabs=p.slabs * R * L_in, wsplit=p.wsplit)
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    out = empty(R, L_in)
+    part = empty(p.slabs, R, L_in) if p.slabs > 1 else None
+    wsplit = empty(p.wsplit) if p.wsplit else None
     err = lib.pnt_hgrad(cot2.data_ptr(), W2.data_ptr(), out.data_ptr(),
                         None if part is None else part.data_ptr(),
-                        Lp, C, R, K, L_in, *g, splits, _stream(cot2.device))
+                        None if wsplit is None else wsplit.data_ptr(),
+                        Lp, C, R, K, L_in, *g, _REGIMES[p.regime], p.nt,
+                        p.group, p.bm, p.groups, p.splits, p.sper,
+                        _stream(dev))
     if err != 0:
         raise RuntimeError(f"hgrad kernel launch failed: CUDA error {err}")
     hgrad.launches += 1
+    hgrad.launches_gemm += p.regime == "gemm"
     return out
 
 
 hgrad.launches = 0
+hgrad.launches_gemm = 0  # of them, the gemm regime's (ranks ≤ 16)
 
 
 def wgrad(cots2: Sequence[torch.Tensor], H2, R: int, T: int,

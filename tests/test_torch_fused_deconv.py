@@ -32,8 +32,10 @@ ATOL_JAX = 2e-6
 RTOL_CUDA = 1e-4
 TK = 16  # the Pallas kernels' τ tile
 
-# (C, L_in, R, T): ragged C, T not a multiple of TK, odd and tiny ranks
-SHAPES_1D = [(17, 300, 8, 12), (33, 400, 16, 20), (7, 260, 3, 5)]
+# (C, L_in, R, T): ragged C, T not a multiple of TK, odd and tiny ranks; a
+# narrow copy of the reference demo's layout (R=3, a long kernel)
+SHAPES_1D = [(17, 300, 8, 12), (33, 400, 16, 20), (7, 260, 3, 5),
+             (65, 300, 3, 40)]
 
 
 @pytest.fixture(scope="module")
@@ -211,6 +213,159 @@ def test_wrappers_reject_bad_calls():
         D.wgrad([], _t(H[0].T), 2, 4)
 
 
+# --------------------------------------------------------------------------
+# hgrad's launch plan (fused_deconv._hgrad_plan), pure arithmetic
+# --------------------------------------------------------------------------
+def _geom(K, geom=None):
+    return D._geom_args(K, geom)
+
+
+def _emulate_plan(cot, W2, R, L_in, g, p):
+    """The gemm regime's blocks, in numpy: each block (output tile, offset
+    group, channel split) forms its window ``G`` of 256 cotangent rows
+    against its group's W2 rows and folds it along the diagonals into its
+    own slab; the slabs are summed.  Asserts that every (offset, column,
+    channel) term is summed exactly once and that the fold reads only rows
+    of the window."""
+    k0, k1, k2, s0, s1, s2 = g
+    K = k0 * k1 * k2
+    Lp, C = cot.shape
+    assert p.regime == "gemm" and p.group * R <= 8 * p.nt <= 128
+    stages = -(-C // D._GEMM_DEPTH)
+    per_row = -(-k2 // p.group)
+    assert p.groups == k0 * k1 * per_row
+    assert -(-stages // p.sper) == p.splits and p.sper <= D._GEMM_CHAIN
+    assert p.splits == 1 or p.sper >= min(D._GEMM_MIN_RUN, stages)
+    cotp = np.zeros((Lp + 2 * D._GEMM_ROWS + K * max(s0, s1, s2, 1), C))
+    cotp[:Lp] = cot
+    slabs = np.zeros((p.slabs, R, L_in))
+    seen = np.zeros((K, L_in, stages), dtype=int)
+    taus = [D._flat_tau(j, ((k0, k1, k2), (s0, s1, s2))) for j in range(K)]
+    for bx in range(-(-L_in // p.bm)):
+        l0 = bx * p.bm
+        for by in range(p.groups):
+            a = by % per_row * p.group
+            n = min(p.group, k2 - a)
+            js = [by // per_row * k2 + a + jj for jj in range(n)]
+            t0 = taus[js[0]]
+            for bz in range(p.splits):
+                st = range(bz * p.sper, min((bz + 1) * p.sper, stages))
+                c0, c1 = st[0] * 32, min(C, (st[-1] + 1) * 32)
+                win = cotp[l0 + t0:l0 + t0 + D._GEMM_ROWS, c0:c1]
+                Wg = np.concatenate([W2[j * R:(j + 1) * R, c0:c1] for j in js])
+                G = win @ Wg.T
+                for i in range(min(p.bm, L_in - l0)):
+                    for jj, j in enumerate(js):
+                        m = i + jj * s2
+                        assert m < D._GEMM_ROWS and taus[j] == t0 + jj * s2
+                        slabs[by * p.splits + bz, :, l0 + i] += \
+                            G[m, jj * R:(jj + 1) * R]
+                        seen[j, l0 + i, list(st)] += 1
+    assert (seen == 1).all()
+    return slabs.sum(0)
+
+
+# (R, L_in, C, geom): ranks at the regime's edges; K not a multiple of the
+# group; ragged L_in, C = 1025; 1-D, the stacked N=2 layout (one long 1-D
+# run), 2-D and 3-D flat offsets; an innermost stride of 3, whose groups stop
+# at the span limit (43 offsets: 126 rows of a 256-row window)
+PLAN_CASES = [
+    (1, 300, 9, (37, None)),
+    (3, 517, 1025, (40, None)),
+    (8, 300, 17, (23, None)),
+    (9, 401, 33, (20, None)),
+    (16, 300, 7, (21, None)),
+    (3, 2 * 150, 12, (12, None)),
+    (5, 16 * 24, 12, (12, ((3, 4), (24, 1)))),
+    (16, 6 * 9 * 9, 9, (12, ((2, 3, 2), (81, 9, 1)))),
+    (1, 260, 5, (120, ((2, 60), (400, 3)))),
+]
+
+
+@pytest.mark.parametrize("R, L_in, C, kg", PLAN_CASES)
+def test_hgrad_plan_covers_every_term_once(R, L_in, C, kg):
+    """The gemm plan's blocks, emulated in numpy, sum every (offset, column,
+    channel) term once and equal the plain version; slabs and the W2 tiles
+    stay within the int32 checks."""
+    K, geom = kg
+    rs = np.random.RandomState(R)
+    g = _geom(K, geom)
+    Lp = L_in + max(D._taus(K, geom))
+    cot = rs.rand(Lp, C)
+    W2 = rs.rand(K * R, C)
+    p = D._hgrad_plan(R, L_in, -(-C // 4) * 4, K, g, 132)
+    assert p.slabs * R * L_in < 2**31 and p.wsplit < 2**31
+    got = _emulate_plan(cot, W2, R, L_in, g, p)
+    ref = D.plain_hgrad(_t(cot), _t(W2), R, L_in, geom).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-12)
+
+
+@pytest.mark.parametrize("R, regime", [(1, "gemm"), (3, "gemm"), (8, "gemm"),
+                                       (9, "gemm"), (16, "gemm"), (17, "tc"),
+                                       (88, "tc")])
+def test_hgrad_plan_regime_by_rank(R, regime):
+    """Ranks ≤ 16 take the gemm regime at the NMFD flagship's width (C
+    padded to 1028, L_in 4601, T=400); larger ranks the tensor-core kernel
+    (its instance and splits as before: 88 ranks are N = 88, 30 splits on
+    132 SMs)."""
+    p = D._hgrad_plan(R, 4601, 1028, 400, _geom(400), 132)
+    assert p.regime == regime
+    if regime == "gemm":
+        assert p.group * R <= 8 * p.nt and 8 * p.nt - p.group * R < 8 + R
+        assert p.bm == 256 - (p.group - 1) and p.sper * p.splits >= 33
+        assert p.wsplit == p.groups * 33 * 2 * 8 * p.nt * 32
+    else:
+        assert p.groups == 1 and p.nt == min(-(-R // 8), 16) + (R == 17)
+    if R == 88:
+        assert (p.nt, p.splits, p.sper) == (11, 30, 429)
+
+
+def test_hgrad_plan_demo_and_rank_rows():
+    """The reference demo (R=3, T=400, 4598 columns) and the rank-8/16 rows:
+    wide groups (at most 7 columns of rank padding), 2 channel splits of 17
+    stages at C=1028."""
+    demo = D._hgrad_plan(3, 4598, 1028, 400, _geom(400), 132)
+    assert (demo.regime, demo.group, demo.nt, demo.splits, demo.sper) == \
+        ("gemm", 32, 12, 2, 17)
+    assert demo.groups == 13 and demo.bm == 225
+    r8 = D._hgrad_plan(8, 4601, 1028, 400, _geom(400), 132)
+    assert (r8.group, r8.nt, r8.groups) == (16, 16, 25)
+    r16 = D._hgrad_plan(16, 4601, 1028, 400, _geom(400), 132)
+    assert (r16.group, r16.nt, r16.groups) == (8, 16, 50)
+
+
+def test_hgrad_plan_splits_fill_the_card():
+    """A SIPLCA rank-8 shape (516 channels: 17 stages, one run; 3000
+    columns) has 169 blocks a split: on 132 SMs it splits in 2 to fill two
+    waves; on 16 SMs one run fills them."""
+    g = _geom(200)
+    wide = D._hgrad_plan(8, 3000, 516, 200, g, 132)
+    assert (wide.groups * -(-3000 // wide.bm), wide.splits, wide.sper) == \
+        (169, 2, 9)
+    narrow = D._hgrad_plan(8, 3000, 516, 200, g, 16)
+    assert (narrow.splits, narrow.sper) == (1, 17)
+
+
+def test_hgrad_plan_span_limit():
+    """An innermost stride of 3: groups stop at 43 offsets (span 126, at
+    the limit of half the 256-row window); 44 (span 129) would pass it."""
+    g = _geom(120, ((2, 60), (400, 3)))
+    plans = [p for _, p in D._gemm_plans(1, 260, 8, 120, g, 132)]
+    assert max(p.group for p in plans) == 43
+    assert all((p.group - 1) * 3 <= 128 and p.bm >= 128 for p in plans)
+
+
+def test_hgrad_plan_slab_cap_takes_tc():
+    """Where every gemm launch's slabs would pass the 2^26-float cap (rank
+    16, 400 offsets, 100,000 columns: 50 groups x 2 splits), the tensor-core
+    kernel runs, its slabs under the cap."""
+    p = D._hgrad_plan(16, 100_000, 1028, 400, _geom(400), 132)
+    assert p.regime == "tc" and p.slabs * 16 * 100_000 <= 1 << 26
+    small = D._hgrad_plan(16, 20_000, 1028, 400, _geom(400), 132)
+    assert small.regime == "gemm"
+    assert small.slabs * 16 * 20_000 <= 1 << 26
+
+
 def test_cpu_tensors_never_launch():
     H, W, cots = _problem_1d(5, 40, 2, 4)
     before = (D.hgrad.launches, D.wgrad.launches)
@@ -265,8 +420,9 @@ def _kernel_operands(N, C, s_in, kernel, R):
 
 
 # ragged and whole C, rank 1, K not a multiple of any τ tile or offset group,
-# N=2, 2-D and 3-D geom; ranks ≤ 16 take the windowed hgrad except the last
-# two cases, whose offset groups span 55 and 201 flat offsets
+# N=2, 2-D and 3-D geom; ranks ≤ 16 take hgrad's gemm regime, the N-D ones
+# in offset groups along the kernel's innermost axis (the last two cases'
+# flat offsets span 55 and 201 rows)
 CUDA_CASES = [
     (1, 17, (300,), (12,), 8),
     (1, 7, (260,), (5,), 3),
@@ -293,10 +449,10 @@ def test_cuda_hgrad_matches_plain(cuda, N, C, s_in, kernel, R):
 
 
 # the tile edges of the tensor-core hgrad (128 l' rows, 32-deep steps of
-# k = j*C + c, 8-rank tiles, 128 ranks a block): ranks 1, 3 and 13 through
-# N-D kernels whose offset groups span more than the windowed kernel takes,
-# 88 and 257 in 1-D; L_in and C ragged (1025); one split (7 x 5 reduction
-# terms) and many
+# k = j*C + c, 8-rank tiles, 128 ranks a block): ranks 88 and 257 in 1-D;
+# L_in and C ragged (1025); one split (7 x 5 reduction terms) and many.
+# Ranks 1, 3 and 13 through N-D kernels take the gemm regime here, and the
+# tensor-core kernel forced (test_cuda_hgrad_tc_at_small_rank)
 TILE_EDGE_CASES = [
     (1, 9, (5, 70), (3, 4), 1),
     (1, 9, (5, 70), (3, 4), 3),
@@ -312,6 +468,77 @@ TILE_EDGE_CASES = [
 @pytest.mark.parametrize("N, C, s_in, kernel, R", TILE_EDGE_CASES)
 def test_cuda_hgrad_tile_edges(cuda, N, C, s_in, kernel, R):
     test_cuda_hgrad_matches_plain(cuda, N, C, s_in, kernel, R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, C, s_in, kernel, R", TILE_EDGE_CASES[:3])
+def test_cuda_hgrad_tc_at_small_rank(cuda, N, C, s_in, kernel, R):
+    """The tensor-core kernel at ranks ≤ 16 (its N = 16 and 32 instances),
+    which the plan gives a shape whose gemm slabs would pass the cap."""
+    op = _kernel_operands(N, C, s_in, kernel, R)
+    cot, W2 = op.cots[0].to(cuda), op.W2.to(cuda)
+    K = W2.shape[0] // R
+    plan = D._tc_plan(R, op.L_h, -(-C // 4) * 4, K,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.regime == "tc"
+    got = D.hgrad(cot, W2, R, op.L_h, geom=op.geom, plan=plan)
+    _assert_kernel(got, D.plain_hgrad(cot, W2, R, op.L_h, geom=op.geom))
+
+
+# the gemm regime at every rank 1-16 (N = 64-128 columns of (offset, rank)
+# here): groups that do not divide K; L_in ragged against the block's
+# 256 - (J - 1) output columns; C from 7 (one stage) to 1025 (33 stages in
+# 2 splits); N-D kernels (SIPLCA2's 8x8, NMF3D's 4x4x4) and N=2
+SMALL_RANK_CASES = [
+    (1, 417, (1200,), (129,), 1),
+    (1, 65, (700,), (65,), 2),
+    (1, 1025, (517,), (43,), 3),
+    (1, 33, (1000,), (33,), 4),
+    (1, 129, (300,), (26,), 5),
+    (1, 385, (600,), (22,), 6),
+    (1, 800, (450,), (19,), 7),
+    (1, 1025, (1200,), (17,), 8),
+    (1, 7, (300,), (15,), 9),
+    (1, 256, (500,), (13,), 10),
+    (1, 417, (241,), (12,), 11),
+    (1, 100, (800,), (11,), 12),
+    (1, 1025, (300,), (10,), 13),
+    (1, 64, (700,), (10,), 14),
+    (1, 513, (400,), (9,), 15),
+    (1, 1025, (900,), (9,), 16),
+    (1, 64, (6, 6, 6), (4, 4, 4), 16),
+    (1, 64, (20, 20), (8, 8), 16),
+    (2, 65, (300,), (21,), 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, C, s_in, kernel, R", SMALL_RANK_CASES)
+def test_cuda_hgrad_small_rank(cuda, N, C, s_in, kernel, R):
+    op = _kernel_operands(N, C, s_in, kernel, R)
+    K = op.W2.shape[0] // R
+    plan = D._hgrad_plan(R, op.L_h, -(-C // 4) * 4, K,
+                         D._geom_args(K, op.geom), 132)
+    assert plan.regime == "gemm"
+    test_cuda_hgrad_matches_plain(cuda, N, C, s_in, kernel, R)
+
+
+@pytest.mark.cuda
+def test_cuda_hgrad_small_rank_is_reproducible(cuda):
+    """No atomics: two calls give the same bits (3 groups x 2 splits of
+    slabs summed in a fixed order)."""
+    op = _kernel_operands(1, 1025, (600,), (100,), 3)
+    cot, W2 = op.cots[0].to(cuda), op.W2.to(cuda)
+    a = D.hgrad(cot, W2, 3, op.L_h)
+    b = D.hgrad(cot, W2, 3, op.L_h)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_hgrad_demo_shape(cuda):
+    """The reference demo's B3: V 1x1025x4997, R=3, T=400."""
+    test_cuda_hgrad_matches_plain(cuda, 1, 1025, (4598,), (400,), 3)
 
 
 @pytest.mark.cuda
