@@ -42,6 +42,24 @@ Drives the port's paths at full width, each in phases:
   that reads the host refused, ms/step both ways and the graph pools'
   reserved memory; and float64 numpy targets, which warn and fit in
   float32;
+* the compiled fits: the single-card dense MU and EM fits replay their
+  10-iteration chunk as a CUDA graph from chunk 3 on.  At dense ``NMF``
+  5168×1025 R=88 (β ∈ {0.5, 1, 2}), the reference demo's ``NMFD``
+  (1×1025×4997, R=3, T=400), the NMFD flagship (the device-bound control),
+  the NMF2D and NMF3D rows, dense ``PLCA`` 5168×1025 R=88 (fused E-step)
+  and the SIPLCA, SIPLCA2 and SIPLCA3 rows: 100 iterations at ``tol=0``
+  through the model's ``fit`` (graphed) and through ``get_dense_fit`` or
+  ``get_plca_fit`` with ``_graph=False`` (eager), timed in turns (graphed,
+  eager, eager, graphed), each with exactly its B1-B4 launches, 8 replays
+  (graphed) and one host read a chunk; the replayed chunks' ms/iteration
+  (CUDA events around the replays) and their device time; chunk 1's time
+  and the capture's host time (the capture runs right after chunk 2 is
+  enqueued); the
+  peak device memory above the factors both ways; the device time an
+  iteration and the card's idle share both ways (``torch.profiler``,
+  30-iteration fits); factors within 1e-6 of eager at ``tol=0`` and with
+  the same ``n_iter`` at ``tol=1e-4``; and a fit whose updater reads the
+  host refused on the card;
 * ``streaming_nmf_fit`` with V in host memory: 5168×1025 (rank 88, β ∈ {1,
   0.5}) in 6 blocks of 1024 rows, exactly 2 B1 launches a block an
   iteration and one B2 a block a loss evaluation at β=0.5, equal to the
@@ -58,9 +76,10 @@ Drives the port's paths at full width, each in phases:
   ``NMF.fit`` with a bfloat16 host V at β ∈ {1, 0.5, 2} within 1e-4 of the
   float32 fit on the rounded V, with its ``n_iter`` and exactly its B1/B2
   launches, every one the bfloat16 instance's; ``nmf_fit``; the peak device
-  memory of a β=1 fit at 65536×4097 R=64 from a host V, bfloat16 at most
-  0.6 of float32's; ``streaming_nmf_fit`` with a bfloat16 host V (5168×1025
-  against the in-memory fit, and 65536×4096 in 0.5 GiB beside the float32
+  memory of a β=1 fit at 65536×4097 R=64 from a host V (30 iterations, the
+  third chunk a graph replay), bfloat16 at most 0.6 of float32's;
+  ``streaming_nmf_fit`` with a bfloat16 host V (5168×1025 against the
+  in-memory fit, and 65536×4096 in 0.5 GiB beside the float32
   run's rate); the NMFD flagship at β=1 and dense PLCA against their
   float32 fits on the rounded (PLCA: normalized) V;
 * the autotuner (``PNT_NMFD_AUTOTUNE=1``; the earlier paths run at ``=0``,
@@ -171,8 +190,9 @@ paths, ``launches_by_path`` per path; B3's small-rank regime apart as
 the reference demo's shape; B1/B2's bfloat16-V instances as
 ``fused_contractions_bf16`` and ``fused_beta_loss_bf16``, with their
 launches in the bfloat16 fits; P1 as ``hoyer_proj``, its launches
-counted where launched, which in a graphed optimizer step is at capture)
-and the fit times, the last line
+counted where launched, which in a graphed optimizer step is at capture;
+a graphed fit's launches counted at every replay; B1 and B2 with their
+times at 4096×4096 R=256 under ``wide``) and the fit times, the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products and
 convolutions run in full float32 (TF32 off), so the plain versions and the
 library calls are true f32 too.  Needs one CUDA device; exits with an error
@@ -294,6 +314,32 @@ HOYER_PROFILE = 3
 # compiled against eager optimizer steps: parameters within this of the
 # eager twin's (max|Δ|/max|eager|)
 COMPILED_RTOL = 1e-5
+# the compiled fits: each cell's 10-iteration chunk replayed as a CUDA graph
+# from chunk 3 on (the models' default) against the eager loop
+# (``_graph=False`` of get_dense_fit and get_plca_fit), from the same
+# inits: FIT_ITERS iterations at tol=0 timed in turns, a tol=FIT_TOL fit
+# both ways, and FIT_PROFILE_ITERS iterations under torch.profiler both
+# ways; factors within FIT_GAP (max|Δ|/max|eager|).  (label, model,
+# shape, fit keywords): dense NMF and PLCA (M, K, R), the deconv and SIPLCA
+# rows (N, C, S_out, kernel, R); dense PLCA with the fused E-step
+# (PNT_PLCA_FUSED=1)
+FIT_ITERS = 100
+FIT_TOL = 1e-4
+FIT_PROFILE_ITERS = 30
+FIT_GAP = 1e-6
+COMPILED_CELLS = (
+    ("NMF beta=0.5", "NMF", MAIN_SHAPE, {"beta": 0.5}),
+    ("NMF beta=1", "NMF", MAIN_SHAPE, {"beta": 1.0}),
+    ("NMF beta=2", "NMF", MAIN_SHAPE, {"beta": 2.0}),
+    ("NMFD demo R=3", "NMFD", DECONV_DEMO, {"beta": 1.0}),
+    ("NMFD flagship", "NMFD", DECONV["NMFD"], {"beta": 1.0}),
+    ("NMF2D", "NMF2D", DECONV["NMF2D"], {"beta": 1.0}),
+    ("NMF3D", "NMF3D", DECONV["NMF3D"], {"beta": 1.0}),
+    ("PLCA fused E-step", "PLCA", MAIN_SHAPE, {}),
+    ("SIPLCA", "SIPLCA", SIPLCA_ROWS["SIPLCA"], {}),
+    ("SIPLCA2", "SIPLCA2", SIPLCA_ROWS["SIPLCA2"], {}),
+    ("SIPLCA3", "SIPLCA3", SIPLCA_ROWS["SIPLCA3"], {}),
+)
 REPLACES = {
     "fused_contractions": "pytorch_nmf_tpu/ops/pallas_mu.py:212",
     "fused_beta_loss": "pytorch_nmf_tpu/ops/pallas_mu.py:347",
@@ -314,7 +360,7 @@ BF16_BETAS = (1, 0.5, 2)
 # 4097 columns: rows padded to 4100 floats or 4104 bfloat16 values; V is
 # 1.07 GB in float32, 0.54 GB in bfloat16
 BF16_CAPACITY = (65536, 4097, 64)
-BF16_CAPACITY_ITERS = 10
+BF16_CAPACITY_ITERS = 30  # 3 chunks: the third a graph replay
 BF16_PEAK_RATIO = 0.6
 # the examples phase (examples/torch_port/): the audio separation at the
 # reference demo's shapes, the NMFD flagship's spectrogram (bench.py:116-122:
@@ -434,12 +480,19 @@ def compare_kernels(fm, kl_pos_W, kl_pos_H):
         st["max_rel_err"] = max(st["max_rel_err"], rel)
         return rel
 
-    def set_times(name, ms, pms, flops, nbytes):
+    def set_times(name, ms, pms, flops, nbytes, wide=None):
+        """The kernel's times and bound; at another case than MAIN_SHAPE
+        (``wide`` names it) under the kernel's ``"wide"`` key."""
         b_ms, b_by, fp32_ms = bound(flops, nbytes)
-        stats[name].update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
-        print(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}; {fp32_ms:.4f} at the CUDA cores' "
-              f"f32 peak), {100 * b_ms / ms:.1f}% of it", flush=True)
+        times = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+        if wide is None:
+            stats[name].update(times)
+        else:
+            stats[name]["wide"] = dict(times, case=wide)
+        print(f"{name}{'' if wide is None else ' at ' + wide}: kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{fp32_ms:.4f} at the CUDA cores' f32 peak), "
+              f"{100 * b_ms / ms:.1f}% of it", flush=True)
 
     for M, K, R in (MAIN_SHAPE, WIDE_SHAPE):
         V, W, H = inputs(M, K, R)
@@ -466,32 +519,33 @@ def compare_kernels(fm, kl_pos_W, kl_pos_H):
                 pms = cuda_ms(lambda: fm.plain_contractions(V, H, W, **kw))
                 line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
                 print(line, flush=True)
+        # at WIDE_SHAPE the times go into the kernel's "wide" entry
+        wide = None if (M, K, R) == MAIN_SHAPE else f"{M}x{K} R={R}"
         for beta in (0.0, 0.5, 1.5):
             rel = record("fused_beta_loss", fm.fused_beta_loss(V, H, W, beta),
                          fm.plain_beta_loss(V, H, W, beta))
             line = f"B2 {M}x{K} R={R} beta={beta}: rel err {rel:.3g}"
-            if (M, K, R) == MAIN_SHAPE:
+            if wide is None or beta == 0.5:
                 ms = cuda_ms(lambda: fm.fused_beta_loss(V, H, W, beta))
                 pms = cuda_ms(lambda: fm.plain_beta_loss(V, H, W, beta))
                 line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
                 if beta == 0.5:  # the WH product; V, H, W read once
                     set_times("fused_beta_loss", ms, pms, 2 * M * K * R,
-                              4 * (M * K + (M + K) * R + 1))
+                              4 * (M * K + (M + K) * R + 1), wide)
             print(line, flush=True)
-        if (M, K, R) == MAIN_SHAPE:
-            # the JSON's B1 time: one β=0.5 MU iteration's contractions
-            # (W side then H side, numerator and denominator); per side the
-            # WH product and two contractions, V, H, W read and two
-            # factor-sized outputs written
-            def both(fn):
-                fn(V, H, W, beta=0.5, need_pos=True, w_side=True)
-                fn(V, H, W, beta=0.5, need_pos=True, w_side=False)
+        # B1's time: one β=0.5 MU iteration's contractions (W side then H
+        # side, numerator and denominator); per side the WH product and two
+        # contractions, V, H, W read and two factor-sized outputs written
+        def both(fn):
+            fn(V, H, W, beta=0.5, need_pos=True, w_side=True)
+            fn(V, H, W, beta=0.5, need_pos=True, w_side=False)
 
-            set_times("fused_contractions",
-                      cuda_ms(lambda: both(fm.fused_contractions)),
-                      cuda_ms(lambda: both(fm.plain_contractions)),
-                      2 * 6 * M * K * R,
-                      2 * 4 * (M * K + (M + K) * R) + 2 * 4 * 2 * (M + K) * R)
+        set_times("fused_contractions",
+                  cuda_ms(lambda: both(fm.fused_contractions)),
+                  cuda_ms(lambda: both(fm.plain_contractions)),
+                  2 * 6 * M * K * R,
+                  2 * 4 * (M * K + (M + K) * R) + 2 * 4 * 2 * (M + K) * R,
+                  wide)
         del V, W, H
     # the streaming fit's blocks (ops/streaming.py): views of the device
     # buffers, whose rows are padded to 4 floats (K=1025: a 1028-float row
@@ -1112,6 +1166,254 @@ def plca_fits(plca_from_numpy, kl_div, ctr, card, fit_ms):
     print(f"phase 4: PLCA EM ms/iteration at {M}x{K} R={R}: fused E-step "
           f"{times['kernel']}, generic {times['plain']} [{card}]", flush=True)
     return launches
+
+
+def compiled_problem(ns, name, shape):
+    """A compiled-fits cell's target and model on the card, numpy seed 0:
+    ``|randn|`` for dense NMF (:func:`inputs`), ``rand`` otherwise (the
+    PLCA family's inits normalized by the model)."""
+    if name == "NMF":
+        V, W, H = inputs(*shape)
+        return V, ns.nmf_from_numpy({"W": W.cpu().numpy(),
+                                     "H": H.cpu().numpy()}, "cuda")
+    if name == "PLCA":
+        M, K, R = shape
+        rs = np.random.RandomState(SEED)
+        pr = {"V": rs.rand(M, K).astype("f"), "W": rs.rand(K, R).astype("f"),
+              "H": rs.rand(M, R).astype("f"), "Z": np.full(R, 1.0 / R, "f")}
+    else:
+        pr = plca_problem(*shape)
+    V = torch.from_numpy(pr.pop("V")).cuda()
+    if "PLCA" in name:
+        return V, ns.plca_from_numpy(pr, "cuda")
+    return V + 0.01, ns.nmf_from_numpy({"W": pr["W"] + 0.1,
+                                        "H": pr["H"] + 0.1}, "cuda")
+
+
+def fit_profile(run, iters):
+    """Device milliseconds an iteration of ``run()`` (a fit of ``iters``
+    iterations) in a ``torch.profiler`` trace of the card's activity (the
+    kernels, graph-launched ones too, and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / 1e3 / iters
+
+
+class replay_marks:
+    """CUDA events around every ``CUDAGraph.replay`` until
+    :meth:`restore`."""
+
+    def __init__(self):
+        self.events, self.orig = [], torch.cuda.CUDAGraph.replay
+
+        def replay(g):
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+            self.orig(g)
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+
+        torch.cuda.CUDAGraph.replay = replay
+
+    def restore(self):
+        torch.cuda.CUDAGraph.replay = self.orig
+
+    def per_iter(self):
+        """``(span, busy)`` ms an iteration of the replayed chunks."""
+        torch.cuda.synchronize()
+        ev, iters = self.events, 10 * len(self.events) // 2
+        busy = sum(a.elapsed_time(b) for a, b in zip(ev[::2], ev[1::2]))
+        return ev[0].elapsed_time(ev[-1]) / iters, busy / iters
+
+
+def compiled_cell(ns, label, name, shape, kw, ctr, card):
+    """One compiled-fits cell (module docstring); returns its record."""
+    from pytorch_nmf_tpu_torch.ops import fast_plca, graphs
+
+    solver = ns.solver
+    V, m = compiled_problem(ns, name, shape)
+    plca = "PLCA" in name
+    cls = type(m)
+    params = [getattr(m, k) for k in ("W", "H", "Z") if hasattr(m, k)]
+    init = [p.detach().clone() for p in params]
+    engine = fast_plca.plca_em_engine_fused if name == "PLCA" else None
+
+    def graphed(tol, iters):  # the user's entry point, the default path
+        for p, x in zip(params, init):
+            p.data.copy_(x)
+        out = m.fit(V, tol=tol, max_iter=iters, **kw)
+        return (out[0] if plca else out), [p.detach().clone() for p in params]
+
+    def eager(tol, iters):  # the same updates through _graph=False
+        x = [t.clone() for t in init]
+        if plca:
+            one = V.new_ones(())
+            fit = solver.get_plca_fit(
+                cls._resolve_fit_recon3(V, *x), tol, iters, True, True, True,
+                False, False, False, em_engine=engine, _graph=False)
+            *f, n, _ = fit(V, *x, one, one, one)
+            return n, f
+        beta = kw["beta"]
+        fit = solver.get_dense_fit(
+            cls.reconstruct, beta, tol, iters, True, True, 0.0, 0.0, False,
+            cls._resolve_updater_factory(V, *x, beta), _graph=False)
+        *f, n = fit(V, *x)
+        return n, f
+
+    runs = {"graphed": graphed, "eager": eager}
+    if name == "PLCA":
+        os.environ["PNT_PLCA_FUSED"] = "1"
+    try:
+        return compiled_measure(ns, label, name, kw, V, runs, ctr, card,
+                                graphs._Graphs)
+    finally:
+        os.environ.pop("PNT_PLCA_FUSED", None)
+
+
+def compiled_expected(name, kw, iters):
+    """B1-B4 launches of a cell's fit of ``iters`` iterations at tol=0: B1
+    twice an iteration (β ≠ 2; the fused PLCA E-step), B2 at every loss
+    evaluation (β ∉ {1, 2}: the initial one and one a chunk), B3 and B4 once
+    an iteration (the deconv fits at β=1 on the static ``fused`` engine,
+    the SIPLCA E-steps)."""
+    want = dict.fromkeys(REPLACES, 0)
+    beta = kw.get("beta")
+    if name in ("NMF", "PLCA") and beta != 2:
+        want["fused_contractions"] = 2 * iters
+    if name == "NMF" and beta not in (1, 2):
+        want["fused_beta_loss"] = 1 + iters // 10
+    if name not in ("NMF", "PLCA"):
+        want["hgrad"] = want["wgrad"] = iters
+    return want
+
+
+def compiled_measure(ns, label, name, kw, V, runs, ctr, card, Graphs):
+    solver = ns.solver
+    rec = {"ms_per_iter": {"graphed": [], "eager": []}}
+
+    def gap(a, b):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a, b))
+
+    # chunk 1 (and the initial loss), the first chunk of every fit, after
+    # a warm-up
+    runs["eager"](0.0, 10)
+    _, rec["chunk1_ms"] = events_ms(lambda: runs["graphed"](0.0, 10))
+    finals = {}
+    for i, how in enumerate(("graphed", "eager", "eager", "graphed")):
+        c0, r0, h0 = read(ctr), Graphs.replays, solver._read.reads
+        s0 = Graphs.capture_s
+        torch.cuda.synchronize()
+        # either way the fit then takes its cuBLAS workspaces in the window
+        torch._C._cuda_clearCublasWorkspaces()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks = replay_marks() if i == 3 else None
+        try:
+            (n, f), ms = events_ms(lambda: runs[how](0.0, FIT_ITERS))
+        finally:
+            if marks is not None:
+                marks.restore()
+        peak = torch.cuda.max_memory_allocated() - base
+        d = {k: v - c0[k] for k, v in read(ctr).items()}
+        replays, reads = Graphs.replays - r0, solver._read.reads - h0
+        want = compiled_expected(name, kw, FIT_ITERS)
+        check(n == (FIT_ITERS - 1 if "PLCA" in name else FIT_ITERS),
+              f"compiled {label} {how}: n_iter {n}")
+        check(d == want, f"compiled {label} {how}: launches {d}, want {want}")
+        chunks = FIT_ITERS // 10
+        check(replays == (chunks - 2 if how == "graphed" else 0)
+              and reads == chunks, f"compiled {label} {how}: {replays} "
+              f"replays, {reads} host reads in {chunks} chunks")
+        check_factors(f"compiled {label} {how}", *f)
+        rec["ms_per_iter"][how].append(ms / FIT_ITERS)
+        for key, v in (("peak_gb", peak / 1e9), ("replays", replays),
+                       ("host_reads", reads),
+                       ("capture_ms", 1e3 * (Graphs.capture_s - s0))):
+            rec.setdefault(key, {}).setdefault(how, v)
+        rec["launches"] = {k: int(v) for k, v in d.items()}
+        finals[how] = f
+    # the replayed chunks alone, from the last graphed fit's events: from
+    # the first replay's start to the last one's end (the host's read a
+    # chunk between them), and the replays' own device time
+    rec["replayed_ms_per_iter"], rec["replay_device_ms_per_iter"] = \
+        marks.per_iter()
+    rec["gap_tol0"] = gap(finals["graphed"], finals["eager"])
+    (ng, fg), (ne, fe) = runs["graphed"](FIT_TOL, FIT_ITERS), runs["eager"](
+        FIT_TOL, FIT_ITERS)
+    rec["gap_tol"] = gap(fg, fe)
+    rec["n_iter_tol"] = [int(ng), int(ne)]
+    check(ng == ne, f"compiled {label}: tol={FIT_TOL} n_iter graphed {ng}, "
+          f"eager {ne}")
+    check(rec["gap_tol0"] <= FIT_GAP and rec["gap_tol"] <= FIT_GAP,
+          f"compiled {label}: graphed against eager {rec['gap_tol0']}, "
+          f"{rec['gap_tol']} at tol={FIT_TOL}")
+    for how in ("graphed", "eager"):
+        dev = fit_profile(lambda: runs[how](0.0, FIT_PROFILE_ITERS),
+                          FIT_PROFILE_ITERS)
+        mean = sum(rec["ms_per_iter"][how]) / 2
+        rec.setdefault("device_ms_per_iter", {})[how] = dev
+        rec.setdefault("idle_share", {})[how] = 1 - dev / mean
+    t = rec["ms_per_iter"]
+    print(f"phase 4: compiled {label}: ms/iteration graphed "
+          f"{t['graphed']}, eager {t['eager']}, the replayed chunks alone "
+          f"{rec['replayed_ms_per_iter']:.4f} (their device time "
+          f"{rec['replay_device_ms_per_iter']:.4f}); device ms/iteration "
+          f"(torch.profiler, {FIT_PROFILE_ITERS}-iteration fits) graphed "
+          f"{rec['device_ms_per_iter']['graphed']:.4f}, eager "
+          f"{rec['device_ms_per_iter']['eager']:.4f}; the card idle "
+          f"{100 * rec['idle_share']['graphed']:.1f}% graphed, "
+          f"{100 * rec['idle_share']['eager']:.1f}% eager; replays a fit "
+          f"{rec['replays']}, host reads {rec['host_reads']}; launches "
+          f"{rec['launches']} (as predicted, both ways); chunk 1 "
+          f"{rec['chunk1_ms']:.3f} ms, capture "
+          f"{rec['capture_ms']['graphed']:.2f} ms (host); peak above the "
+          f"factors graphed "
+          f"{rec['peak_gb']['graphed']:.4f} GB, eager "
+          f"{rec['peak_gb']['eager']:.4f}; graphed against eager "
+          f"{rec['gap_tol0']:.3g} (tol=0), {rec['gap_tol']:.3g} with n_iter "
+          f"{ng} both ways (tol={FIT_TOL}) [{card}]", flush=True)
+    return rec
+
+
+def compiled_fits(ns, ctr, card, fit_ms):
+    """Phase 3 and 4, this slice: the fits' compiled chunk at every
+    COMPILED_CELLS cell (:func:`compiled_cell`), and a fit whose updater
+    reads the host refused on the card.  Returns the path's launches."""
+    from pytorch_nmf_tpu_torch.ops import fast_nmf
+
+    zero(ctr)
+    out = {}
+    for label, name, shape, kw in COMPILED_CELLS:
+        out[label] = compiled_cell(ns, label, name, shape, kw, ctr, card)
+    V, W, H = inputs(*MAIN_SHAPE)
+
+    def factory(beta, gamma, l1_reg, l2_reg):
+        upd_W, upd_H, loss = fast_nmf.nmf_updater_factory_fused(
+            beta, gamma, l1_reg, l2_reg)
+
+        def reading(V, W, H):  # a host read an update
+            check(float(W.sum()) > 0, "compiled: an empty factor")
+            return upd_W(V, W, H)
+
+        return reading, upd_H, loss
+
+    try:
+        ns.solver.get_dense_fit(ns.NMF.reconstruct, 1.0, 0.0, 30, True, True,
+                                0.0, 0.0, False, factory)(V, W, H)
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    check("cannot be captured" in refused, f"compiled: a host-reading "
+          f"updater was not refused ({refused!r})")
+    print("phase 3: compiled: a fit whose updater reads the host is refused "
+          f"on the card [{card}]", flush=True)
+    fit_ms["compiled_fits"] = out
+    return read(ctr)
 
 
 def split_loss(S, V, W, H, beta):
@@ -3770,6 +4072,9 @@ def main():
     stamp("SIPLCA")
     by_path["plca_fused"] = plca_fits(plca_from_numpy, kl_div, ctr, card, fit_ms)
     stamp("PLCA")
+    # phase 3 and 4, this slice: the fits' chunk as CUDA graphs
+    by_path["compiled_fits"] = compiled_fits(ns, ctr, card, fit_ms)
+    stamp("compiled fits")
     by_path["sparse_densify"] = sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms)
     stamp("sparse")
 

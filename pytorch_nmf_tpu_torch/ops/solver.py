@@ -13,8 +13,17 @@ The semantics are those of the reference ``BaseComponent.fit``
   converged;
 * W updates against the old H, then H against the new W.
 
-PyTorch runs eagerly, so the loop is a Python loop; the host reads the
-device only at the 10-iteration cadence, for the stop rule.
+The loop is a Python loop over 10-iteration chunks; the host reads the
+device once a chunk, for the stop rule (``_read.reads`` counts the loop's
+reads).  The single-card dense and EM fits (:func:`get_dense_fit`,
+:func:`get_plca_fit`) run each chunk (ten iterations, the loss, the stop
+test on the device, the new state copied into static tensors) as one
+in-place workload (:class:`~.graphs._Graphs`): on a CUDA device chunks 1-2
+run eagerly, the second with synchronizing operations raising, and from
+chunk 3 on the fit replays a CUDA graph of the chunk, captured once per
+fit and freed when it returns; on the CPU the same workload is called
+directly.  A chunk that cannot be captured raises.  The other fits (sparse,
+Hoyer, batched; the sharded ones of :mod:`..parallel`) run the eager loop.
 """
 
 import contextlib
@@ -27,6 +36,7 @@ import torch
 from ..constants import eps
 from ..metrics import beta_div, kl_div
 from . import sparse as _sparse
+from .graphs import _Graphs
 from .mu import (gamma_from_beta, kl_pos_H, kl_pos_W, mu_multiplier, mu_update,
                  renorm)
 from .projection import hoyer_l1_target, proj_columns, proj_columns_explicit
@@ -145,6 +155,17 @@ def _progress(verbose: bool, max_iter: int):
         yield report
 
 
+def _read(x, cast=float):
+    """A host read of the device value ``x``, counted in ``_read.reads``:
+    the chunked loops' only reads (the stop flag, and when verbose the
+    reported values)."""
+    _read.reads += 1
+    return cast(x)
+
+
+_read.reads = 0
+
+
 def _converging_loop(
     one_iter: Callable,
     loss_of: Callable,
@@ -167,11 +188,77 @@ def _converging_loop(
             state = one_iter(state)
         loss = loss_of(state)
         # the one host sync per chunk; NaN compares False, as on the device
-        conv = bool((prev - loss) / loss_init < tol)
+        conv = _read((prev - loss) / loss_init < tol, bool)
         prev, k = loss, k + 1
         if report is not None:
-            report(k, float(loss),
-                   None if extra_of is None else float(extra_of(state)))
+            report(k, _read(loss),
+                   None if extra_of is None else _read(extra_of(state)))
+    if rem and not conv:
+        for _ in range(rem):
+            state = one_iter(state)
+    return state, k, conv
+
+
+_CHUNK_NOT_CAPTURABLE = (
+    "the fit's 10-iteration chunk cannot be captured in a CUDA graph: its "
+    "updaters or loss read the card's values on the host (.item(), float(), "
+    "bool() of a tensor, a copy from or to host memory) or do something "
+    "else a graph cannot hold")
+
+
+def _graphed_loop(
+    one_iter: Callable,
+    loss_of: Callable,
+    state0,
+    tol: float,
+    max_iter: int,
+    report: Optional[Callable] = None,
+    extra_of: Optional[Callable] = None,
+):
+    """:func:`_converging_loop` with each chunk one in-place workload of
+    :class:`~.graphs._Graphs` (own warm-ups: chunks 1-2 eager, the capture
+    right after chunk 2 is enqueued when a third chunk may follow, then
+    graph replays on a CUDA device; called directly on the CPU): ten iterations
+    from static state tensors, the loss, the stop flag ``(prev - loss) /
+    loss_init < tol`` on the device (NaN compares False), ``prev ← loss``
+    and the new state copied into the static tensors.  The host reads the
+    flag once a chunk (and the reported values when verbose).  The
+    ``max_iter % 10`` remainder runs eagerly.  The same operations as
+    :func:`_converging_loop`, so the same results bit for bit."""
+    loss_init = loss_of(state0)
+    n_chunks, rem = divmod(max_iter, 10)
+    state, k, conv = state0, 0, False
+    if n_chunks:
+        st = tuple(x.clone() for x in state0)
+        prev = loss_init.clone()
+        stop = torch.zeros((), dtype=torch.bool, device=loss_init.device)
+        extra = (torch.empty_like(loss_init)
+                 if report is not None and extra_of is not None else None)
+
+        def chunk():
+            s = st
+            for _ in range(10):
+                s = one_iter(s)
+            loss = loss_of(s)
+            stop.copy_((prev - loss) / loss_init < tol)
+            prev.copy_(loss)
+            if extra is not None:
+                extra.copy_(extra_of(s))
+            for dst, x in zip(st, s):
+                dst.copy_(x)
+
+        graphs = _Graphs([chunk], None, loss_init.device,
+                         _CHUNK_NOT_CAPTURABLE)
+        while not conv and k < n_chunks:
+            graphs()
+            k += 1
+            if k == 2 < n_chunks:  # the capture's host time overlaps chunk 2
+                graphs.capture()
+            conv = _read(stop, bool)
+            if report is not None:
+                report(k, _read(prev), None if extra is None else _read(extra))
+        del graphs  # the graph and its pool go now
+        state = st
     if rem and not conv:
         for _ in range(rem):
             state = one_iter(state)
@@ -189,11 +276,15 @@ def get_dense_fit(
     l2_reg: float,
     verbose: bool = False,
     updater_factory: Optional[Callable] = None,
+    _graph: bool = True,
 ):
     """Returns ``fit(V, W, H) -> (W, H, n_iter)`` for the dense β-divergence
     MU fit.  ``updater_factory(beta, gamma, l1_reg, l2_reg)`` supplies the
     updaters (``None``, or a factory returning ``None``, selects the
-    generic engine over ``recon2``)."""
+    generic engine over ``recon2``).  The chunks run through
+    :func:`_graphed_loop`; ``_graph=False`` (private: the eager reference
+    of the card's checks) runs :func:`_converging_loop`."""
+    loop = _graphed_loop if _graph else _converging_loop
     gamma = gamma_from_beta(beta)
     updaters = (
         updater_factory(beta, gamma, l1_reg, l2_reg) if updater_factory else None
@@ -220,9 +311,8 @@ def get_dense_fit(
 
         state0 = (W, H) if prepare is None else prepare(V, W, H)
         with _progress(verbose, max_iter) as report:
-            state, k, conv = _converging_loop(
-                one_iter, loss_of, state0, tol, max_iter, report
-            )
+            state, k, conv = loop(one_iter, loss_of, state0, tol, max_iter,
+                                  report)
         W, H = state if finish is None else finish(V, *state)
         return W, H, (k * 10 if conv else max_iter)
 
@@ -758,14 +848,17 @@ def get_plca_fit(
     Z_alpha_active: bool,
     verbose: bool = False,
     em_engine: Optional[Callable] = None,
+    _graph: bool = True,
 ):
     """Returns ``fit(V, W, H, Z, W_alpha, H_alpha, Z_alpha) -> (W, H, Z,
     n_iter, norm)``: EM maximizing the posterior log-probability
     (reference plca.py:193-304).  ``V`` arrives unnormalized and is divided
     by ``norm = V.sum()`` inside.  ``em_engine()`` (optional) supplies the
     E-step cotangents.  ``n_iter`` is the reference's raw loop index:
-    ``10·k - 1`` when chunk ``k`` converged, else ``max_iter - 1``."""
+    ``10·k - 1`` when chunk ``k`` converged, else ``max_iter - 1``.  The
+    chunks run as :func:`get_dense_fit`'s do (``_graph`` likewise)."""
     cotangents = em_engine() if em_engine is not None else None
+    loop = _graphed_loop if _graph else _converging_loop
 
     @torch.no_grad()
     def fit(V, W, H, Z, W_alpha, H_alpha, Z_alpha):
@@ -792,7 +885,7 @@ def get_plca_fit(
                 Z_alpha, cotangents)
 
         with _progress(verbose, max_iter) as report:
-            (W, H, Z), k, conv = _converging_loop(
+            (W, H, Z), k, conv = loop(
                 one_iter, loss_of, (W, H, Z), tol, max_iter, report,
                 extra_of=log_probability)
         return W, H, Z, (k * 10 - 1 if conv else max_iter - 1), norm

@@ -31,13 +31,13 @@ its graphs' private memory pools, which eviction releases.
 that reads the card's values on the host cannot be captured and raises.
 """
 
-import warnings
 from collections import OrderedDict
 from typing import Callable
 
 import numpy as np
 import torch
 
+from .ops.graphs import _Graphs
 from .ops.mu import gamma_from_beta, get_norm
 from .ops.projection import hoyer_l1_target, proj_columns
 from .ops.trainer_core import mu_apply, mu_raw_pair, proj_line_search
@@ -167,78 +167,6 @@ def _dependence_mask(output: Callable, params):
     return [id(p) in connected for p in params], torch.as_tensor(out).detach()
 
 
-class _Graphs:
-    """Workloads that update tensors in place, ``fns[k]()``, as CUDA graphs
-    on a CUDA device and called directly on the CPU.  ``replays`` counts the
-    graph replays of every instance.
-
-    Capture on the card: the workloads run eagerly on a side stream (the
-    one-time host work: kernel builds, the deconv tuner's timings, lazy
-    imports) and again with synchronizing operations raising, so that a
-    closure that reads the host raises here; ``state`` (the tensors they
-    update) is restored after each run, then each is captured into a graph
-    of its own private memory pool.  Capture executes nothing, so the caller
-    then replays the first for the step it was asked for."""
-
-    replays = 0
-
-    def __init__(self, fns, state, device: torch.device):
-        self.fns = fns
-        self.graphs = None
-        if device.type not in ("cuda", "cpu"):
-            raise ValueError(f"no compiled step for device {device}")
-        if device.type == "cuda" and state:  # no state: nothing to run
-            self.graphs = self._capture(fns, state, device)
-
-    @staticmethod
-    def _capture(fns, state, device):
-        saved = [t.detach().clone() for t in state]
-
-        @torch.no_grad()
-        def restore():
-            for t, v in zip(state, saved):
-                t.copy_(v)
-
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            try:
-                for fn in fns:
-                    fn()
-                restore()
-                mode = torch.cuda.get_sync_debug_mode()
-                with warnings.catch_warnings():  # "a prototype feature"
-                    warnings.simplefilter("ignore", UserWarning)
-                    torch.cuda.set_sync_debug_mode("error")
-                try:
-                    for fn in fns:
-                        fn()
-                except RuntimeError as e:
-                    raise RuntimeError(_NOT_CAPTURABLE) from e
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-            finally:
-                restore()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        graphs = []
-        for fn in fns:
-            g = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(g, stream=stream):
-                    fn()
-            except RuntimeError as e:
-                raise RuntimeError(_NOT_CAPTURABLE) from e
-            graphs.append(g)
-        return graphs
-
-    def __call__(self, k: int = 0):
-        if self.graphs is None:
-            self.fns[k]()
-        else:
-            self.graphs[k].replay()
-            _Graphs.replays += 1
-
-
 class BetaMu(torch.optim.Optimizer):
     r"""Multiplicative updater minimizing the β-divergence of a composed
     non-negative model (reference trainer.py:7-121).
@@ -322,7 +250,8 @@ class BetaMu(torch.optim.Optimizer):
                     p.copy_(new)
                     grad.copy_(g)
 
-        return {"graphs": _Graphs([sweep], [p for p, _ in live], device),
+        return {"graphs": _Graphs([sweep], [p for p, _ in live], device,
+                                  _NOT_CAPTURABLE),
                 "params": [p for p, _ in live], "grads": grads}
 
     @staticmethod
@@ -456,7 +385,8 @@ class SparsityProj(torch.optim.Optimizer):
             fns += self._attempts(closure, st, group["sparsity"], group["dim"])
             state += live
             groups.append(st)
-        return {"graphs": _Graphs(fns, state, device), "groups": groups}
+        return {"graphs": _Graphs(fns, state, device, _NOT_CAPTURABLE),
+                "groups": groups}
 
     @staticmethod
     def _attempts(closure, st, sparsity, dim):
