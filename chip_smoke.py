@@ -29,7 +29,17 @@ Drives the port's paths at full width, each in phases:
   launch of the projection kernel P1 (``csrc/hoyer_proj.cu``), exactly one
   per constrained factor and line-search attempt, with no host read; the
   dense fit's launches, device time and idle share an iteration
-  (``torch.profiler``);
+  (``torch.profiler``); and the compiled Hoyer chunk, whose line search's
+  attempts 2-10 are a CUDA-graph WHILE node (``csrc/graph_cond.cu``): the
+  dense cell at 100 iterations and the NMFD flagship (``sW``, ``sW+sH``)
+  at 30, through the model (graphed) against ``_graph=False`` (eager) in
+  turns, bit for bit with the same attempts and launches, chunks − 2
+  replays, no line-search host read from the first replay on; ms/iteration
+  both ways, the replayed chunks' against their device time, the idle
+  shares, the WHILE nodes' own kernels, the capture's host ms, attempts an
+  iteration, host reads and the peak memory both ways; and
+  ``nmf_hoyer_fit_batched`` over 16 problems of 1025×400 rank 16 (each
+  its own graph) against its eager single fits;
 * the functional API: ``nmf_fit`` (5168×1025, β=0.5) and ``nmfd_fit`` (the
   flagship, β=1) equal ``NMF.fit`` and ``NMFD.fit``, launch for launch;
   ``nmf_fit_batched`` over 16 problems of 1025×400 rank 16 against their
@@ -253,6 +263,13 @@ HOYER_NMFD_ITERS = 6
 HOYER_TRACE = 5
 HOYER_CASES = (("sW", dict(sW=0.5), (2, 1)),  # (B3, B4) launches/iteration
                ("sW+sH", dict(sW=0.5, sH=0.5), (1, 1)))
+# the Hoyer fit's compiled chunk (the line search a CUDA-graph WHILE node):
+# graphed against eager, (label, model, iterations, sparseness), and the
+# batched Hoyer fit over BATCH's problems
+HOYER_GRAPHED = (("dense NMF sW", "NMF", 100, dict(sW=0.5)),
+                 ("NMFD sW", "NMFD", 30, dict(sW=0.5)),
+                 ("NMFD sW+sH", "NMFD", 30, dict(sW=0.5, sH=0.5)))
+HOYER_BATCH_ITERS = 30
 FUNC_NMF_ITERS = 50
 FUNC_NMFD_ITERS = 10
 # the batched fit: 16 short spectrogram excerpts, (B, M, K, R)
@@ -1660,6 +1677,231 @@ def hoyer_losses(solver, run, loss_of):
     return losses
 
 
+class read_marks(replay_marks):
+    """:class:`replay_marks` that also keeps ``counter()`` at every replay's
+    start (the line search's host reads)."""
+
+    def __init__(self, counter):
+        super().__init__()
+        self.reads, timed = [], torch.cuda.CUDAGraph.replay
+
+        def replay(g):
+            self.reads.append(counter())
+            timed(g)
+
+        torch.cuda.CUDAGraph.replay = replay
+
+
+def hoyer_device(run, iters, replays=0):
+    """``(device ms an iteration, the WHILE nodes' handle-setting kernels'
+    ms an iteration, the device ms an iteration of the replayed chunks)`` of
+    ``run()`` (a fit of ``iters`` iterations whose last ``replays`` chunks
+    are graph replays), from a ``torch.profiler`` trace: the card's
+    activity, and for the replays the kernels that start after the first
+    ``cudaGraphLaunch`` (the eager chunks before it end in host reads, so
+    their work is done by then); ``None`` without replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    total = cond = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += e.self_device_time_total / 1e3
+        if "pnt_set_condition" in e.key:
+            cond += e.self_device_time_total / 1e3
+    replayed = None
+    if replays:
+        events = prof.events()
+        first = min(e.time_range.start for e in events
+                    if "cudaGraphLaunch" in e.name)
+        replayed = sum(e.time_range.elapsed_us() for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.time_range.start >= first) / 1e3 / (10 * replays)
+    return total / iters, cond / iters, replayed
+
+
+def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
+    """Phases 3 and 4, this slice: the Hoyer fit's compiled chunk, the line
+    search's attempts 2-10 a CUDA-graph WHILE node on the card.  At each
+    HOYER_GRAPHED cell (dense NMF at MAIN_SHAPE; the NMFD flagship on
+    ``Vd`` from ``Wd``, ``Hd``), ``sparse_fit`` through the model (graphed)
+    against ``get_hoyer_fit(..., _graph=False)`` (eager) from the same
+    inits, timed in turns (graphed, eager, eager, graphed): factors equal
+    bit for bit, the same attempts, P1 launches equal to the constrained
+    factors plus the attempts, the same B3/B4 launches (exactly 2 and 1 an
+    iteration for ``sW``, 1 and 1 for ``sW+sH``), chunks − 2 replays, no
+    line-search host read from the first replay on (the eager fit reads
+    once an attempt); ms/iteration of the whole fit both ways, the replayed
+    chunks' (CUDA events around the replays) against the device time an
+    iteration (``torch.profiler``), the idle shares, the WHILE nodes'
+    handle-setting kernels' share, the capture's host ms, attempts an
+    iteration and the peak device memory above the factors both ways.
+    Then ``nmf_hoyer_fit_batched`` over BATCH's problems (each its own
+    graph) against their eager single fits, bit for bit."""
+    from pytorch_nmf_tpu_torch.ops import graphs
+
+    solver, P, Graphs = ns.solver, ns.P, graphs._Graphs
+    bt = solver._backtrack_project
+    M, K, R = MAIN_SHAPE
+    rs = np.random.RandomState(SEED)
+    Vn = torch.from_numpy(rs.rand(M, K).astype("f") + 1e-3).cuda()
+    Wn = torch.from_numpy(rs.rand(K, R).astype("f") + 0.1).cuda()
+    Hn = torch.from_numpy(rs.rand(M, R).astype("f") + 0.1).cuda()
+    problems = {"NMF": (ns.NMF, Vn, Wn, Hn), "NMFD": (ns.models.NMFD, Vd, Wd, Hd)}
+    for label, name, iters, kw in HOYER_GRAPHED:
+        cls, V, W0, H0 = problems[name]
+        recon = cls._resolve_fit_recon2(V, W0, H0, 2.0)
+        eager_fit = solver.get_hoyer_fit(
+            recon, None, 2.0, iters, True, True, kw.get("sW"), kw.get("sH"),
+            W0.numel() // W0.shape[1], H0.numel() // H0.shape[1], _graph=False)
+
+        def graphed():  # the user's entry point
+            m = cls(W=W0.clone(), H=H0.clone(), device="cuda")
+            m.sparse_fit(V, beta=2, max_iter=iters, **kw)
+            return m.W.detach(), m.H.detach()
+
+        def eager():
+            return eager_fit(V, W0.clone(), H0.clone())[:2]
+
+        runs = {"graphed": graphed, "eager": eager}
+        rec = {"ms_per_iter": {"graphed": [], "eager": []}}
+        finals, factors = {}, len(kw)
+        b3, b4 = {"NMF": (0, 0), "NMFD": (2, 1) if factors == 1 else (1, 1)}[name]
+        want = {"fused_contractions": 0, "fused_beta_loss": 0,
+                "hgrad": b3 * iters, "wgrad": b4 * iters}
+        for i, how in enumerate(("graphed", "eager", "eager", "graphed")):
+            c0, r0, q0 = read(ctr), bt.reads, P.proj_rows.launches
+            a0, p0, s0 = bt.attempts, Graphs.replays, Graphs.capture_s
+            torch.cuda.synchronize()
+            torch._C._cuda_clearCublasWorkspaces()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            marks = read_marks(lambda: bt.reads) if how == "graphed" else None
+            try:
+                f, ms = events_ms(runs[how])
+            finally:
+                if marks is not None:
+                    marks.restore()
+            peak = torch.cuda.max_memory_allocated() - base
+            d = {k: v - c0[k] for k, v in read(ctr).items()}
+            attempts, reads = bt.attempts - a0, bt.reads - r0
+            q, replays = P.proj_rows.launches - q0, Graphs.replays - p0
+            tag = f"Hoyer compiled {label} {how}"
+            check(d == want, f"{tag}: launches {d}, want {want}")
+            check(q == factors + attempts, f"{tag}: {q} P1 launches, "
+                  f"{attempts} attempts, {factors} constrained factors")
+            check(replays == (iters // 10 - 2 if how == "graphed" else 0),
+                  f"{tag}: {replays} replays")
+            if how == "graphed":
+                check(bt.reads == marks.reads[0] and reads < attempts,
+                      f"{tag}: {bt.reads - marks.reads[0]} line-search reads "
+                      f"from the first replay on, {reads} of {attempts}")
+                rec["replayed_ms_per_iter"], rec["replay_busy_ms_per_iter"] = \
+                    marks.per_iter()
+                rec["eager_chunk_reads"] = marks.reads[0] - r0
+            else:
+                check(reads == attempts, f"{tag}: {reads} reads, {attempts} "
+                      f"attempts")
+            check_factors(tag, *f)
+            for key, v in (("peak_gb", peak / 1e9), ("replays", replays),
+                           ("host_reads", reads), ("attempts", attempts),
+                           ("p1_launches", q),
+                           ("capture_ms", 1e3 * (Graphs.capture_s - s0))):
+                rec.setdefault(key, {}).setdefault(how, v)
+            check(rec["attempts"][how] == attempts,
+                  f"{tag}: {attempts} attempts, {rec['attempts'][how]} before")
+            rec["ms_per_iter"][how].append(ms / iters)
+            finals[how] = f
+        check(rec["attempts"]["graphed"] == rec["attempts"]["eager"],
+              f"Hoyer compiled {label}: attempts {rec['attempts']}")
+        check(all(torch.equal(a, b) for a, b in zip(finals["graphed"],
+                                                    finals["eager"])),
+              f"Hoyer compiled {label}: graphed and eager factors differ")
+        for how in ("graphed", "eager"):
+            dev, cond, replayed = hoyer_device(runs[how], iters,
+                                               rec["replays"][how])
+            whole = sum(rec["ms_per_iter"][how]) / 2
+            rec.setdefault("device_ms_per_iter", {})[how] = dev
+            rec.setdefault("idle_share", {})[how] = 1 - dev / whole
+            if how == "graphed":
+                rec["while_kernels_ms_per_iter"] = cond
+                rec["replay_device_ms_per_iter"] = replayed
+        rec["replayed_idle_share"] = (1 - rec["replay_device_ms_per_iter"]
+                                      / rec["replayed_ms_per_iter"])
+        fit_ms[f"hoyer_compiled_{label.replace(' ', '_')}"] = rec
+        t, a = rec["ms_per_iter"], rec["attempts"]["graphed"]
+        print(f"phase 4: Hoyer compiled {label}, {iters} iterations: ms/"
+              f"iteration graphed {t['graphed']}, eager {t['eager']}; the "
+              f"replayed chunks alone {rec['replayed_ms_per_iter']:.4f} "
+              f"(inside the replays {rec['replay_busy_ms_per_iter']:.4f}) "
+              f"against their {rec['replay_device_ms_per_iter']:.4f} ms of "
+              f"device time an iteration; the whole fit's device time an "
+              f"iteration (torch.profiler) graphed "
+              f"{rec['device_ms_per_iter']['graphed']:.4f}, eager "
+              f"{rec['device_ms_per_iter']['eager']:.4f}, of which the WHILE "
+              f"nodes' handle-setting kernels "
+              f"{rec['while_kernels_ms_per_iter']:.5f}; the card idle "
+              f"{100 * rec['replayed_idle_share']:.1f}% in the replayed chunks, "
+              f"{100 * rec['idle_share']['graphed']:.1f}% in the whole graphed "
+              f"fit, {100 * rec['idle_share']['eager']:.1f}% eager; capture "
+              f"{rec['capture_ms']['graphed']:.1f} ms (host); attempts {a} "
+              f"({a / iters:.2f} an iteration), both ways; line-search host "
+              f"reads graphed {rec['host_reads']['graphed']} (all in chunks "
+              f"1-2), eager {rec['host_reads']['eager']}; replays "
+              f"{rec['replays']['graphed']}; P1 launches "
+              f"{rec['p1_launches']['graphed']} both ways; launches {want} both "
+              f"ways; peak above the factors graphed "
+              f"{rec['peak_gb']['graphed']:.4f} GB, eager "
+              f"{rec['peak_gb']['eager']:.4f}; factors equal bit for bit "
+              f"[{card}]", flush=True)
+    del Vn, Wn, Hn, problems
+
+    # the batched Hoyer fit: each problem one graphed single fit
+    B, Mb, Kb, Rb = BATCH
+    rs = np.random.RandomState(SEED)
+    V = torch.from_numpy(rs.rand(B, Mb, Kb).astype("f") + 0.01).cuda()
+    W = torch.from_numpy(rs.rand(B, Kb, Rb).astype("f") + 0.1).cuda()
+    H = torch.from_numpy(rs.rand(B, Mb, Rb).astype("f") + 0.1).cuda()
+    single = solver.get_hoyer_fit(ns.NMF.reconstruct, None, 2.0,
+                                  HOYER_BATCH_ITERS, True, True, 0.5, None,
+                                  Kb, Mb, _graph=False)
+    fit_ms["hoyer_batched"] = {}
+    for i, how in enumerate(("graphed", "eager", "eager", "graphed")):
+        p0, s0 = Graphs.replays, Graphs.capture_s
+        if how == "graphed":
+            (Wb, Hb, nb), ms = events_ms(lambda: ns.functional.nmf_hoyer_fit_batched(
+                V, W, H, max_iter=HOYER_BATCH_ITERS, sW=0.5))
+            check(nb.tolist() == [HOYER_BATCH_ITERS] * B, f"batched Hoyer: {nb}")
+            out = (Wb, Hb)
+        else:
+            outs, ms = events_ms(lambda: [single(V[b], W[b].clone(), H[b].clone())
+                                          for b in range(B)])
+            out = tuple(torch.stack([o[j] for o in outs]) for j in (0, 1))
+        replays = Graphs.replays - p0
+        check(replays == (B * (HOYER_BATCH_ITERS // 10 - 2) if how == "graphed"
+                          else 0), f"batched Hoyer {how}: {replays} replays")
+        check_factors(f"batched Hoyer {how}", *out)
+        rec = fit_ms["hoyer_batched"].setdefault(how, {"ms": [], "capture_ms": []})
+        rec["ms"].append(ms)
+        rec["capture_ms"].append(1e3 * (Graphs.capture_s - s0))
+        if i == 0:
+            graphed_out = out
+        elif i == 1:
+            check(all(torch.equal(a, b) for a, b in zip(graphed_out, out)),
+                  "batched Hoyer: graphed and eager factors differ")
+    t = fit_ms["hoyer_batched"]
+    print(f"phase 4: nmf_hoyer_fit_batched {B}x{Mb}x{Kb} R={Rb} sW=0.5, "
+          f"{HOYER_BATCH_ITERS} iterations, each problem its own graph (one "
+          f"replay each): batch {t['graphed']['ms']} ms, its {B} captures "
+          f"{t['graphed']['capture_ms']} ms (host); {B} eager single fits "
+          f"{t['eager']['ms']} ms; equal bit for bit [{card}]", flush=True)
+
+
 def hoyer_fits(ns, ctr, card, fit_ms, p1):
     """Phase 3, Hoyer ``sparse_fit`` at β=2.  Dense NMF at MAIN_SHAPE with
     ``sW=0.5`` (the JAX bench's row): no kernel, W's columns at sparseness
@@ -1805,6 +2047,7 @@ def hoyer_fits(ns, ctr, card, fit_ms, p1):
               f"{per[0]:.2f} (line search) + {per[1]:.2f} (projection), P1 "
               f"launches {q} [{card}]", flush=True)
         del m, Wq, Hq
+    hoyer_compiled(ns, ctr, card, fit_ms, V, W0, H0)
     launches = read(ctr)
     p1["hoyer"] = P.proj_rows.launches - p1_start
 

@@ -35,6 +35,7 @@ def main():
     from pytorch_nmf_tpu_torch.ops import projection as P
     from pytorch_nmf_tpu_torch.ops import solver
     from pytorch_nmf_tpu_torch.ops._build import load_all
+    from pytorch_nmf_tpu_torch.ops.graphs import _Counted
     from pytorch_nmf_tpu_torch.utils import nmf_from_numpy
 
     if not torch.cuda.is_available():
@@ -92,13 +93,14 @@ def main():
                         ("plain", F.plain_adjoint_deconv)):
         rows = []
 
-        def traced_backtrack(base, loss_of_new, p, grad, ss, L1):
+        def traced(base, loss_of_new, p, grad, ss, L1):
             # the wrapped function counts into the name it is called by
-            n0 = traced_backtrack.reads
-            out, ss_out = backtrack(base, loss_of_new, p, grad, ss, L1)
+            n0 = traced_backtrack.attempts
+            out, ss_out = backtrack.__wrapped__(base, loss_of_new, p, grad,
+                                                ss, L1)
             rows.append({"factor": "W" if p.shape == W0.shape else "H",
-                         "step_in": ss, "step_out": ss_out,
-                         "attempts": traced_backtrack.reads - n0,
+                         "step_in": float(ss), "step_out": float(ss_out),
+                         "attempts": traced_backtrack.attempts - n0,
                          "finite": bool(torch.isfinite(out).all())})
             return out, ss_out
 
@@ -109,7 +111,8 @@ def main():
                                         and torch.isfinite(h).all())})
             return w, h
 
-        traced_backtrack.reads = 0
+        traced_backtrack = _Counted(traced, on_card=("attempts",), reads=0,
+                                    attempts=0)
         solver._backtrack_project, solver.renorm = traced_backtrack, traced_renorm
         try:
             solver.get_hoyer_fit(recon, None, 2.0, 5, True, True, 0.5, 0.5,

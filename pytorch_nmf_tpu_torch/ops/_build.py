@@ -50,6 +50,13 @@ _SIGNATURES = {
         "pnt_hoyer_proj": ([_P] * 5 + [_I] * 8 + [_P], _I),
         "pnt_hoyer_proj_occupancy": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
     },
+    "graph_cond": {
+        "pnt_while_begin": ([_P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong)],
+                            _I),
+        "pnt_while_end": ([_P, ctypes.c_ulonglong, _P], _I),
+        "pnt_stream_create": ([ctypes.POINTER(_P)], _I),
+        "pnt_stream_destroy": ([_P], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -27,8 +27,25 @@ does something else a graph cannot hold, raises a ``RuntimeError`` with
 the caller's message.  Capture uses ``CUDAGraph.capture_begin`` on the
 side stream directly: it neither synchronizes the card nor empties the
 allocator's cache, as ``torch.cuda.graph`` would.
+
+**Device loops** (``conditional=True``; the Hoyer fit's line search):
+:func:`_device_while` runs a body while a 0-d bool tensor, which the body
+updates, is true.  Eagerly it reads the flag on the host before each run
+(the only reads it makes, allowed under the strict warm-up).  Under
+capture the body becomes a CUDA-graph WHILE node (``csrc/graph_cond.cu``)
+that the card runs as often as the flag says at each replay: it is
+captured once, on a stream of the instance's own, its allocations in a
+memory pool of the instance's own, and it adds one to a 0-d count on the
+card each run.  A launch inside a body ticks its counter once, at capture;
+:meth:`_Graphs.capture` takes that back with the rest, and the bodies'
+launches are added from the card's count when a counter that allows it
+(an attribute of a :class:`_Counted`) is next read, one host read a
+finished fit (:func:`_settle`), never on the fit's path.
 """
 
+import ctypes
+import functools
+import threading
 import time
 import warnings
 
@@ -37,9 +54,40 @@ import torch
 __all__ = []
 
 
+class _Counted:
+    """``fn`` with counts kept as attributes (``counts``: their names and
+    starting values).  Those named in ``on_card`` may also be counted on
+    the card, by the conditional bodies of replayed graphs: reading or
+    setting one first adds in what finished fits counted there
+    (:func:`_settle`).  The wrapped code adds to a count with
+    :meth:`add`, which reads nothing on the card."""
+
+    def __init__(self, fn, on_card=(), **counts):
+        object.__setattr__(self, "_on_card", frozenset(on_card))
+        vars(self).update(counts)
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    def __getattribute__(self, name):
+        if name in object.__getattribute__(self, "_on_card"):
+            _settle()
+        return object.__getattribute__(self, name)
+
+    def __setattr__(self, name, value):
+        if name in self._on_card:
+            _settle()
+        object.__setattr__(self, name, value)
+
+    def add(self, name: str, n: int = 1):
+        vars(self)[name] += n
+
+
 def _kernel_counters():
-    """``(function, attribute)`` of every kernel wrapper's launch counter."""
-    from . import fused_deconv, fused_mu, projection
+    """``(owner, attribute)`` of every count that counts executions: each
+    kernel wrapper's launches and the line search's attempts."""
+    from . import fused_deconv, fused_mu, projection, solver
 
     return ((fused_mu.fused_contractions, "launches"),
             (fused_mu.fused_contractions, "launches_bf16"),
@@ -48,16 +96,80 @@ def _kernel_counters():
             (fused_deconv.hgrad, "launches"),
             (fused_deconv.hgrad, "launches_gemm"),
             (fused_deconv.wgrad, "launches"),
-            (projection.proj_rows, "launches"))
+            (projection.proj_rows, "launches"),
+            (solver._backtrack_project, "attempts"))
 
 
 def _read_counters():
-    return [getattr(fn, attr) for fn, attr in _kernel_counters()]
+    """The counts as they stand on the host (nothing settled)."""
+    return [vars(fn)[attr] for fn, attr in _kernel_counters()]
 
 
 def _add_counters(delta):
     for (fn, attr), d in zip(_kernel_counters(), delta):
-        setattr(fn, attr, getattr(fn, attr) + d)
+        vars(fn)[attr] += d
+
+
+# what the conditional bodies of finished fits' replays counted on the
+# card: (pinned host copy of the count, its event, the counts' increase an
+# execution), added in by the next read of a count that allows it
+_PENDING = []
+_PENDING_LOCK = threading.Lock()
+
+
+def _settle():
+    """Adds every finished fit's bodies' executions into the counts: one
+    host read of each fit's count, waiting for its copy."""
+    with _PENDING_LOCK:
+        pending = list(_PENDING)
+        _PENDING.clear()
+    for count, done, delta in pending:
+        done.synchronize()
+        _add_counters([int(count) * d for d in delta])
+
+
+def _host_read(flag: torch.Tensor) -> bool:
+    """``bool(flag)``, allowed where the sync debug mode raises."""
+    if not flag.is_cuda or torch.cuda.get_sync_debug_mode() == 0:
+        return bool(flag)
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():  # "a prototype feature"
+        warnings.simplefilter("ignore", UserWarning)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return bool(flag)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+# the instance whose workload is being captured
+_CAPTURING = threading.local()
+
+
+def _device_while(flag: torch.Tensor, body) -> int:
+    """Runs ``body()`` while the 0-d bool tensor ``flag`` is true; ``body``
+    updates ``flag`` in place.  Eagerly (on the CPU, or a CUDA workload not
+    being captured) it reads ``flag`` on the host before each run and
+    returns the number of reads.  Inside the capture of a :class:`_Graphs`
+    made with ``conditional=True``, ``body``'s work becomes a WHILE node
+    that the card runs from ``flag`` at each replay, and it returns 0.
+    ``body`` updates tensors made before it in place; what it allocates
+    lives in the instance's bodies' pool.  Every body of one workload must
+    launch the same kernels, and only kernels whose counts allow counting
+    on the card."""
+    if not (flag.is_cuda and torch.cuda.is_current_stream_capturing()):
+        reads = 1
+        while _host_read(flag):
+            body()
+            reads += 1
+        return reads
+    g = getattr(_CAPTURING, "graphs", None)
+    if g is None or g.cond is None:
+        raise RuntimeError(
+            "a device loop is captured only in a workload of a _Graphs made "
+            "with conditional=True")
+    g._capture_while(flag, body)
+    return 0
 
 
 class _strict_sync:
@@ -74,21 +186,88 @@ class _strict_sync:
         torch.cuda.set_sync_debug_mode(self.mode)
 
 
+class _Bodies:
+    """What one instance's device loops share on ``device``: the
+    library of ``csrc/graph_cond.cu``, a stream of their own for the
+    bodies' captures, a memory pool for what they allocate, the count of
+    body executions on the card and the counts' increase an execution
+    (``delta``, from the first body captured)."""
+
+    def __init__(self, device: torch.device):
+        from ._build import load_library
+
+        for name in ("MemPool", "use_mem_pool", "ExternalStream"):
+            if not hasattr(torch.cuda, name):
+                raise RuntimeError(f"device loops need torch.cuda."
+                                   f"{name}, which this PyTorch lacks")
+        self.lib = load_library("graph_cond")
+        raw = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            _check(self.lib.pnt_stream_create(ctypes.byref(raw)),
+                   "creating the bodies' stream")
+        self.raw = raw.value
+        self.stream = torch.cuda.ExternalStream(self.raw, device=device)
+        self.pool = torch.cuda.MemPool()
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self.delta = None
+
+    def take(self, delta):
+        """Checks a captured body's counts' increase: the first body's, and
+        only counts that allow counting on the card."""
+        if self.delta is None:
+            for (fn, attr), d in zip(_kernel_counters(), delta):
+                if d and attr not in getattr(fn, "_on_card", ()):
+                    raise RuntimeError(
+                        f"a device loop's body moved {attr} of "
+                        f"{getattr(fn, '__name__', fn)}, which counts only on "
+                        f"the host")
+            self.delta = delta
+        elif delta != self.delta:
+            raise RuntimeError("the device loops' bodies of one workload "
+                               "launch different kernels")
+
+    def close(self):
+        """Hands the bodies' executions to :func:`_settle` (a copy to pinned
+        host memory, no wait) and frees the stream; call it once the graphs
+        are gone."""
+        if self.delta is not None:
+            host = torch.empty((), dtype=torch.int64, pin_memory=True)
+            host.copy_(self.count, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            with _PENDING_LOCK:
+                _PENDING.append((host, done, self.delta))
+        self.stream = self.pool = self.count = None
+        _check(self.lib.pnt_stream_destroy(self.raw), "freeing the bodies' stream")
+
+
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"device loop: {what} failed: CUDA error {err}")
+
+
 class _Graphs:
     """Workloads that update tensors in place, ``fns[k]()``, as CUDA graphs
     on a CUDA device and called directly on the CPU (module docstring).
     ``replays`` counts the graph replays of every instance and
-    ``capture_s`` the host seconds their captures took."""
+    ``capture_s`` the host seconds their captures took.  With
+    ``conditional`` (own warm-ups only) a workload may hold
+    :func:`_device_while`; :meth:`close` then frees its graphs and the
+    loops' bodies."""
 
     replays = 0
     capture_s = 0.0
 
-    def __init__(self, fns, state, device: torch.device, message: str):
+    def __init__(self, fns, state, device: torch.device, message: str,
+                 conditional: bool = False):
         self.fns = fns
         self.message = message
-        self.graphs = self.deltas = None
+        self.graphs = self.deltas = self.cond = None
+        self.conditional = conditional
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"no compiled step for device {device}")
+        if conditional and state is not None:
+            raise ValueError("device loops need own warm-ups")
         if device.type != "cuda":
             return
         self.device = device
@@ -152,6 +331,7 @@ class _Graphs:
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         g = torch.cuda.CUDAGraph()
         torch._C._cuda_clearCublasWorkspaces()
+        _CAPTURING.graphs = self
         try:
             with torch.cuda.stream(self.stream):
                 g.capture_begin()
@@ -162,9 +342,33 @@ class _Graphs:
         except RuntimeError as e:
             raise RuntimeError(self.message) from e
         finally:
+            _CAPTURING.graphs = None
             torch._C._cuda_clearCublasWorkspaces()
         _Graphs.capture_s += time.perf_counter() - t0
         return g
+
+    def _capture_while(self, flag, body):
+        """:func:`_device_while` under this instance's capture: ``body`` as
+        a WHILE node on ``flag``, captured on the bodies' stream into their
+        pool, adding one to their count each run."""
+        if flag.dtype != torch.bool or flag.dim() != 0:
+            raise ValueError("a device loop takes a 0-d bool tensor")
+        c = self.cond
+        stream = torch.cuda.current_stream(self.device)
+        before = _read_counters()
+        handle = ctypes.c_ulonglong()
+        _check(c.lib.pnt_while_begin(stream.cuda_stream, flag.data_ptr(), c.raw,
+                                     ctypes.byref(handle)),
+               "opening a WHILE node")
+        try:
+            with torch.cuda.stream(c.stream), torch.cuda.use_mem_pool(c.pool):
+                body()
+                c.count.add_(1)
+        finally:
+            _check(c.lib.pnt_while_end(c.raw, handle, flag.data_ptr()),
+                   "closing a WHILE node")
+        c.take([a - b for a, b in zip(_read_counters(), before)])
+        self.bodies += 1
 
     def capture(self, k: int = 0):
         """Own warm-ups: captures ``fns[k]`` after its two warm-up runs, if
@@ -175,11 +379,16 @@ class _Graphs:
             return
         if self.runs[k] < 2:
             raise RuntimeError("a workload is captured after two warm-ups")
+        if self.conditional and self.cond is None:
+            self.cond = _Bodies(self.device)
         before = _read_counters()
+        self.bodies = 0
         self.graphs[k] = self._capture(self.fns[k])
-        after = _read_counters()
-        self.deltas[k] = [a - b for a, b in zip(after, before)]
-        _add_counters([-d for d in self.deltas[k]])
+        captured = [a - b for a, b in zip(_read_counters(), before)]
+        # the bodies' launches are counted on the card, the rest at replay
+        body = self.cond.delta if self.bodies else [0] * len(captured)
+        self.deltas[k] = [d - self.bodies * b for d, b in zip(captured, body)]
+        _add_counters([-d for d in captured])
 
     def __call__(self, k: int = 0):
         if self.graphs is None:
@@ -194,3 +403,10 @@ class _Graphs:
         _Graphs.replays += 1
         if self.deltas is not None:
             _add_counters(self.deltas[k])
+
+    def close(self):
+        """Frees the graphs, then the loops' pool and stream."""
+        self.graphs = None
+        c, self.cond = self.cond, None
+        if c is not None:
+            c.close()

@@ -15,8 +15,10 @@ columns are not copied) and reads nothing back to the host, so a projection
 can be captured in a CUDA graph.  :func:`_plan` picks its regime from the
 column's length: the column held in one CTA's shared memory, or in a
 thread-block cluster's, or (longer still) streamed from HBM every round.
-Launches are counted in ``proj_rows.launches``.  A float32 or float64 tensor
-is taken; another dtype on the card raises, and so does a failed launch.
+Launches are counted in ``proj_rows.launches`` (inside a replayed CUDA-graph
+conditional body, on the card: :class:`~.graphs._Counted`).  A float32 or
+float64 tensor is taken; another dtype on the card raises, and so does a
+failed launch.
 
 On a CPU tensor the plain PyTorch version runs (:func:`plain_proj_rows`):
 the columns are the rows of one ``(R, N)`` tensor, each with its own
@@ -40,6 +42,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from .graphs import _Counted
 
 __all__ = ["hoyer_l1_target", "proj_func", "proj_rows", "plain_proj_rows",
            "proj_columns", "proj_columns_explicit"]
@@ -245,7 +249,7 @@ def _kernel(x: torch.Tensor, axis: int, k1: torch.Tensor, k2: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"hoyer_proj kernel launch failed ({plan}): CUDA "
                            f"error {err}")
-    proj_rows.launches += 1
+    proj_rows.add("launches")
     return v
 
 
@@ -270,8 +274,7 @@ def proj_rows(s: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor):
     return _project(s, 0, k1, k2)
 
 
-proj_rows.reads = 0
-proj_rows.launches = 0
+proj_rows = _Counted(proj_rows, on_card=("launches",), reads=0, launches=0)
 
 
 def proj_func(s: torch.Tensor, k1, k2) -> torch.Tensor:

@@ -22,8 +22,13 @@ in-place workload (:class:`~.graphs._Graphs`): on a CUDA device chunks 1-2
 run eagerly, the second with synchronizing operations raising, and from
 chunk 3 on the fit replays a CUDA graph of the chunk, captured once per
 fit and freed when it returns; on the CPU the same workload is called
-directly.  A chunk that cannot be captured raises.  The other fits (sparse,
-Hoyer, batched; the sharded ones of :mod:`..parallel`) run the eager loop.
+directly.  A chunk that cannot be captured raises.  The Hoyer fit on a
+dense target (:func:`get_hoyer_fit`, and so the batched Hoyer fit, one
+problem at a time) runs its chunks the same way, with no stop test, its
+line search's attempts 2-10 a loop that a replayed chunk runs on the card
+(a CUDA-graph WHILE node, :func:`~.graphs._device_while`).  The other fits
+(sparse, the sparse-target Hoyer fit, batched; the sharded ones of
+:mod:`..parallel`) run the eager loop.
 """
 
 import contextlib
@@ -36,7 +41,7 @@ import torch
 from ..constants import eps
 from ..metrics import beta_div, kl_div
 from . import sparse as _sparse
-from .graphs import _Graphs
+from .graphs import _Counted, _device_while, _Graphs
 from .mu import (gamma_from_beta, kl_pos_H, kl_pos_W, mu_multiplier, mu_update,
                  renorm)
 from .projection import hoyer_l1_target, proj_columns, proj_columns_explicit
@@ -584,25 +589,41 @@ def _backtrack_project(loss_baseline, loss_of_new, p, grad, stepsize,
     ``(L1_scale·norm_j, norm_j²)``; halve the step until the new loss is no
     worse, at most 10 attempts; keep the last candidate even if it failed,
     halve the step once more when the 10th attempt failed, then grow it by
-    1.2.  Each attempt reads one comparison on the host, counted in
-    ``_backtrack_project.reads``.  Returns ``(p_new, step)``."""
-    def attempt(ss):
+    1.2.  ``stepsize`` is a 0-d float32 tensor on ``p``'s device, as the
+    JAX package carries it, and so is the returned step: every product is
+    a float32 one.  Returns ``(p_new, step)``.
+
+    Attempt 1 always runs; attempts 2-10 run in a
+    :func:`~.graphs._device_while` loop on the flag "the last attempt was
+    worse, and fewer than 10 were made", each updating the first attempt's
+    candidate, the flags, the attempt count and the step in place (JAX's
+    ``lax.while_loop``).  Eagerly each test of the flag is one host read,
+    counted in ``_backtrack_project.reads`` (one an attempt); in a captured
+    chunk the card decides and the host reads nothing.
+    ``_backtrack_project.attempts`` counts the attempts run (those of a
+    replayed chunk's loop bodies on the card)."""
+    ss = stepsize.clone()
+    cand = proj_columns(p - ss * grad, L1_scale)
+    _backtrack_project.add("attempts")
+    worse = loss_of_new(cand) > loss_baseline
+    tries = torch.ones((), dtype=torch.int32, device=worse.device)
+    again = worse.clone()
+
+    def retry():
+        ss.mul_(0.5)
         pnew = proj_columns(p - ss * grad, L1_scale)
-        _backtrack_project.reads += 1
-        return pnew, bool(loss_of_new(pnew) > loss_baseline)
+        _backtrack_project.add("attempts")
+        cand.copy_(pnew)
+        worse.copy_(loss_of_new(pnew) > loss_baseline)
+        tries.add_(1)
+        torch.logical_and(worse, tries < 10, out=again)
 
-    pnew, worse = attempt(stepsize)
-    tries = 1
-    while worse and tries < 10:
-        stepsize *= 0.5
-        pnew, worse = attempt(stepsize)
-        tries += 1
-    if worse:
-        stepsize *= 0.5
-    return pnew, _f32(stepsize * 1.2)
+    _backtrack_project.reads += _device_while(again, retry)
+    return cand, torch.where(worse, ss * 0.5, ss) * 1.2
 
 
-_backtrack_project.reads = 0
+_backtrack_project = _Counted(_backtrack_project, on_card=("attempts",),
+                              reads=0, attempts=0)
 
 
 def _value_and_grad(f, x):
@@ -612,6 +633,59 @@ def _value_and_grad(f, x):
         val = f(x)
         (g,) = torch.autograd.grad(val, x)
     return val.detach(), g
+
+
+def _hoyer_loop(one_iter, loss_of, state, max_iter, report):
+    """The Hoyer fit's eager loop: ``max_iter`` calls of ``one_iter(*state)
+    -> state``; when reporting, ``loss_of(state)`` read after every 10th."""
+    for i in range(1, max_iter + 1):
+        state = one_iter(*state)
+        if report is not None and i % 10 == 0:
+            report(i // 10, _read(loss_of(state)))
+    return state
+
+
+def _graphed_hoyer_loop(one_iter, loss_of, state0, max_iter, report):
+    """:func:`_hoyer_loop` with each 10-iteration chunk one in-place
+    workload of :class:`~.graphs._Graphs` with device loops (own
+    warm-ups: chunks 1-2 eager, the capture right after chunk 2 is enqueued
+    when a third chunk follows, then graph replays on a CUDA device; called
+    directly on the CPU): ten iterations from static state tensors (the
+    factors and the two step sizes), and when reporting the loss into a
+    static 0-d tensor, read once a chunk.  No stop test: every chunk runs.
+    The ``max_iter % 10`` remainder runs eagerly.  The same operations as
+    :func:`_hoyer_loop`, so the same results bit for bit."""
+    n_chunks, rem = divmod(max_iter, 10)
+    state = state0
+    if n_chunks:
+        st = tuple(x.clone() for x in state0)
+        last = (torch.empty((), dtype=st[0].dtype, device=st[0].device)
+                if report is not None else None)
+
+        def chunk():
+            s = st
+            for _ in range(10):
+                s = one_iter(*s)
+            if last is not None:
+                last.copy_(loss_of(s))
+            for dst, x in zip(st, s):
+                dst.copy_(x)
+
+        graphs = _Graphs([chunk], None, st[0].device, _CHUNK_NOT_CAPTURABLE,
+                         conditional=True)
+        try:
+            for k in range(1, n_chunks + 1):
+                graphs()
+                if k == 2 < n_chunks:  # the capture's host time overlaps chunk 2
+                    graphs.capture()
+                if report is not None:
+                    report(k, _read(last))
+        finally:
+            graphs.close()
+        state = st
+    for _ in range(rem):
+        state = one_iter(*state)
+    return state
 
 
 def get_hoyer_fit(
@@ -626,6 +700,7 @@ def get_hoyer_fit(
     W_col_dim: int,
     H_col_dim: int,
     verbose: bool = False,
+    _graph: bool = True,
 ):
     """Returns ``fit(V, W, H) -> (W, H, n_iter)``: Hoyer'04 sparseness-
     constrained fitting, exactly ``max_iter`` iterations (no tolerance
@@ -639,9 +714,16 @@ def get_hoyer_fit(
     backtracking projection (:func:`_backtrack_project`); an unconstrained
     one takes the generic MU step (``_default_updaters`` on a dense target,
     ``_sp_factor_update`` on a sparse one).  Whenever H is trainable the
-    pair is renormed onto unit-norm H (reference nmf.py:585)."""
+    pair is renormed onto unit-norm H (reference nmf.py:585).  The step
+    sizes start at 1 as 0-d float32 tensors on V's device.
+
+    A dense target's fit runs its chunks through
+    :func:`_graphed_hoyer_loop` (``_graph=False``, private: the eager
+    reference of the card's checks, runs :func:`_hoyer_loop`); a sparse
+    target's runs :func:`_hoyer_loop`."""
     gamma = gamma_from_beta(beta)
     sparse = pos_neg is not None
+    loop = _hoyer_loop if sparse or not _graph else _graphed_hoyer_loop
     L1a = hoyer_l1_target(W_col_dim, sW) if sW is not None else None
     L1s = hoyer_l1_target(H_col_dim, sH) if sH is not None else None
     if not sparse:
@@ -699,12 +781,13 @@ def get_hoyer_fit(
                 w, h = renorm(w, h, "H")
             return w, h, ssW, ssH
 
-        state = (W, H, 1.0, 1.0)
+        def loss_of(state):
+            return torch.sqrt(2.0 * loss(*state[:2]))
+
+        one = torch.ones((), dtype=torch.float32, device=V.device)
         with _progress(verbose, max_iter) as report:
-            for i in range(1, max_iter + 1):
-                state = one_iter(*state)
-                if report is not None and i % 10 == 0:
-                    report(i // 10, float(torch.sqrt(2.0 * loss(*state[:2]))))
+            state = loop(one_iter, loss_of, (W, H, one, one.clone()),
+                         max_iter, report)
         return state[0], state[1], max_iter
 
     return fit

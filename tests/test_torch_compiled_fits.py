@@ -17,7 +17,8 @@ CPU tests:
   calls in the same order, the same host reads; no host read inside a
   chunk (a ``TorchFunctionMode`` that raises on ``.item()``, ``bool()``,
   ``float()`` and host-data tensor factories);
-* the sharded, sparse, Hoyer and batched fits never build a graph.
+* the sharded, sparse, sparse-target Hoyer and batched fits never build a
+  graph; the dense Hoyer fit does (``tests/test_torch_compiled_hoyer.py``).
 
 CUDA tests (marked ``cuda``; skipped without a card) hold graphed fits
 against eager ones on the card: the same ``n_iter``, factors within 1e-6,
@@ -389,9 +390,11 @@ def test_sharded_sparse_hoyer_and_batched_fits_stay_eager(monkeypatch):
                                     True, 0.0, 0.0, False, tier,
                                     NMF.reconstruct)
         assert fit(Vs.coalesce(), W, H)[2] == 30
-    hoyer = solver.get_hoyer_fit(NMF.reconstruct, None, 2.0, 20, True, True,
-                                 0.5, None, W.shape[0], H.shape[0])
-    assert hoyer(V, W, H)[2] == 20
+    # the sparse-target Hoyer fit stays eager (the dense one is graphed:
+    # tests/test_torch_compiled_hoyer.py)
+    hoyer = solver.get_hoyer_fit(None, sparse.nmf_sp_pos_neg, 2.0, 20, True,
+                                 True, 0.5, None, W.shape[0], H.shape[0])
+    assert hoyer(Vs.coalesce(), W, H)[2] == 20
     bat = solver.get_batched_dense_fit(NMF.reconstruct, 1.0, 0.0, 30, True,
                                        True, 0.0, 0.0)
     assert bat(V[None], W[None], H[None])[2].tolist() == [30]
@@ -401,6 +404,18 @@ def test_sharded_sparse_hoyer_and_batched_fits_stay_eager(monkeypatch):
     one = Vp.new_ones(())
     assert batp(Vp[None], Wp[None], Hp[None], Zp[None], one, one,
                 one)[3].tolist() == [29]
+    # the dense Hoyer fit goes through _Graphs, with device loops
+    made = []
+
+    class Recording(graphs._Graphs):
+        def __init__(self, *args, **kwargs):
+            made.append(kwargs.get("conditional"))
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(solver, "_Graphs", Recording)
+    dense = solver.get_hoyer_fit(NMF.reconstruct, None, 2.0, 20, True, True,
+                                 0.5, None, W.shape[0], H.shape[0])
+    assert dense(V, W, H)[2] == 20 and made == [True]
 
 
 @pytest.mark.parametrize("key", ["NMF", "NMFD", "PLCA", "SIPLCA"])
