@@ -38,20 +38,28 @@ Drives the port's paths at full width, each in phases:
   both ways, the replayed chunks' against their device time, the idle
   shares, the WHILE nodes' own kernels, the capture's host ms, attempts an
   iteration, host reads and the peak memory both ways; and
-  ``nmf_hoyer_fit_batched`` over 16 problems of 1025×400 rank 16 (each
-  its own graph) against its eager single fits;
+  ``nmf_hoyer_fit_batched`` over 16 problems of 1025×400 rank 16, one
+  batched program (one capture; every projection of the batch one P1
+  launch; each problem's line search its own, all in one WHILE node)
+  against ``_graph=False`` bit for bit and its 16 eager single fits;
 * the functional API: ``nmf_fit`` (5168×1025, β=0.5) and ``nmfd_fit`` (the
   flagship, β=1) equal ``NMF.fit`` and ``NMFD.fit``, launch for launch;
-  ``nmf_fit_batched`` over 16 problems of 1025×400 rank 16 against their
-  single fits; the ``BetaMu`` optimizer over the bench's chain
-  (``torch.nn.Sequential`` of three ``NMF`` modules, 2048² target, 31
-  steps) and ``SparsityProj`` at 5168×1025 (11 steps), compiled into CUDA
-  graphs (the default ``jit_compile=True``) against eager from the same
-  start: within 1e-5, one replay a ``BetaMu`` step and no host read in its
-  ``run``, one replay and one host read a line-search attempt, a closure
-  that reads the host refused, ms/step both ways and the graph pools'
-  reserved memory; and float64 numpy targets, which warn and fit in
-  float32;
+  ``nmf_fit_batched`` (β ∈ {2, 1}) and ``plca_fit_batched`` over 16
+  problems of 1025×400 rank 16 at a ``tol`` where they stop at different
+  chunks, some in the replays: the chunk a CUDA graph from chunk 3 on,
+  against ``_graph=False`` bit for bit, chunks − 2 replays and one host
+  read a chunk, the replayed chunks against their device time, the MU
+  fits against their single fits; the ``BetaMu`` optimizer over the
+  bench's chain (``torch.nn.Sequential`` of three ``NMF`` modules, 2048²
+  target, 31 steps) and ``SparsityProj`` at 5168×1025 (11 steps, from a
+  step of 1/L and of 8/L, where it backtracks), compiled into CUDA graphs
+  (the default ``jit_compile=True``) against eager from the same start:
+  within 1e-5, one replay a ``BetaMu`` step and no host read in its
+  ``run``; one replay a ``SparsityProj`` step (its line search a WHILE
+  node) and one host read a ``run``, bit for bit its ``_graph=False``
+  twin; a closure that reads the host refused, ms/step both ways and the
+  graph pools' reserved memory; and float64 numpy targets, which warn and
+  fit in float32;
 * the compiled fits: the single-card dense MU and EM fits replay their
   10-iteration chunk as a CUDA graph from chunk 3 on.  At dense ``NMF``
   5168×1025 R=88 (β ∈ {0.5, 1, 2}), the reference demo's ``NMFD``
@@ -279,6 +287,11 @@ BATCH_ITERS = 50
 CHAIN = ((2048, 256), 128, (512, 256), (2048, 512))
 BETAMU_STEPS = 30
 SPARSITY_STEPS = 10
+# SparsityProj's start steps, in units of 1/‖HᵀH‖₂: the first takes one
+# attempt a step; from the second the line search backtracks; (label,
+# multiple, twins: graphed, _graph=False, jit_compile=False)
+SPARSITY_CASES = (("1/L", 1, ("compiled", "reference", "eager")),
+                  ("8/L", 8, ("compiled", "reference")))
 # streaming: MAIN_SHAPE in blocks of STREAM_ROW_BLOCK rows (6 blocks), and a
 # host-resident 1 GiB target, (M, K, R, row_block)
 STREAM_ROW_BLOCK = 1024
@@ -1741,8 +1754,11 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
     iteration (``torch.profiler``), the idle shares, the WHILE nodes'
     handle-setting kernels' share, the capture's host ms, attempts an
     iteration and the peak device memory above the factors both ways.
-    Then ``nmf_hoyer_fit_batched`` over BATCH's problems (each its own
-    graph) against their eager single fits, bit for bit."""
+    Then ``nmf_hoyer_fit_batched`` over BATCH's problems (one batched
+    program, one capture) against ``_graph=False`` bit for bit (the same
+    rounds, P1 launches one a round plus W's first projection for the
+    whole batch, line-search host reads only in the eager chunks) and the
+    16 eager single fits as the yardstick, timed in turns."""
     from pytorch_nmf_tpu_torch.ops import graphs
 
     solver, P, Graphs = ns.solver, ns.P, graphs._Graphs
@@ -1861,45 +1877,90 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
               f"[{card}]", flush=True)
     del Vn, Wn, Hn, problems
 
-    # the batched Hoyer fit: each problem one graphed single fit
+    hoyer_batched(ns, card, fit_ms)
+
+
+def hoyer_batched(ns, card, fit_ms):
+    """Phase 4, ``nmf_hoyer_fit_batched`` (:func:`hoyer_compiled`'s last
+    part)."""
+    from pytorch_nmf_tpu_torch.ops import graphs
+
+    solver, P, Graphs = ns.solver, ns.P, graphs._Graphs
+    bt = solver._backtrack_project
     B, Mb, Kb, Rb = BATCH
     rs = np.random.RandomState(SEED)
     V = torch.from_numpy(rs.rand(B, Mb, Kb).astype("f") + 0.01).cuda()
     W = torch.from_numpy(rs.rand(B, Kb, Rb).astype("f") + 0.1).cuda()
     H = torch.from_numpy(rs.rand(B, Mb, Rb).astype("f") + 0.1).cuda()
+    bb = solver._batched_backtrack_project
+    eager_batch = solver.get_batched_hoyer_fit(
+        ns.NMF.reconstruct, 2.0, HOYER_BATCH_ITERS, True, True, 0.5, None, Kb,
+        Mb, _graph=False)
     single = solver.get_hoyer_fit(ns.NMF.reconstruct, None, 2.0,
                                   HOYER_BATCH_ITERS, True, True, 0.5, None,
                                   Kb, Mb, _graph=False)
-    fit_ms["hoyer_batched"] = {}
-    for i, how in enumerate(("graphed", "eager", "eager", "graphed")):
-        p0, s0 = Graphs.replays, Graphs.capture_s
-        if how == "graphed":
-            (Wb, Hb, nb), ms = events_ms(lambda: ns.functional.nmf_hoyer_fit_batched(
-                V, W, H, max_iter=HOYER_BATCH_ITERS, sW=0.5))
-            check(nb.tolist() == [HOYER_BATCH_ITERS] * B, f"batched Hoyer: {nb}")
-            out = (Wb, Hb)
-        else:
-            outs, ms = events_ms(lambda: [single(V[b], W[b].clone(), H[b].clone())
-                                          for b in range(B)])
-            out = tuple(torch.stack([o[j] for o in outs]) for j in (0, 1))
+    runs = {"graphed": lambda: ns.functional.nmf_hoyer_fit_batched(
+                V, W, H, max_iter=HOYER_BATCH_ITERS, sW=0.5)[:2],
+            "eager": lambda: eager_batch(V, W, H)[:2],
+            "singles": lambda: [single(V[b], W[b].clone(), H[b].clone())
+                                for b in range(B)]}
+    captures, capture = [0], Graphs._capture
+
+    def counted_capture(self, fn):
+        captures[0] += 1
+        return capture(self, fn)
+
+    rec = fit_ms["hoyer_batched"] = {}
+    outs = {}
+    for how in ("graphed", "eager", "singles", "singles", "eager", "graphed"):
+        p0, s0, c0 = Graphs.replays, Graphs.capture_s, captures[0]
+        q0, n0, r0, a0 = P.proj_rows.launches, bb.rounds, bb.reads, bt.attempts
+        Graphs._capture = counted_capture
+        try:
+            out, ms = events_ms(runs[how])
+        finally:
+            Graphs._capture = capture
+        if how == "singles":
+            out = tuple(torch.stack([o[j] for o in out]) for j in (0, 1))
+        q, rounds, reads = P.proj_rows.launches - q0, bb.rounds - n0, bb.reads - r0
+        tag = f"batched Hoyer {how}"
         replays = Graphs.replays - p0
-        check(replays == (B * (HOYER_BATCH_ITERS // 10 - 2) if how == "graphed"
-                          else 0), f"batched Hoyer {how}: {replays} replays")
-        check_factors(f"batched Hoyer {how}", *out)
-        rec = fit_ms["hoyer_batched"].setdefault(how, {"ms": [], "capture_ms": []})
-        rec["ms"].append(ms)
-        rec["capture_ms"].append(1e3 * (Graphs.capture_s - s0))
-        if i == 0:
-            graphed_out = out
-        elif i == 1:
-            check(all(torch.equal(a, b) for a, b in zip(graphed_out, out)),
-                  "batched Hoyer: graphed and eager factors differ")
-    t = fit_ms["hoyer_batched"]
+        check(replays == (HOYER_BATCH_ITERS // 10 - 2 if how == "graphed" else 0),
+              f"{tag}: {replays} replays")
+        if how != "singles":
+            check(captures[0] - c0 == (how == "graphed"),
+                  f"{tag}: {captures[0] - c0} captures")
+            # one P1 launch a round and one for W's first projection, for
+            # the whole batch
+            check(q == 1 + rounds, f"{tag}: {q} P1 launches, {rounds} rounds")
+            check(reads == rounds if how == "eager" else 0 < reads < rounds,
+                  f"{tag}: {reads} line-search reads, {rounds} rounds")
+        check_factors(tag, *out)
+        r = rec.setdefault(how, {"ms": [], "capture_ms": [], "p1_launches": q})
+        r["ms"].append(ms)
+        r["capture_ms"].append(1e3 * (Graphs.capture_s - s0))
+        r["rounds" if how != "singles" else "attempts"] = (
+            rounds if how != "singles" else bt.attempts - a0)
+        outs.setdefault(how, out)
+    check(rec["graphed"]["rounds"] == rec["eager"]["rounds"]
+          and rec["graphed"]["p1_launches"] == rec["eager"]["p1_launches"],
+          f"batched Hoyer: graphed {rec['graphed']}, eager {rec['eager']}")
+    check(all(torch.equal(a, b) for a, b in zip(outs["graphed"], outs["eager"])),
+          "batched Hoyer: graphed and eager factors differ")
+    gap = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(outs["graphed"], outs["singles"]))
+    rec["gap_to_singles"] = gap
+    t = rec
     print(f"phase 4: nmf_hoyer_fit_batched {B}x{Mb}x{Kb} R={Rb} sW=0.5, "
-          f"{HOYER_BATCH_ITERS} iterations, each problem its own graph (one "
-          f"replay each): batch {t['graphed']['ms']} ms, its {B} captures "
-          f"{t['graphed']['capture_ms']} ms (host); {B} eager single fits "
-          f"{t['eager']['ms']} ms; equal bit for bit [{card}]", flush=True)
+          f"{HOYER_BATCH_ITERS} iterations, one batched program: graphed "
+          f"{t['graphed']['ms']} ms (one capture, {t['graphed']['capture_ms']} "
+          f"ms of host time; one replay), _graph=False {t['eager']['ms']} ms, "
+          f"equal bit for bit; P1 launches {t['graphed']['p1_launches']} for "
+          f"the batch ({t['graphed']['rounds']} line-search rounds), against "
+          f"{t['singles']['p1_launches']} for the {B} eager single fits "
+          f"({t['singles']['attempts']} attempts), which took "
+          f"{t['singles']['ms']} ms; factors within {gap:.3g} of theirs "
+          f"[{card}]", flush=True)
 
 
 def hoyer_fits(ns, ctr, card, fit_ms, p1):
@@ -2179,44 +2240,185 @@ def functional_fits(ns, ctr, card):
     return launches
 
 
-def batched_fits(ns, ctr, card, fit_ms):
-    """Phase 3, ``nmf_fit_batched``: BATCH problems at β ∈ {2, 1}, tol 1e-4,
-    each problem's final loss within 1e-4 relative of its single fit through
-    the generic engine (the same ``n_iter``, or the cases that differ
-    printed); no kernel runs.  Both timed."""
-    fn, solver, beta_div = ns.functional, ns.solver, ns.beta_div
+def batched_problem(plca=False):
+    """BATCH's problems (numpy seed SEED): each V a mix of a rank-R product
+    and uniform noise, the product's share rising from 0 to 1 across the
+    batch, so the problems converge at different rates and one ``tol``
+    stops them at different chunks; W and H ``rand + 0.1`` (PLCA: W and H
+    normalized, Z uniform).  On the card."""
     B, M, K, R = BATCH
     rs = np.random.RandomState(SEED)
-    V = torch.from_numpy(rs.rand(B, M, K).astype("f") + 0.01).cuda()
-    W = torch.from_numpy(rs.rand(B, K, R).astype("f") + 0.1).cuda()
-    H = torch.from_numpy(rs.rand(B, M, R).astype("f") + 0.1).cuda()
+    noise = rs.rand(B, M, K).astype("f")
+    low = np.einsum("bmr,bkr->bmk", rs.rand(B, M, R).astype("f"),
+                    rs.rand(B, K, R).astype("f")) / R
+    share = np.linspace(0, 1, B).astype("f")[:, None, None]
+    V = share * low + (1 - share) * noise + 0.01
+    W = rs.rand(B, K, R).astype("f") + 0.1
+    H = rs.rand(B, M, R).astype("f") + 0.1
+    out = [V, W, H]
+    if plca:
+        out = [V, W / W.sum(1, keepdims=True), H / H.sum(1, keepdims=True),
+               np.full((B, R), 1.0 / R, "f")]
+    return [torch.from_numpy(np.ascontiguousarray(x, "f")).cuda() for x in out]
+
+
+def stagger_tol(losses):
+    """``(tol, stops)``: from each problem's loss before a fit and after
+    each chunk, ``(chunks + 1, B)``, the ``tol`` between two of their
+    relative decreases at which the most distinct chunks of stopping occur,
+    one of them 3 or later (the replays), the farthest from every decrease
+    among those; ``stops[b]`` the chunk problem ``b`` stops at, 0 for
+    none."""
+    d = -np.diff(losses, axis=0) / losses[0]
+    vals = np.sort(d[1:].ravel())
+    best = None
+    for tol in np.sqrt(vals[1:] * vals[:-1]):
+        below = d < tol
+        stops = np.where(below.any(0), below.argmax(0) + 1, 0).tolist()
+        margin = float(np.min(np.maximum(d / tol, tol / d)))
+        score = (len(set(stops)), margin)
+        if max(stops) >= 3 and (best is None or score > best[0]):
+            best = (score, float(tol), stops)
+    check(best is not None and best[0][0] > 1,
+          f"batched: no tol stops the problems at different chunks: {d}")
+    return best[1], best[2]
+
+
+def batched_fits(ns, ctr, card, fit_ms):
+    """Phases 3 and 4, the batched MU and EM fits' compiled chunk.
+    ``nmf_fit_batched`` at β ∈ {2, 1} and ``plca_fit_batched`` at BATCH
+    (:func:`batched_problem`): the ``tol`` (:func:`stagger_tol`) read from
+    the eager loop's per-problem losses after each chunk, so the problems
+    stop at different chunks, some in the replays; through ``functional``
+    (graphed, the user's entry point) and the solver with ``_graph=False``
+    (eager) in turns (graphed, eager, eager, graphed): factors and
+    ``n_iter`` equal bit for bit, each problem's ``n_iter`` the stagger's,
+    chunks − 2 replays, one host read a chunk; ms per batched iteration
+    both ways, the replayed chunks' (CUDA events around the replays)
+    against their device time (``torch.profiler``), the capture's host ms.
+    The MU fits' problems also end within RTOL (final loss) of their single
+    fits through the generic engine (the same ``n_iter``, or the cases that
+    differ printed).  No kernel runs."""
+    from pytorch_nmf_tpu_torch.ops import graphs
+    from torch.func import vmap
+
+    fn, solver, beta_div, Graphs = ns.functional, ns.solver, ns.beta_div, graphs._Graphs
+    B, M, K, R = BATCH
+    chunks = BATCH_ITERS // 10
+    one = torch.ones((), device="cuda")
     zero(ctr)
-    for beta in (2, 1):
-        (Wb, Hb, nb), ms = events_ms(lambda: fn.nmf_fit_batched(
-            V, W, H, beta=beta, tol=1e-4, max_iter=BATCH_ITERS))
-        check_factors(f"batched beta={beta}", Wb, Hb)
-        single = solver.get_dense_fit(ns.NMF.reconstruct, float(beta), 1e-4,
-                                      BATCH_ITERS, True, True, 0.0, 0.0, False,
-                                      ns.nmf_updater_factory_generic)
-        outs, sms = events_ms(lambda: [single(V[b], W[b].clone(), H[b].clone())
-                                       for b in range(B)])
-        rels, differ = [], []
-        for b, (w, h, n) in enumerate(outs):
-            lb = float(beta_div(ns.NMF.reconstruct(Hb[b], Wb[b]), V[b], beta))
-            ls = float(beta_div(ns.NMF.reconstruct(h, w), V[b], beta))
-            rels.append(abs(lb - ls) / ls)
-            if int(nb[b]) != n:
-                differ.append(f"problem {b}: n_iter {int(nb[b])} vs {n}, "
-                              f"loss ratio {lb / ls:.7g}")
-        check(max(rels) <= RTOL, f"batched beta={beta}: loss rel {max(rels):.3g}")
-        iters = int(nb.max())
-        fit_ms[f"batched_{B}x{M}x{K}_r{R}_beta{beta}"] = {
-            "batch_ms": ms, "singles_ms": sms, "max_n_iter": iters}
-        print(f"phase 3: nmf_fit_batched {B}x{M}x{K} R={R} beta={beta}: n_iter "
-              f"{nb.tolist()}; final losses within {max(rels):.3g} of the single "
-              f"fits; " + ("; ".join(differ) or "the same n_iter") +
-              f"; batch {ms:.1f} ms ({ms / iters:.4f} ms per batched iteration), "
-              f"{B} single fits {sms:.1f} ms [{card}]", flush=True)
+    for case in ("beta=2", "beta=1", "PLCA"):
+        plca = case == "PLCA"
+        arrays = batched_problem(plca)
+        if plca:
+            V, W, H, Z = arrays
+            norm = V.reshape(B, -1).sum(1)
+            Vn = V / norm[:, None, None]
+            loss_b = vmap(lambda vn, w, h, z, n: torch.sqrt(
+                2.0 * ns.kl_div(ns.PLCA.reconstruct(h, w, z) * n, vn * n)))
+
+            def eager(tol, iters):
+                return solver.get_batched_plca_fit(
+                    ns.PLCA.reconstruct, tol, iters, True, True, True, False,
+                    False, False, _graph=False)(V, W, H, Z, one, one, one)
+
+            def graphed(tol):
+                return fn.plca_fit_batched(V, W, H, Z, tol=tol,
+                                           max_iter=BATCH_ITERS)
+
+            def loss_of(out):
+                return loss_b(Vn, *out[:3], norm)
+        else:
+            V, W, H = arrays
+            beta = float(case[5:])
+            div_b = vmap(lambda wh, v, beta=beta: beta_div(wh, v, beta))
+
+            def eager(tol, iters, beta=beta):
+                return solver.get_batched_dense_fit(
+                    ns.NMF.reconstruct, beta, tol, iters, True, True, 0.0,
+                    0.0, ns.nmf_updater_factory_generic, _graph=False)(V, W, H)
+
+            def graphed(tol, beta=beta):
+                return fn.nmf_fit_batched(V, W, H, beta=beta, tol=tol,
+                                          max_iter=BATCH_ITERS)
+
+            def loss_of(out, div_b=div_b):
+                return torch.sqrt(2.0 * div_b(ns.NMF.reconstruct(out[1], out[0]), V))
+
+        losses = [loss_of(arrays[1:])]
+        for c in range(1, chunks + 1):
+            losses.append(loss_of(eager(0.0, 10 * c)))
+        tol, stops = stagger_tol(torch.stack(losses).double().cpu().numpy())
+        want = [10 * s - plca if s else BATCH_ITERS - plca for s in stops]
+        run_chunks = chunks if 0 in stops else max(stops)
+        runs = {"graphed": lambda: graphed(tol),
+                "eager": lambda: eager(tol, BATCH_ITERS)}
+        rec = {"tol": tol, "stops": stops, "ms": {"graphed": [], "eager": []}}
+        outs = {}
+        for how in ("graphed", "eager", "eager", "graphed"):
+            r0, p0, s0 = solver._read.reads, Graphs.replays, Graphs.capture_s
+            marks = replay_marks() if how == "graphed" else None
+            try:
+                out, ms = events_ms(runs[how])
+            finally:
+                if marks is not None:
+                    marks.restore()
+            reads, replays = solver._read.reads - r0, Graphs.replays - p0
+            tag = f"batched {case} {how}"
+            n = out[3] if plca else out[2]
+            check(n.tolist() == want, f"{tag}: n_iter {n.tolist()}, want {want}")
+            check(reads == run_chunks, f"{tag}: {reads} host reads, "
+                  f"{run_chunks} chunks")
+            check(replays == (run_chunks - 2 if how == "graphed" else 0),
+                  f"{tag}: {replays} replays")
+            check_factors(tag, *out[:3 if plca else 2])
+            rec["ms"][how].append(ms)
+            if how == "graphed":
+                rec["capture_ms"] = 1e3 * (Graphs.capture_s - s0)
+                rec["replayed_ms_per_iter"], rec["replay_busy_ms_per_iter"] = \
+                    marks.per_iter()
+            outs.setdefault(how, out)
+        check(all(torch.equal(a, b) for a, b in zip(outs["graphed"],
+                                                    outs["eager"])),
+              f"batched {case}: graphed and eager differ")
+        iters = 10 * run_chunks + (BATCH_ITERS % 10 if 0 in stops else 0)
+        _, _, rec["replay_device_ms_per_iter"] = hoyer_device(
+            runs["graphed"], iters, run_chunks - 2)
+        rec["ms_per_batched_iter"] = {h: [t / iters for t in v]
+                                      for h, v in rec["ms"].items()}
+        differ, rels = [], []
+        if not plca:
+            single = solver.get_dense_fit(ns.NMF.reconstruct, beta, tol,
+                                          BATCH_ITERS, True, True, 0.0, 0.0,
+                                          False, ns.nmf_updater_factory_generic)
+            singles, rec["singles_ms"] = events_ms(
+                lambda: [single(V[b], W[b].clone(), H[b].clone()) for b in range(B)])
+            Wb, Hb, nb = outs["graphed"]
+            for b, (w, h, n) in enumerate(singles):
+                lb = float(beta_div(ns.NMF.reconstruct(Hb[b], Wb[b]), V[b], beta))
+                ls = float(beta_div(ns.NMF.reconstruct(h, w), V[b], beta))
+                rels.append(abs(lb - ls) / ls)
+                if int(nb[b]) != n:
+                    differ.append(f"problem {b}: n_iter {int(nb[b])} vs {n}, "
+                                  f"loss ratio {lb / ls:.7g}")
+            check(max(rels) <= RTOL, f"batched {case}: loss rel {max(rels):.3g}")
+        fit_ms[f"batched_{B}x{M}x{K}_r{R}_{case.replace('=', '')}"] = rec
+        t = rec["ms_per_batched_iter"]
+        print(f"phase 3: batched {'plca_fit_batched' if plca else 'nmf_fit_batched ' + case} "
+              f"{B}x{M}x{K} R={R}, tol {tol:.4g}: stops at chunks {stops} "
+              f"(n_iter {want}), graphed equal to eager bit for bit; ms per "
+              f"batched iteration graphed {[f'{x:.4f}' for x in t['graphed']]}, "
+              f"eager {[f'{x:.4f}' for x in t['eager']]}; the replayed chunks "
+              f"{rec['replayed_ms_per_iter']:.4f} (inside the replays "
+              f"{rec['replay_busy_ms_per_iter']:.4f}) against their "
+              f"{rec['replay_device_ms_per_iter']:.4f} ms of device time an "
+              f"iteration; capture {rec['capture_ms']:.1f} ms (host); replays "
+              f"{run_chunks - 2}, host reads {run_chunks} both ways"
+              + ("" if plca else
+                 f"; final losses within {max(rels):.3g} of the {B} single fits "
+                 f"({rec['singles_ms']:.1f} ms; "
+                 + ("; ".join(differ) or "the same n_iter") + ")")
+              + f" [{card}]", flush=True)
     check(not any(read(ctr).values()), f"the batched fits launched {read(ctr)}")
 
 
@@ -2312,14 +2514,20 @@ def trainer_steps(ns, ctr, card, fit_ms, p1):
     the divergence falls, every ``.grad`` set.  A closure that reads the
     host raises, naming ``jit_compile=False``, and leaves the parameters as
     they were.  ``SparsityProj`` with sparsity 0.5 on W of an ``NMF`` at
-    MAIN_SHAPE, a first step then SPARSITY_STEPS steps, both ways from the
-    same start and float32 step size: W and the loss within COMPILED_RTOL,
-    the same step size, one host read per line-search attempt (the eager
-    twin's attempts, from its closure calls), the loss falls, W's columns
-    at sparseness 0.5.  Prints ms/step both ways (CUDA events), replays and
-    host reads per step, and the card's reserved memory before, with the
-    compiled entries cached, and after the optimizers and the phase's
-    tensors are dropped, when their graphs must be gone too.  Neither runs
+    MAIN_SHAPE, a first step then SPARSITY_STEPS steps by ``run``, from the
+    same start at each of SPARSITY_CASES' step sizes: compiled (one replay a
+    step, the line search a CUDA-graph WHILE node, no closure call and no
+    eager loop read in the run, one host read for the whole run: the step
+    size) against ``_graph=False`` (the same step called eagerly, one host
+    read an attempt) bit for bit: W, loss, float32 step size; at 1/L
+    against ``jit_compile=False`` too (W and the loss within COMPILED_RTOL,
+    the same step size), the loss falls, W's columns at sparseness 0.5; at
+    8/L the line search backtracks (more than one attempt a step on
+    average, from the eager twin's closure calls).  Prints ms/step each way
+    (CUDA events), replays and host reads, and the card's reserved memory
+    before, with the compiled entries cached, and after the optimizers and
+    the phase's tensors are dropped, when their graphs must be gone too.
+    Neither runs
     B1-B4 (checked; the MU start of SparsityProj is β=2: Gram updates);
     SparsityProj
     projects with P1, whose launches go into ``p1["optimizers"]`` (counted
@@ -2439,71 +2647,113 @@ def trainer_steps(ns, ctr, card, fit_ms, p1):
                  "H": m.H.detach().cpu().numpy()}
         H = m.H.detach()
         lr = float(np.float32(1.0 / float(torch.linalg.matrix_norm(H.T @ H, 2))))
-    models = {how: ns.nmf_from_numpy(start, "cuda") for how in ("compiled", "eager")}
-    res, losses, lrs = {}, {}, {}
-    for how, m in models.items():
-        sp = ns.SparsityProj([{"params": [m.W], "lr": lr}], 0.5,
-                             jit_compile=how == "compiled")
-        calls = [0]
+    sp_fits = {}
+    for label, lr0, hows in SPARSITY_CASES:
+        lr0 = float(np.float32(lr0 * lr))
+        models = {how: ns.nmf_from_numpy(start, "cuda") for how in hows}
+        res, losses, lrs = {}, {}, {}
+        for how, m in models.items():
+            sp = ns.SparsityProj([{"params": [m.W], "lr": lr0}], 0.5,
+                                 jit_compile=how != "eager",
+                                 _graph=how == "compiled")
+            calls = [0]
 
-        def closure(m=m, calls=calls):
-            calls[0] += 1
-            return ns.beta_div(m(), V, 2)
+            def closure(m=m, calls=calls):
+                calls[0] += 1
+                return ns.beta_div(m(), V, 2)
 
-        losses[how] = [float(closure().detach())]
-        _, first = events_ms(lambda: sp.step(closure))
-        c0, r0, rp0 = calls[0], T._read_worse.reads, T._Graphs.replays
-        _, ms = events_ms(lambda: sp.run(closure, SPARSITY_STEPS))
-        attempts = (calls[0] - c0 - SPARSITY_STEPS if how == "eager"
-                    else T._read_worse.reads - r0)
-        res[how] = dict(first_ms=first, ms_per_step=ms / SPARSITY_STEPS,
-                        attempts_per_step=attempts / SPARSITY_STEPS,
-                        host_reads_per_step=attempts / SPARSITY_STEPS,
-                        replays_per_step=(T._Graphs.replays - rp0) / SPARSITY_STEPS)
-        losses[how].append(float(closure().detach()))
-        lrs[how] = sp.param_groups[0]["lr"]
-        pools += [weakref.ref(e["graphs"]) for e in sp._step_cache.values()]
-    check(res["compiled"]["replays_per_step"] == res["compiled"]["attempts_per_step"]
-          == res["eager"]["attempts_per_step"] and res["eager"]["replays_per_step"] == 0,
-          f"SparsityProj: replays and attempts per step {res}")
-    Wc, We = models["compiled"].W.detach(), models["eager"].W.detach()
-    gap = rel(Wc, We)
-    lgap = abs(losses["compiled"][1] - losses["eager"][1]) / losses["eager"][1]
-    check(gap <= COMPILED_RTOL and lgap <= COMPILED_RTOL
-          and abs(lrs["compiled"] - lrs["eager"]) <= 1e-6 * lrs["eager"],
-          f"SparsityProj: compiled against eager W {gap}, loss {lgap}, step "
-          f"{lrs}")
-    before, after = losses["compiled"]
-    s = col_sparseness(models["compiled"].W)
-    check(after < before, f"SparsityProj: loss {before} -> {after}")
-    check(float((s - 0.5).abs().max()) <= 1e-3,
-          f"SparsityProj: column sparseness {s.tolist()}")
-    check_factors("SparsityProj", Wc)
+            losses[how] = [float(closure().detach())]
+            c0 = calls[0]
+            _, first = events_ms(lambda: sp.step(closure))
+            first_calls = calls[0] - c0
+            c0, r0, rp0 = calls[0], T._read_lrs.reads, T._Graphs.replays
+            s0 = T._line_search.reads
+            _, ms = events_ms(lambda: sp.run(closure, SPARSITY_STEPS))
+            # an eager step calls the closure for its gradient and once an
+            # attempt; a replayed one not at all
+            eager = how != "compiled"
+            res[how] = dict(
+                first_ms=first, ms_per_step=ms / SPARSITY_STEPS,
+                attempts_per_step=((calls[0] - c0 - SPARSITY_STEPS)
+                                   / SPARSITY_STEPS if eager else None),
+                first_step_attempts=first_calls - 1 if eager else None,
+                run_host_reads=T._read_lrs.reads - r0,
+                loop_host_reads=T._line_search.reads - s0,
+                replays_per_step=(T._Graphs.replays - rp0) / SPARSITY_STEPS)
+            check(eager or calls[0] == c0, f"SparsityProj {label}: a replayed "
+                  f"step called the closure on the host")
+            losses[how].append(float(closure().detach()))
+            lrs[how] = sp.param_groups[0]["lr"]
+            pools += [weakref.ref(e["graphs"]) for e in sp._step_cache.values()
+                      if isinstance(e["graphs"], T._Graphs)]
+        c, r = res["compiled"], res["reference"]
+        check(c["replays_per_step"] == 1 and c["run_host_reads"] == 1
+              and c["loop_host_reads"] == 0 and r["replays_per_step"] == 0
+              and r["run_host_reads"] == 1
+              and r["loop_host_reads"] == r["attempts_per_step"] * SPARSITY_STEPS,
+              f"SparsityProj {label}: replays and host reads {res}")
+        Wc, Wr = models["compiled"].W.detach(), models["reference"].W.detach()
+        check(torch.equal(Wc, Wr) and lrs["compiled"] == lrs["reference"]
+              and losses["compiled"] == losses["reference"],
+              f"SparsityProj {label}: graphed and _graph=False differ (step "
+              f"{lrs}, loss {losses})")
+        check_factors(f"SparsityProj {label}", Wc)
+        rec = dict(res, step_size=lrs, losses=losses)
+        if "eager" in models:
+            We = models["eager"].W.detach()
+            gap = rel(Wc, We)
+            lgap = abs(losses["compiled"][1] - losses["eager"][1]) / losses["eager"][1]
+            check(gap <= COMPILED_RTOL and lgap <= COMPILED_RTOL
+                  and abs(lrs["compiled"] - lrs["eager"]) <= 1e-6 * lrs["eager"],
+                  f"SparsityProj {label}: compiled against eager W {gap}, loss "
+                  f"{lgap}, step {lrs}")
+            before, after = losses["compiled"]
+            s = col_sparseness(models["compiled"].W)
+            check(after < before, f"SparsityProj: loss {before} -> {after}")
+            check(float((s - 0.5).abs().max()) <= 1e-3,
+                  f"SparsityProj: column sparseness {s.tolist()}")
+            rec.update(rel_gap=gap, loss_gap=lgap)
+            del We
+            detail = (f"column sparseness {float(s.min()):.6f}.."
+                      f"{float(s.max()):.6f}; ms/step eager (jit_compile=False) "
+                      f"{res['eager']['ms_per_step']:.4f}; compiled against "
+                      f"eager W {gap:.3g}, loss {lgap:.3g}")
+        else:
+            average = ((r["first_step_attempts"] + r["attempts_per_step"]
+                        * SPARSITY_STEPS) / (1 + SPARSITY_STEPS))
+            check(average > 1, f"SparsityProj {label}: {average} attempts a "
+                  f"step, no backtracking")
+            rec["attempts_per_step_all"] = average
+            detail = (f"attempts a step over all {1 + SPARSITY_STEPS} steps "
+                      f"{average:.2f} (first step {r['first_step_attempts']})")
+        sp_fits[label] = rec
+        print(f"phase 3: SparsityProj {M}x{K} R={R} sparsity 0.5 on W, start "
+              f"step {label}: loss {losses['compiled'][0]:.7g} -> "
+              f"{losses['compiled'][1]:.7g} in {1 + SPARSITY_STEPS} steps, step "
+              f"size {lr0:.4g} -> {lrs['compiled']:.4g}; ms/step compiled "
+              f"{c['ms_per_step']:.4f} (first step {c['first_ms']:.1f} ms), "
+              f"_graph=False {r['ms_per_step']:.4f}; attempts/step in the run "
+              f"{r['attempts_per_step']:.2f}; compiled: graph replays/step "
+              f"{c['replays_per_step']:.2f}, host reads in the {SPARSITY_STEPS}-"
+              f"step run {c['run_host_reads']} (eager loop reads "
+              f"{c['loop_host_reads']}; _graph=False {r['loop_host_reads']} and "
+              f"{r['run_host_reads']}); equal to _graph=False bit for bit; "
+              f"{detail} [{card}]", flush=True)
+        del models, sp, m, Wc, Wr
     reserved.append(reserved_now())
-    del sp, models, m, Wc, We, V
+    del V
     gc.collect()
     torch.cuda.empty_cache()
     reserved.append(reserved_now())
-    check(len(pools) == 2 and not any(w() for w in pools),
+    check(len(pools) == 1 + len(SPARSITY_CASES) and not any(w() for w in pools),
           "the compiled optimizers' graphs outlived them")
     p1["optimizers"] = P.proj_rows.launches - p1_start
     check(p1["optimizers"] > 0, "SparsityProj launched no projection kernel")
     check(not any(read(ctr).values()), f"the optimizers launched {read(ctr)}")
-    fit_ms[f"sparsityproj_{M}x{K}_r{R}_s0.5"] = dict(res, rel_gap=gap,
-                                                      loss_gap=lgap)
+    fit_ms[f"sparsityproj_{M}x{K}_r{R}_s0.5"] = sp_fits
     fit_ms["optimizers_memory_reserved_gb"] = [r / 1e9 for r in reserved]
-    print(f"phase 3: SparsityProj {M}x{K} R={R} sparsity 0.5 on W: loss "
-          f"{before:.7g} -> {after:.7g} in {1 + SPARSITY_STEPS} steps, column "
-          f"sparseness {float(s.min()):.6f}..{float(s.max()):.6f}, step size "
-          f"{lr:.4g} -> {lrs['compiled']:.4g}; ms/step compiled "
-          f"{res['compiled']['ms_per_step']:.4f} (first step "
-          f"{res['compiled']['first_ms']:.1f} ms), eager "
-          f"{res['eager']['ms_per_step']:.4f}; line-search attempts (host "
-          f"reads)/step {res['compiled']['attempts_per_step']:.2f}, graph "
-          f"replays/step {res['compiled']['replays_per_step']:.2f}; compiled "
-          f"against eager W {gap:.3g}, loss {lgap:.3g}; P1 launches "
-          f"{p1['optimizers']}; memory reserved (GB) before, after BetaMu, "
-          f"after SparsityProj, released: "
+    print(f"phase 3: the optimizers' P1 launches {p1['optimizers']}; memory "
+          f"reserved (GB) before, after BetaMu, after SparsityProj, released: "
           f"{', '.join(f'{r / 1e9:.3f}' for r in reserved)} [{card}]", flush=True)
 
 
@@ -4164,10 +4414,36 @@ def parallel_phase(ns, card):
     return by_path
 
 
+def namespace():
+    """The port's modules and entry points the phases take, as ``ns``."""
+    from types import SimpleNamespace
+
+    from pytorch_nmf_tpu_torch import functional, trainer
+    from pytorch_nmf_tpu_torch import nmf as models
+    from pytorch_nmf_tpu_torch.metrics import beta_div, kl_div
+    from pytorch_nmf_tpu_torch.nmf import NMF
+    from pytorch_nmf_tpu_torch.ops import fast_nmfd as F
+    from pytorch_nmf_tpu_torch.ops import projection as P
+    from pytorch_nmf_tpu_torch.ops import solver
+    from pytorch_nmf_tpu_torch.ops.fast_nmf import nmf_updater_factory_generic
+    from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA
+    from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
+    from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
+
+    return SimpleNamespace(
+        models=models, NMF=NMF, PLCA=PLCA, SIPLCA=SIPLCA, F=F, P=P,
+        solver=solver, functional=functional, beta_div=beta_div,
+        kl_div=kl_div, plca_from_numpy=plca_from_numpy, BetaMu=BetaMu,
+        SparsityProj=SparsityProj, trainer=trainer,
+        nmf_from_numpy=nmf_from_numpy,
+        nmf_updater_factory_generic=nmf_updater_factory_generic)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script needs an NVIDIA GPU")
+    ns = namespace()
     from pytorch_nmf_tpu_torch import nmf as models
     from pytorch_nmf_tpu_torch.constants import eps
     from pytorch_nmf_tpu_torch.metrics import beta_div, kl_div
@@ -4182,21 +4458,7 @@ def main():
     from pytorch_nmf_tpu_torch.ops.mu import kl_pos_H, kl_pos_W
     from pytorch_nmf_tpu_torch.ops.solver import get_dense_fit
     from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
-    from pytorch_nmf_tpu_torch import functional
     from pytorch_nmf_tpu_torch.ops import projection as P
-    from pytorch_nmf_tpu_torch.ops.fast_nmf import nmf_updater_factory_generic
-    from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA
-    from pytorch_nmf_tpu_torch import trainer
-    from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
-    from types import SimpleNamespace
-
-    ns = SimpleNamespace(
-        models=models, NMF=NMF, PLCA=PLCA, SIPLCA=SIPLCA, F=F, P=P,
-        solver=solver, functional=functional, beta_div=beta_div,
-        kl_div=kl_div, plca_from_numpy=plca_from_numpy, BetaMu=BetaMu,
-        SparsityProj=SparsityProj, trainer=trainer,
-        nmf_from_numpy=nmf_from_numpy,
-        nmf_updater_factory_generic=nmf_updater_factory_generic)
 
     # the earlier paths run the static engine choice, whose launches per
     # iteration they count; the autotuner's phase sets it to 1 for itself

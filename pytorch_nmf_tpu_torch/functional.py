@@ -171,17 +171,23 @@ def plca_fit_batched(V, W, H, Z, model_cls=None, tol=1e-4, max_iter=200,
 def nmf_hoyer_fit_batched(V, W, H, beta=2, max_iter=200, sW=None, sH=None,
                           update_W=True, update_H=True, model_cls=None):
     """Hoyer-fit many problems (dense targets, leading batch axis); returns
-    ``(W, H, n_iter)``, ``n_iter (B,)``.  Each problem's trajectory is the
-    one :func:`nmf_hoyer_fit` gives it alone, through the model's
-    convolution (no hand-written kernel)."""
+    ``(W, H, n_iter)``, ``n_iter (B,)``.  One batched program, as the JAX
+    package's ``vmap`` of the single fit: each problem's line search is its
+    own, so its trajectory is the one :func:`nmf_hoyer_fit` gives it alone
+    (up to the batched sums' rounding).  ``model_cls`` (default ``NMF``)
+    gives the reconstruction, a batched GEMM for ``NMF`` and
+    ``torch.func.vmap`` of the model's otherwise; every projection of the
+    batch is one launch of the projection kernel."""
     model_cls = model_cls or _nmf_models.NMF
     W, H = _factors(W, H)
     V = target_like(V, W, H)
     if V.layout != torch.strided:
         raise NotImplementedError("batched Hoyer fits take dense targets only")
     validate_target(V, beta)
+    nmf = model_cls is _nmf_models.NMF
     fit = get_batched_hoyer_fit(
-        model_cls.reconstruct, float(beta), int(max_iter), bool(update_W),
+        model_cls.reconstruct if nmf else vmap(model_cls.reconstruct),
+        float(beta), int(max_iter), bool(update_W),
         bool(update_H),
         None if sW is None or not update_W else float(sW),
         None if sH is None or not update_H else float(sH),

@@ -12,7 +12,8 @@ with the instance.  Two ways to warm up and capture on the card:
   kernel builds, the deconv tuner's timings, lazy imports) and again with
   synchronizing operations raising, ``state`` (the tensors they update) is
   restored after each run, and each is captured.  The kernels' launch
-  counters tick at warm-up and capture, not at replay.
+  counters tick at warm-up and capture, not at replay (a device loop's
+  body too).
 * **own warm-ups** (``state=None``; the fits): the workload's own first two
   calls are the warm-ups, real work that is kept: the first runs it eagerly
   on the current stream, the second again with synchronizing operations
@@ -28,7 +29,8 @@ the caller's message.  Capture uses ``CUDAGraph.capture_begin`` on the
 side stream directly: it neither synchronizes the card nor empties the
 allocator's cache, as ``torch.cuda.graph`` would.
 
-**Device loops** (``conditional=True``; the Hoyer fit's line search):
+**Device loops** (``conditional=True``; the Hoyer fits' and
+``SparsityProj``'s line searches):
 :func:`_device_while` runs a body while a 0-d bool tensor, which the body
 updates, is true.  Eagerly it reads the flag on the host before each run
 (the only reads it makes, allowed under the strict warm-up).  Under
@@ -86,7 +88,7 @@ class _Counted:
 
 def _kernel_counters():
     """``(owner, attribute)`` of every count that counts executions: each
-    kernel wrapper's launches and the line search's attempts."""
+    kernel wrapper's launches and the line searches' attempts and rounds."""
     from . import fused_deconv, fused_mu, projection, solver
 
     return ((fused_mu.fused_contractions, "launches"),
@@ -97,7 +99,8 @@ def _kernel_counters():
             (fused_deconv.hgrad, "launches_gemm"),
             (fused_deconv.wgrad, "launches"),
             (projection.proj_rows, "launches"),
-            (solver._backtrack_project, "attempts"))
+            (solver._backtrack_project, "attempts"),
+            (solver._batched_backtrack_project, "rounds"))
 
 
 def _read_counters():
@@ -251,8 +254,8 @@ class _Graphs:
     on a CUDA device and called directly on the CPU (module docstring).
     ``replays`` counts the graph replays of every instance and
     ``capture_s`` the host seconds their captures took.  With
-    ``conditional`` (own warm-ups only) a workload may hold
-    :func:`_device_while`; :meth:`close` then frees its graphs and the
+    ``conditional`` a workload may hold :func:`_device_while`;
+    :meth:`close` (or dropping the instance) then frees its graphs and the
     loops' bodies."""
 
     replays = 0
@@ -264,10 +267,9 @@ class _Graphs:
         self.message = message
         self.graphs = self.deltas = self.cond = None
         self.conditional = conditional
+        self.bodies = 0
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"no compiled step for device {device}")
-        if conditional and state is not None:
-            raise ValueError("device loops need own warm-ups")
         if device.type != "cuda":
             return
         self.device = device
@@ -278,6 +280,8 @@ class _Graphs:
             self.deltas = [None] * len(fns)
         elif state:  # no state: nothing to run
             self._warm_up_on_scratch(state)
+            if conditional:
+                self.cond = _Bodies(device)
             self.graphs = [self._capture(fn) for fn in fns]
 
     def _run(self, fn, strict: bool):
@@ -405,8 +409,16 @@ class _Graphs:
             _add_counters(self.deltas[k])
 
     def close(self):
-        """Frees the graphs, then the loops' pool and stream."""
+        """Frees the graphs, then the loops' pool and stream.  Scratch
+        warm-ups count launches at capture, so their bodies' runs on the
+        card are not added."""
         self.graphs = None
         c, self.cond = self.cond, None
         if c is not None:
+            if self.deltas is None:
+                c.delta = None
             c.close()
+
+    def __del__(self):
+        if self.cond is not None:  # a dropped instance frees its loops too
+            self.close()

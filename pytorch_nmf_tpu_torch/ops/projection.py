@@ -46,7 +46,7 @@ import torch
 from .graphs import _Counted
 
 __all__ = ["hoyer_l1_target", "proj_func", "proj_rows", "plain_proj_rows",
-           "proj_columns", "proj_columns_explicit"]
+           "proj_columns", "proj_columns_explicit", "proj_problem_columns"]
 
 # rounds between two host reads of ``done.all()`` (the plain version)
 CHECK_EVERY = 2
@@ -63,37 +63,39 @@ def plain_proj_rows(s: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
     """Plain PyTorch version of the projection: every row of ``s (R, N)`` to
     L1 norm ``k1[r]`` and squared L2 norm ``k2[r]`` (``k1``, ``k2``:
     ``(R,)``).  With ``return_rounds`` also the rounds each row ran, an
-    ``(R,)`` integer tensor."""
-    R, N = s.shape
+    ``(R,)`` integer tensor.  Rows may also carry leading axes, ``s (B, R,
+    N)`` with ``k1``, ``k2`` ``(B, R)`` (a batch of problems' columns, in
+    the layout each problem's own call would have)."""
+    N = s.shape[-1]
     k1 = k1.to(s.dtype)
     k2 = k2.to(s.dtype)
-    v = s + ((k1 - s.sum(1)) / N)[:, None]
+    v = s + ((k1 - s.sum(-1)) / N)[..., None]
     zero = torch.zeros_like(s, dtype=torch.bool)
-    done = torch.zeros(R, dtype=torch.bool, device=s.device)
-    rounds = torch.zeros(R, dtype=torch.int64, device=s.device)
+    done = torch.zeros(s.shape[:-1], dtype=torch.bool, device=s.device)
+    rounds = torch.zeros(s.shape[:-1], dtype=torch.int64, device=s.device)
     for it in range(N + 2):
         rounds += ~done
-        m = k1 / (N - zero.sum(1))
-        w = torch.where(zero, v, v - m[:, None])
-        a = (w * w).sum(1)
-        b = 2.0 * (w * v).sum(1)
-        c = (v * v).sum(1) - k2
+        m = k1 / (N - zero.sum(-1))
+        w = torch.where(zero, v, v - m[..., None])
+        a = (w * w).sum(-1)
+        b = 2.0 * (w * v).sum(-1)
+        c = (v * v).sum(-1) - k2
         # the discriminant as the JAX package's jitted projection forms it:
         # ``b*b`` exact (XLA's fused multiply-add: the double product,
         # rounded once), NaN taken as 0 (its fused relu)
         d = (b.double() * b.double() - (4.0 * a * c).double()).to(s.dtype)
         alphap = (-b + torch.sqrt(torch.where(d > 0, d, 0.0))) * 0.5 / a
-        v_new = v + alphap[:, None] * w
+        v_new = v + alphap[..., None] * w
         mask = v_new < 0
-        fin = ~mask.any(1)
+        fin = ~mask.any(-1)
         zero_fix = zero | mask
         v_fix = torch.relu(v_new)
-        v_fix = torch.relu(v_fix + ((k1 - v_fix.sum(1))
-                                    / (N - zero_fix.sum(1)))[:, None])
+        v_fix = torch.relu(v_fix + ((k1 - v_fix.sum(-1))
+                                    / (N - zero_fix.sum(-1)))[..., None])
         # rows finished earlier keep their state (batched while_loop)
-        upd = (~done)[:, None]
-        v = torch.where(upd, torch.where(fin[:, None], v_new, v_fix), v)
-        zero = torch.where(upd & ~fin[:, None], zero_fix, zero)
+        upd = (~done)[..., None]
+        v = torch.where(upd, torch.where(fin[..., None], v_new, v_fix), v)
+        zero = torch.where(upd & ~fin[..., None], zero_fix, zero)
         done = done | fin
         if (it + 1) % CHECK_EVERY == 0 and it + 1 < N + 2:
             proj_rows.reads += 1
@@ -301,3 +303,21 @@ def proj_columns_explicit(x: torch.Tensor, k1s, k2s, axis: int = 1):
     ``(k1s[j], k2s[j])``, scalars or ``(R,)`` (the initial projection to
     unit L2, reference nmf.py:463-464,472-473)."""
     return _project(x, axis, k1s, k2s)
+
+
+def proj_problem_columns(x: torch.Tensor, k1, k2) -> torch.Tensor:
+    """Project every rank column of every problem of ``x (B, ...)`` (the
+    slice ``x[b]`` along axis 2, flattened) onto ``(k1[b, j], k2[b, j])``
+    (scalars, or ``(B, R)``): the ``B·R`` columns laid out as the rows of
+    one tensor, one :func:`proj_rows` (one kernel launch on the card) for
+    the whole batch.  Returns a contiguous tensor of ``x``'s shape."""
+    xm = x.movedim(2, 1)
+    B, R = xm.shape[:2]
+    k1, k2 = (_targets(k.reshape(-1) if isinstance(k, torch.Tensor) else k,
+                       x, B * R) for k in (k1, k2))
+    if x.device.type == "cpu":  # each problem's rows as its own call has them
+        out = plain_proj_rows(xm.reshape(B, R, -1), k1.reshape(B, R),
+                              k2.reshape(B, R))
+    else:
+        out = proj_rows(xm.reshape(B * R, -1), k1, k2)
+    return out.reshape(xm.shape).movedim(1, 2).contiguous()

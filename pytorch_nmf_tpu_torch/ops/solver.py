@@ -22,12 +22,16 @@ in-place workload (:class:`~.graphs._Graphs`): on a CUDA device chunks 1-2
 run eagerly, the second with synchronizing operations raising, and from
 chunk 3 on the fit replays a CUDA graph of the chunk, captured once per
 fit and freed when it returns; on the CPU the same workload is called
-directly.  A chunk that cannot be captured raises.  The Hoyer fit on a
-dense target (:func:`get_hoyer_fit`, and so the batched Hoyer fit, one
-problem at a time) runs its chunks the same way, with no stop test, its
-line search's attempts 2-10 a loop that a replayed chunk runs on the card
-(a CUDA-graph WHILE node, :func:`~.graphs._device_while`).  The other fits
-(sparse, the sparse-target Hoyer fit, batched; the sharded ones of
+directly.  A chunk that cannot be captured raises.  The batched MU and
+EM fits (:func:`get_batched_dense_fit`, :func:`get_batched_plca_fit`) run
+their chunks the same way (:func:`_graphed_batched_loop`), every problem's
+stop test and chunk of convergence on the device.  The Hoyer fit on a
+dense target (:func:`get_hoyer_fit`) runs its chunks the same way, with no
+stop test, its line search's attempts 2-10 a loop that a replayed chunk
+runs on the card (a CUDA-graph WHILE node, :func:`~.graphs._device_while`);
+so does the batched Hoyer fit (:func:`get_batched_hoyer_fit`), one batched
+program whose problems' line searches share one loop.  The other fits
+(sparse, the sparse-target Hoyer fit; the sharded ones of
 :mod:`..parallel`) run the eager loop.
 """
 
@@ -44,7 +48,8 @@ from . import sparse as _sparse
 from .graphs import _Counted, _device_while, _Graphs
 from .mu import (gamma_from_beta, kl_pos_H, kl_pos_W, mu_multiplier, mu_update,
                  renorm)
-from .projection import hoyer_l1_target, proj_columns, proj_columns_explicit
+from .projection import (hoyer_l1_target, proj_columns, proj_columns_explicit,
+                         proj_problem_columns)
 from .recon import matmul
 
 __all__ = ["get_dense_fit", "get_batched_dense_fit", "get_sparse_fit",
@@ -328,38 +333,109 @@ def get_dense_fit(
 # Batched dense fit: many factorizations at once, each with its own early
 # stop (no reference counterpart)
 # --------------------------------------------------------------------------
+def _lanes(mask, x):
+    """The ``(B,)`` tensor ``mask`` with unit axes up to ``x``'s rank, so
+    that each problem's entry broadcasts over its slice of ``x``."""
+    return mask.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
 def _masked(conv, old, new):
     """``old`` where the problem has converged, else ``new``."""
-    return torch.where(conv.reshape((-1,) + (1,) * (old.ndim - 1)), old, new)
+    return torch.where(_lanes(conv, old), old, new)
+
+
+def _batched_chunk(one_iter, loss_of, state, conv, prev, loss_init, k, k_conv,
+                   tol):
+    """One chunk of the batched loop: ten iterations, converged problems'
+    state frozen, each problem's loss and stop test.  ``k`` is the 0-d
+    count of chunks run before, a tensor on the device, so that a captured
+    chunk records no chunk index of its own.  Returns ``(state, conv,
+    loss, k + 1, k_conv)``."""
+    new = state
+    for _ in range(10):
+        new = one_iter(new)
+    new = tuple(_masked(conv, o, n) for o, n in zip(state, new))
+    loss = torch.where(conv, prev, loss_of(new))
+    newly = ~conv & ((prev - loss) / loss_init < tol)
+    k = k + 1
+    return new, conv | newly, loss, k, torch.where(newly, k, k_conv)
+
+
+def _batched_rem(one_iter, state, conv, rem):
+    """The ``max_iter % 10`` remainder, converged problems frozen."""
+    new = state
+    for _ in range(rem):
+        new = one_iter(new)
+    return tuple(_masked(conv, o, n) for o, n in zip(state, new))
 
 
 def _batched_loop(one_iter, loss_of, state0, tol, max_iter):
     """:func:`_converging_loop` over a leading batch axis: ``loss_of(state)
     -> (B,)``.  The loop runs while any problem is unconverged; a converged
     problem's state is frozen, so each problem's trajectory and stop are
-    those it would have alone.  One host read per chunk.  Returns
+    those it would have alone.  One host read per chunk (counted in
+    ``_read.reads``): whether every problem has converged.  Returns
     ``(state, conv, k)``: ``conv (B,)`` whether each problem converged, and
     ``k (B,)`` the chunk it converged at."""
     loss_init = loss_of(state0)
-    B = loss_init.shape[0]
-    conv = torch.zeros(B, dtype=torch.bool, device=loss_init.device)
-    k_conv = torch.zeros(B, dtype=torch.long, device=loss_init.device)
+    B, device = loss_init.shape[0], loss_init.device
+    conv = torch.zeros(B, dtype=torch.bool, device=device)
+    k_conv = torch.zeros(B, dtype=torch.long, device=device)
+    k = torch.zeros((), dtype=torch.long, device=device)
     n_chunks, rem = divmod(max_iter, 10)
-    state, prev, k = state0, loss_init, 0
-    while k < n_chunks and not bool(conv.all()):
-        new = state
-        for _ in range(10):
-            new = one_iter(new)
-        state = tuple(_masked(conv, o, n) for o, n in zip(state, new))
-        loss = torch.where(conv, prev, loss_of(state))
-        newly = ~conv & ((prev - loss) / loss_init < tol)
-        k_conv = torch.where(newly, k + 1, k_conv)
-        conv, prev, k = conv | newly, loss, k + 1
+    state, prev, done, chunks = state0, loss_init, False, 0
+    while not done and chunks < n_chunks:
+        state, conv, prev, k, k_conv = _batched_chunk(
+            one_iter, loss_of, state, conv, prev, loss_init, k, k_conv, tol)
+        chunks += 1
+        done = _read(conv.all(), bool)
     if rem:
-        new = state
-        for _ in range(rem):
-            new = one_iter(new)
-        state = tuple(_masked(conv, o, n) for o, n in zip(state, new))
+        state = _batched_rem(one_iter, state, conv, rem)
+    return state, conv, k_conv
+
+
+def _graphed_batched_loop(one_iter, loss_of, state0, tol, max_iter):
+    """:func:`_batched_loop` with each chunk one in-place workload of
+    :class:`~.graphs._Graphs`, as :func:`_graphed_loop` runs it (own
+    warm-ups: chunks 1-2 eager, the capture right after chunk 2 is enqueued
+    when a third chunk may follow, then graph replays on a CUDA device;
+    called directly on the CPU): :func:`_batched_chunk` from static
+    tensors (the state, ``conv``, ``prev``, the chunk count and each
+    problem's chunk of convergence) and the 0-d flag "every problem has
+    converged", which the host reads once a chunk.  The remainder runs
+    eagerly.  The same operations as :func:`_batched_loop`, so the same
+    results bit for bit."""
+    loss_init = loss_of(state0)
+    B, device = loss_init.shape[0], loss_init.device
+    conv = torch.zeros(B, dtype=torch.bool, device=device)
+    k_conv = torch.zeros(B, dtype=torch.long, device=device)
+    n_chunks, rem = divmod(max_iter, 10)
+    state = state0
+    if n_chunks:
+        st = tuple(x.clone() for x in state0)
+        prev = loss_init.clone()
+        k = torch.zeros((), dtype=torch.long, device=device)
+        done = torch.zeros((), dtype=torch.bool, device=device)
+
+        def chunk():
+            s, c, p, kk, kc = _batched_chunk(one_iter, loss_of, st, conv, prev,
+                                             loss_init, k, k_conv, tol)
+            for dst, x in zip(st + (conv, prev, k, k_conv), s + (c, p, kk, kc)):
+                dst.copy_(x)
+            done.copy_(conv.all())
+
+        graphs = _Graphs([chunk], None, device, _CHUNK_NOT_CAPTURABLE)
+        all_done, chunks = False, 0
+        while not all_done and chunks < n_chunks:
+            graphs()
+            chunks += 1
+            if chunks == 2 < n_chunks:  # the capture's host time overlaps chunk 2
+                graphs.capture()
+            all_done = _read(done, bool)
+        del graphs  # the graph and its pool go now
+        state = st
+    if rem:
+        state = _batched_rem(one_iter, state, conv, rem)
     return state, conv, k_conv
 
 
@@ -388,6 +464,7 @@ def get_batched_dense_fit(
     l1_reg: float,
     l2_reg: float,
     updater_factory: Optional[Callable] = None,
+    _graph: bool = True,
 ):
     """Returns ``fit(V, W, H) -> (W, H, n_iter)`` over a leading batch axis:
     ``V (B, ...)``, ``W (B, ...)``, ``H (B, ...)``, ``n_iter (B,)`` (the
@@ -397,9 +474,13 @@ def get_batched_dense_fit(
     problems share no parameters, so the gradients of the batch's summed
     cotangent products are each problem's own MU numerator and denominator.
     ``updater_factory`` (optional) supplies updaters that take batched
-    operands (the Gram updaters at β = 2); it has no layout transform."""
+    operands (the Gram updaters at β = 2); it has no layout transform.
+    The chunks run through :func:`_graphed_batched_loop`; ``_graph=False``
+    (private: the eager reference of the card's checks) runs
+    :func:`_batched_loop`."""
     from torch.func import vmap
 
+    loop = _graphed_batched_loop if _graph else _batched_loop
     gamma = gamma_from_beta(beta)
     updaters = (
         updater_factory(beta, gamma, l1_reg, l2_reg) if updater_factory else None
@@ -428,8 +509,7 @@ def get_batched_dense_fit(
             w, h = state
             return torch.sqrt(2.0 * div_b(recon2(h, w), V))
 
-        (W, H), conv, k = _batched_loop(one_iter, loss_of, (W, H), tol,
-                                        max_iter)
+        (W, H), conv, k = loop(one_iter, loss_of, (W, H), tol, max_iter)
         return W, H, torch.where(conv, k * 10, max_iter)
 
     return fit
@@ -793,6 +873,80 @@ def get_hoyer_fit(
     return fit
 
 
+def _batched_backtrack_project(loss_baseline, loss_of_new, p, grad, stepsize,
+                               L1_scale):
+    """:func:`_backtrack_project` for every problem of a batch at once, as
+    JAX's ``vmap`` of its ``lax.while_loop`` runs it: ``p (B, ...)`` with
+    its rank columns on axis 2, ``loss_baseline``, ``loss_of_new(x)`` and
+    ``stepsize`` per problem, ``(B,)`` (the step a float32 tensor on
+    ``p``'s device).  Each round projects every problem's candidate (one
+    :func:`~.projection.proj_problem_columns`, one P1 launch on the card);
+    a problem is active while its last attempt was worse and it made fewer
+    than 10, and only the active problems take the round's step, candidate,
+    flag and count, so each problem's search is the one it has alone.
+    Rounds 2-10 run in a :func:`~.graphs._device_while` loop on "any
+    problem is active" (eagerly one host read a round, counted in
+    ``_batched_backtrack_project.reads``; ``.rounds`` counts the rounds,
+    those of a replayed chunk on the card).  Returns ``(p_new, step,
+    tries)``: ``tries (B,)`` each problem's attempts."""
+    ss = stepsize.clone()
+    cand = _proj_problems(p - _lanes(ss, p) * grad, L1_scale)
+    _batched_backtrack_project.add("rounds")
+    worse = loss_of_new(cand) > loss_baseline
+    tries = torch.ones(worse.shape, dtype=torch.int32, device=worse.device)
+    again = worse.any()
+
+    def retry():
+        active = worse & (tries < 10)
+        ss.copy_(torch.where(active, ss * 0.5, ss))
+        pnew = _proj_problems(p - _lanes(ss, p) * grad, L1_scale)
+        _batched_backtrack_project.add("rounds")
+        cand.copy_(torch.where(_lanes(active, p), pnew, cand))
+        worse.copy_(torch.where(active, loss_of_new(pnew) > loss_baseline,
+                                worse))
+        tries.add_(active.to(tries.dtype))
+        torch.any(worse & (tries < 10), out=again)
+
+    _batched_backtrack_project.reads += _device_while(again, retry)
+    return cand, torch.where(worse, ss * 0.5, ss) * 1.2, tries
+
+
+_batched_backtrack_project = _Counted(_batched_backtrack_project,
+                                      on_card=("rounds",), reads=0, rounds=0)
+
+
+def _proj_problems(x, L1_scale):
+    """Every problem's rank columns (axis 2) projected at their own norms
+    (:func:`~.projection.proj_columns` problem by problem)."""
+    norms = torch.sqrt(torch.sum(x * x, dim=(1,) + tuple(range(3, x.ndim))))
+    return proj_problem_columns(x, L1_scale * norms, norms * norms)
+
+
+@contextlib.contextmanager
+def _without_cudnn():
+    """cuDNN off inside: the grouped convolutions that ``vmap`` makes of a
+    batched deconvolution crash the capture of a graph that holds WHILE
+    nodes (cuDNN's kernels, with PyTorch 2.11 and CUDA 12.9 on the H100);
+    PyTorch's own convolution kernels capture."""
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
+def _values_and_grad(f, x):
+    """``(f(x), ∂Σf/∂x)`` of a per-problem ``f -> (B,)``: the problems
+    share no parameters, so each problem's slice of the gradient is its
+    own loss's."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        vals = f(x)
+        (g,) = torch.autograd.grad(vals, x, torch.ones_like(vals))
+    return vals.detach(), g
+
+
 def get_batched_hoyer_fit(
     recon2: Callable,
     beta: float,
@@ -803,20 +957,74 @@ def get_batched_hoyer_fit(
     sH: Optional[float],
     W_col_dim: int,
     H_col_dim: int,
+    _graph: bool = True,
 ):
     """Batched Hoyer fit for dense targets: ``fit(V (B, ...), W (B, ...),
-    H (B, ...)) -> (W, H, n_iter (B,))``.  Each problem's line searches are
-    its own, so the single-problem fit runs once per problem: every
-    trajectory is exactly what it would be alone."""
-    inner = get_hoyer_fit(recon2, None, beta, max_iter, update_W, update_H,
-                          sW, sH, W_col_dim, H_col_dim)
+    H (B, ...)) -> (W, H, n_iter (B,))``, the JAX package's ``vmap`` of the
+    single-problem fit as one batched program.  ``recon2`` is the batched
+    reconstruction (as for :func:`get_batched_dense_fit`); the rank columns
+    lie on axis 2.  Each problem's loss is its own β-divergence, ``(B,)``;
+    every projection of the batch is one :func:`~.projection.
+    proj_problem_columns`; each problem's line search is its own
+    (:func:`_batched_backtrack_project`), its step ``(B,)`` float32; the
+    pair is renormed problem by problem.  The chunks run through
+    :func:`_graphed_hoyer_loop`, one capture a fit; ``_graph=False``
+    (private: the eager reference of the card's checks) runs
+    :func:`_hoyer_loop`.  ``fit(..., _attempts=True)`` also returns each
+    problem's line-search attempts, ``(B,)``.  The loop runs with cuDNN
+    off (:func:`_without_cudnn`)."""
+    from torch.func import vmap
 
-    def fit(V, W, H):
-        outs = [inner(v, w, h) for v, w, h in zip(V, W, H)]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]),
-                torch.full((V.shape[0],), max_iter, dtype=torch.long,
-                           device=V.device))
+    loop = _graphed_hoyer_loop if _graph else _hoyer_loop
+    gamma = gamma_from_beta(beta)
+    L1a = hoyer_l1_target(W_col_dim, sW) if sW is not None else None
+    L1s = hoyer_l1_target(H_col_dim, sH) if sH is not None else None
+    upd_W, upd_H = _default_updaters(recon2, beta, gamma, 0.0, 0.0,
+                                     _batched_pos(kl_pos_W),
+                                     _batched_pos(kl_pos_H))
+    div_b = vmap(lambda wh, v: beta_div(wh, v, beta))
+    renorm_b = vmap(lambda w, h: renorm(w, h, "H"))
+
+    @torch.no_grad()
+    def fit(V, W, H, _attempts=False):
+        def loss(w, h):
+            return div_b(recon2(h, w), V)
+
+        # the constrained factors start at unit L2 per column (nmf.py:459-475)
+        if sW is not None and update_W:
+            W = proj_problem_columns(W, L1a, 1.0)
+        if sH is not None and update_H:
+            H = proj_problem_columns(H, L1s, 1.0)
+
+        def one_iter(w, h, ssW, ssH, att):
+            if update_W:
+                if sW is None:
+                    w = upd_W(V, w, h)
+                else:
+                    base, grad = _values_and_grad(lambda x: loss(x, h), w)
+                    w, ssW, tries = _batched_backtrack_project(
+                        base, lambda x: loss(x, h), w, grad, ssW, L1a)
+                    att = att + tries
+            if update_H:
+                if sH is None:
+                    h = upd_H(V, w, h)
+                else:
+                    base, grad = _values_and_grad(lambda x: loss(w, x), h)
+                    h, ssH, tries = _batched_backtrack_project(
+                        base, lambda x: loss(w, x), h, grad, ssH, L1s)
+                    att = att + tries
+                w, h = renorm_b(w, h)
+            return w, h, ssW, ssH, att
+
+        B = V.shape[0]
+        one = torch.ones(B, dtype=torch.float32, device=V.device)
+        att = torch.zeros(B, dtype=torch.int32, device=V.device)
+        with _without_cudnn():
+            W, H, _, _, att = loop(one_iter, None,
+                                   (W, H, one, one.clone(), att), max_iter,
+                                   None)
+        n_iter = torch.full((B,), max_iter, dtype=torch.long, device=V.device)
+        return (W, H, n_iter, att) if _attempts else (W, H, n_iter)
 
     return fit
 
@@ -986,15 +1194,19 @@ def get_batched_plca_fit(
     W_alpha_active: bool,
     H_alpha_active: bool,
     Z_alpha_active: bool,
+    _graph: bool = True,
 ):
     """Batched EM: ``fit(V (B, ...), W (B, ...), H (B, ...), Z (B, R),
     W_alpha, H_alpha, Z_alpha) -> (W, H, Z, n_iter (B,), norm (B,))``, each
     problem with its own early stop and the raw-index ``n_iter``.  ``recon3``
     is one problem's reconstruction; the E-step differentiates
     ``torch.func.vmap(recon3)`` over the whole batch (the problems share no
-    parameters), the M-step is ``vmap``-ed, the priors are shared."""
+    parameters), the M-step is ``vmap``-ed, the priors are shared.  The
+    chunks run as :func:`get_batched_dense_fit`'s do (``_graph``
+    likewise)."""
     from torch.func import vmap
 
+    loop = _graphed_batched_loop if _graph else _batched_loop
     recon3_b = vmap(recon3)
     m_step = vmap(
         lambda w, h, z, gH, gW, gZ, Wa, Ha, Za: _plca_m_step(
@@ -1014,7 +1226,7 @@ def get_batched_plca_fit(
             gH, gW, gZ = _plca_e_step(recon3_b, Vn, w, h, z)
             return m_step(w, h, z, gH, gW, gZ, W_alpha, H_alpha, Z_alpha)
 
-        (W, H, Z), conv, k = _batched_loop(
+        (W, H, Z), conv, k = loop(
             one_iter, lambda s: loss_b(Vn, *s, norm), (W, H, Z), tol, max_iter)
         return W, H, Z, torch.where(conv, k * 10 - 1, max_iter - 1), norm
 

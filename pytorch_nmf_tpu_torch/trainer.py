@@ -15,14 +15,17 @@ parameter (``BetaMu``) or line-search attempt (``SparsityProj``).
 With ``jit_compile=True`` (the default) the steps are compiled, as the JAX
 package's are.  The first step with a closure builds its sweep once: one
 eager probe decides which parameters the closure depends on, then the whole
-coordinate-wise ``BetaMu`` sweep, or ``SparsityProj``'s first line-search
-attempt (the closure, its gradient, the projected step, the loss and the
-comparison) and its retry, become functions that update the parameters in
+coordinate-wise ``BetaMu`` sweep, or ``SparsityProj``'s whole step (per
+group: the closure and its gradient, the first attempt, attempts
+2..``max_iter`` in a device loop, the undo after a full failure and the
+step size's growth), becomes a function that updates the parameters in
 place.  On a CUDA device each is captured once into a ``torch.cuda.CUDAGraph``
 and replayed: ``BetaMu.step`` is one replay, ``BetaMu.run(closure, n)`` is
-``n`` replays with no host read until it returns, and ``SparsityProj`` reads
-the host once per attempt, for the comparison.  On the CPU the same
-functions are called directly.  Entries are cached per closure (its code and
+``n`` replays with no host read until it returns; ``SparsityProj.step`` is
+one replay, its line search a CUDA-graph WHILE node, and one host read (the
+step sizes, carried on the card as float32 and published in
+``group["lr"]``), ``run(closure, n)`` ``n`` replays and one read.  On the
+CPU the same functions are called directly.  Entries are cached per closure (its code and
 the identity and storage of everything it captures), per parameter set and
 per hyper-parameters, at most :data:`_STEP_CACHE_MAX` of them; each owns
 its graphs' private memory pools, which eviction releases.
@@ -37,7 +40,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .ops.graphs import _Graphs
+from .ops.graphs import _device_while, _Graphs
 from .ops.mu import gamma_from_beta, get_norm
 from .ops.projection import hoyer_l1_target, proj_columns
 from .ops.trainer_core import mu_apply, mu_raw_pair, proj_line_search
@@ -300,20 +303,60 @@ class BetaMu(torch.optim.Optimizer):
         return None
 
 
-def _f32_mul(a: float, b: float) -> float:
-    """``a·b`` in float32 arithmetic, as the JAX package's compiled step
-    carries its step size (pytorch_nmf_tpu/trainer.py:686-697)."""
-    return float(np.float32(a) * np.float32(b))
+def _read_lrs(lrs: torch.Tensor) -> list:
+    """The compiled ``SparsityProj``'s one host read a step (or a ``run``):
+    every group's step size, counted in ``_read_lrs.reads``."""
+    _read_lrs.reads += 1
+    return lrs.tolist()
 
 
-def _read_worse(flag: torch.Tensor) -> bool:
-    """The line search's one host read per attempt, counted in
-    ``_read_worse.reads``."""
-    _read_worse.reads += 1
-    return bool(flag)
+_read_lrs.reads = 0
 
 
-_read_worse.reads = 0
+def _line_search(closure, st):
+    """One group's compiled step (:meth:`SparsityProj._build`), in place on
+    its parameters, gradient buffers, step size and loss.  Eagerly (the
+    CPU, the warm-ups) each test of the loop's flag is a host read,
+    counted in ``_line_search.reads``; a replay reads nothing."""
+    live, grads, lr = st["live"], st["grads"], st["lr"]
+    dim, max_iter = st["dim"], st["max_iter"]
+    L1s = [hoyer_l1_target(p.numel() // p.shape[dim], st["sparsity"])
+           for p in live]
+
+    def attempt():
+        for p, g, L1 in zip(live, grads, L1s):
+            p.copy_(proj_columns(p - lr * g, L1, axis=dim,
+                                 norms=get_norm(p, dim)))
+        st["loss"].copy_(closure())
+        torch.gt(st["loss"], init_loss, out=worse)
+
+    def retry():
+        for p, g in zip(live, grads):
+            p.add_(lr * g)
+        lr.mul_(0.5)
+        attempt()
+        tries.add_(1)
+        torch.logical_and(worse, tries < max_iter, out=again)
+
+    with torch.enable_grad():
+        init_loss = closure()
+        gs = torch.autograd.grad(init_loss, live, allow_unused=True)
+    with torch.no_grad():
+        for buf, g in zip(grads, gs):
+            buf.zero_() if g is None else buf.copy_(g)
+        init_loss = init_loss.detach()
+        worse = torch.empty((), dtype=torch.bool, device=lr.device)
+        attempt()
+        tries = torch.ones((), dtype=torch.int32, device=lr.device)
+        again = torch.logical_and(worse, tries < max_iter)
+        _line_search.reads += _device_while(again, retry)
+        # every attempt failed: the last one is undone too
+        for p, g in zip(live, grads):
+            p.copy_(torch.where(worse, p + lr * g, p))
+        lr.copy_(torch.where(worse, lr * 0.5, lr) * 1.2)
+
+
+_line_search.reads = 0
 
 
 class SparsityProj(torch.optim.Optimizer):
@@ -331,15 +374,21 @@ class SparsityProj(torch.optim.Optimizer):
 
     ``step(closure)`` takes ``closure() -> loss`` and returns the loss of
     the last attempt.  The step size ``group["lr"]`` (1 at first) carries
-    across steps.  A parameter the loss does not depend on is left alone.
+    across steps (compiled: on the card, taken from ``group["lr"]`` again
+    when the caller has changed it).  A parameter the loss does not depend
+    on is left alone.
     """
 
-    def __init__(self, params, sparsity, dim=1, max_iter=10, jit_compile=True):
+    def __init__(self, params, sparsity, dim=1, max_iter=10, jit_compile=True,
+                 _graph=True):
         if not 0.0 < sparsity < 1.0:
             raise ValueError(f"Invalid sparsity value: {sparsity}")
         super().__init__(params, dict(sparsity=sparsity, lr=1, dim=dim,
                                       max_iter=max_iter))
         self.jit_compile = bool(jit_compile)
+        # private: False calls the compiled step's workload directly on the
+        # card too, the eager reference of the card's checks
+        self._graph = bool(_graph)
         self._step_cache = OrderedDict()
 
     # -- compiled path -------------------------------------------------------
@@ -360,100 +409,88 @@ class SparsityProj(torch.optim.Optimizer):
         return entry
 
     def _build(self, closure, params):
-        """Per group with a live parameter, two in-place workloads.  The
-        first: the closure and its gradients into static buffers, then the
-        first attempt — step by the step size buffer, project each column at
-        the norms before the step, the loss, and ``loss > init_loss``.  The
-        retry: undo onto the projected value, halve, project at the undone
-        value's norms, evaluate (``ops/trainer_core.proj_line_search``; JAX
-        ``ops/trainer_core.py:104-170``)."""
+        """The whole step as one in-place workload with device loops: for
+        each group with a live parameter in turn, the closure and its
+        gradients into static buffers, the first attempt, attempts
+        2..``max_iter`` in a :func:`~.ops.graphs._device_while` loop on
+        "worse, and fewer than ``max_iter`` attempts" (each: undo onto the
+        projected value, halve, project at the undone value's norms,
+        evaluate), after a full failure the last attempt undone and the
+        step halved once more, and the step grown by 1.2 (JAX
+        ``ops/trainer_core.py:104-170``).  The step sizes are a float32
+        tensor on the device, one entry a group, carried across steps."""
         device = _device_of(params)
         mask, out = _dependence_mask(closure, params)
         live_of = {id(p) for p, m in zip(params, mask) if m}
-        groups, fns, state = [], [], []
-        for group in self.param_groups:
+        lrs = torch.tensor([float(np.float32(g["lr"])) for g in self.param_groups],
+                           dtype=torch.float32, device=device)
+        groups, state = [], [lrs]
+        for i, group in enumerate(self.param_groups):
             live = [p for p in group["params"] if id(p) in live_of]
             if not live:
                 groups.append(None)
                 continue
-            st = {"live": live, "grads": [torch.zeros_like(p) for p in live],
-                  "lr": torch.zeros((), dtype=torch.float32, device=device),
-                  "init_loss": torch.empty_like(out),
-                  "loss": torch.empty_like(out),
-                  "worse": torch.empty((), dtype=torch.bool, device=device),
-                  "index": len(fns)}
-            fns += self._attempts(closure, st, group["sparsity"], group["dim"])
+            groups.append({
+                "live": live, "grads": [torch.zeros_like(p) for p in live],
+                "lr": lrs[i], "loss": torch.empty_like(out),
+                "sparsity": group["sparsity"], "dim": group["dim"],
+                "max_iter": group["max_iter"]})
             state += live
-            groups.append(st)
-        return {"graphs": _Graphs(fns, state, device, _NOT_CAPTURABLE),
-                "groups": groups}
+        sts = [st for st in groups if st is not None]
 
-    @staticmethod
-    def _attempts(closure, st, sparsity, dim):
-        live, grads = st["live"], st["grads"]
+        def sweep():
+            for st in sts:
+                _line_search(closure, st)
 
-        @torch.no_grad()
-        def attempt(step):
-            for p, g in zip(live, grads):
-                L1 = hoyer_l1_target(p.numel() // p.shape[dim], sparsity)
-                p.copy_(proj_columns(p - step * g, L1, axis=dim,
-                                     norms=get_norm(p, dim)))
-            st["loss"].copy_(closure())
-            torch.gt(st["loss"], st["init_loss"], out=st["worse"])
+        if self._graph:
+            graphs = _Graphs([sweep], state if sts else [], device,
+                             _NOT_CAPTURABLE, conditional=True)
+        else:
+            def graphs():
+                sweep()
+        return {"graphs": graphs,
+                "groups": groups, "lrs": lrs,
+                "published": [None] * len(groups)}
 
-        def first():
-            with torch.enable_grad():
-                init_loss = closure()
-                gs = torch.autograd.grad(init_loss, live, allow_unused=True)
-            with torch.no_grad():
-                for buf, g in zip(grads, gs):
-                    buf.zero_() if g is None else buf.copy_(g)
-                st["init_loss"].copy_(init_loss)
-            attempt(st["lr"])
-
-        @torch.no_grad()
-        def retry():
-            for p, g in zip(live, grads):
-                p.add_(st["lr"] * g)
-            attempt(st["lr"] * 0.5)
-
-        return [first, retry]
-
-    def step(self, closure: Callable):
-        """One projected-gradient step with backtracking line search."""
+    def _replays(self, closure, steps: int):
+        """``steps`` replays of the compiled step, the step sizes read once
+        after them; ``None`` when the step runs eagerly."""
         entry = self._compiled(closure)
         if entry is None:
-            return self._step_eager(closure)
-        graphs, loss = entry["graphs"], None
-        for group, st in zip(self.param_groups, entry["groups"]):
+            return None
+        lrs, published = entry["lrs"], entry["published"]
+        for i, (group, st) in enumerate(zip(self.param_groups, entry["groups"])):
+            if st is not None and group["lr"] != published[i]:
+                lrs[i].fill_(float(np.float32(group["lr"])))
+        for _ in range(steps):
+            entry["graphs"]()
+        loss = None
+        if any(st is not None for st in entry["groups"]):
+            published[:] = _read_lrs(lrs)
+        for i, (group, st) in enumerate(zip(self.param_groups, entry["groups"])):
             if st is None:
                 with torch.no_grad():
                     loss = torch.as_tensor(closure()).detach()
                 continue
-            lr = float(np.float32(group["lr"]))
-            st["lr"].fill_(lr)
-            graphs(st["index"])
+            group["lr"] = published[i]
             for p, g in zip(st["live"], st["grads"]):
                 p.grad = g.clone()
-            worse, tries = _read_worse(st["worse"]), 1
-            while worse and tries < group["max_iter"]:
-                graphs(st["index"] + 1)
-                lr = _f32_mul(lr, 0.5)
-                st["lr"].fill_(lr)
-                worse, tries = _read_worse(st["worse"]), tries + 1
-            if worse:  # every attempt failed: undo the last one too
-                with torch.no_grad():
-                    for p, g in zip(st["live"], st["grads"]):
-                        p.add_(st["lr"] * g)
-                lr = _f32_mul(lr, 0.5)
-            group["lr"] = _f32_mul(lr, 1.2)
             loss = st["loss"].clone()
-        return loss
+        return (loss,)
+
+    def step(self, closure: Callable):
+        """One projected-gradient step with backtracking line search
+        (compiled: one replay, and one host read for the step sizes)."""
+        out = self._replays(closure, 1)
+        return self._step_eager(closure) if out is None else out[0]
 
     def run(self, closure: Callable, steps: int):
-        """``steps`` calls of :meth:`step`; returns the last step's loss
-        (``None`` for zero steps)."""
-        return _run(self.step, closure, steps)
+        """``steps`` calls of :meth:`step` (compiled: ``steps`` replays and
+        one host read at the end; ``.grad`` the last step's); returns the
+        last step's loss (``None`` for zero steps)."""
+        steps = _steps(steps)
+        out = self._replays(closure, steps) if steps else (None,)
+        return _run(self._step_eager, closure, steps) if out is None else out[0]
 
     def _step_eager(self, closure: Callable):
         loss = None

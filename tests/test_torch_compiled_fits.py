@@ -17,8 +17,10 @@ CPU tests:
   calls in the same order, the same host reads; no host read inside a
   chunk (a ``TorchFunctionMode`` that raises on ``.item()``, ``bool()``,
   ``float()`` and host-data tensor factories);
-* the sharded, sparse, sparse-target Hoyer and batched fits never build a
-  graph; the dense Hoyer fit does (``tests/test_torch_compiled_hoyer.py``).
+* the sharded, sparse and sparse-target Hoyer fits never build a graph;
+  the batched MU and EM fits (``tests/test_torch_compiled_batched.py``) and
+  the dense Hoyer fit (``tests/test_torch_compiled_hoyer.py``) build one a
+  fit.
 
 CUDA tests (marked ``cuda``; skipped without a card) hold graphed fits
 against eager ones on the card: the same ``n_iter``, factors within 1e-6,
@@ -395,27 +397,30 @@ def test_sharded_sparse_hoyer_and_batched_fits_stay_eager(monkeypatch):
     hoyer = solver.get_hoyer_fit(None, sparse.nmf_sp_pos_neg, 2.0, 20, True,
                                  True, 0.5, None, W.shape[0], H.shape[0])
     assert hoyer(Vs.coalesce(), W, H)[2] == 20
+    # the dense Hoyer fit and the batched MU and EM fits go through
+    # _Graphs, one instance a fit (the Hoyer fit's with device loops)
+    made = []
+
+    class Recording(graphs._Graphs):
+        def __init__(self, *args, **kwargs):
+            made.append(kwargs.get("conditional", False))
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(solver, "_Graphs", Recording)
     bat = solver.get_batched_dense_fit(NMF.reconstruct, 1.0, 0.0, 30, True,
                                        True, 0.0, 0.0)
     assert bat(V[None], W[None], H[None])[2].tolist() == [30]
+    assert made == [False]
     Vp, Wp, Hp, Zp = (torch.from_numpy(a) for a in _problem("PLCA"))
     batp = solver.get_batched_plca_fit(PLCA.reconstruct, 0.0, 30, True, True,
                                        True, False, False, False)
     one = Vp.new_ones(())
     assert batp(Vp[None], Wp[None], Hp[None], Zp[None], one, one,
                 one)[3].tolist() == [29]
-    # the dense Hoyer fit goes through _Graphs, with device loops
-    made = []
-
-    class Recording(graphs._Graphs):
-        def __init__(self, *args, **kwargs):
-            made.append(kwargs.get("conditional"))
-            super().__init__(*args, **kwargs)
-
-    monkeypatch.setattr(solver, "_Graphs", Recording)
+    assert made == [False, False]
     dense = solver.get_hoyer_fit(NMF.reconstruct, None, 2.0, 20, True, True,
                                  0.5, None, W.shape[0], H.shape[0])
-    assert dense(V, W, H)[2] == 20 and made == [True]
+    assert dense(V, W, H)[2] == 20 and made == [False, False, True]
 
 
 @pytest.mark.parametrize("key", ["NMF", "NMFD", "PLCA", "SIPLCA"])

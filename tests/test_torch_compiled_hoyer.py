@@ -20,7 +20,8 @@ CPU tests:
   factors bit for bit, the same progress-handler calls, attempts and host
   reads; a chunk reads the host only through the loop's own counted reads
   (a ``TorchFunctionMode`` that raises on any other);
-* the sparse-target fit keeps the eager loop.
+* the sparse-target fit keeps the eager loop; the batched fit is one
+  chunked fit for the whole batch.
 
 CUDA tests (marked ``cuda``; skipped without a card) hold graphed fits
 against eager ones on the card: factors bit for bit at ``max_iter`` ∈ {20,
@@ -333,8 +334,13 @@ def test_device_loop_and_counts_on_the_cpu():
     counted.add("hits", 2)
     assert counted(3) == 6 and counted.hits == 2 and counted.reads == 5
     assert projection.proj_rows.__name__ == "proj_rows"
-    with pytest.raises(ValueError, match="own warm-ups"):
-        graphs._Graphs([body], [n], torch.device("cpu"), "m", conditional=True)
+    # scratch warm-ups take device loops too (SparsityProj); the CPU calls
+    # the workload directly
+    flag.fill_(True)
+    g = graphs._Graphs([lambda: graphs._device_while(flag, body)], [n],
+                       torch.device("cpu"), "m", conditional=True)
+    g()
+    assert int(n) == 4 and not bool(flag) and g.graphs is None
 
 
 def test_sparse_target_keeps_the_eager_loop(monkeypatch):
@@ -349,8 +355,9 @@ def test_sparse_target_keeps_the_eager_loop(monkeypatch):
 
 
 def test_batched_hoyer_fit_runs_the_chunked_fit_per_problem(monkeypatch):
-    """Each problem of a batch is one graphed single fit (its own capture on
-    the card), equal to that fit alone."""
+    """The batch is one chunked fit (one capture on the card), each of its
+    problems that fit alone, attempt for attempt
+    (``tests/test_torch_compiled_batched_hoyer.py``)."""
     made = []
 
     class Recording(graphs._Graphs):
@@ -364,10 +371,16 @@ def test_batched_hoyer_fit_runs_the_chunked_fit_per_problem(monkeypatch):
     probs = [[torch.from_numpy(a) for a in _problem("NMF", s)] for s in (1, 2)]
     Vb, Wb, Hb = (torch.stack(x) for x in zip(*probs))
     W, H, n = functional.nmf_hoyer_fit_batched(Vb, Wb, Hb, max_iter=30, sW=0.5)
-    assert n.tolist() == [30, 30] and made == [True, True]
+    assert n.tolist() == [30, 30] and made == [True]
+    _, _, _, att = solver.get_batched_hoyer_fit(
+        NMF.reconstruct, 2.0, 30, True, True, 0.5, None, Wb.shape[1],
+        Hb.shape[1])(Vb, Wb, Hb, _attempts=True)
     for b, (V, W0, H0) in enumerate(probs):
+        a0 = solver._backtrack_project.attempts
         Wa, Ha, _ = functional.nmf_hoyer_fit(V, W0, H0, max_iter=30, sW=0.5)
-        assert torch.equal(W[b], Wa) and torch.equal(H[b], Ha)
+        assert int(att[b]) == solver._backtrack_project.attempts - a0
+        assert _rel(W[b].numpy(), Wa.numpy()) <= 1e-6
+        assert _rel(H[b].numpy(), Ha.numpy()) <= 1e-6
 
 
 # ---------------------------------------------------------------- CUDA

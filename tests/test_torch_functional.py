@@ -218,7 +218,7 @@ def test_nmf_hoyer_fit_batched(jx):
     assert n.tolist() == [ITERS] * 4
     jW, jH, _ = jx.F.nmf_hoyer_fit_batched(V, W0, H0, beta=2, max_iter=ITERS,
                                            sW=0.5)
-    assert _rel(W, jW) < 1e-4 and _rel(H, jH) < 1e-4
+    assert _rel(W, jW) < 1e-5 and _rel(H, jH) < 1e-5
     for b in range(4):
         w, h, _ = F.nmf_hoyer_fit(*_t(V[b], W0[b], H0[b]), beta=2,
                                   max_iter=ITERS, sW=0.5)

@@ -6,13 +6,17 @@ On the CPU the compiled sweep is called directly: the port's default
 closure fingerprint, the LRU).  Tolerances (``max|Δ|/max|ref|``): every
 parameter within 1e-4 after each of 3 ``BetaMu`` steps over β ∈ [-1, 3]
 (the powers magnify float32 reordering), ``.grad`` after the first;
-``SparsityProj`` within 1e-4 with the same float32 step size.  The seeds are
-ones where no line-search decision sits at the edge.
+``SparsityProj`` within 1e-4 with the same float32 step size (1e-5 for a
+step whose attempts all fail and for two groups with an unused
+parameter), one host read a step and one a ``run``.  The seeds are ones
+where no line-search decision sits at the edge.
 
 CUDA tests (marked ``cuda``, skipped without a card): the graphed step
 against the eager one on the card, within 1e-6 relative with the same
-``.grad``; ``run(c, 30)`` against 30 eager steps; a closure that reads the
-host raises; ``.grad`` is the caller's own.
+``.grad``; ``run(c, 30)`` against 30 eager steps; ``SparsityProj`` one
+replay and one host read a step, one read a ``run``, allocated memory flat
+over three optimizers; a closure that reads the host raises; ``.grad`` is
+the caller's own.
 ``python -m pytest --noconftest -m cuda tests/test_torch_trainer_compiled.py``.
 """
 
@@ -36,11 +40,13 @@ RTOL = 1e-4
 def jx():
     """The JAX package's trainers, models and metrics."""
     pytest.importorskip("jax")
+    import jax.numpy as jnp
     import pytorch_nmf_tpu as pnt
     from pytorch_nmf_tpu import metrics, trainer
     from pytorch_nmf_tpu.nmf import NMF as JNMF
 
-    return SimpleNamespace(pnt=pnt, NMF=JNMF, trainer=trainer, metrics=metrics)
+    return SimpleNamespace(pnt=pnt, NMF=JNMF, trainer=trainer, metrics=metrics,
+                           jnp=jnp)
 
 
 @pytest.fixture
@@ -220,6 +226,110 @@ def test_compiled_sparsity_proj_groups_and_disconnected_parameters():
     assert sc.run(cc, 0) is None and len(sc._step_cache) == 1
 
 
+def _fail_problem(seed=8):
+    """A start from which every attempt of the first step fails: the
+    loss's minimum is the start itself, off the sparse set."""
+    return np.random.RandomState(seed).rand(30, 4).astype("f") + 0.1
+
+
+@pytest.mark.parametrize("how", ["step", "run"])
+def test_compiled_sparsity_proj_all_attempts_fail_matches_jax(jx, how):
+    """Every attempt fails (the last undone, the step halved once more) in
+    the first step, compiled against JAX's compiled step and ``run``: the
+    same float32 step size, the parameter, loss and ``.grad`` within
+    1e-5."""
+    from pytorch_nmf_tpu.module import Parameter
+
+    W0 = _fail_problem()
+    pt, pj = torch.nn.Parameter(torch.from_numpy(W0.copy())), Parameter(W0)
+    Wt = torch.from_numpy(W0)
+    tp = SparsityProj([pt], 0.3, max_iter=3)
+    tj = jx.trainer.SparsityProj([pj], 0.3, max_iter=3, jit_compile=True)
+
+    def cp():
+        return torch.sum((pt - Wt) ** 2) + 1e-3 * torch.sum(pt)
+
+    def cj():
+        return jx.jnp.sum((pj.value - W0) ** 2) + 1e-3 * jx.jnp.sum(pj.value)
+
+    if how == "step":
+        lp, lj = tp.step(cp), tj.step(cj)
+        assert tp.param_groups[0]["lr"] == pytest.approx(0.5**3 * 1.2)
+        for _ in range(2):
+            lp, lj = tp.step(cp), tj.step(cj)
+    else:
+        lp, lj = tp.run(cp, 3), tj.run(cj, 3)
+    assert tp.param_groups[0]["lr"] == tj.param_groups[0]["lr"]
+    assert float(lp) == pytest.approx(float(lj), rel=1e-5)
+    assert _rel(pt.detach().numpy(), pj.data) < 1e-5
+    assert _rel(pt.grad.numpy(), pj.grad) < 1e-5
+
+
+@pytest.mark.parametrize("how", ["step", "run"])
+def test_compiled_sparsity_proj_groups_match_jax(jx, how):
+    """Two groups (their own step sizes and sparseness) and a parameter the
+    loss does not use (left alone, ``.grad`` None), compiled against JAX's
+    compiled step and ``run``: every step size bit for bit, the parameters,
+    the loss and ``.grad`` within 1e-5."""
+    from pytorch_nmf_tpu.module import Parameter
+
+    rs = np.random.RandomState(9)
+    vals = [rs.rand(10, 4).astype("f") + 0.1 for _ in range(5)]
+    A, B = vals[3], vals[4]
+    pt = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in vals[:3]]
+    pj = [Parameter(v) for v in vals[:3]]
+
+    def groups(ps):
+        return [{"params": [ps[0], ps[2]]},
+                {"params": [ps[1]], "lr": 0.5, "sparsity": 0.6}]
+
+    tp = SparsityProj(groups(pt), 0.4)
+    tj = jx.trainer.SparsityProj(groups(pj), 0.4, jit_compile=True)
+    At, Bt = torch.from_numpy(A), torch.from_numpy(B)
+
+    def cp():
+        return torch.sum((pt[0] - At) ** 2) + torch.sum((pt[1] - Bt) ** 2)
+
+    def cj():
+        jnp = jx.jnp
+        return (jnp.sum((pj[0].value - A) ** 2)
+                + jnp.sum((pj[1].value - B) ** 2))
+
+    if how == "step":
+        for _ in range(3):
+            lp, lj = tp.step(cp), tj.step(cj)
+    else:
+        lp, lj = tp.run(cp, 3), tj.run(cj, 3)
+    assert float(lp) == pytest.approx(float(lj), rel=1e-5)
+    for g, h in zip(tp.param_groups, tj.param_groups):
+        assert g["lr"] == h["lr"]
+    for a, b in zip(pt[:2], pj[:2]):
+        assert _rel(a.detach().numpy(), b.data) < 1e-5
+        assert _rel(a.grad.numpy(), b.grad) < 1e-5
+    assert np.array_equal(pt[2].detach().numpy(), vals[2]) and pt[2].grad is None
+    assert pj[2].grad is None
+
+
+def test_compiled_sparsity_proj_reads_the_host_once_a_step():
+    """The compiled step reads the step sizes once (one read for every
+    group); ``run`` reads them once in all.  Each keeps the eager loop's
+    flag reads on the CPU only (``_line_search.reads``: one more than the
+    attempts a group)."""
+    m, V = _small_nmf(16)
+    sp = SparsityProj([m.W], 0.5)
+
+    def closure():
+        return beta_div(m(), V, 2)
+
+    r0 = T._read_lrs.reads
+    sp.step(closure)
+    assert T._read_lrs.reads - r0 == 1
+    sp.run(closure, 4)
+    assert T._read_lrs.reads - r0 == 2
+    assert sp.run(closure, 0) is None and T._read_lrs.reads - r0 == 2
+    assert T._line_search.reads > 5
+
+
 def _small_nmf(seed=10):
     rs = np.random.RandomState(seed)
     m = NMF(W=rs.rand(20, 4).astype("f") + 0.1, H=rs.rand(30, 4).astype("f") + 0.1,
@@ -360,15 +470,96 @@ def test_cuda_graphed_sparsity_proj_matches_eager(cuda):
     lr = float(np.float32(1.0 / float(torch.linalg.matrix_norm(H.T @ H, 2))))
     tc = SparsityProj([{"params": [ms[0].W], "lr": lr}], 0.5)
     te = SparsityProj([{"params": [ms[1].W], "lr": lr}], 0.5, jit_compile=False)
-    before = T._read_worse.reads
-    for _ in range(5):
-        lc = tc.step(lambda: beta_div(ms[0](), V, 2))
-        le = te.step(lambda: beta_div(ms[1](), V, 2))
-    assert T._read_worse.reads - before >= 5
+
+    def cc():
+        return beta_div(ms[0](), V, 2)
+
+    def ce():
+        return beta_div(ms[1](), V, 2)
+
+    tc.step(cc)  # builds: warm-ups, capture, one replay
+    te.step(ce)
+    r0, p0 = T._read_lrs.reads, T._Graphs.replays
+    s0 = T._line_search.reads
+    for _ in range(4):
+        lc, le = tc.step(cc), te.step(ce)
+    # one replay and one host read a step, whatever the attempts
+    assert T._read_lrs.reads - r0 == 4 and T._Graphs.replays - p0 == 4
+    assert T._line_search.reads == s0
     assert float(lc) == pytest.approx(float(le), rel=1e-5)
     assert _card_rel(ms[0].W.detach(), ms[1].W.detach()) <= 1e-5
     assert tc.param_groups[0]["lr"] == pytest.approx(te.param_groups[0]["lr"],
                                                      rel=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fail", "groups"])
+def test_cuda_graphed_sparsity_proj_step_and_run(cuda, case):
+    """Backtracking steps (every attempt failing; two groups and an unused
+    parameter): the graphed step against the same step called eagerly on
+    the card (``_graph=False``), bit for bit with the same float32 step
+    sizes; one replay and one host read a step, ``steps`` replays and one
+    read a ``run``."""
+    def make(graph):
+        if case == "fail":
+            W0 = torch.from_numpy(_fail_problem()).to(cuda)
+            p = torch.nn.Parameter(W0.clone())
+            return [p], SparsityProj([p], 0.3, max_iter=3, _graph=graph), (
+                lambda: torch.sum((p - W0) ** 2) + 1e-3 * torch.sum(p))
+        rs = np.random.RandomState(9)
+        vals = [torch.from_numpy(rs.rand(10, 4).astype("f") + 0.1).to(cuda)
+                for _ in range(5)]
+        ps = [torch.nn.Parameter(v.clone()) for v in vals[:3]]
+        sp = SparsityProj([{"params": [ps[0], ps[2]]},
+                           {"params": [ps[1]], "lr": 0.5, "sparsity": 0.6}],
+                          0.4, _graph=graph)
+        return ps, sp, lambda: (torch.sum((ps[0] - vals[3]) ** 2)
+                                + torch.sum((ps[1] - vals[4]) ** 2))
+
+    (pg, sg, cg), (pe, se, ce) = make(True), make(False)
+    lg, le = sg.step(cg), se.step(ce)
+    r0, p0 = T._read_lrs.reads, T._Graphs.replays
+    for _ in range(3):
+        lg = sg.step(cg)
+        le = se.step(ce)
+    assert T._read_lrs.reads - r0 == 6 and T._Graphs.replays - p0 == 3
+    lg = sg.run(cg, 5)
+    le = se.run(ce, 5)
+    assert T._read_lrs.reads - r0 == 8 and T._Graphs.replays - p0 == 8
+    assert torch.equal(lg, le)
+    for g, h in zip(sg.param_groups, se.param_groups):
+        assert g["lr"] == h["lr"]
+    for a, b in zip(pg, pe):
+        assert torch.equal(a.detach(), b.detach())
+        assert (a.grad is None) == (b.grad is None)
+        if a.grad is not None:
+            assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_sparsity_proj_keeps_no_memory(cuda):
+    """Three compiled optimizers in turn, each dropped: the card's
+    allocated memory as before (the graphs, their device loops' pools and
+    streams go with them)."""
+    import gc
+
+    def one():
+        rs = np.random.RandomState(17)
+        m = NMF(W=rs.rand(20, 4).astype("f") + 0.1,
+                H=rs.rand(30, 4).astype("f") + 0.1, device=cuda)
+        V = torch.from_numpy(rs.rand(30, 20).astype("f")).to(cuda)
+        sp = SparsityProj([m.W], 0.5)
+        sp.run(lambda: beta_div(m(), V, 2), 3)
+
+    one()
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    for _ in range(3):
+        one()
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == allocated
 
 
 @pytest.mark.cuda
