@@ -19,8 +19,18 @@ Drives the port's paths at full width, each in phases:
   through the generic E-step and the opt-in fused one on B1;
 * sparse targets through ``NMF.fit``: the top 2% of 5168×1025 (rank 88;
   the densify tier, on B1 at β ≠ 2), 8192² with 671k non-zeros (rank 64,
-  each tier forced), and 131072×65536 at 0.1% (rank 64), past the densify
-  budget, where the ELL tier is chosen;
+  each tier forced; 100 iterations, the chunk graphed: a cold fit and a
+  warm one through ``NMF.fit`` against ``_graph=False``, replays,
+  captures, host reads and the device time, densify and ELL bit for bit,
+  gather within 1e-4 and the same ``n_iter`` at ``tol=1e-4``), a densify
+  fit out of memory (the process's memory fraction below the dense
+  target) retried on the ELL tier, graphed, with the card's allocated
+  memory back afterwards, and 131072×65536 at 0.1% (rank 64), past the
+  densify budget, where the ELL tier is chosen (its reductions counted as
+  executions, replays included); the sparse-target Hoyer fit on the top
+  2% (``sW=0.5``, 100 iterations) graphed against ``_graph=False``, the
+  same attempts, P1 launches one a constrained factor and attempt, no
+  line-search host read from the first replay on;
 * Hoyer ``sparse_fit`` at β=2: dense ``NMF`` at 5168×1025 rank 88 with
   ``sW=0.5`` (the JAX bench's row; no MU kernel, as there), and ``NMFD`` at
   the flagship with ``sW=0.5`` and with ``sW=sH=0.5``, whose gradients run
@@ -32,24 +42,28 @@ Drives the port's paths at full width, each in phases:
   (``torch.profiler``); and the compiled Hoyer chunk, whose line search's
   attempts 2-10 are a CUDA-graph WHILE node (``csrc/graph_cond.cu``): the
   dense cell at 100 iterations and the NMFD flagship (``sW``, ``sW+sH``)
-  at 30, through the model (graphed) against ``_graph=False`` (eager) in
-  turns, bit for bit with the same attempts and launches, chunks − 2
-  replays, no line-search host read from the first replay on; ms/iteration
-  both ways, the replayed chunks' against their device time, the idle
-  shares, the WHILE nodes' own kernels, the capture's host ms, attempts an
-  iteration, host reads and the peak memory both ways; and
+  at 30, as cache cells (below): through the model a cold fit, a warm one
+  from other inits and one on a new V, against ``_graph=False`` (eager),
+  each bit for bit its eager twin with the same attempts and launches, no
+  line-search host read from the first replay on; ms/iteration every way,
+  the replayed chunks' against their device time, the idle shares, the
+  WHILE nodes' own kernels, the captures' host ms, attempts an iteration,
+  host reads, the peak memory and the cache's held bytes; and
   ``nmf_hoyer_fit_batched`` over 16 problems of 1025×400 rank 16, one
-  batched program (one capture; every projection of the batch one P1
-  launch; each problem's line search its own, all in one WHILE node)
-  against ``_graph=False`` bit for bit and its 16 eager single fits;
+  batched program (one capture a cold fit, none a warm one; every
+  projection of the batch one P1 launch; each problem's line search its
+  own, all in one WHILE node) against ``_graph=False`` bit for bit and its
+  16 eager single fits;
 * the functional API: ``nmf_fit`` (5168×1025, β=0.5) and ``nmfd_fit`` (the
   flagship, β=1) equal ``NMF.fit`` and ``NMFD.fit``, launch for launch;
   ``nmf_fit_batched`` (β ∈ {2, 1}) and ``plca_fit_batched`` over 16
   problems of 1025×400 rank 16 at a ``tol`` where they stop at different
-  chunks, some in the replays: the chunk a CUDA graph from chunk 3 on,
-  against ``_graph=False`` bit for bit, chunks − 2 replays and one host
-  read a chunk, the replayed chunks against their device time, the MU
-  fits against their single fits; the ``BetaMu`` optimizer over the
+  chunks, some in the replays: a cold fit (the chunk a CUDA graph from
+  chunk 3 on, chunks − 2 replays), a warm one (a cache hit: every chunk a
+  replay, no capture) and one on a new V (one capture, every chunk a
+  replay), each against ``_graph=False`` bit for bit with one host read a
+  chunk, the replayed chunks against their device time, the MU fits
+  against their single fits; the ``BetaMu`` optimizer over the
   bench's chain (``torch.nn.Sequential`` of three ``NMF`` modules, 2048²
   target, 31 steps) and ``SparsityProj`` at 5168×1025 (11 steps, from a
   step of 1/L and of 8/L, where it backtracks), compiled into CUDA graphs
@@ -60,33 +74,37 @@ Drives the port's paths at full width, each in phases:
   twin; a closure that reads the host refused, ms/step both ways and the
   graph pools' reserved memory; and float64 numpy targets, which warn and
   fit in float32;
-* the compiled fits: the single-card dense MU and EM fits replay their
-  10-iteration chunk as a CUDA graph from chunk 3 on.  At dense ``NMF``
-  5168×1025 R=88 (β ∈ {0.5, 1, 2}), the reference demo's ``NMFD``
-  (1×1025×4997, R=3, T=400), the NMFD flagship (the device-bound control),
-  the NMF2D and NMF3D rows, dense ``PLCA`` 5168×1025 R=88 (fused E-step)
-  and the SIPLCA, SIPLCA2 and SIPLCA3 rows: 100 iterations at ``tol=0``
-  through the model's ``fit`` (graphed) and through ``get_dense_fit`` or
-  ``get_plca_fit`` with ``_graph=False`` (eager), timed in turns (graphed,
-  eager, eager, graphed), each with exactly its B1-B4 launches, 8 replays
-  (graphed) and one host read a chunk; the replayed chunks' ms/iteration
-  (CUDA events around the replays) and their device time; chunk 1's time
-  and the capture's host time (the capture runs right after chunk 2 is
-  enqueued); the
-  peak device memory above the factors both ways; the device time an
-  iteration and the card's idle share both ways (``torch.profiler``,
-  30-iteration fits); factors within 1e-6 of eager at ``tol=0`` and with
-  the same ``n_iter`` at ``tol=1e-4``; and a fit whose updater reads the
-  host refused on the card;
+* the compiled fits, kept across fits (the fits' cache): each cell a cache
+  cell.  At dense ``NMF`` 5168×1025 R=88 (β ∈ {0.5, 1, 2}), the reference
+  demo's ``NMFD`` (1×1025×4997, R=3, T=400), the NMFD flagship (the
+  device-bound control), the NMF2D and NMF3D rows, dense ``PLCA``
+  5168×1025 R=88 (fused E-step) and the SIPLCA, SIPLCA2 and SIPLCA3 rows:
+  100 iterations at ``tol=0``, in turns, a cold fit through the model's
+  ``fit`` (chunks 1-2 eager, one capture, 8 replays), the eager loop
+  (``get_dense_fit`` or ``get_plca_fit`` with ``_graph=False``) from the
+  same inits and from other inits, a warm fit from those (a hit: 10
+  replays, no capture) and a fit on a new V of the same configuration (one
+  capture, 10 replays), each bit for bit its eager twin with exactly its
+  B1-B4 launches and one host read a chunk, and the cache's hits and
+  misses; the replayed chunks' ms/iteration (CUDA events around the
+  replays) and their device time; chunk 1's time and the captures' host
+  time; the peak device memory a fit adds above what was allocated before
+  it; the cache's held bytes, by its count and as the card's memory freed
+  by ``compiled_cache_clear``; the device time an iteration and the card's
+  idle share, warm and eager (``torch.profiler``, 30-iteration fits);
+  factors within 1e-6 of eager with the same ``n_iter`` at ``tol=1e-4``;
+  and a fit whose updater reads the host refused on the card;
 * ``streaming_nmf_fit`` with V in host memory: 5168×1025 (rank 88, β ∈ {1,
   0.5}) in 6 blocks of 1024 rows, exactly 2 B1 launches a block an
   iteration and one B2 a block a loss evaluation at β=0.5, equal to the
   in-memory ``NMF.fit`` within 1e-4; and a 1 GiB 65536×4096 target (rank
   64, β=1, 8 blocks): ms/iteration, the host-to-card rate and the share of
   the copies' time a kernel overlaps (``torch.profiler``);
-* ``checkpointed_fit``: NMF 5168×1025 β=0.5 in two sessions of 50
-  iterations, and the NMFD flagship at β=1 in segments of 10 (one B3 and
-  one B4 an iteration), each equal to the uninterrupted fit;
+* ``checkpointed_fit``: NMF 5168×1025 β=0.5 in two sessions (50
+  iterations, then 150 more) in segments of 50, one capture for the four
+  segments (the cache's hits), and the NMFD flagship at β=1 in segments
+  of 10 (one B3 and one B4 an iteration), each equal to the uninterrupted
+  fit;
 * bfloat16 targets (a capacity knob: V held at half width on the card,
   factors and arithmetic float32): B1 (both sides, β=1 with and without
   the epilogue, β=0.5) and B2 (β=0.5) reading a bfloat16 V at 5168×1025
@@ -94,8 +112,11 @@ Drives the port's paths at full width, each in phases:
   ``NMF.fit`` with a bfloat16 host V at β ∈ {1, 0.5, 2} within 1e-4 of the
   float32 fit on the rounded V, with its ``n_iter`` and exactly its B1/B2
   launches, every one the bfloat16 instance's; ``nmf_fit``; the peak device
-  memory of a β=1 fit at 65536×4097 R=64 from a host V (30 iterations, the
-  third chunk a graph replay), bfloat16 at most 0.6 of float32's;
+  memory of a β=1 fit at 65536×4097 R=64 on a target on the card (30
+  iterations, the third chunk a graph replay) above the cache's held bytes
+  (an earlier fit's entry), bfloat16 at most 0.6 of float32's; in float32
+  a third configuration capped to fit only without the entries held: out
+  of memory, the cache emptied, run once more, bit for bit its eager fit;
   ``streaming_nmf_fit`` with a bfloat16 host V (5168×1025 against the
   in-memory fit, and 65536×4096 in 0.5 GiB beside the float32
   run's rate); the NMFD flagship at β=1 and dense PLCA against their
@@ -261,8 +282,15 @@ PLCA_ITERS = 50  # dense PLCA at MAIN_SHAPE (bench.py:821-853)
 SPARSE_ELL_CASE = (8192, 8192, 64, 671_000)
 SPARSE_BIG = (131072, 65536, 64, 0.001)
 SPARSE_ITERS = 10
-SPARSE_BIG_ITERS = 10
+SPARSE_BIG_ITERS = 30  # 3 chunks: the third a replay
 SPARSE_ENV = ("PNT_SPARSE_DENSIFY", "PNT_SPARSE_ELL")
+SPARSE_COMPILED_ITERS = 100  # the sparse fits graphed against eager
+# a forced densify out of memory: the dense target (1 GiB) past the memory
+# fraction's headroom, the ELL fit inside it
+SPARSE_OOM_CASE = (16384, 16384, 64, 27_000)
+SPARSE_OOM_HEADROOM = 384 * 2**20
+SPARSE_OOM_ITERS = 30
+SPARSE_HOYER_ITERS = 100
 DENSE_ITERS = 100  # the β sweep's max_iter (tol=1e-4)
 # Hoyer: dense NMF at MAIN_SHAPE (bench.py:711-733) and the NMFD flagship,
 # β=2; per-iteration losses compared over the first HOYER_TRACE iterations
@@ -307,6 +335,7 @@ STREAM_BLOCK_CASES = ((STREAM_ROW_BLOCK,) + MAIN_SHAPE[1:] + (STREAM_BETAS,),
 # checkpointed fits: two sessions of CKPT_EVERY dense iterations; the NMFD
 # flagship in segments of CKPT_NMFD_EVERY
 CKPT_EVERY = 50
+CKPT_ITERS = 200  # the dense checkpointed fit: 4 segments, one capture
 CKPT_NMFD_ITERS = 20
 CKPT_NMFD_EVERY = 10
 # the autotuner's cases at PNT_NMFD_AUTOTUNE=1: (label, model, beta, row)
@@ -1260,6 +1289,21 @@ class replay_marks:
         return ev[0].elapsed_time(ev[-1]) / iters, busy / iters
 
 
+def other_inits(init):
+    """A second set of inits of the same shapes and values: each factor
+    rolled by one along its first axis (a warm fit's inits)."""
+    return [torch.roll(x, 1, dims=0) for x in init]
+
+
+def same_target(V):
+    """A new target with ``V``'s shape, strides, alignment and values: a
+    fit on it is a warm miss of the fits' cache."""
+    out = torch.empty_strided(V.shape, V.stride(), dtype=V.dtype,
+                              device=V.device)
+    out.copy_(V)
+    return out
+
+
 def compiled_cell(ns, label, name, shape, kw, ctr, card):
     """One compiled-fits cell (module docstring); returns its record."""
     from pytorch_nmf_tpu_torch.ops import fast_plca, graphs
@@ -1269,17 +1313,18 @@ def compiled_cell(ns, label, name, shape, kw, ctr, card):
     plca = "PLCA" in name
     cls = type(m)
     params = [getattr(m, k) for k in ("W", "H", "Z") if hasattr(m, k)]
-    init = [p.detach().clone() for p in params]
+    inits = {"A": [p.detach().clone() for p in params]}
+    inits["B"] = other_inits(inits["A"])
     engine = fast_plca.plca_em_engine_fused if name == "PLCA" else None
 
-    def graphed(tol, iters):  # the user's entry point, the default path
-        for p, x in zip(params, init):
+    def graphed(tol, iters, which="A", X=V):  # the user's entry point
+        for p, x in zip(params, inits[which]):
             p.data.copy_(x)
-        out = m.fit(V, tol=tol, max_iter=iters, **kw)
+        out = m.fit(X, tol=tol, max_iter=iters, **kw)
         return (out[0] if plca else out), [p.detach().clone() for p in params]
 
-    def eager(tol, iters):  # the same updates through _graph=False
-        x = [t.clone() for t in init]
+    def eager(tol, iters, which="A"):  # the same updates through _graph=False
+        x = [t.clone() for t in inits[which]]
         if plca:
             one = V.new_ones(())
             fit = solver.get_plca_fit(
@@ -1294,7 +1339,10 @@ def compiled_cell(ns, label, name, shape, kw, ctr, card):
         *f, n = fit(V, *x)
         return n, f
 
-    runs = {"graphed": graphed, "eager": eager}
+    V2 = same_target(V)
+    runs = {"cold": graphed, "eager": eager, "eager B": lambda t, i: eager(
+        t, i, "B"), "warm": lambda t, i: graphed(t, i, "B"),
+        "new V": lambda t, i: graphed(t, i, X=V2)}
     if name == "PLCA":
         os.environ["PNT_PLCA_FUSED"] = "1"
     try:
@@ -1321,92 +1369,153 @@ def compiled_expected(name, kw, iters):
     return want
 
 
+# a cache cell's fits: (run, whose eager fit it equals, replays and
+# captures as a function of the chunks)
+CACHE_RUNS = (("cold", "eager", lambda c: (c - 2, 1)),
+              ("eager", "eager", lambda c: (0, 0)),
+              ("eager B", "eager B", lambda c: (0, 0)),
+              ("warm", "eager B", lambda c: (c, 0)),
+              ("new V", "eager", lambda c: (c, 1)))
+
+
+def cache_counts(solver):
+    info = solver.compiled_cache_info()
+    return {k: info[k] for k in ("hits", "warm_misses", "cold_misses")}
+
+
+def cache_held(solver):
+    """``(the cache's held bytes by its own count, the card's allocated and
+    reserved bytes it gives back)``: cleared and emptied, so call it at a
+    cell's end."""
+    held = solver.compiled_cache_info()["held_bytes"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    solver.compiled_cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (held, a0 - torch.cuda.memory_allocated(),
+            r0 - torch.cuda.memory_reserved())
+
+
 def compiled_measure(ns, label, name, kw, V, runs, ctr, card, Graphs):
+    """A compiled-fits cell as a cache cell: FIT_ITERS iterations at
+    tol=0, in turns, a cold fit (the configuration's first: chunks 1-2
+    eager, one capture), the eager loop from the same inits, the eager
+    loop from other inits, a warm fit from those (a hit: every chunk a
+    replay, no capture) and a fit on a new V of the same configuration (a
+    warm miss: one capture, every chunk a replay); each bit for bit its
+    eager twin, with exact launches, replays, captures and host reads, and
+    the cache's counters.  The peak is what a fit adds above what was
+    allocated before it (the cache's held bytes included)."""
     solver = ns.solver
-    rec = {"ms_per_iter": {"graphed": [], "eager": []}}
+    rec = {"ms_per_iter": {}}
 
     def gap(a, b):
         return max(float((x - y).abs().max() / y.abs().max())
                    for x, y in zip(a, b))
 
+    solver.compiled_cache_clear()
     # chunk 1 (and the initial loss), the first chunk of every fit, after
     # a warm-up
     runs["eager"](0.0, 10)
-    _, rec["chunk1_ms"] = events_ms(lambda: runs["graphed"](0.0, 10))
+    _, rec["chunk1_ms"] = events_ms(lambda: runs["cold"](0.0, 10))
+    # that fit's entry (max_iter is not in the key) goes: the next is cold
+    solver.compiled_cache_clear()
     finals = {}
-    for i, how in enumerate(("graphed", "eager", "eager", "graphed")):
+    chunks = FIT_ITERS // 10
+    for how, twin, expect in CACHE_RUNS:
         c0, r0, h0 = read(ctr), Graphs.replays, solver._read.reads
-        s0 = Graphs.capture_s
+        s0, k0, q0 = Graphs.capture_s, Graphs.captures, cache_counts(solver)
         torch.cuda.synchronize()
         # either way the fit then takes its cuBLAS workspaces in the window
         torch._C._cuda_clearCublasWorkspaces()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        marks = replay_marks() if i == 3 else None
+        marks = replay_marks() if how == "warm" else None
         try:
             (n, f), ms = events_ms(lambda: runs[how](0.0, FIT_ITERS))
         finally:
             if marks is not None:
                 marks.restore()
+                warm_marks = marks
         peak = torch.cuda.max_memory_allocated() - base
         d = {k: v - c0[k] for k, v in read(ctr).items()}
         replays, reads = Graphs.replays - r0, solver._read.reads - h0
+        captures = Graphs.captures - k0
+        q = {k: v - q0[k] for k, v in cache_counts(solver).items()}
         want = compiled_expected(name, kw, FIT_ITERS)
+        tag = f"compiled {label} {how}"
         check(n == (FIT_ITERS - 1 if "PLCA" in name else FIT_ITERS),
-              f"compiled {label} {how}: n_iter {n}")
-        check(d == want, f"compiled {label} {how}: launches {d}, want {want}")
-        chunks = FIT_ITERS // 10
-        check(replays == (chunks - 2 if how == "graphed" else 0)
-              and reads == chunks, f"compiled {label} {how}: {replays} "
-              f"replays, {reads} host reads in {chunks} chunks")
-        check_factors(f"compiled {label} {how}", *f)
-        rec["ms_per_iter"][how].append(ms / FIT_ITERS)
+              f"{tag}: n_iter {n}")
+        check(d == want, f"{tag}: launches {d}, want {want}")
+        check((replays, captures) == expect(chunks) and reads == chunks,
+              f"{tag}: {replays} replays, {captures} captures, {reads} host "
+              f"reads in {chunks} chunks")
+        check_factors(tag, *f)
+        rec["ms_per_iter"][how] = ms / FIT_ITERS
         for key, v in (("peak_gb", peak / 1e9), ("replays", replays),
-                       ("host_reads", reads),
-                       ("capture_ms", 1e3 * (Graphs.capture_s - s0))):
-            rec.setdefault(key, {}).setdefault(how, v)
+                       ("captures", captures), ("host_reads", reads),
+                       ("capture_ms", 1e3 * (Graphs.capture_s - s0)),
+                       ("cache", q)):
+            rec.setdefault(key, {})[how] = v
         rec["launches"] = {k: int(v) for k, v in d.items()}
         finals[how] = f
-    # the replayed chunks alone, from the last graphed fit's events: from
-    # the first replay's start to the last one's end (the host's read a
-    # chunk between them), and the replays' own device time
+    for how, twin, _ in CACHE_RUNS:
+        check(all(torch.equal(a, b) for a, b in zip(finals[how],
+                                                    finals[twin])),
+              f"compiled {label} {how}: not bit for bit its eager twin "
+              f"({gap(finals[how], finals[twin]):.3g})")
+    # the replayed chunks alone, from the warm fit's events: from the first
+    # replay's start to the last one's end (the host's read a chunk between
+    # them), and the replays' own device time
     rec["replayed_ms_per_iter"], rec["replay_device_ms_per_iter"] = \
-        marks.per_iter()
-    rec["gap_tol0"] = gap(finals["graphed"], finals["eager"])
-    (ng, fg), (ne, fe) = runs["graphed"](FIT_TOL, FIT_ITERS), runs["eager"](
+        warm_marks.per_iter()
+    rec["held_bytes"], rec["freed_allocated"], rec["freed_reserved"] = \
+        cache_held(solver)
+    (ng, fg), (ne, fe) = runs["cold"](FIT_TOL, FIT_ITERS), runs["eager"](
         FIT_TOL, FIT_ITERS)
     rec["gap_tol"] = gap(fg, fe)
     rec["n_iter_tol"] = [int(ng), int(ne)]
     check(ng == ne, f"compiled {label}: tol={FIT_TOL} n_iter graphed {ng}, "
           f"eager {ne}")
-    check(rec["gap_tol0"] <= FIT_GAP and rec["gap_tol"] <= FIT_GAP,
-          f"compiled {label}: graphed against eager {rec['gap_tol0']}, "
-          f"{rec['gap_tol']} at tol={FIT_TOL}")
-    for how in ("graphed", "eager"):
+    check(rec["gap_tol"] <= FIT_GAP,
+          f"compiled {label}: graphed against eager {rec['gap_tol']} at "
+          f"tol={FIT_TOL}")
+    runs["warm"](0.0, FIT_PROFILE_ITERS)  # so the profiled one is a hit
+    for how in ("warm", "eager"):
         dev = fit_profile(lambda: runs[how](0.0, FIT_PROFILE_ITERS),
                           FIT_PROFILE_ITERS)
-        mean = sum(rec["ms_per_iter"][how]) / 2
         rec.setdefault("device_ms_per_iter", {})[how] = dev
-        rec.setdefault("idle_share", {})[how] = 1 - dev / mean
-    t = rec["ms_per_iter"]
-    print(f"phase 4: compiled {label}: ms/iteration graphed "
-          f"{t['graphed']}, eager {t['eager']}, the replayed chunks alone "
+    for how in ("warm", "eager"):
+        rec.setdefault("idle_share", {})[how] = 1 - rec[
+            "device_ms_per_iter"][how] / rec["ms_per_iter"][how]
+    solver.compiled_cache_clear()
+    t = {k: round(v, 4) for k, v in rec["ms_per_iter"].items()}
+    print(f"phase 4: compiled {label}: ms/iteration cold {t['cold']}, warm "
+          f"{t['warm']}, new V {t['new V']}, eager {t['eager']} and "
+          f"{t['eager B']}; the replayed chunks alone "
           f"{rec['replayed_ms_per_iter']:.4f} (their device time "
           f"{rec['replay_device_ms_per_iter']:.4f}); device ms/iteration "
-          f"(torch.profiler, {FIT_PROFILE_ITERS}-iteration fits) graphed "
-          f"{rec['device_ms_per_iter']['graphed']:.4f}, eager "
+          f"(torch.profiler, {FIT_PROFILE_ITERS}-iteration fits) warm "
+          f"{rec['device_ms_per_iter']['warm']:.4f}, eager "
           f"{rec['device_ms_per_iter']['eager']:.4f}; the card idle "
-          f"{100 * rec['idle_share']['graphed']:.1f}% graphed, "
-          f"{100 * rec['idle_share']['eager']:.1f}% eager; replays a fit "
-          f"{rec['replays']}, host reads {rec['host_reads']}; launches "
-          f"{rec['launches']} (as predicted, both ways); chunk 1 "
-          f"{rec['chunk1_ms']:.3f} ms, capture "
-          f"{rec['capture_ms']['graphed']:.2f} ms (host); peak above the "
-          f"factors graphed "
-          f"{rec['peak_gb']['graphed']:.4f} GB, eager "
-          f"{rec['peak_gb']['eager']:.4f}; graphed against eager "
-          f"{rec['gap_tol0']:.3g} (tol=0), {rec['gap_tol']:.3g} with n_iter "
-          f"{ng} both ways (tol={FIT_TOL}) [{card}]", flush=True)
+          f"{100 * rec['idle_share']['warm']:.1f}% warm, "
+          f"{100 * rec['idle_share']['eager']:.1f}% eager; replays "
+          f"{rec['replays']}, captures {rec['captures']}, host reads "
+          f"{rec['host_reads']}; cache {rec['cache']}; launches "
+          f"{rec['launches']} (as predicted, every way); chunk 1 "
+          f"{rec['chunk1_ms']:.3f} ms, capture cold "
+          f"{rec['capture_ms']['cold']:.2f} ms, new V "
+          f"{rec['capture_ms']['new V']:.2f} (host); peak above what was "
+          f"allocated before the fit (GB): "
+          f"{ {k: round(v, 4) for k, v in rec['peak_gb'].items()} }; the "
+          f"cache held {rec['held_bytes'] / 1e6:.2f} MB by its count "
+          f"({rec['freed_allocated'] / 1e6:.2f} MB allocated and "
+          f"{rec['freed_reserved'] / 1e6:.2f} MB reserved freed by "
+          f"compiled_cache_clear); cold, warm and new V bit for bit their "
+          f"eager twins; {rec['gap_tol']:.3g} with n_iter {ng} both ways "
+          f"(tol={FIT_TOL}) [{card}]", flush=True)
     return rec
 
 
@@ -1532,19 +1641,14 @@ def sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms):
         finals = {}
         for tier in ("densify", "ell", "gather"):
             set_tier(tier)
-            nmf_from_numpy(inits, "cuda").fit(V, beta=beta, tol=0, max_iter=2)
-            m = nmf_from_numpy(inits, "cuda")
-            _, ms = timed_fit(m, V, beta, SPARSE_ITERS)
-            finals[tier] = split_loss(S, V, m.W, m.H, beta)
-            fit_ms[f"sparse_{M}x{K}_r{R}_{nnz}nnz_beta{beta}_{tier}"] = ms
-            print(f"phase 4: sparse {M}x{K} R={R} {nnz} non-zeros beta={beta} "
-                  f"{tier}: {ms:.4f} ms/iteration, final loss "
-                  f"{finals[tier]:.7g} [{card}]", flush=True)
+            finals[tier] = sparse_compiled(S, nmf_from_numpy, V, inits, beta,
+                                           tier, card, fit_ms)
         spread = (max(finals.values()) - min(finals.values())) / min(finals.values())
         check(spread <= 1e-4, f"sparse {M}x{K} beta={beta}: tiers disagree {finals}")
         print(f"phase 3: sparse {M}x{K} beta={beta}: the three tiers agree "
               f"(spread {spread:.3g})", flush=True)
     set_tier(None)
+    densify_oom(S, nmf_from_numpy, rs, card, fit_ms)
     del V
 
     M, K, R, density = SPARSE_BIG
@@ -1560,24 +1664,18 @@ def sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms):
           f" (rows) and {ell.col_idx.shape[1]} (columns), spills "
           f"{ell.row_rem[2].numel()} and {ell.col_rem[2].numel()} [{card}]",
           flush=True)
-    calls = []
-    ell_neg_grad = S.ell_neg_grad
-
-    def counted(*args, **kwargs):
-        calls.append(1)
-        return ell_neg_grad(*args, **kwargs)
-
     finals = {}
-    S.ell_neg_grad = counted
     try:
         for tier in ("ell", "gather"):
             set_tier(None if tier == "ell" else "gather")
             m = nmf_from_numpy(inits, "cuda")
             before = split_loss(S, V, m.W, m.H, 1)
-            calls.clear()
+            # the reductions' executions, replays included (graphs._Counted)
+            n0 = S.ell_neg_grad.reductions
             _, ms = timed_fit(m, V, 1, SPARSE_BIG_ITERS)
-            check((len(calls) == 2 * SPARSE_BIG_ITERS) == (tier == "ell"),
-                  f"{M}x{K} {tier}: {len(calls)} ELL reductions")
+            calls = S.ell_neg_grad.reductions - n0
+            check((calls == 2 * SPARSE_BIG_ITERS) == (tier == "ell"),
+                  f"{M}x{K} {tier}: {calls} ELL reductions")
             finals[tier] = split_loss(S, V, m.W, m.H, 1)
             check(finals[tier] < before, f"{M}x{K} {tier}: the loss did not fall")
             fit_ms[f"sparse_{M}x{K}_r{R}_0.1pct_beta1_{tier}"] = ms
@@ -1585,13 +1683,234 @@ def sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms):
                   f"ms/iteration, loss {before:.7g} -> {finals[tier]:.7g} [{card}]",
                   flush=True)
     finally:
-        S.ell_neg_grad = ell_neg_grad
         set_tier(None)
     rel = abs(finals["ell"] - finals["gather"]) / finals["gather"]
     check(rel <= 1e-4, f"{M}x{K}: ELL and gather disagree {finals}")
     print(f"phase 3: sparse {M}x{K}: ELL and gather agree (rel {rel:.3g})",
           flush=True)
     return launches
+
+
+def sparse_compiled(S, nmf_from_numpy, V, inits, beta, tier, card, fit_ms):
+    """Phases 3 and 4, this slice: the sparse fit's chunk graphed at
+    SPARSE_ELL_CASE, SPARSE_COMPILED_ITERS iterations at tol=0 through
+    ``NMF.fit`` (a cold fit, then a warm one: a hit) against
+    ``get_sparse_fit(..., _graph=False)`` from the same inits: replays,
+    captures and host reads, ms/iteration and the device time an
+    iteration (``torch.profiler``) both ways; densify and ELL bit for bit
+    their eager runs, gather (scatter-adds by atomics) within 1e-4 and at
+    ``tol=1e-4`` the same ``n_iter``.  Returns the final loss."""
+    from pytorch_nmf_tpu_torch.nmf import NMF
+    from pytorch_nmf_tpu_torch.ops import graphs, solver
+
+    Graphs, iters = graphs._Graphs, SPARSE_COMPILED_ITERS
+    M, K = V.shape
+    R, chunks = inits["W"].shape[1], iters // 10
+    W0 = torch.from_numpy(inits["W"]).cuda()
+    H0 = torch.from_numpy(inits["H"]).cuda()
+    target = S.maybe_ell(V) if tier == "ell" else V
+    check(target is not None, f"sparse {tier}: no ELL layout")
+    solver.compiled_cache_clear()  # the timed fits' entries: the next is cold
+
+    def graphed(tol=0.0):
+        m = nmf_from_numpy(inits, "cuda")
+        n = m.fit(V, beta=beta, tol=tol, max_iter=iters)
+        return n, (m.W.detach(), m.H.detach())
+
+    def eager(tol=0.0):
+        factory = (NMF._resolve_updater_factory(V, W0, H0, float(beta))
+                   if tier == "densify" else None)
+        fit = solver.get_sparse_fit(NMF._sp_pos_neg, float(beta), tol, iters,
+                                    True, True, 0.0, 0.0, False, tier,
+                                    NMF.reconstruct, factory, _graph=False)
+        W, H, n = fit(target, W0.clone(), H0.clone())
+        return n, (W, H)
+
+    rec, outs = {"ms_per_iter": {}}, {}
+    tag = f"sparse compiled {M}x{K} R={R} {V._nnz()} non-zeros beta={beta} {tier}"
+    for how, run, expect in (("cold", graphed, (chunks - 2, 1)),
+                             ("eager", eager, (0, 0)),
+                             ("warm", graphed, (chunks, 0))):
+        r0, k0, h0 = Graphs.replays, Graphs.captures, solver._read.reads
+        (n, f), ms = events_ms(run)
+        replays, captures = Graphs.replays - r0, Graphs.captures - k0
+        reads = solver._read.reads - h0
+        check(n == iters and (replays, captures) == expect and reads == chunks,
+              f"{tag} {how}: n_iter {n}, {replays} replays, {captures} "
+              f"captures, {reads} host reads")
+        check_factors(f"{tag} {how}", *f)
+        rec["ms_per_iter"][how] = ms / iters
+        rec.setdefault("replays", {})[how] = replays
+        outs[how] = f
+    gaps = [max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(outs[how], outs["eager"]))
+            for how in ("cold", "warm")]
+    rec["gap"] = max(gaps)
+    if tier == "gather":
+        check(rec["gap"] <= 1e-4, f"{tag}: graphed against eager {gaps}")
+        (ng, fg), (ne, fe) = graphed(1e-4), eager(1e-4)
+        rec["n_iter_tol"] = [int(ng), int(ne)]
+        rec["gap_tol"] = max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(fg, fe))
+        check(ng == ne and rec["gap_tol"] <= 1e-4,
+              f"{tag}: tol=1e-4 n_iter {ng} and {ne}, {rec['gap_tol']:.3g}")
+    else:
+        check(rec["gap"] == 0, f"{tag}: graphed against eager {gaps}")
+    for how, run in (("warm", graphed), ("eager", eager)):
+        rec.setdefault("device_ms_per_iter", {})[how] = fit_profile(run, iters)
+        rec.setdefault("idle_share", {})[how] = 1 - rec["device_ms_per_iter"][
+            how] / rec["ms_per_iter"][how]
+    fit_ms[f"sparse_{M}x{K}_r{R}_{V._nnz()}nnz_beta{beta}_{tier}"] = rec
+    t = {k: round(v, 4) for k, v in rec["ms_per_iter"].items()}
+    d = {k: round(v, 4) for k, v in rec["device_ms_per_iter"].items()}
+    print(f"phase 4: {tag}, {iters} iterations: ms/iteration {t}; device "
+          f"ms/iteration (torch.profiler) {d}; the card idle "
+          f"{ {k: round(100 * v, 1) for k, v in rec['idle_share'].items()} }"
+          f"%; replays {rec['replays']}, host reads {chunks} a fit; graphed "
+          f"against eager {rec['gap']:.3g}"
+          + (f", at tol=1e-4 n_iter {rec['n_iter_tol']} ({rec['gap_tol']:.3g})"
+             if tier == "gather" else " (bit for bit)") + f" [{card}]",
+          flush=True)
+    return split_loss(S, V, *outs["warm"], beta)
+
+
+def densify_oom(S, nmf_from_numpy, rs, card, fit_ms):
+    """Phase 3, this slice: a densify fit out of card memory (the process's
+    memory fraction set so that the dense target does not fit) is run once
+    more on the ELL tier, graphed (one capture), as the JAX package
+    retries; afterwards, the cache cleared and the target's cached layout
+    dropped, the card's allocated memory is where it was before the fit."""
+    from pytorch_nmf_tpu_torch.ops import graphs, solver
+
+    M, K, R, nnz = SPARSE_OOM_CASE
+    V = random_coo(M, K, nnz, rs)
+    inits = {"W": rs.rand(K, R).astype("f") + 0.1, "H": rs.rand(M, R).astype("f") + 0.1}
+    m = nmf_from_numpy(inits, "cuda")
+    set_tier("densify")
+    solver.compiled_cache_clear()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    allow = torch.cuda.memory_reserved() + SPARSE_OOM_HEADROOM
+    dense = M * K * 4
+    check(allow - torch.cuda.memory_reserved() < dense, "densify OOM: the "
+          "headroom holds the dense target")
+    c0, k0 = cache_counts(solver), graphs._Graphs.captures
+    n0 = S.ell_neg_grad.reductions
+    torch.cuda.set_per_process_memory_fraction(allow / total)
+    try:
+        n, ms = timed_fit(m, V, 1, SPARSE_OOM_ITERS)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        set_tier(None)
+    q = {k: v - c0[k] for k, v in cache_counts(solver).items()}
+    captures = graphs._Graphs.captures - k0
+    reductions = S.ell_neg_grad.reductions - n0
+    check(n == SPARSE_OOM_ITERS and reductions == 2 * SPARSE_OOM_ITERS
+          and captures == 1, f"densify OOM: n_iter {n}, {reductions} ELL "
+          f"reductions, {captures} captures")
+    check_factors("densify OOM", m.W, m.H)
+    held = solver.compiled_cache_info()["held_bytes"]
+    solver.compiled_cache_clear()
+    V._pnt_ell_cache = None
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"densify OOM: allocated {before} before, {after} "
+          "after")
+    fit_ms[f"sparse_densify_oom_{M}x{K}_r{R}"] = {
+        "ms_per_iter": ms, "cache": q, "captures": captures,
+        "held_bytes": held}
+    print(f"phase 3: sparse {M}x{K} R={R} {V._nnz()} non-zeros, densify "
+          f"forced with {SPARSE_OOM_HEADROOM / 2**20:.0f} MiB of headroom "
+          f"(the dense target {dense / 2**20:.0f} MiB): out of memory, "
+          f"retried on ELL ({reductions} ELL reductions, {captures} capture, "
+          f"cache {q}), {ms:.4f} ms/iteration; the cache then held "
+          f"{held / 1e6:.2f} MB; allocated memory back to {before} bytes "
+          f"[{card}]", flush=True)
+
+
+def sparse_hoyer(ns, card, fit_ms, p1):
+    """Phase 3, this slice: the sparse-target Hoyer fit graphed, on the
+    top 2% of MAIN_SHAPE (:func:`sparse_fits`' target), R=88, ``sW=0.5``,
+    β=2, SPARSE_HOYER_ITERS iterations through ``NMF.sparse_fit`` (a cold
+    fit, a warm one) against ``get_hoyer_fit(..., _graph=False)``: the
+    same attempts, P1 launches one a constrained factor and attempt, no
+    line-search host read from the first replay on, the factors within
+    1e-4 (the gather's scatter-adds), ms/iteration."""
+    from pytorch_nmf_tpu_torch.ops import graphs
+
+    S, P, solver = ns.S, ns.P, ns.solver
+    bt, Graphs, iters = solver._backtrack_project, graphs._Graphs, SPARSE_HOYER_ITERS
+    M, K, R = MAIN_SHAPE
+    rs = np.random.RandomState(SEED)
+    Vd = rs.rand(M, K).astype("f")
+    Vd = np.where(Vd > np.quantile(Vd, 0.98), Vd, 0).astype("f")
+    V = S.sparse_from_dense(torch.from_numpy(Vd).cuda())
+    W0 = torch.from_numpy(rs.rand(K, R).astype("f") + 0.1).cuda()
+    H0 = torch.from_numpy(rs.rand(M, R).astype("f") + 0.1).cuda()
+    eager_fit = solver.get_hoyer_fit(None, ns.NMF._sp_pos_neg, 2.0, iters, True,
+                                     True, 0.5, None, K, M, _graph=False)
+    solver.compiled_cache_clear()  # the first fit is the configuration's
+
+    def graphed():
+        m = ns.NMF(W=W0.clone(), H=H0.clone(), device="cuda")
+        m.sparse_fit(V, beta=2, max_iter=iters, sW=0.5)
+        return m.W.detach(), m.H.detach()
+
+    rec, outs, chunks = {"ms_per_iter": {}}, {}, iters // 10
+    tag = f"sparse-target Hoyer {M}x{K} top 2% R={R} sW=0.5 beta=2"
+    p1_total = 0
+    for how, run, expect in (("cold", graphed, (chunks - 2, 1)),
+                             ("eager", lambda: eager_fit(V, W0.clone(),
+                                                         H0.clone())[:2],
+                              (0, 0)),
+                             ("warm", graphed, (chunks, 0))):
+        a0, r0, q0 = bt.attempts, bt.reads, P.proj_rows.launches
+        p0, k0 = Graphs.replays, Graphs.captures
+        marks = read_marks(lambda: bt.reads) if how != "eager" else None
+        try:
+            f, ms = events_ms(run)
+        finally:
+            if marks is not None:
+                marks.restore()
+        attempts, reads = bt.attempts - a0, bt.reads - r0
+        q = P.proj_rows.launches - q0
+        p1_total += q
+        replays, captures = Graphs.replays - p0, Graphs.captures - k0
+        check((replays, captures) == expect, f"{tag} {how}: {replays} "
+              f"replays, {captures} captures")
+        check(q == 1 + attempts, f"{tag} {how}: {q} P1 launches, {attempts} "
+              "attempts")
+        if marks is not None:
+            check(bt.reads == marks.reads[0], f"{tag} {how}: "
+                  f"{bt.reads - marks.reads[0]} line-search reads from the "
+                  "first replay on")
+        else:
+            check(reads == attempts, f"{tag} eager: {reads} reads")
+        check_factors(f"{tag} {how}", *f)
+        rec["ms_per_iter"][how] = ms / iters
+        for key, v in (("attempts", attempts), ("host_reads", reads),
+                       ("p1_launches", q), ("replays", replays)):
+            rec.setdefault(key, {})[how] = v
+        outs[how] = f
+    check(len(set(rec["attempts"].values())) == 1,
+          f"{tag}: attempts {rec['attempts']}")
+    gaps = {how: max(float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(outs[how], outs["eager"]))
+            for how in ("cold", "warm")}
+    check(max(gaps.values()) <= 1e-4, f"{tag}: graphed against eager {gaps}")
+    rec["gap"] = gaps
+    p1["sparse_hoyer"] = p1_total
+    fit_ms["sparse_hoyer_compiled"] = rec
+    t = {k: round(v, 4) for k, v in rec["ms_per_iter"].items()}
+    print(f"phase 3: {tag}, {iters} iterations: ms/iteration {t}; attempts "
+          f"{rec['attempts']['warm']} every way; P1 launches "
+          f"{rec['p1_launches']}; line-search host reads {rec['host_reads']} "
+          f"(none from the first replay on); replays {rec['replays']}; "
+          f"graphed against eager {gaps} [{card}]", flush=True)
 
 
 def events_ms(fn):
@@ -1742,23 +2061,24 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
     """Phases 3 and 4, this slice: the Hoyer fit's compiled chunk, the line
     search's attempts 2-10 a CUDA-graph WHILE node on the card.  At each
     HOYER_GRAPHED cell (dense NMF at MAIN_SHAPE; the NMFD flagship on
-    ``Vd`` from ``Wd``, ``Hd``), ``sparse_fit`` through the model (graphed)
-    against ``get_hoyer_fit(..., _graph=False)`` (eager) from the same
-    inits, timed in turns (graphed, eager, eager, graphed): factors equal
-    bit for bit, the same attempts, P1 launches equal to the constrained
-    factors plus the attempts, the same B3/B4 launches (exactly 2 and 1 an
-    iteration for ``sW``, 1 and 1 for ``sW+sH``), chunks − 2 replays, no
-    line-search host read from the first replay on (the eager fit reads
-    once an attempt); ms/iteration of the whole fit both ways, the replayed
-    chunks' (CUDA events around the replays) against the device time an
-    iteration (``torch.profiler``), the idle shares, the WHILE nodes'
-    handle-setting kernels' share, the capture's host ms, attempts an
-    iteration and the peak device memory above the factors both ways.
-    Then ``nmf_hoyer_fit_batched`` over BATCH's problems (one batched
-    program, one capture) against ``_graph=False`` bit for bit (the same
-    rounds, P1 launches one a round plus W's first projection for the
-    whole batch, line-search host reads only in the eager chunks) and the
-    16 eager single fits as the yardstick, timed in turns."""
+    ``Vd`` from ``Wd``, ``Hd``), a cache cell (:data:`CACHE_RUNS`):
+    ``sparse_fit`` through the model, cold, warm from other inits and on a
+    new V, against ``get_hoyer_fit(..., _graph=False)`` (eager) from the
+    same inits, in turns: factors equal bit for bit, the same attempts, P1
+    launches equal to the constrained factors plus the attempts, the same
+    B3/B4 launches (exactly 2 and 1 an iteration for ``sW``, 1 and 1 for
+    ``sW+sH``), the expected replays and captures, no line-search host
+    read from the first replay on (the eager fit reads once an attempt);
+    ms/iteration every way, the warm fit's replayed chunks (CUDA events
+    around the replays) against the device time an iteration
+    (``torch.profiler``), the idle shares, the WHILE nodes' handle-setting
+    kernels' share, the captures' host ms, attempts an iteration, the peak
+    device memory and the cache's held bytes.  Then
+    ``nmf_hoyer_fit_batched`` over BATCH's problems (one batched program)
+    as a cache cell against ``_graph=False`` bit for bit (the same rounds,
+    P1 launches one a round plus W's first projection for the whole batch,
+    line-search host reads only in the cold fit's eager chunks) and the 16
+    eager single fits as the yardstick."""
     from pytorch_nmf_tpu_torch.ops import graphs
 
     solver, P, Graphs = ns.solver, ns.P, graphs._Graphs
@@ -1768,36 +2088,49 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
     Vn = torch.from_numpy(rs.rand(M, K).astype("f") + 1e-3).cuda()
     Wn = torch.from_numpy(rs.rand(K, R).astype("f") + 0.1).cuda()
     Hn = torch.from_numpy(rs.rand(M, R).astype("f") + 0.1).cuda()
-    problems = {"NMF": (ns.NMF, Vn, Wn, Hn), "NMFD": (ns.models.NMFD, Vd, Wd, Hd)}
+    # the fit takes a contiguous target as it is and copies any other once
+    # a fit (a new target each time): the user's contiguous copy, made once
+    problems = {"NMF": (ns.NMF, Vn, Wn, Hn),
+                "NMFD": (ns.models.NMFD, Vd.contiguous(), Wd, Hd)}
     for label, name, iters, kw in HOYER_GRAPHED:
         cls, V, W0, H0 = problems[name]
         recon = cls._resolve_fit_recon2(V, W0, H0, 2.0)
         eager_fit = solver.get_hoyer_fit(
             recon, None, 2.0, iters, True, True, kw.get("sW"), kw.get("sH"),
             W0.numel() // W0.shape[1], H0.numel() // H0.shape[1], _graph=False)
+        inits = {"A": (W0, H0), "B": tuple(other_inits((W0, H0)))}
+        V2 = same_target(V)
 
-        def graphed():  # the user's entry point
-            m = cls(W=W0.clone(), H=H0.clone(), device="cuda")
-            m.sparse_fit(V, beta=2, max_iter=iters, **kw)
+        def graphed(which="A", X=V):  # the user's entry point
+            W, H = inits[which]
+            m = cls(W=W.clone(), H=H.clone(), device="cuda")
+            m.sparse_fit(X, beta=2, max_iter=iters, **kw)
             return m.W.detach(), m.H.detach()
 
-        def eager():
-            return eager_fit(V, W0.clone(), H0.clone())[:2]
+        def eager(which="A"):
+            W, H = inits[which]
+            return eager_fit(V, W.clone(), H.clone())[:2]
 
-        runs = {"graphed": graphed, "eager": eager}
-        rec = {"ms_per_iter": {"graphed": [], "eager": []}}
+        runs = {"cold": graphed, "eager": eager,
+                "eager B": lambda: eager("B"), "warm": lambda: graphed("B"),
+                "new V": lambda: graphed(X=V2)}
+        solver.compiled_cache_clear()
+        rec = {"ms_per_iter": {}}
         finals, factors = {}, len(kw)
         b3, b4 = {"NMF": (0, 0), "NMFD": (2, 1) if factors == 1 else (1, 1)}[name]
         want = {"fused_contractions": 0, "fused_beta_loss": 0,
                 "hgrad": b3 * iters, "wgrad": b4 * iters}
-        for i, how in enumerate(("graphed", "eager", "eager", "graphed")):
+        chunks = iters // 10
+        for how, twin, expect in CACHE_RUNS:
             c0, r0, q0 = read(ctr), bt.reads, P.proj_rows.launches
             a0, p0, s0 = bt.attempts, Graphs.replays, Graphs.capture_s
+            k0 = Graphs.captures
             torch.cuda.synchronize()
             torch._C._cuda_clearCublasWorkspaces()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            marks = read_marks(lambda: bt.reads) if how == "graphed" else None
+            graphed_run = not how.startswith("eager")
+            marks = read_marks(lambda: bt.reads) if graphed_run else None
             try:
                 f, ms = events_ms(runs[how])
             finally:
@@ -1807,74 +2140,85 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
             d = {k: v - c0[k] for k, v in read(ctr).items()}
             attempts, reads = bt.attempts - a0, bt.reads - r0
             q, replays = P.proj_rows.launches - q0, Graphs.replays - p0
+            captures = Graphs.captures - k0
             tag = f"Hoyer compiled {label} {how}"
             check(d == want, f"{tag}: launches {d}, want {want}")
             check(q == factors + attempts, f"{tag}: {q} P1 launches, "
                   f"{attempts} attempts, {factors} constrained factors")
-            check(replays == (iters // 10 - 2 if how == "graphed" else 0),
-                  f"{tag}: {replays} replays")
-            if how == "graphed":
+            check((replays, captures) == expect(chunks),
+                  f"{tag}: {replays} replays, {captures} captures")
+            if graphed_run:
                 check(bt.reads == marks.reads[0] and reads < attempts,
                       f"{tag}: {bt.reads - marks.reads[0]} line-search reads "
                       f"from the first replay on, {reads} of {attempts}")
-                rec["replayed_ms_per_iter"], rec["replay_busy_ms_per_iter"] = \
-                    marks.per_iter()
-                rec["eager_chunk_reads"] = marks.reads[0] - r0
+                if how == "cold":
+                    rec["eager_chunk_reads"] = marks.reads[0] - r0
+                else:
+                    check(reads == 0, f"{tag}: {reads} line-search reads")
+                if how == "warm":
+                    rec["replayed_ms_per_iter"], \
+                        rec["replay_busy_ms_per_iter"] = marks.per_iter()
             else:
                 check(reads == attempts, f"{tag}: {reads} reads, {attempts} "
                       f"attempts")
             check_factors(tag, *f)
             for key, v in (("peak_gb", peak / 1e9), ("replays", replays),
-                           ("host_reads", reads), ("attempts", attempts),
-                           ("p1_launches", q),
+                           ("captures", captures), ("host_reads", reads),
+                           ("attempts", attempts), ("p1_launches", q),
                            ("capture_ms", 1e3 * (Graphs.capture_s - s0))):
-                rec.setdefault(key, {}).setdefault(how, v)
-            check(rec["attempts"][how] == attempts,
-                  f"{tag}: {attempts} attempts, {rec['attempts'][how]} before")
-            rec["ms_per_iter"][how].append(ms / iters)
+                rec.setdefault(key, {})[how] = v
+            rec["ms_per_iter"][how] = ms / iters
             finals[how] = f
-        check(rec["attempts"]["graphed"] == rec["attempts"]["eager"],
-              f"Hoyer compiled {label}: attempts {rec['attempts']}")
-        check(all(torch.equal(a, b) for a, b in zip(finals["graphed"],
-                                                    finals["eager"])),
-              f"Hoyer compiled {label}: graphed and eager factors differ")
-        for how in ("graphed", "eager"):
-            dev, cond, replayed = hoyer_device(runs[how], iters,
-                                               rec["replays"][how])
-            whole = sum(rec["ms_per_iter"][how]) / 2
+        for how, twin, _ in CACHE_RUNS:
+            check(rec["attempts"][how] == rec["attempts"][twin]
+                  and all(torch.equal(a, b) for a, b in zip(finals[how],
+                                                            finals[twin])),
+                  f"Hoyer compiled {label} {how}: not bit for bit its eager "
+                  f"twin (attempts {rec['attempts']})")
+        rec["held_bytes"], rec["freed_allocated"], rec["freed_reserved"] = \
+            cache_held(solver)
+        graphed("B")  # so the profiled graphed fit is a hit
+        for how, run, replayed in (("warm", runs["warm"], chunks),
+                                   ("eager", runs["eager"], 0)):
+            dev, cond, rdev = hoyer_device(run, iters, replayed)
             rec.setdefault("device_ms_per_iter", {})[how] = dev
-            rec.setdefault("idle_share", {})[how] = 1 - dev / whole
-            if how == "graphed":
+            rec.setdefault("idle_share", {})[how] = \
+                1 - dev / rec["ms_per_iter"][how]
+            if how == "warm":
                 rec["while_kernels_ms_per_iter"] = cond
-                rec["replay_device_ms_per_iter"] = replayed
+                rec["replay_device_ms_per_iter"] = rdev
         rec["replayed_idle_share"] = (1 - rec["replay_device_ms_per_iter"]
                                       / rec["replayed_ms_per_iter"])
+        solver.compiled_cache_clear()
         fit_ms[f"hoyer_compiled_{label.replace(' ', '_')}"] = rec
-        t, a = rec["ms_per_iter"], rec["attempts"]["graphed"]
+        t = {k: round(v, 4) for k, v in rec["ms_per_iter"].items()}
+        a = rec["attempts"]["warm"]
         print(f"phase 4: Hoyer compiled {label}, {iters} iterations: ms/"
-              f"iteration graphed {t['graphed']}, eager {t['eager']}; the "
-              f"replayed chunks alone {rec['replayed_ms_per_iter']:.4f} "
-              f"(inside the replays {rec['replay_busy_ms_per_iter']:.4f}) "
-              f"against their {rec['replay_device_ms_per_iter']:.4f} ms of "
-              f"device time an iteration; the whole fit's device time an "
-              f"iteration (torch.profiler) graphed "
-              f"{rec['device_ms_per_iter']['graphed']:.4f}, eager "
-              f"{rec['device_ms_per_iter']['eager']:.4f}, of which the WHILE "
-              f"nodes' handle-setting kernels "
+              f"iteration {t}; the replayed chunks alone (warm) "
+              f"{rec['replayed_ms_per_iter']:.4f} (inside the replays "
+              f"{rec['replay_busy_ms_per_iter']:.4f}) against their "
+              f"{rec['replay_device_ms_per_iter']:.4f} ms of device time an "
+              f"iteration; the whole fit's device time an iteration "
+              f"(torch.profiler) warm {rec['device_ms_per_iter']['warm']:.4f}, "
+              f"eager {rec['device_ms_per_iter']['eager']:.4f}, of which the "
+              f"WHILE nodes' handle-setting kernels "
               f"{rec['while_kernels_ms_per_iter']:.5f}; the card idle "
-              f"{100 * rec['replayed_idle_share']:.1f}% in the replayed chunks, "
-              f"{100 * rec['idle_share']['graphed']:.1f}% in the whole graphed "
-              f"fit, {100 * rec['idle_share']['eager']:.1f}% eager; capture "
-              f"{rec['capture_ms']['graphed']:.1f} ms (host); attempts {a} "
-              f"({a / iters:.2f} an iteration), both ways; line-search host "
-              f"reads graphed {rec['host_reads']['graphed']} (all in chunks "
-              f"1-2), eager {rec['host_reads']['eager']}; replays "
-              f"{rec['replays']['graphed']}; P1 launches "
-              f"{rec['p1_launches']['graphed']} both ways; launches {want} both "
-              f"ways; peak above the factors graphed "
-              f"{rec['peak_gb']['graphed']:.4f} GB, eager "
-              f"{rec['peak_gb']['eager']:.4f}; factors equal bit for bit "
-              f"[{card}]", flush=True)
+              f"{100 * rec['replayed_idle_share']:.1f}% in the replayed "
+              f"chunks, {100 * rec['idle_share']['warm']:.1f}% in the whole "
+              f"warm fit, {100 * rec['idle_share']['eager']:.1f}% eager; "
+              f"captures {rec['captures']}, capture ms (host) "
+              f"{ {k: round(v, 1) for k, v in rec['capture_ms'].items()} }; "
+              f"attempts {rec['attempts']} ({a / iters:.2f} an iteration "
+              f"warm); line-search host reads {rec['host_reads']} (the cold "
+              f"fit's all in chunks 1-2); replays {rec['replays']}; P1 "
+              f"launches {rec['p1_launches']}; launches {want} every way; "
+              f"peak above what was allocated before the fit (GB) "
+              f"{ {k: round(v, 4) for k, v in rec['peak_gb'].items()} }; the "
+              f"cache held {rec['held_bytes'] / 1e6:.2f} MB by its count "
+              f"({rec['freed_allocated'] / 1e6:.2f} MB allocated, "
+              f"{rec['freed_reserved'] / 1e6:.2f} MB reserved freed by "
+              f"compiled_cache_clear); cold, warm and new V bit for bit their "
+              f"eager twins [{card}]", flush=True)
     del Vn, Wn, Hn, problems
 
     hoyer_batched(ns, card, fit_ms)
@@ -1899,41 +2243,45 @@ def hoyer_batched(ns, card, fit_ms):
     single = solver.get_hoyer_fit(ns.NMF.reconstruct, None, 2.0,
                                   HOYER_BATCH_ITERS, True, True, 0.5, None,
                                   Kb, Mb, _graph=False)
-    runs = {"graphed": lambda: ns.functional.nmf_hoyer_fit_batched(
-                V, W, H, max_iter=HOYER_BATCH_ITERS, sW=0.5)[:2],
+    Wb, Hb = other_inits((W, H))
+    V2 = same_target(V)
+
+    def graphed(X, W, H):
+        return ns.functional.nmf_hoyer_fit_batched(
+            X, W, H, max_iter=HOYER_BATCH_ITERS, sW=0.5)[:2]
+
+    runs = {"cold": lambda: graphed(V, W, H),
             "eager": lambda: eager_batch(V, W, H)[:2],
             "singles": lambda: [single(V[b], W[b].clone(), H[b].clone())
-                                for b in range(B)]}
-    captures, capture = [0], Graphs._capture
-
-    def counted_capture(self, fn):
-        captures[0] += 1
-        return capture(self, fn)
-
+                                for b in range(B)],
+            "eager B": lambda: eager_batch(V, Wb, Hb)[:2],
+            "warm": lambda: graphed(V, Wb, Hb),
+            "new V": lambda: graphed(V2, W, H)}
+    chunks = HOYER_BATCH_ITERS // 10
+    expect = {"cold": (chunks - 2, 1), "warm": (chunks, 0),
+              "new V": (chunks, 1)}
+    twins = {"cold": "eager", "warm": "eager B", "new V": "eager"}
+    solver.compiled_cache_clear()
     rec = fit_ms["hoyer_batched"] = {}
     outs = {}
-    for how in ("graphed", "eager", "singles", "singles", "eager", "graphed"):
-        p0, s0, c0 = Graphs.replays, Graphs.capture_s, captures[0]
+    for how in ("cold", "eager", "singles", "singles", "eager B", "warm",
+                "new V"):
+        p0, s0, c0 = Graphs.replays, Graphs.capture_s, Graphs.captures
         q0, n0, r0, a0 = P.proj_rows.launches, bb.rounds, bb.reads, bt.attempts
-        Graphs._capture = counted_capture
-        try:
-            out, ms = events_ms(runs[how])
-        finally:
-            Graphs._capture = capture
+        out, ms = events_ms(runs[how])
         if how == "singles":
             out = tuple(torch.stack([o[j] for o in out]) for j in (0, 1))
         q, rounds, reads = P.proj_rows.launches - q0, bb.rounds - n0, bb.reads - r0
         tag = f"batched Hoyer {how}"
-        replays = Graphs.replays - p0
-        check(replays == (HOYER_BATCH_ITERS // 10 - 2 if how == "graphed" else 0),
-              f"{tag}: {replays} replays")
+        replays, captures = Graphs.replays - p0, Graphs.captures - c0
         if how != "singles":
-            check(captures[0] - c0 == (how == "graphed"),
-                  f"{tag}: {captures[0] - c0} captures")
+            check((replays, captures) == expect.get(how, (0, 0)),
+                  f"{tag}: {replays} replays, {captures} captures")
             # one P1 launch a round and one for W's first projection, for
             # the whole batch
             check(q == 1 + rounds, f"{tag}: {q} P1 launches, {rounds} rounds")
-            check(reads == rounds if how == "eager" else 0 < reads < rounds,
+            check(reads == rounds if how.startswith("eager") else
+                  (0 < reads < rounds if how == "cold" else reads == 0),
                   f"{tag}: {reads} line-search reads, {rounds} rounds")
         check_factors(tag, *out)
         r = rec.setdefault(how, {"ms": [], "capture_ms": [], "p1_launches": q})
@@ -1942,25 +2290,36 @@ def hoyer_batched(ns, card, fit_ms):
         r["rounds" if how != "singles" else "attempts"] = (
             rounds if how != "singles" else bt.attempts - a0)
         outs.setdefault(how, out)
-    check(rec["graphed"]["rounds"] == rec["eager"]["rounds"]
-          and rec["graphed"]["p1_launches"] == rec["eager"]["p1_launches"],
-          f"batched Hoyer: graphed {rec['graphed']}, eager {rec['eager']}")
-    check(all(torch.equal(a, b) for a, b in zip(outs["graphed"], outs["eager"])),
-          "batched Hoyer: graphed and eager factors differ")
+    for how, twin in twins.items():
+        check(rec[how]["rounds"] == rec[twin]["rounds"]
+              and rec[how]["p1_launches"] == rec[twin]["p1_launches"]
+              and all(torch.equal(a, b) for a, b in zip(outs[how],
+                                                        outs[twin])),
+              f"batched Hoyer {how}: not bit for bit {twin} ({rec[how]}, "
+              f"{rec[twin]})")
     gap = max(float((a - b).abs().max() / b.abs().max())
-              for a, b in zip(outs["graphed"], outs["singles"]))
+              for a, b in zip(outs["cold"], outs["singles"]))
     rec["gap_to_singles"] = gap
+    rec["held_bytes"], rec["freed_allocated"], rec["freed_reserved"] = \
+        cache_held(solver)
     t = rec
     print(f"phase 4: nmf_hoyer_fit_batched {B}x{Mb}x{Kb} R={Rb} sW=0.5, "
-          f"{HOYER_BATCH_ITERS} iterations, one batched program: graphed "
-          f"{t['graphed']['ms']} ms (one capture, {t['graphed']['capture_ms']} "
-          f"ms of host time; one replay), _graph=False {t['eager']['ms']} ms, "
-          f"equal bit for bit; P1 launches {t['graphed']['p1_launches']} for "
-          f"the batch ({t['graphed']['rounds']} line-search rounds), against "
+          f"{HOYER_BATCH_ITERS} iterations, one batched program: cold "
+          f"{t['cold']['ms']} ms (one capture, {t['cold']['capture_ms']} ms "
+          f"of host time; {chunks - 2} replay), warm from other inits "
+          f"{t['warm']['ms']} ms ({chunks} replays, no capture), a new V "
+          f"{t['new V']['ms']} ms (one capture, {t['new V']['capture_ms']} "
+          f"ms; {chunks} replays), _graph=False {t['eager']['ms']} and "
+          f"{t['eager B']['ms']} ms, each graphed fit equal to its eager twin "
+          f"bit for bit; P1 launches {t['cold']['p1_launches']} for the batch "
+          f"({t['cold']['rounds']} line-search rounds), against "
           f"{t['singles']['p1_launches']} for the {B} eager single fits "
           f"({t['singles']['attempts']} attempts), which took "
-          f"{t['singles']['ms']} ms; factors within {gap:.3g} of theirs "
-          f"[{card}]", flush=True)
+          f"{t['singles']['ms']} ms; factors within {gap:.3g} of theirs; the "
+          f"cache held {t['held_bytes'] / 1e6:.2f} MB by its count "
+          f"({t['freed_allocated'] / 1e6:.2f} MB allocated, "
+          f"{t['freed_reserved'] / 1e6:.2f} reserved freed) [{card}]",
+          flush=True)
 
 
 def hoyer_fits(ns, ctr, card, fit_ms, p1):
@@ -2029,6 +2388,7 @@ def hoyer_fits(ns, ctr, card, fit_ms, p1):
     from torch.profiler import ProfilerActivity, profile
 
     def dense_profile(n):
+        solver.compiled_cache_clear()  # eager chunks, as a first fit runs
         fit = ns.nmf_from_numpy(inits, "cuda")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2290,12 +2650,14 @@ def batched_fits(ns, ctr, card, fit_ms):
     (:func:`batched_problem`): the ``tol`` (:func:`stagger_tol`) read from
     the eager loop's per-problem losses after each chunk, so the problems
     stop at different chunks, some in the replays; through ``functional``
-    (graphed, the user's entry point) and the solver with ``_graph=False``
-    (eager) in turns (graphed, eager, eager, graphed): factors and
-    ``n_iter`` equal bit for bit, each problem's ``n_iter`` the stagger's,
-    chunks − 2 replays, one host read a chunk; ms per batched iteration
-    both ways, the replayed chunks' (CUDA events around the replays)
-    against their device time (``torch.profiler``), the capture's host ms.
+    (the user's entry point: a cold fit, a warm one from the same inits and
+    one on a new V) and the solver with ``_graph=False`` (eager) in turns:
+    factors and ``n_iter`` equal bit for bit, each problem's ``n_iter`` the
+    stagger's, chunks − 2 replays cold and every chunk warm and on a new
+    V, one host read a chunk; ms per batched iteration every way, the
+    warm fit's replayed chunks (CUDA events around the replays) against
+    their device time (``torch.profiler``), the captures' host ms, the
+    cache's held bytes.
     The MU fits' problems also end within RTOL (final loss) of their single
     fits through the generic engine (the same ``n_iter``, or the cases that
     differ printed).  No kernel runs."""
@@ -2322,8 +2684,8 @@ def batched_fits(ns, ctr, card, fit_ms):
                     ns.PLCA.reconstruct, tol, iters, True, True, True, False,
                     False, False, _graph=False)(V, W, H, Z, one, one, one)
 
-            def graphed(tol):
-                return fn.plca_fit_batched(V, W, H, Z, tol=tol,
+            def graphed(tol, X=V):
+                return fn.plca_fit_batched(X, W, H, Z, tol=tol,
                                            max_iter=BATCH_ITERS)
 
             def loss_of(out):
@@ -2338,8 +2700,8 @@ def batched_fits(ns, ctr, card, fit_ms):
                     ns.NMF.reconstruct, beta, tol, iters, True, True, 0.0,
                     0.0, ns.nmf_updater_factory_generic, _graph=False)(V, W, H)
 
-            def graphed(tol, beta=beta):
-                return fn.nmf_fit_batched(V, W, H, beta=beta, tol=tol,
+            def graphed(tol, beta=beta, X=V):
+                return fn.nmf_fit_batched(X, W, H, beta=beta, tol=tol,
                                           max_iter=BATCH_ITERS)
 
             def loss_of(out, div_b=div_b):
@@ -2351,39 +2713,54 @@ def batched_fits(ns, ctr, card, fit_ms):
         tol, stops = stagger_tol(torch.stack(losses).double().cpu().numpy())
         want = [10 * s - plca if s else BATCH_ITERS - plca for s in stops]
         run_chunks = chunks if 0 in stops else max(stops)
-        runs = {"graphed": lambda: graphed(tol),
+        V2 = same_target(V)
+        # the warm fit starts from the same inits: the tol is the stagger's
+        # for them
+        runs = {"cold": lambda: graphed(tol), "warm": lambda: graphed(tol),
+                "new V": lambda: graphed(tol, X=V2),
                 "eager": lambda: eager(tol, BATCH_ITERS)}
-        rec = {"tol": tol, "stops": stops, "ms": {"graphed": [], "eager": []}}
+        expect = {"cold": (run_chunks - 2, 1), "warm": (run_chunks, 0),
+                  "new V": (run_chunks, 1), "eager": (0, 0)}
+        solver.compiled_cache_clear()
+        rec = {"tol": tol, "stops": stops, "ms": {}}
         outs = {}
-        for how in ("graphed", "eager", "eager", "graphed"):
+        for how in ("cold", "eager", "eager", "warm", "new V"):
             r0, p0, s0 = solver._read.reads, Graphs.replays, Graphs.capture_s
-            marks = replay_marks() if how == "graphed" else None
+            k0 = Graphs.captures
+            marks = replay_marks() if how == "warm" else None
             try:
                 out, ms = events_ms(runs[how])
             finally:
                 if marks is not None:
                     marks.restore()
             reads, replays = solver._read.reads - r0, Graphs.replays - p0
+            captures = Graphs.captures - k0
             tag = f"batched {case} {how}"
             n = out[3] if plca else out[2]
             check(n.tolist() == want, f"{tag}: n_iter {n.tolist()}, want {want}")
             check(reads == run_chunks, f"{tag}: {reads} host reads, "
                   f"{run_chunks} chunks")
-            check(replays == (run_chunks - 2 if how == "graphed" else 0),
-                  f"{tag}: {replays} replays")
+            check((replays, captures) == expect[how],
+                  f"{tag}: {replays} replays, {captures} captures")
             check_factors(tag, *out[:3 if plca else 2])
-            rec["ms"][how].append(ms)
-            if how == "graphed":
-                rec["capture_ms"] = 1e3 * (Graphs.capture_s - s0)
+            rec["ms"].setdefault(how, []).append(ms)
+            if how in ("cold", "new V"):
+                rec.setdefault("capture_ms", {})[how] = \
+                    1e3 * (Graphs.capture_s - s0)
+            if how == "warm":
                 rec["replayed_ms_per_iter"], rec["replay_busy_ms_per_iter"] = \
                     marks.per_iter()
             outs.setdefault(how, out)
-        check(all(torch.equal(a, b) for a, b in zip(outs["graphed"],
-                                                    outs["eager"])),
-              f"batched {case}: graphed and eager differ")
+        for how in ("cold", "warm", "new V"):
+            check(all(torch.equal(a, b) for a, b in zip(outs[how],
+                                                        outs["eager"])),
+                  f"batched {case} {how}: not bit for bit the eager fit")
+        rec["held_bytes"], rec["freed_allocated"], rec["freed_reserved"] = \
+            cache_held(solver)
         iters = 10 * run_chunks + (BATCH_ITERS % 10 if 0 in stops else 0)
+        runs["warm"]()  # so the profiled one is a hit
         _, _, rec["replay_device_ms_per_iter"] = hoyer_device(
-            runs["graphed"], iters, run_chunks - 2)
+            runs["warm"], iters, run_chunks)
         rec["ms_per_batched_iter"] = {h: [t / iters for t in v]
                                       for h, v in rec["ms"].items()}
         differ, rels = [], []
@@ -2393,7 +2770,7 @@ def batched_fits(ns, ctr, card, fit_ms):
                                           False, ns.nmf_updater_factory_generic)
             singles, rec["singles_ms"] = events_ms(
                 lambda: [single(V[b], W[b].clone(), H[b].clone()) for b in range(B)])
-            Wb, Hb, nb = outs["graphed"]
+            Wb, Hb, nb = outs["cold"]
             for b, (w, h, n) in enumerate(singles):
                 lb = float(beta_div(ns.NMF.reconstruct(Hb[b], Wb[b]), V[b], beta))
                 ls = float(beta_div(ns.NMF.reconstruct(h, w), V[b], beta))
@@ -2406,14 +2783,20 @@ def batched_fits(ns, ctr, card, fit_ms):
         t = rec["ms_per_batched_iter"]
         print(f"phase 3: batched {'plca_fit_batched' if plca else 'nmf_fit_batched ' + case} "
               f"{B}x{M}x{K} R={R}, tol {tol:.4g}: stops at chunks {stops} "
-              f"(n_iter {want}), graphed equal to eager bit for bit; ms per "
-              f"batched iteration graphed {[f'{x:.4f}' for x in t['graphed']]}, "
-              f"eager {[f'{x:.4f}' for x in t['eager']]}; the replayed chunks "
+              f"(n_iter {want}), cold, warm and new V equal to eager bit for "
+              f"bit; ms per batched iteration "
+              f"{ {k: [round(x, 4) for x in v] for k, v in t.items()} }; the "
+              f"replayed chunks (warm) "
               f"{rec['replayed_ms_per_iter']:.4f} (inside the replays "
               f"{rec['replay_busy_ms_per_iter']:.4f}) against their "
               f"{rec['replay_device_ms_per_iter']:.4f} ms of device time an "
-              f"iteration; capture {rec['capture_ms']:.1f} ms (host); replays "
-              f"{run_chunks - 2}, host reads {run_chunks} both ways"
+              f"iteration; capture (host ms) "
+              f"{ {k: round(v, 1) for k, v in rec['capture_ms'].items()} }; "
+              f"replays cold {run_chunks - 2}, warm and new V {run_chunks}, "
+              f"host reads {run_chunks} every way; the cache held "
+              f"{rec['held_bytes'] / 1e6:.2f} MB by its count "
+              f"({rec['freed_allocated'] / 1e6:.2f} MB allocated, "
+              f"{rec['freed_reserved'] / 1e6:.2f} reserved freed)"
               + ("" if plca else
                  f"; final losses within {max(rels):.3g} of the {B} single fits "
                  f"({rec['singles_ms']:.1f} ms; "
@@ -3096,30 +3479,52 @@ def bf16_dense(ns, fm, card, fit_ms):
 def bf16_capacity(ns, fm, card, fit_ms):
     """The capacity the knob buys: the peak device memory of ``NMF.fit`` at
     β=1 on BF16_CAPACITY (4097 columns: rows padded to 4100 floats or 4104
-    bfloat16 values), BF16_CAPACITY_ITERS iterations from a host V, in
-    float32 (on the rounded values) and in bfloat16.  The peak above what
-    was allocated before V reached the card (the model's factors) must be
-    at most BF16_PEAK_RATIO of the float32 fit's, and the two final losses
-    agree within RTOL."""
-    NMF = ns.NMF
+    bfloat16 values), BF16_CAPACITY_ITERS iterations on a target on the
+    card, in float32 (on the rounded values) and in bfloat16, each beside
+    the cache entry of an earlier fit of another configuration (β=1 at
+    ``tol=-inf``) on the same target.  The peak above what was allocated
+    before the fit (the target and the cache's held bytes, reported beside
+    it) must be at most BF16_PEAK_RATIO of the float32 fit's, and the two
+    final losses agree within RTOL.  Then, in float32, a third
+    configuration given only the memory it needs without the entries held
+    (:func:`capacity_beside_the_cache`)."""
+    NMF, solver = ns.NMF, ns.solver
     M, K, R = BF16_CAPACITY
     g = torch.Generator().manual_seed(SEED)
     Vb = (torch.rand((M, K), generator=g) + 0.01).bfloat16()
-    out = {}
+    out, held = {}, {}
     for tag, X in (("f32", Vb.float()), ("bf16", Vb)):
-        m = NMF((M, K), R, device="cuda",
-                generator=torch.Generator("cuda").manual_seed(SEED))
+        X = X.cuda()
+        solver.compiled_cache_clear()
+
+        def model():
+            return NMF((M, K), R, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(SEED))
+
+        model().fit(X, beta=1, tol=float("-inf"),
+                    max_iter=BF16_CAPACITY_ITERS)  # the earlier entry
+        m = model()
         torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
+        before = solver.compiled_cache_info()["held_bytes"]
+        base, base_r = torch.cuda.memory_allocated(), \
+            torch.cuda.memory_reserved()
         n, ms = events_ms(lambda: m.fit(X, beta=1, tol=0,
                                         max_iter=BF16_CAPACITY_ITERS))
         peak = torch.cuda.max_memory_allocated() - base
+        need = torch.cuda.max_memory_reserved() - base_r
+        held[tag] = (before, solver.compiled_cache_info()["held_bytes"])
+        check(before > 0, f"capacity {tag}: no entry held before the fit")
         check_factors(f"capacity {tag}", m.W, m.H)
         out[tag] = (peak, X.numel() * X.element_size(), m.W.detach(),
                     m.H.detach(), ms / n)
+        if tag == "f32":
+            fit_ms["capacity_beside_the_cache"] = capacity_beside_the_cache(
+                ns, X, need, card)
         del m, X
+        solver.compiled_cache_clear()
     Vr = Vb.float().cuda()
     losses = {tag: float(fm.fused_beta_loss(Vr, o[3], o[2], 1.0))
               for tag, o in out.items()}
@@ -3128,20 +3533,74 @@ def bf16_capacity(ns, fm, card, fit_ms):
     ratio = out["bf16"][0] / out["f32"][0]
     tag = f"capacity NMF.fit {M}x{K} R={R} beta=1"
     for t in ("f32", "bf16"):
-        print(f"phase 3: {tag} {t}: V {out[t][1] / 1e9:.3f} GB on the host, "
-              f"peak device memory above the factors {out[t][0] / 1e9:.3f} GB,"
-              f" {out[t][4]:.2f} ms/iteration (the fit's time, its copy of V "
-              f"to the card included) [{card}]", flush=True)
+        print(f"phase 3: {tag} {t}: V {out[t][1] / 1e9:.3f} GB on the card, "
+              f"peak device memory above what was allocated before the fit "
+              f"{out[t][0] / 1e9:.3f} GB, beside the fits' cache holding "
+              f"{held[t][0] / 1e9:.3f} GB (an earlier fit's entry; "
+              f"{held[t][1] / 1e9:.3f} GB after), {out[t][4]:.2f} "
+              f"ms/iteration (a cold fit) [{card}]", flush=True)
     check(ratio <= BF16_PEAK_RATIO, f"{tag}: bf16 peak {out['bf16'][0]} is "
           f"{ratio:.3f} of the float32 fit's {out['f32'][0]}")
     check(rel <= RTOL, f"{tag}: final loss {losses['bf16']} vs float32 "
           f"{losses['f32']} (rel {rel:.3g})")
     fit_ms[f"capacity_{M}x{K}_r{R}_beta1"] = {
         t: {"peak_bytes": out[t][0], "V_bytes": out[t][1],
-            "ms_per_iter_with_copy": out[t][4]} for t in out}
+            "ms_per_iter": out[t][4], "cache_held_bytes": held[t]}
+        for t in out}
     print(f"phase 3: {tag}: bf16 peak / float32 peak = {ratio:.3f} (at most "
-          f"{BF16_PEAK_RATIO}); final loss {losses['bf16']:.7g} vs "
-          f"{losses['f32']:.7g} (rel {rel:.3g}) [{card}]", flush=True)
+          f"{BF16_PEAK_RATIO}), each above the cache's held bytes; final "
+          f"loss {losses['bf16']:.7g} vs {losses['f32']:.7g} (rel "
+          f"{rel:.3g}) [{card}]", flush=True)
+
+
+def capacity_beside_the_cache(ns, X, need, card):
+    """A third configuration (β=1 at ``tol=-1``) on the capacity target
+    ``X``, whose two earlier fits' entries the cache holds, with the
+    process's memory capped at what the card has reserved now plus
+    ``need`` (the reserved memory a cold fit of the target added) less
+    half the entries' held bytes: it fits only without them.  It runs out
+    of memory, the cache is emptied, and it runs once more (two cold
+    misses), equal bit for bit to its ``_graph=False`` fit."""
+    NMF, solver = ns.NMF, ns.solver
+    M, K = X.shape
+    R = BF16_CAPACITY[2]
+    m = NMF((M, K), R, device="cuda",
+            generator=torch.Generator("cuda").manual_seed(SEED + 1))
+    W0, H0 = m.W.detach().clone(), m.H.detach().clone()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    info = solver.compiled_cache_info()
+    held, entries = info["held_bytes"], info["entries"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    limit = torch.cuda.memory_reserved() + need - held // 2
+    q0 = cache_counts(solver)
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+        n, ms = events_ms(lambda: m.fit(X, beta=1, tol=-1.0,
+                                        max_iter=BF16_CAPACITY_ITERS))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    q = {k: v - q0[k] for k, v in cache_counts(solver).items()}
+    after = solver.compiled_cache_info()["entries"]
+    fit = solver.get_dense_fit(
+        NMF.reconstruct, 1.0, -1.0, BF16_CAPACITY_ITERS, True, True, 0.0, 0.0,
+        False, NMF._resolve_updater_factory(X, W0, H0, 1.0), _graph=False)
+    W, H, ne = fit(X, W0, H0)
+    tag = f"capacity NMF.fit {M}x{K} R={R} beta=1 f32, a third configuration"
+    check(entries == 2 and q == {"hits": 0, "warm_misses": 0,
+                                 "cold_misses": 2} and after == 1,
+          f"{tag}: {entries} entries before, cache {q}, {after} after")
+    check(n == ne and torch.equal(m.W, W) and torch.equal(m.H, H),
+          f"{tag}: not bit for bit its eager fit (n_iter {n}, {ne})")
+    print(f"phase 3: {tag}: the card capped at {limit / 1e9:.3f} GB "
+          f"reserved, {need / 1e9:.3f} GB for a cold fit beside the cache's "
+          f"{held / 1e9:.3f} GB ({entries} entries): out of memory, the "
+          f"cache emptied, run once more (cache {q}), bit for bit its eager "
+          f"fit, {ms / n:.2f} ms/iteration with the retry [{card}]",
+          flush=True)
+    return {"limit_bytes": limit, "need_bytes": need, "held_bytes": held,
+            "cache": q, "ms_per_iter": ms / n}
 
 
 def bf16_streaming(ns, fm, card, fit_ms):
@@ -3333,27 +3792,41 @@ def checkpoint_fits(ns, ctr, card, fit_ms):
                    for x, y in zip(a, b))
 
     d_nmf = os.path.join(root, "nmf")
+    from pytorch_nmf_tpu_torch.ops import graphs
+
+    Graphs, solver = graphs._Graphs, ns.solver
+    solver.compiled_cache_clear()
+    k0, r0, q0 = Graphs.captures, Graphs.replays, cache_counts(solver)
     a = ns.NMF(W=W0, H=H0, device="cuda")
     (n1, _), d1 = counted(lambda: (checkpointed_fit(
         a, V, beta=0.5, tol=inf, max_iter=CKPT_EVERY, every=CKPT_EVERY,
         directory=d_nmf), None))
     b = ns.NMF((M, K), R, device="cuda")  # a new session: factors from disk
     (n2, _), d2 = counted(lambda: (checkpointed_fit(
-        b, V, beta=0.5, tol=inf, max_iter=2 * CKPT_EVERY, every=CKPT_EVERY,
+        b, V, beta=0.5, tol=inf, max_iter=CKPT_ITERS, every=CKPT_EVERY,
         directory=d_nmf), None))
+    captures, replays = Graphs.captures - k0, Graphs.replays - r0
+    q = {k: v - q0[k] for k, v in cache_counts(solver).items()}
     ref = ns.NMF(W=W0, H=H0, device="cuda")
-    ref.fit(V, beta=0.5, tol=inf, max_iter=2 * CKPT_EVERY)
+    ref.fit(V, beta=0.5, tol=inf, max_iter=CKPT_ITERS)
     rel = same((b.W, b.H), (ref.W, ref.H))
     tag = f"checkpointed NMF {M}x{K} R={R} beta=0.5"
     check_factors(tag, b.W, b.H)
-    check(n1 == CKPT_EVERY and n2 == 2 * CKPT_EVERY and rel <= 1e-6,
+    check(n1 == CKPT_EVERY and n2 == CKPT_ITERS and rel <= 1e-6,
           f"{tag}: n_iter {n1}, {n2}; factors {rel:.3g} from the "
           "uninterrupted fit")
-    check(d1["fused_contractions"] == d2["fused_contractions"]
-          == 2 * CKPT_EVERY, f"{tag}: launches {d1}, {d2}")
-    print(f"phase 3: {tag}: sessions of {n1} and {n2 - n1} iterations equal "
-          f"the uninterrupted {2 * CKPT_EVERY} (max rel {rel:.3g}); launches "
-          f"B1 {d1['fused_contractions']} + {d2['fused_contractions']}, B2 "
+    check(d1["fused_contractions"] == 2 * CKPT_EVERY and
+          d2["fused_contractions"] == 2 * (CKPT_ITERS - CKPT_EVERY),
+          f"{tag}: launches {d1}, {d2}")
+    segments = CKPT_ITERS // CKPT_EVERY
+    check(captures == 1 and replays == segments * CKPT_EVERY // 10 - 2,
+          f"{tag}: {captures} captures, {replays} replays in {segments} "
+          "segments")
+    print(f"phase 3: {tag}: sessions of {n1} and {n2 - n1} iterations in "
+          f"segments of {CKPT_EVERY} equal the uninterrupted {CKPT_ITERS} "
+          f"(max rel {rel:.3g}); one capture for the {segments} segments "
+          f"({replays} replays; cache {q}); launches B1 "
+          f"{d1['fused_contractions']} + {d2['fused_contractions']}, B2 "
           f"{d1['fused_beta_loss']} + {d2['fused_beta_loss']} [{card}]",
           flush=True)
     del a, b, ref, V
@@ -4425,13 +4898,14 @@ def namespace():
     from pytorch_nmf_tpu_torch.ops import fast_nmfd as F
     from pytorch_nmf_tpu_torch.ops import projection as P
     from pytorch_nmf_tpu_torch.ops import solver
+    from pytorch_nmf_tpu_torch.ops import sparse as S
     from pytorch_nmf_tpu_torch.ops.fast_nmf import nmf_updater_factory_generic
     from pytorch_nmf_tpu_torch.plca import PLCA, SIPLCA
     from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
     from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
 
     return SimpleNamespace(
-        models=models, NMF=NMF, PLCA=PLCA, SIPLCA=SIPLCA, F=F, P=P,
+        models=models, NMF=NMF, PLCA=PLCA, SIPLCA=SIPLCA, F=F, P=P, S=S,
         solver=solver, functional=functional, beta_div=beta_div,
         kl_div=kl_div, plca_from_numpy=plca_from_numpy, BetaMu=BetaMu,
         SparsityProj=SparsityProj, trainer=trainer,
@@ -4590,6 +5064,12 @@ def main():
     p1_by_path = {}
     by_path["hoyer"] = hoyer_fits(ns, ctr, card, fit_ms, p1_by_path)
     stamp("Hoyer")
+    # this slice: the sparse-target Hoyer fit graphed (P1; no B1-B4)
+    zero(ctr)
+    sparse_hoyer(ns, card, fit_ms, p1_by_path)
+    check(not any(read(ctr).values()),
+          f"the sparse-target Hoyer fit launched {read(ctr)}")
+    stamp("sparse-target Hoyer")
     by_path["functional"] = functional_fits(ns, ctr, card)
     batched_fits(ns, ctr, card, fit_ms)
     trainer_steps(ns, ctr, card, fit_ms, p1_by_path)
@@ -4633,6 +5113,9 @@ def main():
               f"{st['plain_ms']:.4f} ms, library {lib}, bound "
               f"{st['bound_ms']:.4f} ms ({st['bound_by']}) [{card}]",
               flush=True)
+    fit_ms["compiled_cache"] = solver.compiled_cache_info()
+    print(f"the fits' cache over the run: {json.dumps(fit_ms['compiled_cache'])}"
+          f" [{card}]", flush=True)
     print(f"whole run {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     summary = {"kernels": [
         dict({"name": name, "route": "cuda", "source": SOURCES[name],

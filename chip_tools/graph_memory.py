@@ -4,12 +4,15 @@
     python chip_tools/graph_memory.py --keep-workspaces
 
 Three graphed 40-iteration fits each of dense ``NMF`` 5168×1025 R=88 (β=1,
-on B1) and ``SIPLCA`` 1×513×3000 R=64 T=200 (on B3/B4), then three
-``BetaMu`` optimizers over the 2048² chain (5 steps each, each optimizer
-dropped after), from numpy seed 0: the allocated and reserved MiB before
-and after each, the peak above the start, and the capture's host ms, of it
-the chunk's own host code; then the allocated memory before and after
-clearing cuBLAS's workspaces, and the reserved memory after
+on B1) and ``SIPLCA`` 1×513×3000 R=64 T=200 (on B3/B4), on one target each
+(the first fit a cold miss of the fits' cache, the others hits), then
+three ``BetaMu`` optimizers over the 2048² chain (5 steps each, each
+optimizer dropped after), from numpy seed 0: the allocated and reserved
+MiB before and after each, the peak above the start, the bytes the fits'
+cache holds after it (``solver.compiled_cache_info``), and the capture's
+host ms, of it the chunk's own host code; then the allocated memory before
+and after clearing cuBLAS's workspaces and after
+``solver.compiled_cache_clear``, and the reserved memory after
 ``torch.cuda.empty_cache``.  ``--keep-workspaces`` turns the capture's
 dropping of cuBLAS's per-stream workspaces (``ops/graphs.py``) off, to
 show what it prevents.  Prints the card's name and power limit.  Needs one
@@ -28,7 +31,7 @@ def main():
 
     import chip_smoke as cs
     from pytorch_nmf_tpu_torch.nmf import NMF
-    from pytorch_nmf_tpu_torch.ops import graphs
+    from pytorch_nmf_tpu_torch.ops import graphs, solver
     from pytorch_nmf_tpu_torch.ops._build import load_all
     from pytorch_nmf_tpu_torch.trainer import BetaMu
     from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
@@ -82,11 +85,13 @@ def main():
             m.fit(X, tol=0, max_iter=40, **kw)
             peak = torch.cuda.max_memory_allocated() / 2**20 - a0
             a1, r1 = mem()
+            held = solver.compiled_cache_info()["held_bytes"] / 2**20
             print(f"{label} fit {rep}: allocated {a0:.1f} -> {a1:.1f} MiB, "
                   f"reserved {r0:.1f} -> {r1:.1f}, peak above the start "
-                  f"{peak:.1f}; capture {1e3 * split['total']:.1f} ms, of it "
-                  f"the chunk's host code {1e3 * split['fn']:.1f} [{card}]",
-                  flush=True)
+                  f"{peak:.1f}, the fits' cache holding {held:.1f} after; "
+                  f"capture {1e3 * split.pop('total', 0.0):.1f} ms, of it "
+                  f"the chunk's host code {1e3 * split.pop('fn', 0.0):.1f} "
+                  f"[{card}]", flush=True)
             del m
     (M0, K0), rank, W2, W3 = cs.CHAIN
     target = torch.rand(M0, W3[0], device="cuda")
@@ -106,11 +111,14 @@ def main():
     a, r = mem()
     clear()
     b, _ = mem()
+    solver.compiled_cache_clear()
+    c, _ = mem()
     torch.cuda.empty_cache()
     _, r2 = mem()
     print(f"at the end: allocated {a:.1f} MiB, {b:.1f} after clearing "
-          f"cuBLAS's workspaces; reserved {r:.1f}, {r2:.1f} after "
-          f"empty_cache [{card}]", flush=True)
+          f"cuBLAS's workspaces, {c:.1f} after emptying the fits' cache; "
+          f"reserved {r:.1f}, {r2:.1f} after empty_cache [{card}]",
+          flush=True)
 
 
 if __name__ == "__main__":

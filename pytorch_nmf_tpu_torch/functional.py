@@ -19,6 +19,8 @@ array), float64 kept and every other dtype made float32; ``V`` follows them
 (:func:`~.models._common.target_like`).
 """
 
+import functools
+
 import torch
 from torch.func import vmap
 
@@ -55,6 +57,13 @@ __all__ = [
     "gamma_from_beta",
     "renorm",
 ]
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_recon(reconstruct):
+    """``vmap(reconstruct)``, one object a model: the batched fits' factories
+    are cached on their arguments."""
+    return vmap(reconstruct)
 
 
 def _factors(*xs):
@@ -139,7 +148,7 @@ def nmf_fit_batched(V, W, H, beta=1, tol=1e-4, max_iter=200, update_W=True,
     validate_target(V, beta)
     nmf = model_cls is _nmf_models.NMF
     fit = get_batched_dense_fit(
-        model_cls.reconstruct if nmf else vmap(model_cls.reconstruct),
+        model_cls.reconstruct if nmf else _batched_recon(model_cls.reconstruct),
         float(beta), float(tol), int(max_iter), bool(update_W),
         bool(update_H), float(l1_reg), float(l2_reg),
         nmf_updater_factory_generic if nmf else None)
@@ -186,7 +195,7 @@ def nmf_hoyer_fit_batched(V, W, H, beta=2, max_iter=200, sW=None, sH=None,
     validate_target(V, beta)
     nmf = model_cls is _nmf_models.NMF
     fit = get_batched_hoyer_fit(
-        model_cls.reconstruct if nmf else vmap(model_cls.reconstruct),
+        model_cls.reconstruct if nmf else _batched_recon(model_cls.reconstruct),
         float(beta), int(max_iter), bool(update_W),
         bool(update_H),
         None if sW is None or not update_W else float(sW),

@@ -12,6 +12,8 @@ Other β keep the WH-ratio structure and run the fused contractions of
 target — or their plain PyTorch versions.
 """
 
+import weakref
+
 import torch
 
 from ..constants import eps
@@ -122,12 +124,15 @@ def nmf_updater_factory_fused(beta, gamma, l1_reg, l2_reg):
     (every update of a fit gets the same V)."""
     if beta == 2:
         return _dense_beta2_updaters(gamma, l1_reg, l2_reg)
-    last = [None, None]  # V, and V with aligned rows
+    # a weak reference to V, and V's copy with aligned rows (None: V's own
+    # rows are aligned); V is not kept alive by the updaters
+    last = [None, None]
 
     def aligned(V):
-        if last[0] is not V:
-            last[:] = V, fused_mu.aligned_rows(V)
-        return last[1]
+        if last[0] is None or last[0]() is not V:
+            A = fused_mu.aligned_rows(V)
+            last[:] = weakref.ref(V), (None if A is V else A)
+        return V if last[1] is None else last[1]
 
     def contract(V, *args, **kwargs):
         return fused_mu.fused_contractions(aligned(V), *args, **kwargs)

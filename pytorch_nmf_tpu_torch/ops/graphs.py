@@ -19,15 +19,24 @@ with the instance.  Two ways to warm up and capture on the card:
   on the current stream, the second again with synchronizing operations
   raising; then :meth:`_Graphs.capture` (or else the third call) captures
   it on the side stream, and the third and every later call replays it.
-  The kernels' launch counters count executions: each counter's delta over
-  the capture is taken back and added again at every replay.
+  ``capture(k, seen=True)`` captures before any warm-up (a configuration
+  the process has warmed up and checked already).  The instance may be
+  kept and called again by later fits (the fits' cache,
+  :mod:`.solver`): its graphs replay from their first call.  The kernels'
+  launch counters count executions: each counter's delta over the capture
+  is taken back and added again at every replay.
 
 A workload that reads the card's values on the host (``.item()``,
 ``float()``, ``bool()`` of a tensor, a copy from or to host memory), or
 does something else a graph cannot hold, raises a ``RuntimeError`` with
 the caller's message.  Capture uses ``CUDAGraph.capture_begin`` on the
 side stream directly: it neither synchronizes the card nor empties the
-allocator's cache, as ``torch.cuda.graph`` would.
+allocator's cache, as ``torch.cuda.graph`` would.  A capture that runs out
+of card memory ends the stream capture, frees the half-made graph, its
+pool and the device loops' pool, and raises ``torch.cuda.OutOfMemoryError``
+(the sparse fit's retry on another tier, :mod:`..models.nmf`, then finds
+the memory back).  ``pool_bytes`` is what the captures added to the card's
+reserved memory: the graphs' private pools.
 
 **Device loops** (``conditional=True``; the Hoyer fits' and
 ``SparsityProj``'s line searches):
@@ -42,9 +51,11 @@ card each run.  A launch inside a body ticks its counter once, at capture;
 :meth:`_Graphs.capture` takes that back with the rest, and the bodies'
 launches are added from the card's count when a counter that allows it
 (an attribute of a :class:`_Counted`) is next read, one host read a
-finished fit (:func:`_settle`), never on the fit's path.
+finished fit (:func:`_settle`, after :meth:`_Graphs.flush`), never on the
+fit's path.
 """
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -88,8 +99,9 @@ class _Counted:
 
 def _kernel_counters():
     """``(owner, attribute)`` of every count that counts executions: each
-    kernel wrapper's launches and the line searches' attempts and rounds."""
-    from . import fused_deconv, fused_mu, projection, solver
+    kernel wrapper's launches, the line searches' attempts and rounds, and
+    the sparse ELL tier's reductions."""
+    from . import fused_deconv, fused_mu, projection, solver, sparse
 
     return ((fused_mu.fused_contractions, "launches"),
             (fused_mu.fused_contractions, "launches_bf16"),
@@ -100,7 +112,8 @@ def _kernel_counters():
             (fused_deconv.wgrad, "launches"),
             (projection.proj_rows, "launches"),
             (solver._backtrack_project, "attempts"),
-            (solver._batched_backtrack_project, "rounds"))
+            (solver._batched_backtrack_project, "rounds"),
+            (sparse.ell_neg_grad, "reductions"))
 
 
 def _read_counters():
@@ -229,17 +242,23 @@ class _Bodies:
             raise RuntimeError("the device loops' bodies of one workload "
                                "launch different kernels")
 
-    def close(self):
-        """Hands the bodies' executions to :func:`_settle` (a copy to pinned
-        host memory, no wait) and frees the stream; call it once the graphs
-        are gone."""
+    def flush(self):
+        """Hands the bodies' executions so far to :func:`_settle` (a copy to
+        pinned host memory, no wait) and sets the count on the card back
+        to 0, in stream order."""
         if self.delta is not None:
             host = torch.empty((), dtype=torch.int64, pin_memory=True)
             host.copy_(self.count, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
+            self.count.zero_()
             with _PENDING_LOCK:
                 _PENDING.append((host, done, self.delta))
+
+    def close(self):
+        """:meth:`flush`, then frees the stream; call it once the graphs
+        are gone."""
+        self.flush()
         self.stream = self.pool = self.count = None
         _check(self.lib.pnt_stream_destroy(self.raw), "freeing the bodies' stream")
 
@@ -252,13 +271,14 @@ def _check(err: int, what: str):
 class _Graphs:
     """Workloads that update tensors in place, ``fns[k]()``, as CUDA graphs
     on a CUDA device and called directly on the CPU (module docstring).
-    ``replays`` counts the graph replays of every instance and
-    ``capture_s`` the host seconds their captures took.  With
+    ``replays`` counts the graph replays of every instance, ``captures``
+    their captures and ``capture_s`` the host seconds those took.  With
     ``conditional`` a workload may hold :func:`_device_while`;
     :meth:`close` (or dropping the instance) then frees its graphs and the
     loops' bodies."""
 
     replays = 0
+    captures = 0
     capture_s = 0.0
 
     def __init__(self, fns, state, device: torch.device, message: str,
@@ -268,6 +288,8 @@ class _Graphs:
         self.graphs = self.deltas = self.cond = None
         self.conditional = conditional
         self.bodies = 0
+        self.pool_bytes = 0
+        self.runs = [0] * len(fns)
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"no compiled step for device {device}")
         if device.type != "cuda":
@@ -276,7 +298,6 @@ class _Graphs:
         self.stream = torch.cuda.Stream(device)
         if state is None:  # own warm-ups: the first calls run the work
             self.graphs = [None] * len(fns)
-            self.runs = [0] * len(fns)
             self.deltas = [None] * len(fns)
         elif state:  # no state: nothing to run
             self._warm_up_on_scratch(state)
@@ -330,24 +351,42 @@ class _Graphs:
         keeps a workspace per handle and stream: the workspaces are dropped
         before the capture, so the graph's GEMMs take one in its own pool
         and share none with eager work, and after it, so the workspace
-        map does not hold that pool (and its memory) past the graph."""
+        map does not hold that pool (and its memory) past the graph.  Out
+        of card memory, the capture ends, the half-made graph and the
+        loops' pool go, and ``torch.cuda.OutOfMemoryError`` is raised
+        afresh (the frames that held the capture's tensors are gone)."""
         t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(self.device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         g = torch.cuda.CUDAGraph()
         torch._C._cuda_clearCublasWorkspaces()
         _CAPTURING.graphs = self
+        oom = None
         try:
             with torch.cuda.stream(self.stream):
                 g.capture_begin()
                 try:
                     fn()
-                finally:
-                    g.capture_end()
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        g.capture_end()
+                    raise
+                g.capture_end()
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e)
         except RuntimeError as e:
             raise RuntimeError(self.message) from e
         finally:
             _CAPTURING.graphs = None
             torch._C._cuda_clearCublasWorkspaces()
+        if oom is not None:
+            g.reset()
+            del g
+            self.close()
+            raise torch.cuda.OutOfMemoryError(oom)
+        self.pool_bytes += max(
+            torch.cuda.memory_reserved(self.device) - reserved, 0)
+        _Graphs.captures += 1
         _Graphs.capture_s += time.perf_counter() - t0
         return g
 
@@ -374,11 +413,15 @@ class _Graphs:
         c.take([a - b for a, b in zip(_read_counters(), before)])
         self.bodies += 1
 
-    def capture(self, k: int = 0):
+    def capture(self, k: int = 0, seen: bool = False):
         """Own warm-ups: captures ``fns[k]`` after its two warm-up runs, if
-        not yet done (a no-op on the CPU).  Called right after the second
-        run is enqueued, the capture's host time overlaps that run on the
-        card."""
+        not yet done (on the CPU it only counts the warm-ups as done).
+        Called right after the second run is enqueued, the capture's host
+        time overlaps that run on the card.  ``seen``: the process has
+        warmed up and checked this workload's configuration already (an
+        earlier instance), so the capture comes before any run."""
+        if seen:
+            self.runs[k] = max(self.runs[k], 2)
         if self.deltas is None or self.graphs[k] is not None:
             return
         if self.runs[k] < 2:
@@ -394,8 +437,16 @@ class _Graphs:
         self.deltas[k] = [d - self.bodies * b for d, b in zip(captured, body)]
         _add_counters([-d for d in captured])
 
+    def ready(self, k: int = 0) -> bool:
+        """Whether ``fns[k]`` has had its warm-ups (and on the card its
+        capture): the next call replays it."""
+        if self.graphs is not None and self.deltas is not None:
+            return self.graphs[k] is not None
+        return self.runs[k] >= 2
+
     def __call__(self, k: int = 0):
         if self.graphs is None:
+            self.runs[k] += 1
             self.fns[k]()
             return
         if self.deltas is not None and self.runs[k] < 2:  # own warm-ups
@@ -408,11 +459,20 @@ class _Graphs:
         if self.deltas is not None:
             _add_counters(self.deltas[k])
 
+    def flush(self):
+        """Hands the device loops' executions so far to the counts (a
+        kept instance's fit ends)."""
+        if self.cond is not None:
+            self.cond.flush()
+
     def close(self):
         """Frees the graphs, then the loops' pool and stream.  Scratch
         warm-ups count launches at capture, so their bodies' runs on the
         card are not added."""
-        self.graphs = None
+        if self.deltas is None:
+            self.graphs = None
+        else:  # own warm-ups: a later call captures again
+            self.graphs = [None] * len(self.graphs)
         c, self.cond = self.cond, None
         if c is not None:
             if self.deltas is None:

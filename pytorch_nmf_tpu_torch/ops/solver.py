@@ -15,28 +15,57 @@ The semantics are those of the reference ``BaseComponent.fit``
 
 The loop is a Python loop over 10-iteration chunks; the host reads the
 device once a chunk, for the stop rule (``_read.reads`` counts the loop's
-reads).  The single-card dense and EM fits (:func:`get_dense_fit`,
-:func:`get_plca_fit`) run each chunk (ten iterations, the loss, the stop
-test on the device, the new state copied into static tensors) as one
-in-place workload (:class:`~.graphs._Graphs`): on a CUDA device chunks 1-2
-run eagerly, the second with synchronizing operations raising, and from
-chunk 3 on the fit replays a CUDA graph of the chunk, captured once per
-fit and freed when it returns; on the CPU the same workload is called
-directly.  A chunk that cannot be captured raises.  The batched MU and
-EM fits (:func:`get_batched_dense_fit`, :func:`get_batched_plca_fit`) run
-their chunks the same way (:func:`_graphed_batched_loop`), every problem's
-stop test and chunk of convergence on the device.  The Hoyer fit on a
-dense target (:func:`get_hoyer_fit`) runs its chunks the same way, with no
-stop test, its line search's attempts 2-10 a loop that a replayed chunk
-runs on the card (a CUDA-graph WHILE node, :func:`~.graphs._device_while`);
-so does the batched Hoyer fit (:func:`get_batched_hoyer_fit`), one batched
-program whose problems' line searches share one loop.  The other fits
-(sparse, the sparse-target Hoyer fit; the sharded ones of
-:mod:`..parallel`) run the eager loop.
+reads).  The single-card dense, sparse and EM fits (:func:`get_dense_fit`,
+:func:`get_sparse_fit`, :func:`get_plca_fit`) run each chunk (ten
+iterations, the loss, the stop test on the device, the new state copied
+into static tensors) as one in-place workload (:class:`~.graphs._Graphs`):
+on a CUDA device the first fit of a configuration runs chunks 1-2
+eagerly, the second with synchronizing operations raising, and from chunk
+3 on replays a CUDA graph of the chunk; on the CPU the same workload is
+called directly.  A chunk that cannot be captured raises.  The batched MU
+and EM fits (:func:`get_batched_dense_fit`, :func:`get_batched_plca_fit`)
+run their chunks the same way (:func:`_graphed_batched_loop`), every
+problem's stop test and chunk of convergence on the device.  The Hoyer
+fit (:func:`get_hoyer_fit`, dense or sparse target) runs its chunks the
+same way, with no stop test, its line search's attempts 2-10 a loop that
+a replayed chunk runs on the card (a CUDA-graph WHILE node,
+:func:`~.graphs._device_while`); so does the batched Hoyer fit
+(:func:`get_batched_hoyer_fit`), one batched program whose problems' line
+searches share one loop.  The sharded fits of :mod:`..parallel` run the
+eager loop.
+
+**The compiled fits are kept** (the JAX package's ``lru_cache``'d
+factories and ``jax.jit``'s programs per input signature): the factories
+are cached on their arguments (``cache_clear``/``cache_info`` on each), and
+one cache keeps, per target and chunk configuration, an entry
+(:class:`_Entry`) holding the chunk's graphs, every static tensor the chunk
+reads and what the fit derives from the target.  The chunk configuration
+is what the chunk reads: the factory's arguments but ``max_iter`` (and
+``verbose`` where the chunk does not report), so fits that differ only in
+those share one entry.  A graph reads fixed addresses, so the key holds
+the target's identity (a weak reference, its address and its version
+counter: a target changed in place misses) beside the shapes, strides,
+dtypes and device of every argument and the ``PNT_*`` environment
+switches.  A hit copies the inputs into the statics and replays every
+chunk; a configuration seen before with a new target captures before
+chunk 1 and replays every chunk.  An entry goes when its target is
+collected, past :data:`_MAX_ENTRIES` entries or past :data:`_HELD_SHARE`
+of a card's memory held (least recently used first), and at
+:func:`compiled_cache_clear`.  A fit out of card memory drops every idle
+entry and, when one was kept from an earlier fit, runs once more before
+the error propagates (:meth:`_Cache.run`).  :func:`compiled_cache_info`
+counts hits and misses and the bytes held.
 """
 
+import collections
 import contextlib
+import functools
+import gc
+import os
 import threading
+import types
+import weakref
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import numpy as np
@@ -55,7 +84,8 @@ from .recon import matmul
 __all__ = ["get_dense_fit", "get_batched_dense_fit", "get_sparse_fit",
            "get_hoyer_fit", "get_batched_hoyer_fit", "get_plca_fit",
            "get_batched_plca_fit", "alpha_is_active", "push_progress_handler",
-           "pop_progress_handler"]
+           "pop_progress_handler", "compiled_cache_info",
+           "compiled_cache_clear"]
 
 
 def _default_updaters(recon2, beta, gamma, l1_reg, l2_reg, pos_W=kl_pos_W,
@@ -176,6 +206,375 @@ def _read(x, cast=float):
 _read.reads = 0
 
 
+# --------------------------------------------------------------------------
+# The fits' cache: one LRU of entries, keyed by what the chunk reads (the
+# fit's configuration) and the target's identity (module docstring)
+# --------------------------------------------------------------------------
+_MAX_ENTRIES = 8  # the entries kept in all, as the trainers' step cache
+_HELD_SHARE = 0.25  # of a card's memory: the most its entries hold
+_COUNTS = SimpleNamespace(hits=0, warm_misses=0, cold_misses=0)
+_FITTING = threading.local()  # the fits running in this thread
+
+
+def _held_budget(device: torch.device):
+    """The bytes the entries on ``device`` may hold between fits: a share
+    of the card's memory (``None`` on the CPU, where only the entries are
+    counted)."""
+    if device.type != "cuda":
+        return None
+    return int(_HELD_SHARE
+               * torch.cuda.get_device_properties(device).total_memory)
+
+
+def _gives_back(device: torch.device) -> bool:
+    """Whether dropping entries on ``device`` gives back the memory a fit
+    there ran out of: a card's (the CPU's entries are host memory)."""
+    return device.type == "cuda"
+
+
+def _device(args) -> torch.device:
+    """The device of a fit's arguments (its first tensor's)."""
+    return next(a.device for a in args if isinstance(a, torch.Tensor))
+
+
+def _env_switches():
+    """The ``PNT_*`` environment switches: every one a fit reads (the
+    sparse tiers', the deconv engines', the fused PLCA E-step's) is in
+    the key."""
+    return tuple(sorted((k, v) for k, v in os.environ.items()
+                        if k.startswith("PNT_")))
+
+
+def _ell_arrays(ell):
+    return (ell.row_idx, ell.row_val, ell.col_idx, ell.col_val) + tuple(
+        ell.row_rem) + tuple(ell.col_rem)
+
+
+def _sig(x):
+    """The configuration part of an argument's key: a tensor's shape,
+    strides, dtype, device and 16-byte alignment (a sparse one's size,
+    non-zeros and coalescing); a SparseELL's arrays'; any other value
+    itself."""
+    if isinstance(x, _sparse.SparseELL):
+        return ("ell", _sig(x.coo)) + tuple(_sig(t) for t in _ell_arrays(x))
+    if isinstance(x, torch.Tensor):
+        if x.layout == torch.sparse_coo:
+            return ("coo", tuple(x.shape), x.dtype, x.device, x._nnz(),
+                    x.is_coalesced())
+        return (tuple(x.shape), x.stride(), x.dtype, x.device,
+                x.data_ptr() % 16)
+    return (type(x), x)
+
+
+def _identity(x):
+    """``(objects held weakly, tensors held, key part)`` of a target: a
+    tensor by its identity, address and version counter (a sparse one's
+    values and indices too); a SparseELL by its target's and the identity
+    of its arrays, which the entry holds."""
+    if isinstance(x, _sparse.SparseELL):
+        weak, held, key = _identity(x.coo)
+        arrays = _ell_arrays(x)
+        return weak, held + list(arrays), key + tuple(id(t) for t in arrays)
+    if x.layout == torch.sparse_coo:
+        vals, idx = x._values(), x._indices()
+        return [x], [], (id(x), x._version, vals.data_ptr(), vals._version,
+                         idx.data_ptr(), idx._version)
+    return [x], [], (id(x), x.data_ptr(), x._version)
+
+
+def _forget(key):
+    """A target was collected: its entry goes now, or when the fits
+    running in this thread end."""
+    with _CACHE.lock:
+        _CACHE.dead.append(key)
+    if not getattr(_FITTING, "depth", 0):
+        _CACHE.purge()
+
+
+class _Entry:
+    """One compiled fit: a chunk configuration on one target.  ``fns``
+    (the fit's closures, made once an entry), ``loop`` (the loop's static
+    tensors and its :class:`~.graphs._Graphs`) and ``derived`` (what the
+    fit computes from the target once, kept so the graph's addresses stay
+    valid) live as long as the entry; ``V`` is the target only while a fit
+    runs (the entry holds it weakly).  ``warm``: the configuration was
+    compiled before in this process, so the first fit captures before
+    chunk 1.  ``hit``: the entry was kept from an earlier fit.  ``lock`` is
+    held by the fit that runs the entry."""
+
+    def __init__(self, key=None, config=None, weak=(), held=(), device=None):
+        self.key, self.config, self.device = key, config, device
+        self.refs = [weakref.ref(o) for o in weak]
+        self.held = list(held)
+        self.V = self.fns = self.loop = None
+        self.derived = {}
+        self.warm = self.hit = False
+        self.lock = threading.Lock()
+        self.finalizers = [] if key is None else [
+            weakref.finalize(o, _forget, key) for o in weak]
+        for f in self.finalizers:  # nothing to free at the interpreter's exit
+            f.atexit = False
+
+    def matches(self, weak, held) -> bool:
+        return (all(r() is o for r, o in zip(self.refs, weak))
+                and all(a is b for a, b in zip(self.held, held)))
+
+    def ready(self) -> bool:
+        """Whether the chunk has been warmed up (and on the card captured)."""
+        graphs = getattr(self.loop, "graphs", None)
+        return graphs is not None and graphs.ready()
+
+    def start(self, graphs):
+        """A fit of the entry begins its chunks: on a configuration seen
+        before, the chunk is captured now."""
+        if self.warm and not graphs.ready():
+            graphs.capture(seen=True)
+
+    def tensors(self):
+        """The tensors the entry keeps: the loop's statics, the derived
+        ones and those its closures hold (an updater's padded copy of V),
+        each once.  (A loop, not a recursive closure: a closure that refers
+        to itself is a reference cycle, which would hold the tensors until
+        the next garbage collection.)"""
+        out, seen, todo = [], set(), [self.loop, self.derived, self.fns]
+        while todo:
+            x = todo.pop()
+            if id(x) in seen:
+                continue
+            seen.add(id(x))
+            if isinstance(x, torch.Tensor):
+                out.append(x)
+            elif isinstance(x, (tuple, list)):
+                todo.extend(x)
+            elif isinstance(x, dict):
+                todo.extend(x.values())
+            elif isinstance(x, SimpleNamespace):
+                todo.extend(vars(x).values())
+            elif isinstance(x, functools.partial):
+                todo.extend((x.func, x.args, x.keywords))
+            elif isinstance(x, types.FunctionType) and x.__closure__:
+                for cell in x.__closure__:
+                    with contextlib.suppress(ValueError):  # an empty cell
+                        todo.append(cell.cell_contents)
+        return out
+
+    def nbytes(self) -> int:
+        """Card or host bytes the entry holds between fits: its tensors'
+        storages (each once; the target's own, which it does not hold, left
+        out) and what its graphs' captures reserved."""
+        target = {r().untyped_storage().data_ptr() for r in self.refs
+                  if r() is not None and r().layout == torch.strided}
+        seen, total = set(target), 0
+        for t in self.tensors():
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        graphs = getattr(self.loop, "graphs", None)
+        return total + (graphs.pool_bytes if graphs is not None else 0)
+
+    def close(self):
+        """Frees the graphs and the kept tensors, now (the closures refer
+        back to the entry)."""
+        for f in self.finalizers:
+            f.detach()
+        graphs = getattr(self.loop, "graphs", None)
+        if graphs is not None:
+            graphs.close()
+            graphs.fns = []
+        self.loop = self.fns = self.V = None
+        self.derived, self.held = {}, []
+
+
+class _Cache:
+    """The fits' entries, least recently used first, and the
+    configurations compiled (``seen``), guarded by ``lock``.  An entry
+    taken out while a fit runs it (cleared, evicted, its target changed)
+    is closed when that fit ends."""
+
+    def __init__(self):
+        self.entries = collections.OrderedDict()
+        self.seen = set()
+        self.dead = []
+        self.lock = threading.RLock()
+
+    def _take(self, keys):
+        """Takes ``keys``' entries out (``lock`` held); returns the idle
+        ones, for the caller to close once it lets the lock go."""
+        idle = []
+        for k in keys:
+            e = self.entries.pop(k, None)
+            if e is not None and not e.lock.locked():
+                idle.append(e)
+        return idle
+
+    def purge(self):
+        """Drops the entries whose target was collected."""
+        with self.lock:
+            dead, self.dead = self.dead, []
+            idle = self._take(dead)
+        for e in idle:
+            e.close()
+
+    def clear(self, seen: bool = True) -> list:
+        """Drops every entry and, with ``seen``, the configurations
+        compiled; returns the entries it closed (not those a fit is
+        running)."""
+        with self.lock:
+            idle = self._take(list(self.entries))
+            if seen:
+                self.seen = set()
+        for e in idle:
+            e.close()
+        return idle
+
+    def _lookup(self, chunk, targets, args):
+        config = (chunk, tuple(_sig(a) for a in args), _env_switches())
+        weak, held, ident = [], [], ()
+        for t in targets:
+            w, h, i = _identity(t)
+            weak, held, ident = weak + w, held + h, ident + i
+        key = (config, ident)
+        device = _device(args)
+        with self.lock:
+            e = self.entries.get(key)
+            if e is not None and e.matches(weak, held):
+                if not e.lock.acquire(blocking=False):
+                    # busy in another thread: a fit of its own
+                    e = _Entry(config=config)
+                    e.lock.acquire()
+                    return e, False
+                e.hit = True
+                self.entries.move_to_end(key)
+                _COUNTS.hits += 1
+                return e, True
+            # an entry on this target under another identity (its address
+            # or version moved: changed in place) is stale, whatever its
+            # configuration; one of another configuration is not
+            ids = {id(o) for o in weak}
+            idle = self._take([k for k, x in self.entries.items()
+                               if k == key or (k[1] != ident and {
+                                   id(r()) for r in x.refs} & ids)])
+            e = _Entry(key, config, weak, held, device)
+            e.lock.acquire()
+            e.warm = config in self.seen
+            if e.warm:
+                _COUNTS.warm_misses += 1
+            else:
+                _COUNTS.cold_misses += 1
+            self.entries[key] = e
+            over = len(self.entries) - _MAX_ENTRIES
+            if over > 0:
+                idle += self._take([k for k, x in self.entries.items()
+                                    if not x.lock.locked()][:over])
+        for x in idle:
+            x.close()
+        return e, True
+
+    def _trim(self, device):
+        """Past ``device``'s byte budget (:func:`_held_budget`), its least
+        recently used idle entries go."""
+        budget = _held_budget(device)
+        if budget is None:
+            return
+        with self.lock:
+            mine = [(k, e, e.nbytes()) for k, e in self.entries.items()
+                    if e.device == device]
+            total, out = sum(n for _, _, n in mine), []
+            for k, e, n in mine:
+                if total <= budget:
+                    break
+                if not e.lock.locked():
+                    total -= n
+                    out.append(k)
+            idle = self._take(out)
+        for e in idle:
+            e.close()
+
+    @contextlib.contextmanager
+    def use(self, chunk, targets, args, cached: bool = True):
+        """Yields the entry of a fit of the chunk configuration ``chunk``
+        (the factory's arguments the chunk reads) on ``targets`` (the
+        objects whose identity keys it) with ``args`` (every argument the
+        chunk reads, the targets included), its ``V`` the first target
+        while the fit runs.  ``cached=False`` (the eager reference): a
+        fresh entry, closed after the fit.  A fit that raises drops its
+        entry."""
+        self.purge()
+        if cached:
+            e, kept = self._lookup(chunk, targets, args)
+        else:
+            e, kept = _Entry(), False
+            e.lock.acquire()
+        e.V = targets[0]
+        _FITTING.depth = getattr(_FITTING, "depth", 0) + 1
+        done = False
+        try:
+            yield e
+            done = True
+        finally:
+            _FITTING.depth -= 1
+            e.V = None
+            with self.lock:
+                if not done and self.entries.get(e.key) is e:
+                    del self.entries[e.key]
+                elif done and kept and e.ready():
+                    self.seen.add(e.config)
+                e.lock.release()
+                gone = self.entries.get(e.key) is not e
+            if gone:
+                e.close()
+            elif done:
+                self._trim(e.device)
+            if not _FITTING.depth:
+                self.purge()
+
+    def run(self, chunk, targets, args, cached: bool, body):
+        """``body(entry)`` of a fit (:meth:`use`).  Out of card memory,
+        every idle entry goes; when one on the fit's card was kept from an
+        earlier fit (this fit's own too), the fit runs once more from its
+        inputs, with that memory back, before the error propagates."""
+        device = _device(args)
+        for again in (False, True):
+            e = None
+            try:
+                with self.use(chunk, targets, args, cached) as e:
+                    return body(e)
+            except torch.cuda.OutOfMemoryError:
+                freed = [x for x in self.clear(seen=False)
+                         if x.device == device]
+                if again or not _gives_back(device) or not (
+                        freed or (e is not None and e.hit)):
+                    raise
+            gc.collect()  # the failed attempt's frames
+            torch.cuda.empty_cache()
+
+
+_CACHE = _Cache()
+
+
+def compiled_cache_info() -> dict:
+    """The fits' cache: ``hits``, ``warm_misses`` (a configuration compiled
+    before, a new target: one capture and no eager chunk), ``cold_misses``
+    (a configuration's first fit), ``entries`` and ``held_bytes`` (what the
+    entries hold between fits: statics, derived tensors, the graphs'
+    pools)."""
+    _CACHE.purge()
+    with _CACHE.lock:
+        entries = list(_CACHE.entries.values())
+        counts = dict(vars(_COUNTS))
+    return dict(counts, entries=len(entries),
+                held_bytes=sum(e.nbytes() for e in entries))
+
+
+def compiled_cache_clear() -> None:
+    """Drops every entry (one a fit is running goes when that fit ends),
+    the configurations compiled and the factories' caches."""
+    _CACHE.clear()
+    for f in _FACTORIES:
+        f.cache_clear()
+
+
 def _converging_loop(
     one_iter: Callable,
     loss_of: Callable,
@@ -216,6 +615,12 @@ _CHUNK_NOT_CAPTURABLE = (
     "else a graph cannot hold")
 
 
+def _load(statics, values):
+    """Copies a fit's inputs into the entry's static tensors."""
+    for dst, x in zip(statics, values):
+        dst.copy_(x)
+
+
 def _graphed_loop(
     one_iter: Callable,
     loss_of: Callable,
@@ -224,57 +629,75 @@ def _graphed_loop(
     max_iter: int,
     report: Optional[Callable] = None,
     extra_of: Optional[Callable] = None,
+    entry: Optional[_Entry] = None,
 ):
     """:func:`_converging_loop` with each chunk one in-place workload of
-    :class:`~.graphs._Graphs` (own warm-ups: chunks 1-2 eager, the capture
-    right after chunk 2 is enqueued when a third chunk may follow, then
-    graph replays on a CUDA device; called directly on the CPU): ten iterations
-    from static state tensors, the loss, the stop flag ``(prev - loss) /
-    loss_init < tol`` on the device (NaN compares False), ``prev ← loss``
-    and the new state copied into the static tensors.  The host reads the
-    flag once a chunk (and the reported values when verbose).  The
-    ``max_iter % 10`` remainder runs eagerly.  The same operations as
-    :func:`_converging_loop`, so the same results bit for bit."""
+    :class:`~.graphs._Graphs` (own warm-ups: on a configuration's first fit
+    chunks 1-2 eager, the capture right after chunk 2 is enqueued when a
+    third chunk may follow, then graph replays on a CUDA device; called
+    directly on the CPU): ten iterations from static state tensors, the
+    loss, the stop flag ``(prev - loss) / loss_init < tol`` on the device
+    (NaN compares False), ``prev ← loss`` and the new state copied into
+    the static tensors.  ``entry`` (:class:`_Entry`; a fresh one if
+    ``None``) keeps the statics and the graph for the next fit: the fit's
+    state and ``loss_init`` (computed eagerly each fit) are copied in, and
+    a captured chunk replays from chunk 1.  The host reads the flag once a
+    chunk (and the reported values when verbose).  The ``max_iter % 10``
+    remainder runs eagerly, on a copy of the statics.  The same operations
+    as :func:`_converging_loop`, so the same results bit for bit."""
     loss_init = loss_of(state0)
     n_chunks, rem = divmod(max_iter, 10)
     state, k, conv = state0, 0, False
     if n_chunks:
-        st = tuple(x.clone() for x in state0)
-        prev = loss_init.clone()
-        stop = torch.zeros((), dtype=torch.bool, device=loss_init.device)
-        extra = (torch.empty_like(loss_init)
-                 if report is not None and extra_of is not None else None)
+        own, entry = entry is None, entry or _Entry()
+        c = entry.loop
+        if c is None:
+            c = entry.loop = SimpleNamespace(
+                st=tuple(x.clone() for x in state0),
+                loss_init=loss_init.clone(), prev=loss_init.clone(),
+                stop=torch.zeros((), dtype=torch.bool,
+                                 device=loss_init.device),
+                extra=(torch.empty_like(loss_init)
+                       if report is not None and extra_of is not None
+                       else None))
 
-        def chunk():
-            s = st
-            for _ in range(10):
-                s = one_iter(s)
-            loss = loss_of(s)
-            stop.copy_((prev - loss) / loss_init < tol)
-            prev.copy_(loss)
-            if extra is not None:
-                extra.copy_(extra_of(s))
-            for dst, x in zip(st, s):
-                dst.copy_(x)
+            def chunk():
+                s = c.st
+                for _ in range(10):
+                    s = one_iter(s)
+                loss = loss_of(s)
+                c.stop.copy_((c.prev - loss) / c.loss_init < tol)
+                c.prev.copy_(loss)
+                if c.extra is not None:
+                    c.extra.copy_(extra_of(s))
+                _load(c.st, s)
 
-        graphs = _Graphs([chunk], None, loss_init.device,
-                         _CHUNK_NOT_CAPTURABLE)
+            c.graphs = _Graphs([chunk], None, loss_init.device,
+                               _CHUNK_NOT_CAPTURABLE)
+        else:
+            _load(c.st + (c.loss_init, c.prev), tuple(state0) + (
+                loss_init, loss_init))
+        graphs = c.graphs
+        entry.start(graphs)
         while not conv and k < n_chunks:
             graphs()
             k += 1
             if k == 2 < n_chunks:  # the capture's host time overlaps chunk 2
                 graphs.capture()
-            conv = _read(stop, bool)
+            conv = _read(c.stop, bool)
             if report is not None:
-                report(k, _read(prev), None if extra is None else _read(extra))
-        del graphs  # the graph and its pool go now
-        state = st
+                report(k, _read(c.prev),
+                       None if c.extra is None else _read(c.extra))
+        state = tuple(x.clone() for x in c.st)
+        if own:
+            entry.close()
     if rem and not conv:
         for _ in range(rem):
             state = one_iter(state)
     return state, k, conv
 
 
+@functools.lru_cache(maxsize=None)
 def get_dense_fit(
     recon2: Callable,
     beta: float,
@@ -291,40 +714,60 @@ def get_dense_fit(
     """Returns ``fit(V, W, H) -> (W, H, n_iter)`` for the dense β-divergence
     MU fit.  ``updater_factory(beta, gamma, l1_reg, l2_reg)`` supplies the
     updaters (``None``, or a factory returning ``None``, selects the
-    generic engine over ``recon2``).  The chunks run through
-    :func:`_graphed_loop`; ``_graph=False`` (private: the eager reference
-    of the card's checks) runs :func:`_converging_loop`."""
-    loop = _graphed_loop if _graph else _converging_loop
+    generic engine over ``recon2``); each cache entry makes its own (their
+    per-target state, such as a padded copy of V, lives with it).  The
+    chunks run through :func:`_graphed_loop` on the fits' cache;
+    ``_graph=False`` (private: the eager reference of the card's checks)
+    runs :func:`_converging_loop` and keeps nothing."""
     gamma = gamma_from_beta(beta)
-    updaters = (
-        updater_factory(beta, gamma, l1_reg, l2_reg) if updater_factory else None
-    )
-    if updaters is None:
-        updaters = _default_updaters(recon2, beta, gamma, l1_reg, l2_reg)
-    upd_W, upd_H, loss_terms, prepare, finish = _normalize_updaters(updaters)
 
-    @torch.no_grad()
-    def fit(V, W, H):
+    def make_updaters():
+        updaters = (updater_factory(beta, gamma, l1_reg, l2_reg)
+                    if updater_factory else None)
+        if updaters is None:
+            updaters = _default_updaters(recon2, beta, gamma, l1_reg, l2_reg)
+        return _normalize_updaters(updaters)
+
+    make_updaters()  # a malformed factory raises here
+    # what the chunk reads: every argument but max_iter and verbose
+    chunk = ("dense", recon2, beta, tol, update_W, update_H, l1_reg, l2_reg,
+             updater_factory)
+
+    def build(e):
+        upd_W, upd_H, loss_terms, prepare, finish = make_updaters()
+
         def loss_of(state):
             w, h = state
             if loss_terms is not None:
-                return torch.sqrt(2.0 * loss_terms(V, w, h))
-            return torch.sqrt(2.0 * beta_div(recon2(h, w), V, beta))
+                return torch.sqrt(2.0 * loss_terms(e.V, w, h))
+            return torch.sqrt(2.0 * beta_div(recon2(h, w), e.V, beta))
 
         def one_iter(state):
             w, h = state
             if update_W:
-                w = upd_W(V, w, h)
+                w = upd_W(e.V, w, h)
             if update_H:
-                h = upd_H(V, w, h)
+                h = upd_H(e.V, w, h)
             return w, h
 
-        state0 = (W, H) if prepare is None else prepare(V, W, H)
+        return SimpleNamespace(loss_of=loss_of, one_iter=one_iter,
+                               prepare=prepare, finish=finish)
+
+    def run(e, V, W, H):
+        f = e.fns = e.fns or build(e)
+        state0 = (W, H) if f.prepare is None else f.prepare(V, W, H)
+        loop = (functools.partial(_graphed_loop, entry=e) if _graph
+                else _converging_loop)
         with _progress(verbose, max_iter) as report:
-            state, k, conv = loop(one_iter, loss_of, state0, tol, max_iter,
-                                  report)
-        W, H = state if finish is None else finish(V, *state)
+            state, k, conv = loop(f.one_iter, f.loss_of, state0, tol,
+                                  max_iter, report)
+        W, H = state if f.finish is None else f.finish(V, *state)
         return W, H, (k * 10 if conv else max_iter)
+
+    @torch.no_grad()
+    def fit(V, W, H):
+        return _CACHE.run(chunk, (V,), (V, W, H), _graph,
+                          lambda e: run(e, V, W, H))
 
     return fit
 
@@ -394,46 +837,63 @@ def _batched_loop(one_iter, loss_of, state0, tol, max_iter):
     return state, conv, k_conv
 
 
-def _graphed_batched_loop(one_iter, loss_of, state0, tol, max_iter):
+def _graphed_batched_loop(one_iter, loss_of, state0, tol, max_iter,
+                          entry=None):
     """:func:`_batched_loop` with each chunk one in-place workload of
     :class:`~.graphs._Graphs`, as :func:`_graphed_loop` runs it (own
-    warm-ups: chunks 1-2 eager, the capture right after chunk 2 is enqueued
-    when a third chunk may follow, then graph replays on a CUDA device;
-    called directly on the CPU): :func:`_batched_chunk` from static
-    tensors (the state, ``conv``, ``prev``, the chunk count and each
-    problem's chunk of convergence) and the 0-d flag "every problem has
-    converged", which the host reads once a chunk.  The remainder runs
-    eagerly.  The same operations as :func:`_batched_loop`, so the same
-    results bit for bit."""
+    warm-ups on a configuration's first fit: chunks 1-2 eager, the capture
+    right after chunk 2 is enqueued when a third chunk may follow, then
+    graph replays on a CUDA device; called directly on the CPU):
+    :func:`_batched_chunk` from static tensors (the state, ``conv``,
+    ``prev``, ``loss_init``, the chunk count and each problem's chunk of
+    convergence, which ``entry`` keeps and each fit resets) and the 0-d
+    flag "every problem has converged", which the host reads once a chunk.
+    The remainder runs eagerly.  The same operations as
+    :func:`_batched_loop`, so the same results bit for bit."""
     loss_init = loss_of(state0)
     B, device = loss_init.shape[0], loss_init.device
-    conv = torch.zeros(B, dtype=torch.bool, device=device)
-    k_conv = torch.zeros(B, dtype=torch.long, device=device)
     n_chunks, rem = divmod(max_iter, 10)
     state = state0
+    conv = torch.zeros(B, dtype=torch.bool, device=device)
+    k_conv = torch.zeros(B, dtype=torch.long, device=device)
     if n_chunks:
-        st = tuple(x.clone() for x in state0)
-        prev = loss_init.clone()
-        k = torch.zeros((), dtype=torch.long, device=device)
-        done = torch.zeros((), dtype=torch.bool, device=device)
+        own, entry = entry is None, entry or _Entry()
+        c = entry.loop
+        if c is None:
+            c = entry.loop = SimpleNamespace(
+                st=tuple(x.clone() for x in state0), conv=conv,
+                k_conv=k_conv, prev=loss_init.clone(),
+                loss_init=loss_init.clone(),
+                k=torch.zeros((), dtype=torch.long, device=device),
+                done=torch.zeros((), dtype=torch.bool, device=device))
 
-        def chunk():
-            s, c, p, kk, kc = _batched_chunk(one_iter, loss_of, st, conv, prev,
-                                             loss_init, k, k_conv, tol)
-            for dst, x in zip(st + (conv, prev, k, k_conv), s + (c, p, kk, kc)):
-                dst.copy_(x)
-            done.copy_(conv.all())
+            def chunk():
+                s, cv, p, kk, kc = _batched_chunk(
+                    one_iter, loss_of, c.st, c.conv, c.prev, c.loss_init, c.k,
+                    c.k_conv, tol)
+                _load(c.st + (c.conv, c.prev, c.k, c.k_conv),
+                      s + (cv, p, kk, kc))
+                c.done.copy_(c.conv.all())
 
-        graphs = _Graphs([chunk], None, device, _CHUNK_NOT_CAPTURABLE)
+            c.graphs = _Graphs([chunk], None, device, _CHUNK_NOT_CAPTURABLE)
+        else:
+            _load(c.st + (c.prev, c.loss_init), tuple(state0) + (
+                loss_init, loss_init))
+            for t in (c.conv, c.k_conv, c.k):
+                t.zero_()
+        graphs = c.graphs
+        entry.start(graphs)
         all_done, chunks = False, 0
         while not all_done and chunks < n_chunks:
             graphs()
             chunks += 1
             if chunks == 2 < n_chunks:  # the capture's host time overlaps chunk 2
                 graphs.capture()
-            all_done = _read(done, bool)
-        del graphs  # the graph and its pool go now
-        state = st
+            all_done = _read(c.done, bool)
+        state = tuple(x.clone() for x in c.st)
+        conv, k_conv = c.conv.clone(), c.k_conv.clone()
+        if own:
+            entry.close()
     if rem:
         state = _batched_rem(one_iter, state, conv, rem)
     return state, conv, k_conv
@@ -454,6 +914,7 @@ def _batched_pos(pos):
     return batched
 
 
+@functools.lru_cache(maxsize=None)
 def get_batched_dense_fit(
     recon2: Callable,
     beta: float,
@@ -475,42 +936,59 @@ def get_batched_dense_fit(
     cotangent products are each problem's own MU numerator and denominator.
     ``updater_factory`` (optional) supplies updaters that take batched
     operands (the Gram updaters at β = 2); it has no layout transform.
-    The chunks run through :func:`_graphed_batched_loop`; ``_graph=False``
-    (private: the eager reference of the card's checks) runs
-    :func:`_batched_loop`."""
+    The chunks run through :func:`_graphed_batched_loop` on the fits'
+    cache; ``_graph=False`` (private: the eager reference of the
+    card's checks) runs :func:`_batched_loop`."""
     from torch.func import vmap
 
-    loop = _graphed_batched_loop if _graph else _batched_loop
     gamma = gamma_from_beta(beta)
-    updaters = (
-        updater_factory(beta, gamma, l1_reg, l2_reg) if updater_factory else None
-    )
-    if updaters is None:
-        updaters = _default_updaters(recon2, beta, gamma, l1_reg, l2_reg,
-                                     _batched_pos(kl_pos_W),
-                                     _batched_pos(kl_pos_H))
-    upd_W, upd_H, loss_terms, prepare, _ = _normalize_updaters(updaters)
-    if prepare is not None or loss_terms is not None:
-        raise ValueError("the batched fit takes updaters without a layout "
-                         "transform or a loss")
-    div_b = vmap(lambda wh, v: beta_div(wh, v, beta))
 
-    @torch.no_grad()
-    def fit(V, W, H):
+    def make_updaters():
+        updaters = (updater_factory(beta, gamma, l1_reg, l2_reg)
+                    if updater_factory else None)
+        if updaters is None:
+            updaters = _default_updaters(recon2, beta, gamma, l1_reg, l2_reg,
+                                         _batched_pos(kl_pos_W),
+                                         _batched_pos(kl_pos_H))
+        upd_W, upd_H, loss_terms, prepare, _ = _normalize_updaters(updaters)
+        if prepare is not None or loss_terms is not None:
+            raise ValueError("the batched fit takes updaters without a "
+                             "layout transform or a loss")
+        return upd_W, upd_H
+
+    make_updaters()
+    div_b = vmap(lambda wh, v: beta_div(wh, v, beta))
+    chunk = ("batched_dense", recon2, beta, tol, update_W, update_H, l1_reg,
+             l2_reg, updater_factory)
+
+    def build(e):
+        upd_W, upd_H = make_updaters()
+
         def one_iter(state):
             w, h = state
             if update_W:
-                w = upd_W(V, w, h)
+                w = upd_W(e.V, w, h)
             if update_H:
-                h = upd_H(V, w, h)
+                h = upd_H(e.V, w, h)
             return w, h
 
         def loss_of(state):
             w, h = state
-            return torch.sqrt(2.0 * div_b(recon2(h, w), V))
+            return torch.sqrt(2.0 * div_b(recon2(h, w), e.V))
 
-        (W, H), conv, k = loop(one_iter, loss_of, (W, H), tol, max_iter)
+        return SimpleNamespace(one_iter=one_iter, loss_of=loss_of)
+
+    def run(e, W, H):
+        f = e.fns = e.fns or build(e)
+        loop = (functools.partial(_graphed_batched_loop, entry=e) if _graph
+                else _batched_loop)
+        (W, H), conv, k = loop(f.one_iter, f.loss_of, (W, H), tol, max_iter)
         return W, H, torch.where(conv, k * 10, max_iter)
+
+    @torch.no_grad()
+    def fit(V, W, H):
+        return _CACHE.run(chunk, (V,), (V, W, H), _graph,
+                          lambda e: run(e, W, H))
 
     return fit
 
@@ -536,6 +1014,7 @@ def _sp_factor_update(pos_neg_p, p, gamma, l1_reg, l2_reg, pos_pre=None):
     return p * mu_multiplier(neg, pos, p, gamma, l1_reg, l2_reg)
 
 
+@functools.lru_cache(maxsize=None)
 def get_sparse_fit(
     pos_neg: Callable,
     beta: float,
@@ -549,6 +1028,7 @@ def get_sparse_fit(
     tier: str = "gather",
     recon2: Optional[Callable] = None,
     updater_factory: Optional[Callable] = None,
+    _graph: bool = True,
 ):
     """Returns ``fit(V, W, H) -> (W, H, n_iter)`` for a sparse target:
     ``V`` a coalesced ``torch.sparse_coo_tensor`` (``tier="ell"``: its
@@ -569,12 +1049,17 @@ def get_sparse_fit(
       indexing's backward); held to the other tiers by tolerance.
 
     The every-10-iterations loss is the exact split form ``V_norm + pos -
-    neg`` over the non-zeros in every tier (reference nmf.py:358,398)."""
+    neg`` over the non-zeros in every tier (reference nmf.py:358,398).
+    The chunks run through :func:`_graphed_loop` on the fits' cache,
+    whose entry keeps ``V_norm``, the densified target and the blocks'
+    stage size (:func:`~.sparse.fixed_stage`); ``_graph=False`` (private:
+    the eager reference of the card's checks) runs
+    :func:`_converging_loop`."""
     if tier not in ("densify", "ell", "gather"):
         raise ValueError(f"unknown sparse tier {tier!r}")
     gamma = gamma_from_beta(beta)
-    dense_updaters = None
-    if tier == "densify":
+
+    def make_updaters():
         updaters = (updater_factory(beta, gamma, l1_reg, l2_reg)
                     if updater_factory else None)
         if updaters is None:
@@ -583,7 +1068,12 @@ def get_sparse_fit(
         if prepare is not None:
             raise ValueError("the sparse densify tier takes no layout-"
                              "transforming updater factory")
-        dense_updaters = upd_W_d, upd_H_d
+        return upd_W_d, upd_H_d
+
+    if tier == "densify":
+        make_updaters()
+    chunk = ("sparse", pos_neg, beta, tol, update_W, update_H, l1_reg, l2_reg,
+             tier, recon2, updater_factory)
 
     def ell_update(p, neg_raw, pos_pre, pos_raw):
         neg = torch.relu(neg_raw) + eps
@@ -592,35 +1082,39 @@ def get_sparse_fit(
 
     def ell_neg(side_idx, side_val, rem, self_f, other_f):
         g = _sparse.ell_neg_grad(side_idx, side_val, self_f, other_f, beta)
-        if rem[2].numel():  # the hybrid's over-cap spill
+        if rem[2].numel():  # the hybrid's over-cap spill (a shape)
             g = g + _sparse.coo_rem_neg_grad(rem, self_f, other_f, beta)
         return g
 
-    @torch.no_grad()
-    def fit(V, W, H):
+    def build(e, V):
         coo = V.coo if tier == "ell" else V
-        V_norm = _sparse.get_V_norm(coo, beta)
-        Vd = _sparse.densify(coo) if tier == "densify" else None
+        d = e.derived
+        d["V_norm"] = _sparse.get_V_norm(coo, beta)
+        d["stage"] = _sparse.stage_bytes(coo.device)
+        if tier == "densify":
+            d["Vd"] = _sparse.densify(coo)
+            upd_W, upd_H = make_updaters()
 
         def loss_of(state):
             w, h = state
+            V = e.V
             if tier == "ell":
                 pos = _sparse.nmf_ell_pos_scalar(w, h, beta)
                 neg = _sparse.ell_neg_scalar(V.row_idx, V.row_val, h, w, beta)
                 if V.row_rem[2].numel():
                     neg = neg + _sparse.coo_rem_neg_scalar(V.row_rem, h, w, beta)
             else:
-                pos, neg = pos_neg(coo, h, w, beta)
-            return torch.sqrt(2.0 * (V_norm + pos - neg))
+                pos, neg = pos_neg(V, h, w, beta)
+            return torch.sqrt(2.0 * (d["V_norm"] + pos - neg))
 
         def one_iter(state):
             w, h = state
+            V = e.V
             if tier == "densify":
-                upd_W, upd_H = dense_updaters
                 if update_W:
-                    w = upd_W(Vd, w, h)
+                    w = upd_W(d["Vd"], w, h)
                 if update_H:
-                    h = upd_H(Vd, w, h)
+                    h = upd_H(d["Vd"], w, h)
             elif tier == "ell":
                 if update_W:
                     w = ell_update(
@@ -637,18 +1131,30 @@ def get_sparse_fit(
             else:
                 if update_W:
                     w = _sp_factor_update(
-                        lambda x: pos_neg(coo, h, x, beta), w, gamma, l1_reg,
+                        lambda x: pos_neg(V, h, x, beta), w, gamma, l1_reg,
                         l2_reg, kl_pos_W(h) if beta == 1 else None)
                 if update_H:
                     h = _sp_factor_update(
-                        lambda x: pos_neg(coo, x, w, beta), h, gamma, l1_reg,
+                        lambda x: pos_neg(V, x, w, beta), h, gamma, l1_reg,
                         l2_reg, kl_pos_H(w) if beta == 1 else None)
             return w, h
 
-        with _progress(verbose, max_iter) as report:
-            (W, H), k, conv = _converging_loop(
-                one_iter, loss_of, (W, H), tol, max_iter, report)
+        return SimpleNamespace(loss_of=loss_of, one_iter=one_iter)
+
+    def run(e, V, W, H):
+        f = e.fns = e.fns or build(e, V)
+        loop = (functools.partial(_graphed_loop, entry=e) if _graph
+                else _converging_loop)
+        with _progress(verbose, max_iter) as report, \
+                _sparse.fixed_stage(e.derived["stage"]):
+            (W, H), k, conv = loop(f.one_iter, f.loss_of, (W, H), tol,
+                                   max_iter, report)
         return W, H, (k * 10 if conv else max_iter)
+
+    @torch.no_grad()
+    def fit(V, W, H):
+        return _CACHE.run(chunk, (V,), (V, W, H), _graph,
+                          lambda e: run(e, V, W, H))
 
     return fit
 
@@ -725,49 +1231,64 @@ def _hoyer_loop(one_iter, loss_of, state, max_iter, report):
     return state
 
 
-def _graphed_hoyer_loop(one_iter, loss_of, state0, max_iter, report):
+def _graphed_hoyer_loop(one_iter, loss_of, state0, max_iter, report,
+                        entry=None):
     """:func:`_hoyer_loop` with each 10-iteration chunk one in-place
-    workload of :class:`~.graphs._Graphs` with device loops (own
-    warm-ups: chunks 1-2 eager, the capture right after chunk 2 is enqueued
-    when a third chunk follows, then graph replays on a CUDA device; called
-    directly on the CPU): ten iterations from static state tensors (the
-    factors and the two step sizes), and when reporting the loss into a
+    workload of :class:`~.graphs._Graphs` with device loops (own warm-ups
+    on a configuration's first fit: chunks 1-2 eager, the capture right
+    after chunk 2 is enqueued when a third chunk follows, then graph
+    replays on a CUDA device; called directly on the CPU): ten iterations
+    from static state tensors (the factors and the step sizes, which
+    ``entry`` keeps and each fit loads), and when reporting the loss into a
     static 0-d tensor, read once a chunk.  No stop test: every chunk runs.
     The ``max_iter % 10`` remainder runs eagerly.  The same operations as
-    :func:`_hoyer_loop`, so the same results bit for bit."""
+    :func:`_hoyer_loop`, so the same results bit for bit.  The device
+    loops' executions are handed to their counts at the end of each fit
+    (:meth:`~.graphs._Graphs.flush`)."""
     n_chunks, rem = divmod(max_iter, 10)
     state = state0
     if n_chunks:
-        st = tuple(x.clone() for x in state0)
-        last = (torch.empty((), dtype=st[0].dtype, device=st[0].device)
-                if report is not None else None)
+        own, entry = entry is None, entry or _Entry()
+        c = entry.loop
+        if c is None:
+            c = entry.loop = SimpleNamespace(
+                st=tuple(x.clone() for x in state0),
+                last=(torch.empty((), dtype=state0[0].dtype,
+                                  device=state0[0].device)
+                      if report is not None else None))
 
-        def chunk():
-            s = st
-            for _ in range(10):
-                s = one_iter(*s)
-            if last is not None:
-                last.copy_(loss_of(s))
-            for dst, x in zip(st, s):
-                dst.copy_(x)
+            def chunk():
+                s = c.st
+                for _ in range(10):
+                    s = one_iter(*s)
+                if c.last is not None:
+                    c.last.copy_(loss_of(s))
+                _load(c.st, s)
 
-        graphs = _Graphs([chunk], None, st[0].device, _CHUNK_NOT_CAPTURABLE,
-                         conditional=True)
+            c.graphs = _Graphs([chunk], None, state0[0].device,
+                               _CHUNK_NOT_CAPTURABLE, conditional=True)
+        else:
+            _load(c.st, state0)
+        graphs = c.graphs
         try:
+            entry.start(graphs)
             for k in range(1, n_chunks + 1):
                 graphs()
                 if k == 2 < n_chunks:  # the capture's host time overlaps chunk 2
                     graphs.capture()
                 if report is not None:
-                    report(k, _read(last))
+                    report(k, _read(c.last))
         finally:
-            graphs.close()
-        state = st
+            graphs.flush()
+        state = tuple(x.clone() for x in c.st)
+        if own:
+            entry.close()
     for _ in range(rem):
         state = one_iter(*state)
     return state
 
 
+@functools.lru_cache(maxsize=None)
 def get_hoyer_fit(
     recon2: Optional[Callable],
     pos_neg: Optional[Callable],
@@ -797,51 +1318,46 @@ def get_hoyer_fit(
     pair is renormed onto unit-norm H (reference nmf.py:585).  The step
     sizes start at 1 as 0-d float32 tensors on V's device.
 
-    A dense target's fit runs its chunks through
-    :func:`_graphed_hoyer_loop` (``_graph=False``, private: the eager
-    reference of the card's checks, runs :func:`_hoyer_loop`); a sparse
-    target's runs :func:`_hoyer_loop`."""
+    Either target's fit runs its chunks through :func:`_graphed_hoyer_loop`
+    on the fits' cache (a sparse target's ``V_norm`` kept with its
+    entry); ``_graph=False`` (private: the eager reference of the card's
+    checks) runs :func:`_hoyer_loop`."""
     gamma = gamma_from_beta(beta)
     sparse = pos_neg is not None
-    loop = _hoyer_loop if sparse or not _graph else _graphed_hoyer_loop
     L1a = hoyer_l1_target(W_col_dim, sW) if sW is not None else None
     L1s = hoyer_l1_target(H_col_dim, sH) if sH is not None else None
     if not sparse:
         upd_W, upd_H = _default_updaters(recon2, beta, gamma, 0.0, 0.0)
+    # a reporting chunk also computes the loss
+    chunk = ("hoyer", recon2, pos_neg, beta, update_W, update_H, sW, sH,
+             W_col_dim, H_col_dim, bool(verbose))
 
-    @torch.no_grad()
-    def fit(V, W, H):
+    def build(e, V):
         if sparse:
-            V_norm = _sparse.get_V_norm(V, beta)
+            V_norm = e.derived["V_norm"] = _sparse.get_V_norm(V, beta)
 
             def loss(w, h):
-                pos, neg = pos_neg(V, h, w, beta)
+                pos, neg = pos_neg(e.V, h, w, beta)
                 return V_norm + pos - neg
 
             def mu_W(w, h):
                 return _sp_factor_update(
-                    lambda x: pos_neg(V, h, x, beta), w, gamma, 0.0, 0.0,
+                    lambda x: pos_neg(e.V, h, x, beta), w, gamma, 0.0, 0.0,
                     kl_pos_W(h) if beta == 1 else None)
 
             def mu_H(w, h):
                 return _sp_factor_update(
-                    lambda x: pos_neg(V, x, w, beta), h, gamma, 0.0, 0.0,
+                    lambda x: pos_neg(e.V, x, w, beta), h, gamma, 0.0, 0.0,
                     kl_pos_H(w) if beta == 1 else None)
         else:
             def loss(w, h):
-                return beta_div(recon2(h, w), V, beta)
+                return beta_div(recon2(h, w), e.V, beta)
 
             def mu_W(w, h):
-                return upd_W(V, w, h)
+                return upd_W(e.V, w, h)
 
             def mu_H(w, h):
-                return upd_H(V, w, h)
-
-        # the constrained factors start at unit L2 per column (nmf.py:459-475)
-        if sW is not None and update_W:
-            W = proj_columns_explicit(W, L1a, 1.0)
-        if sH is not None and update_H:
-            H = proj_columns_explicit(H, L1s, 1.0)
+                return upd_H(e.V, w, h)
 
         def one_iter(w, h, ssW, ssH):
             if update_W:
@@ -864,11 +1380,28 @@ def get_hoyer_fit(
         def loss_of(state):
             return torch.sqrt(2.0 * loss(*state[:2]))
 
+        return SimpleNamespace(one_iter=one_iter, loss_of=loss_of)
+
+    def run(e, V, W, H):
+        f = e.fns = e.fns or build(e, V)
+        # the constrained factors start at unit L2 per column
+        # (nmf.py:459-475)
+        if sW is not None and update_W:
+            W = proj_columns_explicit(W, L1a, 1.0)
+        if sH is not None and update_H:
+            H = proj_columns_explicit(H, L1s, 1.0)
         one = torch.ones((), dtype=torch.float32, device=V.device)
+        loop = (functools.partial(_graphed_hoyer_loop, entry=e) if _graph
+                else _hoyer_loop)
         with _progress(verbose, max_iter) as report:
-            state = loop(one_iter, loss_of, (W, H, one, one.clone()),
+            state = loop(f.one_iter, f.loss_of, (W, H, one, one.clone()),
                          max_iter, report)
         return state[0], state[1], max_iter
+
+    @torch.no_grad()
+    def fit(V, W, H):
+        return _CACHE.run(chunk, (V,), (V, W, H), _graph,
+                          lambda e: run(e, V, W, H))
 
     return fit
 
@@ -947,6 +1480,7 @@ def _values_and_grad(f, x):
     return vals.detach(), g
 
 
+@functools.lru_cache(maxsize=None)
 def get_batched_hoyer_fit(
     recon2: Callable,
     beta: float,
@@ -968,14 +1502,13 @@ def get_batched_hoyer_fit(
     proj_problem_columns`; each problem's line search is its own
     (:func:`_batched_backtrack_project`), its step ``(B,)`` float32; the
     pair is renormed problem by problem.  The chunks run through
-    :func:`_graphed_hoyer_loop`, one capture a fit; ``_graph=False``
-    (private: the eager reference of the card's checks) runs
-    :func:`_hoyer_loop`.  ``fit(..., _attempts=True)`` also returns each
-    problem's line-search attempts, ``(B,)``.  The loop runs with cuDNN
-    off (:func:`_without_cudnn`)."""
+    :func:`_graphed_hoyer_loop` on the fits' cache;
+    ``_graph=False`` (private: the eager reference of the card's checks)
+    runs :func:`_hoyer_loop`.  ``fit(..., _attempts=True)`` also returns
+    each problem's line-search attempts, ``(B,)``.  The loop runs with
+    cuDNN off (:func:`_without_cudnn`)."""
     from torch.func import vmap
 
-    loop = _graphed_hoyer_loop if _graph else _hoyer_loop
     gamma = gamma_from_beta(beta)
     L1a = hoyer_l1_target(W_col_dim, sW) if sW is not None else None
     L1s = hoyer_l1_target(H_col_dim, sH) if sH is not None else None
@@ -984,22 +1517,17 @@ def get_batched_hoyer_fit(
                                      _batched_pos(kl_pos_H))
     div_b = vmap(lambda wh, v: beta_div(wh, v, beta))
     renorm_b = vmap(lambda w, h: renorm(w, h, "H"))
+    chunk = ("batched_hoyer", recon2, beta, update_W, update_H, sW, sH,
+             W_col_dim, H_col_dim)
 
-    @torch.no_grad()
-    def fit(V, W, H, _attempts=False):
+    def build(e):
         def loss(w, h):
-            return div_b(recon2(h, w), V)
-
-        # the constrained factors start at unit L2 per column (nmf.py:459-475)
-        if sW is not None and update_W:
-            W = proj_problem_columns(W, L1a, 1.0)
-        if sH is not None and update_H:
-            H = proj_problem_columns(H, L1s, 1.0)
+            return div_b(recon2(h, w), e.V)
 
         def one_iter(w, h, ssW, ssH, att):
             if update_W:
                 if sW is None:
-                    w = upd_W(V, w, h)
+                    w = upd_W(e.V, w, h)
                 else:
                     base, grad = _values_and_grad(lambda x: loss(x, h), w)
                     w, ssW, tries = _batched_backtrack_project(
@@ -1007,7 +1535,7 @@ def get_batched_hoyer_fit(
                     att = att + tries
             if update_H:
                 if sH is None:
-                    h = upd_H(V, w, h)
+                    h = upd_H(e.V, w, h)
                 else:
                     base, grad = _values_and_grad(lambda x: loss(w, x), h)
                     h, ssH, tries = _batched_backtrack_project(
@@ -1016,14 +1544,33 @@ def get_batched_hoyer_fit(
                 w, h = renorm_b(w, h)
             return w, h, ssW, ssH, att
 
+        return SimpleNamespace(one_iter=one_iter)
+
+    def run(e, V, W, H):
+        f = e.fns = e.fns or build(e)
+        # the constrained factors start at unit L2 per column
+        # (nmf.py:459-475)
+        if sW is not None and update_W:
+            W = proj_problem_columns(W, L1a, 1.0)
+        if sH is not None and update_H:
+            H = proj_problem_columns(H, L1s, 1.0)
         B = V.shape[0]
         one = torch.ones(B, dtype=torch.float32, device=V.device)
         att = torch.zeros(B, dtype=torch.int32, device=V.device)
+        loop = (functools.partial(_graphed_hoyer_loop, entry=e) if _graph
+                else _hoyer_loop)
         with _without_cudnn():
-            W, H, _, _, att = loop(one_iter, None,
+            W, H, _, _, att = loop(f.one_iter, None,
                                    (W, H, one, one.clone(), att), max_iter,
                                    None)
-        n_iter = torch.full((B,), max_iter, dtype=torch.long, device=V.device)
+        return W, H, att
+
+    @torch.no_grad()
+    def fit(V, W, H, _attempts=False):
+        W, H, att = _CACHE.run(chunk, (V,), (V, W, H), _graph,
+                               lambda e: run(e, V, W, H))
+        n_iter = torch.full((V.shape[0],), max_iter, dtype=torch.long,
+                            device=V.device)
         return (W, H, n_iter, att) if _attempts else (W, H, n_iter)
 
     return fit
@@ -1127,6 +1674,7 @@ def _plca_m_step(update_W, update_H, update_Z, W_alpha_active, H_alpha_active,
     return w, h, z
 
 
+@functools.lru_cache(maxsize=None)
 def get_plca_fit(
     recon3: Callable,
     tol: float,
@@ -1145,16 +1693,23 @@ def get_plca_fit(
     n_iter, norm)``: EM maximizing the posterior log-probability
     (reference plca.py:193-304).  ``V`` arrives unnormalized and is divided
     by ``norm = V.sum()`` inside.  ``em_engine()`` (optional) supplies the
-    E-step cotangents.  ``n_iter`` is the reference's raw loop index:
-    ``10·k - 1`` when chunk ``k`` converged, else ``max_iter - 1``.  The
-    chunks run as :func:`get_dense_fit`'s do (``_graph`` likewise)."""
-    cotangents = em_engine() if em_engine is not None else None
-    loop = _graphed_loop if _graph else _converging_loop
+    E-step cotangents, one engine a cache entry.  ``n_iter`` is the
+    reference's raw loop index: ``10·k - 1`` when chunk ``k`` converged,
+    else ``max_iter - 1``.  The chunks run as :func:`get_dense_fit`'s do
+    (``_graph`` likewise); an entry keeps ``norm``, ``Vn`` and the priors
+    (copied in each fit)."""
+    # a reporting chunk also computes the log-probability
+    chunk = ("plca", recon3, tol, update_W, update_H, update_Z, W_alpha_active,
+             H_alpha_active, Z_alpha_active, bool(verbose), em_engine)
 
-    @torch.no_grad()
-    def fit(V, W, H, Z, W_alpha, H_alpha, Z_alpha):
-        norm = V.sum()
-        Vn = V / norm
+    def build(e, V, alphas):
+        cotangents = em_engine() if em_engine is not None else None
+        d = e.derived
+        d["norm"] = V.sum()
+        d["Vn"] = V / d["norm"]
+        d["alphas"] = tuple(a.clone() for a in alphas)
+        norm, Vn, (W_alpha, H_alpha, Z_alpha) = d["norm"], d["Vn"], \
+            d["alphas"]
 
         def log_probability(state):
             # shown beside the loss when verbose (reference plca.py:18-20)
@@ -1175,15 +1730,33 @@ def get_plca_fit(
                 H_alpha_active, Z_alpha_active, Vn, state, W_alpha, H_alpha,
                 Z_alpha, cotangents)
 
+        return SimpleNamespace(loss_of=loss_of, one_iter=one_iter,
+                               extra_of=log_probability)
+
+    def run(e, V, W, H, Z, alphas):
+        if e.fns is None:
+            e.fns = build(e, V, alphas)
+        else:
+            _load(e.derived["alphas"], alphas)
+        f = e.fns
+        loop = (functools.partial(_graphed_loop, entry=e) if _graph
+                else _converging_loop)
         with _progress(verbose, max_iter) as report:
-            (W, H, Z), k, conv = loop(
-                one_iter, loss_of, (W, H, Z), tol, max_iter, report,
-                extra_of=log_probability)
+            (W, H, Z), k, conv = loop(f.one_iter, f.loss_of, (W, H, Z), tol,
+                                      max_iter, report, extra_of=f.extra_of)
+        norm = e.derived["norm"].clone()
         return W, H, Z, (k * 10 - 1 if conv else max_iter - 1), norm
+
+    @torch.no_grad()
+    def fit(V, W, H, Z, W_alpha, H_alpha, Z_alpha):
+        alphas = (W_alpha, H_alpha, Z_alpha)
+        return _CACHE.run(chunk, (V,), (V, W, H, Z) + alphas, _graph,
+                          lambda e: run(e, V, W, H, Z, alphas))
 
     return fit
 
 
+@functools.lru_cache(maxsize=None)
 def get_batched_plca_fit(
     recon3: Callable,
     tol: float,
@@ -1203,10 +1776,9 @@ def get_batched_plca_fit(
     ``torch.func.vmap(recon3)`` over the whole batch (the problems share no
     parameters), the M-step is ``vmap``-ed, the priors are shared.  The
     chunks run as :func:`get_batched_dense_fit`'s do (``_graph``
-    likewise)."""
+    likewise); an entry keeps ``norm``, ``Vn`` and the priors."""
     from torch.func import vmap
 
-    loop = _graphed_batched_loop if _graph else _batched_loop
     recon3_b = vmap(recon3)
     m_step = vmap(
         lambda w, h, z, gH, gW, gZ, Wa, Ha, Za: _plca_m_step(
@@ -1215,19 +1787,47 @@ def get_batched_plca_fit(
         in_dims=(0,) * 6 + (None,) * 3)
     loss_b = vmap(lambda vn, w, h, z, nrm: torch.sqrt(
         2.0 * kl_div(recon3(h, w, z) * nrm, vn * nrm)))
+    chunk = ("batched_plca", recon3, tol, update_W, update_H, update_Z,
+             W_alpha_active, H_alpha_active, Z_alpha_active)
 
-    @torch.no_grad()
-    def fit(V, W, H, Z, W_alpha, H_alpha, Z_alpha):
-        norm = V.reshape(V.shape[0], -1).sum(1)
-        Vn = V / norm.reshape((-1,) + (1,) * (V.ndim - 1))
+    def build(e, V, alphas):
+        d = e.derived
+        d["norm"] = V.reshape(V.shape[0], -1).sum(1)
+        d["Vn"] = V / d["norm"].reshape((-1,) + (1,) * (V.ndim - 1))
+        d["alphas"] = tuple(a.clone() for a in alphas)
+        norm, Vn, (W_alpha, H_alpha, Z_alpha) = d["norm"], d["Vn"], \
+            d["alphas"]
 
         def one_iter(state):
             w, h, z = state
             gH, gW, gZ = _plca_e_step(recon3_b, Vn, w, h, z)
             return m_step(w, h, z, gH, gW, gZ, W_alpha, H_alpha, Z_alpha)
 
-        (W, H, Z), conv, k = loop(
-            one_iter, lambda s: loss_b(Vn, *s, norm), (W, H, Z), tol, max_iter)
+        return SimpleNamespace(one_iter=one_iter,
+                               loss_of=lambda s: loss_b(Vn, *s, norm))
+
+    def run(e, V, W, H, Z, alphas):
+        if e.fns is None:
+            e.fns = build(e, V, alphas)
+        else:
+            _load(e.derived["alphas"], alphas)
+        f = e.fns
+        loop = (functools.partial(_graphed_batched_loop, entry=e) if _graph
+                else _batched_loop)
+        (W, H, Z), conv, k = loop(f.one_iter, f.loss_of, (W, H, Z), tol,
+                                  max_iter)
+        norm = e.derived["norm"].clone()
         return W, H, Z, torch.where(conv, k * 10 - 1, max_iter - 1), norm
 
+    @torch.no_grad()
+    def fit(V, W, H, Z, W_alpha, H_alpha, Z_alpha):
+        alphas = (W_alpha, H_alpha, Z_alpha)
+        return _CACHE.run(chunk, (V,), (V, W, H, Z) + alphas, _graph,
+                          lambda e: run(e, V, W, H, Z, alphas))
+
     return fit
+
+
+_FACTORIES = (get_dense_fit, get_batched_dense_fit, get_sparse_fit,
+              get_hoyer_fit, get_batched_hoyer_fit, get_plca_fit,
+              get_batched_plca_fit)

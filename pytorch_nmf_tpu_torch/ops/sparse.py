@@ -29,8 +29,10 @@ forces), ``PNT_SPARSE_DENSIFY_MAX_BYTES``, ``PNT_SPARSE_ELL`` (0 skips the
 ELL tier), ``PNT_SPARSE_ELL_MAX_PAD``, ``PNT_SPARSE_ELL_MAX_BYTES``.
 """
 
+import contextlib
 import math
 import os
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -38,6 +40,7 @@ import torch
 
 from ..constants import eps
 from .budget import budget_bytes
+from .graphs import _Counted
 
 __all__ = [
     "SparseELL",
@@ -47,6 +50,8 @@ __all__ = [
     "should_densify",
     "build_ell",
     "maybe_ell",
+    "stage_bytes",
+    "fixed_stage",
     "nmf_sp_pos_neg",
     "ell_neg_grad",
     "nmf_ell_pos_grad",
@@ -131,7 +136,8 @@ def _ell_side(seg_ids, other_ids, v, n_seg: int, cap: Optional[int] = None):
     else:
         L = Lmax
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
-        rem = (empty, empty, v[:0])
+        # not v[:0]: a view of the target's values keeps the target alive
+        rem = (empty, empty, v.new_zeros(0))
     idx_pad = torch.zeros((n_seg, L), dtype=torch.int32, device=dev)
     val_pad = torch.zeros((n_seg, L), dtype=v.dtype, device=dev)
     idx_pad[seg_ids, pos] = other_ids.int()
@@ -174,12 +180,14 @@ def maybe_ell(V: torch.Tensor):
     """The ELL tier's entry decision: the built :class:`SparseELL`, or
     ``None`` for the gather tier (``PNT_SPARSE_ELL=0``, or a blown byte
     budget).  The layout is cached on the target tensor, keyed by the env
-    configuration, so repeated fits of one target build it once."""
+    configuration and the target's version (a target changed in place is
+    laid out again), so repeated fits of one target build it once."""
     env = os.environ.get("PNT_SPARSE_ELL", "")
     if env == "0":
         return None
     key = (env, os.environ.get("PNT_SPARSE_ELL_MAX_PAD", ""),
-           os.environ.get("PNT_SPARSE_ELL_MAX_BYTES", ""))
+           os.environ.get("PNT_SPARSE_ELL_MAX_BYTES", ""), V._version,
+           V._values()._version, V._values().data_ptr())
     cached = getattr(V, "_pnt_ell_cache", None)
     if cached is not None and cached[0] == key:
         return cached[1]
@@ -188,14 +196,40 @@ def maybe_ell(V: torch.Tensor):
     return ell
 
 
+def stage_bytes(device) -> int:
+    """The bytes a block's stage may take: an eighth of the card's free
+    memory (a fixed 64 MiB on the CPU)."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.mem_get_info(device)[0] // 8
+    return _CPU_STAGE_BYTES
+
+
+# the stage a fit fixed (fixed_stage), read in place of the card's free
+# memory
+_STAGE = threading.local()
+
+
+@contextlib.contextmanager
+def fixed_stage(nbytes: int):
+    """Inside, the blocks are sized from ``nbytes`` (a fit's, read once at
+    its start) rather than the card's free memory at each call: a captured
+    chunk asks the card nothing, and every fit of a kept one blocks its
+    rows as the chunk's graph does."""
+    before = getattr(_STAGE, "nbytes", None)
+    _STAGE.nbytes = nbytes
+    try:
+        yield
+    finally:
+        _STAGE.nbytes = before
+
+
 def _block_rows(row_bytes: int, n_rows: int, device) -> int:
     """Rows per block so that a block's stage of ``row_bytes`` per row takes
-    at most an eighth of the card's free memory (a fixed 64 MiB on the
-    CPU): one or a few blocks at the sizes a card holds."""
-    if device.type == "cuda":
-        budget = torch.cuda.mem_get_info(device)[0] // 8
-    else:
-        budget = _CPU_STAGE_BYTES
+    at most :func:`stage_bytes` (or the fit's :func:`fixed_stage`): one or
+    a few blocks at the sizes a card holds."""
+    budget = getattr(_STAGE, "nbytes", None)
+    if budget is None:
+        budget = stage_bytes(device)
     return max(1, min(n_rows, budget // max(row_bytes, 1)))
 
 
@@ -237,11 +271,17 @@ def _ell_blocks(idx_pad, val_pad, self_f, other_f):
 def ell_neg_grad(idx_pad, val_pad, self_f, other_f, beta: float):
     """Gradient of the ``neg`` scalar with respect to the segment-side
     factor: ``Σ_l vals · f'_β(WH) · other[idx]``, a dense reduction over
-    the padded axis (pad entries have value 0 and add nothing)."""
+    the padded axis (pad entries have value 0 and add nothing).
+    ``ell_neg_grad.reductions`` counts its executions (a graphed fit's
+    replays included, :mod:`.graphs`)."""
+    ell_neg_grad.add("reductions")
     out = torch.empty_like(self_f)
     for s0, s1, vals, oth, wh in _ell_blocks(idx_pad, val_pad, self_f, other_f):
         out[s0:s1] = torch.bmm(_neg_coef(vals, wh, beta)[:, None, :], oth)[:, 0]
     return out
+
+
+ell_neg_grad = _Counted(ell_neg_grad, reductions=0)
 
 
 def ell_neg_scalar(idx_pad, val_pad, self_f, other_f, beta: float):

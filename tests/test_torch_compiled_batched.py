@@ -307,6 +307,8 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # each test's first graphed fit of a configuration is a cold one
+    solver.compiled_cache_clear()
     return "cuda"
 
 

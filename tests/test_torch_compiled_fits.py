@@ -375,6 +375,10 @@ def _raising(*args, **kwargs):
 
 
 def test_sharded_sparse_hoyer_and_batched_fits_stay_eager(monkeypatch):
+    """The sharded fits stay eager; the sparse fits (each tier), the Hoyer
+    fits (dense and sparse targets) and the batched MU and EM fits go
+    through _Graphs, one instance a cache entry (the Hoyer fits' with
+    device loops)."""
     from pytorch_nmf_tpu_torch.ops import sparse
     from pytorch_nmf_tpu_torch.parallel import halo, sharded, sharded_sparse
 
@@ -386,19 +390,6 @@ def test_sharded_sparse_hoyer_and_batched_fits_stay_eager(monkeypatch):
     state, k, conv = solver._converging_loop(
         lambda s: (s[0] * 0.99, s[1]), lambda s: s[0].sum(), (W, H), 0.0, 30)
     assert k == 3 and not conv
-    Vs = V.to_sparse()
-    for tier in ("densify", "gather"):
-        fit = solver.get_sparse_fit(sparse.nmf_sp_pos_neg, 1.0, 0.0, 30, True,
-                                    True, 0.0, 0.0, False, tier,
-                                    NMF.reconstruct)
-        assert fit(Vs.coalesce(), W, H)[2] == 30
-    # the sparse-target Hoyer fit stays eager (the dense one is graphed:
-    # tests/test_torch_compiled_hoyer.py)
-    hoyer = solver.get_hoyer_fit(None, sparse.nmf_sp_pos_neg, 2.0, 20, True,
-                                 True, 0.5, None, W.shape[0], H.shape[0])
-    assert hoyer(Vs.coalesce(), W, H)[2] == 20
-    # the dense Hoyer fit and the batched MU and EM fits go through
-    # _Graphs, one instance a fit (the Hoyer fit's with device loops)
     made = []
 
     class Recording(graphs._Graphs):
@@ -407,20 +398,36 @@ def test_sharded_sparse_hoyer_and_batched_fits_stay_eager(monkeypatch):
             super().__init__(*args, **kwargs)
 
     monkeypatch.setattr(solver, "_Graphs", Recording)
+    Vs = V.to_sparse().coalesce()
+    for tier in ("densify", "gather"):
+        fit = solver.get_sparse_fit(sparse.nmf_sp_pos_neg, 1.0, 0.0, 30, True,
+                                    True, 0.0, 0.0, False, tier,
+                                    NMF.reconstruct)
+        assert fit(Vs, W, H)[2] == 30
+    ell = sparse.build_ell(Vs)
+    fit = solver.get_sparse_fit(sparse.nmf_sp_pos_neg, 1.0, 0.0, 30, True,
+                                True, 0.0, 0.0, False, "ell")
+    assert fit(ell, W, H)[2] == 30
+    assert made == [False] * 3
+    hoyer = solver.get_hoyer_fit(None, sparse.nmf_sp_pos_neg, 2.0, 20, True,
+                                 True, 0.5, None, W.shape[0], H.shape[0])
+    assert hoyer(Vs, W, H)[2] == 20
+    assert made == [False] * 3 + [True]
     bat = solver.get_batched_dense_fit(NMF.reconstruct, 1.0, 0.0, 30, True,
                                        True, 0.0, 0.0)
     assert bat(V[None], W[None], H[None])[2].tolist() == [30]
-    assert made == [False]
+    assert made == [False] * 3 + [True, False]
     Vp, Wp, Hp, Zp = (torch.from_numpy(a) for a in _problem("PLCA"))
     batp = solver.get_batched_plca_fit(PLCA.reconstruct, 0.0, 30, True, True,
                                        True, False, False, False)
     one = Vp.new_ones(())
     assert batp(Vp[None], Wp[None], Hp[None], Zp[None], one, one,
                 one)[3].tolist() == [29]
-    assert made == [False, False]
+    assert made == [False] * 3 + [True, False, False]
     dense = solver.get_hoyer_fit(NMF.reconstruct, None, 2.0, 20, True, True,
                                  0.5, None, W.shape[0], H.shape[0])
-    assert dense(V, W, H)[2] == 20 and made == [False, False, True]
+    assert dense(V, W, H)[2] == 20 and made == [False] * 3 + [True, False,
+                                                              False, True]
 
 
 @pytest.mark.parametrize("key", ["NMF", "NMFD", "PLCA", "SIPLCA"])
@@ -448,6 +455,8 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # each test's first graphed fit of a configuration is a cold one
+    solver.compiled_cache_clear()
     return "cuda"
 
 
@@ -574,8 +583,10 @@ def test_cuda_nothing_outlives_the_fit(cuda, key):
 @pytest.mark.cuda
 @pytest.mark.parametrize("key", ["NMF", "NMFD", "PLCA", "SIPLCA"])
 def test_cuda_graphed_fits_keep_no_memory(cuda, key):
-    """A graphed fit leaves the card's allocated memory as it found it,
-    and its graph's pool goes back to the card with ``empty_cache``."""
+    """A graphed fit keeps only its cache entry on the card: fits that
+    differ only in ``max_iter`` share it, so none after the first adds
+    anything, and ``compiled_cache_clear`` (then ``empty_cache``) gives the
+    card back its allocated (and reserved) memory."""
     arrays = _problem(key)
     V = torch.from_numpy(arrays[0]).to(cuda)
     names = "WHZ" if "PLCA" in key else "WH"
@@ -583,14 +594,26 @@ def test_cuda_graphed_fits_keep_no_memory(cuda, key):
     m = (plca_from_numpy(inits, cuda) if "PLCA" in key
          else nmf_from_numpy(inits, cuda))
     m.fit(V, tol=0, max_iter=40)  # builds, workspaces, lazy imports
+    solver.compiled_cache_clear()
+    # cuBLAS keeps a workspace for each stream that ran a product eagerly
+    # (a hit's initial loss): not the fit's; dropped before each reading
+    clear_workspaces = torch._C._cuda_clearCublasWorkspaces
     torch.cuda.synchronize()
+    clear_workspaces()
     torch.cuda.empty_cache()
     allocated, reserved = torch.cuda.memory_allocated(), \
         torch.cuda.memory_reserved()
-    for max_iter in (40, 50, 30):
+    after = []
+    for max_iter in (40, 50, 30, 40, 50, 30):
         m.fit(V, tol=0, max_iter=max_iter)
         torch.cuda.synchronize()
-        assert torch.cuda.memory_allocated() == allocated
+        clear_workspaces()
+        after.append(torch.cuda.memory_allocated())
+    assert allocated < after[0]
+    assert after[1:] == [after[0]] * 5  # hits
+    solver.compiled_cache_clear()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == allocated
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() == reserved
 
@@ -598,7 +621,8 @@ def test_cuda_graphed_fits_keep_no_memory(cuda, key):
 @pytest.mark.cuda
 def test_cuda_models_fit_graphed(cuda):
     """The models and ``functional`` take the graphed loop: a 50-iteration
-    fit replays 3 chunks."""
+    fit replays 3 chunks, and the same fit through ``functional`` on the
+    same target is a cache hit that replays all 5."""
     from pytorch_nmf_tpu_torch import functional
 
     V, W, H = (torch.from_numpy(a).to(cuda) for a in _problem("NMF"))
@@ -607,4 +631,4 @@ def test_cuda_models_fit_graphed(cuda):
     assert m.fit(V, beta=1, tol=0, max_iter=50) == 50
     assert graphs._Graphs.replays - r0 == 3
     _, _, n = functional.nmf_fit(V, W, H, beta=1, tol=0, max_iter=50)
-    assert n == 50 and graphs._Graphs.replays - r0 == 6
+    assert n == 50 and graphs._Graphs.replays - r0 == 8

@@ -344,14 +344,31 @@ def test_device_loop_and_counts_on_the_cpu():
 
 
 def test_sparse_target_keeps_the_eager_loop(monkeypatch):
-    def raising(*args, **kwargs):
-        raise AssertionError("a graph was built")
+    """A sparse target's Hoyer fit runs the chunked loop too (one _Graphs
+    with device loops), equal to its eager loop (``_graph=False``) bit for
+    bit."""
+    made = []
 
-    monkeypatch.setattr(solver, "_Graphs", raising)
+    class Recording(graphs._Graphs):
+        def __init__(self, *args, **kwargs):
+            made.append(kwargs.get("conditional", False))
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(solver, "_Graphs", Recording)
     V, W, H = _problem("NMF", 4)
     V = np.where(V > 0.6, V, 0).astype("f")
     m = nmf_from_numpy({"W": W, "H": H}, "cpu")
     assert m.sparse_fit(sparse_from_dense(V), beta=1, max_iter=25, sH=0.5) == 25
+    assert made == [True]
+    Vs = sparse_from_dense(V)
+    Wt, Ht = torch.from_numpy(W), torch.from_numpy(H)
+    outs = [solver.get_hoyer_fit(None, NMF._sp_pos_neg, 1.0, 25, True, True,
+                                 None, 0.5, Wt.shape[0], Ht.shape[0],
+                                 _graph=graph)(Vs, Wt, Ht)
+            for graph in (True, False)]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(outs[0][1], m.H.detach())
 
 
 def test_batched_hoyer_fit_runs_the_chunked_fit_per_problem(monkeypatch):
@@ -390,6 +407,8 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # each test's first graphed fit of a configuration is a cold one
+    solver.compiled_cache_clear()
     return "cuda"
 
 
@@ -471,19 +490,31 @@ def test_cuda_nothing_outlives_the_hoyer_fit(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["NMF", "NMFD"])
 def test_cuda_graphed_hoyer_fits_keep_no_memory(cuda, name):
-    """A graphed Hoyer fit leaves the card's allocated memory as it found
-    it (the bodies' pool and count freed with the fit), three fits in a
-    row; its counts are read only after."""
+    """A graphed Hoyer fit keeps only its cache entry on the card (the
+    bodies' pool and count freed with it): a hit adds nothing, and
+    ``compiled_cache_clear`` gives the allocated memory back; its counts
+    are read only after."""
     V, W0, H0 = _problem(name, 1)
     V = torch.from_numpy(V).to(cuda)
     m = nmf_from_numpy({"W": W0, "H": H0}, cuda)
     m.sparse_fit(V, beta=2, max_iter=40, sW=0.5)  # builds, workspaces
+    solver.compiled_cache_clear()
+    # cuBLAS keeps a workspace for each stream that ran a product eagerly:
+    # not the fit's; dropped before each reading
+    clear_workspaces = torch._C._cuda_clearCublasWorkspaces
     torch.cuda.synchronize()
+    clear_workspaces()
     allocated = torch.cuda.memory_allocated()
-    for max_iter in (40, 50, 30):
+    after = []
+    for max_iter in (40, 50, 30, 40, 50, 30):
         m.sparse_fit(V, beta=2, max_iter=max_iter, sW=0.5)
         torch.cuda.synchronize()
-        assert torch.cuda.memory_allocated() == allocated
+        clear_workspaces()
+        after.append(torch.cuda.memory_allocated())
+    assert after[3:] == [after[2]] * 3  # hits
+    solver.compiled_cache_clear()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == allocated
     assert projection.proj_rows.launches > 0
 
 
