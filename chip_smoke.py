@@ -267,6 +267,20 @@ SMALL_B3 = "hgrad_r_le_16"
 DEMO_B3 = "NMFD R=3 (demo)"
 DECONV_DEMO = (1, 1025, (4997,), (400,), 3)
 DECONV_ITERS = 10
+# B3's small-rank regime past the former slab cap: the kernel line, its
+# (R, L_in) cases at C = 1025, T = 400 (the cap fell at 41,943 columns at
+# R=16, 167,772 at R=8 and 1,118,481 at R=3; 100,000 columns are about 39
+# minutes of audio at the demo's hop), the line's times read at the first;
+# and an NMFD fit there through the model, its B3 launches all windowed
+B3_CAP = "hgrad_r_le_16_past_cap"
+B3_CAP_CASES = ((16, 100_000), (8, 200_000), (3, 1_200_000))
+B3_CAP_FIT = (1, 1025, (100_399,), (400,), 16)
+B3_CAP_FIT_ITERS = 30  # 3 chunks: the third a graph replay
+# C8: a kept dense fit after a write its target's version counter misses
+# (V.data.mul_), on a card V with unaligned rows (the fused updaters' padded
+# copy), against a cold fit of the new values
+STALE_ITERS = 50
+STALE_BETAS = (1, 0.5)
 # the PLCA family at full width, (N, C, S_out, kernel, R), from bench.py
 SIPLCA_ROWS = {
     "SIPLCA": (1, 513, (3000,), (200,), 64),           # bench.py:157
@@ -783,6 +797,179 @@ def b3_plan(D, op):
                          torch.cuda.get_device_properties(0).multi_processor_count)
 
 
+def compare_b3_past_cap(F, D):
+    """Phase 2, B3's small-rank regime past the former slab cap
+    (:data:`B3_CAP_CASES`): the plan's windows along L_in against the
+    plain version (at RTOL), against one launch of the same plan over the
+    whole length (bit for bit; its slabs, 320-640 MB, pass the cap on
+    purpose), and timed beside the tensor-core kernel the plan fell back
+    to before, the plain version, ``F.conv1d`` (cuDNN, TF32 off) and the
+    bound.  Returns the line's stats, its times at the first case."""
+    st = new_stats()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    T, C = 400, 1025
+    for R, L in B3_CAP_CASES:
+        rs = np.random.RandomState(SEED)
+        Lp = L + T - 1
+        cot = torch.from_numpy(rs.rand(Lp, C).astype("f")).cuda()
+        W = torch.from_numpy(rs.rand(C, R, T).astype("f")).cuda()
+        W2 = F._w2(W)
+        p = D._hgrad_plan(R, L, -(-C // 4) * 4, T, D._geom_args(T, None), sms)
+        windows = D._hgrad_windows(p, L)
+        check(p.regime == "gemm" and len(windows) > 1,
+              f"B3 R={R} L_in={L}: plan {p}")
+        check(all(p.slabs * R * (b - a) <= D._MAX_SLAB_FLOATS
+                  for a, b in windows),
+              f"B3 R={R} L_in={L}: slabs over the cap")
+        n = (D.hgrad.launches_gemm, D.hgrad.launches_windowed)
+        got = D.hgrad(cot, W2, R, L)
+        check((D.hgrad.launches_gemm - n[0], D.hgrad.launches_windowed - n[1])
+              == (1, 1), f"B3 R={R} L_in={L}: not one windowed gemm launch")
+        whole = D.hgrad(cot, W2, R, L, plan=p._replace(window=0))
+        ref = D.plain_hgrad(cot, W2, R, L)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"B3 R={R} L_in={L}: non-finite")
+        check(torch.equal(got, whole),
+              f"B3 R={R} L_in={L}: windows differ from one launch")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        check(rel <= RTOL, f"B3 R={R} L_in={L}: max|kernel-plain| / "
+              f"max|plain| = {rel:.3g}")
+        tc = D._tc_plan(R, L, -(-C // 4) * 4, T, sms)
+        tc_rel = float((D.hgrad(cot, W2, R, L, plan=tc) - ref).abs().max()) / \
+            float(ref.abs().max())
+        check(tc_rel <= RTOL, f"B3 R={R} L_in={L} tc: rel err {tc_rel:.3g}")
+        del whole, ref
+        cot_m = cot.T.unsqueeze(0).contiguous()
+        Wt = W.transpose(0, 1)
+        ms = cuda_ms(lambda: D.hgrad(cot, W2, R, L), reps=10, warmup=1)
+        tc_ms = cuda_ms(lambda: D.hgrad(cot, W2, R, L, plan=tc), reps=3,
+                        warmup=1)
+        pms = cuda_ms(lambda: D.plain_hgrad(cot, W2, R, L), reps=3, warmup=1)
+        lms = cuda_ms(lambda: torch.nn.functional.conv1d(cot_m, Wt), reps=2,
+                      warmup=1)
+        b_ms, b_by, _ = bound(2 * R * L * T * C,
+                              4 * (Lp * C + T * R * C + R * L))
+        print(f"B3 past the cap, R={R} L_in={L} C={C} T={T}: plan {p}, "
+              f"{len(windows)} windows of {p.window} columns; max rel err "
+              f"{rel:.3g}, bit for bit one launch; kernel {ms:.4f} ms, the "
+              f"tensor-core kernel (the former fallback) {tc_ms:.4f} ms "
+              f"({tc_ms / ms:.2f}x), plain {pms:.4f} ms, library "
+              f"{lms:.4f} ms (F.conv1d), bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f}% of it", flush=True)
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["max_rel_err"] = max(st["max_rel_err"], rel)
+        if st["ms"] is None:
+            st.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b_ms,
+                      bound_by=b_by, tc_ms=tc_ms)
+        del cot, W, W2, got, cot_m, Wt
+        torch.cuda.empty_cache()
+    # below the cap: the demo's B3 in windows of 3 blocks, bit for bit
+    op = deconv_operands(F, *DECONV_DEMO)
+    cot, W2 = op["cots"][0], op["W2"]
+    whole = b3_plan(D, op)
+    p = whole._replace(window=3 * whole.bm)
+    a = D.hgrad(cot, W2, 3, op["L_h"], plan=p)
+    b = D.hgrad(cot, W2, 3, op["L_h"], plan=whole)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "B3 demo: windows differ from one launch")
+    print(f"B3 demo in {len(D._hgrad_windows(p, op['L_h']))} windows of "
+          f"{p.window} columns: bit for bit one launch", flush=True)
+    return {B3_CAP: st}
+
+
+def deconv_long_fit(models, beta_div, D, ctr, card, fit_ms):
+    """Phase 3, B3 past the former slab cap through the user's entry
+    point: ``NMFD.fit`` at rank 16 on 100,000 activation columns
+    (:data:`B3_CAP_FIT`), β=1, :data:`B3_CAP_FIT_ITERS` iterations, every
+    B3 launch the gemm regime in windows (one an iteration).  Returns the
+    path's launch counts."""
+    zero(ctr)
+    N, C, S_out, kernel, R = B3_CAP_FIT
+    rs = np.random.RandomState(SEED)
+    V = torch.from_numpy(np.abs(rs.randn(N, C, *S_out)).astype("f")).cuda()
+    m = models.NMFD((N, C) + S_out, R, T=kernel[0], device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    before = float(beta_div(m().detach(), V, 1))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    n_iter = m.fit(V, beta=1, tol=0, max_iter=B3_CAP_FIT_ITERS)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / B3_CAP_FIT_ITERS
+    after = float(beta_div(m().detach(), V, 1))
+    launches = read(ctr)
+    b3 = launches["hgrad"]
+    for p in (m.W, m.H):
+        check(bool(torch.isfinite(p).all()) and bool((p >= 0).all()),
+              "NMFD past the cap: a non-finite or negative factor")
+    check(after < before, f"NMFD past the cap: loss {before} -> {after}")
+    check(int(b3) == b3.small == b3.windowed == B3_CAP_FIT_ITERS,
+          f"NMFD past the cap: B3 {int(b3)}, gemm {b3.small}, windowed "
+          f"{b3.windowed}")
+    fit_ms["nmfd_past_cap_1025x100399_r16_k400_beta1"] = ms
+    print(f"phase 3: NMFD past the cap (1x{C}x{S_out[0]} R={R} T={kernel[0]}, "
+          f"beta=1) n_iter={n_iter} loss {before:.6g} -> {after:.6g}, "
+          f"{ms:.3f} ms/iteration; launches B3 {int(b3)} (windowed "
+          f"{b3.windowed}), B4 {launches['wgrad']} [{card}]", flush=True)
+    del V, m
+    return launches
+
+
+def stale_target(ns, ctr, card):
+    """Phase 3, C8 on the card: a kept dense fit sees its target's new
+    values.  A CUDA float32 V at MAIN_SHAPE passed as it is (4100-byte
+    rows: the fused updaters keep a padded copy), fitted, then written
+    through ``V.data.mul_(3)`` (no version counter moves: the next fit is
+    a hit, one that captures nothing), fitted warm, then cold after
+    ``compiled_cache_clear``: the warm fit equals the cold one bit for
+    bit.  The cache's held bytes before and after the write's fit."""
+    from pytorch_nmf_tpu_torch.ops import graphs
+
+    solver, Graphs = ns.solver, graphs._Graphs
+    M, K, R = MAIN_SHAPE
+    zero(ctr)
+    for beta in STALE_BETAS:
+        solver.compiled_cache_clear()
+        V, _, _ = inputs(M, K, R)
+        check(V.data_ptr() % 16 == 0 and V.stride(0) * 4 % 16,
+              "the stale-target V has aligned rows")
+
+        def fit():
+            m = ns.NMF((M, K), R, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(SEED))
+            m.fit(V, beta=beta, tol=0, max_iter=STALE_ITERS)
+            return m.W.detach().clone(), m.H.detach().clone()
+
+        first = fit()
+        held = solver.compiled_cache_info()["held_bytes"]
+        V.data.mul_(3)
+        counts, captures = cache_counts(solver), Graphs.captures
+        warm = fit()
+        after = cache_counts(solver)
+        check(after["hits"] == counts["hits"] + 1
+              and Graphs.captures == captures,
+              f"C8 beta={beta}: the fit after the write was not a hit "
+              f"without a capture ({counts} -> {after})")
+        held_warm = solver.compiled_cache_info()["held_bytes"]
+        solver.compiled_cache_clear()
+        cold = fit()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(warm, cold)),
+              f"C8 beta={beta}: the warm fit differs from the cold fit "
+              "of the new values")
+        check(not torch.equal(warm[0], first[0]),
+              f"C8 beta={beta}: the write changed nothing")
+        print(f"phase 3: C8 beta={beta} {M}x{K} R={R} unaligned card V, "
+              f"{STALE_ITERS} iterations: warm fit after V.data.mul_(3) bit "
+              f"for bit the cold fit (a hit, no capture); held bytes "
+              f"{held} before, {held_warm} after [{card}]", flush=True)
+        del V
+    solver.compiled_cache_clear()
+    return read(ctr)
+
+
 def halo_layouts():
     """One rank's B3/B4 layout of each halo fit of PAR_CASES over PAR_WORLD
     ranks (``parallel.halo._Layout``, as the fit builds it), one per
@@ -952,34 +1139,38 @@ def counters(fm, D):
 class Count(int):
     """B3's launch count, carrying ``small``: how many of them ran its
     small-rank regime (``hgrad.launches_gemm``, the kernel line
-    ``hgrad_r_le_16``).  It compares as the plain count, and sums and
-    differences of counts carry it along."""
+    ``hgrad_r_le_16``), and ``windowed``: how many of those ran in windows
+    along the output past the slab cap (``hgrad.launches_windowed``, the
+    line ``hgrad_r_le_16_past_cap``).  It compares as the plain count, and
+    sums and differences of counts carry both along."""
 
-    def __new__(cls, n, small=0):
+    def __new__(cls, n, small=0, windowed=0):
         c = super().__new__(cls, n)
-        c.small = small
+        c.small, c.windowed = small, windowed
         return c
 
     def __add__(self, other):
         return Count(int(self) + int(other),
-                     self.small + getattr(other, "small", 0))
+                     self.small + getattr(other, "small", 0),
+                     self.windowed + getattr(other, "windowed", 0))
 
     __radd__ = __add__
 
     def __sub__(self, other):
         return Count(int(self) - int(other),
-                     self.small - getattr(other, "small", 0))
+                     self.small - getattr(other, "small", 0),
+                     self.windowed - getattr(other, "windowed", 0))
 
 
 def zero(ctr):
     for fn in ctr.values():
         fn.launches = 0
         if hasattr(fn, "launches_gemm"):
-            fn.launches_gemm = 0
+            fn.launches_gemm = fn.launches_windowed = 0
 
 
 def read(ctr):
-    return {name: Count(fn.launches, fn.launches_gemm)
+    return {name: Count(fn.launches, fn.launches_gemm, fn.launches_windowed)
             if hasattr(fn, "launches_gemm") else fn.launches
             for name, fn in ctr.items()}
 
@@ -990,6 +1181,7 @@ def restore(ctr, counts):
         ctr[k].launches = int(v)
         if isinstance(v, Count):
             ctr[k].launches_gemm = v.small
+            ctr[k].launches_windowed = v.windowed
 
 
 def plca_problem(N, C, S_out, kernel, R, seed=SEED):
@@ -4958,6 +5150,7 @@ def main():
     # phase 2: kernels against their plain versions
     stats = compare_kernels(fm, kl_pos_W, kl_pos_H)
     stats.update(compare_deconv_kernels(F, D, kl_pos_W))
+    stats.update(compare_b3_past_cap(F, D))
     compare_em_adjoints(F, recon, plca_from_numpy, eps, card)
     fit_ms = {}
     proj_stats = compare_projection(P, card, fit_ms)
@@ -5043,9 +5236,13 @@ def main():
               flush=True)
     del V, m
 
+    # phase 3, this slice: B3's small-rank regime past the former slab cap
+    stamp("deconv fits and timing")
+    by_path["deconv_past_cap"] = deconv_long_fit(models, beta_div, D, ctr,
+                                                 card, fit_ms)
+    stamp("NMFD past the cap")
     # phase 3, the PLCA family: SIPLCA/2/3 on B3/B4, dense PLCA's fused
     # E-step on B1; then sparse NMF targets, whose densify tier runs B1
-    stamp("deconv fits and timing")
     by_path["siplca"] = siplca_fits(F, recon, solver, plca_from_numpy, kl_div,
                                     ctr, card, fit_ms)
     stamp("SIPLCA")
@@ -5054,6 +5251,8 @@ def main():
     # phase 3 and 4, this slice: the fits' chunk as CUDA graphs
     by_path["compiled_fits"] = compiled_fits(ns, ctr, card, fit_ms)
     stamp("compiled fits")
+    by_path["stale_target"] = stale_target(ns, ctr, card)
+    stamp("C8: a kept fit after a write")
     by_path["sparse_densify"] = sparse_fits(S, nmf_from_numpy, ctr, card, fit_ms)
     stamp("sparse")
 
@@ -5098,8 +5297,11 @@ def main():
     check(all(isinstance(n["hgrad"], Count) for n in by_path.values()),
           "a path's B3 count lost its small-rank share")
     small_by_path = {p: n["hgrad"].small for p, n in by_path.items()}
+    windowed_by_path = {p: n["hgrad"].windowed for p, n in by_path.items()}
     check(launches["hgrad"].small > 0,
           "no path launched B3's small-rank regime")
+    check(launches["hgrad"].windowed > 0,
+          "no path launched B3's small-rank regime in windows")
     print(f"phase 3: launches by path {json.dumps(by_path)}; of B3's, the "
           f"small-rank regime's {json.dumps(small_by_path)}", flush=True)
 
@@ -5107,6 +5309,7 @@ def main():
     for name, st in stats.items():
         at = (f"{M}x{K} R={R}" if name in ("fused_contractions", "fused_beta_loss")
               else DEMO_B3 if name == SMALL_B3
+              else "R=16 1025x100000 T=400" if name == B3_CAP
               else f"{C}x{S_out[0]} R={Rd} T={kernel[0]}")
         lib = "none" if st["library_ms"] is None else f"{st['library_ms']:.4f} ms"
         print(f"phase 4: {name} at {at}: kernel {st['ms']:.4f} ms, plain "
@@ -5128,6 +5331,12 @@ def main():
               "replaces": REPLACES["hgrad"], "regime": "gemm (ranks <= 16)",
               "launches": launches["hgrad"].small,
               "launches_by_path": small_by_path}, **stats[SMALL_B3])
+    ] + [
+        dict({"name": B3_CAP, "route": "cuda", "source": SOURCES["hgrad"],
+              "replaces": REPLACES["hgrad"],
+              "regime": "gemm (ranks <= 16) in windows past the slab cap",
+              "launches": launches["hgrad"].windowed,
+              "launches_by_path": windowed_by_path}, **stats[B3_CAP])
     ] + [
         dict({"name": name, "route": "cuda", "source": SOURCES[base],
               "replaces": REPLACES[base], "launches": bf16_launches[name],

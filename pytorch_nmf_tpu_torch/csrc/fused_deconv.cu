@@ -353,7 +353,7 @@ template <int NT>
 __global__ void __launch_bounds__(kGThreads, 1)
     hgrad_gemm_kernel(const float* __restrict__ cot,
                       const float* __restrict__ wsplit, float* __restrict__ dst,
-                      int Lp, int C, int R, int L_in, int J, int bm,
+                      int Lp, int C, int R, int L_in, int ld, int J, int bm,
                       int n_stages, int sper, Geom g) {
   constexpr int N = 8 * NT, GS = N + 1;
   extern __shared__ __align__(128) float gsmem[];
@@ -461,13 +461,13 @@ __global__ void __launch_bounds__(kGThreads, 1)
       G[m * GS + 8 * (i / 4) + 2 * tig + i % 2] = acc[t][i];
     }
   __syncthreads();
-  float* out = dst + (size_t)(blockIdx.y * gridDim.z + blockIdx.z) * R * L_in;
+  float* out = dst + (size_t)(blockIdx.y * gridDim.z + blockIdx.z) * R * ld;
   for (int e = tid; e < R * bm; e += kGThreads) {
     const int r = e / bm, i = e % bm, l = l0 + i;
     if (l >= L_in) continue;
     float v = 0.f;
     for (int jj = 0; jj < len; ++jj) v += G[(i + jj * g.s2) * GS + jj * R + r];
-    out[(size_t)r * L_in + l] = v;
+    out[(size_t)r * ld + l] = v;
   }
 }
 
@@ -732,30 +732,33 @@ __global__ void __launch_bounds__(kWThreads, 1)
                        Lp, C, ldc, R, KR, off, l_per_split, c0, g);
 }
 
-// second pass of a split reduction: out[i] = sum_s part[s n + i] in the
-// order s = 0..S-1, then the optional beta=1 epilogue (row = i / C_row)
+// second pass of a split reduction: out = sum_s part[s n + i] in the
+// order s = 0..S-1, then the optional beta=1 epilogue (row = i / C_row);
+// element i of the parts (rows of `cols`) lands in out's row i / cols at
+// column i % cols, its rows `ld` apart (a window of hgrad's output)
 __global__ void finish_kernel(const float* __restrict__ part,
                               const float* __restrict__ mu_w2,
                               const float* __restrict__ mu_pos,
                               float* __restrict__ out, size_t n, int splits,
-                              int C_row, int R) {
+                              int C_row, int R, size_t cols, size_t ld) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < splits; ++s) a += part[s * n + i];
     if (mu_w2 != nullptr)
       a = mu_w2[i] * ((relu(a) + kEps) / mu_pos[(i / C_row) % R]);
-    out[i] = a;
+    out[i / cols * ld + i % cols] = a;
   }
 }
 
 cudaError_t finish(const float* part, const float* mu_w2, const float* mu_pos,
                    float* out, size_t n, int splits, int C_row, int R,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, size_t cols = 0, size_t ld = 0) {
   const size_t want = (n + kThreads - 1) / kThreads;
   const int blocks = (int)(want < 4096 ? want : 4096);
+  if (cols == 0) cols = ld = n;  // out contiguous
   finish_kernel<<<blocks, kThreads, 0, stream>>>(part, mu_w2, mu_pos, out, n,
-                                                 splits, C_row, R);
+                                                 splits, C_row, R, cols, ld);
   return cudaGetLastError();
 }
 
@@ -784,8 +787,8 @@ cudaError_t launch_hgrad(dim3 grid, cudaStream_t stream, const float* cot,
 template <int NT>
 cudaError_t launch_hgrad_gemm(dim3 grid, cudaStream_t stream, const float* cot,
                               const float* wsplit, float* dst, int Lp, int C,
-                              int R, int L_in, int J, int bm, int n_stages,
-                              int sper, const Geom& g) {
+                              int R, int L_in, int ld, int J, int bm,
+                              int n_stages, int sper, const Geom& g) {
   static const cudaError_t configured = [] {  // once per instance
     cudaError_t e = cudaFuncSetAttribute(
         hgrad_gemm_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -797,7 +800,7 @@ cudaError_t launch_hgrad_gemm(dim3 grid, cudaStream_t stream, const float* cot,
   }();
   if (configured != cudaSuccess) return configured;
   hgrad_gemm_kernel<NT><<<grid, kGThreads, kGemmSmemBytes, stream>>>(
-      cot, wsplit, dst, Lp, C, R, L_in, J, bm, n_stages, sper, g);
+      cot, wsplit, dst, Lp, C, R, L_in, ld, J, bm, n_stages, sper, g);
   return cudaGetLastError();
 }
 
@@ -858,15 +861,20 @@ extern "C" {
 //    offsets, bm output columns a block, sper GK-channel stages a split; C
 //    a multiple of 4 (16-byte rows).
 // part holds (groups x splits, R, L_in) floats when that is above 1 and is
-// unused otherwise; finish() then sums the slabs in order.
+// unused otherwise; finish() then sums the slabs in order.  out's rows are
+// ldo floats apart: a launch may write a window of L_in columns of a wider
+// output (the gemm regime's windows along the output, fused_deconv.
+// _hgrad_windows: cot and out offset to the window's first row and column,
+// Lp the rows from there); split_w = 0 skips the W2 split pass of a window
+// after the first (wsplit holds its tiles).
 int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
-              float* wsplit, int Lp, int C, int R, int K, int L_in, int k0,
-              int k1, int k2, int s0, int s1, int s2, int regime, int nt,
-              int group, int bm, int groups, int splits, int sper,
-              void* stream_ptr) {
+              float* wsplit, int Lp, int C, int R, int K, int L_in, int ldo,
+              int k0, int k1, int k2, int s0, int s1, int s2, int regime,
+              int nt, int group, int bm, int groups, int splits, int sper,
+              int split_w, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (Lp < 1 || C < 1 || R < 1 || K < 1 || L_in < 1 || splits < 1 ||
-      sper < 1 || groups < 1 || k0 * k1 * k2 != K)
+  if (Lp < 1 || C < 1 || R < 1 || K < 1 || L_in < 1 || ldo < L_in ||
+      splits < 1 || sper < 1 || groups < 1 || k0 * k1 * k2 != K)
     return (int)cudaErrorInvalidValue;
   const Geom g{k1, k2, s0, s1, s2};
   const int slabs = groups * splits;
@@ -874,7 +882,7 @@ int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
   cudaError_t err = cudaErrorInvalidValue;
   if (regime == kTensorCore) {
     const int steps = cdiv(K * C, HBK);
-    if (groups != 1 || cdiv(steps, sper) != splits)
+    if (groups != 1 || cdiv(steps, sper) != splits || ldo != L_in)
       return (int)cudaErrorInvalidValue;
     const dim3 grid(cdiv(L_in, HBM), cdiv(R, HRN), splits);
     const int KC = K * C, kper = sper * HBK;
@@ -895,18 +903,21 @@ int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
         groups != k0 * k1 * cdiv(k2, group) ||
         cdiv(n_stages, sper) != splits || sper > n_stages)
       return (int)cudaErrorInvalidValue;
-    const size_t total = (size_t)groups * n_stages * 8 * nt * GK;
-    const size_t want = (total + kThreads - 1) / kThreads;
-    hgrad_split_w_kernel<<<(int)(want < 8192 ? want : 8192), kThreads, 0,
-                           stream>>>(w2, wsplit, C, R, group, 8 * nt,
-                                     n_stages, groups, g);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (split_w) {
+      const size_t total = (size_t)groups * n_stages * 8 * nt * GK;
+      const size_t want = (total + kThreads - 1) / kThreads;
+      hgrad_split_w_kernel<<<(int)(want < 8192 ? want : 8192), kThreads, 0,
+                             stream>>>(w2, wsplit, C, R, group, 8 * nt,
+                                       n_stages, groups, g);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
     err = cudaErrorInvalidValue;
     const dim3 grid(cdiv(L_in, bm), groups, splits);
+    const int ld = slabs == 1 ? ldo : L_in;  // out's rows, or a slab's
 #define PNT_GEMM(NT)                                                    \
   err = launch_hgrad_gemm<NT>(grid, stream, cot, wsplit, dst, Lp, C, R, \
-                              L_in, group, bm, n_stages, sper, g)
+                              L_in, ld, group, bm, n_stages, sper, g)
     if (nt == 4) PNT_GEMM(4);
     else if (nt == 8) PNT_GEMM(8);
     else if (nt == 12) PNT_GEMM(12);
@@ -915,7 +926,7 @@ int pnt_hgrad(const float* cot, const float* w2, float* out, float* part,
   }
   if (err != cudaSuccess || slabs == 1) return (int)err;
   return (int)finish(part, nullptr, nullptr, out, (size_t)R * L_in, slabs,
-                     L_in, R, stream);
+                     L_in, R, stream, (size_t)L_in, (size_t)ldo);
 }
 
 // Splits of the wgrad reduction over Lp, for n_cots cotangents.

@@ -120,8 +120,10 @@ def nmf_updater_factory_fused(beta, gamma, l1_reg, l2_reg):
     wrappers (the CUDA kernels on a CUDA target, for a float32 or a
     bfloat16 V).  The kernels copy rows of V in 16-byte pieces: a V whose
     rows are not 16-byte aligned (a card tensor the caller passed as it
-    is; ``target_like`` aligns the copies it makes) is padded once per fit
-    (every update of a fit gets the same V)."""
+    is; ``target_like`` aligns the copies it makes) is padded at the first
+    update, into a copy the updaters keep (a compiled fit's chunk reads it
+    where it lies); their ``refresh(V)`` copies V's values into it, which
+    the solver calls at the start of every later fit."""
     if beta == 2:
         return _dense_beta2_updaters(gamma, l1_reg, l2_reg)
     # a weak reference to V, and V's copy with aligned rows (None: V's own
@@ -134,13 +136,21 @@ def nmf_updater_factory_fused(beta, gamma, l1_reg, l2_reg):
             last[:] = weakref.ref(V), (None if A is V else A)
         return V if last[1] is None else last[1]
 
+    def refresh(V):
+        if last[1] is not None and last[0]() is V:
+            last[1].copy_(V)
+
     def contract(V, *args, **kwargs):
         return fused_mu.fused_contractions(aligned(V), *args, **kwargs)
 
     def beta_loss(V, H, W, beta):
         return fused_mu.fused_beta_loss(aligned(V), H, W, beta)
 
-    return _fused_updaters(beta, gamma, l1_reg, l2_reg, contract, beta_loss)
+    updaters = _fused_updaters(beta, gamma, l1_reg, l2_reg, contract,
+                               beta_loss)
+    for fn in updaters:
+        fn.refresh = refresh
+    return updaters
 
 
 def nmf_updater_factory_plain(beta, gamma, l1_reg, l2_reg):

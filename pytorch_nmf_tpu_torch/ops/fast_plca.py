@@ -37,13 +37,19 @@ __all__ = [
 
 def _cotangents(contract):
     """``cotangents(Vn, w, h, z) -> (gH, gW, gZ)`` over ``contract``: the
-    B1 wrapper or its plain version."""
-    last = [None, None]  # Vn, and Vn with aligned rows (padded once per fit)
+    B1 wrapper or its plain version.  ``cotangents.refresh(Vn)`` copies
+    Vn's values into its padded copy (a kept fit recomputes Vn in place at
+    every fit)."""
+    last = [None, None]  # Vn, and Vn with aligned rows (padded once)
 
     def aligned(Vn):
         if last[0] is not Vn:
             last[:] = Vn, fused_mu.aligned_rows(Vn)
         return last[1]
+
+    def refresh(Vn):
+        if last[0] is Vn and last[1] is not Vn:
+            last[1].copy_(Vn)
 
     def cotangents(Vn, w, h, z):
         V, wz = aligned(Vn), w * z
@@ -51,6 +57,7 @@ def _cotangents(contract):
         base_w, _ = contract(V, h, wz, beta=1.0, need_pos=False, w_side=True)
         return gH, base_w * z, torch.sum(w * base_w, dim=0)
 
+    cotangents.refresh = refresh
     return cotangents
 
 

@@ -23,7 +23,9 @@ memory.  On a CPU tensor it runs the plain PyTorch version beside it
 engine does.  There is no other dispatch: a CUDA tensor the kernel does
 not take raises.  Each wrapper counts its kernel launches in a plain
 integer attribute, ``hgrad.launches`` and ``wgrad.launches``;
-``hgrad.launches_gemm`` counts those of hgrad's small-rank regime.
+``hgrad.launches_gemm`` counts those of hgrad's small-rank regime, and
+``hgrad.launches_windowed`` those of them that ran in windows along the
+output columns (past the slab cap).
 
 Unlike the Pallas kernels, the port's kernel operand carries no τ-tile
 padding: ``W2`` has exactly ``K·R`` rows, and so do :func:`wgrad`'s outputs.
@@ -227,9 +229,12 @@ class HgradPlan(NamedTuple):
     output columns a block, N = 8·``nt`` (offset, rank) columns) or "tc"
     (the tensor-core kernel of larger ranks, ``nt`` rank tiles of 8);
     ``splits`` of ``sper`` steps each (gemm: 32-channel stages; tc: 32-deep
-    steps of k = j·C + c); ``groups·splits`` partial slabs of ``(R, L_in)``
-    when above 1, summed by a second pass in a fixed order; ``wsplit``: the
-    floats of the gemm regime's hi/lo W2 tiles."""
+    steps of k = j·C + c); ``groups·splits`` partial slabs of ``(R,
+    window)`` when above 1, summed by a second pass in a fixed order;
+    ``wsplit``: the floats of the gemm regime's hi/lo W2 tiles; ``window``:
+    the output columns one launch of the kernel covers (a multiple of
+    ``bm`` below ``L_in``; 0: all of them), window after window
+    (:func:`_hgrad_windows`), the slabs under the cap."""
     regime: str
     nt: int
     group: int
@@ -238,6 +243,7 @@ class HgradPlan(NamedTuple):
     splits: int
     sper: int
     wsplit: int
+    window: int = 0
 
     @property
     def slabs(self) -> int:
@@ -261,7 +267,7 @@ def _tc_plan(R, L_in, C, K, num_sms):
         s = _MAX_SLAB_FLOATS // (R * L_in)
     sper = _cdiv(steps, max(s, 1))
     return HgradPlan("tc", _tc_nt(R), 1, _TC_ROWS, 1, _cdiv(steps, sper),
-                     sper, 0)
+                     sper, 0, L_in)
 
 
 def _gemm_plans(R, L_in, C, K, g, num_sms):
@@ -271,7 +277,9 @@ def _gemm_plans(R, L_in, C, K, g, num_sms):
     span that leaves a block at least half its rows of output.  The channel
     stages split into runs of at most _GEMM_CHAIN, and into more (of at
     least _GEMM_MIN_RUN) while the blocks would fill the card's SMs less
-    than twice."""
+    than twice.  Where the slabs of the whole length would pass
+    _MAX_SLAB_FLOATS, the launch runs in windows of whole blocks along
+    ``L_in``, each window's slabs under the cap."""
     k0, k1, k2, s0, s1, s2 = g
     stages = _cdiv(C, _GEMM_DEPTH)
     plans = {}
@@ -290,15 +298,30 @@ def _gemm_plans(R, L_in, C, K, g, num_sms):
                          _cdiv(stages, _GEMM_MIN_RUN)))
         sper = _cdiv(stages, splits)
         splits = _cdiv(stages, sper)
+        window = L_in
         if groups * splits * R * L_in > _MAX_SLAB_FLOATS:
-            continue
+            window = _MAX_SLAB_FLOATS // (groups * splits * R) // bm * bm
+            if window < bm:
+                continue
         cycles = max(6 * _GEMM_ROWS * N / _SM_TF32_PER_CYCLE,
                      (4 * _GEMM_ROWS + 8 * N) / _SM_L2_BYTES_PER_CYCLE)
         cost = blocks * cycles
         plans[J] = (cost, HgradPlan("gemm", N // 8, J, bm, groups, splits,
                                     sper, groups * stages * 2 * N *
-                                    _GEMM_DEPTH))
+                                    _GEMM_DEPTH, window))
     return [plans[J] for J in sorted(plans, reverse=True)]
+
+
+def _hgrad_windows(p: HgradPlan, L_in: int):
+    """``[(l0, l1)]``: the output columns of each launch of the plan ``p``,
+    in order.  Window ``[l0, l1)`` reads the cotangent from row ``l0`` on
+    (its rows ``[l0, l1 + max τ)``) and writes output columns ``[l0,
+    l1)``.  A gemm window starts at a multiple of ``bm``, so each output
+    column falls in the same block row, offset group and channel split as
+    in one launch over all of ``L_in``: the same sums in the same order,
+    bit for bit."""
+    w = p.window or L_in
+    return [(l0, min(l0 + w, L_in)) for l0 in range(0, L_in, w)]
 
 
 @functools.lru_cache(maxsize=256)
@@ -307,8 +330,9 @@ def _hgrad_plan(R: int, L_in: int, C: int, K: int, g, num_sms: int) -> HgradPlan
     ``C`` channels (the padded row stride), ``K`` offsets and the offset map
     ``g = (k0, k1, k2, s0, s1, s2)`` (:func:`_geom_args`) on a card of
     ``num_sms`` SMs.  Ranks ≤ 16 take the "gemm" regime at its cheapest
-    modelled group (the largest on ties); larger ranks, and shapes whose
-    slabs would pass the cap, the "tc" kernel."""
+    modelled group (the largest on ties), in windows along ``L_in`` where
+    the slabs of the whole length would pass the cap; larger ranks the
+    "tc" kernel."""
     if R <= 16:
         plans = _gemm_plans(R, L_in, C, K, g, num_sms)
         if plans:
@@ -321,7 +345,9 @@ def hgrad(cot2, W2, R: int, L_in: int, geom=None, plan=None):
     W2[j·R+r, c]``, with ``cot2 (Lp, C)`` read as zero past row ``Lp`` and
     ``W2 (K·R, C)``.  ``geom``: the N-D flat-offset map (:func:`nd_geom`).
     ``plan`` forces a launch (:class:`HgradPlan`; a measurement's knob),
-    else :func:`_hgrad_plan` chooses."""
+    else :func:`_hgrad_plan` chooses; a plan with windows launches the
+    kernel once a window (:func:`_hgrad_windows`), reusing one buffer of
+    partial slabs."""
     if cot2.device.type == "cpu":
         return plain_hgrad(cot2, W2, R, L_in, geom)
     if cot2.device.type != "cuda":
@@ -346,29 +372,41 @@ def hgrad(cot2, W2, R: int, L_in: int, geom=None, plan=None):
     _check_int32(W2=K * R * C, cot2=Lp * C)
     lib = load_library("fused_deconv")
     p = plan or _hgrad_plan(R, L_in, C, K, g, _sm_count(dev))
-    _check_int32(slabs=p.slabs * R * L_in, wsplit=p.wsplit)
+    windows = _hgrad_windows(p, L_in)
+    span = windows[0][1]  # the widest window's columns
+    if len(windows) > 1 and (p.regime != "gemm" or span % p.bm):
+        raise ValueError(f"plan {p}: windows are whole gemm blocks")
+    _check_int32(slabs=p.slabs * R * span, wsplit=p.wsplit)
 
     def empty(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
     out = empty(R, L_in)
-    part = empty(p.slabs, R, L_in) if p.slabs > 1 else None
+    part = empty(p.slabs, R, span) if p.slabs > 1 else None
     wsplit = empty(p.wsplit) if p.wsplit else None
-    err = lib.pnt_hgrad(cot2.data_ptr(), W2.data_ptr(), out.data_ptr(),
-                        None if part is None else part.data_ptr(),
-                        None if wsplit is None else wsplit.data_ptr(),
-                        Lp, C, R, K, L_in, *g, _REGIMES[p.regime], p.nt,
-                        p.group, p.bm, p.groups, p.splits, p.sper,
-                        _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"hgrad kernel launch failed: CUDA error {err}")
+    for i, (l0, l1) in enumerate(windows):
+        if l0 >= Lp:  # every cotangent row it reads is past Lp: zeros
+            out[:, l0:l1] = 0
+            continue
+        # the window's cotangent rows from l0, its output columns from l0
+        err = lib.pnt_hgrad(cot2.data_ptr() + 4 * l0 * C, W2.data_ptr(),
+                            out.data_ptr() + 4 * l0,
+                            None if part is None else part.data_ptr(),
+                            None if wsplit is None else wsplit.data_ptr(),
+                            Lp - l0, C, R, K, l1 - l0, L_in, *g,
+                            _REGIMES[p.regime], p.nt, p.group, p.bm, p.groups,
+                            p.splits, p.sper, int(i == 0), _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"hgrad kernel launch failed: CUDA error {err}")
     hgrad.launches += 1
     hgrad.launches_gemm += p.regime == "gemm"
+    hgrad.launches_windowed += len(windows) > 1
     return out
 
 
 hgrad.launches = 0
 hgrad.launches_gemm = 0  # of them, the gemm regime's (ranks ≤ 16)
+hgrad.launches_windowed = 0  # of those, the ones in windows along L_in
 
 
 def wgrad(cots2: Sequence[torch.Tensor], H2, R: int, T: int,

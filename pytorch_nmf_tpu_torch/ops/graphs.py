@@ -109,6 +109,7 @@ def _kernel_counters():
             (fused_mu.fused_beta_loss, "launches_bf16"),
             (fused_deconv.hgrad, "launches"),
             (fused_deconv.hgrad, "launches_gemm"),
+            (fused_deconv.hgrad, "launches_windowed"),
             (fused_deconv.wgrad, "launches"),
             (projection.proj_rows, "launches"),
             (solver._backtrack_project, "attempts"),

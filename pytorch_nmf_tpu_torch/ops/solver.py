@@ -295,8 +295,9 @@ class _Entry:
     """One compiled fit: a chunk configuration on one target.  ``fns``
     (the fit's closures, made once an entry), ``loop`` (the loop's static
     tensors and its :class:`~.graphs._Graphs`) and ``derived`` (what the
-    fit computes from the target once, kept so the graph's addresses stay
-    valid) live as long as the entry; ``V`` is the target only while a fit
+    fit computes from the target, kept so the graph's addresses stay
+    valid, and recomputed into the same tensors at every fit) live as long
+    as the entry; ``V`` is the target only while a fit
     runs (the entry holds it weakly).  ``warm``: the configuration was
     compiled before in this process, so the first fit captures before
     chunk 1.  ``hit``: the entry was kept from an earlier fit.  ``lock`` is
@@ -621,6 +622,34 @@ def _load(statics, values):
         dst.copy_(x)
 
 
+# What an entry derives from its target is recomputed at every fit on a
+# kept entry, into the tensors the entry keeps (a compiled chunk reads them
+# where they lie): the key sees V's address and version counter, not its
+# values, and a write through ``V.data``, ``V.numpy()`` or a sparse
+# target's ``_values()`` moves neither.  One pass over V (or its
+# non-zeros) a fit, as the JAX package's jitted fit derives them from V at
+# every call.
+def _keep(d, name, value):
+    """``d[name] = value`` at an entry's first fit, copied into the kept
+    tensor at every later one."""
+    if name in d:
+        d[name].copy_(value)
+    else:
+        d[name] = value
+
+
+def _refreshers(*fns):
+    """The distinct ``refresh(V)`` hooks that ``fns`` carry: what an updater
+    or an E-step engine keeps from the target (the fused updaters' padded
+    copy of V), recomputed in place."""
+    out = []
+    for f in fns:
+        r = getattr(f, "refresh", None)
+        if r is not None and r not in out:
+            out.append(r)
+    return out
+
+
 def _graphed_loop(
     one_iter: Callable,
     loss_of: Callable,
@@ -751,10 +780,16 @@ def get_dense_fit(
             return w, h
 
         return SimpleNamespace(loss_of=loss_of, one_iter=one_iter,
-                               prepare=prepare, finish=finish)
+                               prepare=prepare, finish=finish,
+                               refresh=_refreshers(upd_W, upd_H, loss_terms))
 
     def run(e, V, W, H):
-        f = e.fns = e.fns or build(e)
+        if e.fns is None:
+            e.fns = build(e)
+        else:
+            for r in e.fns.refresh:
+                r(V)
+        f = e.fns
         state0 = (W, H) if f.prepare is None else f.prepare(V, W, H)
         loop = (functools.partial(_graphed_loop, entry=e) if _graph
                 else _converging_loop)
@@ -1051,10 +1086,12 @@ def get_sparse_fit(
     The every-10-iterations loss is the exact split form ``V_norm + pos -
     neg`` over the non-zeros in every tier (reference nmf.py:358,398).
     The chunks run through :func:`_graphed_loop` on the fits' cache,
-    whose entry keeps ``V_norm``, the densified target and the blocks'
-    stage size (:func:`~.sparse.fixed_stage`); ``_graph=False`` (private:
-    the eager reference of the card's checks) runs
-    :func:`_converging_loop`."""
+    whose entry keeps ``V_norm``, the densified target (both recomputed
+    from V's values at every fit) and the blocks' stage size
+    (:func:`~.sparse.fixed_stage`); the ELL layout's values are refreshed
+    from its target's at every fit (:func:`~.sparse.refresh_ell`).
+    ``_graph=False`` (private: the eager reference of the card's checks)
+    runs :func:`_converging_loop`."""
     if tier not in ("densify", "ell", "gather"):
         raise ValueError(f"unknown sparse tier {tier!r}")
     gamma = gamma_from_beta(beta)
@@ -1086,14 +1123,27 @@ def get_sparse_fit(
             g = g + _sparse.coo_rem_neg_grad(rem, self_f, other_f, beta)
         return g
 
+    def derive(e, V):
+        """``V_norm`` and the densified target from V's values, into the
+        entry's tensors (made at its first fit)."""
+        coo = V.coo if tier == "ell" else V
+        d = e.derived
+        _keep(d, "V_norm", _sparse.get_V_norm(coo, beta))
+        if tier == "densify":
+            if "Vd" in d:
+                _sparse.densify(coo, out=d["Vd"])
+            else:
+                d["Vd"] = _sparse.densify(coo)
+
     def build(e, V):
         coo = V.coo if tier == "ell" else V
         d = e.derived
-        d["V_norm"] = _sparse.get_V_norm(coo, beta)
+        derive(e, V)
         d["stage"] = _sparse.stage_bytes(coo.device)
+        refresh = []
         if tier == "densify":
-            d["Vd"] = _sparse.densify(coo)
             upd_W, upd_H = make_updaters()
+            refresh = _refreshers(upd_W, upd_H)
 
         def loss_of(state):
             w, h = state
@@ -1139,10 +1189,19 @@ def get_sparse_fit(
                         l2_reg, kl_pos_H(w) if beta == 1 else None)
             return w, h
 
-        return SimpleNamespace(loss_of=loss_of, one_iter=one_iter)
+        return SimpleNamespace(loss_of=loss_of, one_iter=one_iter,
+                               refresh=refresh)
 
     def run(e, V, W, H):
-        f = e.fns = e.fns or build(e, V)
+        if tier == "ell":  # the layout's values from its target's, each fit
+            _sparse.refresh_ell(V)
+        if e.fns is None:
+            e.fns = build(e, V)
+        else:
+            derive(e, V)
+            for r in e.fns.refresh:  # the updaters' padded copy of Vd
+                r(e.derived["Vd"])
+        f = e.fns
         loop = (functools.partial(_graphed_loop, entry=e) if _graph
                 else _converging_loop)
         with _progress(verbose, max_iter) as report, \
@@ -1319,9 +1378,9 @@ def get_hoyer_fit(
     sizes start at 1 as 0-d float32 tensors on V's device.
 
     Either target's fit runs its chunks through :func:`_graphed_hoyer_loop`
-    on the fits' cache (a sparse target's ``V_norm`` kept with its
-    entry); ``_graph=False`` (private: the eager reference of the card's
-    checks) runs :func:`_hoyer_loop`."""
+    on the fits' cache (a sparse target's ``V_norm`` kept with its entry,
+    recomputed at every fit); ``_graph=False`` (private: the eager
+    reference of the card's checks) runs :func:`_hoyer_loop`."""
     gamma = gamma_from_beta(beta)
     sparse = pos_neg is not None
     L1a = hoyer_l1_target(W_col_dim, sW) if sW is not None else None
@@ -1334,7 +1393,7 @@ def get_hoyer_fit(
 
     def build(e, V):
         if sparse:
-            V_norm = e.derived["V_norm"] = _sparse.get_V_norm(V, beta)
+            V_norm = e.derived["V_norm"]
 
             def loss(w, h):
                 pos, neg = pos_neg(e.V, h, w, beta)
@@ -1383,6 +1442,8 @@ def get_hoyer_fit(
         return SimpleNamespace(one_iter=one_iter, loss_of=loss_of)
 
     def run(e, V, W, H):
+        if sparse:  # from V's values at every fit
+            _keep(e.derived, "V_norm", _sparse.get_V_norm(V, beta))
         f = e.fns = e.fns or build(e, V)
         # the constrained factors start at unit L2 per column
         # (nmf.py:459-475)
@@ -1696,17 +1757,26 @@ def get_plca_fit(
     E-step cotangents, one engine a cache entry.  ``n_iter`` is the
     reference's raw loop index: ``10·k - 1`` when chunk ``k`` converged,
     else ``max_iter - 1``.  The chunks run as :func:`get_dense_fit`'s do
-    (``_graph`` likewise); an entry keeps ``norm``, ``Vn`` and the priors
-    (copied in each fit)."""
+    (``_graph`` likewise); an entry keeps ``norm``, ``Vn`` (recomputed
+    from V at every fit) and the priors (copied in each fit)."""
     # a reporting chunk also computes the log-probability
     chunk = ("plca", recon3, tol, update_W, update_H, update_Z, W_alpha_active,
              H_alpha_active, Z_alpha_active, bool(verbose), em_engine)
 
+    def derive(e, V):
+        """``norm = V.sum()`` and ``Vn = V / norm`` into the entry's
+        tensors (made at its first fit)."""
+        d = e.derived
+        _keep(d, "norm", V.sum())
+        if "Vn" in d:
+            torch.div(V, d["norm"], out=d["Vn"])
+        else:
+            d["Vn"] = V / d["norm"]
+
     def build(e, V, alphas):
         cotangents = em_engine() if em_engine is not None else None
         d = e.derived
-        d["norm"] = V.sum()
-        d["Vn"] = V / d["norm"]
+        derive(e, V)
         d["alphas"] = tuple(a.clone() for a in alphas)
         norm, Vn, (W_alpha, H_alpha, Z_alpha) = d["norm"], d["Vn"], \
             d["alphas"]
@@ -1731,12 +1801,16 @@ def get_plca_fit(
                 Z_alpha, cotangents)
 
         return SimpleNamespace(loss_of=loss_of, one_iter=one_iter,
-                               extra_of=log_probability)
+                               extra_of=log_probability,
+                               refresh=_refreshers(cotangents))
 
     def run(e, V, W, H, Z, alphas):
         if e.fns is None:
             e.fns = build(e, V, alphas)
         else:
+            derive(e, V)
+            for r in e.fns.refresh:  # the E-step's padded copy of Vn
+                r(e.derived["Vn"])
             _load(e.derived["alphas"], alphas)
         f = e.fns
         loop = (functools.partial(_graphed_loop, entry=e) if _graph
@@ -1776,7 +1850,8 @@ def get_batched_plca_fit(
     ``torch.func.vmap(recon3)`` over the whole batch (the problems share no
     parameters), the M-step is ``vmap``-ed, the priors are shared.  The
     chunks run as :func:`get_batched_dense_fit`'s do (``_graph``
-    likewise); an entry keeps ``norm``, ``Vn`` and the priors."""
+    likewise); an entry keeps ``norm``, ``Vn`` (recomputed from V at every
+    fit) and the priors."""
     from torch.func import vmap
 
     recon3_b = vmap(recon3)
@@ -1790,10 +1865,19 @@ def get_batched_plca_fit(
     chunk = ("batched_plca", recon3, tol, update_W, update_H, update_Z,
              W_alpha_active, H_alpha_active, Z_alpha_active)
 
+    def derive(e, V):
+        """Each problem's ``norm`` and ``Vn`` into the entry's tensors."""
+        d = e.derived
+        _keep(d, "norm", V.reshape(V.shape[0], -1).sum(1))
+        lanes = d["norm"].reshape((-1,) + (1,) * (V.ndim - 1))
+        if "Vn" in d:
+            torch.div(V, lanes, out=d["Vn"])
+        else:
+            d["Vn"] = V / lanes
+
     def build(e, V, alphas):
         d = e.derived
-        d["norm"] = V.reshape(V.shape[0], -1).sum(1)
-        d["Vn"] = V / d["norm"].reshape((-1,) + (1,) * (V.ndim - 1))
+        derive(e, V)
         d["alphas"] = tuple(a.clone() for a in alphas)
         norm, Vn, (W_alpha, H_alpha, Z_alpha) = d["norm"], d["Vn"], \
             d["alphas"]
@@ -1810,6 +1894,7 @@ def get_batched_plca_fit(
         if e.fns is None:
             e.fns = build(e, V, alphas)
         else:
+            derive(e, V)
             _load(e.derived["alphas"], alphas)
         f = e.fns
         loop = (functools.partial(_graphed_batched_loop, entry=e) if _graph

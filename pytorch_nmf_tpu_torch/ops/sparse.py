@@ -50,6 +50,7 @@ __all__ = [
     "should_densify",
     "build_ell",
     "maybe_ell",
+    "refresh_ell",
     "stage_bytes",
     "fixed_stage",
     "nmf_sp_pos_neg",
@@ -76,9 +77,14 @@ def sparse_from_dense(V, threshold: float = 0.0) -> torch.Tensor:
                                    is_coalesced=True, check_invariants=False)
 
 
-def densify(V: torch.Tensor) -> torch.Tensor:
-    """The dense form of the sparse target (the densify tier's one copy)."""
-    return V.to_dense()
+def densify(V: torch.Tensor, out: Optional[torch.Tensor] = None):
+    """The dense form of the sparse target (the densify tier's one copy);
+    ``out``: written into that tensor instead (zeroed, then each non-zero
+    added to its zero, as ``to_dense`` forms it), which is returned."""
+    if out is None:
+        return V.to_dense()
+    out.zero_()
+    return out.index_put_(tuple(V._indices()), V._values(), accumulate=True)
 
 
 class SparseELL(NamedTuple):
@@ -91,7 +97,10 @@ class SparseELL(NamedTuple):
     columns.  Each factor update reads its side contiguously.  Entries past
     the cap of a segment spill into ``row_rem``/``col_rem``, ``(seg_ids,
     other_ids, vals)`` triples (empty for near-uniform sparsity).  ``coo``
-    is the originating target, which the cadence loss reads."""
+    is the originating target, which the cadence loss reads.
+    ``row_src``/``col_src`` map each side's padded slots, then its spilled
+    entries, to the position of their value in ``coo``'s values (``nnz``
+    for a pad): :func:`refresh_ell` rewrites the values from them."""
 
     coo: torch.Tensor
     row_idx: torch.Tensor
@@ -100,6 +109,8 @@ class SparseELL(NamedTuple):
     col_val: torch.Tensor
     row_rem: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     col_rem: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    row_src: Optional[torch.Tensor] = None
+    col_src: Optional[torch.Tensor] = None
 
     @property
     def shape(self):
@@ -116,12 +127,17 @@ def _ell_cap(nnz: int, n_seg: int, max_pad_factor=None) -> int:
     return max(int(math.ceil(max_pad_factor * max(nnz, 1) / n_seg)), 1)
 
 
-def _ell_side(seg_ids, other_ids, v, n_seg: int, cap: Optional[int] = None):
+def _ell_side(seg_ids, other_ids, v, n_seg: int, cap: Optional[int] = None,
+              src=None):
     """Pack one side, sorted by segment, into ``(n_seg, L)`` padded form on
     its device (``bincount``/``cumsum``/scatter).  Entries at in-segment
-    positions ``>= cap`` spill into a COO remainder.  Returns ``(idx_pad,
-    val_pad, remainder)``."""
+    positions ``>= cap`` spill into a COO remainder.  ``src`` (optional):
+    each entry's position among the target's values.  Returns ``(idx_pad,
+    val_pad, remainder, src_all)``: ``src_all`` (``None`` without ``src``)
+    the padded slots' positions (the values' count for a pad), then the
+    spilled entries'."""
     dev = seg_ids.device
+    n_vals = v.numel()
     counts = torch.bincount(seg_ids, minlength=n_seg)
     Lmax = max(int(counts.max()) if seg_ids.numel() else 0, 1)
     pos = (torch.arange(seg_ids.numel(), device=dev)
@@ -130,28 +146,36 @@ def _ell_side(seg_ids, other_ids, v, n_seg: int, cap: Optional[int] = None):
         L = int(cap)
         spill = pos >= L
         rem = (seg_ids[spill].int(), other_ids[spill].int(), v[spill])
+        rem_src = None if src is None else src[spill]
         keep = ~spill
         seg_ids, other_ids, v, pos = (seg_ids[keep], other_ids[keep], v[keep],
                                       pos[keep])
+        src = None if src is None else src[keep]
     else:
         L = Lmax
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
         # not v[:0]: a view of the target's values keeps the target alive
         rem = (empty, empty, v.new_zeros(0))
+        rem_src = None if src is None else src.new_zeros(0)
     idx_pad = torch.zeros((n_seg, L), dtype=torch.int32, device=dev)
     val_pad = torch.zeros((n_seg, L), dtype=v.dtype, device=dev)
     idx_pad[seg_ids, pos] = other_ids.int()
     val_pad[seg_ids, pos] = v
-    return idx_pad, val_pad, rem
+    if src is None:
+        return idx_pad, val_pad, rem, None
+    src_pad = torch.full((n_seg, L), n_vals, dtype=src.dtype, device=dev)
+    src_pad[seg_ids, pos] = src
+    return idx_pad, val_pad, rem, torch.cat([src_pad.reshape(-1), rem_src])
 
 
 def build_ell(V: torch.Tensor, max_pad_factor: float = 4.0):
     """The dual ELL(+COO) layout of the 2-D sparse ``V``, built on its
     device, or ``None`` when the padded layout's bytes (both sides, int32
     ids and 4-byte values) exceed the budget (``PNT_SPARSE_ELL_MAX_BYTES``,
-    a quarter of the card, 4 GiB on the CPU).  The padded width per side is
-    capped at ``max_pad_factor`` × the mean degree; uncoalesced input is
-    coalesced (sorted) first."""
+    a quarter of the card, 4 GiB on the CPU; the JAX package's rule: the
+    sources :func:`refresh_ell` reads add 4 bytes a slot beyond it).  The
+    padded width per side is capped at ``max_pad_factor`` × the mean
+    degree; uncoalesced input is coalesced (sorted) first."""
     if V.ndim != 2:
         return None
     V = V.coalesce()
@@ -169,11 +193,38 @@ def build_ell(V: torch.Tensor, max_pad_factor: float = 4.0):
 
     if 8 * (M * width(ii, M, cap_r) + K * width(jj, K, cap_c)) > max_bytes:
         return None
-    row_idx, row_val, row_rem = _ell_side(ii, jj, vals, M, cap_r)
+    # the sources in int32 where the values' count (a pad's source) fits
+    src = torch.arange(vals.numel(), device=V.device,
+                       dtype=torch.int32 if vals.numel() < 2**31 - 1
+                       else torch.int64)
+    row_idx, row_val, row_rem, row_src = _ell_side(ii, jj, vals, M, cap_r,
+                                                   src)
     order = torch.argsort(jj, stable=True)
-    col_idx, col_val, col_rem = _ell_side(jj[order], ii[order], vals[order],
-                                          K, cap_c)
-    return SparseELL(V, row_idx, row_val, col_idx, col_val, row_rem, col_rem)
+    col_idx, col_val, col_rem, col_src = _ell_side(
+        jj[order], ii[order], vals[order], K, cap_c, src[order])
+    return SparseELL(V, row_idx, row_val, col_idx, col_val, row_rem, col_rem,
+                     row_src, col_src)
+
+
+def refresh_ell(ell: SparseELL) -> SparseELL:
+    """Writes the current values of ``ell.coo`` into the layout's padded and
+    spilled values, in place (their addresses stay, so a compiled fit that
+    reads them stays valid): one gather over the non-zeros.  A layout whose
+    target's values were changed in place (through ``_values()`` or
+    ``.data``, which no version counter sees) holds the old ones until
+    then.  A layout without its sources (``row_src`` ``None``) is left as
+    it is."""
+    if ell.row_src is None or ell.col_src is None:
+        return ell
+    vals = ell.coo._values()
+    ext = torch.cat([vals, vals.new_zeros(1)])  # a pad's source: the zero
+    for val_pad, rem, src in ((ell.row_val, ell.row_rem, ell.row_src),
+                              (ell.col_val, ell.col_rem, ell.col_src)):
+        got = ext[src]
+        n = val_pad.numel()
+        val_pad.view(-1).copy_(got[:n])
+        rem[2].copy_(got[n:])
+    return ell
 
 
 def maybe_ell(V: torch.Tensor):

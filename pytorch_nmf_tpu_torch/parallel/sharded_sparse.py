@@ -73,10 +73,10 @@ def _build_sharded_ell(V, n_dev: int, rank: int, device):
     jj_d = jj[s:e].to(device)
     v_d = vals[s:e].to(device=device, dtype=torch.float32)
     cap_r, cap_c = caps[rank]
-    row_idx, row_val, row_rem = _sparse._ell_side(ii_loc, jj_d, v_d, M_loc,
-                                                  cap_r)
+    row_idx, row_val, row_rem, _ = _sparse._ell_side(ii_loc, jj_d, v_d,
+                                                     M_loc, cap_r)
     order = torch.argsort(jj_d, stable=True)
-    col_idx, col_val, col_rem = _sparse._ell_side(
+    col_idx, col_val, col_rem, _ = _sparse._ell_side(
         jj_d[order], ii_loc[order], v_d[order], K, cap_c)
     n_real = max(0, min(M - rank * M_loc, M_loc))
     return (row_idx, row_val, row_rem, col_idx, col_val, col_rem, n_real,

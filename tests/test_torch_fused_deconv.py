@@ -355,15 +355,67 @@ def test_hgrad_plan_span_limit():
     assert all((p.group - 1) * 3 <= 128 and p.bm >= 128 for p in plans)
 
 
-def test_hgrad_plan_slab_cap_takes_tc():
-    """Where every gemm launch's slabs would pass the 2^26-float cap (rank
-    16, 400 offsets, 100,000 columns: 50 groups x 2 splits), the tensor-core
-    kernel runs, its slabs under the cap."""
-    p = D._hgrad_plan(16, 100_000, 1028, 400, _geom(400), 132)
-    assert p.regime == "tc" and p.slabs * 16 * 100_000 <= 1 << 26
+@pytest.mark.parametrize("R, L_in", [(16, 100_000), (8, 200_000),
+                                      (3, 1_200_000)])
+def test_hgrad_plan_windows_past_the_slab_cap(R, L_in):
+    """Past the lengths where the whole output's partial slabs would pass
+    the 2^26-float cap (C = 1028, 400 offsets, 132 SMs: 41,943 columns at
+    rank 16, 167,772 at rank 8, 1,118,481 at rank 3), the gemm regime runs
+    in windows of whole blocks along L_in: each window's slabs under the
+    cap, the windows covering L_in once and in order; below the cap one
+    window, the plan as it was (rank 16, 20,000 columns)."""
+    p = D._hgrad_plan(R, L_in, 1028, 400, _geom(400), 132)
+    assert p.regime == "gemm" and p.window % p.bm == 0
+    windows = D._hgrad_windows(p, L_in)
+    assert len(windows) > 1
+    assert [l0 for l0, _ in windows] == list(range(0, L_in, p.window))
+    assert all(a[1] == b[0] for a, b in zip(windows, windows[1:]))
+    assert windows[0][0] == 0 and windows[-1][1] == L_in
+    assert all(p.slabs * R * (l1 - l0) <= 1 << 26 for l0, l1 in windows)
+    # the regime's design at the flagship's length: its groups and splits
+    ref = D._hgrad_plan(R, 4601, 1028, 400, _geom(400), 132)
+    assert p._replace(window=0) == ref._replace(window=0)
     small = D._hgrad_plan(16, 20_000, 1028, 400, _geom(400), 132)
-    assert small.regime == "gemm"
-    assert small.slabs * 16 * 20_000 <= 1 << 26
+    assert small == D.HgradPlan("gemm", 16, 8, 249, 50, 2, 17, 13_516_800,
+                                20_000)
+    assert D._hgrad_windows(small, 20_000) == [(0, 20_000)]
+
+
+# (R, L_in, C, geom, window in blocks): 1-D (the last window short), 2-D
+# flat offsets, and the stacked N=2 layout's one long run
+WINDOW_CASES = [
+    (3, 700, 40, (37, None), 1),
+    (5, 16 * 24, 12, (12, ((3, 4), (24, 1))), 1),
+    (16, 2 * 300, 9, (21, None), 2),
+]
+
+
+@pytest.mark.parametrize("R, L_in, C, kg, blocks", WINDOW_CASES)
+def test_hgrad_windows_reproduce_the_whole_launch(R, L_in, C, kg, blocks):
+    """A plan forced to tiny windows, through the wrapper's own window
+    arithmetic (each window the cotangent's rows from its first column,
+    its own column count): the emulated blocks equal one launch over the
+    whole length bit for bit, and the plain version of each window, put
+    in place, equals the plain version of the whole."""
+    K, geom = kg
+    rs = np.random.RandomState(R)
+    g = _geom(K, geom)
+    Lp = L_in + max(D._taus(K, geom))
+    cot, W2 = rs.rand(Lp, C), rs.rand(K * R, C)
+    whole = D._hgrad_plan(R, L_in, -(-C // 4) * 4, K, g, 132)
+    p = whole._replace(window=blocks * whole.bm)
+    windows = D._hgrad_windows(p, L_in)
+    assert len(windows) >= 2 and windows[-1][1] == L_in
+    emulated = np.zeros((R, L_in))
+    plain = torch.zeros(R, L_in, dtype=torch.float64)
+    for l0, l1 in windows:
+        emulated[:, l0:l1] = _emulate_plan(cot[l0:], W2, R, l1 - l0, g, p)
+        plain[:, l0:l1] = D.plain_hgrad(_t(cot[l0:]), _t(W2), R, l1 - l0,
+                                        geom)
+    assert np.array_equal(emulated, _emulate_plan(cot, W2, R, L_in, g, whole))
+    ref = D.plain_hgrad(_t(cot), _t(W2), R, L_in, geom)
+    np.testing.assert_allclose(plain.numpy(), ref.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(emulated, ref.numpy(), rtol=1e-12)
 
 
 def test_cpu_tensors_never_launch():
@@ -474,7 +526,7 @@ def test_cuda_hgrad_tile_edges(cuda, N, C, s_in, kernel, R):
 @pytest.mark.parametrize("N, C, s_in, kernel, R", TILE_EDGE_CASES[:3])
 def test_cuda_hgrad_tc_at_small_rank(cuda, N, C, s_in, kernel, R):
     """The tensor-core kernel at ranks ≤ 16 (its N = 16 and 32 instances),
-    which the plan gives a shape whose gemm slabs would pass the cap."""
+    forced: the plan gives these ranks the gemm regime at every length."""
     op = _kernel_operands(N, C, s_in, kernel, R)
     cot, W2 = op.cots[0].to(cuda), op.W2.to(cuda)
     K = W2.shape[0] // R
@@ -539,6 +591,58 @@ def test_cuda_hgrad_small_rank_is_reproducible(cuda):
 def test_cuda_hgrad_demo_shape(cuda):
     """The reference demo's B3: V 1x1025x4997, R=3, T=400."""
     test_cuda_hgrad_matches_plain(cuda, 1, 1025, (4598,), (400,), 3)
+
+
+# (N, C, s_in, kernel, R, blocks a window): ragged C and L_in, one split and
+# two, a 2-D geom, N=2, the demo's layout
+WINDOW_CUDA_CASES = [
+    (1, 1025, (2000,), (100,), 3, 1),
+    (1, 1025, (1200,), (17,), 16, 2),
+    (1, 65, (700,), (65,), 2, 1),
+    (1, 64, (20, 20), (8, 8), 16, 1),
+    (2, 65, (300,), (21,), 3, 1),
+    (1, 1025, (4598,), (400,), 3, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, C, s_in, kernel, R, blocks", WINDOW_CUDA_CASES)
+def test_cuda_hgrad_windows_are_bit_for_bit(cuda, N, C, s_in, kernel, R,
+                                            blocks):
+    """The plan forced to windows of ``blocks`` blocks against one launch
+    of the same plan over the whole length: the same bits (each column in
+    the same block row, group and split, the slabs summed in order)."""
+    op = _kernel_operands(N, C, s_in, kernel, R)
+    cot, W2 = op.cots[0].to(cuda), op.W2.to(cuda)
+    K = W2.shape[0] // R
+    whole = D._hgrad_plan(R, op.L_h, -(-C // 4) * 4, K,
+                          D._geom_args(K, op.geom),
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    p = whole._replace(window=blocks * whole.bm)
+    assert whole.regime == "gemm" and len(D._hgrad_windows(p, op.L_h)) > 1
+    n = D.hgrad.launches_windowed
+    got = D.hgrad(cot, W2, R, op.L_h, geom=op.geom, plan=p)
+    assert D.hgrad.launches_windowed == n + 1
+    ref = D.hgrad(cot, W2, R, op.L_h, geom=op.geom, plan=whole)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    _assert_kernel(got, D.plain_hgrad(cot, W2, R, op.L_h, geom=op.geom))
+
+
+@pytest.mark.cuda
+def test_cuda_hgrad_past_the_slab_cap(cuda):
+    """Rank 16 at 100,000 columns (C = 1025, T = 400), past the length
+    where the whole output's slabs would pass the cap: the gemm regime in
+    windows, against the plain version."""
+    rs = np.random.RandomState(0)
+    L_in, R, T, C = 100_000, 16, 400, 1025
+    cot = torch.from_numpy(rs.rand(L_in + T - 1, C).astype("f")).to(cuda)
+    W2 = torch.from_numpy(rs.rand(T * R, C).astype("f")).to(cuda)
+    counts = (D.hgrad.launches_gemm, D.hgrad.launches_windowed)
+    got = D.hgrad(cot, W2, R, L_in)
+    assert (D.hgrad.launches_gemm, D.hgrad.launches_windowed) == (
+        counts[0] + 1, counts[1] + 1)
+    _assert_kernel(got, D.plain_hgrad(cot, W2, R, L_in))
 
 
 @pytest.mark.cuda
