@@ -58,12 +58,13 @@ Drives the port's paths at full width, each in phases:
   flagship, β=1) equal ``NMF.fit`` and ``NMFD.fit``, launch for launch;
   ``nmf_fit_batched`` (β ∈ {2, 1}) and ``plca_fit_batched`` over 16
   problems of 1025×400 rank 16 at a ``tol`` where they stop at different
-  chunks, some in the replays: a cold fit (the chunk a CUDA graph from
-  chunk 3 on, chunks − 2 replays), a warm one (a cache hit: every chunk a
-  replay, no capture) and one on a new V (one capture, every chunk a
-  replay), each against ``_graph=False`` bit for bit with one host read a
-  chunk, the replayed chunks against their device time, the MU fits
-  against their single fits; the ``BetaMu`` optimizer over the
+  chunks, some in the replay: the chunk loop one CUDA-graph WHILE node,
+  a cold fit (chunks 1-2 eager, one capture, one replay), a warm one (a
+  cache hit: one replay, no capture) and one on a new V (one capture, one
+  replay), each against ``_graph=False`` bit for bit, no host read after
+  a replay, the replay against its device time, the warm fit's device
+  time and idle share, the MU fits against their single fits; the
+  ``BetaMu`` optimizer over the
   bench's chain (``torch.nn.Sequential`` of three ``NMF`` modules, 2048²
   target, 31 steps) and ``SparsityProj`` at 5168×1025 (11 steps, from a
   step of 1/L and of 8/L, where it backtracks), compiled into CUDA graphs
@@ -79,15 +80,17 @@ Drives the port's paths at full width, each in phases:
   demo's ``NMFD`` (1×1025×4997, R=3, T=400), the NMFD flagship (the
   device-bound control), the NMF2D and NMF3D rows, dense ``PLCA``
   5168×1025 R=88 (fused E-step) and the SIPLCA, SIPLCA2 and SIPLCA3 rows:
-  100 iterations at ``tol=0``, in turns, a cold fit through the model's
-  ``fit`` (chunks 1-2 eager, one capture, 8 replays), the eager loop
-  (``get_dense_fit`` or ``get_plca_fit`` with ``_graph=False``) from the
-  same inits and from other inits, a warm fit from those (a hit: 10
-  replays, no capture) and a fit on a new V of the same configuration (one
-  capture, 10 replays), each bit for bit its eager twin with exactly its
-  B1-B4 launches and one host read a chunk, and the cache's hits and
-  misses; the replayed chunks' ms/iteration (CUDA events around the
-  replays) and their device time; chunk 1's time and the captures' host
+  100 iterations at ``tol=0``, the chunk loop one CUDA-graph WHILE node,
+  in turns, a cold fit through the model's ``fit`` (chunks 1-2 eager, one
+  capture, one replay, 5 host reads), the eager loop (``get_dense_fit`` or
+  ``get_plca_fit`` with ``_graph=False``) from the same inits and from
+  other inits (a host read a chunk), a warm fit from those (a hit: one
+  replay, no capture, one host read) and a fit on a new V of the same
+  configuration (one capture, one replay, one host read), each bit for
+  bit its eager twin with exactly its B1-B4 launches (a replay's counted
+  on the card), and the cache's hits and misses; the replay's
+  ms/iteration (CUDA events around it) and its device time; chunk 1's
+  time and the captures' host
   time; the peak device memory a fit adds above what was allocated before
   it; the cache's held bytes, by its count and as the card's memory freed
   by ``compiled_cache_clear``; the device time an iteration and the card's
@@ -1473,10 +1476,12 @@ class replay_marks:
     def restore(self):
         torch.cuda.CUDAGraph.replay = self.orig
 
-    def per_iter(self):
-        """``(span, busy)`` ms an iteration of the replayed chunks."""
+    def per_iter(self, iters=None):
+        """``(span, busy)`` ms an iteration of the replays, which ran
+        ``iters`` iterations (default: a 10-iteration chunk each)."""
         torch.cuda.synchronize()
-        ev, iters = self.events, 10 * len(self.events) // 2
+        ev = self.events
+        iters = iters or 10 * len(ev) // 2
         busy = sum(a.elapsed_time(b) for a, b in zip(ev[::2], ev[1::2]))
         return ev[0].elapsed_time(ev[-1]) / iters, busy / iters
 
@@ -1561,9 +1566,20 @@ def compiled_expected(name, kw, iters):
     return want
 
 
-# a cache cell's fits: (run, whose eager fit it equals, replays and
-# captures as a function of the chunks)
-CACHE_RUNS = (("cold", "eager", lambda c: (c - 2, 1)),
+# a cache cell's fits: (run, whose eager fit it equals, replays, captures
+# and host reads as a function of the chunks).  The chunk loop is one
+# WHILE node: a cold fit runs chunks 1-2 eagerly (its flag read before and
+# after each), captures, and replays once; a warm fit and one on a new V
+# replay once; each reads (k, stop) once at its end
+CACHE_RUNS = (("cold", "eager", lambda c: (1, 1, 2 + 2 + 1)),
+              ("eager", "eager", lambda c: (0, 0, c)),
+              ("eager B", "eager B", lambda c: (0, 0, c)),
+              ("warm", "eager B", lambda c: (1, 0, 1)),
+              ("new V", "eager", lambda c: (1, 1, 1)))
+# the Hoyer fits keep a replay a chunk (their chunk holds the line
+# search's WHILE nodes, and a body opens no conditional of its own):
+# replays and captures as a function of the chunks
+HOYER_RUNS = (("cold", "eager", lambda c: (c - 2, 1)),
               ("eager", "eager", lambda c: (0, 0)),
               ("eager B", "eager B", lambda c: (0, 0)),
               ("warm", "eager B", lambda c: (c, 0)),
@@ -1641,9 +1657,9 @@ def compiled_measure(ns, label, name, kw, V, runs, ctr, card, Graphs):
         check(n == (FIT_ITERS - 1 if "PLCA" in name else FIT_ITERS),
               f"{tag}: n_iter {n}")
         check(d == want, f"{tag}: launches {d}, want {want}")
-        check((replays, captures) == expect(chunks) and reads == chunks,
+        check((replays, captures, reads) == expect(chunks),
               f"{tag}: {replays} replays, {captures} captures, {reads} host "
-              f"reads in {chunks} chunks")
+              f"reads in {chunks} chunks, want {expect(chunks)}")
         check_factors(tag, *f)
         rec["ms_per_iter"][how] = ms / FIT_ITERS
         for key, v in (("peak_gb", peak / 1e9), ("replays", replays),
@@ -1658,11 +1674,10 @@ def compiled_measure(ns, label, name, kw, V, runs, ctr, card, Graphs):
                                                     finals[twin])),
               f"compiled {label} {how}: not bit for bit its eager twin "
               f"({gap(finals[how], finals[twin]):.3g})")
-    # the replayed chunks alone, from the warm fit's events: from the first
-    # replay's start to the last one's end (the host's read a chunk between
-    # them), and the replays' own device time
+    # the replayed chunks alone, from the warm fit's events around its one
+    # replay (every chunk), and the replay's own device time
     rec["replayed_ms_per_iter"], rec["replay_device_ms_per_iter"] = \
-        warm_marks.per_iter()
+        warm_marks.per_iter(FIT_ITERS)
     rec["held_bytes"], rec["freed_allocated"], rec["freed_reserved"] = \
         cache_held(solver)
     (ng, fg), (ne, fe) = runs["cold"](FIT_TOL, FIT_ITERS), runs["eager"](
@@ -1719,6 +1734,13 @@ def compiled_fits(ns, ctr, card, fit_ms):
 
     zero(ctr)
     out = {}
+    print("phase 4: compiled: the chunk loop one CUDA-graph WHILE node (a "
+          "warm fit one replay and one host read, the batched fits none): "
+          "the dense, sparse and EM fits and the batched MU and EM fits; a "
+          "replay a chunk kept (decided by configuration, before any "
+          "capture): the Hoyer fits, single and batched (their chunk holds "
+          "the line search's WHILE nodes, and a body opens no conditional "
+          "of its own)", flush=True)
     for label, name, shape, kw in COMPILED_CELLS:
         out[label] = compiled_cell(ns, label, name, shape, kw, ctr, card)
     V, W, H = inputs(*MAIN_SHAPE)
@@ -1920,20 +1942,24 @@ def sparse_compiled(S, nmf_from_numpy, V, inits, beta, tier, card, fit_ms):
 
     rec, outs = {"ms_per_iter": {}}, {}
     tag = f"sparse compiled {M}x{K} R={R} {V._nnz()} non-zeros beta={beta} {tier}"
-    for how, run, expect in (("cold", graphed, (chunks - 2, 1)),
-                             ("eager", eager, (0, 0)),
-                             ("warm", graphed, (chunks, 0))):
+    # (replays, captures, host reads): the chunk loop one WHILE node
+    for how, run, expect in (("cold", graphed, (1, 1, 2 + 2 + 1)),
+                             ("eager", eager, (0, 0, chunks)),
+                             ("warm", graphed, (1, 0, 1))):
         r0, k0, h0 = Graphs.replays, Graphs.captures, solver._read.reads
         (n, f), ms = events_ms(run)
         replays, captures = Graphs.replays - r0, Graphs.captures - k0
         reads = solver._read.reads - h0
-        check(n == iters and (replays, captures) == expect and reads == chunks,
+        check(n == iters and (replays, captures, reads) == expect,
               f"{tag} {how}: n_iter {n}, {replays} replays, {captures} "
-              f"captures, {reads} host reads")
+              f"captures, {reads} host reads, want {expect}")
         check_factors(f"{tag} {how}", *f)
         rec["ms_per_iter"][how] = ms / iters
         rec.setdefault("replays", {})[how] = replays
+        rec.setdefault("host_reads", {})[how] = reads
         outs[how] = f
+        if how == "warm":
+            rec["held_bytes"] = solver.compiled_cache_info()["held_bytes"]
     gaps = [max(float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(outs[how], outs["eager"]))
             for how in ("cold", "warm")]
@@ -1958,8 +1984,9 @@ def sparse_compiled(S, nmf_from_numpy, V, inits, beta, tier, card, fit_ms):
     print(f"phase 4: {tag}, {iters} iterations: ms/iteration {t}; device "
           f"ms/iteration (torch.profiler) {d}; the card idle "
           f"{ {k: round(100 * v, 1) for k, v in rec['idle_share'].items()} }"
-          f"%; replays {rec['replays']}, host reads {chunks} a fit; graphed "
-          f"against eager {rec['gap']:.3g}"
+          f"%; replays {rec['replays']}, host reads {rec['host_reads']}; the "
+          f"cache held {rec['held_bytes'] / 1e6:.2f} MB after the warm fit; "
+          f"graphed against eager {rec['gap']:.3g}"
           + (f", at tol=1e-4 n_iter {rec['n_iter_tol']} ({rec['gap_tol']:.3g})"
              if tier == "gather" else " (bit for bit)") + f" [{card}]",
           flush=True)
@@ -2253,7 +2280,7 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
     """Phases 3 and 4, this slice: the Hoyer fit's compiled chunk, the line
     search's attempts 2-10 a CUDA-graph WHILE node on the card.  At each
     HOYER_GRAPHED cell (dense NMF at MAIN_SHAPE; the NMFD flagship on
-    ``Vd`` from ``Wd``, ``Hd``), a cache cell (:data:`CACHE_RUNS`):
+    ``Vd`` from ``Wd``, ``Hd``), a cache cell (:data:`HOYER_RUNS`):
     ``sparse_fit`` through the model, cold, warm from other inits and on a
     new V, against ``get_hoyer_fit(..., _graph=False)`` (eager) from the
     same inits, in turns: factors equal bit for bit, the same attempts, P1
@@ -2313,7 +2340,7 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
         want = {"fused_contractions": 0, "fused_beta_loss": 0,
                 "hgrad": b3 * iters, "wgrad": b4 * iters}
         chunks = iters // 10
-        for how, twin, expect in CACHE_RUNS:
+        for how, twin, expect in HOYER_RUNS:
             c0, r0, q0 = read(ctr), bt.reads, P.proj_rows.launches
             a0, p0, s0 = bt.attempts, Graphs.replays, Graphs.capture_s
             k0 = Graphs.captures
@@ -2361,7 +2388,7 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
                 rec.setdefault(key, {})[how] = v
             rec["ms_per_iter"][how] = ms / iters
             finals[how] = f
-        for how, twin, _ in CACHE_RUNS:
+        for how, twin, _ in HOYER_RUNS:
             check(rec["attempts"][how] == rec["attempts"][twin]
                   and all(torch.equal(a, b) for a, b in zip(finals[how],
                                                             finals[twin])),
@@ -2845,11 +2872,12 @@ def batched_fits(ns, ctr, card, fit_ms):
     (the user's entry point: a cold fit, a warm one from the same inits and
     one on a new V) and the solver with ``_graph=False`` (eager) in turns:
     factors and ``n_iter`` equal bit for bit, each problem's ``n_iter`` the
-    stagger's, chunks − 2 replays cold and every chunk warm and on a new
-    V, one host read a chunk; ms per batched iteration every way, the
-    warm fit's replayed chunks (CUDA events around the replays) against
-    their device time (``torch.profiler``), the captures' host ms, the
-    cache's held bytes.
+    stagger's, the chunk loop one WHILE node (cold: chunks 1-2 eager, one
+    capture, one replay; warm and on a new V one replay; nothing read on
+    the host after a replay); ms per batched iteration every way, the warm
+    fit's replay (CUDA events around it) against its device time
+    (``torch.profiler``), the warm fit's device time and the card's idle
+    share, the captures' host ms, the cache's held bytes.
     The MU fits' problems also end within RTOL (final loss) of their single
     fits through the generic engine (the same ``n_iter``, or the cases that
     differ printed).  No kernel runs."""
@@ -2911,8 +2939,11 @@ def batched_fits(ns, ctr, card, fit_ms):
         runs = {"cold": lambda: graphed(tol), "warm": lambda: graphed(tol),
                 "new V": lambda: graphed(tol, X=V2),
                 "eager": lambda: eager(tol, BATCH_ITERS)}
-        expect = {"cold": (run_chunks - 2, 1), "warm": (run_chunks, 0),
-                  "new V": (run_chunks, 1), "eager": (0, 0)}
+        # (replays, captures, host reads): the chunk loop one WHILE node,
+        # chunks 1-2 of a cold fit eager (the flag read before and after
+        # each), nothing read on the host after a replay
+        expect = {"cold": (1, 1, 2 + 2), "warm": (1, 0, 0),
+                  "new V": (1, 1, 0), "eager": (0, 0, run_chunks)}
         solver.compiled_cache_clear()
         rec = {"tol": tol, "stops": stops, "ms": {}}
         outs = {}
@@ -2930,10 +2961,10 @@ def batched_fits(ns, ctr, card, fit_ms):
             tag = f"batched {case} {how}"
             n = out[3] if plca else out[2]
             check(n.tolist() == want, f"{tag}: n_iter {n.tolist()}, want {want}")
-            check(reads == run_chunks, f"{tag}: {reads} host reads, "
-                  f"{run_chunks} chunks")
-            check((replays, captures) == expect[how],
-                  f"{tag}: {replays} replays, {captures} captures")
+            check((replays, captures, reads) == expect[how],
+                  f"{tag}: {replays} replays, {captures} captures, {reads} "
+                  f"host reads, want {expect[how]}")
+            rec.setdefault("host_reads", {})[how] = reads
             check_factors(tag, *out[:3 if plca else 2])
             rec["ms"].setdefault(how, []).append(ms)
             if how in ("cold", "new V"):
@@ -2941,7 +2972,7 @@ def batched_fits(ns, ctr, card, fit_ms):
                     1e3 * (Graphs.capture_s - s0)
             if how == "warm":
                 rec["replayed_ms_per_iter"], rec["replay_busy_ms_per_iter"] = \
-                    marks.per_iter()
+                    marks.per_iter(10 * run_chunks)
             outs.setdefault(how, out)
         for how in ("cold", "warm", "new V"):
             check(all(torch.equal(a, b) for a, b in zip(outs[how],
@@ -2951,8 +2982,11 @@ def batched_fits(ns, ctr, card, fit_ms):
             cache_held(solver)
         iters = 10 * run_chunks + (BATCH_ITERS % 10 if 0 in stops else 0)
         runs["warm"]()  # so the profiled one is a hit
-        _, _, rec["replay_device_ms_per_iter"] = hoyer_device(
+        dev, _, rec["replay_device_ms_per_iter"] = hoyer_device(
             runs["warm"], iters, run_chunks)
+        warm_ms = min(rec["ms"]["warm"]) / iters
+        rec["device_ms_per_iter"] = dev
+        rec["idle_share"] = 1 - dev / warm_ms
         rec["ms_per_batched_iter"] = {h: [t / iters for t in v]
                                       for h, v in rec["ms"].items()}
         differ, rels = [], []
@@ -2984,8 +3018,9 @@ def batched_fits(ns, ctr, card, fit_ms):
               f"{rec['replay_device_ms_per_iter']:.4f} ms of device time an "
               f"iteration; capture (host ms) "
               f"{ {k: round(v, 1) for k, v in rec['capture_ms'].items()} }; "
-              f"replays cold {run_chunks - 2}, warm and new V {run_chunks}, "
-              f"host reads {run_chunks} every way; the cache held "
+              f"the warm fit's device time {rec['device_ms_per_iter']:.4f} ms "
+              f"an iteration, the card idle {100 * rec['idle_share']:.1f}%; "
+              f"replays, captures and host reads {expect}; the cache held "
               f"{rec['held_bytes'] / 1e6:.2f} MB by its count "
               f"({rec['freed_allocated'] / 1e6:.2f} MB allocated, "
               f"{rec['freed_reserved'] / 1e6:.2f} reserved freed)"
@@ -4011,7 +4046,8 @@ def checkpoint_fits(ns, ctr, card, fit_ms):
           d2["fused_contractions"] == 2 * (CKPT_ITERS - CKPT_EVERY),
           f"{tag}: launches {d1}, {d2}")
     segments = CKPT_ITERS // CKPT_EVERY
-    check(captures == 1 and replays == segments * CKPT_EVERY // 10 - 2,
+    # one replay a segment (the first one's chunks 3-5, every chunk after)
+    check(captures == 1 and replays == segments,
           f"{tag}: {captures} captures, {replays} replays in {segments} "
           "segments")
     print(f"phase 3: {tag}: sessions of {n1} and {n2 - n1} iterations in "

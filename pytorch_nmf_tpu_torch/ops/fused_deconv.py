@@ -21,11 +21,13 @@ On a CUDA tensor each wrapper launches the hand-written kernel of
 memory.  On a CPU tensor it runs the plain PyTorch version beside it
 (``plain_*``), which builds them chunk by chunk of τ, as the JAX stream
 engine does.  There is no other dispatch: a CUDA tensor the kernel does
-not take raises.  Each wrapper counts its kernel launches in a plain
-integer attribute, ``hgrad.launches`` and ``wgrad.launches``;
+not take raises.  Each wrapper counts its kernel launches in an integer
+attribute, ``hgrad.launches`` and ``wgrad.launches``;
 ``hgrad.launches_gemm`` counts those of hgrad's small-rank regime, and
 ``hgrad.launches_windowed`` those of them that ran in windows along the
-output columns (past the slab cap).
+output columns (past the slab cap): counts of a
+:class:`~.graphs._Counted`, which a replayed fit's device loop keeps on
+the card until they are next read.
 
 Unlike the Pallas kernels, the port's kernel operand carries no τ-tile
 padding: ``W2`` has exactly ``K·R`` rows, and so do :func:`wgrad`'s outputs.
@@ -38,6 +40,7 @@ import torch
 
 from ..constants import eps
 from .fused_mu import _sm_count, aligned_rows
+from .graphs import _Counted
 
 __all__ = [
     "hgrad",
@@ -398,15 +401,17 @@ def hgrad(cot2, W2, R: int, L_in: int, geom=None, plan=None):
                             p.splits, p.sper, int(i == 0), _stream(dev))
         if err != 0:
             raise RuntimeError(f"hgrad kernel launch failed: CUDA error {err}")
-    hgrad.launches += 1
-    hgrad.launches_gemm += p.regime == "gemm"
-    hgrad.launches_windowed += len(windows) > 1
+    hgrad.add("launches")
+    hgrad.add("launches_gemm", int(p.regime == "gemm"))
+    hgrad.add("launches_windowed", int(len(windows) > 1))
     return out
 
 
-hgrad.launches = 0
-hgrad.launches_gemm = 0  # of them, the gemm regime's (ranks ≤ 16)
-hgrad.launches_windowed = 0  # of those, the ones in windows along L_in
+# launches_gemm: of them, the gemm regime's (ranks ≤ 16); launches_windowed:
+# of those, the ones in windows along L_in
+hgrad = _Counted(hgrad, on_card=("launches", "launches_gemm",
+                                 "launches_windowed"),
+                 launches=0, launches_gemm=0, launches_windowed=0)
 
 
 def wgrad(cots2: Sequence[torch.Tensor], H2, R: int, T: int,
@@ -484,8 +489,8 @@ def wgrad(cots2: Sequence[torch.Tensor], H2, R: int, T: int,
     )
     if err != 0:
         raise RuntimeError(f"wgrad kernel launch failed: CUDA error {err}")
-    wgrad.launches += 1
+    wgrad.add("launches")
     return outs
 
 
-wgrad.launches = 0
+wgrad = _Counted(wgrad, on_card=("launches",), launches=0)

@@ -17,9 +17,11 @@ does not take raises.
 V may be float32 or bfloat16 (a target held at half width, which the
 kernels upcast exactly as they read it); H, W and every output are float32.
 
-Each wrapper counts its kernel launches in a plain integer attribute,
+Each wrapper counts its kernel launches in an integer attribute,
 ``fused_contractions.launches`` and ``fused_beta_loss.launches``, and the
-launches of its bfloat16-V instance also in ``launches_bf16``.
+launches of its bfloat16-V instance also in ``launches_bf16``: counts of
+a :class:`~.graphs._Counted`, which a replayed fit's device loop keeps on
+the card until they are next read.
 """
 
 import functools
@@ -28,6 +30,7 @@ from typing import Optional
 import torch
 
 from ..constants import eps
+from .graphs import _Counted
 
 __all__ = [
     "aligned_rows",
@@ -234,13 +237,14 @@ def fused_contractions(V, H, W, *, beta: float, need_pos: bool, w_side: bool,
     )
     if err != 0:
         raise RuntimeError(f"fused_contractions kernel launch failed: CUDA error {err}")
-    fused_contractions.launches += 1
-    fused_contractions.launches_bf16 += V.dtype == torch.bfloat16
+    fused_contractions.add("launches")
+    fused_contractions.add("launches_bf16", int(V.dtype == torch.bfloat16))
     return out_neg, out_pos
 
 
-fused_contractions.launches = 0
-fused_contractions.launches_bf16 = 0
+fused_contractions = _Counted(fused_contractions,
+                              on_card=("launches", "launches_bf16"),
+                              launches=0, launches_bf16=0)
 
 
 def fused_beta_loss(V, H, W, beta: float):
@@ -268,13 +272,13 @@ def fused_beta_loss(V, H, W, beta: float):
     )
     if err != 0:
         raise RuntimeError(f"fused_beta_loss kernel launch failed: CUDA error {err}")
-    fused_beta_loss.launches += 1
-    fused_beta_loss.launches_bf16 += V.dtype == torch.bfloat16
+    fused_beta_loss.add("launches")
+    fused_beta_loss.add("launches_bf16", int(V.dtype == torch.bfloat16))
     return out
 
 
-fused_beta_loss.launches = 0
-fused_beta_loss.launches_bf16 = 0
+fused_beta_loss = _Counted(fused_beta_loss, on_card=("launches", "launches_bf16"),
+                           launches=0, launches_bf16=0)
 
 
 def w_side_contractions(V, H, W, beta: float, need_pos: bool = True):

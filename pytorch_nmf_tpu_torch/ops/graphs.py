@@ -1,6 +1,6 @@
 r"""In-place workloads as CUDA graphs on the card, called directly on the CPU
-(the trainers' compiled steps, :mod:`..trainer`, and the fits' 10-iteration
-chunk, :mod:`.solver`).
+(the trainers' compiled steps, :mod:`..trainer`, and the fits' chunk loop
+and 10-iteration chunk, :mod:`.solver`).
 
 A workload ``fn()`` reads and writes tensors at fixed addresses, so a graph
 of it, replayed, does what calling it again would.  :class:`_Graphs` holds
@@ -18,11 +18,13 @@ with the instance.  Two ways to warm up and capture on the card:
   calls are the warm-ups, real work that is kept: the first runs it eagerly
   on the current stream, the second again with synchronizing operations
   raising; then :meth:`_Graphs.capture` (or else the third call) captures
-  it on the side stream, and the third and every later call replays it.
-  ``capture(k, seen=True)`` captures before any warm-up (a configuration
-  the process has warmed up and checked already).  The instance may be
-  kept and called again by later fits (the fits' cache,
-  :mod:`.solver`): its graphs replay from their first call.  The kernels'
+  it on the side stream, and the third and every later call replays it
+  (:meth:`_Graphs.warming` tells whether the next call is a warm-up; on
+  the CPU the same calls count).  ``capture(k, seen=True)`` captures
+  before any warm-up (a configuration the process has warmed up and
+  checked already).  The instance may be kept and called again by later
+  fits (the fits' cache, :mod:`.solver`): its graphs replay from their
+  first call.  The kernels'
   launch counters count executions: each counter's delta over the capture
   is taken back and added again at every replay.
 
@@ -38,21 +40,22 @@ pool and the device loops' pool, and raises ``torch.cuda.OutOfMemoryError``
 the memory back).  ``pool_bytes`` is what the captures added to the card's
 reserved memory: the graphs' private pools.
 
-**Device loops** (``conditional=True``; the Hoyer fits' and
-``SparsityProj``'s line searches):
+**Device loops** (``conditional=True``; the fits' chunk loop, the Hoyer
+fits' and ``SparsityProj``'s line searches):
 :func:`_device_while` runs a body while a 0-d bool tensor, which the body
 updates, is true.  Eagerly it reads the flag on the host before each run
 (the only reads it makes, allowed under the strict warm-up).  Under
 capture the body becomes a CUDA-graph WHILE node (``csrc/graph_cond.cu``)
 that the card runs as often as the flag says at each replay: it is
 captured once, on a stream of the instance's own, its allocations in a
-memory pool of the instance's own, and it adds one to a 0-d count on the
-card each run.  A launch inside a body ticks its counter once, at capture;
-:meth:`_Graphs.capture` takes that back with the rest, and the bodies'
-launches are added from the card's count when a counter that allows it
-(an attribute of a :class:`_Counted`) is next read, one host read a
-finished fit (:func:`_settle`, after :meth:`_Graphs.flush`), never on the
-fit's path.
+memory pool of the instance's own (a backward inside it runs on the
+capturing thread, whose allocations the pool takes), and it adds one to a
+0-d count on the card each run.  A launch inside a body ticks its counter
+once, at capture; :meth:`_Graphs.capture` takes that back with the rest,
+and the bodies' launches are added from the card's count when a counter
+that allows it (an attribute of a :class:`_Counted`) is next read, one
+host read a finished fit (:func:`_settle`, after :meth:`_Graphs.flush`),
+never on the fit's path.
 """
 
 import contextlib
@@ -129,17 +132,25 @@ def _add_counters(delta):
 
 # what the conditional bodies of finished fits' replays counted on the
 # card: (pinned host copy of the count, its event, the counts' increase an
-# execution), added in by the next read of a count that allows it
+# execution), added in by the next read of a count that allows it; past
+# _PENDING_MAX, a fit's end adds in those whose copies are done
 _PENDING = []
 _PENDING_LOCK = threading.Lock()
+_PENDING_MAX = 64
 
 
-def _settle():
+def _settle(done_only: bool = False):
     """Adds every finished fit's bodies' executions into the counts: one
-    host read of each fit's count, waiting for its copy."""
+    host read of each fit's count, waiting for its copy (``done_only``:
+    only the copies done already, waiting for none)."""
     with _PENDING_LOCK:
-        pending = list(_PENDING)
-        _PENDING.clear()
+        if done_only:
+            ready = [p[1].query() for p in _PENDING]
+            pending = [p for p, r in zip(_PENDING, ready) if r]
+            _PENDING[:] = [p for p, r in zip(_PENDING, ready) if not r]
+        else:
+            pending = list(_PENDING)
+            _PENDING.clear()
     for count, done, delta in pending:
         done.synchronize()
         _add_counters([int(count) * d for d in delta])
@@ -255,6 +266,9 @@ class _Bodies:
             self.count.zero_()
             with _PENDING_LOCK:
                 _PENDING.append((host, done, self.delta))
+                full = len(_PENDING) > _PENDING_MAX
+            if full:  # many fits and no read of a count: keep the list short
+                _settle(done_only=True)
 
     def close(self):
         """:meth:`flush`, then frees the stream; call it once the graphs
@@ -405,7 +419,11 @@ class _Graphs:
                                      ctypes.byref(handle)),
                "opening a WHILE node")
         try:
-            with torch.cuda.stream(c.stream), torch.cuda.use_mem_pool(c.pool):
+            # a backward inside the body runs on this thread, whose
+            # allocations the bodies' pool takes (not autograd's device
+            # threads', which it would not)
+            with torch.cuda.stream(c.stream), torch.cuda.use_mem_pool(c.pool), \
+                    torch.autograd.set_multithreading_enabled(False):
                 body()
                 c.count.add_(1)
         finally:
@@ -437,6 +455,15 @@ class _Graphs:
         body = self.cond.delta if self.bodies else [0] * len(captured)
         self.deltas[k] = [d - self.bodies * b for d, b in zip(captured, body)]
         _add_counters([-d for d in captured])
+
+    def warming(self, k: int = 0) -> bool:
+        """Own warm-ups: the next call of ``fns[k]`` is one of its two
+        warm-up runs (on the CPU, where every call runs directly, the same
+        calls count)."""
+        if self.graphs is None:
+            return self.runs[k] < 2
+        return self.deltas is not None and self.graphs[k] is None \
+            and self.runs[k] < 2
 
     def ready(self, k: int = 0) -> bool:
         """Whether ``fns[k]`` has had its warm-ups (and on the card its

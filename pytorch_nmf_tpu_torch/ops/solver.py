@@ -13,23 +13,29 @@ The semantics are those of the reference ``BaseComponent.fit``
   converged;
 * W updates against the old H, then H against the new W.
 
-The loop is a Python loop over 10-iteration chunks; the host reads the
-device once a chunk, for the stop rule (``_read.reads`` counts the loop's
-reads).  The single-card dense, sparse and EM fits (:func:`get_dense_fit`,
-:func:`get_sparse_fit`, :func:`get_plca_fit`) run each chunk (ten
-iterations, the loss, the stop test on the device, the new state copied
-into static tensors) as one in-place workload (:class:`~.graphs._Graphs`):
-on a CUDA device the first fit of a configuration runs chunks 1-2
-eagerly, the second with synchronizing operations raising, and from chunk
-3 on replays a CUDA graph of the chunk; on the CPU the same workload is
-called directly.  A chunk that cannot be captured raises.  The batched MU
-and EM fits (:func:`get_batched_dense_fit`, :func:`get_batched_plca_fit`)
-run their chunks the same way (:func:`_graphed_batched_loop`), every
-problem's stop test and chunk of convergence on the device.  The Hoyer
-fit (:func:`get_hoyer_fit`, dense or sparse target) runs its chunks the
-same way, with no stop test, its line search's attempts 2-10 a loop that
-a replayed chunk runs on the card (a CUDA-graph WHILE node,
-:func:`~.graphs._device_while`); so does the batched Hoyer fit
+The eager loop (:func:`_converging_loop`) is a Python loop over
+10-iteration chunks; the host reads the device once a chunk, for the stop
+rule (``_read.reads`` counts the loops' reads).  The single-card dense,
+sparse and EM fits (:func:`get_dense_fit`, :func:`get_sparse_fit`,
+:func:`get_plca_fit`) run their whole chunk loop as one in-place workload
+(:class:`~.graphs._Graphs`), as JAX's ``lax.while_loop``: a device loop
+(:func:`~.graphs._device_while`) whose body is the chunk (ten iterations,
+the loss, the stop test, the new state copied into static tensors, the
+chunk count plus one) and whose flag is ``~stop & (k < limit)``, decided
+on the device.  On a CUDA device the first fit of a configuration runs
+chunks 1-2 eagerly, the second with synchronizing operations raising,
+captures the loop (its body a CUDA-graph WHILE node) and replays it once
+for the rest; a later fit is one replay and one host read (``(k, stop)``,
+for ``n_iter``).  On the CPU the same workload runs eagerly, reading the
+flag before each chunk.  A chunk that cannot be captured raises.  The
+batched MU and EM fits (:func:`get_batched_dense_fit`,
+:func:`get_batched_plca_fit`) run theirs the same way
+(:func:`_graphed_batched_loop`, ``~done & (k < limit)``), every problem's
+stop test and chunk of convergence on the device, nothing read on the
+host after a replay.  The Hoyer fit (:func:`get_hoyer_fit`,
+dense or sparse target) replays its 10-iteration chunk a chunk at a
+time, with no stop test, its line search's attempts 2-10 a device loop
+inside the chunk; so does the batched Hoyer fit
 (:func:`get_batched_hoyer_fit`), one batched program whose problems' line
 searches share one loop.  The sharded fits of :mod:`..parallel` run the
 eager loop.
@@ -42,13 +48,13 @@ one cache keeps, per target and chunk configuration, an entry
 reads and what the fit derives from the target.  The chunk configuration
 is what the chunk reads: the factory's arguments but ``max_iter`` (and
 ``verbose`` where the chunk does not report), so fits that differ only in
-those share one entry.  A graph reads fixed addresses, so the key holds
-the target's identity (a weak reference, its address and its version
-counter: a target changed in place misses) beside the shapes, strides,
-dtypes and device of every argument and the ``PNT_*`` environment
-switches.  A hit copies the inputs into the statics and replays every
-chunk; a configuration seen before with a new target captures before
-chunk 1 and replays every chunk.  An entry goes when its target is
+those share one entry (each fit loads its chunk limit into the loop).  A
+graph reads fixed addresses, so the key holds the target's identity (a
+weak reference, its address and its version counter: a target changed in
+place misses) beside the shapes, strides, dtypes and device of every
+argument and the ``PNT_*`` environment switches.  A hit copies the inputs into the statics and replays the
+loop once; a configuration seen before with a new target captures before
+chunk 1 and replays once.  An entry goes when its target is
 collected, past :data:`_MAX_ENTRIES` entries or past :data:`_HELD_SHARE`
 of a card's memory held (least recently used first), and at
 :func:`compiled_cache_clear`.  A fit out of card memory drops every idle
@@ -650,6 +656,67 @@ def _refreshers(*fns):
     return out
 
 
+def _loop_workload(c, stop, chunk, device):
+    """Makes ``c.graphs``, the chunk loop of the statics ``c`` as one
+    workload with a device loop: ``chunk()`` (one chunk, which advances
+    the 0-d count ``c.k`` and sets the 0-d bool ``stop``) is the body of
+    :func:`~.graphs._device_while` on ``c.go = ~stop & (c.k < c.limit)``,
+    tested before the first chunk and after each.  ``c.reads`` gets the
+    flag reads of an eager run (0 under capture)."""
+    c.limit = torch.zeros((), dtype=torch.int64, device=device)
+    c.go = torch.zeros((), dtype=torch.bool, device=device)
+    c.reads = 0
+
+    def go():
+        torch.logical_and(~stop, c.k < c.limit, out=c.go)
+
+    def body():
+        chunk()
+        go()
+
+    def loop():
+        go()
+        c.reads = _device_while(c.go, body)
+
+    c.graphs = _Graphs([loop], None, device, _CHUNK_NOT_CAPTURABLE,
+                       conditional=True)
+
+
+def _drive(c, n_chunks: int, report=None, status=None):
+    """Runs the chunk loop of ``c`` (:func:`_loop_workload`) up to
+    ``n_chunks`` chunks, as JAX's ``lax.while_loop`` runs them: each
+    call of the workload runs chunks while the stop test passes and the
+    chunk count is under ``c.limit``.  A configuration's own warm-ups on
+    the card (its first fit's chunks 1-2, eager) and a reporting fit take
+    one chunk a call (the limit one past the count); otherwise one call
+    runs every chunk (on the card one replay, on the CPU one eager loop).
+    The capture comes right after chunk 2 when a third may follow.  With
+    ``report``, ``status()`` and the reported values are read after each
+    chunk.  Returns the last ``status()`` (``None`` without one)."""
+    graphs, done, last = c.graphs, 0, None
+    while done < n_chunks:
+        warming = graphs.warming()
+        step = 1 if warming or report is not None else n_chunks - done
+        c.limit.fill_(done + step)
+        c.reads = 0
+        graphs()
+        _read.reads += c.reads
+        if report is not None:
+            last = k, conv = status()
+            report(k, _read(c.prev),
+                   None if c.extra is None else _read(c.extra))
+            if conv:
+                break
+        elif warming and c.reads < 2:  # the flag was down: stopped before
+            break
+        done += step
+        if warming and done == 2 < n_chunks:
+            graphs.capture()
+    if report is None and status is not None:
+        last = status()
+    return last
+
+
 def _graphed_loop(
     one_iter: Callable,
     loss_of: Callable,
@@ -660,20 +727,27 @@ def _graphed_loop(
     extra_of: Optional[Callable] = None,
     entry: Optional[_Entry] = None,
 ):
-    """:func:`_converging_loop` with each chunk one in-place workload of
-    :class:`~.graphs._Graphs` (own warm-ups: on a configuration's first fit
-    chunks 1-2 eager, the capture right after chunk 2 is enqueued when a
-    third chunk may follow, then graph replays on a CUDA device; called
-    directly on the CPU): ten iterations from static state tensors, the
-    loss, the stop flag ``(prev - loss) / loss_init < tol`` on the device
-    (NaN compares False), ``prev ← loss`` and the new state copied into
-    the static tensors.  ``entry`` (:class:`_Entry`; a fresh one if
-    ``None``) keeps the statics and the graph for the next fit: the fit's
-    state and ``loss_init`` (computed eagerly each fit) are copied in, and
-    a captured chunk replays from chunk 1.  The host reads the flag once a
-    chunk (and the reported values when verbose).  The ``max_iter % 10``
-    remainder runs eagerly, on a copy of the statics.  The same operations
-    as :func:`_converging_loop`, so the same results bit for bit."""
+    """:func:`_converging_loop` as one in-place workload of
+    :class:`~.graphs._Graphs` with a device loop, JAX's ``lax.while_loop``:
+    the chunk (ten iterations from static state tensors, the loss, the stop
+    flag ``(prev - loss) / loss_init < tol`` on the device, NaN comparing
+    False, ``prev ← loss``, the new state copied into the static tensors,
+    the chunk count ``k`` on the device plus one) is the body of
+    :func:`~.graphs._device_while` on ``go = ~stop & (k < limit)``, which a
+    replay runs on the card (a CUDA-graph WHILE node) and the CPU runs
+    eagerly, reading ``go`` before each chunk.  :func:`_drive` runs it: on
+    a configuration's first fit on the card chunks 1-2 eagerly, the capture
+    right after chunk 2 when a third may follow, then one replay for the
+    rest; a warm fit one replay; a reporting fit one call a chunk.  One
+    host read of ``(k, stop)`` a fit (a reporting fit's last) gives the
+    chunks run and whether they converged.  ``entry`` (:class:`_Entry`; a
+    fresh one if ``None``) keeps the statics and the graph for the next
+    fit: the fit's state, ``loss_init`` (computed eagerly each fit), ``k``
+    and ``stop`` are loaded, ``limit`` set by the drive.  The ``max_iter %
+    10`` remainder runs eagerly, on a copy of the statics.  The same
+    operations as :func:`_converging_loop`, so the same results bit for
+    bit.  The device loop's kernel launches are handed to their counts at
+    the end of each fit (:meth:`~.graphs._Graphs.flush`)."""
     loss_init = loss_of(state0)
     n_chunks, rem = divmod(max_iter, 10)
     state, k, conv = state0, 0, False
@@ -681,11 +755,14 @@ def _graphed_loop(
         own, entry = entry is None, entry or _Entry()
         c = entry.loop
         if c is None:
+            dev = loss_init.device
+            # (k, stop): the chunks run and the last stop flag, read at once
+            status = torch.zeros(2, dtype=torch.int64, device=dev)
             c = entry.loop = SimpleNamespace(
                 st=tuple(x.clone() for x in state0),
                 loss_init=loss_init.clone(), prev=loss_init.clone(),
-                stop=torch.zeros((), dtype=torch.bool,
-                                 device=loss_init.device),
+                stop=torch.zeros((), dtype=torch.bool, device=dev),
+                status=status, k=status[0],
                 extra=(torch.empty_like(loss_init)
                        if report is not None and extra_of is not None
                        else None))
@@ -700,23 +777,22 @@ def _graphed_loop(
                 if c.extra is not None:
                     c.extra.copy_(extra_of(s))
                 _load(c.st, s)
+                c.k.add_(1)
+                c.status[1].copy_(c.stop)
 
-            c.graphs = _Graphs([chunk], None, loss_init.device,
-                               _CHUNK_NOT_CAPTURABLE)
+            _loop_workload(c, c.stop, chunk, dev)
         else:
             _load(c.st + (c.loss_init, c.prev), tuple(state0) + (
                 loss_init, loss_init))
-        graphs = c.graphs
-        entry.start(graphs)
-        while not conv and k < n_chunks:
-            graphs()
-            k += 1
-            if k == 2 < n_chunks:  # the capture's host time overlaps chunk 2
-                graphs.capture()
-            conv = _read(c.stop, bool)
-            if report is not None:
-                report(k, _read(c.prev),
-                       None if c.extra is None else _read(c.extra))
+        c.status.zero_()
+        c.stop.zero_()
+        try:
+            entry.start(c.graphs)
+            k, conv = _drive(c, n_chunks, report, lambda: _read(
+                c.status, lambda t: tuple(t.tolist())))
+        finally:
+            c.graphs.flush()
+        conv = bool(conv)
         state = tuple(x.clone() for x in c.st)
         if own:
             entry.close()
@@ -874,17 +950,17 @@ def _batched_loop(one_iter, loss_of, state0, tol, max_iter):
 
 def _graphed_batched_loop(one_iter, loss_of, state0, tol, max_iter,
                           entry=None):
-    """:func:`_batched_loop` with each chunk one in-place workload of
-    :class:`~.graphs._Graphs`, as :func:`_graphed_loop` runs it (own
-    warm-ups on a configuration's first fit: chunks 1-2 eager, the capture
-    right after chunk 2 is enqueued when a third chunk may follow, then
-    graph replays on a CUDA device; called directly on the CPU):
-    :func:`_batched_chunk` from static tensors (the state, ``conv``,
-    ``prev``, ``loss_init``, the chunk count and each problem's chunk of
-    convergence, which ``entry`` keeps and each fit resets) and the 0-d
-    flag "every problem has converged", which the host reads once a chunk.
-    The remainder runs eagerly.  The same operations as
-    :func:`_batched_loop`, so the same results bit for bit."""
+    """:func:`_batched_loop` as one in-place workload of
+    :class:`~.graphs._Graphs`, as :func:`_graphed_loop` runs it: the body
+    of its device loop is :func:`_batched_chunk` from static tensors (the
+    state, ``conv``, ``prev``, ``loss_init``, the chunk count ``k`` and each
+    problem's chunk of convergence, which ``entry`` keeps and each fit
+    resets), then ``done`` (every problem converged) and ``go = ~done & (k
+    < limit)``; :func:`_drive` runs it (a warm fit one replay).  Nothing is
+    read on the host but the eager runs' flags: each problem's ``n_iter``
+    comes from its chunk of convergence on the device.  The remainder runs
+    eagerly.  The same operations as :func:`_batched_loop`, so the same
+    results bit for bit."""
     loss_init = loss_of(state0)
     B, device = loss_init.shape[0], loss_init.device
     n_chunks, rem = divmod(max_iter, 10)
@@ -910,21 +986,17 @@ def _graphed_batched_loop(one_iter, loss_of, state0, tol, max_iter,
                       s + (cv, p, kk, kc))
                 c.done.copy_(c.conv.all())
 
-            c.graphs = _Graphs([chunk], None, device, _CHUNK_NOT_CAPTURABLE)
+            _loop_workload(c, c.done, chunk, device)
         else:
             _load(c.st + (c.prev, c.loss_init), tuple(state0) + (
                 loss_init, loss_init))
-            for t in (c.conv, c.k_conv, c.k):
+            for t in (c.conv, c.k_conv, c.k, c.done):
                 t.zero_()
-        graphs = c.graphs
-        entry.start(graphs)
-        all_done, chunks = False, 0
-        while not all_done and chunks < n_chunks:
-            graphs()
-            chunks += 1
-            if chunks == 2 < n_chunks:  # the capture's host time overlaps chunk 2
-                graphs.capture()
-            all_done = _read(c.done, bool)
+        try:
+            entry.start(c.graphs)
+            _drive(c, n_chunks)
+        finally:
+            c.graphs.flush()
         state = tuple(x.clone() for x in c.st)
         conv, k_conv = c.conv.clone(), c.k_conv.clone()
         if own:

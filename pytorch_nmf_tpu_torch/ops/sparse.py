@@ -332,7 +332,7 @@ def ell_neg_grad(idx_pad, val_pad, self_f, other_f, beta: float):
     return out
 
 
-ell_neg_grad = _Counted(ell_neg_grad, reductions=0)
+ell_neg_grad = _Counted(ell_neg_grad, on_card=("reductions",), reductions=0)
 
 
 def ell_neg_scalar(idx_pad, val_pad, self_f, other_f, beta: float):
