@@ -149,14 +149,24 @@ Drives the port's paths at full width, each in phases:
   (B4 alone: NMFD β ∈ {1, 0.5}, NMF3D), ``stream`` and ``conv`` (NMFD),
   ``unrolled`` (NMF2D, SIPLCA2), the SIPLCA flagship in ``conv``, and the
   NMFD flagship in the mode its tuner resolves (rank 0 times, both ranks
-  run its choice); one NCCL rank runs the dense and NMFD β=1 cases; NCCL
-  across cards runs every case where there are several.  Each case agrees
-  with the single-card fit of the whole problem (W, the assembled H and the
-  final loss within 1e-4 relative, the same ``n_iter`` and per-shard mode
-  on every rank), each rank launches exactly the kernels its code and mode
-  imply, and the ranks' ms/iteration and their collectives' calls, bytes
-  and ms an iteration are printed beside the single-card fits of the whole
-  problem and of one rank's block;
+  run its choice); one NCCL rank runs the dense cases (β ∈ {1, 0.5, 2},
+  the 1×1 ``data``×``model`` mesh, the early stop), PLCA, sparse and NMFD
+  β=1; NCCL across cards runs every case where there are several.  Each
+  case agrees with the single-card fit of the whole problem (W, the
+  assembled H and the final loss within 1e-4 relative, the same ``n_iter``
+  and per-shard mode on every rank), each rank launches exactly the
+  kernels its code and mode imply, and the ranks' ms/iteration and their
+  collectives' calls, bytes and ms an iteration are printed beside the
+  single-card fits of the whole problem and of one rank's block.  Over
+  NCCL the sharded NMF, PLCA and sparse fits are compiled (their chunk
+  loop one CUDA-graph WHILE node, the all-reduces captured): each such
+  case also runs 50 iterations (the early stop at its tol) cold, warm (on
+  the same ``shard_target`` DTensors: a cache hit) and on a new V, each
+  bit for bit its ``_graph=False`` twin on every rank, with 1, 1 and 1
+  replays, 1, 0 and 1 captures and 5, 1 and 1 host reads, B1/B2 launches
+  and the all-reduces' calls and bytes the twin's; it prints warm, eager,
+  cold and new-V ms/iteration beside the single-card warm fit of the same
+  problem (one rank), and the entry's held bytes (``par_compiled``);
 * the halo fits' mode tuner (``autotune.autotune_halo_mode``) at the NMFD
   flagship's, NMF2D's and NMF3D's per-rank problems: ``fused`` against
   ``fused_w`` over one rank's per-shard step without collectives, the
@@ -4676,8 +4686,24 @@ PAR_CASES = {
 # the cases whose ranks resolve their mode with the tuner on (the others
 # run at PNT_NMFD_AUTOTUNE=0: the static "fused" unless a mode is forced)
 PAR_TUNED = ("nmfd_b1_tuned",)
-# the one-rank NCCL group's cases
-PAR_NCCL_ONE = ("nmf_b1", "nmfd_b1")
+# the one-rank NCCL group's cases; over NCCL the sharded NMF, PLCA and
+# sparse fits are compiled (their chunk loop one CUDA-graph WHILE node):
+# each of those cases also runs cold, warm and on a new V against its
+# eager twin (par_compiled), at PAR_COMPILED_ITERS iterations where it has
+# tol=0 (5 chunks: the cold fit's two eager chunks, its capture, a replay)
+PAR_NCCL_ONE = ("nmf_b1", "nmf_b0.5", "nmf_b2", "nmf_model_b1", "nmf_early_b1",
+                "plca", "sparse_b1", "nmfd_b1")
+PAR_COMPILED_KINDS = ("nmf", "plca", "sparse")
+PAR_COMPILED_ITERS = 50
+# the early stop's compiled runs (on one rank they stop at chunk 7; the
+# case's own tol, 1e-3, stops at chunk 2 there: the replays would run none)
+PAR_COMPILED_TOL = {"nmf_early_b1": 3e-4}
+# (run, graphed, the run's (replays, captures, host reads)): the
+# configuration's first fit on shard_target DTensors, its eager twin on the
+# same, a warm fit on them (a hit) and a fit on new DTensors of the same
+# values (a new target: a warm miss), as CACHE_RUNS
+PAR_COMPILED_RUNS = (("cold", True, (1, 1, 2 + 2 + 1)), ("eager", False, None),
+                     ("warm", True, (1, 0, 1)), ("new V", True, (1, 1, 1)))
 PAR_PATHS = {"nmf": "sharded", "plca": "sharded", "sparse": "sharded_sparse",
              "deconv": "halo", "siplca": "halo"}
 
@@ -4822,6 +4848,143 @@ def par_mode_spy(halo, ctr):
     return seen
 
 
+def par_compiled(par, name, world, mesh, ctr):
+    """Case ``name`` through its compiled sharded fit on this NCCL rank
+    (PAR_COMPILED_RUNS, from an empty cache): each graphed run bit for bit
+    the eager twin (the rank's blocks, ``n_iter``, PLCA's ``norm``), its
+    replays, captures and host reads as listed, B1/B2 launches and the
+    all-reduces' calls and bytes the twin's; returns each run's ms/iteration
+    (CUDA events around the whole call), counts, the entry's held bytes after
+    the warm fit and, on one rank, the single-card warm fit of the same
+    problem (the same card V twice: a hit) in ms/iteration, on several the
+    host ms of the ranks' agreement on the loop's path (``agree``: what a
+    fit's agreement costs alone, on the ranks' rendezvous store)."""
+    import torch.distributed as dist
+
+    from pytorch_nmf_tpu_torch.ops import graphs, solver
+    from pytorch_nmf_tpu_torch.parallel import comm
+    from pytorch_nmf_tpu_torch.parallel.sharded import placements
+
+    kind, _, kw = PAR_CASES[name]
+    kw = dict(kw)
+    if not kw.get("tol"):
+        kw["max_iter"] = PAR_COMPILED_ITERS
+    kw["tol"] = PAR_COMPILED_TOL.get(name, kw["tol"])
+    inp = par_inputs(name, world)
+    rows = placements(mesh, {0: "data"})
+
+    def targets():
+        if kind == "sparse":
+            V = par_sparse(inp)
+        else:
+            V = par.shard_target(inp["V"], mesh, placements(
+                mesh, {0: "data", 1: kw.get("model_axis")}) if kind == "nmf"
+                else rows)
+        return V, par.shard_target(inp["H"], mesh, rows)
+
+    fit = {"nmf": par.sharded_nmf_fit, "plca": par.sharded_plca_fit,
+           "sparse": par.sharded_sparse_nmf_fit}[kind]
+    solver.compiled_cache_clear()
+    first = targets()
+    runs, outs = {}, {}
+    for label, graph, want in PAR_COMPILED_RUNS:
+        V, H = targets() if label == "new V" else first
+        args = (V, inp["W"], H) + ((inp["Z"],) if kind == "plca" else ())
+        dist.barrier()  # each rank's time from one start: no rank's skew
+        torch.cuda.synchronize()
+        zero(ctr)
+        comm.stats.reset()
+        before = (graphs._Graphs.replays, graphs._Graphs.captures,
+                  solver._read.reads)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fit(*args, mesh, _graph=graph, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        got = (graphs._Graphs.replays, graphs._Graphs.captures,
+               solver._read.reads)
+        n = int(out[3] if kind == "plca" else out[2])
+        outs[label] = out
+        runs[label] = {
+            "n_iter": n, "ms_per_iter": start.elapsed_time(end)
+            / par_iters(name, n),
+            "counts": [a - b for a, b in zip(got, before)],
+            "launches": {k: int(v) for k, v in read(ctr).items()},
+            "all_reduce": [comm.stats.calls["all_reduce"],
+                           comm.stats.bytes["all_reduce"]]}
+        if label == "warm":
+            runs[label]["held_bytes"] = solver.compiled_cache_info()[
+                "held_bytes"]
+    # the cold fit captures after its second eager chunk when a third may
+    # follow (then replays once, stopped or not)
+    chunks = runs["eager"]["n_iter"] // 10
+    check(chunks >= 2 and kw["max_iter"] >= 30, f"{name}: the eager twin "
+          f"ran {chunks} chunks of {kw['max_iter'] // 10}; the cold fit "
+          f"captures after a second eager chunk when a third may follow")
+    ref = outs["eager"]
+    for label, graph, want in PAR_COMPILED_RUNS:
+        if not graph:
+            continue
+        out, run = outs[label], runs[label]
+        same = all(torch.equal(a.to_local(), b.to_local())
+                   if hasattr(a, "to_local") else a == b
+                   for a, b in zip(out, ref))
+        check(same, f"{name} [nccl{world}]: the {label} fit differs from its "
+              f"eager twin")
+        check(tuple(run["counts"]) == want, f"{name} [nccl{world}]: the "
+              f"{label} fit's (replays, captures, host reads) "
+              f"{run['counts']}, expected {want}")
+        check(run["launches"] == runs["eager"]["launches"]
+              and run["all_reduce"] == runs["eager"]["all_reduce"],
+              f"{name} [nccl{world}]: the {label} fit's launches "
+              f"{run['launches']} and all-reduces {run['all_reduce']}, the "
+              f"eager twin's {runs['eager']['launches']} and "
+              f"{runs['eager']['all_reduce']}")
+    del outs, ref, first
+    solver.compiled_cache_clear()
+    if world == 1:
+        runs["single warm"] = par_single_warm(name, inp, kw)
+    else:  # the ranks' agreement on the loop's path, alone, a fit
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            comm.agree_min(mesh, 3)
+        runs["agree"] = {"ms": 1e3 * (time.perf_counter() - t0) / 20}
+    return runs
+
+
+def par_single_warm(name, inp, kw):
+    """The single-card fit of case ``name``'s whole problem at fit keywords
+    ``kw`` on this card, run twice on one card V (the second a hit of the
+    fits' cache): the second's ms/iteration by CUDA events."""
+    from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
+
+    kind = PAR_CASES[name][0]
+    kw = {k: v for k, v in kw.items() if k != "model_axis"}
+    if kind == "sparse":
+        set_tier("ell")  # the sharded path's engine
+        V = par_sparse(inp, "cuda")
+    else:
+        V = torch.from_numpy(inp["V"]).cuda()
+    for _ in range(2):
+        m = (plca_from_numpy({k: inp[k] for k in ("W", "H", "Z")}, "cuda")
+             if kind == "plca" else
+             nmf_from_numpy({k: inp[k] for k in ("W", "H")}, "cuda"))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = m.fit(V, **kw)
+        end.record()
+        torch.cuda.synchronize()
+    if kind == "sparse":
+        set_tier(None)
+    n = int(out[0] if isinstance(out, tuple) else out)
+    return {"n_iter": n, "ms_per_iter": start.elapsed_time(end)
+            / par_iters(name, n)}
+
+
 def par_rank(rank, world, backend, workdir, names):
     """One rank: every case of ``names`` through the sharded fits; writes
     its factors' local blocks and a report (``n_iter``, the kernels'
@@ -4900,6 +5063,15 @@ def par_rank(rank, world, backend, workdir, names):
                   if hasattr(v, "to_local") and (k == "H" or rank == 0)}
         torch.save(blocks, os.path.join(workdir, f"{name}-{tag}-r{rank}.pt"))
         del out, blocks
+    if backend == "nccl":  # the compiled fits: cold, warm, new V, eager
+        for name in names:
+            kind, _, kw = PAR_CASES[name]
+            if kind in PAR_COMPILED_KINDS:
+                axes = (("data", world),) + ((("model", 1),)
+                                             if "model_axis" in kw else ())
+                dist.barrier()
+                report[name]["compiled"] = par_compiled(
+                    par, name, world, meshes[axes], ctr)
     with open(os.path.join(workdir, f"report-{tag}-r{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.barrier()
@@ -5056,8 +5228,11 @@ def par_check(ns, name, backend, world, workdir, single, card):
               f"{json.dumps(tables[0])} [{card}]", flush=True)
     iters = par_iters(name, n_iters[0])
     traffic = "; ".join(
-        f"{kindc} {c['calls'] / iters:g} calls, {c['bytes'] / iters:.0f} B, "
-        f"{c['ms'] / iters:.3f} ms per iteration"
+        f"{kindc} {c['calls'] / iters:g} calls, {c['bytes'] / iters:.0f} B"
+        + (f", {c['ms'] / iters:.3f} ms per iteration"
+           if c["timed_calls"] == c["calls"] else
+           f", {c['ms'] / max(c['timed_calls'], 1):.3f} ms a call over its "
+           f"{c['timed_calls']} eager calls (those a graph replays untimed)")
         for kindc, c in reps[0]["comm"].items() if c["calls"])
     print(f"phase 3, parallel [{reps[0]['transport']}, world {world}, ranks "
           f"on cuda:{sorted({rep['device'] for rep in reps})}]: {name}"
@@ -5071,9 +5246,48 @@ def par_check(ns, name, backend, world, workdir, single, card):
           + f" (whole calls), single card: whole problem {ms_ref:.3f}, one "
           f"rank's block {ms_part:.3f}; rank 0's traffic: {traffic} [{card}]",
           flush=True)
+    if "compiled" in reps[0]:
+        par_compiled_line(name, tag, reps, card)
     out = {k: world * v for k, v in want.items()}
     out["hgrad"] = Count(out["hgrad"], sum(rep["hgrad_small"] for rep in reps))
+    for rep in reps:  # the compiled runs' launches, per run
+        for run in rep.get("compiled", {}).values():
+            for k, v in run.get("launches", {}).items():
+                out[k] += v
     return out
+
+
+def par_compiled_line(name, tag, reps, card):
+    """Print case ``name``'s compiled runs (par_compiled; each rank checked
+    its own): counts, launches and all-reduces per iteration, ms/iteration
+    warm, eager and new V beside the single-card warm fit, held bytes."""
+    runs = reps[0]["compiled"]
+    warm = runs["warm"]
+    agree = runs.get("agree")
+    iters = par_iters(name, warm["n_iter"])
+    per_iter = {k: round(v / iters, 3) for k, v in warm["launches"].items()
+                if v}
+    single = runs.get("single warm")
+    print(f"phase 3, compiled sharded [{tag}]: {name} n_iter "
+          f"{warm['n_iter']}; bit for bit the eager twin cold, warm and on a "
+          f"new V on every rank; (replays, captures, host reads) per rank "
+          + ", ".join(f"{k} {tuple(runs[k]['counts'])}" for k in runs
+                      if "counts" in runs[k])
+          + f" (as predicted); per iteration launches {per_iter}, all-reduce "
+          f"{warm['all_reduce'][0] / iters:g} calls, "
+          f"{warm['all_reduce'][1] / iters:.0f} B (the eager twin's); "
+          f"ms/iteration per rank warm "
+          + ", ".join(f"{rep['compiled']['warm']['ms_per_iter']:.4f}"
+                      for rep in reps)
+          + f", eager {runs['eager']['ms_per_iter']:.4f}, cold "
+          f"{runs['cold']['ms_per_iter']:.4f}, new V "
+          f"{runs['new V']['ms_per_iter']:.4f}"
+          + (f"; the single-card warm fit {single['ms_per_iter']:.4f} "
+             f"(n_iter {single['n_iter']})" if single else "")
+          + (f"; the ranks' path agreement {agree['ms']:.3f} ms a fit (host)"
+             if agree else "")
+          + f"; the entry holds {warm['held_bytes'] / 2**20:.2f} MiB [{card}]",
+          flush=True)
 
 
 def parallel_phase(ns, card):

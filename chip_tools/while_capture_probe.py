@@ -47,7 +47,20 @@ code and whether the graphed run equals the eager one:
   ``vmap`` of the model's convolution with cuDNN on (the fit turns it off
   itself: this case turns that off), ``hoyer_vmap_conv_off`` as the fit
   runs it, and ``hoyer_conv_loop`` with cuDNN on and the problems'
-  convolutions one by one.
+  convolutions one by one;
+* NCCL in a captured graph, through the sharded fits' ``parallel.comm``
+  (``Comm.all_reduce``) on a one-rank NCCL group: ``graph_nccl_all_reduce``
+  (three all-reduces in a plain graph) and ``body_nccl_all_reduce`` (an
+  all-reduce in a WHILE node's body, three runs), each replay against the
+  eager run; and ``graph_nccl_all_reduce_cards``,
+  ``body_nccl_all_reduce_cards``: the same over one rank a card where the
+  machine has two or more (each rank prints its line), with NCCL's graph
+  mixing support off as ``parallel.distributed.initialize`` sets it, and
+  ``body_nccl_all_reduce_mixing_cards`` with it on
+  (``NCCL_GRAPH_MIXING_SUPPORT=1``).  On four H100s the last fails: the
+  capture ends in "CUDA error: invalid argument" (NCCL's mixing support
+  records event nodes, which a WHILE node's body refuses; on one rank
+  NCCL records none); the plain graph passes either way.
 
 Prints the card's name and power limit.  Needs one CUDA device.
 """
@@ -71,6 +84,56 @@ load_all()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 case, dev = sys.argv[1], torch.device("cuda")
+
+if "nccl" in case:
+    # NCCL in a captured graph: rank argv[2] of argv[3] (one card each),
+    # through the sharded fits' own Comm; a file store, no port
+    from pytorch_nmf_tpu_torch.parallel import comm, distributed, make_mesh
+
+    rank, world, store = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    distributed.initialize("file://" + store, world, rank, backend="nccl")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    c = comm.comm_for(make_mesh({"data": world}), "data")
+    x0 = torch.arange(1, 1 + 4096, dtype=torch.float32, device=dev) / 4096
+    x, acc = torch.empty_like(x0), torch.empty_like(x0)
+    n = torch.zeros((), dtype=torch.int32, device=dev)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+
+    def body():
+        x.mul_(0.5)
+        c.all_reduce(x)
+        acc.add_(x)
+        n.add_(1)
+        torch.lt(n, 3, out=flag)
+
+    def work():
+        x.copy_(x0)
+        acc.zero_()
+        n.zero_()
+        flag.fill_(True)
+        if case == "graph_nccl_all_reduce":  # no WHILE node: three bodies
+            for _ in range(3):
+                body()
+        else:
+            graphs._device_while(flag, body)
+
+    g = graphs._Graphs([work], None, dev, "cannot be captured", conditional=True)
+    comm.stats.reset()
+    g()
+    ref = acc.clone()
+    g()  # the second warm-up, synchronizing operations raising
+    g.capture()
+    calls = comm.stats.calls["all_reduce"]
+    acc.zero_()
+    g()
+    g.flush()
+    torch.cuda.synchronize()
+    print(case, "rank", rank, "of", world, "equal", torch.equal(acc, ref),
+          "runs", int(n), "all_reduce calls eager+capture", calls)
+    g.close()
+    torch.distributed.destroy_process_group()
+    sys.exit()
+
 rs = np.random.RandomState(8)
 V, W, H = (torch.from_numpy(rs.rand(*s).astype("f") + off).to(dev) for s, off in
            zip(((3, 1, 12, 60), (3, 12, 3, 5), (3, 1, 3, 56)), (0.01, 0.1, 0.1)))
@@ -235,13 +298,60 @@ CASES = ("body_bmm", "body_conv", "body_vmap_conv", "body_conv2d",
          "many_while_vmap_conv", "many_while_vmap_conv_nocudnn",
          "many_while_bmm", "body_autograd", "body_autograd_st",
          "hoyer_vmap_conv", "hoyer_vmap_conv_off", "hoyer_conv_loop")
+NCCL_CASES = ("graph_nccl_all_reduce", "body_nccl_all_reduce",
+              "graph_nccl_all_reduce_cards", "body_nccl_all_reduce_cards",
+              "body_nccl_all_reduce_mixing_cards")
+CASES += NCCL_CASES
+
+
+def nccl_ranks(case, world, env=None):
+    """Runs ``case`` as ``world`` NCCL ranks, one process a card (in
+    ``env``); returns ``(exit codes, outputs, errors)``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", CASE, case, str(r), str(world), store],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.getcwd(), env=env) for r in range(world)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=600))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate())
+    return ([p.returncode for p in procs], " | ".join(o.strip() for o, _ in outs),
+            "\n".join(e for _, e in outs))
 
 
 def main():
+    import torch
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     for case in sys.argv[1:] or CASES:
+        if case in NCCL_CASES:
+            world = 1
+            if case.endswith("_cards"):
+                world = torch.cuda.device_count()
+                if world < 2:
+                    print(f"{case}: not run: {world} card(s) [{card}]", flush=True)
+                    continue
+            # parallel.distributed.initialize turns NCCL's graph mixing
+            # support off unless the environment sets it: _mixing sets it on
+            mixing = "_mixing" in case
+            codes, out, err = nccl_ranks(
+                case.removesuffix("_cards").replace("_mixing", ""), world,
+                dict(os.environ, NCCL_GRAPH_MIXING_SUPPORT="1") if mixing
+                else None)
+            fatal = err.find("Fatal Python error")
+            tail = (err[fatal:fatal + 120] if fatal >= 0 else err[-600:]
+                    if any(codes) else "")
+            print(f"{case}: exit {codes}; {out} {tail} [{card}]", flush=True)
+            continue
         r = subprocess.run([sys.executable, "-c", CASE, case], capture_output=True,
                            text=True, timeout=600, cwd=os.getcwd())
         err = r.stderr.strip()

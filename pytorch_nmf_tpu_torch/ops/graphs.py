@@ -100,10 +100,23 @@ class _Counted:
         vars(self)[name] += n
 
 
+# counts kept in a dict that a device loop's body may move, counted on the
+# card as the wrappers' on-card counts are: ``(dict, key)``, registered by
+# their module (the collectives' calls and bytes, ``parallel.comm``)
+_REGISTERED = []
+
+
+def _count_on_card(owner: dict, key: str):
+    """Registers ``owner[key]`` as a count that counts executions."""
+    if not any(o is owner and k == key for o, k in _REGISTERED):
+        _REGISTERED.append((owner, key))
+
+
 def _kernel_counters():
     """``(owner, attribute)`` of every count that counts executions: each
-    kernel wrapper's launches, the line searches' attempts and rounds, and
-    the sparse ELL tier's reductions."""
+    kernel wrapper's launches, the line searches' attempts and rounds, the
+    sparse ELL tier's reductions, then the registered ``(dict, key)``
+    counts (:func:`_count_on_card`)."""
     from . import fused_deconv, fused_mu, projection, solver, sparse
 
     return ((fused_mu.fused_contractions, "launches"),
@@ -117,17 +130,21 @@ def _kernel_counters():
             (projection.proj_rows, "launches"),
             (solver._backtrack_project, "attempts"),
             (solver._batched_backtrack_project, "rounds"),
-            (sparse.ell_neg_grad, "reductions"))
+            (sparse.ell_neg_grad, "reductions")) + tuple(_REGISTERED)
+
+
+def _slots(owner):
+    return owner if isinstance(owner, dict) else vars(owner)
 
 
 def _read_counters():
     """The counts as they stand on the host (nothing settled)."""
-    return [vars(fn)[attr] for fn, attr in _kernel_counters()]
+    return [_slots(fn)[attr] for fn, attr in _kernel_counters()]
 
 
 def _add_counters(delta):
     for (fn, attr), d in zip(_kernel_counters(), delta):
-        vars(fn)[attr] += d
+        _slots(fn)[attr] += d
 
 
 # what the conditional bodies of finished fits' replays counted on the
@@ -244,7 +261,8 @@ class _Bodies:
         only counts that allow counting on the card."""
         if self.delta is None:
             for (fn, attr), d in zip(_kernel_counters(), delta):
-                if d and attr not in getattr(fn, "_on_card", ()):
+                if d and not isinstance(fn, dict) and \
+                        attr not in getattr(fn, "_on_card", ()):
                     raise RuntimeError(
                         f"a device loop's body moved {attr} of "
                         f"{getattr(fn, '__name__', fn)}, which counts only on "
@@ -455,6 +473,14 @@ class _Graphs:
         body = self.cond.delta if self.bodies else [0] * len(captured)
         self.deltas[k] = [d - self.bodies * b for d, b in zip(captured, body)]
         _add_counters([-d for d in captured])
+
+    def rewind(self, runs: int, k: int = 0):
+        """Own warm-ups: drops the graphs (and the loops' bodies) and sets
+        ``fns[k]``'s warm-up runs to ``runs``: with 0 or 1 the next calls
+        warm up, with 2 the next call captures.  The ranks of a sharded fit
+        take one path so (:func:`.solver._agree_path`)."""
+        self.close()
+        self.runs[k] = runs
 
     def warming(self, k: int = 0) -> bool:
         """Own warm-ups: the next call of ``fns[k]`` is one of its two

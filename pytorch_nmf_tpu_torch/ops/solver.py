@@ -37,8 +37,10 @@ dense or sparse target) replays its 10-iteration chunk a chunk at a
 time, with no stop test, its line search's attempts 2-10 a device loop
 inside the chunk; so does the batched Hoyer fit
 (:func:`get_batched_hoyer_fit`), one batched program whose problems' line
-searches share one loop.  The sharded fits of :mod:`..parallel` run the
-eager loop.
+searches share one loop.  The sharded NMF, PLCA and sparse fits of
+:mod:`..parallel` run :func:`_graphed_loop` on this cache too (over NCCL
+the all-reduces inside the captured body; the ranks agree on the loop's
+path first, :func:`_agree_path`); the halo fits run the eager loop.
 
 **The compiled fits are kept** (the JAX package's ``lru_cache``'d
 factories and ``jax.jit``'s programs per input signature): the factories
@@ -717,6 +719,20 @@ def _drive(c, n_chunks: int, report=None, status=None):
     return last
 
 
+def _agree_path(entry, graphs, agree):
+    """The ranks of a sharded fit take one path through the chunk loop, so
+    that they capture together (and a capture's collectives find their
+    peers): each rank's path is a code, 3 (replay from chunk 1: a kept
+    entry), 2 (capture before chunk 1: a configuration seen before), or the
+    warm-up runs done (0 or 1); ``agree(code)`` is the least code over the
+    ranks, and a rank ahead of it falls back to it."""
+    mine = 3 if graphs.ready() else 2 if entry.warm else graphs.runs[0]
+    code = agree(mine)
+    if code < mine:
+        graphs.rewind(min(code, 2))
+        entry.warm = code == 2
+
+
 def _graphed_loop(
     one_iter: Callable,
     loss_of: Callable,
@@ -726,6 +742,7 @@ def _graphed_loop(
     report: Optional[Callable] = None,
     extra_of: Optional[Callable] = None,
     entry: Optional[_Entry] = None,
+    agree: Optional[Callable] = None,
 ):
     """:func:`_converging_loop` as one in-place workload of
     :class:`~.graphs._Graphs` with a device loop, JAX's ``lax.while_loop``:
@@ -747,7 +764,9 @@ def _graphed_loop(
     10`` remainder runs eagerly, on a copy of the statics.  The same
     operations as :func:`_converging_loop`, so the same results bit for
     bit.  The device loop's kernel launches are handed to their counts at
-    the end of each fit (:meth:`~.graphs._Graphs.flush`)."""
+    the end of each fit (:meth:`~.graphs._Graphs.flush`).  ``agree`` (the
+    sharded fits'): the ranks agree on the path before the first chunk
+    (:func:`_agree_path`)."""
     loss_init = loss_of(state0)
     n_chunks, rem = divmod(max_iter, 10)
     state, k, conv = state0, 0, False
@@ -787,6 +806,8 @@ def _graphed_loop(
         c.status.zero_()
         c.stop.zero_()
         try:
+            if agree is not None:
+                _agree_path(entry, c.graphs, agree)
             entry.start(c.graphs)
             k, conv = _drive(c, n_chunks, report, lambda: _read(
                 c.status, lambda t: tuple(t.tolist())))

@@ -32,6 +32,16 @@ The transport is the process group's backend, named by
 :data:`stats` counts the collectives, their bytes and (while
 ``stats.timed`` is set) their milliseconds, per kind: ``all_reduce``,
 ``halo`` (the shifts) and ``gather``.  ``chip_smoke.py`` reads and resets it.
+
+A collective inside a CUDA-graph capture (the sharded fits' chunk loop,
+``ops/solver.py``) is recorded, not run: over NCCL the capture holds its
+kernel, and the all-reduce runs at every replay.  Its calls and bytes are
+counts of :mod:`..ops.graphs`, counted on the card where a replayed
+loop's body runs them (read after the fit, as the kernels' launches are);
+it is not timed.  :func:`agree_min` gives every rank of a mesh the least
+of their integers, on the host (the
+ranks of a sharded fit agree on the path of its chunk loop so, reading
+nothing on the card), through the default group's store.
 """
 
 import functools
@@ -40,37 +50,62 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["Comm", "CommStats", "stats", "comm_for"]
+from ..ops import graphs
+
+__all__ = ["Comm", "CommStats", "stats", "comm_for", "agree_min"]
 
 
 class CommStats:
     """Per kind (``all_reduce``, ``halo``, ``gather``): calls, bytes sent or
-    reduced by this rank, and milliseconds when :attr:`timed` (card collectives by
-    CUDA events, read at :meth:`summary`; host ones by the host clock)."""
+    reduced by this rank (a replayed loop's body's counted on the card, and
+    added in when :attr:`calls`, :attr:`bytes` or :meth:`summary` is
+    read), and milliseconds when :attr:`timed` (card collectives by CUDA
+    events, read at :meth:`summary`; host ones by the host clock; never
+    those a graph replays)."""
 
     KINDS = ("all_reduce", "halo", "gather")
 
     def __init__(self):
         self.timed = False
+        self._calls = dict.fromkeys(self.KINDS, 0)
+        self._bytes = dict.fromkeys(self.KINDS, 0)
+        for kind in self.KINDS:
+            graphs._count_on_card(self._calls, kind)
+            graphs._count_on_card(self._bytes, kind)
         self.reset()
 
+    @property
+    def calls(self) -> dict:
+        graphs._settle()
+        return self._calls
+
+    @property
+    def bytes(self) -> dict:
+        graphs._settle()
+        return self._bytes
+
     def reset(self):
-        self.calls = dict.fromkeys(self.KINDS, 0)
-        self.bytes = dict.fromkeys(self.KINDS, 0)
+        graphs._settle()  # what finished fits counted on the card, first
+        for counts in (self._calls, self._bytes):
+            counts.update(dict.fromkeys(self.KINDS, 0))
         self._ms = dict.fromkeys(self.KINDS, 0.0)
+        self._timed_calls = dict.fromkeys(self.KINDS, 0)
         self._events = {k: [] for k in self.KINDS}
 
     def summary(self) -> dict:
-        """``{kind: {"calls", "bytes", "ms"}}``; ``ms`` is ``None`` unless
-        timed.  Synchronizes the card when events were recorded."""
+        """``{kind: {"calls", "bytes", "ms", "timed_calls"}}``; ``ms`` (of
+        the ``timed_calls`` calls timed: none a graph replayed) is ``None``
+        unless timed.  Synchronizes the card when events were recorded."""
+        graphs._settle()
         out = {}
         for kind in self.KINDS:
             ms = self._ms[kind]
             if self._events[kind]:
                 torch.cuda.synchronize()
                 ms += sum(a.elapsed_time(b) for a, b in self._events[kind])
-            out[kind] = {"calls": self.calls[kind], "bytes": self.bytes[kind],
-                         "ms": ms if self.timed else None}
+            out[kind] = {"calls": self._calls[kind], "bytes": self._bytes[kind],
+                         "ms": ms if self.timed else None,
+                         "timed_calls": self._timed_calls[kind]}
         return out
 
 
@@ -78,16 +113,22 @@ stats = CommStats()
 
 
 class _Timer:
-    """Times one collective into :data:`stats` when it is timed."""
+    """Times one collective into :data:`stats` when it is timed and not
+    being captured, and counts it (``nbytes``)."""
 
-    def __init__(self, kind: str, on_card: bool):
-        self.kind, self.on_card = kind, on_card and stats.timed
+    def __init__(self, kind: str, on_card: bool, nbytes: int):
+        stats._calls[kind] += 1
+        stats._bytes[kind] += nbytes
+        self.timed = stats.timed and not (
+            on_card and torch.cuda.is_current_stream_capturing())
+        self.kind, self.on_card = kind, on_card and self.timed
 
     def __enter__(self):
+        stats._timed_calls[self.kind] += self.timed
         if self.on_card:
             self.start = torch.cuda.Event(enable_timing=True)
             self.start.record()
-        elif stats.timed:
+        elif self.timed:
             self.t0 = time.perf_counter()
         return self
 
@@ -96,7 +137,7 @@ class _Timer:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             stats._events[self.kind].append((self.start, end))
-        elif stats.timed:
+        elif self.timed:
             stats._ms[self.kind] += 1e3 * (time.perf_counter() - self.t0)
         return False
 
@@ -137,10 +178,8 @@ class Comm:
         tensors = [t for t in tensors if t is not None]
         if not tensors:
             return
-        stats.calls["all_reduce"] += 1
-        stats.bytes["all_reduce"] += sum(t.numel() * t.element_size()
-                                         for t in tensors)
-        with _Timer("all_reduce", self.device.type == "cuda"):
+        with _Timer("all_reduce", self.device.type == "cuda",
+                    sum(t.numel() * t.element_size() for t in tensors)):
             works = [dist.all_reduce(t, group=self.group, async_op=True)
                      for t in tensors]
             for w in works:
@@ -159,9 +198,8 @@ class Comm:
     def all_gather(self, x) -> list:
         """Every rank's ``x`` (one shape on all ranks), in rank order."""
         x = x.contiguous()
-        stats.calls["gather"] += 1
-        stats.bytes["gather"] += x.numel() * x.element_size()
-        with _Timer("gather", self.device.type == "cuda"):
+        with _Timer("gather", self.device.type == "cuda",
+                    x.numel() * x.element_size()):
             parts = [torch.empty_like(x) for _ in range(self.size)]
             dist.all_gather(parts, x, group=self.group)
             return parts
@@ -175,10 +213,9 @@ class Comm:
             return recv
         dst, src = self.rank + step, self.rank - step
         has_dst, has_src = 0 <= dst < self.size, 0 <= src < self.size
-        stats.calls["halo"] += 1
-        stats.bytes["halo"] += has_dst * x.numel() * x.element_size()
         staged = self.transport == "gloo-staged"
-        with _Timer("halo", self.device.type == "cuda" and not staged):
+        with _Timer("halo", self.device.type == "cuda" and not staged,
+                    has_dst * x.numel() * x.element_size()):
             if staged:
                 send_h, recv_h = self._host(x, 0), self._host(x, 1)
                 if has_dst:
@@ -219,3 +256,28 @@ def comm_for(mesh, axis: str) -> Comm:
     """The :class:`Comm` of ``mesh``'s dimension ``axis`` (one per pair, so
     its pinned buffers serve every call)."""
     return Comm(mesh, axis)
+
+
+_AGREED = {}  # mesh ranks -> the agreements made, the same on each rank
+
+
+def agree_min(mesh, value: int) -> int:
+    """The least of the ranks' ``value`` over every rank of ``mesh``, on
+    the host: each rank sets its value under a key of the agreement's own
+    in the default group's store and reads the others' (no collective, no
+    new process group; nothing on a mesh of one rank).  Every rank of the
+    mesh calls it, as often as the others."""
+    ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+    if len(ranks) == 1:
+        return int(value)
+    store = dist.distributed_c10d._get_default_store()
+    group = "_".join(map(str, ranks))
+    seq = _AGREED[group] = _AGREED.get(group, -1) + 1
+    keys = [f"pnt_agree/{group}/{seq}/{r}" for r in ranks]
+    me = dist.get_rank()
+    store.set(keys[ranks.index(me)], str(int(value)))
+    store.wait(keys)
+    out = min(int(store.get(k)) for k in keys)
+    if seq:  # every rank has read the last agreement's keys: drop its own
+        store.delete_key(f"pnt_agree/{group}/{seq - 1}/{me}")
+    return out

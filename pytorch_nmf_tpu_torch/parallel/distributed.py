@@ -8,6 +8,11 @@
   ``cuda:{r % torch.cuda.device_count()}``.
 * :func:`global_mesh` builds a mesh over every rank of the world.
 
+On NCCL :func:`initialize` sets ``NCCL_GRAPH_MIXING_SUPPORT=0`` unless the
+environment sets it (the compiled sharded fits capture their all-reduces
+inside a CUDA-graph WHILE node, which NCCL's mixing support breaks across
+ranks; :mod:`.sharded`).
+
 Typical use, one process per card (``torchrun --nproc-per-node 4``)::
 
     from pytorch_nmf_tpu_torch.parallel import distributed, sharded_nmf_fit
@@ -64,6 +69,15 @@ def initialize(coordinator_address: Optional[str] = None,
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if not dist.is_backend_available(backend):
         raise ValueError(f"backend {backend!r} is not available here")
+    if backend == "nccl":
+        # NCCL reads it once, at its first communicator: with its default
+        # (1) a captured multi-rank collective records event nodes, which
+        # a CUDA-graph WHILE node's body refuses, so the compiled sharded
+        # fits' loop (sharded._compiles) needs 0.  Without mixing support a
+        # graph's NCCL launches must be done before a non-captured NCCL
+        # call on the communicator; each fit reads its chunk count on the
+        # host after its replay, which waits for them.
+        os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     if torch.cuda.is_available():
         torch.cuda.set_device(rank % torch.cuda.device_count())
     kwargs = {}

@@ -73,7 +73,7 @@ import torch.nn.functional as F
 
 from ..constants import eps
 from ..metrics import beta_div, kl_div
-from ..models._common import host_tensor, target_dtype
+from ..models._common import target_dtype
 from ..ops import autotune, fused_deconv
 from ..ops.budget import budget_bytes
 from ..ops.fast_nmfd import (_DEFAULT_UNFOLD_MAX_BYTES, _UNFOLD_HBM_FRACTION,
@@ -86,8 +86,8 @@ from ..ops.recon import matmul, scaled_kernel
 from ..ops.solver import (_converging_loop, _plca_e_step, _plca_m_step,
                           _plca_marginal_sum, alpha_is_active)
 from .comm import comm_for
-from .sharded import (_alpha, _mu_step, _reporter, as_dtensor, mesh_device,
-                      placements)
+from .sharded import (_alpha, _mu_step, _reporter, as_dtensor, full_array,
+                      mesh_device, placements)
 
 __all__ = [
     "left_halo",
@@ -575,10 +575,12 @@ def _resolve_halo_mode(mode, em, N, C, lead_in, chunk, kernel, R, beta,
 def _halo_split(V, W, H, mesh, spatial_ndim, seq_axis):
     """Checks the shapes, pads and splits the trailing axis: ``(comm, dev,
     Vl, W, Hl, chunk, L_in, pad_v)`` with this rank's chunks of the padded
-    ``V`` and ``H`` (and ``W``) on the mesh's device."""
-    V = _full(V)
-    W = _full(W)
-    H = _full(H)
+    ``V`` and ``H`` (and ``W``) on the mesh's device.  A DTensor input (a
+    fit's own output) is gathered whole first: the halo chunks are laid out
+    otherwise than DTensor's split."""
+    V = full_array(V)
+    W = full_array(W)
+    H = full_array(H)
     T = W.shape[-1]
     L_out, L_in = V.shape[-1], H.shape[-1]
     if V.ndim != spatial_ndim + 2 or H.ndim != V.ndim or W.ndim != V.ndim:
@@ -605,10 +607,6 @@ def _halo_split(V, W, H, mesh, spatial_ndim, seq_axis):
     return (comm, dev, piece(V, L_out, target_dtype(V.dtype, torch.float32)),
             W.to(device=dev, dtype=torch.float32), piece(H, L_in), chunk,
             L_in, chunk * n - L_out)
-
-
-def _full(x):
-    return host_tensor(x).detach()
 
 
 def _h_out(hp, comm, mesh, seq_axis, L_in, shape):
@@ -720,7 +718,7 @@ def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol=1e-4,
     h_shape = tuple(H.shape)
     comm, dev, Vl, W, hp, chunk, L_in, _ = _halo_split(
         V, W, H, mesh, spatial_ndim, seq_axis)
-    Z = _full(Z).to(device=dev, dtype=torch.float32)
+    Z = full_array(Z).to(device=dev, dtype=torch.float32)
     W_alpha, H_alpha, Z_alpha = (_alpha(a, dev)
                                  for a in (W_alpha, H_alpha, Z_alpha))
     nd = spatial_ndim

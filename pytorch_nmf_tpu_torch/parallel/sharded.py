@@ -24,10 +24,23 @@ loss, so all leave the loop at the same chunk.  The factors come in as
 full arrays (the same on every rank, e.g. made from one seed) or as
 :class:`~torch.distributed.tensor.DTensor`\ s, and go out as ``DTensor``\ s
 (:func:`shard_target`); inside the loop they are plain local tensors and
-the collectives explicit (:mod:`.comm`).
+the collectives explicit (:mod:`.comm`).  A DTensor's local tensor is this
+rank's block as it is.
+
+The fits are compiled once per configuration, as the JAX package jits its
+``shard_map`` fits (:func:`_run_fit`): their chunk loop runs on the fits'
+cache of ``ops/solver.py`` (``_graphed_loop``), over NCCL as one CUDA-graph
+WHILE node whose body holds the chunk's all-reduces (across ranks with
+NCCL's graph mixing support off, :func:`_compiles`), on a ``"cpu"`` mesh
+eagerly as every CPU fit runs it; over ``"gloo-staged"`` the eager loop.
+The ranks agree on the loop's path before its first chunk
+(``solver._agree_path``), so that they capture together.
 """
 
 import contextlib
+import functools
+import os
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -41,9 +54,10 @@ from ..ops import fused_mu
 from ..ops.fast_nmf import _blocked_loss
 from ..ops.mu import gamma_from_beta, mu_multiplier
 from ..ops.recon import matmul, target_mm, target_tmm
-from ..ops.solver import (_converging_loop, _plca_e_step, _plca_m_step,
+from ..ops.solver import (_CACHE, _converging_loop, _graphed_loop, _keep,
+                          _load, _plca_e_step, _plca_m_step,
                           _plca_marginal_sum, _progress, alpha_is_active)
-from .comm import comm_for
+from .comm import agree_min, comm_for
 
 __all__ = ["shard_target", "sharded_nmf_fit", "sharded_plca_fit"]
 
@@ -83,24 +97,52 @@ def local_block(x, mesh, pls, device=None, target=False):
     """This rank's block of ``x`` on ``device`` (the mesh's by default), in
     float32 or, for a ``target``, in the dtype a fit holds it in (a
     bfloat16 target stays bfloat16; ``models._common.target_dtype``): ``x``
-    is a full array (numpy or tensor, the same on every rank), or a
-    ``DTensor`` with placements ``pls``, whose local tensor is taken.  A
-    2-D target block copied to the card gets 16-byte aligned rows
-    (``fused_mu.aligned_copy``), as B1/B2 read them."""
-    device = mesh_device(mesh) if device is None else device
+    is a full array (numpy or tensor, the same on every rank), cut to this
+    rank's block, or a ``DTensor`` with placements ``pls``, whose local
+    tensor is this rank's block as it is (not cut again: C9).  A 2-D target
+    on a card has 16-byte aligned rows, as B1/B2 read them: kept where it
+    has them, a copy where not (``fused_mu.aligned_copy``)."""
+    device = torch.device(mesh_device(mesh) if device is None else device)
     if isinstance(x, DTensor):
         if x.device_mesh != mesh or list(x.placements) != list(pls):
             raise ValueError(f"DTensor placed {x.placements} on "
                              f"{x.device_mesh}; the fit takes {pls} on {mesh}")
-        x = x.to_local()
+        with torch.no_grad():  # the local tensor itself, not a view of it
+            x = x.to_local()
     else:
-        x = host_tensor(x).detach()
-    x = _block(x, mesh, pls)
+        x = _block(host_tensor(x).detach(), mesh, pls)
     dtype = target_dtype(x.dtype, torch.float32) if target else torch.float32
-    if target and x.ndim == 2 and torch.device(device).type == "cuda" and \
-            x.device != torch.device(device):
-        return fused_mu.aligned_copy(x, device, dtype)
+    if target and x.ndim == 2 and device.type == "cuda":
+        if x.device != device or x.dtype != dtype:
+            return fused_mu.aligned_copy(x, device, dtype)
+        return fused_mu.aligned_rows(x)
     return x.to(device=device, dtype=dtype).contiguous()
+
+
+def full_array(x):
+    """``x`` whole on this rank: a ``DTensor`` gathered from its ranks'
+    blocks (one :meth:`~.comm.Comm.all_gather` a sharded mesh dimension;
+    every rank calls it), anything else as a tensor
+    (``models._common.host_tensor``)."""
+    if not isinstance(x, DTensor):
+        return host_tensor(x).detach()
+    mesh = x.device_mesh
+    with torch.no_grad():
+        out = x.to_local()
+    dims = [p.dim for p in x.placements if isinstance(p, Shard)]
+    if len(set(dims)) != len(dims) or not all(
+            isinstance(p, (Shard, Replicate)) for p in x.placements):
+        raise ValueError(f"a DTensor placed {x.placements}: the fits take "
+                         "each dimension sharded over one mesh dimension")
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            comm = comm_for(mesh, mesh.mesh_dim_names[i])
+            n = x.shape[p.dim]
+            pad = list(out.shape)
+            pad[p.dim] = -(-n // comm.size) - out.shape[p.dim]
+            out = torch.cat([out, out.new_zeros(pad)], dim=p.dim)
+            out = torch.cat(comm.all_gather(out), dim=p.dim).narrow(p.dim, 0, n)
+    return out.detach()
 
 
 def as_dtensor(local, mesh, pls, shape) -> DTensor:
@@ -148,19 +190,133 @@ def _mu_step(p, neg_raw, pos, gamma, l1_reg, l2_reg):
                              l1_reg, l2_reg)
 
 
+def _compiles(comms) -> bool:
+    """Whether a sharded fit's chunk loop runs on the fits' cache (the
+    choice is made up front, from the transports): over gloo on the CPU
+    (the same workload, run eagerly) and over NCCL, captured on the card,
+    where a WHILE node's body can hold the all-reduces: on one rank, or
+    with NCCL's graph mixing support off (``NCCL_GRAPH_MIXING_SUPPORT=0``,
+    which :func:`.distributed.initialize` sets; with it on, NCCL records
+    event nodes that a body refuses: ``chip_tools/while_capture_probe.py``
+    ``body_nccl_all_reduce_mixing_cards``).  Not over ``"gloo-staged"``,
+    whose collectives synchronize the host inside each call, which no
+    graph holds."""
+    mixing = os.environ.get("NCCL_GRAPH_MIXING_SUPPORT", "1") != "0"
+    return all(c.transport == "gloo" or (
+        c.transport == "nccl" and (c.size == 1 or not mixing))
+        for c in comms if c is not None)
+
+
+def _run_fit(mesh, comms, chunk, targets, args, state0, fns_of, tol,
+             max_iter, graph, report=None):
+    """The chunk loop of a sharded fit: ``(state, k, converged)``.
+    ``fns_of(entry)`` derives what the fit reads from the target into the
+    entry (at every fit) and makes its closures (``one_iter``, ``loss_of``,
+    ``extra_of``; once an entry).  Where :func:`_compiles`, on the fits'
+    cache (``ops/solver.py``; ``chunk`` and ``args`` key it, ``targets``
+    identify it) through ``_graphed_loop``, the ranks agreeing on its path
+    first (:func:`.comm.agree_min`); otherwise, or with ``graph`` false
+    (the eager twin), ``_converging_loop``.  No retry out of memory: the
+    other ranks would not retry with it."""
+    cached = graph and _compiles(comms)
+    with _CACHE.use(chunk, targets, args, cached) as e:
+        f = fns_of(e)
+        if not cached:
+            return _converging_loop(f.one_iter, f.loss_of, state0, tol,
+                                    max_iter, report, f.extra_of)
+        return _graphed_loop(f.one_iter, f.loss_of, state0, tol, max_iter,
+                             report, f.extra_of, entry=e,
+                             agree=functools.partial(agree_min, mesh))
+
+
+def _nmf_fns(e, beta, gamma, l1_reg, l2_reg, data, model, epilogue_H,
+             need_pos):
+    """The sharded MU fit's closures on the entry's target ``e.V``."""
+    def reduce_model(*xs):
+        if model is not None:
+            model.all_reduce(*xs)
+
+    def upd_W(w, h):
+        V = e.V
+        if beta == 2:  # Gram: (Vᵀ h, w (hᵀh)), both summed over the rows
+            neg, G = target_tmm(V, h), h.T @ h
+            data.all_reduce(neg, G)
+            return _mu_step(w, neg, torch.relu(w @ G) + eps, gamma, l1_reg,
+                            l2_reg)
+        neg, pos = fused_mu.w_side_contractions(V, h, w, beta, need_pos)
+        if beta == 1:
+            pos = torch.sum(h, dim=0, keepdim=True)
+        data.all_reduce(neg, pos)
+        pos = pos if beta == 1 else torch.relu(pos) + eps
+        return _mu_step(w, neg, pos, gamma, l1_reg, l2_reg)
+
+    def upd_H(w, h):
+        V = e.V
+        if beta == 2:  # Gram: (V w, h (wᵀw)), summed over the columns
+            neg, G = target_mm(V, w), w.T @ w
+            reduce_model(neg, G)
+            return _mu_step(h, neg, torch.relu(h @ G) + eps, gamma, l1_reg,
+                            l2_reg)
+        if epilogue_H:
+            out, _ = fused_mu.fused_contractions(
+                V, h, w, beta=1.0, need_pos=False, w_side=False,
+                mu_pos=torch.sum(w, dim=0, keepdim=True))
+            return out
+        neg, pos = fused_mu.h_side_contractions(V, h, w, beta, need_pos)
+        if beta == 1:
+            pos = torch.sum(w, dim=0, keepdim=True)
+        reduce_model(neg, pos)
+        pos = pos if beta == 1 else torch.relu(pos) + eps
+        return _mu_step(h, neg, pos, gamma, l1_reg, l2_reg)
+
+    def loss_of(state):
+        w, h = state
+        if need_pos:
+            part = fused_mu.fused_beta_loss(e.V, h, w, beta)
+        else:  # the dense fit's, over row blocks of the local V
+            part = _blocked_loss(beta)(e.V, w, h)
+        part = part.reshape(1).clone()
+        data.all_reduce(part)
+        reduce_model(part)
+        return torch.sqrt(2.0 * part[0])
+
+    def one_iter(state):
+        w, h = state
+        w = upd_W(w, h)
+        return w, upd_H(w, h)
+
+    return SimpleNamespace(one_iter=one_iter, loss_of=loss_of, extra_of=None)
+
+
 def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
                     max_iter: int = 200, l1_reg: float = 0.0,
                     l2_reg: float = 0.0, data_axis: str = "data",
-                    model_axis: Optional[str] = None, use_pallas=None):
+                    model_axis: Optional[str] = None, use_pallas=None,
+                    _graph: bool = True):
     """Fit ``V ≈ H Wᵀ`` on ``mesh`` with explicit collectives.
 
     ``V (M, K)`` is sharded over ``data_axis`` (rows) and ``model_axis``
     (columns, when given), ``H (M, R)`` over ``data_axis``, ``W (K, R)``
     over ``model_axis`` (replicated without one).  Every rank calls it with
-    the full arrays or with DTensors so placed.  Returns ``(W, H,
-    n_iter)``: ``W`` and ``H`` DTensors with those placements, ``n_iter``
-    an int (``10·k`` when chunk ``k`` converged, else ``max_iter``), the
-    same on every rank.
+    the full arrays or with DTensors so placed (the fit's own outputs, or
+    :func:`shard_target`'s).  Returns ``(W, H, n_iter)``: ``W`` and ``H``
+    DTensors with those placements, ``n_iter`` an int (``10·k`` when chunk
+    ``k`` converged, else ``max_iter``), the same on every rank.
+
+    Compiled once per configuration, as the JAX package jits its
+    ``shard_map`` fit: over NCCL (across ranks with
+    ``NCCL_GRAPH_MIXING_SUPPORT=0``, as :func:`.distributed.initialize`
+    sets it) the chunk loop is one CUDA-graph WHILE node with the
+    all-reduces captured, kept on the fits' cache
+    (``ops/solver.py``) per configuration and target block; a fit on a
+    ``shard_target`` DTensor made once replays it (one replay and one host
+    read a rank), while full arrays make a new local block, a new target,
+    each call (one capture).  On a ``"cpu"`` mesh (gloo) the same workload
+    runs eagerly; over ``"gloo-staged"`` (ranks sharing a card) the eager
+    loop runs, as does ``_graph=False`` (private: the eager twin of the
+    checks).  Call ``ops.solver.compiled_cache_clear()`` on every rank
+    before ``torch.distributed.destroy_process_group``: an entry holds
+    captured NCCL kernels of its group.
 
     ``use_pallas`` is the JAX package's switch, kept for its signature:
     the wrappers of B1/B2 choose by device (the kernels on a card tensor,
@@ -186,66 +342,23 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
                          "V ~ H Wᵀ: the sharded axes must divide evenly")
     data = comm_for(mesh, data_axis)
     model = comm_for(mesh, model_axis) if model_axis else None
-    if beta != 2:
-        Vl = fused_mu.aligned_rows(Vl)
     # B1's β=1 epilogue only where the numerator stays local
     epilogue_H = (beta == 1 and gamma == 1 and l1_reg == 0
                   and l2_reg == 0 and model is None)
 
-    def reduce_model(*xs):
-        if model is not None:
-            model.all_reduce(*xs)
+    def fns_of(e):
+        if e.fns is None:
+            e.fns = _nmf_fns(e, beta, gamma, l1_reg, l2_reg, data, model,
+                             epilogue_H, need_pos)
+        return e.fns
 
-    def upd_W(w, h):
-        if beta == 2:  # Gram: (Vᵀ h, w (hᵀh)), both summed over the rows
-            neg, G = target_tmm(Vl, h), h.T @ h
-            data.all_reduce(neg, G)
-            return _mu_step(w, neg, torch.relu(w @ G) + eps, gamma, l1_reg,
-                            l2_reg)
-        neg, pos = fused_mu.w_side_contractions(Vl, h, w, beta, need_pos)
-        if beta == 1:
-            pos = torch.sum(h, dim=0, keepdim=True)
-        data.all_reduce(neg, pos)
-        pos = pos if beta == 1 else torch.relu(pos) + eps
-        return _mu_step(w, neg, pos, gamma, l1_reg, l2_reg)
-
-    def upd_H(w, h):
-        if beta == 2:  # Gram: (V w, h (wᵀw)), summed over the columns
-            neg, G = target_mm(Vl, w), w.T @ w
-            reduce_model(neg, G)
-            return _mu_step(h, neg, torch.relu(h @ G) + eps, gamma, l1_reg,
-                            l2_reg)
-        if epilogue_H:
-            out, _ = fused_mu.fused_contractions(
-                Vl, h, w, beta=1.0, need_pos=False, w_side=False,
-                mu_pos=torch.sum(w, dim=0, keepdim=True))
-            return out
-        neg, pos = fused_mu.h_side_contractions(Vl, h, w, beta, need_pos)
-        if beta == 1:
-            pos = torch.sum(w, dim=0, keepdim=True)
-        reduce_model(neg, pos)
-        pos = pos if beta == 1 else torch.relu(pos) + eps
-        return _mu_step(h, neg, pos, gamma, l1_reg, l2_reg)
-
-    def loss_of(state):
-        w, h = state
-        if need_pos:
-            part = fused_mu.fused_beta_loss(Vl, h, w, beta)
-        else:  # the dense fit's, over row blocks of the local V
-            part = _blocked_loss(beta)(Vl, w, h)
-        part = part.reshape(1).clone()
-        data.all_reduce(part)
-        reduce_model(part)
-        return torch.sqrt(2.0 * part[0])
-
-    def one_iter(state):
-        w, h = state
-        w = upd_W(w, h)
-        return w, upd_H(w, h)
-
+    # what the chunk reads: every argument but max_iter (the groups through
+    # their Comm); the blocks' signatures join the key in the cache
+    chunk = ("sharded_nmf", beta, tol, l1_reg, l2_reg, data, model)
     with torch.no_grad():
-        (Wl, Hl), k, conv = _converging_loop(one_iter, loss_of, (Wl, Hl), tol,
-                                             max_iter)
+        (Wl, Hl), k, conv = _run_fit(mesh, (data, model), chunk, (Vl,),
+                                     (Vl, Wl, Hl), (Wl, Hl), fns_of, tol,
+                                     max_iter, _graph)
     return (as_dtensor(Wl, mesh, w_pl, shapes["W"]),
             as_dtensor(Hl, mesh, h_pl, shapes["H"]),
             k * 10 if conv else max_iter)
@@ -256,35 +369,11 @@ def _alpha(a, device):
                            else a, dtype=torch.float32, device=device)
 
 
-def sharded_plca_fit(V, W, H, Z, mesh, tol: float = 1e-4, max_iter: int = 200,
-                     W_alpha=1.0, H_alpha=1.0, Z_alpha=1.0,
-                     update_W: bool = True, update_H: bool = True,
-                     update_Z: bool = True, data_axis: str = "data",
-                     verbose: bool = False):
-    """EM-fit plain PLCA with the samples (rows of ``V (M, K)`` and ``H (M,
-    R)``) sharded over ``data_axis``; ``W (K, R)`` and ``Z (R,)`` are
-    replicated.  The inputs must be probability-normalized, as the
-    :class:`~..plca.PLCA` constructor leaves them.
-
-    Per iteration one E-step (the backward pass of the local
-    reconstruction), whose W and Z gradients are all-reduced, then the
-    M-step, whose H marginal is all-reduced; ``norm`` (``V``'s sum) is
-    all-reduced once.  Returns ``(W, H, Z, n_iter, norm)``: DTensors (``H``
-    sharded, ``W``/``Z`` replicated), the reference's raw loop index
-    (``10·k - 1`` when chunk ``k`` converged, else ``max_iter - 1``) and a
-    float.  ``verbose`` reports the cadence loss and log-probability from
-    rank 0."""
-    tol, max_iter = float(tol), int(max_iter)
-    Wa, Ha, Za = (alpha_is_active(a) for a in (W_alpha, H_alpha, Z_alpha))
-    rows, rep = placements(mesh, {0: data_axis}), placements(mesh, {})
-    shapes = (tuple(W.shape), tuple(H.shape), tuple(Z.shape))
-    Vl = local_block(V, mesh, rows, target=True)
-    Hl = local_block(H, mesh, rows)
-    Wl, Zl = local_block(W, mesh, rep), local_block(Z, mesh, rep)
-    dev = Vl.device
-    W_alpha, H_alpha, Z_alpha = (_alpha(a, dev)
-                                 for a in (W_alpha, H_alpha, Z_alpha))
-    data = comm_for(mesh, data_axis)
+def _plca_fns(e, data, update_W, update_H, update_Z, Wa, Ha, Za):
+    """The sharded EM fit's closures on the entry's ``Vn``, ``norm`` and
+    priors (``e.derived``)."""
+    d = e.derived
+    norm, Vn, (W_alpha, H_alpha, Z_alpha) = d["norm"], d["Vn"], d["alphas"]
 
     def summed(x):
         x = x.reshape(-1).clone() if x.ndim == 0 else x.clone()
@@ -297,41 +386,94 @@ def sharded_plca_fit(V, W, H, Z, mesh, tol: float = 1e-4, max_iter: int = 200,
     def h_marginal(h):
         return summed(_plca_marginal_sum(h))
 
-    with torch.no_grad():
+    def loss_of(state):
+        w, h, z = state
+        part = kl_div(recon3(h, w, z) * norm, Vn * norm)
+        return torch.sqrt(2.0 * summed(part)[0])
+
+    def log_probability(state):
+        w, h, z = state
+        WZH = recon3(h, w, z)
+        lp = summed(matmul(Vn.reshape(-1),
+                           torch.log(WZH + eps).reshape(-1)))[0]
+        lp = lp + torch.sum(torch.log(w + eps) * (W_alpha - 1.0))
+        lp = lp + summed(torch.sum(torch.log(h + eps) * (H_alpha - 1.0)))[0]
+        return lp + torch.sum(torch.log(z + eps) * (Z_alpha - 1.0))
+
+    def one_iter(state):
+        w, h, z = state
+        gH, gW, gZ = _plca_e_step(recon3, Vn, w, h, z)
+        data.all_reduce(gW if update_W else None, gZ if update_Z else None)
+        return _plca_m_step(update_W, update_H, update_Z, Wa, Ha, Za, w, h, z,
+                            gH, gW, gZ, W_alpha, H_alpha, Z_alpha,
+                            h_marginal=h_marginal)
+
+    return SimpleNamespace(one_iter=one_iter, loss_of=loss_of,
+                           extra_of=log_probability)
+
+
+def sharded_plca_fit(V, W, H, Z, mesh, tol: float = 1e-4, max_iter: int = 200,
+                     W_alpha=1.0, H_alpha=1.0, Z_alpha=1.0,
+                     update_W: bool = True, update_H: bool = True,
+                     update_Z: bool = True, data_axis: str = "data",
+                     verbose: bool = False, _graph: bool = True):
+    """EM-fit plain PLCA with the samples (rows of ``V (M, K)`` and ``H (M,
+    R)``) sharded over ``data_axis``; ``W (K, R)`` and ``Z (R,)`` are
+    replicated.  The inputs (full arrays or DTensors so placed) must be
+    probability-normalized, as the :class:`~..plca.PLCA` constructor
+    leaves them.
+
+    Per iteration one E-step (the backward pass of the local
+    reconstruction), whose W and Z gradients are all-reduced, then the
+    M-step, whose H marginal is all-reduced; ``norm`` (``V``'s sum) is
+    all-reduced once a fit.  Returns ``(W, H, Z, n_iter, norm)``: DTensors
+    (``H`` sharded, ``W``/``Z`` replicated), the reference's raw loop index
+    (``10·k - 1`` when chunk ``k`` converged, else ``max_iter - 1``) and a
+    float.  ``verbose`` reports the cadence loss and log-probability from
+    rank 0 (every rank computes them: one chunk a call, each rank reading
+    them).  Compiled as :func:`sharded_nmf_fit` is (``_graph`` likewise);
+    an entry keeps ``norm``, ``Vn`` and the priors, recomputed from the
+    target's block and copied in at every fit."""
+    tol, max_iter = float(tol), int(max_iter)
+    Wa, Ha, Za = (alpha_is_active(a) for a in (W_alpha, H_alpha, Z_alpha))
+    rows, rep = placements(mesh, {0: data_axis}), placements(mesh, {})
+    shapes = (tuple(W.shape), tuple(H.shape), tuple(Z.shape))
+    Vl = local_block(V, mesh, rows, target=True)
+    Hl = local_block(H, mesh, rows)
+    Wl, Zl = local_block(W, mesh, rep), local_block(Z, mesh, rep)
+    dev = Vl.device
+    alphas = tuple(_alpha(a, dev) for a in (W_alpha, H_alpha, Z_alpha))
+    data = comm_for(mesh, data_axis)
+
+    got = {}
+
+    def fns_of(e):
+        d, V = e.derived, e.V
         # the sum in float32 over the ranks (every collective carries
         # float32), then in V's dtype, as the single-card fit's V.sum()
-        norm = summed(Vl.sum(dtype=torch.float32))[0].to(Vl.dtype)
-        Vn = Vl / norm
+        part = V.sum(dtype=torch.float32).reshape(1)
+        data.all_reduce(part)
+        _keep(d, "norm", part[0].to(V.dtype))
+        if "Vn" in d:
+            torch.div(V, d["norm"], out=d["Vn"])
+            _load(d["alphas"], alphas)
+        else:
+            d["Vn"] = V / d["norm"]
+            d["alphas"] = tuple(a.clone() for a in alphas)
+        if e.fns is None:
+            e.fns = _plca_fns(e, data, update_W, update_H, update_Z, Wa, Ha,
+                              Za)
+        got["norm"] = d["norm"]
+        return e.fns
 
-        def loss_of(state):
-            w, h, z = state
-            part = kl_div(recon3(h, w, z) * norm, Vn * norm)
-            return torch.sqrt(2.0 * summed(part)[0])
-
-        def log_probability(state):
-            w, h, z = state
-            WZH = recon3(h, w, z)
-            lp = summed(matmul(Vn.reshape(-1),
-                               torch.log(WZH + eps).reshape(-1)))[0]
-            lp = lp + torch.sum(torch.log(w + eps) * (W_alpha - 1.0))
-            lp = lp + summed(torch.sum(torch.log(h + eps)
-                                       * (H_alpha - 1.0)))[0]
-            return lp + torch.sum(torch.log(z + eps) * (Z_alpha - 1.0))
-
-        def one_iter(state):
-            w, h, z = state
-            gH, gW, gZ = _plca_e_step(recon3, Vn, w, h, z)
-            data.all_reduce(gW if update_W else None,
-                            gZ if update_Z else None)
-            return _plca_m_step(update_W, update_H, update_Z, Wa, Ha, Za, w,
-                                h, z, gH, gW, gZ, W_alpha, H_alpha, Z_alpha,
-                                h_marginal=h_marginal)
-
-        with _reporter(mesh, verbose, max_iter) as report:
-            (Wl, Hl, Zl), k, conv = _converging_loop(
-                one_iter, loss_of, (Wl, Hl, Zl), tol, max_iter, report,
-                extra_of=log_probability)
+    # a reporting chunk also computes the log-probability
+    chunk = ("sharded_plca", tol, update_W, update_H, update_Z, Wa, Ha, Za,
+             bool(verbose), data)
+    with torch.no_grad(), _reporter(mesh, verbose, max_iter) as report:
+        (Wl, Hl, Zl), k, conv = _run_fit(
+            mesh, (data,), chunk, (Vl,), (Vl, Wl, Hl, Zl) + alphas,
+            (Wl, Hl, Zl), fns_of, tol, max_iter, _graph, report)
     return (as_dtensor(Wl, mesh, rep, shapes[0]),
             as_dtensor(Hl, mesh, rows, shapes[1]),
             as_dtensor(Zl, mesh, rep, shapes[2]),
-            k * 10 - 1 if conv else max_iter - 1, float(norm))
+            k * 10 - 1 if conv else max_iter - 1, float(got["norm"]))

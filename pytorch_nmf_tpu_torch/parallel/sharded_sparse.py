@@ -18,8 +18,11 @@ rows (column ids global, W being replicated) and a column side over all
   ranks' scalars, all-reduced once.
 
 No kernel runs here: the ELL reductions are plain PyTorch, as the JAX
-package leaves them to XLA.
+package leaves them to XLA.  The fit is compiled as the dense sharded fit
+is (:func:`.sharded._run_fit`).
 """
+
+from types import SimpleNamespace
 
 import torch
 
@@ -27,10 +30,10 @@ from ..constants import eps
 from ..ops import sparse as _sparse
 from ..ops.budget import budget_bytes
 from ..ops.mu import gamma_from_beta
-from ..ops.solver import _converging_loop
+from ..ops.solver import _keep
 from .comm import comm_for
-from .sharded import (_mu_step, as_dtensor, local_block, mesh_device,
-                      placements)
+from .sharded import (_mu_step, _run_fit, as_dtensor, local_block,
+                      mesh_device, placements)
 
 __all__ = ["sharded_sparse_nmf_fit"]
 
@@ -83,35 +86,29 @@ def _build_sharded_ell(V, n_dev: int, rank: int, device):
             M_loc)
 
 
-def sharded_sparse_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
-                           max_iter: int = 200, l1_reg: float = 0.0,
-                           l2_reg: float = 0.0, data_axis: str = "data"):
-    """Fit ``V ≈ H Wᵀ`` against the sparse ``V (M, K)`` (a
-    ``torch.sparse_coo_tensor``, the same on every rank) with its rows
-    sharded over ``data_axis``.  ``W (K, R)`` is replicated, ``H (M, R)``
-    (full) is split by row block; rows are zero-padded to divide evenly
-    (padded rows are MU fixed points and are left out of the loss).
-    Returns ``(W, H, n_iter)``: DTensors (``H`` row-sharded, the last
-    blocks shorter) and an int, matching the single-card ELL fit to float32
-    summation order.  β must be positive (zeros in ``V`` are implicit)."""
-    if V.ndim != 2:
-        raise ValueError("sharded sparse fit expects a 2-D sparse target")
-    beta, tol, max_iter = float(beta), float(tol), int(max_iter)
-    l1_reg, l2_reg = float(l1_reg), float(l2_reg)
-    gamma = gamma_from_beta(beta)
-    M, K = V.shape
-    data = comm_for(mesh, data_axis)
-    dev = mesh_device(mesh)
-    V = V.detach().to("cpu").coalesce()
-    (row_idx, row_val, row_rem, col_idx, col_val, col_rem, n_real,
-     M_loc) = _build_sharded_ell(V, data.size, data.rank, dev)
-    V_norm = _sparse.get_V_norm(V.to(torch.float32), beta).to(dev)
-    rows, rep = placements(mesh, {0: data_axis}), placements(mesh, {})
-    shapes = (tuple(W.shape), tuple(H.shape))
-    w = local_block(W, mesh, rep)
-    h_real = local_block(H, mesh, rows)
-    h = torch.zeros((M_loc, h_real.shape[1]), dtype=torch.float32, device=dev)
-    h[:n_real] = h_real
+def _keep_layout(d, arrays):
+    """The rank's dual-ELL layout into the entry's arrays: kept at the
+    first fit, copied into at every later one (C8's rule: a write the
+    target's version counter misses changes no key).  The layout of one
+    target keeps its shapes; a pattern changed in place raises."""
+    if "ell" not in d:
+        d["ell"] = arrays
+        return
+    if [t.shape for t in d["ell"]] != [t.shape for t in arrays]:
+        raise ValueError("the sparse target's pattern changed in place "
+                         "(through .data or numpy): pass a new tensor")
+    for dst, x in zip(d["ell"], arrays):
+        dst.copy_(x)
+
+
+def _sparse_fns(e, beta, gamma, l1_reg, l2_reg, data, n_real):
+    """The sharded sparse fit's closures on the entry's layout and
+    ``V_norm`` (``e.derived``)."""
+    d = e.derived
+    (row_idx, row_val, *rest) = d["ell"]
+    row_rem, (col_idx, col_val), col_rem = tuple(rest[:3]), rest[3:5], \
+        tuple(rest[5:])
+    V_norm = d["V_norm"]
 
     def neg_grad(idx, val, rem, self_f, other_f):
         g = _sparse.ell_neg_grad(idx, val, self_f, other_f, beta)
@@ -153,9 +150,60 @@ def sharded_sparse_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
                + eps)
         return w, _mu_step(h, neg, pos, gamma, l1_reg, l2_reg)
 
+    return SimpleNamespace(one_iter=one_iter, loss_of=loss_of, extra_of=None)
+
+
+def sharded_sparse_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
+                           max_iter: int = 200, l1_reg: float = 0.0,
+                           l2_reg: float = 0.0, data_axis: str = "data",
+                           _graph: bool = True):
+    """Fit ``V ≈ H Wᵀ`` against the sparse ``V (M, K)`` (a
+    ``torch.sparse_coo_tensor``, the same on every rank) with its rows
+    sharded over ``data_axis``.  ``W (K, R)`` is replicated, ``H (M, R)``
+    (full, or a DTensor so placed: the fit's own output) is split by row
+    block; rows are zero-padded to divide evenly (padded rows are MU fixed
+    points and are left out of the loss).  Returns ``(W, H, n_iter)``:
+    DTensors (``H`` row-sharded, the last blocks shorter) and an int,
+    matching the single-card ELL fit to float32 summation order.  β must
+    be positive (zeros in ``V`` are implicit).
+
+    Compiled as :func:`.sharded.sharded_nmf_fit` is (``_graph`` likewise),
+    the entry keyed by ``V`` as a single-card fit keys a sparse target (the
+    tensor, its values and indices and their version counters): the
+    rank's layout and ``V_norm`` are built from ``V`` at every fit and
+    copied into the entry's arrays."""
+    if V.ndim != 2:
+        raise ValueError("sharded sparse fit expects a 2-D sparse target")
+    beta, tol, max_iter = float(beta), float(tol), int(max_iter)
+    l1_reg, l2_reg = float(l1_reg), float(l2_reg)
+    gamma = gamma_from_beta(beta)
+    M, K = V.shape
+    data = comm_for(mesh, data_axis)
+    dev = mesh_device(mesh)
+    rows, rep = placements(mesh, {0: data_axis}), placements(mesh, {})
+    shapes = (tuple(W.shape), tuple(H.shape))
+    w = local_block(W, mesh, rep)
+    h_real = local_block(H, mesh, rows)
+    M_loc = -(-M // data.size)
+    n_real = max(0, min(M - data.rank * M_loc, M_loc))
+    h = torch.zeros((M_loc, h_real.shape[1]), dtype=torch.float32, device=dev)
+    h[:n_real] = h_real
+
+    def fns_of(e):
+        Vc = e.V.detach().to("cpu").coalesce()
+        layout = _build_sharded_ell(Vc, data.size, data.rank, dev)
+        _keep_layout(e.derived, layout[:2] + tuple(layout[2]) + layout[3:5]
+                     + tuple(layout[5]))
+        _keep(e.derived, "V_norm",
+              _sparse.get_V_norm(Vc.to(torch.float32), beta).to(dev))
+        if e.fns is None:
+            e.fns = _sparse_fns(e, beta, gamma, l1_reg, l2_reg, data, n_real)
+        return e.fns
+
+    chunk = ("sharded_sparse", beta, tol, l1_reg, l2_reg, data)
     with torch.no_grad():
-        (w, h), k, conv = _converging_loop(one_iter, loss_of, (w, h), tol,
-                                           max_iter)
+        (w, h), k, conv = _run_fit(mesh, (data,), chunk, (V,), (w, h, V),
+                                   (w, h), fns_of, tol, max_iter, _graph)
     return (as_dtensor(w, mesh, rep, shapes[0]),
             as_dtensor(h[:n_real].contiguous(), mesh, rows, shapes[1]),
             k * 10 if conv else max_iter)

@@ -13,7 +13,11 @@ mesh of fewer ranks than the world leaves the others idle for that case;
 the fit (``kind``) and its keyword arguments (the inputs named in ``bf16``
 go in as bfloat16 tensors); the factors come back whole
 (``DTensor.full_tensor``), with ``n_iter``, the kernels' launches and
-any counts, on every rank of the mesh.  A halo fit's case may force its
+any counts, on every rank of the mesh (``events``: a verbose fit's progress
+events on rank 0).  A ``compiled`` case runs ``steps`` on one set of
+targets (:func:`_compiled`): fits on full arrays or DTensors (the fit's
+own outputs fed back too), in-place writes through ``.data``, one rank's
+cache cleared, the process group destroyed and made again.  A halo fit's case may force its
 per-shard ``mode`` (through the private fits' ``mode`` argument), set
 environment variables (``env``, and ``rank_env`` per rank) and fix what
 the mode tuner's timing returns on each rank (``prefer``); the mode each
@@ -33,15 +37,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def run_group(workdir, world: int, cases, arrays, timeout: float = 240.0):
-    """Run ``cases`` over ``world`` gloo ranks; returns ``[results of rank
-    r]``, each ``{case name: {key: array}}``."""
+def run_group(workdir, world: int, cases, arrays, timeout: float = 240.0,
+              backend: str = "gloo"):
+    """Run ``cases`` over ``world`` ranks of ``backend`` (``"nccl"``: one
+    card a rank); returns ``[results of rank r]``, each ``{case name: {key:
+    array}}``."""
     workdir = Path(workdir)
     (workdir / "cases.json").write_text(json.dumps(cases))
     np.savez(workdir / "inputs.npz", **arrays)
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(world), str(workdir)],
+        [sys.executable, __file__, str(r), str(world), str(workdir), backend],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
     deadline = time.monotonic() + timeout
@@ -149,6 +155,8 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             else x
 
     def full(x):
+        if x.device_mesh.size() == 1:
+            return x.to_local().cpu().numpy()
         # a card DTensor is gathered on the CPU: gloo's all_gather into one
         # tensor does not take card tensors
         if x.device.type != "cpu":
@@ -160,6 +168,11 @@ def _run_case(case, arrays, mesh, cpu_mesh):
 
     out = {}
     spy = None
+    events = []
+    if case.get("events"):
+        from pytorch_nmf_tpu_torch.ops import solver
+
+        solver.push_progress_handler(lambda *e: events.append(e))
     if case.get("spy"):
         spy, undo = _spies(fused_mu, fused_deconv)
     rank = dist.get_rank()
@@ -214,6 +227,8 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             out.update(_halo_ops(a, mesh, halo, par, torch, dist))
         elif kind == "halo_strip_ops":
             out.update(_halo_strip_ops(a, mesh, halo, par, torch))
+        elif kind == "compiled":
+            out.update(_compiled(case, a, mesh, full))
         elif kind == "mesh_error":
             try:
                 par.make_mesh({"data": dist.get_world_size() + 1}, "cpu")
@@ -222,6 +237,11 @@ def _run_case(case, arrays, mesh, cpu_mesh):
         else:
             raise ValueError(f"unknown case kind {kind!r}")
     finally:
+        if case.get("events"):
+            from pytorch_nmf_tpu_torch.ops import solver
+
+            solver.pop_progress_handler()
+            out["events"] = np.array(events, dtype=np.float64).reshape(-1, 3)
         unwatch()
         for k, v in saved_env.items():
             if v is None:
@@ -237,6 +257,120 @@ def _run_case(case, arrays, mesh, cpu_mesh):
     # the kernels' launches (none on CPU tensors: the plain versions run)
     out["launches"] = [getattr(w, "launches", 0) - b
                        for w, b in zip(wrappers, before)]
+    return out
+
+
+def _compiled(case, a, mesh, full):
+    """The ``steps`` of a ``compiled`` case on one set of targets (made
+    once: ``shard_target`` DTensors of ``V`` and ``H``, or a sparse ``V``):
+
+    * ``{"do": "fit", "out": name, "inputs": "dtensor" | "full", "start":
+      an earlier fit's name (its DTensor outputs fed back) or none,
+      "graph": bool}`` (``full`` gathers the start); its factors,
+      ``n_iter`` (and ``norm``), the loops' host reads, the cache's hits,
+      warm and cold misses and the all-reduces' calls and bytes come back
+      as ``{name}_{key}``;
+    * ``{"do": "scale"}``: ``V``'s values times 3 through ``.data`` (no
+      version counter moves);
+    * ``{"do": "clear", "ranks": [...]}``: those ranks empty their cache;
+    * ``{"do": "regroup"}``: every rank empties its cache, destroys the
+      process group, starts a new one and makes the mesh again (the case
+      spans the world).
+
+    The case starts on an empty cache.  A step that raises ends the case:
+    ``error`` holds its message."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_nmf_tpu_torch import parallel as par
+    from pytorch_nmf_tpu_torch.ops import solver
+    from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense
+    from pytorch_nmf_tpu_torch.parallel import comm
+    from pytorch_nmf_tpu_torch.parallel.sharded import placements
+
+    fit, kw, out = case["fit"], dict(case.get("kw", {})), {}
+    model_axis = kw.get("model_axis")
+    names = ("W", "H", "Z") if fit in ("plca", "siplca") else ("W", "H")
+    halo = fit in ("nmfd", "siplca")
+
+    def targets(mesh):
+        # the halo fits' V and H split along their trailing axis
+        rows = placements(mesh, {2: "seq"} if halo else {0: "data"})
+        if fit == "sparse":
+            V = sparse_from_dense(a("V"))
+        else:
+            V = par.shard_target(a("V"), mesh, rows if halo else placements(
+                mesh, {0: "data", 1: model_axis if fit == "nmf" else None}))
+        return V, par.shard_target(a("H"), mesh, rows)
+
+    def run(mesh, V, start, graph):
+        # the eager twin alone passes _graph (the halo fits have none)
+        fkw = dict(kw) if graph else dict(kw, _graph=False)
+        if fit == "nmfd":
+            W, H, n = par.sharded_nmfd_fit(V, *start, mesh, **fkw)
+            return {"W": W, "H": H, "n_iter": n}
+        if fit == "siplca":
+            W, H, Z, n, norm = par.sharded_siplca_fit(V, *start, mesh, **fkw)
+            return {"W": W, "H": H, "Z": Z, "n_iter": n, "norm": norm}
+        if fit == "nmf":
+            W, H, n = par.sharded_nmf_fit(V, *start, mesh, **fkw)
+            return {"W": W, "H": H, "n_iter": n}
+        if fit == "sparse":
+            W, H, n = par.sharded_sparse_nmf_fit(V, *start, mesh, **fkw)
+            return {"W": W, "H": H, "n_iter": n}
+        W, H, Z, n, norm = par.sharded_plca_fit(V, *start, mesh, **fkw)
+        return {"W": W, "H": H, "Z": Z, "n_iter": n, "norm": norm}
+
+    def counts():
+        info = solver.compiled_cache_info()
+        return [solver._read.reads, info["hits"], info["warm_misses"],
+                info["cold_misses"], comm.stats.calls["all_reduce"],
+                comm.stats.bytes["all_reduce"]]
+
+    solver.compiled_cache_clear()
+    Vd, Hd = targets(mesh)
+    fits = {}
+    try:
+        for step in case["steps"]:
+            do = step["do"]
+            if do == "fit":
+                prev = fits.get(step.get("start"))
+                if step["inputs"] == "full":
+                    V = sparse_from_dense(a("V")) if fit == "sparse" else a("V")
+                    start = ([full(prev[k]) for k in names] if prev else
+                             [a(k) for k in names])
+                else:
+                    V = Vd
+                    start = ([prev[k] for k in names] if prev else
+                             [a("W"), Hd] + ([a("Z")] if "Z" in names else []))
+                before = counts()
+                got = fits[step["out"]] = run(mesh, V, start,
+                                              step.get("graph", True))
+                delta = [x - y for x, y in zip(counts(), before)]
+                for k, v in got.items():
+                    out[f"{step['out']}_{k}"] = full(v) if k in names else v
+                for k, v in zip(("reads", "hits", "warm", "cold", "ar_calls",
+                                 "ar_bytes"), delta):
+                    out[f"{step['out']}_{k}"] = v
+            elif do == "scale":
+                vals = Vd._values() if fit == "sparse" else Vd.to_local()
+                vals.data.mul_(3)
+            elif do == "clear":
+                if dist.get_rank() in step["ranks"]:
+                    solver.compiled_cache_clear()
+            elif do == "regroup":
+                solver.compiled_cache_clear()
+                world, rank = dist.get_world_size(), dist.get_rank()
+                dist.barrier()
+                dist.destroy_process_group()
+                par.distributed.initialize(
+                    f"file://{_WORKDIR / ('store-' + case['name'])}", world,
+                    rank, backend="gloo", timeout_s=120)
+                mesh = par.make_mesh(dict(case["axes"]), "cpu")
+                Vd, Hd = targets(mesh)
+                out["regrouped"] = True
+    except Exception as e:  # noqa: BLE001 (reported to the test)
+        out["error"] = np.frombuffer(repr(e).encode(), np.uint8)
     return out
 
 
@@ -313,17 +447,22 @@ def _halo_strip_ops(a, mesh, halo, par, torch):
             "inner": ip.numpy()}
 
 
-def _rank_main(rank: int, world: int, workdir: Path):
+_WORKDIR = None
+
+
+def _rank_main(rank: int, world: int, workdir: Path, backend: str = "gloo"):
     import faulthandler
 
     import torch
 
+    global _WORKDIR
+    _WORKDIR = workdir
     faulthandler.enable()
     torch.set_num_threads(1)
     from pytorch_nmf_tpu_torch.parallel import distributed, make_mesh
 
     distributed.initialize(f"file://{workdir / 'store'}", world, rank,
-                           backend="gloo", timeout_s=120)
+                           backend=backend, timeout_s=120)
     cases = json.loads((workdir / "cases.json").read_text())
     results = {}
     meshes = {}
@@ -343,6 +482,8 @@ def _rank_main(rank: int, world: int, workdir: Path):
         for key, val in _run_case(case, arrays, mesh,
                                   meshes[axes, "cpu"]).items():
             results[f"{case['name']}:{key}"] = np.asarray(val)
+        if results.get(f"{case['name']}:regrouped") is not None:
+            meshes.clear()  # made on the destroyed group
     np.savez(workdir / f"out{rank}.npz", **results)
     import torch.distributed as dist
 
@@ -351,4 +492,5 @@ def _rank_main(rank: int, world: int, workdir: Path):
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]),
+               *sys.argv[4:5])

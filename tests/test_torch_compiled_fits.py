@@ -403,16 +403,18 @@ def _raising(*args, **kwargs):
 
 
 def test_sharded_sparse_hoyer_and_batched_fits_stay_eager(monkeypatch):
-    """The sharded fits stay eager; the sparse fits (each tier), the Hoyer
-    fits (dense and sparse targets) and the batched MU and EM fits go
-    through _Graphs, one instance a cache entry, each with device loops
-    (the chunk loop's, the Hoyer line search's)."""
+    """The halo fits stay eager (the sharded NMF, PLCA and sparse fits run
+    the graphed loop: tests/test_torch_compiled_sharded.py); the sparse
+    fits (each tier), the Hoyer fits (dense and sparse targets) and the
+    batched MU and EM fits go through _Graphs, one instance a cache entry,
+    each with device loops (the chunk loop's, the Hoyer line search's)."""
     from pytorch_nmf_tpu_torch.ops import sparse
     from pytorch_nmf_tpu_torch.parallel import halo, sharded, sharded_sparse
 
-    for mod in (sharded, halo, sharded_sparse):
-        assert mod._converging_loop is solver._converging_loop
-        assert not hasattr(mod, "_graphed_loop")
+    assert halo._converging_loop is solver._converging_loop
+    assert not hasattr(halo, "_graphed_loop")
+    assert sharded._graphed_loop is solver._graphed_loop
+    assert sharded_sparse._run_fit is sharded._run_fit
     monkeypatch.setattr(solver, "_Graphs", _raising)
     V, W, H = (torch.from_numpy(a) for a in _problem("NMF"))
     state, k, conv = solver._converging_loop(
