@@ -150,23 +150,33 @@ Drives the port's paths at full width, each in phases:
   ``unrolled`` (NMF2D, SIPLCA2), the SIPLCA flagship in ``conv``, and the
   NMFD flagship in the mode its tuner resolves (rank 0 times, both ranks
   run its choice); one NCCL rank runs the dense cases (β ∈ {1, 0.5, 2},
-  the 1×1 ``data``×``model`` mesh, the early stop), PLCA, sparse and NMFD
-  β=1; NCCL across cards runs every case where there are several.  Each
+  the 1×1 ``data``×``model`` mesh, the early stop), PLCA, sparse, the NMFD
+  flagship (β ∈ {1, 2}, rank 8, N=2, ``fused_w``, ``conv``), NMF2D, NMF3D
+  and SIPLCA/SIPLCA2 (the flagship also in ``conv``); NCCL across cards
+  runs every case where there are several.  Each
   case agrees with the single-card fit of the whole problem (W, the
   assembled H and the final loss within 1e-4 relative, the same ``n_iter``
   and per-shard mode on every rank), each rank launches exactly the
   kernels its code and mode imply, and the ranks' ms/iteration and their
   collectives' calls, bytes and ms an iteration are printed beside the
   single-card fits of the whole problem and of one rank's block.  Over
-  NCCL the sharded NMF, PLCA and sparse fits are compiled (their chunk
-  loop one CUDA-graph WHILE node, the all-reduces captured): each such
-  case also runs 50 iterations (the early stop at its tol) cold, warm (on
-  the same ``shard_target`` DTensors: a cache hit) and on a new V, each
-  bit for bit its ``_graph=False`` twin on every rank, with 1, 1 and 1
-  replays, 1, 0 and 1 captures and 5, 1 and 1 host reads, B1/B2 launches
-  and the all-reduces' calls and bytes the twin's; it prints warm, eager,
-  cold and new-V ms/iteration beside the single-card warm fit of the same
-  problem (one rank), and the entry's held bytes (``par_compiled``);
+  NCCL the sharded fits are compiled (their chunk loop one CUDA-graph
+  WHILE node, the all-reduces and halo shifts captured): each NMF, PLCA
+  and sparse case also runs 50 iterations (the early stop at its tol)
+  cold, warm (on the same ``shard_target`` DTensors: a cache hit) and on a
+  new V, each bit for bit its ``_graph=False`` twin on every rank, with 1,
+  1 and 1 replays, 1, 0 and 1 captures and 5, 1 and 1 host reads; each
+  halo case 30 iterations cold, warm, on another V of the same shape (a
+  hit: the entry copies each fit's chunk into its own; its own eager
+  twin) and recaptured (the entry dropped, its configuration kept: a
+  capture before chunk 1), with 1, 1, 1 and 1 replays, 1, 0, 0 and 1
+  captures and 5, 1, 1 and 1 host reads; B1-B4 launches and the
+  all-reduces' and shifts' calls and bytes the twin's; it prints warm,
+  eager, cold and new-V (other-V) ms/iteration beside the single-card warm
+  fit of the same problem (one rank), the entry's held bytes and, for a
+  halo fit, the bytes of its chunk of V it keeps (``par_compiled``); across
+  cards the ranks also destroy their group, make it again and refit a
+  halo case cold, bit for bit the first (``par_regroup``);
 * the halo fits' mode tuner (``autotune.autotune_halo_mode``) at the NMFD
   flagship's, NMF2D's and NMF3D's per-rank problems: ``fused`` against
   ``fused_w`` over one rank's per-shard step without collectives, the
@@ -4686,15 +4696,18 @@ PAR_CASES = {
 # the cases whose ranks resolve their mode with the tuner on (the others
 # run at PNT_NMFD_AUTOTUNE=0: the static "fused" unless a mode is forced)
 PAR_TUNED = ("nmfd_b1_tuned",)
-# the one-rank NCCL group's cases; over NCCL the sharded NMF, PLCA and
-# sparse fits are compiled (their chunk loop one CUDA-graph WHILE node):
-# each of those cases also runs cold, warm and on a new V against its
-# eager twin (par_compiled), at PAR_COMPILED_ITERS iterations where it has
-# tol=0 (5 chunks: the cold fit's two eager chunks, its capture, a replay)
+# the one-rank NCCL group's cases; over NCCL the sharded fits are compiled
+# (their chunk loop one CUDA-graph WHILE node): each case also runs cold,
+# warm and on a new V against its eager twin (par_compiled), at
+# PAR_COMPILED_ITERS iterations where it has tol=0 (5 chunks: the cold
+# fit's two eager chunks, its capture, a replay; the halo fits 3)
 PAR_NCCL_ONE = ("nmf_b1", "nmf_b0.5", "nmf_b2", "nmf_model_b1", "nmf_early_b1",
-                "plca", "sparse_b1", "nmfd_b1")
-PAR_COMPILED_KINDS = ("nmf", "plca", "sparse")
-PAR_COMPILED_ITERS = 50
+                "plca", "sparse_b1", "nmfd_b1", "nmfd_b2", "nmfd_r8_b1",
+                "nmfd_n2_b1", "nmfd_b1_fused_w", "nmfd_b1_conv", "nmf2d_b1",
+                "nmf3d_b1", "siplca_flagship", "siplca_flagship_conv",
+                "siplca2")
+PAR_COMPILED_KINDS = ("nmf", "plca", "sparse", "deconv", "siplca")
+PAR_COMPILED_ITERS = {"deconv": 30, "siplca": 30}  # 50 for the others
 # the early stop's compiled runs (on one rank they stop at chunk 7; the
 # case's own tol, 1e-3, stops at chunk 2 there: the replays would run none)
 PAR_COMPILED_TOL = {"nmf_early_b1": 3e-4}
@@ -4704,6 +4717,14 @@ PAR_COMPILED_TOL = {"nmf_early_b1": 3e-4}
 # values (a new target: a warm miss), as CACHE_RUNS
 PAR_COMPILED_RUNS = (("cold", True, (1, 1, 2 + 2 + 1)), ("eager", False, None),
                      ("warm", True, (1, 0, 1)), ("new V", True, (1, 1, 1)))
+# the halo fits' (their entry copies each fit's chunk of V into its own):
+# a fit on another V of the same shape (V rolled one frame along the
+# sharded axis) is a hit, held to its own eager twin; "recaptured" drops
+# the entry but keeps its configuration: the capture comes before chunk 1
+PAR_COMPILED_HALO_RUNS = (
+    ("cold", True, (1, 1, 2 + 2 + 1)), ("eager", False, None),
+    ("warm", True, (1, 0, 1)), ("other V", True, (1, 0, 1)),
+    ("other V eager", False, None), ("recaptured", True, (1, 1, 1)))
 PAR_PATHS = {"nmf": "sharded", "plca": "sharded", "sparse": "sharded_sparse",
              "deconv": "halo", "siplca": "halo"}
 
@@ -4850,12 +4871,14 @@ def par_mode_spy(halo, ctr):
 
 def par_compiled(par, name, world, mesh, ctr):
     """Case ``name`` through its compiled sharded fit on this NCCL rank
-    (PAR_COMPILED_RUNS, from an empty cache): each graphed run bit for bit
-    the eager twin (the rank's blocks, ``n_iter``, PLCA's ``norm``), its
-    replays, captures and host reads as listed, B1/B2 launches and the
-    all-reduces' calls and bytes the twin's; returns each run's ms/iteration
-    (CUDA events around the whole call), counts, the entry's held bytes after
-    the warm fit and, on one rank, the single-card warm fit of the same
+    (PAR_COMPILED_RUNS, or PAR_COMPILED_HALO_RUNS for a halo fit, from an
+    empty cache): each graphed run bit for bit its eager twin (the rank's
+    blocks, ``n_iter``, PLCA's ``norm``), its replays, captures and host
+    reads as listed, B1-B4 launches and the all-reduces' and halo shifts'
+    calls and bytes the twin's; returns each run's ms/iteration (CUDA
+    events around the whole call), counts, the entry's held bytes after the
+    warm fit (a halo fit's chunk of V and its flat copy among them,
+    ``chunk_bytes``) and, on one rank, the single-card warm fit of the same
     problem (the same card V twice: a hit) in ms/iteration, on several the
     host ms of the ranks' agreement on the loop's path (``agree``: what a
     fit's agreement costs alone, on the ranks' rendezvous store)."""
@@ -4865,31 +4888,62 @@ def par_compiled(par, name, world, mesh, ctr):
     from pytorch_nmf_tpu_torch.parallel import comm
     from pytorch_nmf_tpu_torch.parallel.sharded import placements
 
-    kind, _, kw = PAR_CASES[name]
+    kind, shape, kw = PAR_CASES[name]
     kw = dict(kw)
     if not kw.get("tol"):
-        kw["max_iter"] = PAR_COMPILED_ITERS
+        kw["max_iter"] = PAR_COMPILED_ITERS.get(kind, 50)
     kw["tol"] = PAR_COMPILED_TOL.get(name, kw["tol"])
     inp = par_inputs(name, world)
-    rows = placements(mesh, {0: "data"})
+    halo = kind in ("deconv", "siplca")
+    nd = len(shape[4]) if halo else 0
+    rows = placements(mesh, {1 + nd: "seq"} if halo else {0: "data"})
+    if halo:  # another V of the same shape
+        inp["V other"] = np.ascontiguousarray(np.roll(inp["V"], 1, axis=-1))
 
-    def targets():
+    def targets(v="V"):
         if kind == "sparse":
             V = par_sparse(inp)
         else:
-            V = par.shard_target(inp["V"], mesh, placements(
+            V = par.shard_target(inp[v], mesh, placements(
                 mesh, {0: "data", 1: kw.get("model_axis")}) if kind == "nmf"
                 else rows)
         return V, par.shard_target(inp["H"], mesh, rows)
 
-    fit = {"nmf": par.sharded_nmf_fit, "plca": par.sharded_plca_fit,
-           "sparse": par.sharded_sparse_nmf_fit}[kind]
+    def fit(*args, _graph):
+        fkw = dict(kw)
+        if not halo:
+            return {"nmf": par.sharded_nmf_fit, "plca": par.sharded_plca_fit,
+                    "sparse": par.sharded_sparse_nmf_fit}[kind](
+                *args, mesh, _graph=_graph, **fkw)
+        mode = fkw.pop("mode", None)
+        f = (par.halo._sharded_deconv_fit if kind == "deconv"
+             else par.halo._sharded_siplca_fit)
+        return f(*args, mesh, nd, mode=mode, _graph=_graph, **fkw)
+
     solver.compiled_cache_clear()
     first = targets()
     runs, outs = {}, {}
-    for label, graph, want in PAR_COMPILED_RUNS:
-        V, H = targets() if label == "new V" else first
-        args = (V, inp["W"], H) + ((inp["Z"],) if kind == "plca" else ())
+    plan = PAR_COMPILED_HALO_RUNS if halo else PAR_COMPILED_RUNS
+    cudnn = kw.get("mode") == "conv"
+    if cudnn:
+        # the conv mode's cuDNN backward is free to pick an algorithm that
+        # is not deterministic (atomics): two eager fits of the case with
+        # it, then every run of the case with cuDNN's deterministic
+        # algorithms, so that the graphed runs can be held bit for bit
+        args = (first[0], inp["W"], first[1]) + (
+            (inp["Z"],) if "Z" in inp else ())
+        twice = [fit(*args, _graph=False) for _ in range(2)]
+        runs["cudnn"] = {"eager twice differ": not all(
+            torch.equal(a.to_local(), b.to_local()) if hasattr(a, "to_local")
+            else a == b for a, b in zip(*twice))}
+        del twice
+        torch.backends.cudnn.deterministic = True
+    for label, graph, want in plan:
+        V, H = (targets() if label == "new V" else
+                targets("V other") if label.startswith("other V") else first)
+        args = (V, inp["W"], H) + ((inp["Z"],) if "Z" in inp else ())
+        if label == "recaptured":  # the configuration stays seen
+            solver._CACHE.clear(seen=False)
         dist.barrier()  # each rank's time from one start: no rank's skew
         torch.cuda.synchronize()
         zero(ctr)
@@ -4899,49 +4953,58 @@ def par_compiled(par, name, world, mesh, ctr):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fit(*args, mesh, _graph=graph, **kw)
+        out = fit(*args, _graph=graph)
         end.record()
         torch.cuda.synchronize()
         got = (graphs._Graphs.replays, graphs._Graphs.captures,
                solver._read.reads)
-        n = int(out[3] if kind == "plca" else out[2])
+        n = int(out[3] if kind in ("plca", "siplca") else out[2])
         outs[label] = out
         runs[label] = {
             "n_iter": n, "ms_per_iter": start.elapsed_time(end)
             / par_iters(name, n),
             "counts": [a - b for a, b in zip(got, before)],
             "launches": {k: int(v) for k, v in read(ctr).items()},
-            "all_reduce": [comm.stats.calls["all_reduce"],
-                           comm.stats.bytes["all_reduce"]]}
+            "comm": [[comm.stats.calls[k], comm.stats.bytes[k]]
+                     for k in ("all_reduce", "halo")]}
         if label == "warm":
             runs[label]["held_bytes"] = solver.compiled_cache_info()[
                 "held_bytes"]
+            runs[label]["chunk_bytes"] = sum(
+                t.untyped_storage().nbytes() for e in solver._CACHE.entries
+                .values() for k, t in e.derived.items()
+                if k in ("Vl", "target", "Vn"))
     # the cold fit captures after its second eager chunk when a third may
     # follow (then replays once, stopped or not)
     chunks = runs["eager"]["n_iter"] // 10
     check(chunks >= 2 and kw["max_iter"] >= 30, f"{name}: the eager twin "
           f"ran {chunks} chunks of {kw['max_iter'] // 10}; the cold fit "
           f"captures after a second eager chunk when a third may follow")
-    ref = outs["eager"]
-    for label, graph, want in PAR_COMPILED_RUNS:
+    for label, graph, want in plan:
         if not graph:
             continue
-        out, run = outs[label], runs[label]
+        twin = "other V eager" if label == "other V" else "eager"
+        out, run, ref = outs[label], runs[label], runs[twin]
         same = all(torch.equal(a.to_local(), b.to_local())
                    if hasattr(a, "to_local") else a == b
-                   for a, b in zip(out, ref))
+                   for a, b in zip(out, outs[twin]))
         check(same, f"{name} [nccl{world}]: the {label} fit differs from its "
               f"eager twin")
         check(tuple(run["counts"]) == want, f"{name} [nccl{world}]: the "
               f"{label} fit's (replays, captures, host reads) "
               f"{run['counts']}, expected {want}")
-        check(run["launches"] == runs["eager"]["launches"]
-              and run["all_reduce"] == runs["eager"]["all_reduce"],
+        check(run["launches"] == ref["launches"]
+              and run["comm"] == ref["comm"],
               f"{name} [nccl{world}]: the {label} fit's launches "
-              f"{run['launches']} and all-reduces {run['all_reduce']}, the "
-              f"eager twin's {runs['eager']['launches']} and "
-              f"{runs['eager']['all_reduce']}")
-    del outs, ref, first
+              f"{run['launches']} and (all-reduce, halo) calls and bytes "
+              f"{run['comm']}, the eager twin's {ref['launches']} and "
+              f"{ref['comm']}")
+    if halo:
+        check(not torch.equal(outs["other V"][0].to_local(),
+                              outs["warm"][0].to_local()),
+              f"{name}: the fit on another V gave the first V's W")
+    torch.backends.cudnn.deterministic = False
+    del outs, first
     solver.compiled_cache_clear()
     if world == 1:
         runs["single warm"] = par_single_warm(name, inp, kw)
@@ -4954,6 +5017,48 @@ def par_compiled(par, name, world, mesh, ctr):
     return runs
 
 
+def par_regroup(par, name, world, rank, workdir, mesh):
+    """Across cards: a halo case's cold compiled fit, then every rank
+    empties the fits' cache, destroys the process group, starts a new one
+    and makes the mesh again, and the same fit runs cold on the new group
+    (the halo shift's pair connections made anew): bit for bit the first.
+    Returns the new mesh."""
+    import torch.distributed as dist
+
+    from pytorch_nmf_tpu_torch.ops import graphs, solver
+
+    kind, shape, kw = PAR_CASES[name]
+    kw = dict(kw, max_iter=PAR_COMPILED_ITERS[kind], tol=0)
+    mode = kw.pop("mode", None)
+    inp = par_inputs(name, world)
+    f = (par.halo._sharded_deconv_fit if kind == "deconv"
+         else par.halo._sharded_siplca_fit)
+    args = (inp["V"], inp["W"], inp["H"]) + ((inp["Z"],) if "Z" in inp
+                                             else ())
+    outs = []
+    for i in range(2):
+        if i:
+            solver.compiled_cache_clear()
+            dist.barrier()
+            dist.destroy_process_group()
+            par.distributed.initialize(
+                "file://" + os.path.join(workdir, f"store-regroup{world}"),
+                world, rank, backend="nccl", timeout_s=PAR_TIMEOUT_S)
+            mesh = par.make_mesh({"seq": world}, "cuda")
+        solver.compiled_cache_clear()
+        captures = graphs._Graphs.captures
+        outs.append(f(*args, mesh, len(shape[4]), mode=mode, **kw))
+        check(graphs._Graphs.captures - captures == 1,
+              f"{name} [nccl{world}]: the fit on the "
+              f"{'new' if i else 'first'} group did not capture once")
+    check(all(torch.equal(a.to_local(), b.to_local()) if hasattr(
+        a, "to_local") else a == b for a, b in zip(*outs)),
+        f"{name} [nccl{world}]: the fit on the new group differs")
+    # the entry holds NCCL kernels of the group: gone before it is
+    solver.compiled_cache_clear()
+    return mesh
+
+
 def par_single_warm(name, inp, kw):
     """The single-card fit of case ``name``'s whole problem at fit keywords
     ``kw`` on this card, run twice on one card V (the second a hit of the
@@ -4961,7 +5066,7 @@ def par_single_warm(name, inp, kw):
     from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
 
     kind = PAR_CASES[name][0]
-    kw = {k: v for k, v in kw.items() if k != "model_axis"}
+    kw = {k: v for k, v in kw.items() if k not in ("model_axis", "mode")}
     if kind == "sparse":
         set_tier("ell")  # the sharded path's engine
         V = par_sparse(inp, "cuda")
@@ -4969,7 +5074,7 @@ def par_single_warm(name, inp, kw):
         V = torch.from_numpy(inp["V"]).cuda()
     for _ in range(2):
         m = (plca_from_numpy({k: inp[k] for k in ("W", "H", "Z")}, "cuda")
-             if kind == "plca" else
+             if kind in ("plca", "siplca") else
              nmf_from_numpy({k: inp[k] for k in ("W", "H")}, "cuda"))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -4989,9 +5094,15 @@ def par_rank(rank, world, backend, workdir, names):
     """One rank: every case of ``names`` through the sharded fits; writes
     its factors' local blocks and a report (``n_iter``, the kernels'
     launches, ms/iteration by CUDA events, the collectives' calls, bytes
-    and ms) under ``workdir``."""
+    and ms) under ``workdir``.  A rank that crashes prints its Python
+    stack (``faulthandler``), as does one still running a minute before
+    the ranks' time limit."""
+    import faulthandler
+
     import torch.distributed as dist
 
+    faulthandler.enable()
+    faulthandler.dump_traceback_later(PAR_TIMEOUT_S - 60)
     os.environ["PNT_NMFD_AUTOTUNE"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5067,13 +5178,22 @@ def par_rank(rank, world, backend, workdir, names):
         for name in names:
             kind, _, kw = PAR_CASES[name]
             if kind in PAR_COMPILED_KINDS:
-                axes = (("data", world),) + ((("model", 1),)
-                                             if "model_axis" in kw else ())
+                axis = "seq" if kind in ("deconv", "siplca") else "data"
+                axes = ((axis, world),) + ((("model", 1),)
+                                           if "model_axis" in kw else ())
                 dist.barrier()
                 report[name]["compiled"] = par_compiled(
                     par, name, world, meshes[axes], ctr)
+        if world > 1 and "nmfd_b1" in names:
+            par_regroup(par, "nmfd_b1", world, rank, workdir,
+                        meshes[(("seq", world),)])
+            report["nmfd_b1"]["regrouped"] = True
     with open(os.path.join(workdir, f"report-{tag}-r{rank}.json"), "w") as f:
         json.dump(report, f)
+    from pytorch_nmf_tpu_torch.ops import solver
+
+    # every entry (captured NCCL kernels of the group) before the group
+    solver.compiled_cache_clear()
     dist.barrier()
     dist.destroy_process_group()
 
@@ -5084,6 +5204,9 @@ def spawn_ranks(backend, world, names, workdir):
     PAR_TIMEOUT_S is killed and raises."""
     import torch.multiprocessing as mp
 
+    for store in (f"store-{backend}{world}", f"store-regroup{world}"):
+        if os.path.exists(os.path.join(workdir, store)):
+            os.remove(os.path.join(workdir, store))  # a killed run's keys
     ctx = mp.start_processes(par_rank, (world, backend, workdir, names),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + PAR_TIMEOUT_S
@@ -5259,8 +5382,9 @@ def par_check(ns, name, backend, world, workdir, single, card):
 
 def par_compiled_line(name, tag, reps, card):
     """Print case ``name``'s compiled runs (par_compiled; each rank checked
-    its own): counts, launches and all-reduces per iteration, ms/iteration
-    warm, eager and new V beside the single-card warm fit, held bytes."""
+    its own): counts, launches, all-reduces and shifts per iteration,
+    ms/iteration warm, eager, cold, new (or other) V and recaptured beside
+    the single-card warm fit, held bytes."""
     runs = reps[0]["compiled"]
     warm = runs["warm"]
     agree = runs.get("agree")
@@ -5268,26 +5392,35 @@ def par_compiled_line(name, tag, reps, card):
     per_iter = {k: round(v / iters, 3) for k, v in warm["launches"].items()
                 if v}
     single = runs.get("single warm")
+    traffic = ", ".join(
+        f"{kind} {c / iters:g} calls, {b / iters:.0f} B"
+        for kind, (c, b) in zip(("all-reduce", "halo"), warm["comm"]))
+    timed = [k for k in runs if "ms_per_iter" in runs[k] and k not in (
+        "warm", "single warm")]
+    chunk = warm.get("chunk_bytes")
+    cudnn = runs.get("cudnn")
+    differ = cudnn and ("differ" if cudnn["eager twice differ"] else "agree")
     print(f"phase 3, compiled sharded [{tag}]: {name} n_iter "
-          f"{warm['n_iter']}; bit for bit the eager twin cold, warm and on a "
-          f"new V on every rank; (replays, captures, host reads) per rank "
+          f"{warm['n_iter']}; bit for bit the eager twin on every rank "
+          f"({', '.join(k for k in timed if 'eager' not in k)}); (replays, "
+          f"captures, host reads) per rank "
           + ", ".join(f"{k} {tuple(runs[k]['counts'])}" for k in runs
                       if "counts" in runs[k])
-          + f" (as predicted); per iteration launches {per_iter}, all-reduce "
-          f"{warm['all_reduce'][0] / iters:g} calls, "
-          f"{warm['all_reduce'][1] / iters:.0f} B (the eager twin's); "
-          f"ms/iteration per rank warm "
+          + f" (as predicted); per iteration launches {per_iter}, {traffic} "
+          f"(the eager twin's); ms/iteration per rank warm "
           + ", ".join(f"{rep['compiled']['warm']['ms_per_iter']:.4f}"
                       for rep in reps)
-          + f", eager {runs['eager']['ms_per_iter']:.4f}, cold "
-          f"{runs['cold']['ms_per_iter']:.4f}, new V "
-          f"{runs['new V']['ms_per_iter']:.4f}"
+          + "".join(f", {k} {runs[k]['ms_per_iter']:.4f}" for k in timed)
           + (f"; the single-card warm fit {single['ms_per_iter']:.4f} "
              f"(n_iter {single['n_iter']})" if single else "")
           + (f"; the ranks' path agreement {agree['ms']:.3f} ms a fit (host)"
              if agree else "")
-          + f"; the entry holds {warm['held_bytes'] / 2**20:.2f} MiB [{card}]",
-          flush=True)
+          + f"; the entry holds {warm['held_bytes'] / 2**20:.2f} MiB"
+          + (f", its chunk of V (and flat copy) {chunk / 2**20:.2f} MiB"
+             if chunk else "")
+          + (f"; cuDNN's deterministic algorithms on (two eager fits with "
+             f"its default ones {differ})"
+             if cudnn else "") + f" [{card}]", flush=True)
 
 
 def parallel_phase(ns, card):
@@ -5312,9 +5445,6 @@ def parallel_phase(ns, card):
                ("sharded", "sharded_sparse", "halo")}
     single = {}
     for backend, world, names in runs:
-        store = os.path.join(workdir, f"store-{backend}{world}")
-        if os.path.exists(store):  # a killed run's rendezvous: stale keys
-            os.remove(store)
         t0 = time.perf_counter()
         spawn_ranks(backend, world, names, workdir)
         print(f"phase 3, parallel: {world} {backend} rank(s) ran "

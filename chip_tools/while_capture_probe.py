@@ -60,7 +60,26 @@ code and whether the graphed run equals the eager one:
   (``NCCL_GRAPH_MIXING_SUPPORT=1``).  On four H100s the last fails: the
   capture ends in "CUDA error: invalid argument" (NCCL's mixing support
   records event nodes, which a WHILE node's body refuses; on one rank
-  NCCL records none); the plain graph passes either way.
+  NCCL records none); the plain graph passes either way;
+* the halo fits' shifts across the cards (``Comm._shift``, one
+  ``batch_isend_irecv`` of NCCL's send and receive, the last 64 values to
+  the next rank and the first 64 back to the previous one, the ends
+  receiving zeros): ``graph_nccl_shift_cards`` (in a plain graph),
+  ``body_nccl_shift_cards`` (in a WHILE node's body, three runs),
+  ``body_nccl_shift_mixing_cards`` (the same with NCCL's graph mixing
+  support on), ``body_nccl_shift_conv_cards`` (the shifts beside a plain
+  cuDNN ``F.conv1d`` in the body, as the halo ``conv`` mode runs) and
+  ``body_nccl_gather_shift_cards`` (the same frames through one
+  ``all_gather_into_tensor``, each rank taking its neighbour's: the
+  fallback had send and receive not been capturable).  On four H100s
+  every case but the mixing one replays equal to eager (the halo calls
+  counted on the card); with mixing on, the capture fails as the
+  all-reduce's does;
+* the compiled NMFD halo fit itself across the cards (1×64×150 a rank,
+  R=16, T=20, ``fused``, 30 iterations, cold): ``fit_nccl_halo_cards``
+  against its ``_graph=False`` twin, bit for bit, and
+  ``fit_nccl_halo_eager_cards`` (the eager twin alone); a rank still
+  running after 75 s prints its Python stack and exits.
 
 Prints the card's name and power limit.  Needs one CUDA device.
 """
@@ -93,15 +112,68 @@ if "nccl" in case:
     rank, world, store = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     distributed.initialize("file://" + store, world, rank, backend="nccl")
     dev = torch.device("cuda", torch.cuda.current_device())
+    if case.startswith("fit_nccl_halo"):
+        # the compiled NMFD halo fit in its fused mode, cold, 30 iterations,
+        # against its eager twin; a rank still running after 75 s prints
+        # its Python stack and exits
+        import faulthandler
+
+        from pytorch_nmf_tpu_torch.parallel import halo
+
+        faulthandler.dump_traceback_later(75, exit=True)
+        rs = np.random.RandomState(8)
+        C, R, T, L = 64, 16, 20, 150
+        V = rs.rand(1, C, L * world).astype("f") + 0.01
+        W = rs.rand(C, R, T).astype("f") + 0.1
+        H = rs.rand(1, R, L * world - T + 1).astype("f") + 0.1
+        mesh = make_mesh({"seq": world})
+        kw = dict(beta=1, tol=0, max_iter=30, mode="fused")
+        comm.stats.reset()
+        outs = [halo._sharded_deconv_fit(V, W, H, mesh, 1, _graph=False, **kw)]
+        print(case, "rank", rank, "eager done", flush=True)
+        if "eager" not in case:
+            outs.append(halo._sharded_deconv_fit(V, W, H, mesh, 1, **kw))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a.to_local(), b.to_local()) if hasattr(
+            a, "to_local") else a == b for a, b in zip(outs[0], outs[-1]))
+        print(case, "rank", rank, "of", world, "equal", equal, "halo calls",
+              comm.stats.calls["halo"], flush=True)
+        solver.compiled_cache_clear()
+        torch.distributed.destroy_process_group()
+        sys.exit()
     c = comm.comm_for(make_mesh({"data": world}), "data")
-    x0 = torch.arange(1, 1 + 4096, dtype=torch.float32, device=dev) / 4096
+    x0 = (torch.arange(1, 1 + 4096, dtype=torch.float32, device=dev) / 4096
+          + rank)
     x, acc = torch.empty_like(x0), torch.empty_like(x0)
     n = torch.zeros((), dtype=torch.int32, device=dev)
     flag = torch.ones((), dtype=torch.bool, device=dev)
+    kernel = torch.full((1, 1, 5), 0.2, device=dev)
+    kind = "all_reduce" if "all_reduce" in case else "halo"
+
+    def gather_shift(strip, step):
+        # the halo shift as one all-gather of every rank's strip, each
+        # rank taking its neighbour's (zeros where it has none)
+        parts = torch.empty((c.size,) + strip.shape, dtype=strip.dtype,
+                            device=strip.device)
+        torch.distributed.all_gather_into_tensor(parts, strip.contiguous(),
+                                                 group=c.group)
+        src = c.rank - step
+        return parts[src] if 0 <= src < c.size else torch.zeros_like(strip)
 
     def body():
         x.mul_(0.5)
-        c.all_reduce(x)
+        if kind == "all_reduce":
+            c.all_reduce(x)
+        else:
+            # the halo fits' exchange: the last frames to the right, the
+            # first ones back to the left
+            shift = (gather_shift if "gather" in case else
+                     lambda s, step: c._shift(s, step))
+            right, left = shift(x[-64:], 1), shift(x[:64], -1)
+            x[:64].add_(right)
+            x[-64:].add_(left)
+            if "conv" in case:  # the conv mode's plain cuDNN convolution
+                x.copy_(F.conv1d(x.view(1, 1, -1), kernel, padding=2).view(-1))
         acc.add_(x)
         n.add_(1)
         torch.lt(n, 3, out=flag)
@@ -111,7 +183,7 @@ if "nccl" in case:
         acc.zero_()
         n.zero_()
         flag.fill_(True)
-        if case == "graph_nccl_all_reduce":  # no WHILE node: three bodies
+        if case.startswith("graph_"):  # no WHILE node: three bodies
             for _ in range(3):
                 body()
         else:
@@ -123,13 +195,14 @@ if "nccl" in case:
     ref = acc.clone()
     g()  # the second warm-up, synchronizing operations raising
     g.capture()
-    calls = comm.stats.calls["all_reduce"]
+    calls = comm.stats.calls[kind]
     acc.zero_()
     g()
     g.flush()
     torch.cuda.synchronize()
     print(case, "rank", rank, "of", world, "equal", torch.equal(acc, ref),
-          "runs", int(n), "all_reduce calls eager+capture", calls)
+          "runs", int(n), f"{kind} calls eager+capture", calls,
+          "after the replay", comm.stats.calls[kind])
     g.close()
     torch.distributed.destroy_process_group()
     sys.exit()
@@ -300,13 +373,17 @@ CASES = ("body_bmm", "body_conv", "body_vmap_conv", "body_conv2d",
          "hoyer_vmap_conv", "hoyer_vmap_conv_off", "hoyer_conv_loop")
 NCCL_CASES = ("graph_nccl_all_reduce", "body_nccl_all_reduce",
               "graph_nccl_all_reduce_cards", "body_nccl_all_reduce_cards",
-              "body_nccl_all_reduce_mixing_cards")
+              "body_nccl_all_reduce_mixing_cards", "graph_nccl_shift_cards",
+              "body_nccl_shift_cards", "body_nccl_shift_mixing_cards",
+              "body_nccl_shift_conv_cards", "body_nccl_gather_shift_cards",
+              "fit_nccl_halo_eager_cards", "fit_nccl_halo_cards")
 CASES += NCCL_CASES
 
 
-def nccl_ranks(case, world, env=None):
+def nccl_ranks(case, world, env=None, timeout=600):
     """Runs ``case`` as ``world`` NCCL ranks, one process a card (in
-    ``env``); returns ``(exit codes, outputs, errors)``."""
+    ``env``), each killed past ``timeout`` seconds; returns ``(exit codes,
+    outputs, errors)``."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -318,7 +395,7 @@ def nccl_ranks(case, world, env=None):
         outs = []
         for p in procs:
             try:
-                outs.append(p.communicate(timeout=600))
+                outs.append(p.communicate(timeout=timeout))
             except subprocess.TimeoutExpired:
                 p.kill()
                 outs.append(p.communicate())
@@ -342,11 +419,12 @@ def main():
                     continue
             # parallel.distributed.initialize turns NCCL's graph mixing
             # support off unless the environment sets it: _mixing sets it on
-            mixing = "_mixing" in case
+            env = None
+            if "_mixing" in case:
+                env = dict(os.environ, NCCL_GRAPH_MIXING_SUPPORT="1")
             codes, out, err = nccl_ranks(
                 case.removesuffix("_cards").replace("_mixing", ""), world,
-                dict(os.environ, NCCL_GRAPH_MIXING_SUPPORT="1") if mixing
-                else None)
+                env, timeout=100 if case.startswith("fit_") else 600)
             fatal = err.find("Fatal Python error")
             tail = (err[fatal:fatal + 120] if fatal >= 0 else err[-600:]
                     if any(codes) else "")

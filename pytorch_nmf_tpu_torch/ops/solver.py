@@ -504,18 +504,19 @@ class _Cache:
     def use(self, chunk, targets, args, cached: bool = True):
         """Yields the entry of a fit of the chunk configuration ``chunk``
         (the factory's arguments the chunk reads) on ``targets`` (the
-        objects whose identity keys it) with ``args`` (every argument the
-        chunk reads, the targets included), its ``V`` the first target
-        while the fit runs.  ``cached=False`` (the eager reference): a
-        fresh entry, closed after the fit.  A fit that raises drops its
-        entry."""
+        objects whose identity keys it; none for a fit that copies its
+        target into the entry at every fit, the halo fits') with ``args``
+        (every argument the chunk reads, the targets included), its ``V``
+        the first target while the fit runs.  ``cached=False`` (the eager
+        reference): a fresh entry, closed after the fit.  A fit that raises
+        drops its entry."""
         self.purge()
         if cached:
             e, kept = self._lookup(chunk, targets, args)
         else:
             e, kept = _Entry(), False
             e.lock.acquire()
-        e.V = targets[0]
+        e.V = targets[0] if targets else None
         _FITTING.depth = getattr(_FITTING, "depth", 0) + 1
         done = False
         try:

@@ -33,12 +33,16 @@ The transport is the process group's backend, named by
 ``stats.timed`` is set) their milliseconds, per kind: ``all_reduce``,
 ``halo`` (the shifts) and ``gather``.  ``chip_smoke.py`` reads and resets it.
 
-A collective inside a CUDA-graph capture (the sharded fits' chunk loop,
-``ops/solver.py``) is recorded, not run: over NCCL the capture holds its
-kernel, and the all-reduce runs at every replay.  Its calls and bytes are
-counts of :mod:`..ops.graphs`, counted on the card where a replayed
-loop's body runs them (read after the fit, as the kernels' launches are);
-it is not timed.  :func:`agree_min` gives every rank of a mesh the least
+A collective or a shift inside a CUDA-graph capture (the sharded and halo
+fits' chunk loop, ``ops/solver.py``) is recorded, not run: over NCCL the
+capture holds its kernels (a shift's send and receive too: one
+``batch_isend_irecv`` in a WHILE node's body replays bit for bit across
+four H100s, ``chip_tools/while_capture_probe.py body_nccl_shift_cards``,
+after an eager exchange on the group), and it runs at every replay; a
+one-rank dimension's shift calls nothing.  Its calls and bytes are counts
+of :mod:`..ops.graphs`, counted on the card where a replayed loop's body
+runs them (read after the fit, as the kernels' launches are); it is not
+timed.  :func:`agree_min` gives every rank of a mesh the least
 of their integers, on the host (the
 ranks of a sharded fit agree on the path of its chunk loop so, reading
 nothing on the card), through the default group's store.
@@ -174,16 +178,22 @@ class Comm:
     def all_reduce(self, *tensors) -> None:
         """Sum each tensor (``None`` skipped) over the dimension, in place,
         in one round.  A dimension of one rank still calls the backend, so
-        a one-rank NCCL group runs NCCL."""
+        a one-rank NCCL group runs NCCL.  A tensor that is not contiguous
+        (a cuDNN weight gradient, the halo ``conv`` mode's) is reduced in a
+        contiguous copy, copied back: NCCL refuses it (C11)."""
         tensors = [t for t in tensors if t is not None]
         if not tensors:
             return
+        dense = [t.contiguous() for t in tensors]
         with _Timer("all_reduce", self.device.type == "cuda",
                     sum(t.numel() * t.element_size() for t in tensors)):
             works = [dist.all_reduce(t, group=self.group, async_op=True)
-                     for t in tensors]
+                     for t in dense]
             for w in works:
                 w.wait()
+        for t, d in zip(tensors, dense):
+            if d is not t:
+                t.copy_(d)
 
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` (picklable) on every rank of the dimension."""
@@ -251,10 +261,16 @@ class Comm:
         return self._shift(x, -1)
 
 
-@functools.lru_cache(maxsize=None)
 def comm_for(mesh, axis: str) -> Comm:
-    """The :class:`Comm` of ``mesh``'s dimension ``axis`` (one per pair, so
-    its pinned buffers serve every call)."""
+    """The :class:`Comm` of ``mesh``'s dimension ``axis`` (one per pair and
+    process group, so its pinned buffers serve every call; a mesh made
+    again on a new default group equals the old one, but its group is
+    new: C10)."""
+    return _comm_for(mesh, axis, mesh.get_group(axis))
+
+
+@functools.lru_cache(maxsize=None)
+def _comm_for(mesh, axis: str, group) -> Comm:
     return Comm(mesh, axis)
 
 

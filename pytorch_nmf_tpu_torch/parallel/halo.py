@@ -63,9 +63,23 @@ heuristic says ``"stream"`` it runs ``"conv"``, as the JAX package's
 does.  The W and Z gradients are partial sums,
 all-reduced after ``autograd.grad``.  On CPU tensors the kernels' plain
 versions run in place of B3/B4.
+
+The fits are compiled once per configuration, as the JAX package jits its
+``shard_map`` halo fits: their chunk loop runs through
+:func:`.sharded._run_fit` on the fits' cache, over NCCL one CUDA-graph
+WHILE node whose body holds the halo shifts (NCCL's send and receive,
+:meth:`~.comm.Comm.shift_right`/``shift_left``) and the all-reduces, in
+every per-shard mode; on a ``"cpu"`` mesh the same workload eagerly; over
+``"gloo-staged"`` the eager loop.  The per-shard mode is resolved before
+the cache is looked up and is part of the key.  The entry keeps its own
+copy of this rank's padded chunk of V (the MU fits' ``Vl`` and, in the
+kernel and stream modes, its flat layout; the EM's ``Vn``), filled in
+place at every fit from the chunk :func:`_halo_split` makes: a fit on
+another V of the same shape replays the kept loop, with no capture.
 """
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -83,11 +97,11 @@ from ..ops.fast_nmfd import (_DEFAULT_UNFOLD_MAX_BYTES, _UNFOLD_HBM_FRACTION,
 from ..ops.fused_deconv import _CHUNK_COLS, _chunk_tc, _flat_T, nd_geom
 from ..ops.mu import gamma_from_beta, mu_cotangents
 from ..ops.recon import matmul, scaled_kernel
-from ..ops.solver import (_converging_loop, _plca_e_step, _plca_m_step,
+from ..ops.solver import (_keep, _load, _plca_e_step, _plca_m_step,
                           _plca_marginal_sum, alpha_is_active)
 from .comm import comm_for
-from .sharded import (_alpha, _mu_step, _reporter, as_dtensor, full_array,
-                      mesh_device, placements)
+from .sharded import (_alpha, _mu_step, _reporter, _run_fit, as_dtensor,
+                      full_array, mesh_device, placements)
 
 __all__ = [
     "left_halo",
@@ -401,6 +415,17 @@ class _NoComm:
     shift_left = shift_right
 
 
+def _start(mode, W):
+    """The kernel ``W (C, R, *k)`` in ``mode``'s layout: as it is for the
+    autograd modes, ``W2 (K·R, C)`` for the others (:class:`_MuShard`)."""
+    return W if mode in ("unrolled", "conv") else _w2(W)
+
+
+def _finish(mode, w, kernel, R):
+    """The inverse of :func:`_start`."""
+    return w if mode in ("unrolled", "conv") else _w_from_w2(w, kernel, R)
+
+
 class _MuShard:
     """One rank's MU iteration of a halo fit in the per-shard ``mode``
     (see the module docstring) over ``comm``: its target chunk ``Vl (N, C,
@@ -427,11 +452,12 @@ class _MuShard:
         self.target = Vl if self.autograd else _v2_flat(Vl)
         self.sum_axes = (0,) + tuple(range(2, 2 + self.nd))
 
-    def start(self, W):
-        return W if self.autograd else _w2(W)
-
-    def finish(self, w):
-        return w if self.autograd else _w_from_w2(w, self.kernel, self.R)
+    def refresh(self):
+        """Recomputes the target's layout from ``Vl``'s current values, in
+        place (a compiled fit copies each fit's chunk into ``Vl``)."""
+        if self.target is not self.Vl:
+            self.target.copy_(self.Vl.movedim(1, -1).reshape(
+                self.target.shape))
 
     def exchange(self, hp):
         """This iteration's halo: ``recv`` in the split form, else the
@@ -540,7 +566,7 @@ def _local_run(mode, Vl, W, hp, beta: float):
     shard = _MuShard(mode, Vl, tuple(int(k) for k in W.shape[2:]),
                      W.shape[1], float(beta), gamma_from_beta(beta), 0.0, 0.0,
                      _NoComm())
-    w0 = shard.start(W)
+    w0 = _start(mode, W)
 
     @torch.no_grad()
     def run(n):
@@ -621,12 +647,41 @@ def _h_out(hp, comm, mesh, seq_axis, L_in, shape):
     return as_dtensor(local, mesh, pls, shape)
 
 
+def _keep_chunk(d, name, x):
+    """``d[name]``: the entry's own copy of this fit's chunk ``x``, filled
+    in place at every later fit (never ``x`` itself, which may share
+    storage with the caller's array)."""
+    _keep(d, name, x if name in d else x.clone())
+    return d[name]
+
+
+def _mu_fns(shard, comm, loss_offset, update_W, update_H):
+    """The MU halo fit's closures on one rank's :class:`_MuShard`."""
+    def loss_of(state):
+        part = shard.loss_part(*state).reshape(1)
+        comm.all_reduce(part)
+        return torch.sqrt(2.0 * torch.clamp(part[0] - loss_offset, min=0.0))
+
+    def one_iter(state):
+        return shard.step(*state, update_W, update_H)
+
+    return SimpleNamespace(one_iter=one_iter, loss_of=loss_of, extra_of=None,
+                           shard=shard)
+
+
 def _sharded_deconv_fit(V, W, H, mesh, spatial_ndim, beta=1, tol=1e-4,
                         max_iter=200, l1_reg=0.0, l2_reg=0.0, seq_axis="seq",
                         update_W=True, update_H=True, verbose=False,
-                        mode=None):
+                        mode=None, _graph=True):
     """The MU halo fits; ``mode`` forces a per-shard mode (:data:`MU_MODES`),
-    ``None`` resolves it (:func:`_resolve_halo_mode`)."""
+    ``None`` resolves it (:func:`_resolve_halo_mode`), before the fits'
+    cache is looked up.  The chunk loop runs through
+    :func:`.sharded._run_fit` (compiled as the module docstring says);
+    ``_graph=False`` (private: the eager twin of the checks) runs the eager
+    loop.  The entry keeps its own copy of the rank's padded chunk of V
+    (and, in the kernel and stream modes, its flat layout), filled in place
+    at every fit: a fit of the same configuration on another V of the same
+    shape is a cache hit."""
     beta, tol, max_iter = float(beta), float(tol), int(max_iter)
     l1_reg, l2_reg = float(l1_reg), float(l2_reg)
     gamma = gamma_from_beta(beta)
@@ -646,21 +701,29 @@ def _sharded_deconv_fit(V, W, H, mesh, spatial_ndim, beta=1, tol=1e-4,
     mode = _resolve_halo_mode(mode, False, N, Vl.shape[1],
                               tuple(hp.shape[2:-1]), chunk, kernel, R, beta,
                               comm, dev)
-    shard = _MuShard(mode, Vl, kernel, R, beta, gamma, l1_reg, l2_reg, comm)
 
-    def loss_of(state):
-        part = shard.loss_part(*state).reshape(1)
-        comm.all_reduce(part)
-        return torch.sqrt(2.0 * torch.clamp(part[0] - loss_offset, min=0.0))
+    def fns_of(e):
+        d = e.derived
+        Vk = _keep_chunk(d, "Vl", Vl)
+        if e.fns is None:
+            shard = _MuShard(mode, Vk, kernel, R, beta, gamma, l1_reg,
+                             l2_reg, comm)
+            d["target"] = shard.target
+            e.fns = _mu_fns(shard, comm, loss_offset, update_W, update_H)
+        else:
+            e.fns.shard.refresh()
+        return e.fns
 
-    def one_iter(state):
-        return shard.step(*state, update_W, update_H)
-
+    # what the chunk reads: every argument but max_iter and verbose, the
+    # resolved mode and the loss offset (the group through its Comm); the
+    # chunk's, W's and H's signatures join the key in the cache
+    key = ("halo_mu", spatial_ndim, beta, tol, l1_reg, l2_reg, update_W,
+           update_H, mode, loss_offset, comm)
     with torch.no_grad(), _reporter(mesh, verbose, max_iter) as report:
-        (w, hp), k, conv = _converging_loop(one_iter, loss_of,
-                                            (shard.start(W), hp), tol,
-                                            max_iter, report)
-        W_out = shard.finish(w)
+        (w, hp), k, conv = _run_fit(mesh, (comm,), key, (), (Vl, W, hp),
+                                    (_start(mode, W), hp), fns_of, tol,
+                                    max_iter, _graph, report)
+        W_out = _finish(mode, w, kernel, R)
         H_out = _h_out(hp, comm, mesh, seq_axis, L_in, h_shape)
     return (as_dtensor(W_out, mesh, placements(mesh, {}), tuple(W_out.shape)),
             H_out, k * 10 if conv else max_iter)
@@ -680,7 +743,11 @@ def sharded_nmfd_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
     Returns ``(W, H, n_iter)``: ``W`` a replicated DTensor, ``H`` a DTensor
     sharded along its trailing axis, ``n_iter`` an int, matching the
     single-card trajectory.  ``verbose`` reports the cadence loss from
-    rank 0."""
+    rank 0.  Compiled once per configuration (the module docstring): a
+    later fit of the same configuration, on this V or another of its
+    shape, is one replay and one host read a rank; call
+    ``ops.solver.compiled_cache_clear()`` on every rank before
+    ``torch.distributed.destroy_process_group``."""
     return _sharded_deconv_fit(V, W, H, mesh, 1, beta, tol, max_iter, l1_reg,
                                l2_reg, seq_axis, update_W, update_H, verbose)
 
@@ -707,38 +774,14 @@ def sharded_nmf3d_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
                                l2_reg, seq_axis, update_W, update_H, verbose)
 
 
-def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol=1e-4,
-                        max_iter=200, W_alpha=1.0, H_alpha=1.0, Z_alpha=1.0,
-                        update_W=True, update_H=True, update_Z=True,
-                        seq_axis="seq", verbose=False, mode=None):
-    """The EM halo fits; ``mode`` forces a per-shard mode (:data:`EM_MODES`),
-    ``None`` resolves it (:func:`_resolve_halo_mode`)."""
-    tol, max_iter = float(tol), int(max_iter)
-    Wa, Ha, Za = (alpha_is_active(a) for a in (W_alpha, H_alpha, Z_alpha))
-    h_shape = tuple(H.shape)
-    comm, dev, Vl, W, hp, chunk, L_in, _ = _halo_split(
-        V, W, H, mesh, spatial_ndim, seq_axis)
-    Z = full_array(Z).to(device=dev, dtype=torch.float32)
-    W_alpha, H_alpha, Z_alpha = (_alpha(a, dev)
-                                 for a in (W_alpha, H_alpha, Z_alpha))
-    nd = spatial_ndim
-    kernel = tuple(int(k) for k in W.shape[2:])
-    halo = kernel[-1] - 1
-    n_pad_h = chunk * comm.size - L_in
-    # the EM E-step's cotangents are KL-shaped: the modes are timed at β=1
-    mode = _resolve_halo_mode(mode, True, Vl.shape[0], Vl.shape[1],
-                              tuple(hp.shape[2:-1]), chunk, kernel,
-                              W.shape[1], 1.0, comm, dev)
-    recon_hh = {"fused": _HaloDeconv.apply,
-                "unrolled": lambda hh, Wz: _unfold_halo_nd(hh, Wz, nd),
-                "conv": lambda hh, Wz: _conv_halo_nd(hh, Wz, nd)}[mode]
-    # the padded H positions must stay exactly zero through the prior's
-    # h + (alpha - 1)
-    h_mask = None
-    if n_pad_h and Ha:
-        gpos = comm.rank * chunk + torch.arange(chunk, device=dev)
-        h_mask = (gpos < chunk * comm.size - n_pad_h).to(hp.dtype).reshape(
-            (1, 1) + (1,) * (nd - 1) + (chunk,))
+def _em_fns(d, comm, recon_hh, halo, mesh, seq_axis, nd, n_pad_h,
+            updates, active):
+    """The EM halo fit's closures on the entry's ``Vn``, ``norm``, priors
+    and ``h_mask`` (``d``)."""
+    update_W, update_H, update_Z = updates
+    Wa, Ha, Za = active
+    norm, Vn, h_mask = d["norm"], d["Vn"], d["h_mask"]
+    W_alpha, H_alpha, Z_alpha = d["alphas"]
 
     def summed(x):
         x = x.reshape(1).clone() if x.ndim == 0 else x.clone()
@@ -752,53 +795,115 @@ def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol=1e-4,
     def h_marginal(h):
         return summed(_plca_marginal_sum(h))
 
-    with torch.no_grad():
+    def loss_of(state):
+        w, hp, z = state
+        part = kl_div(recon3(hp, w, z) * norm, Vn * norm)
+        return torch.sqrt(2.0 * summed(part)[0])
+
+    def log_probability(state):
+        # the padded H entries (exact zeros) would each add
+        # log(eps)·(Hα-1) against the unpadded problem: taken off
+        w, hp, z = state
+        WZH = recon3(hp, w, z)
+        lp = summed(matmul(Vn.reshape(-1),
+                           torch.log(WZH + eps).reshape(-1)))[0]
+        lp = lp + torch.sum(torch.log(w + eps) * (W_alpha - 1.0))
+        lp = lp + summed(torch.sum(torch.log(hp + eps)
+                                   * (H_alpha - 1.0)))[0]
+        if n_pad_h:
+            rows = hp.numel() // hp.shape[-1]
+            lp = lp - rows * n_pad_h * np.log(np.float32(eps)) * (
+                H_alpha - 1.0)
+        return lp + torch.sum(torch.log(z + eps) * (Z_alpha - 1.0))
+
+    def one_iter(state):
+        w, hp, z = state
+        # the halo cotangent goes back through left_halo's backward, the W
+        # and Z gradients are partial sums
+        gH, gW, gZ = _plca_e_step(recon3, Vn, w, hp, z)
+        comm.all_reduce(gW if update_W else None, gZ if update_Z else None)
+        return _plca_m_step(update_W, update_H, update_Z, Wa, Ha, Za, w, hp,
+                            z, gH, gW, gZ, W_alpha, H_alpha, Z_alpha,
+                            h_marginal=h_marginal, h_mask=h_mask)
+
+    return SimpleNamespace(one_iter=one_iter, loss_of=loss_of,
+                           extra_of=log_probability)
+
+
+def _sharded_siplca_fit(V, W, H, Z, mesh, spatial_ndim, tol=1e-4,
+                        max_iter=200, W_alpha=1.0, H_alpha=1.0, Z_alpha=1.0,
+                        update_W=True, update_H=True, update_Z=True,
+                        seq_axis="seq", verbose=False, mode=None,
+                        _graph=True):
+    """The EM halo fits; ``mode`` forces a per-shard mode (:data:`EM_MODES`),
+    ``None`` resolves it (:func:`_resolve_halo_mode`), before the fits'
+    cache is looked up.  Compiled as :func:`_sharded_deconv_fit` is
+    (``_graph`` likewise); the entry keeps ``norm``, ``Vn = Vl / norm``
+    (the rank's chunk normalized), the priors and ``h_mask``, recomputed
+    from this fit's chunk into the same tensors at every fit: another V of
+    the same shape is a hit."""
+    tol, max_iter = float(tol), int(max_iter)
+    Wa, Ha, Za = (alpha_is_active(a) for a in (W_alpha, H_alpha, Z_alpha))
+    h_shape = tuple(H.shape)
+    comm, dev, Vl, W, hp, chunk, L_in, _ = _halo_split(
+        V, W, H, mesh, spatial_ndim, seq_axis)
+    Z = full_array(Z).to(device=dev, dtype=torch.float32)
+    alphas = tuple(_alpha(a, dev) for a in (W_alpha, H_alpha, Z_alpha))
+    nd = spatial_ndim
+    kernel = tuple(int(k) for k in W.shape[2:])
+    halo = kernel[-1] - 1
+    n_pad_h = chunk * comm.size - L_in
+    # the EM E-step's cotangents are KL-shaped: the modes are timed at β=1
+    mode = _resolve_halo_mode(mode, True, Vl.shape[0], Vl.shape[1],
+                              tuple(hp.shape[2:-1]), chunk, kernel,
+                              W.shape[1], 1.0, comm, dev)
+    recon_hh = {"fused": _HaloDeconv.apply,
+                "unrolled": lambda hh, Wz: _unfold_halo_nd(hh, Wz, nd),
+                "conv": lambda hh, Wz: _conv_halo_nd(hh, Wz, nd)}[mode]
+    got = {}
+
+    def fns_of(e):
+        d = e.derived
         # the sum in float32 over the ranks, then in V's dtype (as
         # sharded.sharded_plca_fit)
-        norm = summed(Vl.sum(dtype=torch.float32))[0].to(Vl.dtype)
-        Vn = Vl / norm
+        part = Vl.sum(dtype=torch.float32).reshape(1)
+        comm.all_reduce(part)
+        _keep(d, "norm", part[0].to(Vl.dtype))
+        if "Vn" in d:
+            torch.div(Vl, d["norm"], out=d["Vn"])
+            _load(d["alphas"], alphas)
+        else:
+            d["Vn"] = Vl / d["norm"]
+            d["alphas"] = tuple(a.clone() for a in alphas)
+            # the padded H positions must stay exactly zero through the
+            # prior's h + (alpha - 1)
+            d["h_mask"] = None
+            if n_pad_h and Ha:
+                gpos = comm.rank * chunk + torch.arange(chunk, device=dev)
+                d["h_mask"] = (gpos < chunk * comm.size - n_pad_h).to(
+                    hp.dtype).reshape((1, 1) + (1,) * (nd - 1) + (chunk,))
+        if e.fns is None:
+            e.fns = _em_fns(d, comm, recon_hh, halo, mesh, seq_axis, nd,
+                            n_pad_h, (update_W, update_H, update_Z),
+                            (Wa, Ha, Za))
+        got["norm"] = d["norm"]
+        return e.fns
 
-        def loss_of(state):
-            w, hp, z = state
-            part = kl_div(recon3(hp, w, z) * norm, Vn * norm)
-            return torch.sqrt(2.0 * summed(part)[0])
-
-        def log_probability(state):
-            # the padded H entries (exact zeros) would each add
-            # log(eps)·(Hα-1) against the unpadded problem: taken off
-            w, hp, z = state
-            WZH = recon3(hp, w, z)
-            lp = summed(matmul(Vn.reshape(-1),
-                               torch.log(WZH + eps).reshape(-1)))[0]
-            lp = lp + torch.sum(torch.log(w + eps) * (W_alpha - 1.0))
-            lp = lp + summed(torch.sum(torch.log(hp + eps)
-                                       * (H_alpha - 1.0)))[0]
-            if n_pad_h:
-                rows = hp.numel() // hp.shape[-1]
-                lp = lp - rows * n_pad_h * np.log(np.float32(eps)) * (
-                    H_alpha - 1.0)
-            return lp + torch.sum(torch.log(z + eps) * (Z_alpha - 1.0))
-
-        def one_iter(state):
-            w, hp, z = state
-            # the halo cotangent goes back through left_halo's backward,
-            # the W and Z gradients are partial sums
-            gH, gW, gZ = _plca_e_step(recon3, Vn, w, hp, z)
-            comm.all_reduce(gW if update_W else None,
-                            gZ if update_Z else None)
-            return _plca_m_step(update_W, update_H, update_Z, Wa, Ha, Za, w,
-                                hp, z, gH, gW, gZ, W_alpha, H_alpha, Z_alpha,
-                                h_marginal=h_marginal, h_mask=h_mask)
-
-        with _reporter(mesh, verbose, max_iter) as report:
-            (W, hp, Z), k, conv = _converging_loop(
-                one_iter, loss_of, (W, hp, Z), tol, max_iter, report,
-                extra_of=log_probability)
+    # what the chunk reads: every argument but max_iter, the resolved mode
+    # and the padded H frames (the group through its Comm; a reporting
+    # chunk also computes the log-probability); the chunk's, the factors'
+    # and the priors' signatures join the key in the cache
+    key = ("halo_em", nd, tol, update_W, update_H, update_Z, Wa, Ha, Za,
+           mode, n_pad_h, bool(verbose), comm)
+    with torch.no_grad(), _reporter(mesh, verbose, max_iter) as report:
+        (W, hp, Z), k, conv = _run_fit(
+            mesh, (comm,), key, (), (Vl, W, hp, Z) + alphas, (W, hp, Z),
+            fns_of, tol, max_iter, _graph, report)
         H_out = _h_out(hp, comm, mesh, seq_axis, L_in, h_shape)
     rep = placements(mesh, {})
     return (as_dtensor(W, mesh, rep, tuple(W.shape)), H_out,
             as_dtensor(Z, mesh, rep, tuple(Z.shape)),
-            k * 10 - 1 if conv else max_iter - 1, float(norm))
+            k * 10 - 1 if conv else max_iter - 1, float(got["norm"]))
 
 
 def sharded_siplca_fit(V, W, H, Z, mesh, tol: float = 1e-4,
@@ -812,9 +917,9 @@ def sharded_siplca_fit(V, W, H, Z, mesh, tol: float = 1e-4,
     :class:`~..plca.SIPLCA` constructor leaves them).  Per iteration one
     exchange each way and one all-reduce of the W and Z gradients; the
     padding rules of :func:`sharded_nmfd_fit` (the all-zero cells' KL
-    divergence is exactly 0: no loss offset).  Returns ``(W, H, Z, n_iter,
-    norm)``: DTensors (``H`` sharded on its trailing axis), the reference's
-    raw loop index and a float."""
+    divergence is exactly 0: no loss offset), compiled as it is.  Returns
+    ``(W, H, Z, n_iter, norm)``: DTensors (``H`` sharded on its trailing
+    axis), the reference's raw loop index and a float."""
     return _sharded_siplca_fit(V, W, H, Z, mesh, 1, tol, max_iter, W_alpha,
                                H_alpha, Z_alpha, update_W, update_H, update_Z,
                                seq_axis, verbose)

@@ -34,7 +34,8 @@ WHILE node whose body holds the chunk's all-reduces (across ranks with
 NCCL's graph mixing support off, :func:`_compiles`), on a ``"cpu"`` mesh
 eagerly as every CPU fit runs it; over ``"gloo-staged"`` the eager loop.
 The ranks agree on the loop's path before its first chunk
-(``solver._agree_path``), so that they capture together.
+(``solver._agree_path``), so that they capture together.  The halo fits
+(:mod:`.halo`) run on the same machinery.
 """
 
 import contextlib
@@ -194,11 +195,13 @@ def _compiles(comms) -> bool:
     """Whether a sharded fit's chunk loop runs on the fits' cache (the
     choice is made up front, from the transports): over gloo on the CPU
     (the same workload, run eagerly) and over NCCL, captured on the card,
-    where a WHILE node's body can hold the all-reduces: on one rank, or
-    with NCCL's graph mixing support off (``NCCL_GRAPH_MIXING_SUPPORT=0``,
-    which :func:`.distributed.initialize` sets; with it on, NCCL records
-    event nodes that a body refuses: ``chip_tools/while_capture_probe.py``
-    ``body_nccl_all_reduce_mixing_cards``).  Not over ``"gloo-staged"``,
+    where a WHILE node's body can hold the all-reduces and the halo
+    shifts' sends and receives: on one rank, or with NCCL's graph mixing
+    support off (``NCCL_GRAPH_MIXING_SUPPORT=0``, which
+    :func:`.distributed.initialize` sets; with it on, NCCL records event
+    nodes that a body refuses: ``chip_tools/while_capture_probe.py``
+    ``body_nccl_all_reduce_mixing_cards``,
+    ``body_nccl_shift_mixing_cards``).  Not over ``"gloo-staged"``,
     whose collectives synchronize the host inside each call, which no
     graph holds."""
     mixing = os.environ.get("NCCL_GRAPH_MIXING_SUPPORT", "1") != "0"
@@ -214,8 +217,10 @@ def _run_fit(mesh, comms, chunk, targets, args, state0, fns_of, tol,
     entry (at every fit) and makes its closures (``one_iter``, ``loss_of``,
     ``extra_of``; once an entry).  Where :func:`_compiles`, on the fits'
     cache (``ops/solver.py``; ``chunk`` and ``args`` key it, ``targets``
-    identify it) through ``_graphed_loop``, the ranks agreeing on its path
-    first (:func:`.comm.agree_min`); otherwise, or with ``graph`` false
+    identify it, or none where the entry keeps its own copy of the
+    target, the halo fits') through ``_graphed_loop``, the ranks agreeing
+    on its path first (:func:`.comm.agree_min`); otherwise, or with
+    ``graph`` false
     (the eager twin), ``_converging_loop``.  No retry out of memory: the
     other ranks would not retry with it."""
     cached = graph and _compiles(comms)

@@ -201,7 +201,7 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             V = sparse_from_dense(a("V"))
             W, H, n = par.sharded_sparse_nmf_fit(V, a("W"), a("H"), mesh, **kw)
             out.update(W=full(W), H=full(H), n_iter=n)
-        elif kind == "deconv" and mode is not None:
+        elif kind == "deconv" and (mode is not None or "_graph" in kw):
             W, H, n = halo._sharded_deconv_fit(
                 a("V"), a("W"), a("H"), mesh, case["nd"], mode=mode, **kw)
             out.update(W=full(W), H=full(H), n_iter=n)
@@ -211,7 +211,7 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             W, H, n = fit(a("V"), a("W"), a("H"), mesh, **kw)
             out.update(W=full(W), H=full(H), n_iter=n)
         elif kind == "siplca":
-            if mode is not None:
+            if mode is not None or "_graph" in kw:
                 W, H, Z, n, norm = halo._sharded_siplca_fit(
                     a("V"), a("W"), a("H"), a("Z"), mesh, case["nd"],
                     mode=mode, **kw)
@@ -227,6 +227,8 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             out.update(_halo_ops(a, mesh, halo, par, torch, dist))
         elif kind == "halo_strip_ops":
             out.update(_halo_strip_ops(a, mesh, halo, par, torch))
+        elif kind == "strict_all_reduce":
+            out.update(_strict_all_reduce(a, mesh, par, torch, dist))
         elif kind == "compiled":
             out.update(_compiled(case, a, mesh, full))
         elif kind == "mesh_error":
@@ -264,12 +266,14 @@ def _compiled(case, a, mesh, full):
     """The ``steps`` of a ``compiled`` case on one set of targets (made
     once: ``shard_target`` DTensors of ``V`` and ``H``, or a sparse ``V``):
 
-    * ``{"do": "fit", "out": name, "inputs": "dtensor" | "full", "start":
-      an earlier fit's name (its DTensor outputs fed back) or none,
-      "graph": bool}`` (``full`` gathers the start); its factors,
-      ``n_iter`` (and ``norm``), the loops' host reads, the cache's hits,
-      warm and cold misses and the all-reduces' calls and bytes come back
-      as ``{name}_{key}``;
+    * ``{"do": "fit", "out": name, "inputs": "dtensor" | "full" |
+      "other", "start": an earlier fit's name (its DTensor outputs fed
+      back) or none, "graph": bool}`` (``full`` gathers the start;
+      ``other`` is the full array ``V2``, another target of ``V``'s
+      shape); its factors, ``n_iter`` (and ``norm``), the loops' host
+      reads, the cache's hits, warm and cold misses, the all-reduces' and
+      halo shifts' calls and bytes, the graphs' ``(replays, captures)``
+      and B3/B4's launches come back as ``{name}_{key}``;
     * ``{"do": "scale"}``: ``V``'s values times 3 through ``.data`` (no
       version counter moves);
     * ``{"do": "clear", "ranks": [...]}``: those ranks empty their cache;
@@ -277,25 +281,28 @@ def _compiled(case, a, mesh, full):
       process group, starts a new one and makes the mesh again (the case
       spans the world).
 
-    The case starts on an empty cache.  A step that raises ends the case:
-    ``error`` holds its message."""
+    The halo fits (``nmfd``, a ``deconv`` of the case's ``nd``, and
+    ``siplca``) run through the private fits, in the case's ``mode`` (none:
+    resolved).  The case starts on an empty cache.  A step that raises ends
+    the case: ``error`` holds its message."""
     import torch
     import torch.distributed as dist
 
     from pytorch_nmf_tpu_torch import parallel as par
-    from pytorch_nmf_tpu_torch.ops import solver
+    from pytorch_nmf_tpu_torch.ops import fused_deconv, graphs, solver
     from pytorch_nmf_tpu_torch.ops.sparse import sparse_from_dense
-    from pytorch_nmf_tpu_torch.parallel import comm
+    from pytorch_nmf_tpu_torch.parallel import comm, halo as halo_fits
     from pytorch_nmf_tpu_torch.parallel.sharded import placements
 
     fit, kw, out = case["fit"], dict(case.get("kw", {})), {}
     model_axis = kw.get("model_axis")
     names = ("W", "H", "Z") if fit in ("plca", "siplca") else ("W", "H")
     halo = fit in ("nmfd", "siplca")
+    nd = case.get("nd", 1)
 
     def targets(mesh):
         # the halo fits' V and H split along their trailing axis
-        rows = placements(mesh, {2: "seq"} if halo else {0: "data"})
+        rows = placements(mesh, {1 + nd: "seq"} if halo else {0: "data"})
         if fit == "sparse":
             V = sparse_from_dense(a("V"))
         else:
@@ -307,10 +314,12 @@ def _compiled(case, a, mesh, full):
         # the eager twin alone passes _graph (the halo fits have none)
         fkw = dict(kw) if graph else dict(kw, _graph=False)
         if fit == "nmfd":
-            W, H, n = par.sharded_nmfd_fit(V, *start, mesh, **fkw)
+            W, H, n = halo_fits._sharded_deconv_fit(
+                V, *start, mesh, nd, mode=case.get("mode"), **fkw)
             return {"W": W, "H": H, "n_iter": n}
         if fit == "siplca":
-            W, H, Z, n, norm = par.sharded_siplca_fit(V, *start, mesh, **fkw)
+            W, H, Z, n, norm = halo_fits._sharded_siplca_fit(
+                V, *start, mesh, nd, mode=case.get("mode"), **fkw)
             return {"W": W, "H": H, "Z": Z, "n_iter": n, "norm": norm}
         if fit == "nmf":
             W, H, n = par.sharded_nmf_fit(V, *start, mesh, **fkw)
@@ -325,7 +334,10 @@ def _compiled(case, a, mesh, full):
         info = solver.compiled_cache_info()
         return [solver._read.reads, info["hits"], info["warm_misses"],
                 info["cold_misses"], comm.stats.calls["all_reduce"],
-                comm.stats.bytes["all_reduce"]]
+                comm.stats.bytes["all_reduce"], comm.stats.calls["halo"],
+                comm.stats.bytes["halo"], graphs._Graphs.replays,
+                graphs._Graphs.captures, fused_deconv.hgrad.launches,
+                fused_deconv.wgrad.launches]
 
     solver.compiled_cache_clear()
     Vd, Hd = targets(mesh)
@@ -335,8 +347,10 @@ def _compiled(case, a, mesh, full):
             do = step["do"]
             if do == "fit":
                 prev = fits.get(step.get("start"))
-                if step["inputs"] == "full":
-                    V = sparse_from_dense(a("V")) if fit == "sparse" else a("V")
+                if step["inputs"] in ("full", "other"):
+                    V = (a("V2") if step["inputs"] == "other" else
+                         sparse_from_dense(a("V")) if fit == "sparse"
+                         else a("V"))
                     start = ([full(prev[k]) for k in names] if prev else
                              [a(k) for k in names])
                 else:
@@ -350,8 +364,12 @@ def _compiled(case, a, mesh, full):
                 for k, v in got.items():
                     out[f"{step['out']}_{k}"] = full(v) if k in names else v
                 for k, v in zip(("reads", "hits", "warm", "cold", "ar_calls",
-                                 "ar_bytes"), delta):
+                                 "ar_bytes", "halo_calls", "halo_bytes"),
+                                delta):
                     out[f"{step['out']}_{k}"] = v
+                # (replays, captures) and B3/B4 launches
+                out[f"{step['out']}_graphs"] = delta[8:10]
+                out[f"{step['out']}_launches"] = delta[10:]
             elif do == "scale":
                 vals = Vd._values() if fit == "sparse" else Vd.to_local()
                 vals.data.mul_(3)
@@ -369,8 +387,16 @@ def _compiled(case, a, mesh, full):
                 mesh = par.make_mesh(dict(case["axes"]), "cpu")
                 Vd, Hd = targets(mesh)
                 out["regrouped"] = True
-    except Exception as e:  # noqa: BLE001 (reported to the test)
-        out["error"] = np.frombuffer(repr(e).encode(), np.uint8)
+                # the collectives' Comm of the mesh made again is on the
+                # new group (C10)
+                axis = mesh.mesh_dim_names[0]
+                out["regroup_comm_new"] = comm.comm_for(
+                    mesh, axis).group is mesh.get_group(axis)
+    except Exception:  # noqa: BLE001 (reported to the test)
+        import traceback
+
+        out["error"] = np.frombuffer(traceback.format_exc().encode(),
+                                     np.uint8)
     return out
 
 
@@ -445,6 +471,30 @@ def _halo_strip_ops(a, mesh, halo, par, torch):
             "autograd": torch.cat(comm.all_gather(ag), -1).numpy(),
             "adjoint0": torch.cat(comm.all_gather(adj0), -1).numpy(),
             "inner": ip.numpy()}
+
+
+def _strict_all_reduce(a, mesh, par, torch, dist):
+    """``Comm.all_reduce`` of a transposed (not contiguous) ``x``, the
+    backend refusing tensors that are not contiguous, as NCCL does (C11):
+    the sum, in ``x`` itself (its strides kept)."""
+    comm = par.comm.comm_for(mesh, mesh.mesh_dim_names[0])
+    x = torch.from_numpy(a("x")).t()
+    strides = x.stride()
+    orig = dist.all_reduce
+
+    def strict(t, *args, **kw):
+        if not t.is_contiguous():
+            raise ValueError("Tensors must be contiguous")
+        return orig(t, *args, **kw)
+
+    dist.all_reduce = strict
+    try:
+        comm.all_reduce(x)
+    except ValueError as e:
+        return {"error": np.frombuffer(repr(e).encode(), np.uint8)}
+    finally:
+        dist.all_reduce = orig
+    return {"sum": x.numpy(), "same_strides": x.stride() == strides}
 
 
 _WORKDIR = None
