@@ -39,21 +39,27 @@ Drives the port's paths at full width, each in phases:
   launch of the projection kernel P1 (``csrc/hoyer_proj.cu``), exactly one
   per constrained factor and line-search attempt, with no host read; the
   dense fit's launches, device time and idle share an iteration
-  (``torch.profiler``); and the compiled Hoyer chunk, whose line search's
-  attempts 2-10 are a CUDA-graph WHILE node (``csrc/graph_cond.cu``): the
-  dense cell at 100 iterations and the NMFD flagship (``sW``, ``sW+sH``)
-  at 30, as cache cells (below): through the model a cold fit, a warm one
-  from other inits and one on a new V, against ``_graph=False`` (eager),
-  each bit for bit its eager twin with the same attempts and launches, no
-  line-search host read from the first replay on; ms/iteration every way,
+  (``torch.profiler``); first nested WHILE nodes (``nested_while``: an
+  outer node whose body holds two inner ones, ``F.conv1d`` and a grouped
+  convolution in the inner bodies, replayed against eager, the bodies'
+  executions counted on the card at each depth); then the compiled Hoyer
+  fit, its chunk loop one CUDA-graph WHILE node (``csrc/graph_cond.cu``)
+  whose body holds each line search's attempts 2-10 as nested WHILE
+  nodes: the dense cell at 100 iterations and the NMFD flagship (``sW``,
+  ``sW+sH``) at 30, as cache cells (below): through the model a cold fit
+  (chunks 1-2 eager, one capture, one replay), a warm one from other inits
+  (one replay, no capture, no host read) and one on a new V (one capture,
+  one replay), against ``_graph=False`` (eager), each bit for bit its eager
+  twin with the same attempts and launches, no line-search host read from
+  the first replay on; ms/iteration every way,
   the replayed chunks' against their device time, the idle shares, the
   WHILE nodes' own kernels, the captures' host ms, attempts an iteration,
   host reads, the peak memory and the cache's held bytes; and
   ``nmf_hoyer_fit_batched`` over 16 problems of 1025×400 rank 16, one
-  batched program (one capture a cold fit, none a warm one; every
-  projection of the batch one P1 launch; each problem's line search its
-  own, all in one WHILE node) against ``_graph=False`` bit for bit and its
-  16 eager single fits;
+  batched program (one capture a cold fit, none a warm one, each one
+  replay of the chunk loop; every projection of the batch one P1 launch;
+  each problem's line search its own, all in one nested WHILE node)
+  against ``_graph=False`` bit for bit and its 16 eager single fits;
 * the functional API: ``nmf_fit`` (5168×1025, β=0.5) and ``nmfd_fit`` (the
   flagship, β=1) equal ``NMF.fit`` and ``NMFD.fit``, launch for launch;
   ``nmf_fit_batched`` (β ∈ {2, 1}) and ``plca_fit_batched`` over 16
@@ -174,9 +180,13 @@ Drives the port's paths at full width, each in phases:
   all-reduces' and shifts' calls and bytes the twin's; it prints warm,
   eager, cold and new-V (other-V) ms/iteration beside the single-card warm
   fit of the same problem (one rank), the entry's held bytes and, for a
-  halo fit, the bytes of its chunk of V it keeps (``par_compiled``); across
-  cards the ranks also destroy their group, make it again and refit a
-  halo case cold, bit for bit the first (``par_regroup``);
+  halo fit, the bytes of its chunk of V it keeps (``par_compiled``); then
+  the ranks destroy their group with the NMFD case's entry cached and no
+  cache clear (C12: the call drops the group's compiled fits itself; a
+  call still running after ``TEARDOWN_S`` fails the run), make it again
+  and refit the case cold, bit for bit the first (``par_regroup``; one
+  NCCL rank here, across cards in ``chip_tools/sharded_cards.py``); every
+  rank's last teardown takes no cache clear either;
 * the halo fits' mode tuner (``autotune.autotune_halo_mode``) at the NMFD
   flagship's, NMF2D's and NMF3D's per-rank problems: ``fused`` against
   ``fused_w`` over one rank's per-shard step without collectives, the
@@ -343,6 +353,9 @@ HOYER_GRAPHED = (("dense NMF sW", "NMF", 100, dict(sW=0.5)),
                  ("NMFD sW", "NMFD", 30, dict(sW=0.5)),
                  ("NMFD sW+sH", "NMFD", 30, dict(sW=0.5, sH=0.5)))
 HOYER_BATCH_ITERS = 30
+# nested device loops (phase 4's nested_while): problems, channels, length,
+# rank and kernel width of its convolutions
+NESTED = (3, 64, 500, 8, 20)
 FUNC_NMF_ITERS = 50
 FUNC_NMFD_ITERS = 10
 # the batched fit: 16 short spectrogram excerpts, (B, M, K, R)
@@ -1596,14 +1609,17 @@ CACHE_RUNS = (("cold", "eager", lambda c: (1, 1, 2 + 2 + 1)),
               ("eager B", "eager B", lambda c: (0, 0, c)),
               ("warm", "eager B", lambda c: (1, 0, 1)),
               ("new V", "eager", lambda c: (1, 1, 1)))
-# the Hoyer fits keep a replay a chunk (their chunk holds the line
-# search's WHILE nodes, and a body opens no conditional of its own):
-# replays and captures as a function of the chunks
-HOYER_RUNS = (("cold", "eager", lambda c: (c - 2, 1)),
-              ("eager", "eager", lambda c: (0, 0)),
-              ("eager B", "eager B", lambda c: (0, 0)),
-              ("warm", "eager B", lambda c: (c, 0)),
-              ("new V", "eager", lambda c: (c, 1)))
+# the Hoyer fits' chunk loop is one WHILE node too, the line searches'
+# WHILE nodes nested in its body, and has no stop test: (replays,
+# captures, the loop's host reads) as a function of the chunks; a cold fit
+# runs chunks 1-2 eagerly (its flag read before and after each), captures
+# and replays once; a warm fit and one on a new V replay once and read
+# nothing
+HOYER_RUNS = (("cold", "eager", lambda c: (1, 1, 2 + 2)),
+              ("eager", "eager", lambda c: (0, 0, 0)),
+              ("eager B", "eager B", lambda c: (0, 0, 0)),
+              ("warm", "eager B", lambda c: (1, 0, 0)),
+              ("new V", "eager", lambda c: (1, 1, 0)))
 
 
 def cache_counts(solver):
@@ -1756,11 +1772,10 @@ def compiled_fits(ns, ctr, card, fit_ms):
     out = {}
     print("phase 4: compiled: the chunk loop one CUDA-graph WHILE node (a "
           "warm fit one replay and one host read, the batched fits none): "
-          "the dense, sparse and EM fits and the batched MU and EM fits; a "
-          "replay a chunk kept (decided by configuration, before any "
-          "capture): the Hoyer fits, single and batched (their chunk holds "
-          "the line search's WHILE nodes, and a body opens no conditional "
-          "of its own)", flush=True)
+          "the dense, sparse and EM fits and the batched MU and EM fits; "
+          "the Hoyer fits, single and batched, below (their loop's body "
+          "holds the line searches' WHILE nodes, nested; a warm fit one "
+          "replay and no host read)", flush=True)
     for label, name, shape, kw in COMPILED_CELLS:
         out[label] = compiled_cell(ns, label, name, shape, kw, ctr, card)
     V, W, H = inputs(*MAIN_SHAPE)
@@ -2099,14 +2114,15 @@ def sparse_hoyer(ns, card, fit_ms, p1):
         m.sparse_fit(V, beta=2, max_iter=iters, sW=0.5)
         return m.W.detach(), m.H.detach()
 
-    rec, outs, chunks = {"ms_per_iter": {}}, {}, iters // 10
+    rec, outs = {"ms_per_iter": {}}, {}
     tag = f"sparse-target Hoyer {M}x{K} top 2% R={R} sW=0.5 beta=2"
     p1_total = 0
-    for how, run, expect in (("cold", graphed, (chunks - 2, 1)),
+    # the chunk loop one replay after the cold fit's two eager chunks
+    for how, run, expect in (("cold", graphed, (1, 1)),
                              ("eager", lambda: eager_fit(V, W0.clone(),
                                                          H0.clone())[:2],
                               (0, 0)),
-                             ("warm", graphed, (chunks, 0))):
+                             ("warm", graphed, (1, 0))):
         a0, r0, q0 = bt.attempts, bt.reads, P.proj_rows.launches
         p0, k0 = Graphs.replays, Graphs.captures
         marks = read_marks(lambda: bt.reads) if how != "eager" else None
@@ -2296,6 +2312,88 @@ def hoyer_device(run, iters, replays=0):
     return total / iters, cond / iters, replayed
 
 
+def nested_while(ns, card, fit_ms):
+    """Phase 4, this slice: nested device loops on the card, as the Hoyer
+    fits' chunk loop holds its line searches (a body's capture opens WHILE
+    nodes of its own, ``ops/graphs.py``): an outer loop on ``k < 3`` whose
+    body holds two inner loops, on ``m < 2 + k`` and ``m < 3 + k``, each
+    inner run an ``F.conv1d`` (NMFD's reconstruction) and a grouped
+    convolution (``vmap``'s, the batched fits') of NESTED's problems with
+    cuDNN on.  Captured after two eager runs and replayed once: equal to
+    the eager run bit for bit, the runs counted on the device (3, 9 and
+    12) and the bodies' executions on the card at each depth (3 and 21)."""
+    from pytorch_nmf_tpu_torch.ops import graphs
+
+    B, C, L, R, T = NESTED
+    rs = np.random.RandomState(SEED)
+    H = torch.from_numpy(rs.rand(B, 1, R, L - T + 1).astype("f")).cuda()
+    W = torch.from_numpy(rs.rand(B, C, R, T).astype("f")).cuda()
+    k = torch.zeros((), dtype=torch.int64, device="cuda")
+    go = torch.zeros((), dtype=torch.bool, device="cuda")
+    ms = [torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2)]
+    again = [torch.zeros((), dtype=torch.bool, device="cuda") for _ in range(2)]
+    acc = torch.zeros(B, 1, C, L, device="cuda")
+    runs = torch.zeros(3, dtype=torch.int64, device="cuda")
+
+    def product():
+        grouped = torch.nn.functional.conv1d(
+            H.reshape(1, B * R, L - T + 1), W.flip(3).reshape(B * C, R, T),
+            padding=T - 1, groups=B).reshape(B, 1, C, L)
+        return grouped + ns.models.NMFD.reconstruct(H[0], W[0])
+
+    def inner(i):
+        def body():
+            acc.mul_(0.5).add_(product())
+            ms[i].add_(1)
+            runs[1 + i].add_(1)
+            torch.lt(ms[i], k + 2 + i, out=again[i])
+
+        return body
+
+    def outer():
+        for i in range(2):
+            ms[i].zero_()
+            again[i].fill_(True)
+            graphs._device_while(again[i], inner(i))
+        acc.add_(1.0)
+        k.add_(1)
+        runs[0].add_(1)
+        torch.lt(k, 3, out=go)
+
+    def work():
+        k.zero_()
+        acc.zero_()
+        runs.zero_()
+        torch.lt(k, 3, out=go)
+        graphs._device_while(go, outer)
+
+    g = graphs._Graphs([work], None, torch.device("cuda"), "nested device "
+                       "loops cannot be captured", conditional=True)
+    g()
+    ref = (acc.clone(), runs.clone())
+    g()
+    g.capture()
+    acc.zero_()
+    runs.zero_()
+    r0 = graphs._Graphs.replays
+    _, ms_replay = events_ms(g)
+    on_card = g.cond.count.tolist()[:2]
+    g.flush()
+    equal = torch.equal(acc, ref[0]) and torch.equal(runs, ref[1])
+    rec = fit_ms["nested_while"] = {
+        "equal": equal, "runs": runs.tolist(), "bodies_on_card": on_card,
+        "replays": graphs._Graphs.replays - r0, "replay_ms": ms_replay}
+    g.close()
+    check(equal and rec["runs"] == [3, 9, 12] and on_card == [3, 21]
+          and rec["replays"] == 1, f"nested_while: {rec}")
+    print(f"phase 4: nested_while: an outer WHILE node (3 runs) holding two "
+          f"inner ones (9 and 12 runs), F.conv1d and a grouped convolution "
+          f"({B}x1x{C}x{L}, R={R}, T={T}) in the inner bodies, cuDNN on: one "
+          f"replay ({ms_replay:.3f} ms) equal to the eager run bit for bit, "
+          f"runs {rec['runs']}, the bodies' executions counted on the card "
+          f"by depth {on_card} [{card}]", flush=True)
+
+
 def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
     """Phases 3 and 4, this slice: the Hoyer fit's compiled chunk, the line
     search's attempts 2-10 a CUDA-graph WHILE node on the card.  At each
@@ -2306,10 +2404,12 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
     same inits, in turns: factors equal bit for bit, the same attempts, P1
     launches equal to the constrained factors plus the attempts, the same
     B3/B4 launches (exactly 2 and 1 an iteration for ``sW``, 1 and 1 for
-    ``sW+sH``), the expected replays and captures, no line-search host
-    read from the first replay on (the eager fit reads once an attempt);
-    ms/iteration every way, the warm fit's replayed chunks (CUDA events
-    around the replays) against the device time an iteration
+    ``sW+sH``), the expected replays, captures and loop host reads (a warm
+    fit one replay of the whole chunk loop, no capture, no host read), no
+    line-search host read from the first replay on (the eager fit reads
+    once an attempt); ms/iteration every way, the warm fit's replayed
+    chunk loop (CUDA events around the replay) against the device time an
+    iteration
     (``torch.profiler``), the idle shares, the WHILE nodes' handle-setting
     kernels' share, the captures' host ms, attempts an iteration, the peak
     device memory and the cache's held bytes.  Then
@@ -2331,6 +2431,7 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
     # a fit (a new target each time): the user's contiguous copy, made once
     problems = {"NMF": (ns.NMF, Vn, Wn, Hn),
                 "NMFD": (ns.models.NMFD, Vd.contiguous(), Wd, Hd)}
+    nested_while(ns, card, fit_ms)
     for label, name, iters, kw in HOYER_GRAPHED:
         cls, V, W0, H0 = problems[name]
         recon = cls._resolve_fit_recon2(V, W0, H0, 2.0)
@@ -2363,7 +2464,7 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
         for how, twin, expect in HOYER_RUNS:
             c0, r0, q0 = read(ctr), bt.reads, P.proj_rows.launches
             a0, p0, s0 = bt.attempts, Graphs.replays, Graphs.capture_s
-            k0 = Graphs.captures
+            k0, h0 = Graphs.captures, solver._read.reads
             torch.cuda.synchronize()
             torch._C._cuda_clearCublasWorkspaces()
             base = torch.cuda.memory_allocated()
@@ -2379,13 +2480,14 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
             d = {k: v - c0[k] for k, v in read(ctr).items()}
             attempts, reads = bt.attempts - a0, bt.reads - r0
             q, replays = P.proj_rows.launches - q0, Graphs.replays - p0
-            captures = Graphs.captures - k0
+            captures, loop_reads = Graphs.captures - k0, solver._read.reads - h0
             tag = f"Hoyer compiled {label} {how}"
             check(d == want, f"{tag}: launches {d}, want {want}")
             check(q == factors + attempts, f"{tag}: {q} P1 launches, "
                   f"{attempts} attempts, {factors} constrained factors")
-            check((replays, captures) == expect(chunks),
-                  f"{tag}: {replays} replays, {captures} captures")
+            check((replays, captures, loop_reads) == expect(chunks),
+                  f"{tag}: {replays} replays, {captures} captures, "
+                  f"{loop_reads} loop host reads")
             if graphed_run:
                 check(bt.reads == marks.reads[0] and reads < attempts,
                       f"{tag}: {bt.reads - marks.reads[0]} line-search reads "
@@ -2394,15 +2496,16 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
                     rec["eager_chunk_reads"] = marks.reads[0] - r0
                 else:
                     check(reads == 0, f"{tag}: {reads} line-search reads")
-                if how == "warm":
+                if how == "warm":  # one replay: every chunk
                     rec["replayed_ms_per_iter"], \
-                        rec["replay_busy_ms_per_iter"] = marks.per_iter()
+                        rec["replay_busy_ms_per_iter"] = marks.per_iter(iters)
             else:
                 check(reads == attempts, f"{tag}: {reads} reads, {attempts} "
                       f"attempts")
             check_factors(tag, *f)
             for key, v in (("peak_gb", peak / 1e9), ("replays", replays),
                            ("captures", captures), ("host_reads", reads),
+                           ("loop_reads", loop_reads),
                            ("attempts", attempts), ("p1_launches", q),
                            ("capture_ms", 1e3 * (Graphs.capture_s - s0))):
                 rec.setdefault(key, {})[how] = v
@@ -2433,7 +2536,7 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
         t = {k: round(v, 4) for k, v in rec["ms_per_iter"].items()}
         a = rec["attempts"]["warm"]
         print(f"phase 4: Hoyer compiled {label}, {iters} iterations: ms/"
-              f"iteration {t}; the replayed chunks alone (warm) "
+              f"iteration {t}; the replayed chunk loop alone (warm) "
               f"{rec['replayed_ms_per_iter']:.4f} (inside the replays "
               f"{rec['replay_busy_ms_per_iter']:.4f}) against their "
               f"{rec['replay_device_ms_per_iter']:.4f} ms of device time an "
@@ -2449,7 +2552,8 @@ def hoyer_compiled(ns, ctr, card, fit_ms, Vd, Wd, Hd):
               f"{ {k: round(v, 1) for k, v in rec['capture_ms'].items()} }; "
               f"attempts {rec['attempts']} ({a / iters:.2f} an iteration "
               f"warm); line-search host reads {rec['host_reads']} (the cold "
-              f"fit's all in chunks 1-2); replays {rec['replays']}; P1 "
+              f"fit's all in chunks 1-2); the chunk loop's host reads "
+              f"{rec['loop_reads']}; replays {rec['replays']}; P1 "
               f"launches {rec['p1_launches']}; launches {want} every way; "
               f"peak above what was allocated before the fit (GB) "
               f"{ {k: round(v, 4) for k, v in rec['peak_gb'].items()} }; the "
@@ -2496,9 +2600,9 @@ def hoyer_batched(ns, card, fit_ms):
             "eager B": lambda: eager_batch(V, Wb, Hb)[:2],
             "warm": lambda: graphed(V, Wb, Hb),
             "new V": lambda: graphed(V2, W, H)}
-    chunks = HOYER_BATCH_ITERS // 10
-    expect = {"cold": (chunks - 2, 1), "warm": (chunks, 0),
-              "new V": (chunks, 1)}
+    # (replays, captures): the chunk loop one replay after the cold fit's
+    # two eager chunks; a warm fit and a new V's one replay
+    expect = {"cold": (1, 1), "warm": (1, 0), "new V": (1, 1)}
     twins = {"cold": "eager", "warm": "eager B", "new V": "eager"}
     solver.compiled_cache_clear()
     rec = fit_ms["hoyer_batched"] = {}
@@ -2507,6 +2611,7 @@ def hoyer_batched(ns, card, fit_ms):
                 "new V"):
         p0, s0, c0 = Graphs.replays, Graphs.capture_s, Graphs.captures
         q0, n0, r0, a0 = P.proj_rows.launches, bb.rounds, bb.reads, bt.attempts
+        h0 = solver._read.reads
         out, ms = events_ms(runs[how])
         if how == "singles":
             out = tuple(torch.stack([o[j] for o in out]) for j in (0, 1))
@@ -2522,6 +2627,10 @@ def hoyer_batched(ns, card, fit_ms):
             check(reads == rounds if how.startswith("eager") else
                   (0 < reads < rounds if how == "cold" else reads == 0),
                   f"{tag}: {reads} line-search reads, {rounds} rounds")
+            # the chunk loop's flag reads: the cold fit's two eager chunks'
+            loop_reads = solver._read.reads - h0
+            check(loop_reads == (4 if how == "cold" else 0),
+                  f"{tag}: {loop_reads} loop host reads")
         check_factors(tag, *out)
         r = rec.setdefault(how, {"ms": [], "capture_ms": [], "p1_launches": q})
         r["ms"].append(ms)
@@ -2544,11 +2653,12 @@ def hoyer_batched(ns, card, fit_ms):
     t = rec
     print(f"phase 4: nmf_hoyer_fit_batched {B}x{Mb}x{Kb} R={Rb} sW=0.5, "
           f"{HOYER_BATCH_ITERS} iterations, one batched program: cold "
-          f"{t['cold']['ms']} ms (one capture, {t['cold']['capture_ms']} ms "
-          f"of host time; {chunks - 2} replay), warm from other inits "
-          f"{t['warm']['ms']} ms ({chunks} replays, no capture), a new V "
-          f"{t['new V']['ms']} ms (one capture, {t['new V']['capture_ms']} "
-          f"ms; {chunks} replays), _graph=False {t['eager']['ms']} and "
+          f"{t['cold']['ms']} ms (chunks 1-2 eager, one capture, "
+          f"{t['cold']['capture_ms']} ms of host time, one replay of the "
+          f"chunk loop), warm from other inits {t['warm']['ms']} ms (one "
+          f"replay, no capture, no host read), a new V {t['new V']['ms']} ms "
+          f"(one capture, {t['new V']['capture_ms']} ms; one replay), "
+          f"_graph=False {t['eager']['ms']} and "
           f"{t['eager B']['ms']} ms, each graphed fit equal to its eager twin "
           f"bit for bit; P1 launches {t['cold']['p1_launches']} for the batch "
           f"({t['cold']['rounds']} line-search rounds), against "
@@ -4642,6 +4752,9 @@ def examples_phase(ns, ctr, card, fit_ms):
 # deconv/siplca (N, C, R, leading S_in, kernel, trailing L_out per rank)
 PAR_WORLD = 2
 PAR_TIMEOUT_S = 600
+# a rank's destroy_process_group, with compiled fits of the group cached,
+# fails the run past this (C12 hung there)
+TEARDOWN_S = 120
 PAR_CASES = {
     "nmf_b1": ("nmf", (5168, 1025, 88), dict(beta=1, tol=0, max_iter=20)),
     "nmf_b0.5": ("nmf", (5168, 1025, 88), dict(beta=0.5, tol=0, max_iter=20)),
@@ -5017,12 +5130,34 @@ def par_compiled(par, name, world, mesh, ctr):
     return runs
 
 
+def destroy_group(tag):
+    """``torch.distributed.destroy_process_group()`` with no cache clear
+    before it (C12: the call drops the group's compiled fits itself); a
+    rank still in the call after TEARDOWN_S seconds prints its stack and
+    exits with an error, which fails the run (``spawn_ranks``).  Returns
+    the call's seconds."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.dump_traceback_later(TEARDOWN_S, exit=True)
+    t0 = time.perf_counter()
+    try:
+        dist.destroy_process_group()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    return time.perf_counter() - t0
+
+
 def par_regroup(par, name, world, rank, workdir, mesh):
     """Across cards: a halo case's cold compiled fit, then every rank
-    empties the fits' cache, destroys the process group, starts a new one
-    and makes the mesh again, and the same fit runs cold on the new group
-    (the halo shift's pair connections made anew): bit for bit the first.
+    destroys the process group with the fit's entry still in the cache
+    (C12: the call drops it; :func:`destroy_group`), starts a new one and
+    makes the mesh again, and the same fit runs cold on the new group (the
+    halo shift's pair connections made anew): bit for bit the first.
     Returns the new mesh."""
+    import faulthandler
+
     import torch.distributed as dist
 
     from pytorch_nmf_tpu_torch.ops import graphs, solver
@@ -5035,17 +5170,28 @@ def par_regroup(par, name, world, rank, workdir, mesh):
          else par.halo._sharded_siplca_fit)
     args = (inp["V"], inp["W"], inp["H"]) + ((inp["Z"],) if "Z" in inp
                                              else ())
+    def holding():  # the entries that hold a group's collectives
+        return sum(1 for e in list(solver._CACHE.entries.values())
+                   if e.groups)
+
     outs = []
+    solver.compiled_cache_clear()
     for i in range(2):
         if i:
-            solver.compiled_cache_clear()
+            held = holding()
             dist.barrier()
-            dist.destroy_process_group()
+            s = destroy_group(f"{name} [nccl{world}]")
+            faulthandler.dump_traceback_later(PAR_TIMEOUT_S - 60)
+            check(held >= 1 and holding() == 0,
+                  f"{name} [nccl{world}]: {held} entries held the group, "
+                  f"{holding()} after destroy_process_group")
+            print(f"{name} [nccl{world}] rank {rank}: destroy_process_group "
+                  f"with the fit's entry cached returned in {s:.3f} s, "
+                  f"{held} entry dropped", flush=True)
             par.distributed.initialize(
                 "file://" + os.path.join(workdir, f"store-regroup{world}"),
                 world, rank, backend="nccl", timeout_s=PAR_TIMEOUT_S)
             mesh = par.make_mesh({"seq": world}, "cuda")
-        solver.compiled_cache_clear()
         captures = graphs._Graphs.captures
         outs.append(f(*args, mesh, len(shape[4]), mode=mode, **kw))
         check(graphs._Graphs.captures - captures == 1,
@@ -5054,8 +5200,6 @@ def par_regroup(par, name, world, rank, workdir, mesh):
     check(all(torch.equal(a.to_local(), b.to_local()) if hasattr(
         a, "to_local") else a == b for a, b in zip(*outs)),
         f"{name} [nccl{world}]: the fit on the new group differs")
-    # the entry holds NCCL kernels of the group: gone before it is
-    solver.compiled_cache_clear()
     return mesh
 
 
@@ -5184,18 +5328,16 @@ def par_rank(rank, world, backend, workdir, names):
                 dist.barrier()
                 report[name]["compiled"] = par_compiled(
                     par, name, world, meshes[axes], ctr)
-        if world > 1 and "nmfd_b1" in names:
+        if "nmfd_b1" in names:  # one rank too: C12 showed across cards
             par_regroup(par, "nmfd_b1", world, rank, workdir,
                         meshes[(("seq", world),)])
             report["nmfd_b1"]["regrouped"] = True
     with open(os.path.join(workdir, f"report-{tag}-r{rank}.json"), "w") as f:
         json.dump(report, f)
-    from pytorch_nmf_tpu_torch.ops import solver
-
-    # every entry (captured NCCL kernels of the group) before the group
-    solver.compiled_cache_clear()
+    # the compiled fits' entries (captured NCCL kernels of the group) still
+    # cached: the call drops them (C12)
     dist.barrier()
-    dist.destroy_process_group()
+    destroy_group(f"rank {rank} [{tag}]")
 
 
 def spawn_ranks(backend, world, names, workdir):

@@ -42,6 +42,19 @@ code and whether the graphed run equals the eager one:
   (the backward on the calling thread,
   ``torch.autograd.set_multithreading_enabled(False)``, as
   ``ops/graphs.py`` captures a body);
+* nested WHILE nodes, as the Hoyer fits' chunk loop holds its line
+  searches: ``nested_while`` (an outer WHILE node on ``k < 3`` whose body
+  holds two inner WHILE nodes, on ``m < 2 + k`` and ``m < 3 + k``, each
+  body an ``F.conv1d`` through ``NMFD.reconstruct`` and a grouped
+  convolution, cuDNN on), ``nested_while_nocudnn`` (cuDNN off) and
+  ``nested_while_bmm`` (batched GEMMs instead): replay against eager, and
+  the bodies' executions counted on the card at each depth (3 outer, 9 +
+  12 inner); ``hoyer_nested`` and ``hoyer_nested_kernels``: the NMFD
+  Hoyer fit (1×12×60, R=3, T=5, ``sW=0.5``, 40 iterations: chunks 1-2
+  eager, then one replay of the chunk loop with the line searches' WHILE
+  nodes nested in it) with cuDNN on, through the model's convolution and
+  through B3/B4 (``kernel_adjoint_deconv``), against ``_graph=False`` bit
+  for bit with the same attempts;
 * ``hoyer_vmap_conv``: the batched Hoyer fit (``get_batched_hoyer_fit``)
   of three NMFD problems (1×12×60, R=3, T=5, ``sW=0.5``, 30 iterations) on
   ``vmap`` of the model's convolution with cuDNN on (the fit turns it off
@@ -211,6 +224,92 @@ rs = np.random.RandomState(8)
 V, W, H = (torch.from_numpy(rs.rand(*s).astype("f") + off).to(dev) for s, off in
            zip(((3, 1, 12, 60), (3, 12, 3, 5), (3, 1, 3, 56)), (0.01, 0.1, 0.1)))
 
+if case.startswith("nested_while"):
+    # an outer WHILE node on k < 3 whose body holds two inner WHILE nodes,
+    # on m < 2 + k and m < 3 + k
+    if case.endswith("_nocudnn"):
+        torch.backends.cudnn.enabled = False
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+    ms = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
+    again = [torch.zeros((), dtype=torch.bool, device=dev) for _ in range(2)]
+    acc = torch.zeros(3, 1, 12, 60, device=dev)
+    runs = torch.zeros(3, dtype=torch.int64, device=dev)
+
+    def product():
+        if case == "nested_while_bmm":
+            out = torch.zeros_like(acc)
+            out[:, 0, :, :56] = torch.bmm(W[:, :, :, 0], H[:, 0])
+            return out
+        # F.conv1d (NMFD's reconstruction) and vmap's grouped convolution
+        grouped = F.conv1d(H.reshape(1, 9, 56), W.flip(3).reshape(36, 3, 5),
+                           padding=4, groups=3).reshape(3, 1, 12, 60)
+        return grouped + NMFD.reconstruct(H[0], W[0])
+
+    def inner(i):
+        def body():
+            acc.mul_(0.5).add_(product())
+            ms[i].add_(1)
+            runs[1 + i].add_(1)
+            torch.lt(ms[i], k + 2 + i, out=again[i])
+
+        return body
+
+    def outer():
+        for i in range(2):
+            ms[i].zero_()
+            again[i].fill_(True)
+            graphs._device_while(again[i], inner(i))
+        acc.add_(1.0)
+        k.add_(1)
+        runs[0].add_(1)
+        torch.lt(k, 3, out=go)
+
+    def work():
+        k.zero_()
+        acc.zero_()
+        runs.zero_()
+        torch.lt(k, 3, out=go)
+        graphs._device_while(go, outer)
+
+    g = graphs._Graphs([work], None, dev, "cannot be captured", conditional=True)
+    g()
+    ref = (acc.clone(), runs.clone())
+    g()
+    g.capture()
+    acc.zero_()
+    runs.zero_()
+    g()
+    on_card = g.cond.count.tolist()
+    g.flush()
+    torch.cuda.synchronize()
+    print(case, "equal", torch.equal(acc, ref[0]) and torch.equal(runs, ref[1]),
+          "runs", runs.tolist(), "bodies on the card by depth", on_card,
+          "finite", bool(acc.isfinite().all()))
+    g.close()
+    sys.exit()
+
+if case.startswith("hoyer_nested"):
+    # the single NMFD Hoyer fit, cuDNN on: the chunk loop one WHILE node
+    # with the line searches' WHILE nodes nested in its body
+    from pytorch_nmf_tpu_torch.ops import fast_nmfd
+
+    recon = (fast_nmfd.kernel_adjoint_deconv if case.endswith("_kernels")
+             else NMFD.reconstruct)
+
+    def fit(graph):
+        a0 = solver._backtrack_project.attempts
+        out = solver.get_hoyer_fit(recon, None, 2.0, 40, True, True, 0.5, None,
+                                   60, 56, _graph=graph)(V[0], W[0], H[0])
+        torch.cuda.synchronize()
+        return out, solver._backtrack_project.attempts - a0
+
+    r0 = graphs._Graphs.replays
+    (got, ga), (ref, ea) = fit(True), fit(False)
+    print(case, "equal", all(torch.equal(a, b) for a, b in zip(got[:2], ref[:2]))
+          and ga == ea, "attempts", ga, ea, "replays", graphs._Graphs.replays - r0)
+    sys.exit()
+
 if case.startswith(("body", "outside", "many_while")):
     out = torch.zeros(3, 1, 12, 60, device=dev)
     outw = torch.zeros(12, 3, 5, device=dev)
@@ -370,7 +469,9 @@ CASES = ("body_bmm", "body_conv", "body_vmap_conv", "body_conv2d",
          "outside_vmap_grad_W_nocudnn", "body_vmap_grad_H", "body_vmap_grad_W",
          "many_while_vmap_conv", "many_while_vmap_conv_nocudnn",
          "many_while_bmm", "body_autograd", "body_autograd_st",
-         "hoyer_vmap_conv", "hoyer_vmap_conv_off", "hoyer_conv_loop")
+         "hoyer_vmap_conv", "hoyer_vmap_conv_off", "hoyer_conv_loop",
+         "nested_while", "nested_while_nocudnn", "nested_while_bmm",
+         "hoyer_nested", "hoyer_nested_kernels")
 NCCL_CASES = ("graph_nccl_all_reduce", "body_nccl_all_reduce",
               "graph_nccl_all_reduce_cards", "body_nccl_all_reduce_cards",
               "body_nccl_all_reduce_mixing_cards", "graph_nccl_shift_cards",

@@ -3,12 +3,12 @@
 // Replaces the device-side loop of pytorch_nmf_tpu/ops/solver.py's
 // backtracking line search (_backtrack_project, :678-711): a lax.while_loop
 // under jax.jit, whose "try again" test never leaves the TPU.  The port
-// captures its Hoyer fit's 10-iteration chunk in a CUDA graph
+// captures its Hoyer fit's chunk loop in a CUDA graph
 // (ops/solver.py::get_hoyer_fit on ops/graphs.py::_Graphs); the attempts
 // after the first are the body of a WHILE node whose condition the card
 // reads from a 0-d bool tensor ("the last attempt was worse, and fewer
 // than 10 were made") before the first run of the body and after each, so
-// a replayed chunk takes the attempts the data takes and makes no host
+// a replayed loop takes the attempts the data takes and makes no host
 // read.  PyTorch 2.13 has IF nodes as CUDAGraph methods
 // (begin_capture_to_if_node); the PyTorch this port runs on need not, and
 // a WHILE node is one body captured once where IF nodes need one per
@@ -23,7 +23,10 @@
 // The caller then enqueues the body's work on `body`, which updates *pred,
 // and calls pnt_while_end, which captures the same handle-setting kernel
 // at the end of the body and ends that capture; `stream`'s capture goes on
-// after the WHILE node.  A body may not open a conditional of its own.
+// after the WHILE node.  A body being captured may open WHILE nodes of its
+// own, on another stream: `stream` is then the body's, and the handle is
+// made on the body's graph (the fits' chunk loop holds the line searches'
+// so; the caller gives each nesting depth its own body stream).
 // Each returns a CUDA error code (0 on success;
 // cudaErrorStreamCaptureImplicit when `stream` is not capturing).
 //

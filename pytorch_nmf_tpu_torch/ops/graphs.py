@@ -47,12 +47,16 @@ updates, is true.  Eagerly it reads the flag on the host before each run
 (the only reads it makes, allowed under the strict warm-up).  Under
 capture the body becomes a CUDA-graph WHILE node (``csrc/graph_cond.cu``)
 that the card runs as often as the flag says at each replay: it is
-captured once, on a stream of the instance's own, its allocations in a
-memory pool of the instance's own (a backward inside it runs on the
-capturing thread, whose allocations the pool takes), and it adds one to a
-0-d count on the card each run.  A launch inside a body ticks its counter
+captured once, on a stream of the instance's own for its nesting depth,
+its allocations in a memory pool of the instance's own (a backward inside
+it runs on the capturing thread, whose allocations the pool takes), and
+it adds one to its depth's count on the card each run.  A body may hold
+device loops of its own (the Hoyer fits' chunk loop holds the line
+searches' WHILE nodes), up to :data:`_MAX_DEPTH` deep; the bodies at one
+depth launch the same kernels.  A launch inside a body ticks its counter
 once, at capture; :meth:`_Graphs.capture` takes that back with the rest,
-and the bodies' launches are added from the card's count when a counter
+and each depth's launches an execution (its own, less those of the
+bodies nested in it) are added from its count on the card when a counter
 that allows it (an attribute of a :class:`_Counted`) is next read, one
 host read a finished fit (:func:`_settle`, after :meth:`_Graphs.flush`),
 never on the fit's path.
@@ -148,8 +152,9 @@ def _add_counters(delta):
 
 
 # what the conditional bodies of finished fits' replays counted on the
-# card: (pinned host copy of the count, its event, the counts' increase an
-# execution), added in by the next read of a count that allows it; past
+# card: (pinned host copy of one depth's count, its event, the counts'
+# increase an execution at that depth), added in by the next read of a
+# count that allows it; past
 # _PENDING_MAX, a fit's end adds in those whose copies are done
 _PENDING = []
 _PENDING_LOCK = threading.Lock()
@@ -199,9 +204,10 @@ def _device_while(flag: torch.Tensor, body) -> int:
     made with ``conditional=True``, ``body``'s work becomes a WHILE node
     that the card runs from ``flag`` at each replay, and it returns 0.
     ``body`` updates tensors made before it in place; what it allocates
-    lives in the instance's bodies' pool.  Every body of one workload must
-    launch the same kernels, and only kernels whose counts allow counting
-    on the card."""
+    lives in the instance's bodies' pool.  ``body`` may run device loops
+    of its own (nested WHILE nodes, up to :data:`_MAX_DEPTH` deep).  Every
+    body at one nesting depth of a workload must launch the same kernels,
+    and only kernels whose counts allow counting on the card."""
     if not (flag.is_cuda and torch.cuda.is_current_stream_capturing()):
         reads = 1
         while _host_read(flag):
@@ -231,12 +237,19 @@ class _strict_sync:
         torch.cuda.set_sync_debug_mode(self.mode)
 
 
+# the deepest nesting of device loops a workload may capture (the Hoyer
+# fits: the chunk loop and its line searches)
+_MAX_DEPTH = 2
+
+
 class _Bodies:
-    """What one instance's device loops share on ``device``: the
-    library of ``csrc/graph_cond.cu``, a stream of their own for the
-    bodies' captures, a memory pool for what they allocate, the count of
-    body executions on the card and the counts' increase an execution
-    (``delta``, from the first body captured)."""
+    """What one instance's device loops share on ``device``: the library
+    of ``csrc/graph_cond.cu``, a stream of their own for each nesting depth
+    (a body being captured on one opens the next depth's WHILE nodes on
+    the next), a memory pool for what they allocate, the count of body
+    executions on the card for each depth and the counts' increase an
+    execution at each depth (``deltas``, from the first body captured
+    there; a body's own launches, less its nested bodies')."""
 
     def __init__(self, device: torch.device):
         from ._build import load_library
@@ -246,20 +259,25 @@ class _Bodies:
                 raise RuntimeError(f"device loops need torch.cuda."
                                    f"{name}, which this PyTorch lacks")
         self.lib = load_library("graph_cond")
-        raw = ctypes.c_void_p()
+        self.raws = []
         with torch.cuda.device(device):
-            _check(self.lib.pnt_stream_create(ctypes.byref(raw)),
-                   "creating the bodies' stream")
-        self.raw = raw.value
-        self.stream = torch.cuda.ExternalStream(self.raw, device=device)
+            for _ in range(_MAX_DEPTH):
+                raw = ctypes.c_void_p()
+                _check(self.lib.pnt_stream_create(ctypes.byref(raw)),
+                       "creating the bodies' stream")
+                self.raws.append(raw.value)
+        self.streams = [torch.cuda.ExternalStream(r, device=device)
+                        for r in self.raws]
         self.pool = torch.cuda.MemPool()
-        self.count = torch.zeros((), dtype=torch.int64, device=device)
-        self.delta = None
+        self.count = torch.zeros(_MAX_DEPTH, dtype=torch.int64, device=device)
+        self.deltas = [None] * _MAX_DEPTH
+        self.depth = 0
 
-    def take(self, delta):
-        """Checks a captured body's counts' increase: the first body's, and
-        only counts that allow counting on the card."""
-        if self.delta is None:
+    def take(self, depth: int, delta):
+        """Checks the increase an execution of a body captured at
+        ``depth``: the first body's there, and only counts that allow
+        counting on the card."""
+        if self.deltas[depth] is None:
             for (fn, attr), d in zip(_kernel_counters(), delta):
                 if d and not isinstance(fn, dict) and \
                         attr not in getattr(fn, "_on_card", ()):
@@ -267,33 +285,37 @@ class _Bodies:
                         f"a device loop's body moved {attr} of "
                         f"{getattr(fn, '__name__', fn)}, which counts only on "
                         f"the host")
-            self.delta = delta
-        elif delta != self.delta:
-            raise RuntimeError("the device loops' bodies of one workload "
-                               "launch different kernels")
+            self.deltas[depth] = delta
+        elif delta != self.deltas[depth]:
+            raise RuntimeError("the device loops' bodies at one depth of a "
+                               "workload launch different kernels")
 
     def flush(self):
         """Hands the bodies' executions so far to :func:`_settle` (a copy to
-        pinned host memory, no wait) and sets the count on the card back
+        pinned host memory, no wait) and sets the counts on the card back
         to 0, in stream order."""
-        if self.delta is not None:
-            host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        used = [d for d, x in enumerate(self.deltas) if x is not None]
+        if used:
+            host = torch.empty(_MAX_DEPTH, dtype=torch.int64, pin_memory=True)
             host.copy_(self.count, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
             self.count.zero_()
             with _PENDING_LOCK:
-                _PENDING.append((host, done, self.delta))
+                _PENDING.extend((host[d], done, self.deltas[d]) for d in used)
                 full = len(_PENDING) > _PENDING_MAX
             if full:  # many fits and no read of a count: keep the list short
                 _settle(done_only=True)
 
     def close(self):
-        """:meth:`flush`, then frees the stream; call it once the graphs
+        """:meth:`flush`, then frees the streams; call it once the graphs
         are gone."""
         self.flush()
-        self.stream = self.pool = self.count = None
-        _check(self.lib.pnt_stream_destroy(self.raw), "freeing the bodies' stream")
+        self.streams = self.pool = self.count = None
+        for raw in self.raws:
+            _check(self.lib.pnt_stream_destroy(raw),
+                   "freeing the bodies' stream")
+        self.raws = []
 
 
 def _check(err: int, what: str):
@@ -320,7 +342,9 @@ class _Graphs:
         self.message = message
         self.graphs = self.deltas = self.cond = None
         self.conditional = conditional
-        self.bodies = 0
+        # the launches captured in device loops' bodies: at depth 0
+        # (``_top``), and inside each body being captured (``_nested``)
+        self._top, self._nested = [], []
         self.pool_bytes = 0
         self.runs = [0] * len(fns)
         if device.type not in ("cuda", "cpu"):
@@ -389,6 +413,7 @@ class _Graphs:
         loops' pool go, and ``torch.cuda.OutOfMemoryError`` is raised
         afresh (the frames that held the capture's tensors are gone)."""
         t0 = time.perf_counter()
+        self._top, self._nested = [0] * len(_read_counters()), []
         reserved = torch.cuda.memory_reserved(self.device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         g = torch.cuda.CUDAGraph()
@@ -425,30 +450,47 @@ class _Graphs:
 
     def _capture_while(self, flag, body):
         """:func:`_device_while` under this instance's capture: ``body`` as
-        a WHILE node on ``flag``, captured on the bodies' stream into their
-        pool, adding one to their count each run."""
+        a WHILE node on ``flag``, captured on its depth's stream into the
+        bodies' pool, adding one to its depth's count each run.  The
+        launches it captured go to its enclosing body's nested total (or
+        the capture's, at depth 0)."""
         if flag.dtype != torch.bool or flag.dim() != 0:
             raise ValueError("a device loop takes a 0-d bool tensor")
         c = self.cond
+        depth = c.depth
+        if depth == _MAX_DEPTH:
+            raise RuntimeError(f"device loops nest at most {_MAX_DEPTH} deep")
         stream = torch.cuda.current_stream(self.device)
         before = _read_counters()
         handle = ctypes.c_ulonglong()
-        _check(c.lib.pnt_while_begin(stream.cuda_stream, flag.data_ptr(), c.raw,
-                                     ctypes.byref(handle)),
+        _check(c.lib.pnt_while_begin(stream.cuda_stream, flag.data_ptr(),
+                                     c.raws[depth], ctypes.byref(handle)),
                "opening a WHILE node")
+        c.depth += 1
+        self._nested.append([0] * len(before))
         try:
-            # a backward inside the body runs on this thread, whose
-            # allocations the bodies' pool takes (not autograd's device
-            # threads', which it would not)
-            with torch.cuda.stream(c.stream), torch.cuda.use_mem_pool(c.pool), \
-                    torch.autograd.set_multithreading_enabled(False):
+            with contextlib.ExitStack() as inside:
+                inside.enter_context(torch.cuda.stream(c.streams[depth]))
+                if depth == 0:
+                    # a backward inside the body runs on this thread, whose
+                    # allocations the bodies' pool takes (not autograd's
+                    # device threads', which it would not); nested bodies
+                    # are inside both already
+                    inside.enter_context(torch.cuda.use_mem_pool(c.pool))
+                    inside.enter_context(
+                        torch.autograd.set_multithreading_enabled(False))
                 body()
-                c.count.add_(1)
+                c.count[depth].add_(1)
         finally:
-            _check(c.lib.pnt_while_end(c.raw, handle, flag.data_ptr()),
+            nested = self._nested.pop()
+            c.depth -= 1
+            _check(c.lib.pnt_while_end(c.raws[depth], handle, flag.data_ptr()),
                    "closing a WHILE node")
-        c.take([a - b for a, b in zip(_read_counters(), before)])
-        self.bodies += 1
+        total = [a - b for a, b in zip(_read_counters(), before)]
+        c.take(depth, [t - n for t, n in zip(total, nested)])
+        outer = self._nested[-1] if self._nested else self._top
+        for i, t in enumerate(total):
+            outer[i] += t
 
     def capture(self, k: int = 0, seen: bool = False):
         """Own warm-ups: captures ``fns[k]`` after its two warm-up runs, if
@@ -466,12 +508,10 @@ class _Graphs:
         if self.conditional and self.cond is None:
             self.cond = _Bodies(self.device)
         before = _read_counters()
-        self.bodies = 0
         self.graphs[k] = self._capture(self.fns[k])
         captured = [a - b for a, b in zip(_read_counters(), before)]
         # the bodies' launches are counted on the card, the rest at replay
-        body = self.cond.delta if self.bodies else [0] * len(captured)
-        self.deltas[k] = [d - self.bodies * b for d, b in zip(captured, body)]
+        self.deltas[k] = [d - t for d, t in zip(captured, self._top)]
         _add_counters([-d for d in captured])
 
     def rewind(self, runs: int, k: int = 0):
@@ -530,7 +570,7 @@ class _Graphs:
         c, self.cond = self.cond, None
         if c is not None:
             if self.deltas is None:
-                c.delta = None
+                c.deltas = [None] * _MAX_DEPTH
             c.close()
 
     def __del__(self):

@@ -33,14 +33,16 @@ batched MU and EM fits (:func:`get_batched_dense_fit`,
 (:func:`_graphed_batched_loop`, ``~done & (k < limit)``), every problem's
 stop test and chunk of convergence on the device, nothing read on the
 host after a replay.  The Hoyer fit (:func:`get_hoyer_fit`,
-dense or sparse target) replays its 10-iteration chunk a chunk at a
-time, with no stop test, its line search's attempts 2-10 a device loop
-inside the chunk; so does the batched Hoyer fit
+dense or sparse target) runs its chunk loop the same way
+(:func:`_graphed_hoyer_loop`) with a stop flag that never rises, its line
+search's attempts 2-10 device loops nested in the chunk's body (on the
+card WHILE nodes inside the loop's WHILE node): a warm fit is one replay
+and no host read; so does the batched Hoyer fit
 (:func:`get_batched_hoyer_fit`), one batched program whose problems' line
-searches share one loop.  The sharded NMF, PLCA and sparse fits of
-:mod:`..parallel` run :func:`_graphed_loop` on this cache too (over NCCL
-the all-reduces inside the captured body; the ranks agree on the loop's
-path first, :func:`_agree_path`); the halo fits run the eager loop.
+searches share one loop.  The sharded NMF, PLCA and sparse fits and the
+halo fits of :mod:`..parallel` run :func:`_graphed_loop` on this cache too
+(over NCCL the collectives inside the captured body; the ranks agree on
+the loop's path first, :func:`_agree_path`).
 
 **The compiled fits are kept** (the JAX package's ``lru_cache``'d
 factories and ``jax.jit``'s programs per input signature): the factories
@@ -58,8 +60,10 @@ argument and the ``PNT_*`` environment switches.  A hit copies the inputs into t
 loop once; a configuration seen before with a new target captures before
 chunk 1 and replays once.  An entry goes when its target is
 collected, past :data:`_MAX_ENTRIES` entries or past :data:`_HELD_SHARE`
-of a card's memory held (least recently used first), and at
-:func:`compiled_cache_clear`.  A fit out of card memory drops every idle
+of a card's memory held (least recently used first), when a process
+group whose collectives its chunk runs is destroyed (a sharded fit's,
+:meth:`_Cache.drop_groups`), and at :func:`compiled_cache_clear`.  A fit
+out of card memory drops every idle
 entry and, when one was kept from an earlier fit, runs once more before
 the error propagates (:meth:`_Cache.run`).  :func:`compiled_cache_info`
 counts hits and misses and the bytes held.
@@ -306,7 +310,9 @@ class _Entry:
     fit computes from the target, kept so the graph's addresses stay
     valid, and recomputed into the same tensors at every fit) live as long
     as the entry; ``V`` is the target only while a fit
-    runs (the entry holds it weakly).  ``warm``: the configuration was
+    runs (the entry holds it weakly).  ``groups``: the process groups
+    whose collectives the chunk runs (a sharded fit's), whose destruction
+    drops the entry (:meth:`_Cache.drop_groups`).  ``warm``: the configuration was
     compiled before in this process, so the first fit captures before
     chunk 1.  ``hit``: the entry was kept from an earlier fit.  ``lock`` is
     held by the fit that runs the entry."""
@@ -317,6 +323,7 @@ class _Entry:
         self.held = list(held)
         self.V = self.fns = self.loop = None
         self.derived = {}
+        self.groups = set()
         self.warm = self.hit = False
         self.lock = threading.Lock()
         self.finalizers = [] if key is None else [
@@ -433,6 +440,20 @@ class _Cache:
             idle = self._take(list(self.entries))
             if seen:
                 self.seen = set()
+        for e in idle:
+            e.close()
+        return idle
+
+    def drop_groups(self, groups=None) -> list:
+        """Drops the entries whose chunk runs collectives of ``groups``
+        (of any group when ``None``: every group is being destroyed) and
+        returns those it closed: their graphs hold the groups' captured
+        communication kernels, which the groups' teardown would wait for
+        (C12).  An entry a fit is running goes when that fit ends."""
+        with self.lock:
+            idle = self._take([k for k, e in self.entries.items()
+                               if e.groups and (groups is None
+                                                or e.groups & groups)])
         for e in idle:
             e.close()
         return idle
@@ -694,7 +715,8 @@ def _drive(c, n_chunks: int, report=None, status=None):
     one chunk a call (the limit one past the count); otherwise one call
     runs every chunk (on the card one replay, on the CPU one eager loop).
     The capture comes right after chunk 2 when a third may follow.  With
-    ``report``, ``status()`` and the reported values are read after each
+    ``report``, ``status()`` (where given; a loop with no stop test, the
+    Hoyer fits', has none) and the reported values are read after each
     chunk.  Returns the last ``status()`` (``None`` without one)."""
     graphs, done, last = c.graphs, 0, None
     while done < n_chunks:
@@ -705,7 +727,9 @@ def _drive(c, n_chunks: int, report=None, status=None):
         graphs()
         _read.reads += c.reads
         if report is not None:
-            last = k, conv = status()
+            k, conv = done + 1, False
+            if status is not None:
+                last = k, conv = status()
             report(k, _read(c.prev),
                    None if c.extra is None else _read(c.extra))
             if conv:
@@ -1386,53 +1410,58 @@ def _hoyer_loop(one_iter, loss_of, state, max_iter, report):
 
 def _graphed_hoyer_loop(one_iter, loss_of, state0, max_iter, report,
                         entry=None):
-    """:func:`_hoyer_loop` with each 10-iteration chunk one in-place
-    workload of :class:`~.graphs._Graphs` with device loops (own warm-ups
-    on a configuration's first fit: chunks 1-2 eager, the capture right
-    after chunk 2 is enqueued when a third chunk follows, then graph
-    replays on a CUDA device; called directly on the CPU): ten iterations
-    from static state tensors (the factors and the step sizes, which
-    ``entry`` keeps and each fit loads), and when reporting the loss into a
-    static 0-d tensor, read once a chunk.  No stop test: every chunk runs.
-    The ``max_iter % 10`` remainder runs eagerly.  The same operations as
-    :func:`_hoyer_loop`, so the same results bit for bit.  The device
-    loops' executions are handed to their counts at the end of each fit
-    (:meth:`~.graphs._Graphs.flush`)."""
+    """:func:`_hoyer_loop` as one in-place workload of
+    :class:`~.graphs._Graphs`, JAX's jitted ``lax.fori_loop``: the
+    10-iteration chunk (ten iterations from static state tensors, the
+    factors and the step sizes, which ``entry`` keeps and each fit loads;
+    when reporting, the loss into a static 0-d tensor; the chunk count
+    ``k`` on the device plus one) is the body of
+    :func:`~.graphs._device_while` on ``go = ~stop & (k < limit)`` with a
+    stop flag that never rises (JAX's Hoyer fit has no stop test), so every
+    chunk runs.  Each iteration's line searches are device loops of their
+    own, nested in the chunk's body (on the card WHILE nodes inside the
+    chunk loop's WHILE node).  :func:`_drive` runs it: on a
+    configuration's first fit on the card chunks 1-2 eagerly, the capture
+    right after chunk 2 when a third follows, then one replay for the
+    rest; a warm fit (or one on a new V, after its capture) one replay,
+    which reads nothing on the host; a reporting fit one call a chunk, its
+    loss read after each.  The ``max_iter % 10`` remainder runs eagerly,
+    on a copy of the statics, as :func:`_graphed_loop` runs it.  The same
+    operations as :func:`_hoyer_loop`, so the same results bit for bit.
+    The device loops' executions are handed to their counts at the end of
+    each fit (:meth:`~.graphs._Graphs.flush`)."""
     n_chunks, rem = divmod(max_iter, 10)
     state = state0
     if n_chunks:
         own, entry = entry is None, entry or _Entry()
         c = entry.loop
         if c is None:
+            dev = state0[0].device
             c = entry.loop = SimpleNamespace(
                 st=tuple(x.clone() for x in state0),
-                last=(torch.empty((), dtype=state0[0].dtype,
-                                  device=state0[0].device)
-                      if report is not None else None))
+                k=torch.zeros((), dtype=torch.int64, device=dev),
+                stop=torch.zeros((), dtype=torch.bool, device=dev),
+                prev=(torch.empty((), dtype=state0[0].dtype, device=dev)
+                      if report is not None else None), extra=None)
 
             def chunk():
                 s = c.st
                 for _ in range(10):
                     s = one_iter(*s)
-                if c.last is not None:
-                    c.last.copy_(loss_of(s))
+                if c.prev is not None:
+                    c.prev.copy_(loss_of(s))
                 _load(c.st, s)
+                c.k.add_(1)
 
-            c.graphs = _Graphs([chunk], None, state0[0].device,
-                               _CHUNK_NOT_CAPTURABLE, conditional=True)
+            _loop_workload(c, c.stop, chunk, dev)
         else:
             _load(c.st, state0)
-        graphs = c.graphs
+        c.k.zero_()
         try:
-            entry.start(graphs)
-            for k in range(1, n_chunks + 1):
-                graphs()
-                if k == 2 < n_chunks:  # the capture's host time overlaps chunk 2
-                    graphs.capture()
-                if report is not None:
-                    report(k, _read(c.last))
+            entry.start(c.graphs)
+            _drive(c, n_chunks, report)
         finally:
-            graphs.flush()
+            c.graphs.flush()
         state = tuple(x.clone() for x in c.st)
         if own:
             entry.close()

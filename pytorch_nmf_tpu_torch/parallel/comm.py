@@ -42,7 +42,11 @@ after an eager exchange on the group), and it runs at every replay; a
 one-rank dimension's shift calls nothing.  Its calls and bytes are counts
 of :mod:`..ops.graphs`, counted on the card where a replayed loop's body
 runs them (read after the fit, as the kernels' launches are); it is not
-timed.  :func:`agree_min` gives every rank of a mesh the least
+timed.  A compiled fit's cache entry holds its groups' captured kernels:
+:func:`drop_entries_on_destroy` makes
+``torch.distributed.destroy_process_group`` drop those entries first, so
+the groups' teardown returns without the caller emptying the cache
+(C12).  :func:`agree_min` gives every rank of a mesh the least
 of their integers, on the host (the
 ranks of a sharded fit agree on the path of its chunk loop so, reading
 nothing on the card), through the default group's store.
@@ -56,7 +60,8 @@ import torch.distributed as dist
 
 from ..ops import graphs
 
-__all__ = ["Comm", "CommStats", "stats", "comm_for", "agree_min"]
+__all__ = ["Comm", "CommStats", "stats", "comm_for", "agree_min",
+           "drop_entries_on_destroy"]
 
 
 class CommStats:
@@ -272,6 +277,38 @@ def comm_for(mesh, axis: str) -> Comm:
 @functools.lru_cache(maxsize=None)
 def _comm_for(mesh, axis: str, group) -> Comm:
     return Comm(mesh, axis)
+
+
+def drop_entries_on_destroy() -> None:
+    """Makes ``torch.distributed.destroy_process_group`` drop the fits'
+    cache entries (``ops/solver.py``) whose chunk runs collectives of the
+    groups it destroys (every group when it destroys the default one)
+    before it tears them down: an entry's CUDA graphs hold captured NCCL
+    kernels of its groups, and NCCL's teardown of a communicator waits for
+    the graphs that captured its kernels to go, which a kept entry never
+    lets them do (C12: the call hung).  PyTorch offers no hook on a
+    group's destruction, so this wraps the function, once, under both its
+    names (``torch.distributed`` and ``torch.distributed.distributed_c10d``);
+    the wrapper calls the function it replaced.  The sharded fits call it
+    the first time an entry holds a group; a caller holding the function
+    from before that (``from torch.distributed import
+    destroy_process_group``) calls it unwrapped."""
+    c10d = dist.distributed_c10d
+    for owner in (c10d, dist):
+        original = owner.destroy_process_group
+        if getattr(original, "_pnt_drops_entries", False):
+            continue
+
+        def destroy_process_group(group=None, _original=original):
+            from ..ops import solver
+
+            every = group is None or group == dist.GroupMember.WORLD
+            solver._CACHE.drop_groups(None if every else {group})
+            return _original(group)
+
+        functools.update_wrapper(destroy_process_group, original)
+        destroy_process_group._pnt_drops_entries = True
+        owner.destroy_process_group = destroy_process_group
 
 
 _AGREED = {}  # mesh ranks -> the agreements made, the same on each rank

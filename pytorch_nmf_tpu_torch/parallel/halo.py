@@ -745,9 +745,9 @@ def sharded_nmfd_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
     single-card trajectory.  ``verbose`` reports the cadence loss from
     rank 0.  Compiled once per configuration (the module docstring): a
     later fit of the same configuration, on this V or another of its
-    shape, is one replay and one host read a rank; call
-    ``ops.solver.compiled_cache_clear()`` on every rank before
-    ``torch.distributed.destroy_process_group``."""
+    shape, is one replay and one host read a rank;
+    ``torch.distributed.destroy_process_group`` drops the group's compiled
+    fits itself, no cache clear needed before it."""
     return _sharded_deconv_fit(V, W, H, mesh, 1, beta, tol, max_iter, l1_reg,
                                l2_reg, seq_axis, update_W, update_H, verbose)
 

@@ -58,7 +58,7 @@ from ..ops.recon import matmul, target_mm, target_tmm
 from ..ops.solver import (_CACHE, _converging_loop, _graphed_loop, _keep,
                           _load, _plca_e_step, _plca_m_step,
                           _plca_marginal_sum, _progress, alpha_is_active)
-from .comm import agree_min, comm_for
+from .comm import agree_min, comm_for, drop_entries_on_destroy
 
 __all__ = ["shard_target", "sharded_nmf_fit", "sharded_plca_fit"]
 
@@ -225,6 +225,9 @@ def _run_fit(mesh, comms, chunk, targets, args, state0, fns_of, tol,
     other ranks would not retry with it."""
     cached = graph and _compiles(comms)
     with _CACHE.use(chunk, targets, args, cached) as e:
+        if cached:  # the entry goes when one of its groups is destroyed
+            e.groups.update(c.group for c in comms if c is not None)
+            drop_entries_on_destroy()
         f = fns_of(e)
         if not cached:
             return _converging_loop(f.one_iter, f.loss_of, state0, tol,
@@ -319,9 +322,11 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
     each call (one capture).  On a ``"cpu"`` mesh (gloo) the same workload
     runs eagerly; over ``"gloo-staged"`` (ranks sharing a card) the eager
     loop runs, as does ``_graph=False`` (private: the eager twin of the
-    checks).  Call ``ops.solver.compiled_cache_clear()`` on every rank
-    before ``torch.distributed.destroy_process_group``: an entry holds
-    captured NCCL kernels of its group.
+    checks).  ``torch.distributed.destroy_process_group`` drops the
+    entries of the groups it destroys first (their graphs hold captured
+    NCCL kernels of those groups: :func:`.comm.drop_entries_on_destroy`),
+    so no cache clear is needed before it; ``ops.solver.
+    compiled_cache_clear()`` empties the whole cache at any time.
 
     ``use_pallas`` is the JAX package's switch, kept for its signature:
     the wrappers of B1/B2 choose by device (the kernels on a card tensor,

@@ -277,9 +277,21 @@ def _compiled(case, a, mesh, full):
     * ``{"do": "scale"}``: ``V``'s values times 3 through ``.data`` (no
       version counter moves);
     * ``{"do": "clear", "ranks": [...]}``: those ranks empty their cache;
-    * ``{"do": "regroup"}``: every rank empties its cache, destroys the
-      process group, starts a new one and makes the mesh again (the case
-      spans the world).
+    * ``{"do": "single"}``: a single-card compiled fit of ``V`` (an
+      ``NMF`` model at β=1, 30 iterations), its target kept for the rest
+      of the case: an entry that holds no group;
+    * ``{"do": "subgroup"}``: a process group of every rank made anew
+      (``new_group``), a compiled fit on a mesh of it, then that group
+      alone destroyed; the entries holding it (``sub_before``, ``sub_after``)
+      and those holding another group (``others_before``,
+      ``others_after``) come back;
+    * ``{"do": "regroup"}``: every rank empties its cache (unless
+      ``"clear": False``), destroys the process group, starts a new one
+      (on the same backend) and makes the mesh again (the case spans the
+      world); the cache's entries and those holding a group before and
+      after ``destroy_process_group`` come back (``entries_before``,
+      ``group_entries_before``, ``entries_after``,
+      ``group_entries_after``).
 
     The halo fits (``nmfd``, a ``deconv`` of the case's ``nd``, and
     ``siplca``) run through the private fits, in the case's ``mode`` (none:
@@ -339,9 +351,16 @@ def _compiled(case, a, mesh, full):
                 graphs._Graphs.captures, fused_deconv.hgrad.launches,
                 fused_deconv.wgrad.launches]
 
+    def holding(groups=None, other=False):
+        """The cache's entries that hold a group (of ``groups``; with
+        ``other``, one not of them)."""
+        return sum(1 for e in list(solver._CACHE.entries.values())
+                   if e.groups and (groups is None or bool(
+                       e.groups - groups if other else e.groups & groups)))
+
     solver.compiled_cache_clear()
     Vd, Hd = targets(mesh)
-    fits = {}
+    fits, kept = {}, []
     try:
         for step in case["steps"]:
             do = step["do"]
@@ -376,15 +395,45 @@ def _compiled(case, a, mesh, full):
             elif do == "clear":
                 if dist.get_rank() in step["ranks"]:
                     solver.compiled_cache_clear()
+            elif do == "single":
+                from pytorch_nmf_tpu_torch.utils import nmf_from_numpy
+
+                device = case.get("device", "cpu")
+                m = nmf_from_numpy({"W": a("W"), "H": a("H")}, device)
+                kept.append(torch.from_numpy(a("V")).to(device))
+                m.fit(kept[-1], beta=1, tol=0, max_iter=30)
+            elif do == "subgroup":
+                from torch.distributed.device_mesh import DeviceMesh
+
+                sub = dist.new_group(list(range(dist.get_world_size())))
+                sub_mesh = DeviceMesh.from_group(
+                    sub, case.get("device", "cpu"),
+                    mesh_dim_names=mesh.mesh_dim_names)
+                Vs, Hs = targets(sub_mesh)
+                kept.append(Vs)  # the entry's target
+                run(sub_mesh, Vs, [a("W"), Hs] + (
+                    [a("Z")] if "Z" in names else []), True)
+                out["sub_before"] = holding({sub})
+                out["others_before"] = holding({sub}, other=True)
+                dist.destroy_process_group(sub)
+                out["sub_after"] = holding({sub})
+                out["others_after"] = holding({sub}, other=True)
             elif do == "regroup":
-                solver.compiled_cache_clear()
+                if step.get("clear", True):
+                    solver.compiled_cache_clear()
                 world, rank = dist.get_world_size(), dist.get_rank()
+                backend = dist.get_backend()
+                out["entries_before"] = solver.compiled_cache_info()["entries"]
+                out["group_entries_before"] = holding()
                 dist.barrier()
                 dist.destroy_process_group()
+                out["entries_after"] = solver.compiled_cache_info()["entries"]
+                out["group_entries_after"] = holding()
                 par.distributed.initialize(
                     f"file://{_WORKDIR / ('store-' + case['name'])}", world,
-                    rank, backend="gloo", timeout_s=120)
-                mesh = par.make_mesh(dict(case["axes"]), "cpu")
+                    rank, backend=backend, timeout_s=120)
+                mesh = par.make_mesh(dict(case["axes"]),
+                                     case.get("device", "cpu"))
                 Vd, Hd = targets(mesh)
                 out["regrouped"] = True
                 # the collectives' Comm of the mesh made again is on the

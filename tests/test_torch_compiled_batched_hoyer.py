@@ -4,9 +4,9 @@ package's ``vmap`` of the single fit.  Each problem's loss and line search
 are its own (``_batched_backtrack_project``: a problem takes a round's step
 only while its last attempt was worse and it made fewer than 10), every
 projection of the batch is one call over all B·R rank columns (one P1
-launch on the card), and the chunks run through ``_graphed_hoyer_loop``:
-one capture a fit, the rounds 2-10 a CUDA-graph WHILE node on "any problem
-is active".
+launch on the card), and the chunk loop runs through ``_graphed_hoyer_loop``:
+one capture a fit, the loop a CUDA-graph WHILE node whose body holds the
+rounds 2-10 as WHILE nodes on "any problem is active".
 
 CPU tests:
 
@@ -22,7 +22,8 @@ CPU tests:
 
 CUDA tests (marked ``cuda``; skipped without a card): graphed against
 eager on the card bit for bit, each problem's attempts, one capture a fit,
-``chunks - 2`` replays, P1 launches equal to the constrained factors plus
+one replay of the chunk loop after two eager chunks (a warm fit one replay
+and no host read), P1 launches equal to the constrained factors plus
 the rounds (not × B), line-search host reads only in the eager chunks,
 allocated memory flat over three fits.
 ``python -m pytest --noconftest -m cuda tests/test_torch_compiled_batched_hoyer.py``.
@@ -135,7 +136,7 @@ def test_batched_hoyer_fit_matches_jax(jx, name, kw, max_iter):
 # ---------------------------------------- CPU: chunked against the eager loop
 @pytest.mark.parametrize("name", ["NMF", "NMFD"])
 @pytest.mark.parametrize("kw", SPARSENESS, ids=KW_IDS)
-@pytest.mark.parametrize("max_iter", [0, 9, 10, 30])
+@pytest.mark.parametrize("max_iter", [0, 1, 9, 10, 20, 25, 30, 47])
 def test_chunks_equal_the_eager_loop(name, kw, max_iter):
     runs = _both_ways(name, "cpu", max_iter, kw)
     (g, gc), (e, ec) = runs[True], runs[False]
@@ -224,10 +225,14 @@ def test_chunks_read_the_host_only_through_the_loop(monkeypatch, name, kw):
     monkeypatch.setattr(projection, "plain_proj_rows",
                         _allowed(projection.plain_proj_rows))
     _GuardedGraphs.calls = _GuardedGraphs.made = 0
+    solver.compiled_cache_clear()
     r0 = solver._batched_backtrack_project.reads
     _fit(name, "cpu", True, 30, kw)
     assert _GuardedGraphs.calls == 3 and _GuardedGraphs.made == 1
-    assert len(reads) == solver._batched_backtrack_project.reads - r0 > 0
+    # the line searches' flags and the chunk loop's: a call for chunk 1 and
+    # one for chunk 2 (two reads each), then one for chunk 3 (two)
+    line_search = solver._batched_backtrack_project.reads - r0
+    assert len(reads) == line_search + 6 and line_search > 0
 
 
 # ---------------------------------------------------------------- CUDA
@@ -261,7 +266,8 @@ def test_cuda_graphed_batched_hoyer_fit_matches_eager(cuda, monkeypatch, name,
     for a, b in zip(g, e):
         assert a.is_cuda and torch.equal(a, b)
     chunks = max_iter // 10
-    assert graphs._Graphs.replays - p0 == max(chunks - 2, 0)
+    # chunks 1-2 eager, then one replay of the chunk loop for the rest
+    assert graphs._Graphs.replays - p0 == int(chunks >= 3)
     assert len(captures) == (chunks >= 3)  # one capture for the whole batch
     rounds, reads, p1 = gc[:3]
     assert rounds == ec[0] and p1 == ec[2]
@@ -270,6 +276,38 @@ def test_cuda_graphed_batched_hoyer_fit_matches_eager(cuda, monkeypatch, name,
     assert p1 == len(kw) + rounds
     assert ec[1] == rounds
     assert (0 < reads < rounds) if chunks >= 3 else reads == rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["NMF", "NMFD"])
+def test_cuda_warm_batched_hoyer_fit_is_one_replay(cuda, name):
+    """A warm fit of the batch (other inits on the kept entry) is one
+    replay, no capture and no host read, bit for bit its eager twin with
+    the same rounds and P1 launches (counted on the card through the
+    chunk loop's nested bodies)."""
+    kw = dict(sW=0.5)
+    cls = MODELS[name]
+    V, W, H = (torch.from_numpy(a).to(cuda) for a in _problem(name))
+    fit = {graph: solver.get_batched_hoyer_fit(
+        cls.reconstruct if name == "NMF" else vmap(cls.reconstruct), 2.0, 30,
+        True, True, 0.5, None, W[0].numel() // W.shape[2],
+        H[0].numel() // H.shape[2], _graph=graph) for graph in (True, False)}
+    fit[True](V, W, H)  # cold
+    out = {}
+    for graph in (True, False):
+        c0, p0 = _counts(), graphs._Graphs.replays
+        k0, r0 = graphs._Graphs.captures, solver._read.reads
+        got = fit[graph](V, W.roll(1, 1), H.roll(1, 1), _attempts=True)
+        torch.cuda.synchronize()
+        out[graph] = (got, [a - b for a, b in zip(_counts(), c0)],
+                      (graphs._Graphs.replays - p0,
+                       graphs._Graphs.captures - k0,
+                       solver._read.reads - r0))
+    (g, gc, gl), (e, ec, _) = out[True], out[False]
+    for a, b in zip(g, e):
+        assert torch.equal(a, b)
+    assert gl == (1, 0, 0) and gc[1] == 0  # no line-search read either
+    assert (gc[0], gc[2]) == (ec[0], ec[2]) and gc[2] == len(kw) + gc[0]
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
-"""The Hoyer fit's compiled execution: a dense target's fit runs each
-10-iteration chunk as one in-place workload (``ops/solver.
-_graphed_hoyer_loop``): chunks 1-2 eagerly and a CUDA graph of the chunk
-from chunk 3 on, on the card, with the line search's attempts 2-10 a
-CUDA-graph WHILE node on the device flag "the last attempt was worse"
+"""The Hoyer fit's compiled execution: the fit runs its chunk loop as one
+in-place workload (``ops/solver._graphed_hoyer_loop`` on
+``_loop_workload``): on the card chunks 1-2 eagerly, then the capture and
+one replay of the loop for the rest, a CUDA-graph WHILE node whose body
+is the 10-iteration chunk, with each line search's attempts 2-10 a WHILE
+node nested in it on the device flag "the last attempt was worse"
 (``ops/graphs._device_while``); called directly on the CPU.  The step sizes
 are 0-d float32 tensors, multiplied in float32 as the JAX package does.
 
@@ -16,17 +17,20 @@ CPU tests:
   ``sW``, ``sH``, both and a frozen factor, ``max_iter`` ∈ {0, 1, 9, 10,
   20, 25, 47}, verbose on and off: the same ``n_iter`` and ``max|Δ|/max|ref|
   ≤ 1e-5`` for each factor;
-* the chunked loop against the eager one (``_graph=False``): the same
-  factors bit for bit, the same progress-handler calls, attempts and host
-  reads; a chunk reads the host only through the loop's own counted reads
-  (a ``TorchFunctionMode`` that raises on any other);
+* the chunked loop against the eager one (``_graph=False``) at the same
+  ``max_iter``: the same factors bit for bit, the same progress-handler
+  calls, attempts and line-search reads, and the chunk loop's own flag
+  reads besides; a chunk reads the host only through the loops' own
+  counted reads (a ``TorchFunctionMode`` that raises on any other); the
+  dense, sparse-target and batched fits run ``_loop_workload``;
 * the sparse-target fit keeps the eager loop; the batched fit is one
   chunked fit for the whole batch.
 
 CUDA tests (marked ``cuda``; skipped without a card) hold graphed fits
 against eager ones on the card: factors bit for bit at ``max_iter`` ∈ {20,
-30, 47, 100}, ``chunks - 2`` replays, line-search host reads only in the
-eager chunks, P1 launches equal to the constrained factors plus the
+30, 47, 100}, one replay of the chunk loop after two eager chunks (a
+reporting fit one a chunk), a warm fit and a fit on a new V one replay
+and no host read, line-search host reads only in the eager chunks, P1 launches equal to the constrained factors plus the
 attempts, the same B3/B4 launches both ways, nothing kept alive after the
 fit, allocated memory flat across graphed fits, and a chunk that reads the
 host refused.
@@ -228,6 +232,8 @@ def _both_ways(case, device, max_iter, verbose=False, **kw):
     each with its progress-handler calls and its counts' increase."""
     runs = {}
     for graph in (True, False):
+        if graph:  # a cold fit: chunks 1-2 eager, then the loop's capture
+            solver.compiled_cache_clear()
         calls = []
         solver.push_progress_handler(lambda *a: calls.append(a))
         c0 = _counts()
@@ -241,8 +247,18 @@ def _both_ways(case, device, max_iter, verbose=False, **kw):
     return runs
 
 
+def _flag_reads(chunks, verbose):
+    """The chunk loop's flag reads in a cold fit on the CPU: a call for
+    chunk 1 and one for chunk 2 (two reads each), then one call for the
+    rest (a read before each chunk and one after); a reporting fit one call
+    a chunk."""
+    if verbose or chunks <= 2:
+        return 2 * chunks
+    return 2 * 2 + chunks - 2 + 1
+
+
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
-@pytest.mark.parametrize("max_iter", [0, 9, 10, 25, 47])
+@pytest.mark.parametrize("max_iter", MAX_ITERS)
 @pytest.mark.parametrize("verbose", [False, True])
 def test_chunks_equal_the_eager_loop(case, max_iter, verbose):
     runs = _both_ways(case, "cpu", max_iter, verbose)
@@ -250,7 +266,10 @@ def test_chunks_equal_the_eager_loop(case, max_iter, verbose):
     assert g[2] == e[2] == max_iter
     assert torch.equal(g[0], e[0]) and torch.equal(g[1], e[1])
     assert gcalls == ecalls and len(gcalls) == (max_iter // 10 if verbose else 0)
-    assert gcounts == ecounts
+    # the same counts, but for the chunk loop's own flag reads (eagerly
+    # one before each chunk of a call and one after its last)
+    assert gcounts[:5] == ecounts[:5]
+    assert gcounts[5] - ecounts[5] == _flag_reads(max_iter // 10, verbose)
     constrained = sum(1 for s, t in zip(("sW", "sH"), case[3])
                       if t and s in case[2])
     assert gcounts[0] >= max_iter * constrained
@@ -312,10 +331,46 @@ def test_chunks_read_the_host_only_through_the_loop(monkeypatch, case):
     monkeypatch.setattr(projection, "plain_proj_rows",
                         allowed(projection.plain_proj_rows))
     _GuardedGraphs.calls = 0
+    solver.compiled_cache_clear()
     r0 = solver._backtrack_project.reads
     _run_fit(case, "cpu", True, 30, verbose=True)
     assert _GuardedGraphs.calls == 3
-    assert len(reads) == solver._backtrack_project.reads - r0 > 0
+    # the line searches' flags and the chunk loop's (two a reporting call)
+    line_search = solver._backtrack_project.reads - r0
+    assert len(reads) == line_search + _flag_reads(3, True) and line_search > 0
+
+
+def test_hoyer_fits_run_the_chunk_loop_workload(monkeypatch):
+    """The dense-target, sparse-target and batched Hoyer fits run their
+    chunk loop as ``_loop_workload``'s device loop (its body the chunk, its
+    flag ``~stop & (k < limit)`` with a stop flag that never rises), one
+    workload an entry, from the first chunk; a fit of fewer than 10
+    iterations runs none."""
+    made = []
+    loop_workload = solver._loop_workload
+
+    def spy(c, stop, chunk, device):
+        made.append(bool(stop))
+        loop_workload(c, stop, chunk, device)
+
+    monkeypatch.setattr(solver, "_loop_workload", spy)
+    solver.compiled_cache_clear()
+    V, W, H = (torch.from_numpy(a) for a in _problem("NMF", 1))
+    # the 47-iteration fit is a hit of the 30-iteration fit's entry
+    for max_iter, n in ((9, 0), (30, 1), (47, 1)):
+        dense = solver.get_hoyer_fit(NMF.reconstruct, None, 2.0, max_iter,
+                                     True, True, 0.5, None, W.shape[0],
+                                     H.shape[0])
+        assert dense(V, W, H)[2] == max_iter and made == [False] * n
+    Vs = sparse_from_dense(torch.where(V > 0.6, V, 0).numpy())
+    sp = solver.get_hoyer_fit(None, NMF._sp_pos_neg, 1.0, 20, True, True,
+                              None, 0.5, W.shape[0], H.shape[0])
+    assert sp(Vs, W, H)[2] == 20 and made == [False] * 2
+    from pytorch_nmf_tpu_torch import functional
+
+    Wb, Hb, nb = functional.nmf_hoyer_fit_batched(V[None], W[None], H[None],
+                                                  max_iter=20, sW=0.5)
+    assert nb.tolist() == [20] and made == [False] * 3
 
 
 def test_device_loop_and_counts_on_the_cpu():
@@ -428,7 +483,10 @@ def test_cuda_graphed_hoyer_fit_matches_eager(cuda, case, max_iter):
     assert torch.equal(g[0], e[0]) and torch.equal(g[1], e[1])
     assert gcalls == ecalls
     chunks = max_iter // 10
-    assert replays == max(chunks - 2, 0)
+    # chunks 1-2 eager; then one replay of the chunk loop for the rest (a
+    # reporting fit one a chunk)
+    verbose = max_iter == 47
+    assert replays == (max(chunks - 2, 0) if verbose else int(chunks > 2))
     attempts, reads, p1, b3, b4, _ = gc
     assert (attempts, p1, b3, b4) == (ec[0], ec[2], ec[3], ec[4])
     constrained = sum(1 for s, t in zip(("sW", "sH"), case[3])
@@ -443,6 +501,53 @@ def test_cuda_graphed_hoyer_fit_matches_eager(cuda, case, max_iter):
         assert reads == attempts
     if case[0] == "NMFD":  # B4 for W's gradient, B3 for H's updates
         assert b4 > 0 and (b3 > 0) == case[3][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[4], CASES[6]],
+                         ids=[CASE_IDS[i] for i in (0, 2, 4, 6)])
+def test_cuda_warm_hoyer_fit_is_one_replay(cuda, case):
+    """A warm fit (other inits on the kept entry) and a fit on a new V
+    (one capture) are one replay of the whole chunk loop, the line
+    searches' WHILE nodes nested in its body, with no host read; the cold
+    fit two eager chunks, one capture and one replay.  Each is bit for bit
+    its eager twin, with the same attempts and B3/B4 launches and P1
+    launches equal to the constrained factors plus the attempts, counted on
+    the card through the nested bodies."""
+    name, seed, kw, (tw, th) = case
+    V, W, H = (torch.from_numpy(a).to(cuda) for a in _problem(name, seed))
+    V2 = V.clone()
+    cls = NMF if name == "NMF" else NMFD
+    recon = cls._resolve_fit_recon2(V, W, H, 2.0)
+    sW, sH = kw.get("sW") if tw else None, kw.get("sH") if th else None
+    constrained = (sW is not None) + (sH is not None)
+
+    def fit(graph, X, W0, H0):
+        c0, r0 = _counts(), graphs._Graphs.replays
+        k0 = graphs._Graphs.captures
+        out = solver.get_hoyer_fit(
+            recon, None, 2.0, 30, tw, th, sW, sH, W.numel() // W.shape[1],
+            H.numel() // H.shape[1], _graph=graph)(X, W0, H0)
+        torch.cuda.synchronize()
+        counts = [a - b for a, b in zip(_counts(), c0)]
+        return out, counts, (graphs._Graphs.replays - r0,
+                             graphs._Graphs.captures - k0)
+
+    Wb, Hb = W.roll(1, 0), H.roll(1, 0)
+    runs = {"cold": fit(True, V, W, H), "warm": fit(True, V, Wb, Hb),
+            "new V": fit(True, V2, W, H)}
+    twins = {"cold": fit(False, V, W, H), "warm": fit(False, V, Wb, Hb)}
+    twins["new V"] = twins["cold"]
+    assert runs["cold"][2] == (1, 1)
+    assert runs["warm"][2] == (1, 0) and runs["new V"][2] == (1, 1)
+    for how, (out, counts, _) in runs.items():
+        ref, rc, _ = twins[how]
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        attempts, reads, p1, b3, b4, loop_reads = counts
+        assert (attempts, p1, b3, b4) == (rc[0], rc[2], rc[3], rc[4]), how
+        assert p1 == constrained + attempts and attempts >= 30 * constrained
+        if how != "cold":  # nothing read on the host
+            assert reads == loop_reads == 0, how
 
 
 @pytest.mark.cuda

@@ -25,14 +25,20 @@ CPU tests, from numpy seeds at small sizes:
 * a batch whose problems converge at different chunks, one at chunk 3 or
   later: each problem's ``n_iter`` and factors JAX's;
 * the loop's host reads: its flag's (before each chunk of a call, and
-  after the call's last) and one ``(k, stop)`` a fit.
+  after the call's last) and one ``(k, stop)`` a fit;
+* nested device loops (the Hoyer fits' chunk loop holds its line
+  searches'): an outer loop whose body runs two inner ones gives a plain
+  Python loop's results and reads; the bodies at one depth must launch
+  the same kernels, and each depth keeps its own increase an execution.
 
 CUDA tests (marked ``cuda``; skipped without a card) run the same cases
 on the card against ``_graph=False``: bit for bit (the gather tier within
 1e-4: scatter-adds by atomics), a cold fit two eager chunks, one capture
 and one replay, a warm fit one replay, no capture and one host read (the
 batched fits none), the kernels' launch counts (the replay's taken on the
-card) equal to the eager fit's.
+card) equal to the eager fit's; the nested loops captured (WHILE nodes
+in a WHILE node's body) against eager, their bodies' executions and a
+count they move counted on the card at each depth.
 ``python -m pytest --noconftest -m cuda tests/test_torch_device_loop.py``.
 """
 
@@ -521,6 +527,120 @@ def test_settle_done_only_adds_the_finished_counts(monkeypatch):
     assert vars(counter)["n"] == 2 * 9 and not graphs._PENDING
 
 
+def _nested(device, seen=None):
+    """A workload of nested device loops: an outer loop on ``k < 3`` whose
+    body runs two inner loops, on ``m < 2 + k`` and ``m < 3 + k`` (9 and
+    12 runs in all), each run halving and adding to ``acc``; ``runs``
+    counts the bodies' runs (outer, inner 1, inner 2) on the device, and
+    the bodies move ``seen["outer"]``/``seen["inner"]`` on the host once a
+    run (once at capture on the card).  Returns ``(work, acc, runs,
+    reads)``: ``work()`` returns the outer loop's reads and adds the inner
+    loops' to ``reads``."""
+    k = torch.zeros((), dtype=torch.int64, device=device)
+    go = torch.zeros((), dtype=torch.bool, device=device)
+    ms = [torch.zeros((), dtype=torch.int64, device=device) for _ in range(2)]
+    again = [torch.zeros((), dtype=torch.bool, device=device)
+             for _ in range(2)]
+    acc = torch.zeros(6, device=device)
+    step = torch.arange(1.0, 7.0, device=device)
+    runs = torch.zeros(3, dtype=torch.int64, device=device)
+    reads = []
+
+    def inner(i):
+        def body():
+            acc.mul_(0.5).add_(step * (i + 1))
+            ms[i].add_(1)
+            runs[1 + i].add_(1)
+            torch.lt(ms[i], k + 2 + i, out=again[i])
+            if seen is not None:
+                seen["inner"] += 1
+
+        return body
+
+    def outer():
+        for i in range(2):
+            ms[i].zero_()
+            again[i].fill_(True)
+            reads.append(graphs._device_while(again[i], inner(i)))
+        acc.add_(1.0)
+        k.add_(1)
+        runs[0].add_(1)
+        torch.lt(k, 3, out=go)
+        if seen is not None:
+            seen["outer"] += 1
+
+    def work():
+        k.zero_()
+        acc.zero_()
+        runs.zero_()
+        torch.lt(k, 3, out=go)
+        return graphs._device_while(go, outer)
+
+    return work, acc, runs, reads
+
+
+def _nested_plain():
+    """:func:`_nested`'s loops in plain Python: ``(acc, runs, outer reads,
+    inner reads)``."""
+    acc, runs, inner_reads = np.zeros(6, "f"), [0, 0, 0], 0
+    step = np.arange(1.0, 7.0, dtype="f")
+    for k in range(3):
+        for i in range(2):
+            m = 0
+            inner_reads += 1
+            while True:
+                acc = acc * np.float32(0.5) + step * np.float32(i + 1)
+                m += 1
+                runs[1 + i] += 1
+                inner_reads += 1
+                if not m < k + 2 + i:
+                    break
+        acc = acc + np.float32(1.0)
+        runs[0] += 1
+    return acc, runs, 3 + 1, inner_reads
+
+
+def test_nested_device_loops_on_the_cpu():
+    """Eagerly a nested device loop is nested Python loops: the same
+    values and runs, each loop reading its flag before each run and once
+    after its last (the outer loop 4 reads, the inner loops' 9 + 12 runs
+    and 6 last reads)."""
+    work, acc, runs, reads = _nested("cpu")
+    outer_reads = work()
+    plain, plain_runs, plain_outer, plain_inner = _nested_plain()
+    np.testing.assert_array_equal(acc.numpy(), plain)
+    assert runs.tolist() == plain_runs == [3, 9, 12]
+    assert outer_reads == plain_outer == 4
+    assert sum(reads) == plain_inner == 9 + 12 + 6
+    # the workload of a _Graphs on the CPU runs the same, directly
+    work2, acc2, runs2, _ = _nested("cpu")
+    g = graphs._Graphs([work2], None, torch.device("cpu"), "m",
+                       conditional=True)
+    for _ in range(3):
+        g()
+        assert torch.equal(acc2, acc) and torch.equal(runs2, runs)
+
+
+def test_bodies_at_one_depth_launch_the_same_kernels(monkeypatch):
+    """Each depth keeps the increase an execution of its first body; a
+    later body at that depth that launches other kernels raises, one at
+    another depth may differ; a body may move only counts kept on the
+    card."""
+    probe = graphs._Counted(lambda: None, on_card=("card",), card=0, host=0)
+    monkeypatch.setattr(graphs, "_kernel_counters",
+                        lambda: ((probe, "card"), (probe, "host")))
+    bodies = graphs._Bodies.__new__(graphs._Bodies)
+    bodies.deltas = [None] * graphs._MAX_DEPTH
+    for depth, delta in ((0, [2, 0]), (1, [1, 0]), (1, [1, 0]), (0, [2, 0])):
+        bodies.take(depth, delta)
+    assert bodies.deltas == [[2, 0], [1, 0]] + [None] * (graphs._MAX_DEPTH - 2)
+    with pytest.raises(RuntimeError, match="at one depth"):
+        bodies.take(1, [2, 0])
+    bodies.deltas = [None] * graphs._MAX_DEPTH
+    with pytest.raises(RuntimeError, match="counts only on the host"):
+        bodies.take(0, [0, 1])
+
+
 # ---------------------------------------------------------------- CUDA
 @pytest.fixture
 def cuda():
@@ -577,6 +697,40 @@ def test_cuda_loop_fit_matches_eager(cuda, kind, max_iter):
         # a hit: the entry's chunk captured now if the cold fit did not
         assert warm[3:] == (1, int(chunks <= 2), status)
     assert ref[3:] == (0, 0, chunks)
+
+
+@pytest.mark.cuda
+def test_cuda_nested_device_loops_match_eager(cuda, monkeypatch):
+    """The nested loops captured (two WHILE nodes in a WHILE node's body),
+    replayed once: the eager run's values and runs; the bodies'
+    executions on the card at each depth (3 outer, 9 + 12 inner), and a
+    count the bodies move settled from them (its capture's ticks taken
+    back)."""
+    graphs._settle()  # earlier fits' counts, before the counts' table moves
+    seen = {"outer": 0, "inner": 0}
+    monkeypatch.setattr(graphs, "_REGISTERED", [(seen, "outer"),
+                                                (seen, "inner")])
+    work, acc, runs, _ = _nested(cuda, seen)
+    g = graphs._Graphs([work], None, torch.device(cuda), "cannot be captured",
+                       conditional=True)
+    g()
+    ref = (acc.clone(), runs.clone())
+    g()  # the second warm-up, synchronizing operations raising
+    assert seen == {"outer": 6, "inner": 42}
+    g.capture()
+    assert seen == {"outer": 6, "inner": 42}
+    acc.zero_()
+    runs.zero_()
+    r0 = graphs._Graphs.replays
+    g()
+    assert graphs._Graphs.replays == r0 + 1
+    assert g.cond.count.tolist()[:2] == [3, 21]
+    g.flush()
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref[0]) and torch.equal(runs, ref[1])
+    graphs._settle()
+    assert seen == {"outer": 9, "inner": 63}
+    g.close()
 
 
 @pytest.mark.cuda
