@@ -180,7 +180,11 @@ Drives the port's paths at full width, each in phases:
   all-reduces' and shifts' calls and bytes the twin's; it prints warm,
   eager, cold and new-V (other-V) ms/iteration beside the single-card warm
   fit of the same problem (one rank), the entry's held bytes and, for a
-  halo fit, the bytes of its chunk of V it keeps (``par_compiled``); then
+  halo fit, the bytes of its chunk of V it keeps (``par_compiled``); a
+  ``conv``-mode case first runs two eager fits under cuDNN's default
+  algorithms and prints their drift: the largest difference of W and H
+  (SIPLCA: Z) between them and, on one rank, of each from the single-card
+  fit, relative to the factor's largest value (``par_drift``); then
   the ranks destroy their group with the NMFD case's entry cached and no
   cache clear (C12: the call drops the group's compiled fits itself; a
   call still running after ``TEARDOWN_S`` fails the run), make it again
@@ -202,7 +206,13 @@ Drives the port's paths at full width, each in phases:
   plain versions'; every script's ``main`` on the card against the same
   script on the CPU from the same numpy inits (within 1e-3 relative; the
   audio separation at the CPU test's size above 8 dB; ``multi_device_fit``
-  with 2 gloo ranks sharing the card); and the Hoyer projection's overflow
+  with 2 gloo ranks sharing the card); the tutorial notebooks
+  (``examples/torch_port/*.ipynb``, written on the card by
+  ``make_notebooks.py``) executed on the card, each in a process of its
+  own (``python3 chip_smoke.py --notebook NAME``), every cell's output the
+  committed one (numbers within ``make_notebooks.RTOL``, integers equal,
+  the device line this card's name), the basic tutorial on B1, B2 and P1;
+  and the Hoyer projection's overflow
   case: NMFD 2×12×40 ``sparse_fit(beta=0.5, sW=0.4)`` finite on B3/B4 (2
   and 1 launches an iteration) and within 1e-4 of the plain twin over its
   first 5 iterations, dense NMF at 5168×1025 rank 88 (``sW=0.5``, β=0.5)
@@ -485,6 +495,10 @@ AUDIO_SMALL = dict(sr=8000, duration=2.0, rank=3, T=8, nperseg=256,
                    max_iter=200, verbose=False)
 AUDIO_MIN_GAIN = 8.0
 EXAMPLE_RTOL = 1e-3  # a script's numbers, card against CPU
+# the port's tutorial notebooks (examples/torch_port/*.ipynb, written on the
+# card by make_notebooks.py), executed here and held to their committed
+# outputs within make_notebooks.RTOL (its comment gives the reason)
+NOTEBOOKS = ("basic_tutorial", "source_filter_model")
 # the Hoyer projection's overflow case: NMFD V 2×12×40, R=3, T=5, every
 # array rand + 0.01 (numpy seeds 0 and 1), sparse_fit(beta=0.5, sW=0.4);
 # and dense NMF at MAIN_SHAPE, sparse_fit(beta=0.5, sW=0.5), on a target at
@@ -4668,6 +4682,96 @@ def example_mains(card):
               flush=True)
 
 
+def notebook_kernel(name):
+    """``python3 chip_smoke.py --notebook NAME``: the committed notebook
+    NAME executed on the card in this fresh process, as a notebook's kernel
+    runs it (its code cells in turn, in one namespace, from its directory).
+    Prints one JSON line: each cell's standard output, the seconds, and
+    the B1-B4 and P1 launches."""
+    from pytorch_nmf_tpu_torch.ops import fused_deconv as D
+    from pytorch_nmf_tpu_torch.ops import fused_mu as fm
+    from pytorch_nmf_tpu_torch.ops import projection as P
+    from pytorch_nmf_tpu_torch.ops._build import load_all
+
+    nbm = load_example("make_notebooks")
+    load_all()  # the parent's build: loads, compiles nothing
+    ctr = counters(fm, D)
+    zero(ctr)
+    p1_start = P.proj_rows.launches
+    cells = nbm.read_notebook(os.path.join(EXAMPLES, f"{name}.ipynb"))
+    t0 = time.perf_counter()
+    ran = nbm.execute_cells([c[:2] for c in cells], EXAMPLES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: int(v) for k, v in read(ctr).items()}
+    launches["hoyer_proj"] = P.proj_rows.launches - p1_start
+    print(json.dumps({"stdout": [c[2] for c in ran], "seconds": secs,
+                      "launches": launches}), flush=True)
+
+
+def notebooks_on_card(card):
+    """The committed notebooks (NOTEBOOKS) executed on the card, each in a
+    process of its own (:func:`notebook_kernel`, the environment's
+    ``PNT_*`` switches left out, as a user's kernel starts).  No cell
+    raises; each prints the lines its committed output has, the device
+    line this card's name, and every number within
+    ``make_notebooks.RTOL`` of the committed one (integers equal).  The
+    basic tutorial launches B1, B2 and P1, the source-filter model none
+    (its ``BetaMu`` runs cuBLAS).  Returns the B1-B4 launches and P1's."""
+    nbm = load_example("make_notebooks")
+    device_line = nbm.DEVICE + torch.cuda.get_device_name()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PNT_")}
+    total = dict.fromkeys(REPLACES, 0)
+    total["hoyer_proj"] = 0
+    report = []
+    for name in NOTEBOOKS:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--notebook", name],
+            capture_output=True, text=True, env=env, timeout=600)
+        check(r.returncode == 0, f"notebook {name}: exit {r.returncode}: "
+              f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+        run = json.loads(r.stdout.strip().splitlines()[-1])
+        cells = nbm.read_notebook(os.path.join(EXAMPLES, f"{name}.ipynb"))
+        check(len(run["stdout"]) == len(cells), f"notebook {name}: "
+              f"{len(run['stdout'])} cells ran of {len(cells)}")
+        n_code = 0
+        for i, ((kind, _, want), got) in enumerate(zip(cells, run["stdout"])):
+            if kind != "code":
+                continue
+            n_code += 1
+            diff = nbm.compare_outputs(got, want)
+            check(diff is None, f"notebook {name} cell {i + 1}: {diff}")
+            devices = [line for line in got.splitlines()
+                       if line.startswith(nbm.DEVICE)]
+            n_want = sum(line.startswith(nbm.DEVICE)
+                         for line in want.splitlines())
+            check(devices == [device_line] * n_want,
+                  f"notebook {name} cell {i + 1}: device lines {devices}, "
+                  f"want {n_want} of {device_line!r}")
+        d = run["launches"]
+        kernels = ("fused_contractions", "fused_beta_loss", "hoyer_proj")
+        if name == "basic_tutorial":
+            check(all(d[k] > 0 for k in kernels) and not d["hgrad"]
+                  and not d["wgrad"], f"notebook {name}: launches {d}")
+        else:
+            check(not any(d.values()), f"notebook {name}: launches {d}")
+        for k, v in d.items():
+            total[k] += v
+        report.append(f"{name}.ipynb ({n_code} code cells, "
+                      f"{run['seconds']:.2f} s of "
+                      f"{time.perf_counter() - t0:.1f} s in its process): "
+                      f"B1 {d['fused_contractions']}, B2 "
+                      f"{d['fused_beta_loss']}, P1 {d['hoyer_proj']}")
+    print(f"phase 3: notebooks executed on the card, every cell's output "
+          f"as committed (numbers within {nbm.RTOL:g} relative plus one "
+          f"unit of the last printed digit, integers equal; the device line "
+          f"{device_line!r}): " + "; ".join(report) + f" [{card}]",
+          flush=True)
+    p1 = total.pop("hoyer_proj")
+    return total, p1
+
+
 def c3_on_card(ns, ctr, card):
     """The Hoyer projection's overflow case on the card (C3_PROBE): the
     NMFD fit finite after C3_PROBE_ITERS iterations on B3/B4 (2 and 1 an
@@ -4728,17 +4832,25 @@ def c3_on_card(ns, ctr, card):
           f"{before:.7g} -> {after:.7g}, no kernel [{card}]", flush=True)
 
 
-def examples_phase(ns, ctr, card, fit_ms):
+def examples_phase(ns, ctr, card, fit_ms, p1):
     """Phase 3, the port's examples (``examples/torch_port/``) at the
     static engine choice: the audio separation at full width, every
-    script's ``main`` on the card against the CPU, and the Hoyer
-    projection's overflow case.  Returns the path's launch counts."""
+    script's ``main`` on the card against the CPU, the tutorial notebooks
+    against their committed outputs, and the Hoyer projection's overflow
+    case.  Returns the path's launch counts; P1's (the scripts' and the
+    notebooks') go into ``p1["examples"]``."""
     os.environ["PNT_NMFD_AUTOTUNE"] = "0"
     path = audio_full_width(ns, ctr, card, fit_ms)
     zero(ctr)
+    p1_start = ns.P.proj_rows.launches
     example_mains(card)
+    mains = read(ctr)
+    notebooks, p1_notebooks = notebooks_on_card(card)
+    p1["examples"] = ns.P.proj_rows.launches - p1_start + p1_notebooks
+    zero(ctr)
     c3_on_card(ns, ctr, card)
-    return {k: path[k] + v for k, v in read(ctr).items()}
+    return {k: path[k] + mains[k] + notebooks[k] + v
+            for k, v in read(ctr).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -5041,14 +5153,13 @@ def par_compiled(par, name, world, mesh, ctr):
     if cudnn:
         # the conv mode's cuDNN backward is free to pick an algorithm that
         # is not deterministic (atomics): two eager fits of the case with
-        # it, then every run of the case with cuDNN's deterministic
-        # algorithms, so that the graphed runs can be held bit for bit
+        # it and their drift (par_drift), then every run of the case with
+        # cuDNN's deterministic algorithms, so that the graphed runs can be
+        # held bit for bit
         args = (first[0], inp["W"], first[1]) + (
             (inp["Z"],) if "Z" in inp else ())
         twice = [fit(*args, _graph=False) for _ in range(2)]
-        runs["cudnn"] = {"eager twice differ": not all(
-            torch.equal(a.to_local(), b.to_local()) if hasattr(a, "to_local")
-            else a == b for a, b in zip(*twice))}
+        runs["cudnn"] = par_drift(name, inp, kw, twice, world)
         del twice
         torch.backends.cudnn.deterministic = True
     for label, graph, want in plan:
@@ -5128,6 +5239,44 @@ def par_compiled(par, name, world, mesh, ctr):
             comm.agree_min(mesh, 3)
         runs["agree"] = {"ms": 1e3 * (time.perf_counter() - t0) / 20}
     return runs
+
+
+def par_drift(name, inp, kw, twice, world):
+    """The halo ``conv`` mode's run-to-run drift under cuDNN's default
+    algorithms, from two eager fits ``twice`` of case ``name`` at fit
+    keywords ``kw``: whether they differ, the largest difference of each
+    factor (W, H; the EM's Z) between them and, on one rank, of each from
+    the single-card fit of the same problem (the model's ``fit``, the
+    static engine), each relative to the factor's largest value, as the
+    halo fits' agreement with the single-card fit (par_check) measures it,
+    and within its RTOL."""
+    from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
+
+    def local(v):
+        return v.to_local() if hasattr(v, "to_local") else v
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    keys = ("W", "H", "Z") if PAR_CASES[name][0] == "siplca" else ("W", "H")
+    fits = [{k: local(v) for k, v in zip(keys, out)} for out in twice]
+    out = {"eager twice differ": not all(
+        torch.equal(local(a), local(b)) if torch.is_tensor(local(a))
+        else a == b for a, b in zip(*twice)),
+        "between": {k: rel(fits[1][k], fits[0][k]) for k in keys}}
+    if world == 1:  # the rank's blocks are the whole factors
+        m = (plca_from_numpy if "Z" in keys else nmf_from_numpy)(
+            {k: inp[k] for k in keys}, "cuda")
+        m.fit(torch.from_numpy(inp["V"]).cuda(),
+              **{k: v for k, v in kw.items() if k != "mode"})
+        ref = {k: getattr(m, k).detach() for k in keys}
+        out["vs single"] = [{k: rel(f[k], ref[k]) for k in keys}
+                            for f in fits]
+        worst = max(max(d.values()) for d in out["vs single"])
+        check(worst <= RTOL, f"{name}: a conv-mode fit under cuDNN's "
+              f"default algorithms is off the single-card fit by "
+              f"{out['vs single']} (the halo fits' bar {RTOL})")
+    return out
 
 
 def destroy_group(tag):
@@ -5541,7 +5690,19 @@ def par_compiled_line(name, tag, reps, card):
         "warm", "single warm")]
     chunk = warm.get("chunk_bytes")
     cudnn = runs.get("cudnn")
-    differ = cudnn and ("differ" if cudnn["eager twice differ"] else "agree")
+    drift = ""
+    if cudnn:
+
+        def rels(d):
+            return ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+
+        drift = (f"two eager fits with its default ones "
+                 f"{'differ' if cudnn['eager twice differ'] else 'agree'}, "
+                 f"by {rels(cudnn['between'])} between them (largest "
+                 f"difference / largest value)")
+        if "vs single" in cudnn:
+            drift += ", off the single-card fit by " + " and ".join(
+                f"({rels(d)})" for d in cudnn["vs single"])
     print(f"phase 3, compiled sharded [{tag}]: {name} n_iter "
           f"{warm['n_iter']}; bit for bit the eager twin on every rank "
           f"({', '.join(k for k in timed if 'eager' not in k)}); (replays, "
@@ -5560,8 +5721,7 @@ def par_compiled_line(name, tag, reps, card):
           + f"; the entry holds {warm['held_bytes'] / 2**20:.2f} MiB"
           + (f", its chunk of V (and flat copy) {chunk / 2**20:.2f} MiB"
              if chunk else "")
-          + (f"; cuDNN's deterministic algorithms on (two eager fits with "
-             f"its default ones {differ})"
+          + (f"; cuDNN's deterministic algorithms on ({drift})"
              if cudnn else "") + f" [{card}]", flush=True)
 
 
@@ -5631,6 +5791,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script needs an NVIDIA GPU")
+    if sys.argv[1:2] == ["--notebook"]:  # one notebook's process
+        return notebook_kernel(sys.argv[2])
     ns = namespace()
     from pytorch_nmf_tpu_torch import nmf as models
     from pytorch_nmf_tpu_torch.constants import eps
@@ -5813,7 +5975,7 @@ def main():
     stamp("autotune")
     # phase 3, this slice: the example scripts, the audio separation at the
     # reference demo's width on B3/B4
-    by_path["examples"] = examples_phase(ns, ctr, card, fit_ms)
+    by_path["examples"] = examples_phase(ns, ctr, card, fit_ms, p1_by_path)
     stamp("examples")
     launches = {name: sum(n[name] for n in by_path.values()) for name in REPLACES}
     check(all(isinstance(n["hgrad"], Count) for n in by_path.values()),

@@ -4,8 +4,9 @@ The PyTorch/CUDA port's counterpart of ``examples/basic_tutorial.py``
 (the script equivalent of the reference's examples/basic_tutorial.ipynb).
 Every model starts from factors drawn from one numpy generator (seed 0),
 in the order the sections run, so the CPU and the card start alike.  On
-the card the β=1 and β=0 fits run the ``fused_contractions`` kernel, and
-the β=0 fit's loss the ``fused_beta_loss`` kernel.
+the card the β=1 and β=0 fits run the ``fused_contractions`` kernel, the
+β=0 fit's loss the ``fused_beta_loss`` kernel, and the Hoyer section's
+projections the ``hoyer_proj`` kernel.
 
 Run:  python examples/torch_port/basic_tutorial.py [--device cpu]
 """

@@ -116,10 +116,10 @@ def test_parallel_sources_import_no_jax():
 
 def test_importing_the_examples_leaves_jax_out():
     """Each script of ``examples/torch_port/`` (loaded by file path, as its
-    basename is also a JAX example's) imports neither JAX nor the JAX
-    package."""
+    basename is also a JAX example's), the notebooks' generator among them,
+    imports neither JAX nor the JAX package."""
     paths = sorted(str(p) for p in (ROOT / "examples" / "torch_port").glob("*.py"))
-    assert len(paths) == 5, paths
+    assert len(paths) == 6, paths
     code = (
         "import importlib.util, sys\n"
         f"for i, path in enumerate({paths!r}):\n"
