@@ -4631,8 +4631,9 @@ def example_mains(card):
     """Every script's ``main`` on the card against the same script on the
     CPU, from the same numpy inits: numbers within EXAMPLE_RTOL relative
     (``max_rel_delta``, a sharded fit's distance from its single-device
-    fit, at most 1e-5 on both); the audio separation at the CPU test's
-    setting above AUDIO_MIN_GAIN dB.  ``multi_device_fit`` starts 2 gloo
+    fit, and ``max_rel_delta_*``, the model API's, at most 1e-5 on both);
+    the audio separation at the CPU test's setting above AUDIO_MIN_GAIN
+    dB.  ``multi_device_fit`` starts 2 gloo
     ranks (sharing the card with ``device="cuda"``); its two runs go in
     threads beside the others.  The card runs' launches count on the
     caller's counters (the rank processes' are their own)."""
@@ -4666,9 +4667,10 @@ def example_mains(card):
         for key, b in cpu_out.items():
             a = card_out[key]
             check(np.isfinite(a) and np.isfinite(b), f"{name} {key}: {a}, {b}")
-            if key == "max_rel_delta":
-                check(a <= 1e-5 and b <= 1e-5, f"{name}: the sharded fit "
-                      f"{a} (card), {b} (CPU) from the single-device fit")
+            if key.startswith("max_rel_delta"):
+                check(a <= 1e-5 and b <= 1e-5, f"{name}: {key} {a} (card), "
+                      f"{b} (CPU): a sharded fit from the single-device fit "
+                      f"(or the model API's from the explicit call)")
                 continue
             gaps[key] = abs(a - b) / max(abs(b), 1e-30)
         worst = max(gaps, key=gaps.get)
@@ -4952,6 +4954,18 @@ PAR_COMPILED_HALO_RUNS = (
     ("other V eager", False, None), ("recaptured", True, (1, 1, 1)))
 PAR_PATHS = {"nmf": "sharded", "plca": "sharded", "sparse": "sharded_sparse",
              "deconv": "halo", "siplca": "halo"}
+# the model API on DTensor targets (par_routed): each case's model.fit on
+# shard_target DTensors after its explicit fit, in every group; over NCCL
+# PAR_ROUTED_WARM's cases also fit twice on their own DTensor factors at
+# PAR_COMPILED_ITERS iterations, the second a hit of the fits' cache
+PAR_ROUTED = ("nmf_b1", "nmf_model_b1", "plca", "nmfd_b1", "nmf2d_b1",
+              "nmf3d_b1", "siplca_flagship", "siplca2")
+PAR_ROUTED_WARM = ("nmf_b1", "nmfd_b1")
+# the explicit fits the model API routes to, by case kind
+PAR_ROUTES = {"nmf": ("sharded", "sharded_nmf_fit"),
+              "plca": ("sharded", "sharded_plca_fit"),
+              "deconv": ("halo", "_sharded_deconv_fit"),
+              "siplca": ("halo", "_sharded_siplca_fit")}
 
 
 def par_inputs(name, world):
@@ -5383,6 +5397,183 @@ def par_single_warm(name, inp, kw):
             / par_iters(name, n)}
 
 
+def par_routed(par, name, world, backend, mesh, ctr, path):
+    """Case ``name`` through the model API on this rank: the model made
+    from the case's inputs on the card, ``model.fit`` on ``shard_target``
+    DTensors placed as the explicit fit takes them (the rows over "data",
+    and the columns over "model" where the case has it; the trailing axis
+    over "seq"), beside the explicit fit on the full arrays from the
+    model's start, each timed by CUDA events around the whole call, with
+    its peak memory (``max_memory_allocated`` from a reset) and its
+    launches.  Over 2 or more ranks the layout routes: the explicit fit
+    the route calls is spied (called once), the routed factors, their
+    placements and ``n_iter`` are the explicit fit's bit for bit, the
+    launches the same, and a halo fit reads its block of V without a
+    gather.  On one rank the route declines, as JAX's does on one device:
+    no explicit fit is called, and the factors (whole) are saved under
+    ``path`` for the parent to hold to its single-card fit.  Over NCCL,
+    PAR_ROUTED_WARM's cases then fit a fresh model twice on the same
+    DTensor at PAR_COMPILED_ITERS iterations, the second on its own
+    DTensor factors: a hit of the fits' cache, (replays, captures, host
+    reads) (1, 0, 1)."""
+    from pytorch_nmf_tpu_torch.ops import graphs, solver
+    from pytorch_nmf_tpu_torch.parallel.sharded import placements
+    from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
+    import torch.distributed as dist
+
+    kind, shape, kw = PAR_CASES[name]
+    kw = {k: v for k, v in kw.items() if k != "mode"}
+    model_axis = kw.pop("model_axis", None)
+    inp = par_inputs(name, world)
+    em = kind in ("plca", "siplca")
+    names = ("W", "H", "Z") if em else ("W", "H")
+    halo = kind in ("deconv", "siplca")
+    nd = len(shape[4]) if halo else 0
+
+    def model():
+        make = plca_from_numpy if em else nmf_from_numpy
+        return make({k: inp[k] for k in names}, "cuda")
+
+    V = par.shard_target(inp["V"], mesh, placements(
+        mesh, {1 + nd: "seq"} if halo else {0: "data", 1: model_axis}))
+    start = [getattr(model(), k).detach() for k in names]
+
+    def explicit():
+        if kind == "nmf":
+            return par.sharded_nmf_fit(inp["V"], *start, mesh,
+                                       model_axis=model_axis, **kw)
+        if kind == "plca":
+            return par.sharded_plca_fit(inp["V"], *start, mesh, **kw)
+        f = (par.halo._sharded_deconv_fit if kind == "deconv"
+             else par.halo._sharded_siplca_fit)
+        return f(inp["V"], *start, mesh, nd, **kw)
+
+    def timed(fn):
+        """``fn()`` from an empty cache (cold, as the explicit call on new
+        full arrays is): (its output, ms, its peak memory above what was
+        allocated before it, its launches)."""
+        solver.compiled_cache_clear()
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero(ctr)
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        out = fn()
+        end_ev.record()
+        torch.cuda.synchronize()
+        return (out, start_ev.elapsed_time(end_ev),
+                torch.cuda.max_memory_allocated() - base, read(ctr))
+
+    # the route's explicit fit, and the halo fits' gathers of V, spied
+    module, fn_name = PAR_ROUTES[kind]
+    module = getattr(par, module)
+    routed_fn, gather = getattr(module, fn_name), par.halo.full_array
+    seen = {"calls": 0, "v_gathers": 0}
+
+    def spy(*args, **kwargs):
+        seen["calls"] += 1
+        return routed_fn(*args, **kwargs)
+
+    def spy_gather(x):
+        seen["v_gathers"] += tuple(x.shape) == tuple(inp["V"].shape)
+        return gather(x)
+
+    def routed():
+        m = model()
+        setattr(module, fn_name, spy)
+        par.halo.full_array = spy_gather
+        try:
+            out = m.fit(V, **kw)
+        finally:
+            setattr(module, fn_name, routed_fn)
+            par.halo.full_array = gather
+        return out, [getattr(m, k).detach() for k in names]
+
+    # in turns: explicit, routed, routed, explicit
+    runs = [timed(f) for f in (explicit, routed, routed, explicit)]
+
+    def factors(i):
+        return runs[i][0][1] if i in (1, 2) else runs[i][0][:len(names)]
+
+    for a, b in ((0, 3), (1, 2)):  # each fit's two runs: the same
+        check(runs[a][3] == runs[b][3] and all(
+            torch.equal(x.to_local(), y.to_local())
+            for x, y in zip(factors(a), factors(b))),
+            f"{name} [{backend}{world}]: two runs of the "
+            f"{'routed' if a else 'explicit'} fit differ")
+    fitted, out_e, launches_r = factors(1), factors(0), runs[1][3]
+    n_e = int(runs[0][0][3] if em else runs[0][0][2])
+    n_r = int(runs[1][0][0][0] if em else runs[1][0][0])
+    routes = world > 1
+    got = {"routes": routes, "n_iter": n_r, "explicit_n_iter": n_e,
+           "calls": seen["calls"], "v_gathers": seen["v_gathers"],
+           "ms_per_iter": [runs[i][1] / par_iters(name, n_r) for i in (1, 2)],
+           "explicit_ms_per_iter": [runs[i][1] / par_iters(name, n_e)
+                                    for i in (0, 3)],
+           "peak_mib": [runs[i][2] / 2**20 for i in (1, 2)],
+           "explicit_peak_mib": [runs[i][2] / 2**20 for i in (0, 3)],
+           "launches": {k: int(v) for k, v in launches_r.items()},
+           "hgrad_small": launches_r["hgrad"].small,
+           "explicit_launches": {k: int(v) for k, v in runs[0][3].items()}}
+    check(all(hasattr(p, "to_local") for p in fitted),
+          f"{name} [{backend}{world}]: the model's factors after a fit on a "
+          f"DTensor are not DTensors")
+    if routes:
+        check(seen["calls"] == 2, f"{name} [{backend}{world}]: the model "
+              f"API called {fn_name} {seen['calls']} times in two fits")
+        check(not seen["v_gathers"], f"{name} [{backend}{world}]: the "
+              f"routed halo fit gathered V")
+        check(n_r == n_e and all(
+            list(p.placements) == list(q.placements)
+            and torch.equal(p.to_local(), q.to_local())
+            for p, q in zip(fitted, out_e)), f"{name} [{backend}{world}]: "
+            f"the routed fit differs from the explicit fit")
+        check(got["launches"] == got["explicit_launches"],
+              f"{name} [{backend}{world}]: the routed fit launched "
+              f"{got['launches']}, the explicit fit "
+              f"{got['explicit_launches']}")
+    else:
+        check(seen["calls"] == 0, f"{name} [{backend}{world}]: a one-rank "
+              f"mesh routed to {fn_name}")
+        torch.save({k: p.to_local().cpu() for k, p in zip(names, fitted)},
+                   path)
+    del out_e, fitted, runs
+    if backend == "nccl" and name in PAR_ROUTED_WARM:
+        solver.compiled_cache_clear()
+        kw2 = dict(kw, max_iter=PAR_COMPILED_ITERS.get(kind, 50))
+        m = model()
+        m.fit(V, **kw2)  # cold: two eager chunks, the capture, a replay
+        before = (graphs._Graphs.replays, graphs._Graphs.captures,
+                  solver._read.reads, solver.compiled_cache_info()["hits"])
+        dist.barrier()
+        torch.cuda.synchronize()
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        out_w = m.fit(V, **kw2)
+        end_ev.record()
+        torch.cuda.synchronize()
+        ms_w = start_ev.elapsed_time(end_ev)
+        counts = [a - b for a, b in zip((
+            graphs._Graphs.replays, graphs._Graphs.captures,
+            solver._read.reads, solver.compiled_cache_info()["hits"]),
+            before)]
+        hits = counts.pop()
+        check(hits == 1 and counts == [1, 0, 1], f"{name} "
+              f"[{backend}{world}]: the second fit on the model's own "
+              f"DTensor factors counted {hits} cache hits and (replays, "
+              f"captures, host reads) {counts}, not a hit (1, 0, 1)")
+        n_w = int(out_w[0] if em else out_w)
+        got["warm"] = {"counts": counts, "n_iter": n_w,
+                       "ms_per_iter": ms_w / par_iters(name, n_w)}
+        del m
+        solver.compiled_cache_clear()
+    return got
+
+
 def par_rank(rank, world, backend, workdir, names):
     """One rank: every case of ``names`` through the sharded fits; writes
     its factors' local blocks and a report (``n_iter``, the kernels'
@@ -5467,6 +5658,17 @@ def par_rank(rank, world, backend, workdir, names):
                   if hasattr(v, "to_local") and (k == "H" or rank == 0)}
         torch.save(blocks, os.path.join(workdir, f"{name}-{tag}-r{rank}.pt"))
         del out, blocks
+    # the model API on DTensor targets, at the static per-shard mode
+    os.environ["PNT_NMFD_AUTOTUNE"] = "0"
+    for name in names:
+        if name in PAR_ROUTED:
+            kind, _, kw = PAR_CASES[name]
+            axis = "seq" if kind in ("deconv", "siplca") else "data"
+            axes = ((axis, world),) + ((("model", 1),) if "model_axis" in kw
+                                       else ())
+            report[name]["routed"] = par_routed(
+                par, name, world, backend, meshes[axes], ctr, os.path.join(
+                    workdir, f"routed-{name}-{tag}-r{rank}.pt"))
     if backend == "nccl":  # the compiled fits: cold, warm, new V, eager
         for name in names:
             kind, _, kw = PAR_CASES[name]
@@ -5671,6 +5873,73 @@ def par_check(ns, name, backend, world, workdir, single, card):
     return out
 
 
+def par_routed_check(name, backend, world, workdir, single, card):
+    """Print case ``name``'s model-API fits (par_routed; each rank checked
+    its own against the explicit fit where the layout routes), hold the
+    one-rank group's declined fits to the single-card fit of par_check
+    (factors within 1e-4 relative, the same ``n_iter``) and their launches
+    to the explicit path's kernels (each launched, or not, as there).
+    Returns the routed fits' launches summed over the ranks."""
+    kind = PAR_CASES[name][0]
+    tag = f"{backend}{world}"
+    reps = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"report-{tag}-r{r}.json")) as fh:
+            reps.append(json.load(fh)[name]["routed"])
+    got = reps[0]
+    ref, n_ref = single[(name, world)][:2]
+    if got["routes"]:
+        verdict = (f"routed to {PAR_ROUTES[kind][1]} (spied: once a fit), "
+                   f"bit for bit the explicit fit on every rank"
+                   + (", V read as each rank's block, not gathered"
+                      if kind in ("deconv", "siplca") else ""))
+    else:
+        check(got["n_iter"] == n_ref, f"{name} [{tag}] routed: n_iter "
+              f"{got['n_iter']}, the single-card fit {n_ref}")
+        whole = torch.load(os.path.join(workdir,
+                                        f"routed-{name}-{tag}-r0.pt"))
+        errs = {k: float((whole[k].cuda() - ref[k]).abs().max()
+                         / ref[k].abs().max()) for k in ref}
+        bad = {k: e for k, e in errs.items() if not e <= RTOL}
+        check(not bad, f"{name} [{tag}] routed: the declined fit off the "
+              f"single-card fit by {bad}")
+        want = par_expected(name, got["n_iter"], "fused")
+        launched = [got["launches"][k] > 0 for k in (
+            "fused_contractions", "fused_beta_loss", "hgrad", "wgrad")]
+        check(launched == [w > 0 for w in want], f"{name} [{tag}] routed: "
+              f"the declined fit launched {got['launches']}; the explicit "
+              f"path launches {want}")
+        verdict = ("declined (a one-rank mesh, as JAX's route on one "
+                   "device): the single-card fit of the gathered V, off "
+                   "par_single's by " + ", ".join(
+                       f"{k} {e:.2g}" for k, e in errs.items()))
+    warm = got.get("warm")
+
+    def pair(xs, digits):
+        return "/".join(f"{x:.{digits}f}" for x in xs)
+
+    print(f"phase 3, model API [{tag}]: {name} model.fit on a DTensor target "
+          f"{verdict}; n_iter {got['n_iter']}; launches per rank "
+          f"{got['launches']}; in turns (explicit, routed, routed, "
+          f"explicit; each from an empty cache) ms/iteration per rank routed "
+          + ", ".join(pair(rep["ms_per_iter"], 3) for rep in reps)
+          + ", the explicit fit on full arrays "
+          + ", ".join(pair(rep["explicit_ms_per_iter"], 3) for rep in reps)
+          + " (whole calls); peak memory above the allocated before per "
+          f"rank routed "
+          + ", ".join(pair(rep["peak_mib"], 1) for rep in reps)
+          + " MiB, explicit " + ", ".join(pair(rep["explicit_peak_mib"], 1)
+                                          for rep in reps) + " MiB"
+          + (f"; a second fit on its own DTensor factors (replays, captures, "
+             f"host reads) {tuple(warm['counts'])} (a hit), "
+             f"{warm['ms_per_iter']:.4f} ms/iteration over "
+             f"{warm['n_iter']} iterations" if warm else "")
+          + f" [{card}]", flush=True)
+    out = {k: sum(rep["launches"][k] for rep in reps) for k in REPLACES}
+    out["hgrad"] = Count(out["hgrad"], sum(rep["hgrad_small"] for rep in reps))
+    return out
+
+
 def par_compiled_line(name, tag, reps, card):
     """Print case ``name``'s compiled runs (par_compiled; each rank checked
     its own): counts, launches, all-reduces and shifts per iteration,
@@ -5744,7 +6013,7 @@ def parallel_phase(ns, card):
               f"torch.cuda.device_count() is {n_cards} (NCCL takes one rank "
               f"per card) [{card}]", flush=True)
     by_path = {p: dict.fromkeys(REPLACES, 0) for p in
-               ("sharded", "sharded_sparse", "halo")}
+               ("sharded", "sharded_sparse", "halo", "routed")}
     single = {}
     for backend, world, names in runs:
         t0 = time.perf_counter()
@@ -5757,6 +6026,11 @@ def parallel_phase(ns, card):
             path = by_path[PAR_PATHS[PAR_CASES[name][0]]]
             for k, v in got.items():
                 path[k] += v
+            if name in PAR_ROUTED:
+                got = par_routed_check(name, backend, world, workdir, single,
+                                       card)
+                for k, v in got.items():
+                    by_path["routed"][k] += v
         torch.cuda.empty_cache()
     return by_path
 

@@ -6,13 +6,16 @@ One process per rank on ``torch.distributed``:
 1. the explicit sharded fit (``sharded_nmf_fit``: all-reduced MU
    contractions; the ``fused_contractions`` kernel per rank on the card),
    cross-checked against a single-device fit;
-2. the row-sharded sparse target (``sharded_sparse_nmf_fit``);
-3. the sequence-parallel deconvolution (halo exchange), MU and EM.
+2. the model API on a sharded target: ``NMF.fit`` given a ``DTensor``
+   (``shard_target``) routes to the same sharded fit, as the JAX example's
+   annotation path does;
+3. the row-sharded sparse target (``sharded_sparse_nmf_fit``);
+4. the sequence-parallel deconvolution (halo exchange), MU and EM, and
+   ``NMFD.fit`` on a target sharded along its trailing axis, which routes
+   to the same halo fit.
 
-The JAX example's second path, the GSPMD annotation route (a sharded
-target handed to ``NMF.fit``), has no counterpart: the port exposes the
-explicit sharded calls only.  With an even number of ranks above 2 the
-mesh is ``data`` × ``model`` (2 wide), else ``data`` alone, as there.
+With an even number of ranks above 2 the mesh is ``data`` × ``model`` (2
+wide), else ``data`` alone, as there.
 
 Run, one process per card:
     torchrun --nproc-per-node 4 examples/torch_port/multi_device_fit.py
@@ -42,13 +45,14 @@ def run_rank(device="cuda", verbose=True):
     """The example on this rank of the started process group; returns the
     printed numbers."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Shard
 
     from pytorch_nmf_tpu_torch import sparse_from_dense
     from pytorch_nmf_tpu_torch.metrics import kl_div
-    from pytorch_nmf_tpu_torch.nmf import NMF
+    from pytorch_nmf_tpu_torch.nmf import NMF, NMFD
     from pytorch_nmf_tpu_torch.parallel import (
         make_mesh,
+        shard_target,
         sharded_nmf_fit,
         sharded_nmfd_fit,
         sharded_siplca_fit,
@@ -74,9 +78,11 @@ def run_rank(device="cuda", verbose=True):
     if n % 2 == 0 and n > 2:
         mesh, cpu_mesh = meshes({"data": n // 2, "model": 2})
         model_axis = "model"
+        rows = [Shard(0), Shard(1)]  # rows over "data", columns over "model"
     else:
         mesh, cpu_mesh = meshes({"data": n})
         model_axis = None
+        rows = [Shard(0)]
 
     rng = np.random.RandomState(0)
     M, K, R = 512, 256, 16
@@ -95,14 +101,20 @@ def run_rank(device="cuda", verbose=True):
     out["kl"] = float(kl_div(NMF.reconstruct(H1, W1), torch.from_numpy(V)))
     say(f"sharded fit: {int(n_iter)} iterations, KL {out['kl']:.4f}")
 
-    # 2. (the GSPMD annotation path: not ported)
+    # 2. the model API: a DTensor target routes fit() to the sharded fit
+    m = NMF(W=torch.from_numpy(W0), H=torch.from_numpy(H0), device=device)
+    m.fit(shard_target(V, mesh, rows), 1, 1e-4, 200)
+    W2 = full(m.W.detach(), cpu_mesh)  # m.W now holds a DTensor
 
     # 3. single-device reference
     ref = NMF(W=torch.from_numpy(W0), H=torch.from_numpy(H0), device=device)
     ref.fit(torch.from_numpy(V).to(device), 1, 1e-4, 200)
     W_ref = ref.W.detach().cpu()
     out["max_rel_delta"] = float((W1 - W_ref).abs().max() / W_ref.abs().max())
+    out["max_rel_delta_model"] = float((W2 - W_ref).abs().max()
+                                       / W_ref.abs().max())
     say("max |Δ|/max|W| explicit vs single:", out["max_rel_delta"])
+    say("max |Δ|/max|W| model API vs single:", out["max_rel_delta_model"])
 
     # 4. distributed SPARSE target: rows sharded, dual-ELL per shard
     dmesh, _ = meshes({"data": n})
@@ -114,16 +126,27 @@ def run_rank(device="cuda", verbose=True):
     say(f"sharded sparse fit: {int(n_sp)} iterations")
 
     # 5. sequence-parallel deconvolution (halo exchange) — MU and EM
-    seq_mesh, _ = meshes({"seq": n})
+    seq_mesh, seq_cpu_mesh = meshes({"seq": n})
     N, C, L_out, T = 1, 32, 16 * n, 6
     Vc = rng.rand(N, C, L_out).astype("f")
     Wc = rng.rand(C, R, T).astype("f") + 0.1
     Hc = rng.rand(N, R, L_out - T + 1).astype("f") + 0.1
-    _, _, n_halo = sharded_nmfd_fit(
+    Wd, _, n_halo = sharded_nmfd_fit(
         Vc, Wc, Hc, seq_mesh, beta=1, tol=1e-4, max_iter=200
     )
     out["n_iter_halo"] = int(n_halo)
     say(f"halo NMFD fit: {int(n_halo)} iterations")
+
+    # ...or, equivalently, through the model API: a target sharded along
+    # its trailing axis routes fit() to the same halo fit (each rank reads
+    # its own block of it)
+    md = NMFD(W=torch.from_numpy(Wc), H=torch.from_numpy(Hc), device=device)
+    md.fit(shard_target(Vc, seq_mesh, [Shard(2)]), 1, 1e-4, 200)
+    Wd, Wm = full(Wd, seq_cpu_mesh), full(md.W.detach(), seq_cpu_mesh)
+    out["max_rel_delta_halo_route"] = float((Wm - Wd).abs().max()
+                                            / Wd.abs().max())
+    say("max |Δ|/max|W| model-API halo route vs sharded_nmfd_fit:",
+        out["max_rel_delta_halo_route"])
 
     # the EM fit takes the SIPLCA model's normalized factors
     sip = SIPLCA(W=torch.from_numpy(Wc), H=torch.from_numpy(Hc),

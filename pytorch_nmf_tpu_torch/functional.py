@@ -16,7 +16,11 @@ explicit tensors in, new tensors out; the models' state is not involved.
 
 The factors are copied to the first factor's device (the card for a numpy
 array), float64 kept and every other dtype made float32; ``V`` follows them
-(:func:`~.models._common.target_like`).
+(:func:`~.models._common.target_like`).  A DTensor ``V`` takes the models'
+route (the sharded and halo fits, or the declined path: their module
+docstrings) in :func:`nmf_fit`, :func:`nmfd_fit`, :func:`nmf2d_fit`,
+:func:`nmf3d_fit`, :func:`nmf_hoyer_fit` and :func:`plca_fit`, and their
+factors come back as DTensors.
 """
 
 import functools
@@ -26,7 +30,8 @@ from torch.func import vmap
 
 from .models import nmf as _nmf_models
 from .models import plca as _plca_models
-from .models._common import target_like, to_param, validate_target
+from .models._common import (is_dtensor, target_like, to_param,
+                             validate_target)
 from .ops.fast_nmf import nmf_updater_factory_generic
 from .ops.mu import gamma_from_beta, mu_update, renorm  # noqa: F401
 from .ops.projection import proj_func  # noqa: F401
@@ -69,9 +74,10 @@ def _batched_recon(reconstruct):
 def _factors(*xs):
     """Copies of the factors on the first one's device (the card when it is
     not a tensor): float64 stays float64, every other dtype becomes
-    float32."""
+    float32.  A DTensor factor stays as it is (the fits read it, and
+    return new ones)."""
     device = xs[0].device if isinstance(xs[0], torch.Tensor) else None
-    return tuple(to_param(x, device) for x in xs)
+    return tuple(x if is_dtensor(x) else to_param(x, device) for x in xs)
 
 
 def _fit(model_cls, V, W, H, beta, tol, max_iter, update_W, update_H,

@@ -2,6 +2,7 @@
 counterpart of :mod:`pytorch_nmf_tpu.models._common`."""
 
 import os
+import sys
 import warnings
 from collections.abc import Iterable as Iterabc
 from typing import Optional
@@ -19,6 +20,14 @@ __all__ = [
     "rand_abs_normal",
     "assert_nonneg",
     "validate_target",
+    "is_dtensor",
+    "sharding_spec",
+    "trailing_seq_axis",
+    "row_axes",
+    "gather_whole",
+    "fit_declined",
+    "validate_sharded",
+    "set_factors",
     "single",
     "pair",
     "triple",
@@ -178,6 +187,180 @@ _BETA_ZERO_MSG = (
     "diverge. Please add small values to V, or use a positive beta "
     "value."
 )
+
+
+# --------------------------------------------------------------------------
+# DTensor targets: the layout rules of the model API's route to the sharded
+# and halo fits (the JAX package's spec checks on a NamedSharding), and the
+# declined path for every other DTensor target
+# --------------------------------------------------------------------------
+def is_dtensor(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor`` (read without
+    importing DTensor's module where nothing has: then there is none)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def sharding_spec(V) -> Optional[tuple]:
+    """The JAX ``PartitionSpec`` of a DTensor ``V``: for each tensor axis the
+    name of the mesh dimension that shards it, or ``None`` (a mesh dimension
+    named ``a`` with ``Shard(d)`` is JAX's ``spec[d] == "a"``).  ``None``
+    instead of a spec where ``V`` is not a DTensor or no sharded fit takes
+    its layout: a ``Partial`` placement (or any other than ``Shard`` and
+    ``Replicate``), one tensor axis sharded over two mesh dimensions (JAX's
+    tuple spec), a mesh without dimension names (the fits take axis
+    names), or a mesh of one rank (JAX's ``len(V.devices()) > 1`` test)."""
+    if not is_dtensor(V):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = V.device_mesh
+    names = mesh.mesh_dim_names
+    if not names or mesh.size() < 2:
+        return None
+    spec = [None] * V.ndim
+    for name, p in zip(names, V.placements):
+        if type(p) is Shard:
+            d = p.dim % V.ndim
+            if spec[d] is not None:
+                return None
+            spec[d] = name
+        elif not isinstance(p, Replicate):
+            return None
+    return tuple(spec)
+
+
+def _axis_size(V, name: str) -> int:
+    mesh = V.device_mesh
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def trailing_seq_axis(V) -> Optional[str]:
+    """The mesh dimension's name when ``V`` is halo-routable (counterpart of
+    :func:`pytorch_nmf_tpu.models._common.trailing_seq_axis`): exactly one
+    mesh dimension shards ``V``'s last axis, it has at least 2 ranks,
+    nothing else is sharded, and ``V`` is not float64 (the halo fits
+    accumulate in float32).  ``None`` declines."""
+    spec = sharding_spec(V)
+    if spec is None or V.dtype == torch.float64:
+        return None
+    axis = spec[-1]
+    if axis is None or any(s is not None for s in spec[:-1]):
+        return None
+    return axis if _axis_size(V, axis) >= 2 else None
+
+
+def row_axes(V, columns: bool = True) -> Optional[tuple]:
+    """``(data_axis, model_axis)`` of a 2-D DTensor ``V`` the sample-sharded
+    fits take (the JAX package's ``P(data[, model])`` checks,
+    ``models/nmf.py:451-458``, ``models/plca.py:341-360``): its rows sharded
+    over one named mesh dimension, its columns not sharded or, with
+    ``columns``, sharded over another (``model_axis`` is ``None`` when they
+    are not), and ``V`` not float64 (the sharded fits hold float32 or
+    bfloat16 blocks).  ``None`` declines."""
+    spec = sharding_spec(V)
+    if spec is None or V.ndim != 2 or V.dtype == torch.float64:
+        return None
+    data, model = spec
+    if data is None or (model is not None and not columns):
+        return None
+    return data, model
+
+
+def gather_whole(x):
+    """``x`` whole on this rank: a DTensor gathered from its ranks' blocks
+    (:func:`~..parallel.sharded.full_array`; the local tensor itself where
+    no mesh dimension of more than one rank shards it; DTensor's own
+    ``full_tensor`` for a ``Partial`` placement or an axis sharded twice,
+    which on gloo takes CPU tensors only), anything else as it is.  Every
+    rank of ``x``'s mesh calls it."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..parallel.sharded import full_array
+
+    dims = [p.dim % x.ndim for p in x.placements if type(p) is Shard]
+    if len(set(dims)) == len(dims) and all(
+            type(p) is Shard or isinstance(p, Replicate)
+            for p in x.placements):
+        return full_array(x)
+    with torch.no_grad():
+        return x.full_tensor().detach()
+
+
+def _replicated(x: torch.Tensor, mesh):
+    """``x`` (whole, the same on every rank) as a DTensor on ``mesh``,
+    ``Replicate()`` on every mesh dimension."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def fit_declined(fit, V, factors, verbose: bool):
+    """The declined path of a fit on a DTensor target (or on DTensor
+    factors): every rank gathers ``V`` and the DTensor factors whole
+    (:func:`gather_whole`) and runs ``fit(V, *factors, verbose)``, the
+    model's single-card fit, on its own device (``V``'s: the factors move
+    there) with the same engine and kernels as a plain-tensor fit there;
+    rank 0 of ``V``'s mesh alone reports.  Where ``V`` is a DTensor the
+    fitted factors come back as DTensors on its mesh, ``Replicate()`` on
+    every dimension; otherwise as plain tensors.  It costs what GSPMD
+    spreads: every rank holds the whole ``V`` and runs the whole fit."""
+    mesh = V.device_mesh if is_dtensor(V) else None
+    V = gather_whole(V)
+    factors = [gather_whole(f) for f in factors]
+    if mesh is not None:
+        factors = [f.to(V.device) for f in factors]
+        verbose = verbose and all(c == 0 for c in mesh.get_coordinate())
+    out = fit(V, *factors, verbose)
+    if mesh is None:
+        return out
+    n = len(factors)
+    return tuple(_replicated(x, mesh) for x in out[:n]) + tuple(out[n:])
+
+
+def set_factors(model: torch.nn.Module, **values) -> None:
+    """A fit's values into ``model``'s parameters of those names: in place
+    where parameter and value are plain tensors; otherwise (a DTensor on
+    either side) a new ``nn.Parameter`` holds the value, its
+    ``requires_grad`` kept."""
+    with torch.no_grad():
+        for name, value in values.items():
+            p = getattr(model, name)
+            if is_dtensor(value) or is_dtensor(p):
+                setattr(model, name, torch.nn.Parameter(
+                    value, requires_grad=p.requires_grad))
+            else:
+                p.copy_(value)
+
+
+def validate_sharded(V, beta: float) -> None:
+    """:func:`validate_target` of a DTensor ``V`` over its ranks: each checks
+    its own block (one ``min`` reduction), and one all-reduce a mesh
+    dimension sums the ranks' findings (:class:`~..parallel.comm.Comm`), so
+    all of them raise, or none; one host read.  ``PNT_SKIP_VALIDATE=1``
+    skips it."""
+    if os.environ.get("PNT_SKIP_VALIDATE", "") == "1":
+        return
+    from ..parallel.comm import comm_for
+
+    with torch.no_grad():
+        local = V.to_local()
+        m = _target_min(local) if local.numel() else None
+        found = torch.zeros(2, dtype=torch.float32, device=local.device)
+        if m is not None:  # (negative, zero where β ≤ 0 diverges)
+            found[0] = (m < 0).float()
+            found[1] = ((m == 0) & (beta <= 0)).float()
+        mesh = V.device_mesh
+        for name in mesh.mesh_dim_names:
+            comm_for(mesh, name).all_reduce(found)
+        negative, zero = (bool(x) for x in found.tolist())
+    if negative:
+        raise ValueError("Target should be non-negative.")
+    if zero:
+        raise ValueError(_BETA_ZERO_MSG)
 
 
 def _ntuple(n: int):

@@ -10,6 +10,19 @@ the MU solvers of :mod:`pytorch_nmf_tpu_torch.ops.solver`, ``sparse_fit`` the
 Hoyer solver.  Both run on explicit factors in classmethods, which the
 functional API (:mod:`pytorch_nmf_tpu_torch.functional`) calls too.
 
+A :class:`~torch.distributed.tensor.DTensor` target is routed as the JAX
+package's ``fit`` routes a sharded array (its ``models/nmf.py:290-306``):
+``NMF`` with its rows sharded over one named mesh dimension (and its
+columns over another, or not at all) to
+:func:`~..parallel.sharded.sharded_nmf_fit`, ``NMFD``/``NMF2D``/``NMF3D``
+sharded on the trailing axis alone to the halo fits
+(:func:`~..parallel.halo._sharded_deconv_fit`); the layout rules are
+:func:`~._common.row_axes` and :func:`~._common.trailing_seq_axis`.  Every
+other DTensor target, and ``sparse_fit`` on one, takes the declined path
+(:func:`~._common.fit_declined`): each rank gathers ``V`` whole and runs
+the single-card fit, where GSPMD would spread it.  The fitted factors are
+then DTensors, held by new ``nn.Parameter``\ s.
+
 ===========  =======================  ==========================
 model        V                        W / H
 ===========  =======================  ==========================
@@ -34,14 +47,21 @@ from ..ops.fast_nmf import resolve_nmf_updater_factory
 from ._common import (
     _BETA_ZERO_MSG,
     assert_nonneg,
+    fit_declined,
+    gather_whole,
+    is_dtensor,
     is_tensor_like,
     pair,
     rand_abs_normal,
     resolve_device,
+    row_axes,
+    set_factors,
     single,
     target_like,
     to_param,
+    trailing_seq_axis,
     triple,
+    validate_sharded,
     validate_target,
 )
 
@@ -120,12 +140,16 @@ class BaseComponent(nn.Module):
 
     def forward(self, H=None, W=None):
         """Reconstruct with the given (or stored) factors
-        (reference nmf.py:261-284)."""
+        (reference nmf.py:261-284).  DTensor factors (a fit on a DTensor
+        target leaves them) are gathered whole first
+        (:func:`~._common.gather_whole`: every rank of their mesh calls
+        it), and the reconstruction is a whole, plain tensor on every rank,
+        with no gradient through the gather."""
         H = self.H if H is None else H
         W = self.W if W is None else W
         if H is None or W is None:
             raise ValueError("both factors are needed to reconstruct")
-        return self.reconstruct(H, W)
+        return self.reconstruct(gather_whole(H), gather_whole(W))
 
     @staticmethod
     def reconstruct(H, W):
@@ -153,15 +177,22 @@ class BaseComponent(nn.Module):
         is moved there (:func:`~._common.target_like`: a float64 ``V`` of a
         float32 model is cast, with a ``UserWarning``; a bfloat16 ``V`` stays
         bfloat16, half the memory, with float32 factors and arithmetic);
-        ``NMF`` also takes a sparse COO tensor.  Returns the number of iterations run."""
+        ``NMF`` also takes a sparse COO tensor.  Returns the number of
+        iterations run.
+
+        A :class:`~torch.distributed.tensor.DTensor` ``V`` (every rank of its
+        mesh calls ``fit``) runs the sharded or halo fit where its layout
+        routes (the module docstring), else the declined path; afterwards
+        ``W`` and ``H`` are new ``nn.Parameter``\ s holding the fitted
+        DTensors (``requires_grad`` kept), which a later ``fit`` continues
+        from.  A plain ``V`` given to DTensor factors gathers them and
+        leaves plain parameters."""
         W, H = self.W, self.H
         W_new, H_new, n_iter = self._fit_mu(
             V, W.detach(), H.detach(), W.requires_grad, H.requires_grad,
             float(beta), float(tol), int(max_iter), bool(verbose),
             float(alpha * l1_ratio), float(alpha * (1 - l1_ratio)))
-        with torch.no_grad():
-            W.copy_(W_new)
-            H.copy_(H_new)
+        set_factors(self, W=W_new, H=H_new)
         return int(n_iter)
 
     @classmethod
@@ -169,7 +200,11 @@ class BaseComponent(nn.Module):
                 verbose, l1_reg, l2_reg):
         """The MU fit of :meth:`fit` on explicit factors (shared with
         :func:`~pytorch_nmf_tpu_torch.functional.nmf_fit`):
-        ``(W, H, n_iter)``."""
+        ``(W, H, n_iter)``; DTensors in and out where ``V`` or a factor is
+        one (:meth:`_fit_mu_sharded`)."""
+        if any(is_dtensor(x) for x in (V, W, H)):
+            return cls._fit_mu_sharded(V, W, H, update_W, update_H, beta, tol,
+                                       max_iter, verbose, l1_reg, l2_reg)
         V = target_like(V, W, H)
         if V.layout != torch.strided:
             return cls._fit_sparse(V, W, H, update_W, update_H, beta, tol,
@@ -180,6 +215,34 @@ class BaseComponent(nn.Module):
             l2_reg, verbose, cls._resolve_updater_factory(V, W, H, beta),
         )
         return fit_fn(V, W, H)
+
+    @classmethod
+    def _fit_mu_sharded(cls, V, W, H, update_W, update_H, beta, tol,
+                        max_iter, verbose, l1_reg, l2_reg):
+        """:meth:`_fit_mu` on a DTensor target (or DTensor factors): the
+        model's route (:meth:`_route`) where ``V``'s layout has one and the
+        factors are float32, after the ranks' joint check of ``V``
+        (:func:`~._common.validate_sharded`); else the declined path
+        (:func:`~._common.fit_declined`)."""
+        route = None
+        if is_dtensor(V) and all(x.dtype == torch.float32 for x in (W, H)):
+            route = cls._route(V)
+        if route is None:
+            return fit_declined(
+                lambda V, W, H, verbose: cls._fit_mu(
+                    V, W, H, update_W, update_H, beta, tol, max_iter, verbose,
+                    l1_reg, l2_reg), V, (W, H), verbose)
+        validate_sharded(V, beta)
+        return route(V, W, H, update_W=update_W, update_H=update_H, beta=beta,
+                     tol=tol, max_iter=max_iter, verbose=verbose,
+                     l1_reg=l1_reg, l2_reg=l2_reg)
+
+    @classmethod
+    def _route(cls, V):
+        """The explicit fit that a DTensor ``V`` of this model routes to, as
+        ``fit(V, W, H, **keywords)``, or ``None`` (declined): none here;
+        :class:`NMF` and the deconvolutional models have theirs."""
+        return None
 
     @classmethod
     def _resolve_updater_factory(cls, V, W, H, beta):
@@ -247,14 +310,14 @@ class BaseComponent(nn.Module):
         gradient steps with a backtracking line search, unconstrained ones
         MU steps, for exactly ``max_iter`` iterations.  ``V`` as in
         :meth:`fit`; a sparse COO target is taken by ``NMF`` only.
-        Returns ``max_iter``."""
+        Returns ``max_iter``.  A DTensor ``V`` takes the declined path, as
+        the JAX package routes no Hoyer fit (every rank fits the whole
+        ``V``; the factors come back replicated DTensors)."""
         W, H = self.W, self.H
         W_new, H_new, n_iter = self._fit_hoyer(
             V, W.detach(), H.detach(), W.requires_grad, H.requires_grad,
             float(beta), int(max_iter), bool(verbose), sW, sH)
-        with torch.no_grad():
-            W.copy_(W_new)
-            H.copy_(H_new)
+        set_factors(self, W=W_new, H=H_new)
         return int(n_iter)
 
     @classmethod
@@ -262,7 +325,13 @@ class BaseComponent(nn.Module):
                    sW, sH):
         """The Hoyer fit of :meth:`sparse_fit` on explicit factors (shared
         with :func:`~pytorch_nmf_tpu_torch.functional.nmf_hoyer_fit`):
-        ``(W, H, n_iter)``."""
+        ``(W, H, n_iter)``; a DTensor ``V`` or factor takes the declined
+        path (:func:`~._common.fit_declined`)."""
+        if any(is_dtensor(x) for x in (V, W, H)):
+            return fit_declined(
+                lambda V, W, H, verbose: cls._fit_hoyer(
+                    V, W, H, update_W, update_H, beta, max_iter, verbose, sW,
+                    sH), V, (W, H), verbose)
         V = target_like(V, W, H)
         sparse = V.layout != torch.strided
         if sparse:
@@ -309,9 +378,30 @@ class NMF(BaseComponent):
         return _recon.linear(H, W)
 
     _sp_pos_neg = staticmethod(_sparse.nmf_sp_pos_neg)
+
     @classmethod
     def _resolve_updater_factory(cls, V, W, H, beta):
         return resolve_nmf_updater_factory(V.device, V.dtype)
+
+    @classmethod
+    def _route(cls, V):
+        """Rows sharded over one named mesh dimension, the columns over
+        another or not at all (:func:`~._common.row_axes`, the JAX
+        package's ``P(data[, model])``): the explicit
+        :func:`~..parallel.sharded.sharded_nmf_fit` on those axes."""
+        axes = row_axes(V)
+        if axes is None:
+            return None
+        from ..parallel import sharded
+
+        def fit(V, W, H, *, update_W, update_H, beta, tol, max_iter, verbose,
+                l1_reg, l2_reg):
+            return sharded.sharded_nmf_fit(
+                V, W, H, V.device_mesh, beta, tol, max_iter, l1_reg, l2_reg,
+                data_axis=axes[0], model_axis=axes[1], _update_W=update_W,
+                _update_H=update_H, _verbose=verbose)
+
+        return fit
 
 
 class _DeconvBase(BaseComponent):
@@ -329,6 +419,25 @@ class _DeconvBase(BaseComponent):
     @classmethod
     def _resolve_fit_recon2(cls, V, W, H, beta):
         return _autotune.resolve_hoyer_recon2(cls, V, W, H, beta)
+
+    @classmethod
+    def _route(cls, V):
+        """The trailing axis sharded over one mesh dimension alone
+        (:func:`~._common.trailing_seq_axis`): the halo fit
+        :func:`~..parallel.halo._sharded_deconv_fit` on it, its per-shard
+        mode resolved as the explicit call resolves it."""
+        axis = trailing_seq_axis(V)
+        if axis is None:
+            return None
+        from ..parallel import halo
+
+        def fit(V, W, H, *, update_W, update_H, beta, tol, max_iter, verbose,
+                l1_reg, l2_reg):
+            return halo._sharded_deconv_fit(
+                V, W, H, V.device_mesh, cls._spatial_ndim, beta, tol,
+                max_iter, l1_reg, l2_reg, axis, update_W, update_H, verbose)
+
+        return fit
 
 
 class NMFD(_DeconvBase):

@@ -18,6 +18,16 @@ constructor is given ``device="cpu"``.
 On a float32 target the SIPLCA family's E-step differentiates the
 kernel-adjoint deconvolution (:func:`~..ops.autotune.resolve_plca_recon3`):
 ``dH`` runs B3 (``hgrad``) and ``dW`` B4 (``wgrad``) on the card.
+
+A :class:`~torch.distributed.tensor.DTensor` target is routed as the JAX
+package's ``fit`` routes a sharded array (its ``models/plca.py:223-237``):
+``PLCA`` with its rows (samples) sharded over one named mesh dimension and
+nothing else, both ``M`` and ``H``'s rows divisible by its size and the
+model's own ``reconstruct``, to :func:`~..parallel.sharded.sharded_plca_fit`;
+``SIPLCA``/``SIPLCA2``/``SIPLCA3`` sharded on the trailing axis alone to
+the halo EM (:func:`~..parallel.halo._sharded_siplca_fit`).  Every other
+DTensor target takes the declined path (:func:`~._common.fit_declined`):
+each rank gathers ``V`` whole and runs the single-card fit.
 """
 
 from collections.abc import Iterable as Iterabc
@@ -33,14 +43,21 @@ from ..ops.fast_plca import resolve_plca_em_engine
 from ..ops.solver import _plca_marginal_sum
 from ._common import (
     assert_nonneg,
+    fit_declined,
+    gather_whole,
+    is_dtensor,
     is_tensor_like,
     pair,
     rand_abs_normal,
     resolve_device,
+    row_axes,
+    set_factors,
     single,
     target_like,
     to_param,
+    trailing_seq_axis,
     triple,
+    validate_sharded,
     validate_target,
 )
 
@@ -141,13 +158,17 @@ class BaseComponent(nn.Module):
 
     def forward(self, H=None, W=None, Z=None, norm: float = None):
         """Reconstruct with the given (or stored) factors, rescaled by
-        ``norm`` when given (reference plca.py:153-183)."""
+        ``norm`` when given (reference plca.py:153-183).  DTensor factors
+        are gathered whole first (every rank of their mesh calls it): the
+        result is a whole, plain tensor on every rank, with no gradient
+        through the gather."""
         H = self.H if H is None else H
         W = self.W if W is None else W
         Z = self.Z if Z is None else Z
         if H is None or W is None or Z is None:
             raise ValueError("W, H and Z are needed to reconstruct")
-        result = self.reconstruct(H, W, Z)
+        result = self.reconstruct(gather_whole(H), gather_whole(W),
+                                  gather_whole(Z))
         return result if norm is None else result * norm
 
     @staticmethod
@@ -179,16 +200,21 @@ class BaseComponent(nn.Module):
 
         Returns ``(n_iter, norm)``: the reference's raw loop index, and
         ``V.sum()``, the scale to pass back to :meth:`forward` to
-        reconstruct in ``V``'s units."""
+        reconstruct in ``V``'s units.
+
+        A :class:`~torch.distributed.tensor.DTensor` ``V`` (every rank of its
+        mesh calls ``fit``) runs the sharded or halo EM where its layout
+        routes (the module docstring; ``norm`` is then a float), else the
+        declined path; afterwards ``W``, ``H`` and ``Z`` are new
+        ``nn.Parameter``\ s holding the fitted DTensors (``requires_grad``
+        kept), which a later ``fit`` continues from.  A plain ``V`` given
+        to DTensor factors gathers them and leaves plain parameters."""
         W, H, Z = self.W, self.H, self.Z
         W_new, H_new, Z_new, n_iter, norm = self._fit_em(
             V, W.detach(), H.detach(), Z.detach(), W.requires_grad,
             H.requires_grad, Z.requires_grad, float(tol), int(max_iter),
             bool(verbose), W_alpha, H_alpha, Z_alpha)
-        with torch.no_grad():
-            W.copy_(W_new)
-            H.copy_(H_new)
-            Z.copy_(Z_new)
+        set_factors(self, W=W_new, H=H_new, Z=Z_new)
         return int(n_iter), norm
 
     @classmethod
@@ -196,7 +222,25 @@ class BaseComponent(nn.Module):
                 verbose, W_alpha, H_alpha, Z_alpha):
         """The EM fit of :meth:`fit` on explicit factors (shared with
         :func:`~pytorch_nmf_tpu_torch.functional.plca_fit`):
-        ``(W, H, Z, n_iter, norm)``."""
+        ``(W, H, Z, n_iter, norm)``; on a DTensor target (or DTensor
+        factors) the model's route (:meth:`_route`) where ``V``'s layout
+        has one and the factors are float32, after the ranks' joint check
+        of ``V``, else the declined path (:func:`~._common.fit_declined`):
+        DTensors in and out."""
+        if any(is_dtensor(x) for x in (V, W, H, Z)):
+            route = None
+            if is_dtensor(V) and all(x.dtype == torch.float32
+                                     for x in (W, H, Z)):
+                route = cls._route(V, H)
+            if route is None:
+                return fit_declined(
+                    lambda V, W, H, Z, verbose: cls._fit_em(
+                        V, W, H, Z, update_W, update_H, update_Z, tol,
+                        max_iter, verbose, W_alpha, H_alpha, Z_alpha),
+                    V, (W, H, Z), verbose)
+            validate_sharded(V, 1)
+            return route(V, W, H, Z, tol, max_iter, W_alpha, H_alpha,
+                         Z_alpha, update_W, update_H, update_Z, verbose)
         V = target_like(V, W, H, Z)
         validate_target(V, 1)
         fit_fn = _solver.get_plca_fit(
@@ -218,6 +262,34 @@ class BaseComponent(nn.Module):
         :func:`~..ops.autotune.resolve_plca_recon3`)."""
         return cls.reconstruct
 
+    @classmethod
+    def _route(cls, V, H):
+        """The explicit EM that a DTensor ``V`` of this model routes to, as
+        ``fit(V, W, H, Z, tol, max_iter, W_alpha, H_alpha, Z_alpha,
+        update_W, update_H, update_Z, verbose)``, or ``None`` (declined):
+        none here; :class:`PLCA` and the shift-invariant models have
+        theirs."""
+        return None
+
+
+def _siplca_route(cls, V, H):
+    """The shift-invariant models' route: the trailing axis sharded over one
+    mesh dimension alone (:func:`~._common.trailing_seq_axis`) takes the
+    halo EM :func:`~..parallel.halo._sharded_siplca_fit` on it."""
+    axis = trailing_seq_axis(V)
+    if axis is None:
+        return None
+    from ..parallel import halo
+
+    def fit(V, W, H, Z, tol, max_iter, W_alpha, H_alpha, Z_alpha, update_W,
+            update_H, update_Z, verbose):
+        return halo._sharded_siplca_fit(
+            V, W, H, Z, V.device_mesh, cls._spatial_ndim, tol, max_iter,
+            W_alpha, H_alpha, Z_alpha, update_W, update_H, update_Z, axis,
+            verbose)
+
+    return fit
+
 
 class PLCA(BaseComponent):
     r"""Probabilistic Latent Component Analysis:
@@ -236,6 +308,32 @@ class PLCA(BaseComponent):
     @staticmethod
     def reconstruct(H, W, Z):
         return _recon.linear(H, _recon.scaled_kernel(W, Z, 0))
+
+    @classmethod
+    def _route(cls, V, H):
+        """The JAX package's rule (``models/plca.py:341-360``): the rows
+        sharded over one named mesh dimension and nothing else
+        (:func:`~._common.row_axes` without columns; not float64), ``V``'s
+        and ``H``'s rows divisible by its size, and the model's own
+        ``reconstruct`` (the explicit EM's is the dense one): the explicit
+        :func:`~..parallel.sharded.sharded_plca_fit` on that axis."""
+        axes = row_axes(V, columns=False)
+        if axes is None or cls.reconstruct is not PLCA.reconstruct:
+            return None
+        mesh = V.device_mesh
+        n = mesh.size(mesh.mesh_dim_names.index(axes[0]))
+        if V.shape[0] % n or H.shape[0] % n:
+            return None
+        from ..parallel import sharded
+
+        def fit(V, W, H, Z, tol, max_iter, W_alpha, H_alpha, Z_alpha,
+                update_W, update_H, update_Z, verbose):
+            return sharded.sharded_plca_fit(
+                V, W, H, Z, mesh, tol, max_iter, W_alpha, H_alpha, Z_alpha,
+                update_W, update_H, update_Z, data_axis=axes[0],
+                verbose=verbose)
+
+        return fit
 
     @classmethod
     def _em_engine(cls, V):
@@ -268,6 +366,7 @@ class SIPLCA(BaseComponent):
         return _recon.deconv1d(H, _recon.scaled_kernel(W, Z, 1))
 
     _resolve_fit_recon3 = classmethod(_autotune.resolve_plca_recon3)
+    _route = classmethod(_siplca_route)
 
 
 class SIPLCA2(BaseComponent):
@@ -292,6 +391,7 @@ class SIPLCA2(BaseComponent):
         return _recon.deconv2d(H, _recon.scaled_kernel(W, Z, 2))
 
     _resolve_fit_recon3 = classmethod(_autotune.resolve_plca_recon3)
+    _route = classmethod(_siplca_route)
 
 
 class SIPLCA3(BaseComponent):
@@ -316,3 +416,4 @@ class SIPLCA3(BaseComponent):
         return _recon.deconv3d(H, _recon.scaled_kernel(W, Z, 3))
 
     _resolve_fit_recon3 = classmethod(_autotune.resolve_plca_recon3)
+    _route = classmethod(_siplca_route)

@@ -352,7 +352,10 @@ class _Graphs:
         if device.type != "cuda":
             return
         self.device = device
-        self.stream = torch.cuda.Stream(device)
+        # from the high-priority pool: ProcessGroupNCCL takes its streams
+        # from the default-priority one, and a capture on a communicator's
+        # own stream crashes at capture_end
+        self.stream = torch.cuda.Stream(device, priority=-1)
         if state is None:  # own warm-ups: the first calls run the work
             self.graphs = [None] * len(fns)
             self.deltas = [None] * len(fns)

@@ -84,6 +84,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..constants import eps
 from ..metrics import beta_div, kl_div
@@ -601,10 +602,14 @@ def _resolve_halo_mode(mode, em, N, C, lead_in, chunk, kernel, R, beta,
 def _halo_split(V, W, H, mesh, spatial_ndim, seq_axis):
     """Checks the shapes, pads and splits the trailing axis: ``(comm, dev,
     Vl, W, Hl, chunk, L_in, pad_v)`` with this rank's chunks of the padded
-    ``V`` and ``H`` (and ``W``) on the mesh's device.  A DTensor input (a
-    fit's own output) is gathered whole first: the halo chunks are laid out
-    otherwise than DTensor's split."""
-    V = full_array(V)
+    ``V`` and ``H`` (and ``W``) on the mesh's device.  A DTensor ``V``
+    sharded on its trailing axis over ``seq_axis`` alone (the model API's
+    route, :func:`~..models._common.trailing_seq_axis`) gives its local
+    block, zero-padded at the end, where DTensor's split of ``L_out``
+    (``ceil(L_out / n)`` frames a rank) is the halo chunks', i.e. where
+    ``T - 1 <= ceil(L_out / n)``; any other DTensor input (``W``, ``H``: a
+    fit's own outputs) is gathered whole first, since the halo chunks of
+    ``L_in`` are laid out otherwise than DTensor's split."""
     W = full_array(W)
     H = full_array(H)
     T = W.shape[-1]
@@ -624,15 +629,24 @@ def _halo_split(V, W, H, mesh, spatial_ndim, seq_axis):
     chunk = max(-(-L_out // n), T - 1)
     dev = mesh_device(mesh)
 
-    def piece(x, L, dtype=torch.float32):
-        x = x[..., min(r * chunk, L):min((r + 1) * chunk, L)]
+    def pad(x, dtype):
         x = torch.nn.functional.pad(x, (0, chunk - x.shape[-1]))
         return x.to(device=dev, dtype=dtype).contiguous()
 
+    def piece(x, L, dtype=torch.float32):
+        return pad(x[..., min(r * chunk, L):min((r + 1) * chunk, L)], dtype)
+
     # a bfloat16 V stays bfloat16 on its rank (models._common.target_dtype)
-    return (comm, dev, piece(V, L_out, target_dtype(V.dtype, torch.float32)),
-            W.to(device=dev, dtype=torch.float32), piece(H, L_in), chunk,
-            L_in, chunk * n - L_out)
+    if (isinstance(V, DTensor) and V.device_mesh == mesh
+            and list(V.placements) == placements(mesh, {V.ndim - 1: seq_axis})
+            and chunk == -(-L_out // n)):
+        with torch.no_grad():
+            Vl = pad(V.to_local(), target_dtype(V.dtype, torch.float32))
+    else:
+        V = full_array(V)
+        Vl = piece(V, L_out, target_dtype(V.dtype, torch.float32))
+    return (comm, dev, Vl, W.to(device=dev, dtype=torch.float32),
+            piece(H, L_in), chunk, L_in, chunk * n - L_out)
 
 
 def _h_out(hp, comm, mesh, seq_axis, L_in, shape):

@@ -100,14 +100,17 @@ def local_block(x, mesh, pls, device=None, target=False):
     bfloat16 target stays bfloat16; ``models._common.target_dtype``): ``x``
     is a full array (numpy or tensor, the same on every rank), cut to this
     rank's block, or a ``DTensor`` with placements ``pls``, whose local
-    tensor is this rank's block as it is (not cut again: C9).  A 2-D target
-    on a card has 16-byte aligned rows, as B1/B2 read them: kept where it
-    has them, a copy where not (``fused_mu.aligned_copy``)."""
+    tensor is this rank's block as it is (not cut again: C9; a DTensor
+    placed otherwise, or on another mesh, is gathered whole and cut).  A
+    2-D target on a card has 16-byte aligned rows, as B1/B2 read them: kept
+    where it has them, a copy where not (``fused_mu.aligned_copy``)."""
     device = torch.device(mesh_device(mesh) if device is None else device)
-    if isinstance(x, DTensor):
-        if x.device_mesh != mesh or list(x.placements) != list(pls):
-            raise ValueError(f"DTensor placed {x.placements} on "
-                             f"{x.device_mesh}; the fit takes {pls} on {mesh}")
+    if isinstance(x, DTensor) and (x.device_mesh != mesh
+                                   or list(x.placements) != list(pls)):
+        # placed otherwise (e.g. a declined fit's replicated factors):
+        # gathered whole, then cut
+        x = _block(full_array(x), mesh, pls)
+    elif isinstance(x, DTensor):
         with torch.no_grad():  # the local tensor itself, not a view of it
             x = x.to_local()
     else:
@@ -122,28 +125,31 @@ def local_block(x, mesh, pls, device=None, target=False):
 
 def full_array(x):
     """``x`` whole on this rank: a ``DTensor`` gathered from its ranks'
-    blocks (one :meth:`~.comm.Comm.all_gather` a sharded mesh dimension;
-    every rank calls it), anything else as a tensor
+    blocks (one :meth:`~.comm.Comm.all_gather` a sharded mesh dimension of
+    more than one rank; every rank calls it; where there is none, the local
+    tensor itself), anything else as a tensor
     (``models._common.host_tensor``)."""
     if not isinstance(x, DTensor):
         return host_tensor(x).detach()
     mesh = x.device_mesh
     with torch.no_grad():
-        out = x.to_local()
+        out = local = x.to_local()
     dims = [p.dim for p in x.placements if isinstance(p, Shard)]
     if len(set(dims)) != len(dims) or not all(
             isinstance(p, (Shard, Replicate)) for p in x.placements):
         raise ValueError(f"a DTensor placed {x.placements}: the fits take "
                          "each dimension sharded over one mesh dimension")
     for i, p in enumerate(x.placements):
-        if isinstance(p, Shard):
+        if isinstance(p, Shard) and mesh.size(i) > 1:
             comm = comm_for(mesh, mesh.mesh_dim_names[i])
             n = x.shape[p.dim]
             pad = list(out.shape)
             pad[p.dim] = -(-n // comm.size) - out.shape[p.dim]
             out = torch.cat([out, out.new_zeros(pad)], dim=p.dim)
             out = torch.cat(comm.all_gather(out), dim=p.dim).narrow(p.dim, 0, n)
-    return out.detach()
+    # the local tensor itself where nothing was gathered: a fit's target
+    # keeps its identity, which keys the fits' cache
+    return out if out is local and not out.requires_grad else out.detach()
 
 
 def as_dtensor(local, mesh, pls, shape) -> DTensor:
@@ -238,7 +244,7 @@ def _run_fit(mesh, comms, chunk, targets, args, state0, fns_of, tol,
 
 
 def _nmf_fns(e, beta, gamma, l1_reg, l2_reg, data, model, epilogue_H,
-             need_pos):
+             need_pos, update_W, update_H):
     """The sharded MU fit's closures on the entry's target ``e.V``."""
     def reduce_model(*xs):
         if model is not None:
@@ -290,8 +296,11 @@ def _nmf_fns(e, beta, gamma, l1_reg, l2_reg, data, model, epilogue_H,
 
     def one_iter(state):
         w, h = state
-        w = upd_W(w, h)
-        return w, upd_H(w, h)
+        if update_W:
+            w = upd_W(w, h)
+        if update_H:
+            h = upd_H(w, h)
+        return w, h
 
     return SimpleNamespace(one_iter=one_iter, loss_of=loss_of, extra_of=None)
 
@@ -300,7 +309,8 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
                     max_iter: int = 200, l1_reg: float = 0.0,
                     l2_reg: float = 0.0, data_axis: str = "data",
                     model_axis: Optional[str] = None, use_pallas=None,
-                    _graph: bool = True):
+                    _graph: bool = True, _update_W: bool = True,
+                    _update_H: bool = True, _verbose: bool = False):
     """Fit ``V ≈ H Wᵀ`` on ``mesh`` with explicit collectives.
 
     ``V (M, K)`` is sharded over ``data_axis`` (rows) and ``model_axis``
@@ -327,6 +337,11 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
     NCCL kernels of those groups: :func:`.comm.drop_entries_on_destroy`),
     so no cache clear is needed before it; ``ops.solver.
     compiled_cache_clear()`` empties the whole cache at any time.
+
+    ``_update_W``, ``_update_H`` and ``_verbose`` (private, so that the
+    signature stays the JAX package's) are what the model API's route
+    passes (``models/nmf.py``: ``NMF.fit`` on a DTensor target): the
+    factors' ``requires_grad`` and the progress reports, from rank 0.
 
     ``use_pallas`` is the JAX package's switch, kept for its signature:
     the wrappers of B1/B2 choose by device (the kernels on a card tensor,
@@ -359,16 +374,19 @@ def sharded_nmf_fit(V, W, H, mesh, beta: float = 1, tol: float = 1e-4,
     def fns_of(e):
         if e.fns is None:
             e.fns = _nmf_fns(e, beta, gamma, l1_reg, l2_reg, data, model,
-                             epilogue_H, need_pos)
+                             epilogue_H, need_pos, update_W, update_H)
         return e.fns
 
-    # what the chunk reads: every argument but max_iter (the groups through
-    # their Comm); the blocks' signatures join the key in the cache
-    chunk = ("sharded_nmf", beta, tol, l1_reg, l2_reg, data, model)
-    with torch.no_grad():
+    # what the chunk reads: every argument but max_iter and verbose (the
+    # groups through their Comm); the blocks' signatures join the key in
+    # the cache
+    update_W, update_H = bool(_update_W), bool(_update_H)
+    chunk = ("sharded_nmf", beta, tol, l1_reg, l2_reg, data, model, update_W,
+             update_H)
+    with torch.no_grad(), _reporter(mesh, _verbose, max_iter) as report:
         (Wl, Hl), k, conv = _run_fit(mesh, (data, model), chunk, (Vl,),
                                      (Vl, Wl, Hl), (Wl, Hl), fns_of, tol,
-                                     max_iter, _graph)
+                                     max_iter, _graph, report)
     return (as_dtensor(Wl, mesh, w_pl, shapes["W"]),
             as_dtensor(Hl, mesh, h_pl, shapes["H"]),
             k * 10 if conv else max_iter)

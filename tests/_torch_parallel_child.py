@@ -231,6 +231,8 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             out.update(_strict_all_reduce(a, mesh, par, torch, dist))
         elif kind == "compiled":
             out.update(_compiled(case, a, mesh, full))
+        elif kind == "route":
+            out.update(_route(case, a, mesh, full))
         elif kind == "mesh_error":
             try:
                 par.make_mesh({"data": dist.get_world_size() + 1}, "cpu")
@@ -447,6 +449,168 @@ def _compiled(case, a, mesh, full):
         out["error"] = np.frombuffer(traceback.format_exc().encode(),
                                      np.uint8)
     return out
+
+
+def _route(case, a, mesh, full):
+    """A ``route`` case: the model API on a DTensor target.  The model
+    (``model``: a class of ``models``, or ``PLCASub``, a PLCA with its own
+    ``reconstruct``) is built from the case's arrays (``dtype``: float64
+    factors and V), its ``trainable`` flags set; ``V`` becomes
+    ``shard_target(V, mesh, pls)`` with ``pls`` from ``spec`` (the mesh
+    dimension sharding each axis of ``V``, or none).  ``call`` says what
+    runs on it: ``fit`` (the default), ``sparse_fit``, ``functional`` (the
+    functional fit of the model's kind, on the case's arrays), ``raises``
+    (``fit``, whose ``ValueError`` comes back as ``raised``), ``twice`` (a
+    second ``fit`` on the model's own DTensor factors, on V placed as
+    ``spec2`` where the case has it) or ``then_plain``
+    (then a ``fit`` on the whole V as a plain tensor).  Back come the
+    factors whole, ``n_iter`` (and ``norm``), the explicit fits the route
+    called (``calls``: sharded NMF, sharded PLCA, halo MU, halo EM), the
+    halo fits' gathers (``gathers``, ``halo.full_array``'s calls, and
+    ``v_gathers``, those of a tensor of V's shape), the factors'
+    placements, whether each is an ``nn.Parameter`` and its
+    ``requires_grad``, and ``model()`` against the forward of a plain model
+    holding the same values (``forward_err``).  With ``explicit`` the
+    explicit fit the route should call runs too, on the full arrays (the
+    model's start) with ``explicit``'s ``fn``, ``args`` after the mesh and
+    keywords (``explicit_W`` ...); with ``single`` the
+    port's plain single-card fit of the whole problem (``single_W`` ...)."""
+    import torch
+
+    from pytorch_nmf_tpu_torch import functional
+    from pytorch_nmf_tpu_torch import parallel as par
+    from pytorch_nmf_tpu_torch.models import nmf as nmf_models
+    from pytorch_nmf_tpu_torch.models import plca as plca_models
+    from pytorch_nmf_tpu_torch.parallel import halo, sharded
+    from pytorch_nmf_tpu_torch.parallel.sharded import placements
+
+    class PLCASub(plca_models.PLCA):
+        @staticmethod
+        def reconstruct(H, W, Z):
+            return H @ (W * Z).T
+
+    name, kw = case["model"], dict(case.get("kw", {}))
+    cls = PLCASub if name == "PLCASub" else getattr(
+        nmf_models if "PLCA" not in name else plca_models, name)
+    em = issubclass(cls, plca_models.BaseComponent)
+    names = ("W", "H", "Z") if em else ("W", "H")
+    dtype = case.get("dtype", "float32")
+    arr = {k: a(k).astype(dtype) for k in ("V",) + names}
+    trainable = case.get("trainable", {})
+
+    def model():
+        return cls(**{k: torch.from_numpy(arr[k].copy()) for k in names},
+                   **{f"trainable_{k}": v for k, v in trainable.items()},
+                   device="cpu")
+
+    spec = case["spec"]
+    pls = placements(mesh, dict(enumerate(spec)))
+    Vd = par.shard_target(torch.from_numpy(arr["V"]), mesh, pls)
+
+    calls = [0, 0, 0, 0]
+    gathered = []
+    spied = [(sharded, "sharded_nmf_fit"), (sharded, "sharded_plca_fit"),
+             (halo, "_sharded_deconv_fit"), (halo, "_sharded_siplca_fit")]
+    originals = [getattr(m, f) for m, f in spied] + [halo.full_array]
+
+    def counting(i, f):
+        def spy(*args, **kwargs):
+            calls[i] += 1
+            return f(*args, **kwargs)
+        return spy
+
+    def gather(x):
+        gathered.append(tuple(x.shape) == arr["V"].shape)
+        return originals[-1](x)
+
+    def fitted(m, out):
+        ps = {k: getattr(m, k).detach() for k in names}
+        got = {k: full(p) if hasattr(p, "to_local") else p.numpy()
+               for k, p in ps.items()}
+        if em:
+            got.update(n_iter=out[0], norm=float(out[1]))
+        else:
+            got["n_iter"] = out
+        return got
+
+    m = model()
+    try:
+        for i, (mod, f) in enumerate(spied):
+            setattr(mod, f, counting(i, originals[i]))
+        halo.full_array = gather
+        call = case.get("call", "fit")
+        if call == "functional":
+            fit = {"NMF": functional.nmf_fit, "NMFD": functional.nmfd_fit,
+                   "PLCA": functional.plca_fit}[name]
+            start = model()  # the model's start (PLCA's normalized)
+            res = fit(Vd, *(getattr(start, k).detach() for k in names), **kw)
+            got = {k: full(x) for k, x in zip(names, res)}
+            got["n_iter"] = res[len(names)]
+            if em:
+                got["norm"] = float(res[-1])
+            # the model's fit on the same start, bit for bit the same
+            mm = model()
+            ref = fitted(mm, mm.fit(Vd, **kw))
+            for k in names:
+                got[f"model_{k}"] = ref[k]
+        elif call == "raises":  # the ranks' joint check of V
+            try:
+                m.fit(Vd, **kw)
+                got = {"raised": np.zeros(0, np.uint8)}
+            except ValueError as e:
+                got = {"raised": np.frombuffer(str(e).encode(), np.uint8)}
+        else:
+            fit = m.sparse_fit if call == "sparse_fit" else m.fit
+            out = fit(Vd, **kw)
+            if call == "twice":  # on V again, or V placed as ``spec2``
+                V2 = Vd if "spec2" not in case else par.shard_target(
+                    torch.from_numpy(arr["V"]), mesh,
+                    placements(mesh, dict(enumerate(case["spec2"]))))
+                out = m.fit(V2, **kw)
+            got = fitted(m, out)
+            for k in names:
+                p = getattr(m, k)
+                got[f"{k}_placements"] = np.frombuffer(repr(
+                    list(getattr(p, "placements", []))).encode(), np.uint8)
+                got[f"{k}_is_param"] = isinstance(p, torch.nn.Parameter)
+                got[f"{k}_requires_grad"] = p.requires_grad
+            with torch.no_grad():
+                whole = m()
+                plain = model()
+                for k in names:
+                    getattr(plain, k).copy_(torch.from_numpy(got[k]))
+                got["forward_err"] = float(
+                    (whole - plain()).abs().max() / plain().abs().max())
+            got["forward_dtensor"] = hasattr(whole, "to_local")
+            if call == "then_plain":
+                out = m.fit(torch.from_numpy(arr["V"]), **kw)
+                got.update({f"plain_{k}": v for k, v in fitted(m, out).items()
+                            if k in names})
+                got["plain_dtensor"] = any(hasattr(getattr(m, k), "to_local")
+                                           for k in names)
+    finally:
+        for (mod, f), orig in zip(spied, originals):
+            setattr(mod, f, orig)
+        halo.full_array = originals[-1]
+    got.update(calls=calls, gathers=len(gathered), v_gathers=sum(gathered))
+    if case.get("explicit") is not None:
+        start = model()  # the start the model's fit had (PLCA's normalized)
+        args = [arr["V"]] + [getattr(start, k).detach() for k in names]
+        ekw = dict(case["explicit"])
+        fn = ekw.pop("fn")
+        res = (getattr(halo, fn) if fn.startswith("_") else
+               getattr(par, fn))(*args, mesh, *ekw.pop("args", []), **ekw)
+        for k, x in zip(names, res):
+            got[f"explicit_{k}"] = full(x)
+        got["explicit_n_iter"] = res[len(names)]
+    if case.get("single"):
+        s = model()
+        V = torch.from_numpy(arr["V"])
+        out = s.sparse_fit(V, **kw) if case.get("call") == "sparse_fit" \
+            else s.fit(V, **kw)
+        for k, v in fitted(s, out).items():
+            got[f"single_{k}"] = v
+    return got
 
 
 def _single(case, a, kw, device):

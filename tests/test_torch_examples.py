@@ -186,6 +186,10 @@ def test_source_filter_model_matches_jax(jx):
 def test_multi_device_fit_matches_the_single_device_fit():
     got = _port("multi_device_fit").main(device="cpu", world=2, verbose=False)
     assert got["max_rel_delta"] <= 1e-5, got
+    # the model API on DTensor targets: the routed NMF fit is the sharded
+    # fit, the routed NMFD fit the halo fit, bit for bit
+    assert got["max_rel_delta_model"] == got["max_rel_delta"], got
+    assert got["max_rel_delta_halo_route"] == 0, got
     for key, value in got.items():
         assert np.isfinite(value), key
     assert 0 < got["n_iter"] <= 200 and got["n_iter_halo"] > 0

@@ -70,9 +70,10 @@ def test_importing_every_module_leaves_jax_out():
 
 
 # the JAX package's ``parallel`` names (``pytorch_nmf_tpu/parallel``), and
-# those the port leaves out: ``sharded.nmf_updater_factory_sharded``
-# exists for the GSPMD auto-routing of ``NMF.fit`` on a sharded target,
-# which has no torch counterpart (ROADMAP A15 "Removal")
+# those the port leaves out: ``sharded.nmf_updater_factory_sharded`` is the
+# updater factory of the GSPMD loop that ``NMF.fit`` runs on a sharded
+# target in JAX; the port's ``NMF.fit`` routes a DTensor target to
+# ``sharded_nmf_fit`` instead (``models/nmf.py``; ROADMAP "Not ported")
 JAX_PARALLEL = {
     "": {"distributed", "left_halo", "make_hybrid_mesh", "make_mesh",
          "shard_target", "sharded_nmf2d_fit", "sharded_nmf3d_fit",

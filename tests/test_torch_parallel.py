@@ -293,8 +293,9 @@ def test_initialize_without_arguments_stays_single_process(monkeypatch):
 
 def test_exports_match_jax(jx):
     """The port's ``parallel`` exports the JAX package's names; its
-    ``sharded`` module lacks ``nmf_updater_factory_sharded``, which exists
-    for the GSPMD auto-routing the port has no counterpart of."""
+    ``sharded`` module lacks ``nmf_updater_factory_sharded``, the updater
+    factory of JAX's GSPMD loop for ``NMF.fit`` on a sharded target, which
+    the port's ``NMF.fit`` routes to ``sharded_nmf_fit`` instead."""
     import pytorch_nmf_tpu.parallel as jp
 
     import pytorch_nmf_tpu_torch.parallel as tp

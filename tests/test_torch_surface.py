@@ -44,6 +44,8 @@ NOT_PORTED = {
                                    "from_torch_sparse"},
     "pytorch_nmf_tpu.utils.checkpoint": {"save_orbax", "load_orbax"},
     "pytorch_nmf_tpu.ops.autotune": {"enable_compile_cache"},
+    # the JAX updater factory of NMF's GSPMD loop on a sharded target: the
+    # port's NMF.fit routes such a target to sharded_nmf_fit instead
     "pytorch_nmf_tpu.parallel.sharded": {"nmf_updater_factory_sharded"},
     "pytorch_nmf_tpu.ops.pallas_deconv": {
         "deconv_pallas_supported", "deconv_pallas_nd_supported",
