@@ -4967,6 +4967,28 @@ PAR_ROUTES = {"nmf": ("sharded", "sharded_nmf_fit"),
               "deconv": ("halo", "_sharded_deconv_fit"),
               "siplca": ("halo", "_sharded_siplca_fit")}
 
+# the user API past model.fit on DTensor targets (par_api), at the cases'
+# full width: the checkpointed fits (case, fit keywords, every, the first
+# session's max_iter, max_iter), in two sessions (the second a new model
+# resuming the directory) and uninterrupted; save/load and
+# save_sharded/load_sharded of the first's factors; the trainers (case,
+# optimizer, the factors plain or DTensors after a routed fit of
+# PAR_API_FIT iterations), PAR_API_STEPS steps each on the DTensor target
+PAR_API_CKPT = (("nmf_b1", dict(beta=0.5), 10, 10, 20),
+                ("nmfd_b1", dict(beta=1), 2, 2, 4),
+                ("plca", {}, 10, 10, 20))
+PAR_API_TRAINERS = (("nmf_b1", "BetaMu", "plain"),
+                    ("nmf_b1", "BetaMu", "dtensor"),
+                    ("nmf_b1", "SparsityProj", "plain"),
+                    ("nmfd_b1", "BetaMu", "plain"),
+                    ("nmfd_b1", "SparsityProj", "plain"))
+PAR_API_STEPS = 5
+PAR_API_FIT = 2
+PAR_API_BETA = 1  # BetaMu's
+PAR_API_SPARSITY = 0.5  # SparsityProj's, on W, from the step 1/λ
+PAR_API_POWER = 10  # power iterations for λ (the β=2 loss's curvature in W)
+PAR_API_RTOL = 1e-5  # the trainers' steps against the gathered target's
+
 
 def par_inputs(name, world):
     """The full inputs of case ``name`` over ``world`` ranks, from SEED:
@@ -5574,6 +5596,226 @@ def par_routed(par, name, world, backend, mesh, ctr, path):
     return got
 
 
+def api_model(name, inp):
+    """Case ``name``'s model on the card, from its inputs (plain factors)."""
+    from pytorch_nmf_tpu_torch.utils import nmf_from_numpy, plca_from_numpy
+
+    if PAR_CASES[name][0] in ("plca", "siplca"):
+        return plca_from_numpy({k: inp[k] for k in ("W", "H", "Z")}, "cuda")
+    return nmf_from_numpy({k: inp[k] for k in ("W", "H")}, "cuda")
+
+
+def api_names(name):
+    return ("W", "H", "Z") if PAR_CASES[name][0] == "plca" else ("W", "H")
+
+
+def api_step_size(m, comm=None):
+    """``SparsityProj``'s step for W: 1/λ, λ the largest eigenvalue of the
+    β=2 loss's curvature in W (the reconstruction is linear in W), by
+    PAR_API_POWER power iterations through autograd from a seeded start;
+    rank 0's, given every rank of ``comm`` (a step near 1/λ keeps the
+    constrained fit from diverging: the module's Hoyer notes)."""
+    W = m.W.detach()
+    g = torch.Generator("cuda").manual_seed(SEED)
+    x = torch.rand(W.shape, generator=g, device="cuda")
+    lam = 1.0
+    for _ in range(PAR_API_POWER):
+        x = x.requires_grad_(True)
+        with torch.enable_grad():
+            y = m(W=x)
+            (x,) = torch.autograd.grad(y, x, y)
+        lam = float(x.norm())
+        x = (x / lam).detach()
+    step = 1.0 / lam
+    return step if comm is None else comm.broadcast_object(step)
+
+
+def api_summary(x):
+    """What the ranks compare of a whole factor: its sum and largest entry."""
+    x = x.detach().double()
+    return [float(x.sum()), float(x.abs().max())]
+
+
+def par_api(par, world, backend, meshes, ctr, workdir, rank):
+    """The user API past ``model.fit`` on this rank, on ``shard_target``
+    DTensors at the cases' full width: each checkpointed fit of
+    PAR_API_CKPT in two sessions into one directory (the second a new model
+    that resumes it) and uninterrupted into another, the two bit for bit
+    alike; ``save``/``load`` and ``save_sharded``/``load_sharded`` of the
+    dense case's factors (DTensors after the fits) into the factors of a
+    fresh routed model, bit for bit, each rank writing its own shards; each
+    trainer of PAR_API_TRAINERS for PAR_API_STEPS steps (CUDA events a
+    step), compiled unless the transport keeps it eager (``"gloo-staged"``).
+    Over 2 or more ranks the fits route (B1/B2 on the rows, B3/B4 on the
+    halo); on one they decline to the single-card fit of the whole V.
+    Returns the report; rank 0 saves the whole factors (and the steps'
+    losses and step sizes) under ``workdir`` for the parent's single-card
+    references.  The kernels' launches (B1-B4, P1) are counted from zero
+    across the phase's path."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from pytorch_nmf_tpu_torch.metrics import beta_div
+    from pytorch_nmf_tpu_torch.models._common import gather_whole
+    from pytorch_nmf_tpu_torch.ops import graphs
+    from pytorch_nmf_tpu_torch.ops import projection as P
+    from pytorch_nmf_tpu_torch.parallel import comm as comms
+    from pytorch_nmf_tpu_torch.parallel.sharded import placements
+    from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
+    from pytorch_nmf_tpu_torch.utils import checkpoint as ck
+
+    tag = f"{backend}{world}"
+    root = os.path.join(workdir, f"api-{tag}")
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    dist.barrier()
+    inf = float("-inf")
+
+    def setup(name):
+        kind = PAR_CASES[name][0]
+        axis = "seq" if kind in ("deconv", "siplca") else "data"
+        key = ((axis, world),)
+        if key not in meshes:
+            meshes[key] = par.make_mesh(dict(key), "cuda")
+        mesh = meshes[key]
+        inp = par_inputs(name, world)
+        pls = placements(mesh, {inp["V"].ndim - 1: axis} if axis == "seq"
+                         else {0: axis})
+        return inp, mesh, par.shard_target(inp["V"], mesh, pls), \
+            comms.comm_for(mesh, axis)
+
+    def local(p):
+        p = p.detach()
+        return p.to_local() if hasattr(p, "to_local") else p
+
+    def same(a, b, names):
+        return all(torch.equal(local(getattr(a, k)), local(getattr(b, k)))
+                   for k in names)
+
+    def whole(m, names):
+        return {k: gather_whole(getattr(m, k).detach()) for k in names}
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    report = {"ckpt": {}, "save": {}, "trainers": {}}
+    saved = {}
+    dist.barrier()
+    zero(ctr)
+    p1_start = P.proj_rows.launches
+    t_phase = time.perf_counter()
+    for name, kw, every, first, total in PAR_API_CKPT:
+        inp, mesh, V, _ = setup(name)
+        names = api_names(name)
+        em = PAR_CASES[name][0] == "plca"
+        run = ck.checkpointed_plca_fit if em else ck.checkpointed_fit
+        kw = dict(kw, tol=inf, every=every)
+        d_s, d_w = (os.path.join(root, name, d) for d in ("session", "whole"))
+        run(api_model(name, inp), V, max_iter=first, directory=d_s, **kw)
+        resumed = api_model(name, inp)
+        out_r = run(resumed, V, max_iter=total, directory=d_s, **kw)
+        m = api_model(name, inp)
+        start, end = events()
+        torch.cuda.synchronize()
+        start.record()
+        out_w = run(m, V, max_iter=total, directory=d_w, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        n_r, n_w = (int(o[0] if em else o) for o in (out_r, out_w))
+        check(n_r == n_w == total and same(resumed, m, names),
+              f"api {name} [{tag}]: the resumed checkpointed fit ({n_r} "
+              f"iterations) is not the uninterrupted one ({n_w}) bit for bit")
+        factors = whole(m, names)
+        check(all(bool(torch.isfinite(x).all()) for x in factors.values()),
+              f"api {name} [{tag}]: non-finite factors")
+        report["ckpt"][name] = {
+            "n_iter": n_w, "ms_per_iter": start.elapsed_time(end) / total,
+            "summary": {k: api_summary(x) for k, x in factors.items()},
+            "dtensor": all(hasattr(getattr(m, k), "to_local") for k in names),
+            "files": sorted(os.listdir(d_w))}
+        saved[f"ckpt_{name}"] = {k: x.cpu() for k, x in factors.items()}
+        if name == PAR_API_CKPT[0][0]:
+            kept = (name, inp, V, m, kw)
+        del resumed, factors
+    # the two save pairs on the dense case's factors (DTensors)
+    name, inp, V, m, kw = kept
+    for pair, save, load, path in (
+            ("save/load", ck.save, ck.load, os.path.join(root, "f.npz")),
+            ("save_sharded/load_sharded", ck.save_sharded, ck.load_sharded,
+             os.path.join(root, "dcp"))):
+        back = api_model(name, inp)
+        back.fit(V, beta=kw["beta"], tol=0, max_iter=1)
+        start, end = events()
+        torch.cuda.synchronize()
+        start.record()
+        save(path, m)
+        mid = torch.cuda.Event(enable_timing=True)
+        mid.record()
+        load(path, back)
+        end.record()
+        torch.cuda.synchronize()
+        placed = all(list(getattr(back, k).placements)
+                     == list(getattr(m, k).placements) for k in ("W", "H"))
+        check(placed and same(back, m, ("W", "H")), f"api {pair} [{tag}]: "
+              f"the factors did not come back bit for bit with their "
+              f"placements")
+        dist.barrier()
+        report["save"][pair] = {
+            "save_ms": start.elapsed_time(mid), "load_ms": mid.elapsed_time(end),
+            "files": sorted(os.listdir(path)) if os.path.isdir(path)
+            else [os.path.basename(path)]}
+    del kept, m, back
+    for name, opt, params in PAR_API_TRAINERS:
+        inp, mesh, V, comm = setup(name)
+        m = api_model(name, inp)
+        if params == "dtensor":
+            m.fit(V, beta=PAR_API_BETA, tol=0, max_iter=PAR_API_FIT)
+        step = None
+        if opt == "BetaMu":
+            tr = BetaMu(m.parameters(), PAR_API_BETA)
+
+            def closure(m=m, V=V):
+                return V, m()
+        else:
+            step = api_step_size(m, comm)
+            tr = SparsityProj([{"params": [m.W], "lr": step}],
+                              PAR_API_SPARSITY)
+
+            def closure(m=m, V=V):
+                return beta_div(m(), V, 2)
+        replays = graphs._Graphs.replays
+        ms, loss = [], None
+        for _ in range(PAR_API_STEPS):
+            start, end = events()
+            start.record()
+            loss = tr.step(closure)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        factors = whole(m, ("W", "H"))
+        key = f"{name} {opt} {params} factors"
+        report["trainers"][key] = {
+            "ms_per_step": ms, "compiled": len(tr._step_cache) == 1,
+            "transport": comm.transport,
+            "replays": graphs._Graphs.replays - replays,
+            "summary": {k: api_summary(x) for k, x in factors.items()},
+            "loss": None if loss is None else float(loss),
+            "lr": tr.param_groups[0].get("lr"), "step": step}
+        saved[f"trainer_{key}"] = {k: x.cpu() for k, x in factors.items()}
+        del m, tr, factors
+    torch.cuda.synchronize()
+    report["launches"] = {k: int(v) for k, v in read(ctr).items()}
+    report["hgrad_small"] = read(ctr)["hgrad"].small
+    report["p1"] = P.proj_rows.launches - p1_start
+    report["seconds"] = time.perf_counter() - t_phase
+    if rank == 0:
+        torch.save(saved, os.path.join(workdir, f"api-{tag}.pt"))
+    dist.barrier()
+    return report
+
+
 def par_rank(rank, world, backend, workdir, names):
     """One rank: every case of ``names`` through the sharded fits; writes
     its factors' local blocks and a report (``n_iter``, the kernels'
@@ -5669,6 +5911,9 @@ def par_rank(rank, world, backend, workdir, names):
             report[name]["routed"] = par_routed(
                 par, name, world, backend, meshes[axes], ctr, os.path.join(
                     workdir, f"routed-{name}-{tag}-r{rank}.pt"))
+    # the user API past model.fit on DTensor targets: the checkpointed
+    # fits, the two save pairs, the trainers
+    report["api"] = par_api(par, world, backend, meshes, ctr, workdir, rank)
     if backend == "nccl":  # the compiled fits: cold, warm, new V, eager
         for name in names:
             kind, _, kw = PAR_CASES[name]
@@ -5940,6 +6185,155 @@ def par_routed_check(name, backend, world, workdir, single, card):
     return out
 
 
+def par_api_check(ns, backend, world, workdir, card):
+    """Hold the API phase's ranks (par_api; each checked its resumes and
+    round trips bit for bit) to each other and to the single-card runs of
+    the whole problem on this card: each checkpointed fit uninterrupted
+    (within RTOL), each trainer's steps from the same start and step size
+    on the gathered target (within PAR_API_RTOL); every kernel of the path
+    launched on every rank.  Prints the times (the card's name and power
+    limit beside them) and returns ``(launches summed over the ranks, P1's
+    launches)``."""
+    import shutil
+
+    from pytorch_nmf_tpu_torch.utils import checkpoint as ck
+
+    tag = f"{backend}{world}"
+    reps = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"report-{tag}-r{r}.json")) as fh:
+            reps.append(json.load(fh)["api"])
+    rep = reps[0]
+    for r, other in enumerate(reps[1:], 1):
+        for part in ("ckpt", "trainers"):
+            for key, got in rep[part].items():
+                mine = other[part][key]
+                check(all(mine[k] == got[k] for k in ("summary", "loss", "lr")
+                          if k in got), f"api {key} [{tag}]: rank {r} ended "
+                      f"elsewhere than rank 0")
+    saved = torch.load(os.path.join(workdir, f"api-{tag}.pt"))
+    root = os.path.join(workdir, f"api-single-{tag}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def rel(a, b):
+        return float((a.cuda() - b).abs().max() / b.abs().max())
+
+    routes = "routed" if world > 1 else "declined (a one-rank mesh)"
+    for name, kw, every, first, total in PAR_API_CKPT:
+        inp = par_inputs(name, world)
+        em = PAR_CASES[name][0] == "plca"
+        run = ck.checkpointed_plca_fit if em else ck.checkpointed_fit
+        m = api_model(name, inp)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        V = torch.from_numpy(inp["V"]).cuda()
+        torch.cuda.synchronize()
+        start.record()
+        run(m, V, tol=float("-inf"), every=every, max_iter=total,
+            directory=os.path.join(root, name), **kw)
+        end.record()
+        torch.cuda.synchronize()
+        got = rep["ckpt"][name]
+        errs = {k: rel(saved[f"ckpt_{name}"][k], getattr(m, k).detach())
+                for k in api_names(name)}
+        bad = {k: e for k, e in errs.items() if not e <= RTOL}
+        check(not bad, f"api checkpointed {name} [{tag}]: off the single-card "
+              f"checkpointed fit by {bad}")
+        check(got["dtensor"], f"api checkpointed {name} [{tag}]: the factors "
+              f"are not DTensors")
+        print(f"phase 3, API on DTensors [{tag}]: checkpointed {name} "
+              f"{json.dumps(kw)} {routes}: sessions of {first} and "
+              f"{total - first} iterations (every {every}) bit for bit the "
+              f"uninterrupted {total} on every rank; off the single-card "
+              f"checkpointed fit by " + ", ".join(
+                  f"{k} {e:.2g}" for k, e in errs.items())
+              + f"; ms/iteration per rank "
+              + ", ".join(f"{r['ckpt'][name]['ms_per_iter']:.3f}"
+                          for r in reps)
+              + f" (whole calls, segments and boundary losses), single card "
+              f"{start.elapsed_time(end) / total:.3f}; files {got['files']} "
+              f"[{card}]", flush=True)
+        del m, V
+    for pair, got in rep["save"].items():
+        print(f"phase 3, API on DTensors [{tag}]: {pair} of the "
+              f"{PAR_API_CKPT[0][0]} factors into a routed model's DTensor "
+              f"factors bit for bit, placements kept; save {got['save_ms']:.1f} "
+              f"ms, load {got['load_ms']:.1f} ms (rank 0); files "
+              f"{got['files']} [{card}]", flush=True)
+    for name, opt, params in PAR_API_TRAINERS:
+        key = f"{name} {opt} {params} factors"
+        got = rep["trainers"][key]
+        inp = par_inputs(name, world)
+        V = torch.from_numpy(inp["V"]).cuda()
+        m = api_model(name, inp)
+        if params == "dtensor":
+            m.fit(V, beta=PAR_API_BETA, tol=0, max_iter=PAR_API_FIT)
+        if opt == "BetaMu":
+            tr = ns.BetaMu(m.parameters(), PAR_API_BETA)
+
+            def closure(m=m, V=V):
+                return V, m()
+        else:
+            tr = ns.SparsityProj([{"params": [m.W], "lr": got["step"]}],
+                                 PAR_API_SPARSITY)
+
+            def closure(m=m, V=V):
+                return ns.beta_div(m(), V, 2)
+        ms, loss = [], None
+        for _ in range(PAR_API_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = tr.step(closure)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        errs = {k: rel(saved[f"trainer_{key}"][k], getattr(m, k).detach())
+                for k in ("W", "H")}
+        if loss is not None:
+            errs["loss"] = abs(got["loss"] - float(loss)) / abs(float(loss))
+        bad = {k: e for k, e in errs.items() if not e <= PAR_API_RTOL}
+        check(not bad, f"api {key} [{tag}]: {PAR_API_STEPS} steps off the "
+              f"gathered target's on one card by {bad}")
+        # SparsityProj's line search (a WHILE node) with NCCL collectives
+        # runs eagerly (trainer._compiles, C16)
+        compiled = got["transport"] != "gloo-staged" and not (
+            opt == "SparsityProj" and got["transport"] == "nccl")
+        check(got["compiled"] == compiled, f"api {key} [{tag}]: compiled "
+              f"{got['compiled']} over {got['transport']}")
+        path = (f"compiled over {got['transport']} ({got['replays']} graph "
+                f"replays in {PAR_API_STEPS} steps)" if got["compiled"] else
+                f"eager over {got['transport']}")
+        print(f"phase 3, API on DTensors [{tag}]: {opt} on {name}'s DTensor "
+              f"target, {params} factors, {PAR_API_STEPS} steps {path}: off "
+              f"the gathered target's steps on one card by " + ", ".join(
+                  f"{k} {e:.2g}" for k, e in errs.items())
+              + (f"; step size {got['lr']:.6g} from 1/λ {got['step']:.6g}"
+                 if got["step"] else "")
+              + "; ms/step per rank (the first builds the step) "
+              + ", ".join("/".join(f"{x:.2f}" for x in
+                                   r["trainers"][key]["ms_per_step"])
+                          for r in reps)
+              + f", single card {'/'.join(f'{x:.2f}' for x in ms)} "
+              f"[{card}]", flush=True)
+        del m, V, tr
+    for r, got in enumerate(reps):
+        missing = [k for k, v in got["launches"].items() if not v]
+        check(not missing and got["p1"] > 0, f"api [{tag}] rank {r}: "
+              f"launched {got['launches']}, P1 {got['p1']}: some kernel of "
+              f"the path ran no time")
+    print(f"phase 3, API on DTensors [{tag}]: launches per rank "
+          + "; ".join(f"{json.dumps(r['launches'])}, P1 {r['p1']}"
+                      for r in reps)
+          + f"; the phase took " + ", ".join(f"{r['seconds']:.1f}"
+                                             for r in reps)
+          + f" s a rank [{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    out = {k: sum(r["launches"][k] for r in reps) for k in REPLACES}
+    out["hgrad"] = Count(out["hgrad"], sum(r["hgrad_small"] for r in reps))
+    return out, sum(r["p1"] for r in reps)
+
+
 def par_compiled_line(name, tag, reps, card):
     """Print case ``name``'s compiled runs (par_compiled; each rank checked
     its own): counts, launches, all-reduces and shifts per iteration,
@@ -5994,12 +6388,14 @@ def par_compiled_line(name, tag, reps, card):
              if cudnn else "") + f" [{card}]", flush=True)
 
 
-def parallel_phase(ns, card):
+def parallel_phase(ns, card, p1):
     """Phase 3, the sharded fits: every case over PAR_WORLD gloo ranks on
     this one card (card tensors staged through pinned host memory, as
     :mod:`pytorch_nmf_tpu_torch.parallel.comm` says), PAR_NCCL_ONE over
     one NCCL rank, and over NCCL across cards where there are several.
-    Returns the kernels' launches per path, summed over ranks and groups."""
+    Then each group's API phase (par_api_check).  Returns the kernels'
+    launches per path, summed over ranks and groups; P1's go into
+    ``p1["api"]``."""
     workdir = os.path.join(scratch_dir(), "parallel")
     os.makedirs(workdir, exist_ok=True)
     torch.cuda.synchronize()
@@ -6013,7 +6409,8 @@ def parallel_phase(ns, card):
               f"torch.cuda.device_count() is {n_cards} (NCCL takes one rank "
               f"per card) [{card}]", flush=True)
     by_path = {p: dict.fromkeys(REPLACES, 0) for p in
-               ("sharded", "sharded_sparse", "halo", "routed")}
+               ("sharded", "sharded_sparse", "halo", "routed", "api")}
+    p1["api"] = 0
     single = {}
     for backend, world, names in runs:
         t0 = time.perf_counter()
@@ -6031,6 +6428,10 @@ def parallel_phase(ns, card):
                                        card)
                 for k, v in got.items():
                     by_path["routed"][k] += v
+        got, n_p1 = par_api_check(ns, backend, world, workdir, card)
+        for k, v in got.items():
+            by_path["api"][k] += v
+        p1["api"] += n_p1
         torch.cuda.empty_cache()
     return by_path
 
@@ -6119,7 +6520,8 @@ def main():
     # phase 3, this slice: the sharded fits in rank processes sharing the
     # card (their launches are the ranks' own; the parent's single-card
     # references count nowhere: the dense phase zeroes the counts first)
-    by_path_parallel = parallel_phase(ns, card)
+    p1_by_path = {}
+    by_path_parallel = parallel_phase(ns, card, p1_by_path)
     stamp("parallel")
 
     # phase 3: the main path, dense NMF.fit at full width
@@ -6218,7 +6620,6 @@ def main():
     # the models' kernels, the batched fits and the optimizers on none, and
     # float64 targets; this slice: every projection on P1, the optimizers
     # compiled into CUDA graphs (P1's launches counted by path apart)
-    p1_by_path = {}
     by_path["hoyer"] = hoyer_fits(ns, ctr, card, fit_ms, p1_by_path)
     stamp("Hoyer")
     # this slice: the sparse-target Hoyer fit graphed (P1; no B1-B4)

@@ -14,16 +14,44 @@ The first argument is the reconstruction, the second the target.  A
 bfloat16 target against a float32 reconstruction follows the JAX package's
 promotion: elementwise terms of the target alone stay bfloat16 (as
 ``jnp`` computes them), products with the reconstruction are float32.
+
+A :class:`~torch.distributed.tensor.DTensor` target (the sharded array the
+JAX package's metrics take) against a plain input of its global shape
+(what ``model()`` returns after a fit on it) is summed block by block
+(:func:`~.parallel.sharded.blockwise_sum`): every rank of the target's
+mesh calls the metric, each sums its block of the target against the same
+block of the input, one all-reduce of the scalar gives the whole
+divergence on every rank, and the input's gradient is whole on every rank.
+Two DTensors, and ``sparseness`` of a DTensor, run on DTensor's own ops.
 """
+
+import functools
 
 import torch
 
 from .constants import eps
+from .models._common import is_dtensor
 from .ops.recon import matmul
 
 __all__ = ["kl_div", "euclidean", "is_div", "beta_div", "sparseness"]
 
 
+def _on_blocks(metric):
+    """``metric``, summed block by block where the target is a DTensor and
+    the input is not (the module docstring)."""
+    @functools.wraps(metric)
+    def wrapped(input, target, *args, **kwargs):
+        if is_dtensor(target) and not is_dtensor(input):
+            from .parallel.sharded import blockwise_sum
+
+            return blockwise_sum(
+                lambda i, t: metric(i, t, *args, **kwargs), input, target)
+        return metric(input, target, *args, **kwargs)
+
+    return wrapped
+
+
+@_on_blocks
 def kl_div(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     r"""Generalized Kullback-Leibler divergence (β-divergence at β = 1)."""
     t = target.reshape(-1)
@@ -32,12 +60,14 @@ def kl_div(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
             + i.sum())
 
 
+@_on_blocks
 def euclidean(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     r"""Half squared Euclidean distance (β-divergence at β = 2)."""
     d = input - target
     return 0.5 * torch.sum(d * d)
 
 
+@_on_blocks
 def is_div(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     r"""Itakura-Saito divergence (β-divergence at β = 0)."""
     t_eps = target + eps
@@ -50,6 +80,7 @@ def is_div(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     )
 
 
+@_on_blocks
 def beta_div(input: torch.Tensor, target: torch.Tensor, beta: float = 2):
     r"""The β-divergence; the three special values dispatch to the
     closed forms above."""

@@ -1,6 +1,7 @@
 """Shared helpers for the model layer (shape inference, init, validation);
 counterpart of :mod:`pytorch_nmf_tpu.models._common`."""
 
+import contextlib
 import os
 import sys
 import warnings
@@ -25,6 +26,10 @@ __all__ = [
     "trailing_seq_axis",
     "row_axes",
     "gather_whole",
+    "simply_placed",
+    "partial_over",
+    "place_like",
+    "load_placed",
     "fit_declined",
     "validate_sharded",
     "set_factors",
@@ -273,20 +278,122 @@ def gather_whole(x):
     no mesh dimension of more than one rank shards it; DTensor's own
     ``full_tensor`` for a ``Partial`` placement or an axis sharded twice,
     which on gloo takes CPU tensors only), anything else as it is.  Every
-    rank of ``x``'s mesh calls it."""
+    rank of ``x``'s mesh calls it.
+
+    Where ``x`` requires grad (a factor of a fit on a DTensor target) and
+    grad mode is on, the gather is differentiable (:class:`_Gathered`):
+    the whole gradient comes back as ``x``'s own block, a DTensor placed
+    as ``x``."""
     if not is_dtensor(x):
         return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Gathered.apply(x)
+    return _gather(x)
+
+
+def simply_placed(x) -> bool:
+    """Whether the DTensor ``x`` is placed as the fits place their blocks:
+    every placement ``Shard`` or ``Replicate``, no tensor axis sharded over
+    two mesh dimensions."""
     from torch.distributed.tensor import Replicate, Shard
 
+    dims = [p.dim % x.ndim for p in x.placements if type(p) is Shard]
+    return len(set(dims)) == len(dims) and all(
+        type(p) is Shard or isinstance(p, Replicate) for p in x.placements)
+
+
+def _gather(x):
     from ..parallel.sharded import full_array
 
-    dims = [p.dim % x.ndim for p in x.placements if type(p) is Shard]
-    if len(set(dims)) == len(dims) and all(
-            type(p) is Shard or isinstance(p, Replicate)
-            for p in x.placements):
+    if simply_placed(x):
         return full_array(x)
     with torch.no_grad():
         return x.full_tensor().detach()
+
+
+# the Comms over which a gradient reaching a gathered factor is partial
+# (innermost last): inside ``partial_over``
+_PARTIAL = []
+
+
+@contextlib.contextmanager
+def partial_over(comms):
+    """Inside, a gradient that reaches a DTensor factor through its gather
+    (:class:`_Gathered`) is each rank's part of the whole one, and is summed
+    over ``comms`` before it is cut to the factor's block: ``BetaMu``'s raw
+    pair on a DTensor target, each rank's from its own block of the
+    target (``ops/trainer_core.py::mu_raw_pair``).  The list is global,
+    not per thread: the autograd engine runs a card's backward on a thread
+    of its own."""
+    _PARTIAL.append(list(comms))
+    try:
+        yield
+    finally:
+        _PARTIAL.pop()
+
+
+class _Gathered(torch.autograd.Function):
+    """:func:`gather_whole` of a DTensor ``x``; the backward cuts the whole
+    gradient to ``x``'s block (:func:`place_like`), after summing it over
+    the Comms of :func:`partial_over` where that is open."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.like = x.detach()
+        whole = _gather(ctx.like)
+        local = ctx.like.to_local()
+        if whole.untyped_storage().data_ptr() == \
+                local.untyped_storage().data_ptr():
+            whole = whole.clone()  # a one-rank mesh: not the local tensor
+        return whole
+
+    @staticmethod
+    def backward(ctx, g):
+        comms = _PARTIAL[-1] if _PARTIAL else ()
+        if comms:
+            g = g.contiguous().clone()
+            for c in comms:
+                c.all_reduce(g)
+        return place_like(g, ctx.like)
+
+
+def place_like(value, p):
+    """``value`` (a tensor of the DTensor ``p``'s global shape, or an
+    array) placed as ``p`` is: this rank's block
+    (:func:`~..parallel.sharded.local_block`'s cut) as a DTensor on ``p``'s
+    mesh with ``p``'s placements, in ``p``'s dtype, on its device.  A
+    DTensor ``value`` placed otherwise is gathered whole first.  Every rank
+    of ``p``'s mesh calls it; ``p`` is placed as the fits place factors
+    (:func:`simply_placed`, ``ValueError`` otherwise)."""
+    from ..parallel.sharded import _block, as_dtensor
+
+    mesh, pls = p.device_mesh, list(p.placements)
+    if not simply_placed(p):
+        raise ValueError(f"a factor placed {pls}: a value goes into factors "
+                         "sharded or replicated over each mesh dimension")
+    if is_dtensor(value):
+        if value.device_mesh == mesh and list(value.placements) == pls:
+            return value.to(p.dtype)
+        value = _gather(value.detach())
+    value = host_tensor(value)
+    if tuple(value.shape) != tuple(p.shape):
+        raise ValueError(f"a value of shape {tuple(value.shape)} for a "
+                         f"factor of shape {tuple(p.shape)}")
+    value = value.to(device=p.to_local().device, dtype=p.dtype)
+    return as_dtensor(_block(value, mesh, pls).contiguous(), mesh, pls,
+                      p.shape)
+
+
+def load_placed(module: torch.nn.Module, state_dict, prefix: str) -> None:
+    """Before ``module`` loads its own entries of ``state_dict`` (its
+    ``_load_from_state_dict``): each value for a parameter that holds a
+    DTensor is placed as that parameter (:func:`place_like`), so that
+    ``load_state_dict`` copies a whole tensor (a checkpoint's) into the
+    DTensor factors of a fit on a DTensor target, block by block."""
+    for name, p in module.named_parameters(recurse=False):
+        key = prefix + name
+        if is_dtensor(p) and key in state_dict:
+            state_dict[key] = place_like(state_dict[key], p)
 
 
 def _replicated(x: torch.Tensor, mesh):

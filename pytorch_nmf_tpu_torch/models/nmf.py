@@ -51,6 +51,7 @@ from ._common import (
     gather_whole,
     is_dtensor,
     is_tensor_like,
+    load_placed,
     pair,
     rand_abs_normal,
     resolve_device,
@@ -143,13 +144,21 @@ class BaseComponent(nn.Module):
         (reference nmf.py:261-284).  DTensor factors (a fit on a DTensor
         target leaves them) are gathered whole first
         (:func:`~._common.gather_whole`: every rank of their mesh calls
-        it), and the reconstruction is a whole, plain tensor on every rank,
-        with no gradient through the gather."""
+        it), and the reconstruction is a whole, plain tensor on every rank;
+        a factor's gradient through the gather is its own block of the
+        whole one, a DTensor placed as the factor."""
         H = self.H if H is None else H
         W = self.W if W is None else W
         if H is None or W is None:
             raise ValueError("both factors are needed to reconstruct")
         return self.reconstruct(gather_whole(H), gather_whole(W))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        """``load_state_dict``: a whole value for a DTensor factor (a fit on
+        a DTensor target left it) goes in as the factor's block
+        (:func:`~._common.load_placed`); every rank of its mesh loads."""
+        load_placed(self, state_dict, prefix)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     @staticmethod
     def reconstruct(H, W):

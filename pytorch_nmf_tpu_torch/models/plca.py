@@ -47,6 +47,7 @@ from ._common import (
     gather_whole,
     is_dtensor,
     is_tensor_like,
+    load_placed,
     pair,
     rand_abs_normal,
     resolve_device,
@@ -160,8 +161,9 @@ class BaseComponent(nn.Module):
         """Reconstruct with the given (or stored) factors, rescaled by
         ``norm`` when given (reference plca.py:153-183).  DTensor factors
         are gathered whole first (every rank of their mesh calls it): the
-        result is a whole, plain tensor on every rank, with no gradient
-        through the gather."""
+        result is a whole, plain tensor on every rank, and a factor's
+        gradient through the gather is its own block of the whole one, a
+        DTensor placed as the factor (:func:`~._common.gather_whole`)."""
         H = self.H if H is None else H
         W = self.W if W is None else W
         Z = self.Z if Z is None else Z
@@ -170,6 +172,13 @@ class BaseComponent(nn.Module):
         result = self.reconstruct(gather_whole(H), gather_whole(W),
                                   gather_whole(Z))
         return result if norm is None else result * norm
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        """``load_state_dict``: a whole value for a DTensor factor (a fit on
+        a DTensor target left it) goes in as the factor's block
+        (:func:`~._common.load_placed`); every rank of its mesh loads."""
+        load_placed(self, state_dict, prefix)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     @staticmethod
     def reconstruct(H, W, Z):

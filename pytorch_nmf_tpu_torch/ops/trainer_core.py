@@ -14,6 +14,14 @@ trainers' (torchnmf/trainer.py:36-121, 147-190): at β=1 the positive
 cotangent is ``ones_like``, ``grad = pos_raw − relu(neg_raw)``, the
 regularizers join the denominator, and the update is ``(neg + eps) / (pos +
 eps)``.
+
+A :class:`~torch.distributed.tensor.DTensor` target, and DTensor
+parameters (a fit on a DTensor target leaves them), take GSPMD's place:
+the same numbers on every rank of the target's mesh.  The raw pair comes
+from each rank's block of the target and of the reconstruction, then one
+all-reduce over the mesh dimensions that shard the target
+(:func:`mu_raw_pair`); a DTensor parameter is projected whole on every
+rank and cut back to its block (:func:`project_step`).
 """
 
 from typing import Callable, List, Optional, Sequence
@@ -21,6 +29,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..constants import eps
+from ..models._common import gather_whole, is_dtensor, partial_over
 from .mu import gamma_from_beta, get_norm, mu_cotangents
 from .projection import hoyer_l1_target, proj_columns
 from .solver import _f32
@@ -32,16 +41,40 @@ def mu_raw_pair(WH: torch.Tensor, x: torch.Tensor, V, beta: float):
     """``(neg_raw, pos_raw)``: the gradients in ``x`` of the reconstruction
     ``WH`` against the β cotangent pair (β=1: ``ones_like`` positive), or
     ``None`` when ``WH`` does not depend on ``x`` (the reference's ``if not
-    WH.requires_grad``, trainer.py:75-77)."""
+    WH.requires_grad``, trainer.py:75-77).
+
+    A DTensor ``V`` against a plain ``WH`` of its global shape (every rank
+    of ``V``'s mesh calls it): the cotangents of ``V``'s block against the
+    same block of ``WH``, the raw pair from that block, then one all-reduce
+    of the pair over the mesh dimensions that shard ``V``, as the sharded
+    fit reduces W's sums (``parallel/sharded.py::_nmf_fns``); for a DTensor
+    ``x`` (reached through ``model()``'s gather) the sum runs on the whole
+    gradient, before it is cut to ``x``'s block
+    (``models._common.partial_over``)."""
     if not WH.requires_grad:
         return None
+    comms = None
+    if is_dtensor(V) and not is_dtensor(WH):
+        from ..parallel.sharded import block_like, shard_comms
+
+        comms = shard_comms(V)
+        if comms is None:  # placed otherwise: gathered whole
+            V = gather_whole(V)
+        else:  # this rank's block of V and of WH
+            WH, V = block_like(WH, V), V.to_local()
     V = torch.as_tensor(V, dtype=WH.dtype, device=WH.device)
     neg_cot, pos_cot = mu_cotangents(V, WH.detach(), beta, kl_pos_ones=True)
-    (neg_raw,) = torch.autograd.grad(WH, x, neg_cot, retain_graph=True,
-                                     allow_unused=True)
-    if neg_raw is None:
-        return None
-    (pos_raw,) = torch.autograd.grad(WH, x, pos_cot)
+    # a DTensor x sums its raw pair (whole) in the gather's backward,
+    # before the cut to its block
+    with partial_over(comms or ()):
+        (neg_raw,) = torch.autograd.grad(WH, x, neg_cot, retain_graph=True,
+                                         allow_unused=True)
+        if neg_raw is None:
+            return None
+        (pos_raw,) = torch.autograd.grad(WH, x, pos_cot)
+    if comms and not is_dtensor(x):
+        for c in comms:
+            c.all_reduce(neg_raw, pos_raw)
     return neg_raw, pos_raw
 
 
@@ -104,6 +137,22 @@ def betamu_step(
     return leaves, grads
 
 
+def project_step(p, g, step, L1: float, dim: int):
+    """``p - step·g`` projected column by column along ``dim`` to the L1
+    norm ``L1`` at ``p``'s own column norms (the reference's step,
+    trainer.py:166-187).  A DTensor ``p`` (and its gradient ``g``) is
+    gathered whole on every rank of its mesh, projected there (a column's
+    projection reads all of it) and cut back to ``p``'s block: the same
+    values on every rank."""
+    if not is_dtensor(p):
+        return proj_columns(p - step * g, L1, axis=dim, norms=get_norm(p, dim))
+    from ..models._common import place_like
+
+    P, G = gather_whole(p.detach()), gather_whole(g.detach())
+    return place_like(proj_columns(P - step * G, L1, axis=dim,
+                                   norms=get_norm(P, dim)), p)
+
+
 def proj_line_search(values: List[torch.Tensor], grads, lr: float,
                      sparsity: float, dim: int, max_iter: int, init_loss,
                      evaluate: Callable):
@@ -117,9 +166,8 @@ def proj_line_search(values: List[torch.Tensor], grads, lr: float,
     attempt.  Returns ``(values, lr, loss)``, ``lr`` before the growth by
     1.2."""
     def project_all(vals, step):
-        return [proj_columns(p - step * g,
-                             hoyer_l1_target(p.numel() // p.shape[dim], sparsity),
-                             axis=dim, norms=get_norm(p, dim))
+        return [project_step(p, g, step, hoyer_l1_target(
+            p.numel() // p.shape[dim], sparsity), dim)
                 for p, g in zip(vals, grads)]
 
     new = project_all(values, lr)

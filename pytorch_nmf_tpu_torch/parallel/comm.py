@@ -54,6 +54,7 @@ nothing on the card), through the default group's store.
 
 import functools
 import time
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -279,20 +280,33 @@ def _comm_for(mesh, axis: str, group) -> Comm:
     return Comm(mesh, axis)
 
 
-def drop_entries_on_destroy() -> None:
+# caches besides the fits' whose entries hold groups' captured kernels
+# (the trainers' compiled steps), each with ``drop_groups(groups)``, as
+# weak references
+_HOLDERS = []
+
+
+def drop_entries_on_destroy(holder=None) -> None:
     """Makes ``torch.distributed.destroy_process_group`` drop the fits'
     cache entries (``ops/solver.py``) whose chunk runs collectives of the
     groups it destroys (every group when it destroys the default one)
-    before it tears them down: an entry's CUDA graphs hold captured NCCL
-    kernels of its groups, and NCCL's teardown of a communicator waits for
-    the graphs that captured its kernels to go, which a kept entry never
-    lets them do (C12: the call hung).  PyTorch offers no hook on a
-    group's destruction, so this wraps the function, once, under both its
-    names (``torch.distributed`` and ``torch.distributed.distributed_c10d``);
-    the wrapper calls the function it replaced.  The sharded fits call it
-    the first time an entry holds a group; a caller holding the function
+    before it tears them down, and those of ``holder`` (an object with a
+    ``drop_groups(groups)`` method, held weakly: an optimizer's compiled
+    steps, ``trainer._StepCache``) and of every holder given before: an
+    entry's CUDA graphs hold captured NCCL kernels of its groups, and
+    NCCL's teardown of a communicator waits for the graphs that captured
+    its kernels to go, which a kept entry never lets them do (C12: the
+    call hung).  PyTorch offers no hook on a group's destruction, so this
+    wraps the function, once, under both its names (``torch.distributed``
+    and ``torch.distributed.distributed_c10d``); the wrapper calls the
+    function it replaced.  The sharded fits and the trainers call it the
+    first time an entry holds a group; a caller holding the function
     from before that (``from torch.distributed import
     destroy_process_group``) calls it unwrapped."""
+    if holder is not None:
+        _HOLDERS[:] = [h for h in _HOLDERS if h() is not None]
+        if not any(h() is holder for h in _HOLDERS):
+            _HOLDERS.append(weakref.ref(holder))
     c10d = dist.distributed_c10d
     for owner in (c10d, dist):
         original = owner.destroy_process_group
@@ -303,7 +317,12 @@ def drop_entries_on_destroy() -> None:
             from ..ops import solver
 
             every = group is None or group == dist.GroupMember.WORLD
-            solver._CACHE.drop_groups(None if every else {group})
+            groups = None if every else {group}
+            solver._CACHE.drop_groups(groups)
+            for ref in list(_HOLDERS):
+                held = ref()
+                if held is not None:
+                    held.drop_groups(groups)
             return _original(group)
 
         functools.update_wrapper(destroy_process_group, original)

@@ -50,7 +50,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..constants import eps
 from ..metrics import kl_div
-from ..models._common import host_tensor, target_dtype
+from ..models._common import (gather_whole, host_tensor, simply_placed,
+                              target_dtype)
 from ..ops import fused_mu
 from ..ops.fast_nmf import _blocked_loss
 from ..ops.mu import gamma_from_beta, mu_multiplier
@@ -167,6 +168,92 @@ def shard_target(x, mesh, pls) -> DTensor:
     shape = x.shape
     return as_dtensor(local_block(x, mesh, pls, target=True), mesh, pls,
                       shape)
+
+
+def shard_comms(x) -> Optional[list]:
+    """The :class:`~.comm.Comm` of every mesh dimension that shards the
+    DTensor ``x`` (one of one rank too, whose collectives still call the
+    backend), in mesh order: the ranks over which a sum of ``x``'s blocks
+    runs.  ``None`` where ``x`` is placed otherwise than :func:`_block`
+    cuts (a ``Partial`` placement, one tensor axis sharded over two mesh
+    dimensions, a mesh without dimension names)."""
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    if not names or not simply_placed(x):
+        return None
+    return [comm_for(mesh, name) for name, p in zip(names, x.placements)
+            if isinstance(p, Shard)]
+
+
+def block_like(whole, x):
+    """This rank's block of ``whole`` (a tensor of the DTensor ``x``'s
+    global shape) under ``x``'s placements: a view, through which autograd
+    runs as through any ``narrow``."""
+    if tuple(whole.shape) != tuple(x.shape):
+        raise ValueError(f"a tensor of shape {tuple(whole.shape)} against a "
+                         f"DTensor of shape {tuple(x.shape)}")
+    return _block(whole, x.device_mesh, x.placements)
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity, whose gradient is summed over ``comms``: each rank
+    holds the gradient of its own block's terms, the sum is the whole
+    gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, comms):
+        ctx.comms = comms
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for c in ctx.comms:
+            c.all_reduce(g)
+        return g, None
+
+
+class _Summed(torch.autograd.Function):
+    """A scalar summed over ``comms`` (``lax.psum``); the gradient of the
+    sum in each rank's part is the sum's own."""
+
+    @staticmethod
+    def forward(ctx, part, comms):
+        out = part.reshape(1).clone()
+        for c in comms:
+            c.all_reduce(out)
+        return out.reshape(())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def blockwise_sum(fn, whole, x, *args):
+    """``fn(whole, x, *args)``, a sum of elementwise terms, where ``x`` is a
+    DTensor and ``whole`` a plain tensor of its global shape: each rank sums
+    over its block of ``x`` against the same block of ``whole``
+    (:func:`block_like`), then one all-reduce of the scalar over the mesh
+    dimensions that shard ``x`` (:func:`shard_comms`) gives the whole sum
+    on every rank.  ``whole``'s gradient is whole on every rank: each
+    rank's block gradient, summed over the ranks.  ``x`` placed otherwise
+    is gathered whole first (``models._common.gather_whole``)."""
+    comms = shard_comms(x)
+    if comms is None:
+        return fn(whole, gather_whole(x), *args)
+    if whole.requires_grad:
+        whole = _SumGrads.apply(whole, comms)
+    return _Summed.apply(fn(block_like(whole, x), x.to_local(), *args),
+                         comms)
+
+
+def sharded_sum(x):
+    """``x.sum()`` of a DTensor ``x`` as a plain scalar on every rank: each
+    rank's block summed, then one all-reduce (:func:`shard_comms`); ``x``
+    placed otherwise is gathered whole first."""
+    comms = shard_comms(x)
+    if comms is None:
+        return gather_whole(x).sum()
+    return _Summed.apply(x.to_local().sum(), comms)
 
 
 def _reporter(mesh, verbose: bool, max_iter: int):

@@ -32,6 +32,17 @@ its graphs' private memory pools, which eviction releases.
 ``jit_compile=False``, or a closure that is not a plain function (a
 ``functools.partial``, a callable object), runs the eager step.  A closure
 that reads the card's values on the host cannot be captured and raises.
+
+A :class:`~torch.distributed.tensor.DTensor` target, and the DTensor
+factors a fit on one leaves, are stepped on every rank of their mesh, all
+taking the same decisions (:mod:`.ops.trainer_core`; the metrics' block
+sums, :mod:`.metrics`): ``BetaMu``'s compiled sweep captures its
+collectives over NCCL; ``SparsityProj``'s step runs eagerly there
+(:func:`_compiles`, C16), and both run eagerly over gloo ranks that share
+a card (``"gloo-staged"``, whose collectives synchronize the host), by
+the sharded fits' rule.  An entry whose step runs collectives records their process
+groups, and ``destroy_process_group`` drops it first
+(``parallel/comm.py::drop_entries_on_destroy``, C12).
 """
 
 from collections import OrderedDict
@@ -40,10 +51,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .models._common import is_dtensor
 from .ops.graphs import _device_while, _Graphs
-from .ops.mu import gamma_from_beta, get_norm
-from .ops.projection import hoyer_l1_target, proj_columns
-from .ops.trainer_core import mu_apply, mu_raw_pair, proj_line_search
+from .ops.mu import gamma_from_beta
+from .ops.projection import hoyer_l1_target
+from .ops.trainer_core import (mu_apply, mu_raw_pair, proj_line_search,
+                               project_step)
 
 __all__ = ["BetaMu", "SparsityProj"]
 
@@ -77,8 +90,56 @@ def _steps(steps) -> int:
 
 def _storage(t: torch.Tensor):
     """Where a graph reads ``t``: its address, shape, strides, dtype and
-    device."""
+    device (a DTensor's: its local tensor's, and its placements)."""
+    if is_dtensor(t):
+        return (_storage(t.to_local()), tuple(t.shape), tuple(t.placements))
     return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, str(t.device))
+
+
+def _comms_of(refs, params) -> list:
+    """The :class:`~.parallel.comm.Comm` of every mesh dimension of every
+    DTensor the step reads: among the closure's captures (a captured
+    module's parameters too) and the optimized parameters."""
+    tensors = list(params)
+    for r in refs:
+        if isinstance(r, torch.Tensor):
+            tensors.append(r)
+        elif isinstance(r, torch.nn.Module):
+            tensors.extend(r.parameters())
+    meshes = {id(t.device_mesh): t.device_mesh for t in tensors
+              if is_dtensor(t)}
+    if not meshes:
+        return []
+    from .parallel.comm import comm_for
+
+    return [comm_for(mesh, name) for mesh in meshes.values()
+            for name in mesh.mesh_dim_names or ()]
+
+
+class _StepCache(OrderedDict):
+    """An optimizer's compiled steps, by key (:data:`_STEP_CACHE_MAX`
+    at most).  An entry whose step runs collectives records their process
+    groups (``"process_groups"``), and :meth:`drop_groups` drops it when one is
+    destroyed (``parallel/comm.py::drop_entries_on_destroy``): its graphs
+    hold the groups' captured kernels (C12)."""
+
+    def drop_groups(self, groups=None) -> None:
+        for key in [k for k, e in self.items() if e["process_groups"] and (
+                groups is None or e["process_groups"] & groups)]:
+            graphs = self.pop(key)["graphs"]
+            if isinstance(graphs, _Graphs):
+                graphs.close()
+
+
+def _prepare(cache, entry, comms):
+    """Records the step's process groups on its cache entry, and makes
+    ``destroy_process_group`` drop the cache's entries of the groups it
+    destroys."""
+    entry["process_groups"] = {c.group for c in comms}
+    if entry["process_groups"]:
+        from .parallel.comm import drop_entries_on_destroy
+
+        drop_entries_on_destroy(cache)
 
 
 def _closure_fingerprint(closure, optimized_params=()):
@@ -146,6 +207,24 @@ def _cache_put(cache, key, entry):
         cache.popitem(last=False)
 
 
+def _compiles(comms, device_loops: bool = False) -> bool:
+    """Whether a step whose collectives run over ``comms`` is compiled: by
+    the sharded fits' rule (``parallel/sharded.py::_compiles``; not over
+    ``"gloo-staged"``, whose collectives synchronize the host), and, for a
+    step with device loops (``SparsityProj``'s line search), not over NCCL
+    either: its graph holds collectives both outside and inside the loop's
+    WHILE body, and that capture died at ``capture_end`` on one NCCL rank
+    on an H100 (a segmentation fault, ``chip_smoke.py::par_api``; C16),
+    where ``BetaMu``'s sweep, with no loop, captured its all-reduces."""
+    if not comms:
+        return True
+    if device_loops and any(c.transport == "nccl" for c in comms):
+        return False
+    from .parallel.sharded import _compiles as fits_compile
+
+    return fits_compile(comms)
+
+
 def _device_of(params) -> torch.device:
     devices = {p.device for p in params}
     if len(devices) != 1:
@@ -200,7 +279,7 @@ class BetaMu(torch.optim.Optimizer):
         super().__init__(params, dict(beta=beta, l1_reg=l1_reg, l2_reg=l2_reg,
                                       orthogonal=orthogonal))
         self.jit_compile = bool(jit_compile)
-        self._step_cache = OrderedDict()
+        self._step_cache = _StepCache()
 
     # -- compiled path -------------------------------------------------------
     def _params_and_hypers(self):
@@ -217,7 +296,8 @@ class BetaMu(torch.optim.Optimizer):
         the step runs eagerly."""
         params, hypers = self._params_and_hypers()
         fp = _closure_fingerprint(closure, params) if self.jit_compile else None
-        if fp is None:
+        comms = [] if fp is None else _comms_of(fp[1], params)
+        if fp is None or not _compiles(comms):
             return None
         key = fp[0] + (tuple(id(p) for p in params),
                        tuple(p.requires_grad for p in params), tuple(hypers))
@@ -225,6 +305,7 @@ class BetaMu(torch.optim.Optimizer):
         if entry is None:
             entry = self._build_sweep(closure, params, hypers)
             entry["refs"] = fp[1]  # pins the captured objects' ids
+            _prepare(self._step_cache, entry, comms)
             _cache_put(self._step_cache, key, entry)
         return entry
 
@@ -325,8 +406,7 @@ def _line_search(closure, st):
 
     def attempt():
         for p, g, L1 in zip(live, grads, L1s):
-            p.copy_(proj_columns(p - lr * g, L1, axis=dim,
-                                 norms=get_norm(p, dim)))
+            p.copy_(project_step(p, g, lr, L1, dim))
         st["loss"].copy_(closure())
         torch.gt(st["loss"], init_loss, out=worse)
 
@@ -389,13 +469,14 @@ class SparsityProj(torch.optim.Optimizer):
         # private: False calls the compiled step's workload directly on the
         # card too, the eager reference of the card's checks
         self._graph = bool(_graph)
-        self._step_cache = OrderedDict()
+        self._step_cache = _StepCache()
 
     # -- compiled path -------------------------------------------------------
     def _compiled(self, closure):
         params = [p for g in self.param_groups for p in g["params"]]
         fp = _closure_fingerprint(closure, params) if self.jit_compile else None
-        if fp is None:
+        comms = [] if fp is None else _comms_of(fp[1], params)
+        if fp is None or not _compiles(comms, device_loops=True):
             return None
         key = fp[0] + (tuple(id(p) for p in params),
                        tuple(p.requires_grad for p in params),
@@ -405,6 +486,7 @@ class SparsityProj(torch.optim.Optimizer):
         if entry is None:
             entry = self._build(closure, params)
             entry["refs"] = fp[1]
+            _prepare(self._step_cache, entry, comms)
             _cache_put(self._step_cache, key, entry)
         return entry
 

@@ -233,6 +233,8 @@ def _run_case(case, arrays, mesh, cpu_mesh):
             out.update(_compiled(case, a, mesh, full))
         elif kind == "route":
             out.update(_route(case, a, mesh, full))
+        elif kind == "api":
+            out.update(_api(case, a, mesh, full))
         elif kind == "mesh_error":
             try:
                 par.make_mesh({"data": dist.get_world_size() + 1}, "cpu")
@@ -611,6 +613,218 @@ def _route(case, a, mesh, full):
         for k, v in fitted(s, out).items():
             got[f"single_{k}"] = v
     return got
+
+
+def _api(case, a, mesh, full):
+    """An ``api`` case: the user API past ``model.fit`` on a DTensor target.
+    The model (``model``: a class of ``models``) is built on the CPU from
+    the case's arrays; ``V`` becomes ``shard_target(V, mesh, pls)`` with
+    ``pls`` from ``spec``.  ``call`` says what runs:
+
+    * ``metrics``: the five metrics (``kl_div``, ``euclidean``,
+      ``is_div``, ``beta_div`` at each of ``betas``) of the plain input
+      ``X`` against the DTensor ``V``, and each one's gradient in ``X``
+      (``values``, ``grads``); of ``X`` as a DTensor placed as ``V``
+      (``both``); ``sparseness`` of ``H`` placed as ``V`` (its rows, or
+      its trailing axis: ``sparseness``); after a routed fit of ``fit_iters`` iterations
+      ``beta_div(model(), V, beta)`` and its gradients in the DTensor
+      factors (``fit_value``, ``fit_grad_W`` ...);
+    * ``ckpt``: ``checkpointed_fit`` (``checkpointed_plca_fit`` for PLCA)
+      of the case's ``kw`` into each ``dirs`` entry ``(directory,
+      max_iter)`` in turn, each by a new model from the case's arrays (a
+      directory that holds a run resumes it); the factors whole, ``n_iter``
+      (and ``norm``) of each, by the entry's index;
+    * ``save_load``: a routed fit of ``fit_iters`` iterations, ``save`` to
+      ``path``; a second model routed for one iteration, then ``load(path,
+      model)`` into its DTensor factors (``load_equal``, placements kept,
+      ``requires_grad`` kept), a third the same through
+      ``load_state_dict`` of the file's whole values (``state_equal``);
+      ``load(path)`` without a model (``mapping_equal``);
+    * ``dcp``: the same with ``save_sharded``/``load_sharded`` to the
+      directory ``path`` (``load_equal``, ``mapping_equal``; the files the
+      directory holds, ``files``), beside a plain tensor in a mapping
+      (``plain_equal``);
+    * ``betamu`` / ``sparsity``: ``BetaMu`` (at ``beta``) or
+      ``SparsityProj`` (``sparsity`` on ``attr`` from the step ``lr``,
+      ``max_iter`` 5, its closure ``beta_div(model(), V, 2)``) for
+      ``steps`` steps,
+      ``jit_compile`` as ``jit``, on the DTensor ``V`` or, with ``target``
+      ``"plain"``, the whole V; with ``params`` ``"dtensor"`` after a
+      routed fit of ``fit_iters`` iterations (the factors DTensors).  Back
+      come the factors whole, their ``.grad`` whole, the last loss and the
+      step size;
+    * ``teardown``: a compiled ``BetaMu`` step on V placed on a mesh of a
+      process group made anew (``new_group``) and one on the case's mesh;
+      the entries of each optimizer holding its group before, and after
+      ``destroy_process_group`` of the new group (``sub_before``,
+      ``sub_after``, ``main_before``, ``main_after``).
+    """
+    import torch
+
+    from pytorch_nmf_tpu_torch import metrics
+    from pytorch_nmf_tpu_torch import parallel as par
+    from pytorch_nmf_tpu_torch.models import nmf as nmf_models
+    from pytorch_nmf_tpu_torch.models import plca as plca_models
+    from pytorch_nmf_tpu_torch.parallel.sharded import placements
+    from pytorch_nmf_tpu_torch.trainer import BetaMu, SparsityProj
+    from pytorch_nmf_tpu_torch.utils import checkpoint
+
+    name, call = case["model"], case["call"]
+    em = "PLCA" in name
+    cls = getattr(plca_models if em else nmf_models, name)
+    names = ("W", "H", "Z") if em else ("W", "H")
+    arr = {k: a(k) for k in ("V",) + names}
+    kw = dict(case.get("kw", {}))
+
+    def model():
+        return cls(**{k: torch.from_numpy(arr[k].copy()) for k in names},
+                   device="cpu")
+
+    pls = placements(mesh, dict(enumerate(case["spec"])))
+    Vd = par.shard_target(torch.from_numpy(arr["V"]), mesh, pls)
+    V = torch.from_numpy(arr["V"])
+
+    def whole(x):
+        x = x.detach()
+        return full(x) if hasattr(x, "to_local") else x.numpy()
+
+    def factors(m, tag=""):
+        return {tag + k: whole(getattr(m, k)) for k in names}
+
+    def routed(iters):
+        m = model()
+        m.fit(Vd, **dict(kw, max_iter=iters))
+        return m
+
+    out = {}
+    if call == "metrics":
+        X = torch.from_numpy(a("X"))
+        fns = [metrics.kl_div, metrics.euclidean, metrics.is_div] + [
+            (lambda i, t, b=b: metrics.beta_div(i, t, b))
+            for b in case["betas"]]
+        values, grads, both = [], [], []
+        Xd = par.shard_target(X, mesh, pls)
+        for f in fns:
+            x = X.clone().requires_grad_(True)
+            v = f(x, Vd)
+            (g,) = torch.autograd.grad(v, x)
+            values.append(float(v))
+            grads.append(g.numpy())
+            b = f(Xd, Vd)
+            both.append(float(b.full_tensor()))
+        Hd = par.shard_target(torch.from_numpy(arr["H"]), mesh, pls)
+        out.update(values=values, grads=np.stack(grads), both=both,
+                   sparseness=float(metrics.sparseness(Hd).full_tensor()))
+        m = routed(case["fit_iters"])
+        v = metrics.beta_div(m(), Vd, case["fit_beta"])
+        gs = torch.autograd.grad(v, [getattr(m, k) for k in names])
+        out["fit_value"] = float(v)
+        out.update({f"fit_grad_{k}": whole(g) for k, g in zip(names, gs)})
+        out.update(factors(m, "fit_"))
+    elif call == "ckpt":
+        for i, (directory, max_iter) in enumerate(case["dirs"]):
+            m = model()
+            if em:
+                n, norm = checkpoint.checkpointed_plca_fit(
+                    m, Vd, max_iter=max_iter, directory=directory, **kw)
+                out[f"{i}_norm"] = float(norm)
+            else:
+                n = checkpoint.checkpointed_fit(
+                    m, Vd, max_iter=max_iter, directory=directory, **kw)
+            out[f"{i}_n_iter"] = n
+            out.update(factors(m, f"{i}_"))
+    elif call in ("save_load", "dcp"):
+        save, load = ((checkpoint.save, checkpoint.load) if call ==
+                      "save_load" else (checkpoint.save_sharded,
+                                        checkpoint.load_sharded))
+        m = routed(case["fit_iters"])
+        save(case["path"], m)
+        out.update(factors(m))
+        m2 = routed(1)
+        got = load(case["path"], m2)
+        out["load_returns_model"] = got is m2
+        out["load_equal"] = all(
+            list(getattr(m2, k).placements) == list(getattr(m, k).placements)
+            and torch.equal(getattr(m2, k).to_local(),
+                            getattr(m, k).to_local())
+            and getattr(m2, k).requires_grad for k in names)
+        mapping = load(case["path"])
+        out["mapping_equal"] = all(
+            np.array_equal(mapping[k].numpy(), out[k]) for k in names)
+        if call == "save_load":
+            m3 = routed(1)
+            m3.load_state_dict({k: torch.from_numpy(out[k]) for k in names})
+            out["state_equal"] = all(
+                torch.equal(getattr(m3, k).to_local(),
+                            getattr(m, k).to_local())
+                and hasattr(getattr(m3, k), "placements") for k in names)
+        else:
+            import torch.distributed as dist
+
+            dist.barrier()
+            out["files"] = np.frombuffer(" ".join(sorted(os.listdir(
+                case["path"]))).encode(), np.uint8)
+            plain = torch.arange(6.0).reshape(2, 3)
+            checkpoint.save_sharded(case["path"] + "_mixed",
+                                    {"H": m.H.detach(), "P": plain})
+            back = checkpoint.load_sharded(case["path"] + "_mixed")
+            out["plain_equal"] = torch.equal(back["P"], plain) and \
+                np.array_equal(back["H"].numpy(), out["H"])
+    elif call in ("betamu", "sparsity"):
+        m = routed(case["fit_iters"]) if case["params"] == "dtensor" \
+            else model()
+        target = V if case.get("target") == "plain" else Vd
+        if call == "betamu":
+            tr = BetaMu(m.parameters(), case["beta"], jit_compile=case["jit"])
+
+            def closure():
+                return target, m()
+        else:
+            tr = SparsityProj(
+                [{"params": [getattr(m, case["attr"])], "lr": case["lr"]}],
+                case["sparsity"], max_iter=5, jit_compile=case["jit"])
+
+            def closure():
+                return metrics.beta_div(m(), target, 2)
+        loss = None
+        for _ in range(case["steps"]):
+            loss = tr.step(closure)
+        out.update(factors(m))
+        for k in names:
+            g = getattr(m, k).grad
+            if g is not None:
+                out[f"grad_{k}"] = whole(g)
+        if call == "sparsity":
+            out.update(loss=float(loss), lr=float(tr.param_groups[0]["lr"]))
+        out["dtensor_params"] = all(hasattr(getattr(m, k), "to_local")
+                                    for k in names)
+    elif call == "teardown":
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        sub = dist.new_group(list(range(dist.get_world_size())))
+        sub_mesh = DeviceMesh.from_group(sub, "cpu",
+                                         mesh_dim_names=mesh.mesh_dim_names)
+        Vs = par.shard_target(V, sub_mesh, pls)
+        ms, mm = model(), model()
+        on_sub = BetaMu(ms.parameters(), 1)
+        on_sub.step(lambda: (Vs, ms()))
+        on_main = BetaMu(mm.parameters(), 1)
+        on_main.step(lambda: (Vd, mm()))
+
+        def holding(tr, group):
+            return sum(group in e["process_groups"]
+                       for e in tr._step_cache.values())
+
+        main = mesh.get_group(mesh.mesh_dim_names[0])
+        out.update(sub_before=holding(on_sub, sub),
+                   main_before=holding(on_main, main))
+        dist.destroy_process_group(sub)
+        out.update(sub_after=len(on_sub._step_cache),
+                   main_after=holding(on_main, main))
+    else:
+        raise ValueError(f"unknown api call {call!r}")
+    return out
 
 
 def _single(case, a, kw, device):

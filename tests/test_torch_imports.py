@@ -36,15 +36,17 @@ def test_every_module_is_listed():
 
 
 def test_public_names_match_the_jax_package():
-    """The slice's public names: ``utils`` (less orbax), ``ops.autotune``'s
-    entry points and the solver's progress-handler stack."""
+    """The slice's public names: ``utils`` (orbax's pair as DCP's,
+    ``save_sharded``/``load_sharded``), ``ops.autotune``'s entry points and
+    the solver's progress-handler stack."""
     from pytorch_nmf_tpu_torch import utils
     from pytorch_nmf_tpu_torch.ops import autotune, solver
     from pytorch_nmf_tpu_torch.utils import checkpoint, profiling
 
     assert {"normalize", "renorm", "checkpoint", "profiling",
             "LossHistory"} <= set(utils.__all__)
-    assert set(checkpoint.__all__) == {"save", "load", "checkpointed_fit",
+    assert set(checkpoint.__all__) == {"save", "load", "save_sharded",
+                                       "load_sharded", "checkpointed_fit",
                                        "checkpointed_plca_fit"}
     assert set(profiling.__all__) == {"trace", "annotate",
                                       "device_memory_stats"}

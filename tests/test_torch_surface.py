@@ -35,6 +35,9 @@ RENAMED = {
         "nmf_updater_factory_plain",
     ("pytorch_nmf_tpu.ops.fast_nmf", "nmf_updater_factory_xla"):
         "nmf_updater_factory_generic",
+    # orbax's sharded checkpoints: torch.distributed.checkpoint's in the port
+    ("pytorch_nmf_tpu.utils.checkpoint", "save_orbax"): "save_sharded",
+    ("pytorch_nmf_tpu.utils.checkpoint", "load_orbax"): "load_sharded",
 }
 
 # whole modules, and names, that ROADMAP.md lists under "Not ported"
@@ -42,7 +45,6 @@ NOT_PORTED_MODULES = {"pytorch_nmf_tpu.module", "pytorch_nmf_tpu.native"}
 NOT_PORTED = {
     "pytorch_nmf_tpu.ops.sparse": {"SparseCOO", "sparse_coo_tensor",
                                    "from_torch_sparse"},
-    "pytorch_nmf_tpu.utils.checkpoint": {"save_orbax", "load_orbax"},
     "pytorch_nmf_tpu.ops.autotune": {"enable_compile_cache"},
     # the JAX updater factory of NMF's GSPMD loop on a sharded target: the
     # port's NMF.fit routes such a target to sharded_nmf_fit instead
